@@ -1,0 +1,524 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+Phases (any failure exits non-zero; nothing is caught and swallowed):
+
+1. the card: CUDA present, ``nvidia-smi`` name and power limit;
+2. build: every CUDA kernel of the port compiled from ``src/repro_torch/
+   kernels/csrc`` by ``nvcc`` (one process per source, all in parallel);
+3. kernels: each kernel's wrapper on the card at the starcoder2-3b
+   full-width shapes of the serving path (M in {8, 256}) against its plain
+   PyTorch version on the same inputs — bit-exact for quantize_rows,
+   int8_gemm (every epilogue, bias and no bias, the f32 head) and
+   int_layernorm; within the stated tolerance for the decode attention
+   (empty slots, a window, an all-masked lane).  Each is timed (CUDA
+   events, L2 flushed before every launch) beside its plain version, a
+   PyTorch library yardstick where one exists, and its bound: the larger of
+   bytes / 3.35 TB/s and operations / peak rate (1979 TOP/s int8, 67
+   TFLOP/s f32 outside the tensor cores; H100 SXM data sheet);
+4. reduced: starcoder2-3b-reduced at w8a8 with an int8 KV cache, the same
+   packed steps on the CPU (plain versions) and on the card (kernels): the
+   logits agree within ``REDUCED_TOL`` of their range;
+5. serve: full-width starcoder2-3b (random weights from ``--seed``, PTQ'd
+   to w8a8 by the port), int8 KV cache, 8 lanes, max_seq 1024, token
+   budget 256, 16 requests with prompts of 16-256 tokens and 32 new tokens
+   each, through ``ServingEngine``.  Launch counts are zeroed just before
+   the drain and read just after; every kernel must have launched.
+
+The last three lines of standard output are the kernels JSON, the card's
+``nvidia-smi`` name/power line and ``{"ok": true, "device": ...}``.  With
+``--out PATH`` every case, the serving stats and the profiles are also
+written to PATH as JSON.
+
+Usage:  python3 chip_smoke.py [--seed 0] [--out results.json]
+"""
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+HBM_BPS = 3.35e12      # H100 SXM device memory
+INT8_OPS = 1979e12     # dense int8 tensor-core peak
+F32_OPS = 67e12        # f32 outside the tensor cores
+# Phase 4 tolerance: |cpu - cuda| <= 10% of max|logit|.  Every kernel but the
+# decode attention is bit-exact; the CPU decode step takes the reference's
+# jnp branch (_sdpa, probabilities rounded to bf16 before P@V) where the card
+# runs the kernel (f32 probabilities), so attention outputs differ by about
+# one bf16 ulp, and each such difference can move an int8 activation level
+# of the next W8A8 GEMM.  Measured on an H100: up to 4.4% (seed 0).  Beyond
+# the bound, the greedy token must agree wherever the CPU top-2 margin is
+# more than twice the largest difference.
+REDUCED_TOL = 0.10
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class Timer:
+    """Mean device time of ``fn`` with a cold L2 (a 64 MiB buffer is
+    rewritten before each launch, outside the timed events).  A device-side
+    sleep first lets the host queue every iteration ahead of the card, so
+    the events time the kernels and not the Python launch overhead."""
+
+    def __init__(self, device):
+        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+
+    def __call__(self, fn, iters: int = 10, warmup: int = 2) -> float:
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000 * iters)   # ~1 ms of cycles per iteration
+        pairs = []
+        for _ in range(iters):
+            self.flush.zero_()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            pairs.append((e0, e1))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_kernels(dev, gen, timer) -> list[dict]:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.int8_gemm import gemm_w8a8_ref, int8_matmul_ref
+    from repro_torch.kernels.int8_kv_decode_attention import (
+        ATOL, RTOL, int8_kv_decode_attention_ref)
+    from repro_torch.kernels.int_layernorm import int_layernorm_ref
+    from repro_torch.kernels.quantize import quantize_rows_ref
+    from repro_torch.models.layers import GELU_INT_SCALE, quantize_weight
+
+    cases = []
+
+    def record(kernel, shape, err, exact, ms, plain_ms, lib_ms, b):
+        cases.append({"kernel": kernel, "shape": shape, "max_abs_err": err,
+                      "exact": exact, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1]})
+        log(f"  {kernel:26s} {shape:44s} err={err:.3g} ms={ms:.4f} "
+            f"plain={plain_ms:.4f} lib={lib_ms} bound={b[0]:.4f} ({b[1]})")
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    # -- 1. quantize_rows ----------------------------------------------------
+    for m in (8, 256):
+        for d in (3072, 12288):
+            x = randn(m, d, scale=3.0)
+            x[0] = 0.0                      # the 1e-8 floor
+            q, s = ops.quant_rows(x)
+            qr, sr = quantize_rows_ref(x)
+            torch.cuda.synchronize()
+            if not (torch.equal(q, qr) and torch.equal(s, sr)):
+                raise AssertionError(f"quantize_rows [{m},{d}] differs from "
+                                     f"its plain version")
+            record("quantize_rows", f"[{m},{d}] f32", 0.0, True,
+                   timer(lambda: ops.quant_rows(x)),
+                   timer(lambda: quantize_rows_ref(x)), None,
+                   bound(m * d * 5 + m * 4, 3 * m * d, F32_OPS))
+
+    # -- 2. int8_gemm (the serving path's projections) ------------------------
+    gemms = [("q_proj+bias", 3072, 3072, "scaled", True, torch.bfloat16),
+             ("kv_proj+bias", 3072, 256, "scaled", True, torch.bfloat16),
+             ("o_proj+residual", 3072, 3072, "scaled_add", False, torch.bfloat16),
+             ("mlp_up+gelu", 3072, 12288, "scaled_gelu", False, torch.bfloat16),
+             ("mlp_down", 12288, 3072, "scaled", False, torch.bfloat16),
+             ("head_f32", 3072, 49152, "scaled", False, torch.float32),
+             ("acc_only", 3072, 3072, "none", False, None),
+             ("ragged+bias", 100, 70, "scaled_add", True, torch.bfloat16)]
+    for name, k, n, epi, has_bias, out_dtype in gemms:
+        wd = quantize_weight(randn(k, n, scale=k ** -0.5))
+        w_q, w_s = wd["w_q"], wd["scale"]
+        bias = randn(n, scale=0.1) if has_bias else None
+        for m in ((5, 37) if name.startswith("ragged") else (8, 256)):
+            x_q, x_s = quantize_rows_ref(randn(m, k))
+            res = (randn(m, n).to(out_dtype) if epi == "scaled_add" else None)
+            gs = GELU_INT_SCALE if epi == "scaled_gelu" else None
+            if epi == "none":
+                from repro_torch.kernels.int8_gemm import int8_gemm
+
+                def run():
+                    return int8_gemm(x_q, w_q)
+
+                def plain():
+                    return int8_matmul_ref(x_q, w_q)
+            else:
+                def run():
+                    return ops.gemm_w8a8(x_q, x_s, w_q, w_s, bias=bias,
+                                         residual=res, gelu_scale=gs,
+                                         out_dtype=out_dtype)
+
+                def plain():
+                    return gemm_w8a8_ref(x_q, x_s, w_q, w_s, bias=bias,
+                                         residual=res, gelu_scale=gs,
+                                         out_dtype=out_dtype)
+            out, ref = run(), plain()
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                raise AssertionError(
+                    f"int8_gemm {name} M={m}: {int((out != ref).sum())} of "
+                    f"{out.numel()} differ from the plain version "
+                    f"(max |d| {max_err(out, ref)})")
+            try:
+                lib = timer(lambda: torch._int_mm(x_q, w_q))
+            except RuntimeError:   # _int_mm refuses M <= 16 and ragged K/N
+                lib = None
+            out_size = out.element_size()
+            nbytes = (m * k + k * n + 4 * (m + n) + (4 * n if has_bias else 0)
+                      + (res.numel() * res.element_size() if res is not None
+                         else 0) + m * n * out_size)
+            record("int8_gemm", f"{name} [{m},{k}]x[{k},{n}] {epi}", 0.0, True,
+                   timer(run), timer(plain), lib,
+                   bound(nbytes, 2 * m * n * k, INT8_OPS))
+
+    # -- 3. int_layernorm ------------------------------------------------------
+    for m in (8, 256):
+        for rms in (False, True):
+            d = 3072
+            x = torch.randint(-128, 128, (m, d), generator=gen, device=dev,
+                              dtype=torch.int32)
+            x[1] -= 100                       # a row with a negative mean
+            g = torch.randint(-128, 128, (d,), generator=gen, device=dev,
+                              dtype=torch.int32)
+            b = torch.randint(-128, 128, (d,), generator=gen, device=dev,
+                              dtype=torch.int32)
+            out = ops.layernorm_i8(x, g, b, rms_only=rms)
+            ref = int_layernorm_ref(x, g, b, rms_only=rms)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                raise AssertionError(f"int_layernorm [{m},{d}] rms={rms} "
+                                     f"differs from its plain version")
+            record("int_layernorm", f"[{m},{d}] {'rms' if rms else 'ln'}",
+                   0.0, True, timer(lambda: ops.layernorm_i8(x, g, b, rms)),
+                   timer(lambda: int_layernorm_ref(x, g, b, rms)), None,
+                   bound(8 * m * d + 8 * d, 12 * m * d, F32_OPS))
+
+    # -- 4. int8_kv_decode_attention ---------------------------------------------
+    bsz, s, hq, hkv, d = 8, 1024, 24, 2, 128
+    from repro_torch.models.attention import _quant_kv
+    k_q, k_s = _quant_kv(randn(bsz, s, hkv, d))
+    v_q, v_s = _quant_kv(randn(bsz, s, hkv, d))
+    fill = torch.randint(1, s + 1, (bsz,), generator=gen, device=dev)
+    fill[3] = 0                              # an idle lane: every slot masked
+    slot = torch.arange(s, device=dev)
+    pos = torch.where(slot[None] < fill[:, None], slot[None], -1).to(torch.int32)
+    qpos = (fill - 1).to(torch.int32)
+    q = randn(bsz, hq, d).to(torch.bfloat16)
+    for window in (0, 100):
+        def run():
+            return ops.decode_attention_int8kv(q, k_q, k_s, v_q, v_s, pos,
+                                               qpos, window=window)
+
+        def plain():
+            return int8_kv_decode_attention_ref(q, k_q, k_s, v_q, v_s, pos,
+                                                qpos, window=window)
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        if not torch.allclose(out.float(), ref.float(), rtol=RTOL, atol=ATOL):
+            raise AssertionError(f"decode attention window={window}: max |d| "
+                                 f"{max_err(out, ref)} beyond rtol={RTOL} "
+                                 f"atol={ATOL}")
+        if not torch.isfinite(out).all():
+            raise AssertionError("decode attention produced non-finite values")
+        # yardstick: SDPA over K/V dequantized to bf16 ahead of time
+        kd = (k_q.float() * k_s).to(torch.bfloat16).permute(0, 2, 1, 3)
+        vd = (v_q.float() * v_s).to(torch.bfloat16).permute(0, 2, 1, 3)
+        kd = kd.repeat_interleave(hq // hkv, 1).contiguous()
+        vd = vd.repeat_interleave(hq // hkv, 1).contiguous()
+        valid = (pos >= 0) & (pos <= qpos[:, None])
+        if window:
+            valid &= pos > (qpos[:, None] - window)
+        mask = valid[:, None, None, :]
+        q4 = q[:, :, None, :]
+        lib = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, kd, vd, attn_mask=mask))
+        nbytes = (2 * bsz * s * hkv * d + 8 * bsz * s * hkv + 4 * bsz * s
+                  + 4 * bsz + 4 * bsz * hq * d)
+        record("int8_kv_decode_attention",
+               f"B={bsz} S={s} Hq={hq} Hkv={hkv} D={d} window={window}",
+               max_err(out, ref), False, timer(run), timer(plain), lib,
+               bound(nbytes, 4 * bsz * hq * s * d, F32_OPS))
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the reduced model, CPU plain versions vs CUDA kernels
+# ---------------------------------------------------------------------------
+
+def check_reduced(dev, seed) -> float:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, init_states
+    from repro_torch.quant import ptq_quantize_params
+    from repro_torch.serve import packed_step
+
+    cfg = get_config("starcoder2-3b", precision="w8a8", reduced=True)
+    cpu = ptq_quantize_params(init_params(cfg, seed=seed, device="cpu"))
+    gpu = copy.deepcopy(cpu).to(dev)
+    lanes, t = 4, 16
+    st_c = init_states(cfg, lanes, 64, int8_kv=True, device="cpu")
+    st_g = init_states(cfg, lanes, 64, int8_kv=True, device=dev)
+    rng = np.random.default_rng(seed)
+    lens = np.array([16, 9, 3, 12])
+    tok = rng.integers(2, cfg.vocab_size, size=(lanes, t))
+    pos = np.where(np.arange(t)[None] < lens[:, None], np.arange(t)[None], -1)
+    last = lens - 1
+    worst = 0.0
+    before = ops.launch_counts()
+    for step in range(6):
+        args = [torch.from_numpy(a) for a in (tok.astype(np.int64),
+                                              pos.astype(np.int32),
+                                              last.astype(np.int64))]
+        lc, _ = packed_step(cpu, cfg, args[0], args[1], st_c, args[2])
+        lg, _ = packed_step(gpu, cfg, args[0].to(dev), args[1].to(dev), st_g,
+                            args[2].to(dev))
+        lg = lg.cpu()
+        err = float((lc - lg).abs().max())
+        rel = err / float(lc.abs().max())
+        worst = max(worst, rel)
+        log(f"  step {step} (T={tok.shape[1]}): max |cpu - cuda| = {err:.4g} "
+            f"({rel:.3%} of max|logit|)")
+        if not (torch.isfinite(lg).all() and rel <= REDUCED_TOL):
+            raise AssertionError(f"reduced model: CUDA logits differ from the "
+                                 f"CPU plain path by {rel:.3%} (> "
+                                 f"{REDUCED_TOL:.0%})")
+        top2 = lc.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * err
+        if not torch.equal(lc.argmax(-1)[clear], lg.argmax(-1)[clear]):
+            raise AssertionError("reduced model: greedy tokens differ where "
+                                 "the CPU margin is clear")
+        # next step: every lane decodes the CPU argmax (same tokens on both)
+        nxt = lc.argmax(-1).numpy()
+        tok = nxt[:, None]
+        pos = (pos.max(1) + 1)[:, None]
+        last = np.zeros(lanes, np.int64)
+    after = ops.launch_counts()
+    if after["int8_kv_decode_attention"] <= before["int8_kv_decode_attention"]:
+        raise AssertionError("reduced decode steps did not reach the kernel")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 5: full-width serving
+# ---------------------------------------------------------------------------
+
+def serve_full(dev, seed) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import forward, init_params, init_states
+    from repro_torch.quant import ptq_quantize_params
+    from repro_torch.serve import ServeConfig, ServingEngine
+
+    cfg = get_config("starcoder2-3b", precision="w8a8")
+    t0 = time.perf_counter()
+    params = ptq_quantize_params(init_params(cfg, seed=seed, device=dev))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    scfg = ServeConfig(batch_lanes=8, max_seq=1024, int8_kv=True,
+                       token_budget=256)
+    engine = ServingEngine(params, cfg, scfg, device=dev)
+    rng = np.random.default_rng(seed)
+    n_req, max_new = 16, 32
+    for i in range(n_req):
+        n = int(rng.integers(16, 257))
+        engine.submit(rng.integers(2, cfg.vocab_size, size=n).tolist(),
+                      max_new=max_new, request_id=i)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if len(done) != n_req:
+        raise AssertionError(f"{len(done)} of {n_req} requests finished")
+    for r in done:
+        if not r["tokens"] or not all(0 <= t < cfg.vocab_size for t in r["tokens"]):
+            raise AssertionError(f"request {r['id']}: bad tokens {r['tokens']}")
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    st = engine.stats
+    gen = sum(len(r["tokens"]) for r in done)
+    res = {"requests": len(done), "generated_tokens": gen,
+           "prompt_tokens": st["prompt_tokens"], "steps": st["steps"],
+           "forwards_by_bucket": {str(k): v for k, v in
+                                  sorted(st["forwards"].items())},
+           "wall_s": wall, "generated_tok_per_s": gen / wall,
+           "processed_tok_per_s": (gen + st["prompt_tokens"]) / wall,
+           "init_ptq_s": t_init, "launches": counts,
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "summary": engine.stats_summary()}
+    # one all-decode step (bucket 1) on fresh caches: launches per step and
+    # finite logits of the expected shape
+    st1 = init_states(cfg, 8, 1024, int8_kv=True, device=dev)
+    before = ops.launch_counts()
+    lg, _ = forward(params, cfg, torch.full((8, 1), 5, device=dev),
+                    torch.zeros((8, 1), dtype=torch.int32, device=dev), st1)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    if tuple(lg.shape) != (8, 1, cfg.padded_vocab) or not torch.isfinite(lg).all():
+        raise AssertionError(f"decode logits: shape {tuple(lg.shape)}, "
+                             f"finite={bool(torch.isfinite(lg).all())}")
+    res["launches_per_decode_step"] = {k: after[k] - before[k] for k in after}
+    res["profile"] = {f"bucket{t}": profile_step(params, cfg, dev, t)
+                      for t in (1, 64)}
+    return res
+
+
+def profile_step(params, cfg, dev, t: int) -> dict:
+    """Wall time and device kernel time of one packed forward of 8 lanes x
+    ``t`` rows on fresh int8 caches (torch.profiler, CUPTI): the device's
+    busy share of the step and the kernels that fill it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import forward, init_states
+    st = init_states(cfg, 8, 1024, int8_kv=True, device=dev)
+    tok = torch.full((8, t), 7, device=dev)
+    pos = torch.arange(t, dtype=torch.int32, device=dev).expand(8, t)
+    forward(params, cfg, tok, pos, st)                     # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        forward(params, cfg, tok, pos, st)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue                     # host ops: their kernels are listed
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            by_name[e.key] = us / 1e3
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "busy_share": busy / wall_ms if wall_ms else 0.0,
+            "top_kernels_ms": dict(top)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", type=Path, default=None,
+                    help="also write the detailed results to this JSON file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device — the port's kernels run only on the "
+              "card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build, ops
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"[1/5] card: {smi} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    built = build.build_all()
+    log(f"[2/5] built {len(built)} kernels in {time.perf_counter() - t0:.1f}s")
+    for name, info in sorted(built.items()):
+        regs = [ln.strip() for ln in info["ptxas"].splitlines()
+                if "registers" in ln or "Compiling entry" in ln]
+        log(f"  {name}: {info['seconds']:.1f}s; " + " | ".join(regs))
+
+    log("[3/5] kernels vs plain versions on the card")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    cases = check_kernels(dev, gen, Timer(dev))
+
+    log("[4/5] starcoder2-3b-reduced w8a8 int8-KV: CPU plain vs CUDA kernels")
+    worst = check_reduced(dev, args.seed)
+
+    log("[5/5] serve full-width starcoder2-3b w8a8 int8-KV")
+    torch.cuda.reset_peak_memory_stats(dev)
+    srv = serve_full(dev, args.seed)
+    log(f"  {srv['requests']} requests, {srv['generated_tokens']} generated + "
+        f"{srv['prompt_tokens']} prompt tokens in {srv['wall_s']:.2f}s: "
+        f"{srv['generated_tok_per_s']:.1f} generated tok/s, "
+        f"{srv['processed_tok_per_s']:.1f} processed tok/s, "
+        f"{srv['steps']} steps, buckets {srv['forwards_by_bucket']}")
+    log(f"  launches on the main path: {srv['launches']}")
+    log(f"  launches per bucket-1 step: {srv['launches_per_decode_step']}")
+    for name, p in srv["profile"].items():
+        log(f"  profile {name} (8 lanes): wall {p['wall_ms']:.2f} ms, device "
+            f"busy {p['device_busy_ms']:.2f} ms ({p['busy_share']:.1%}); top "
+            + ", ".join(f"{k[:40]}={v:.2f}" for k, v in
+                        list(p["top_kernels_ms"].items())[:4]))
+    log(f"  {srv['summary']}")
+
+    headline = {"quantize_rows": "[8,3072] f32",
+                "int8_gemm": "mlp_up+gelu [8,3072]x[3072,12288] scaled_gelu",
+                "int_layernorm": "[8,3072] ln",
+                "int8_kv_decode_attention":
+                    "B=8 S=1024 Hq=24 Hkv=2 D=128 window=0"}
+    sources = {"quantize_rows": ("src/repro_torch/kernels/csrc/quantize.cu",
+                                 "src/repro/kernels/quantize.py:41"),
+               "int8_gemm": ("src/repro_torch/kernels/csrc/int8_gemm.cu",
+                             "src/repro/kernels/int8_gemm.py:127"),
+               "int_layernorm": ("src/repro_torch/kernels/csrc/int_layernorm.cu",
+                                 "src/repro/kernels/int_layernorm.py:56"),
+               "int8_kv_decode_attention": (
+                   "src/repro_torch/kernels/csrc/int8_kv_decode_attention.cu",
+                   "src/repro/kernels/int8_kv_decode_attention.py:72")}
+    kernels = []
+    for name in ops.KERNELS:
+        c = next(c for c in cases if c["kernel"] == name
+                 and c["shape"] == headline[name])
+        kernels.append({
+            "name": name, "route": "cuda", "source": sources[name][0],
+            "replaces": sources[name][1], "launches": srv["launches"][name],
+            "max_abs_err": max(x["max_abs_err"] for x in cases
+                               if x["kernel"] == name),
+            "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "shape": c["shape"], "status": "ok"})
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps({
+            "card": smi, "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+            "build": {k: v["seconds"] for k, v in built.items()},
+            "cases": cases, "reduced_worst_rel": worst, "serve": srv,
+            "kernels": kernels, "total_s": time.perf_counter() - t_start},
+            indent=1))
+    log(f"done in {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,34 @@
+"""Config registry: --arch <id> -> ArchConfig.
+
+Mirrors ``repro.configs.get_config``.  The port serves starcoder2-3b so far;
+every other architecture raises until its slice lands (ROADMAP.md §A).
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from ..models.config import ArchConfig
+
+ARCH_IDS = ["starcoder2-3b"]
+
+
+def _module_name(arch_id: str) -> str:
+    return arch_id.replace("-", "_").replace(".", "_")
+
+
+def get_config(arch_id: str, precision: str = "bf16",
+               reduced: bool = False) -> ArchConfig:
+    if arch_id.endswith("-reduced"):
+        arch_id, reduced = arch_id[: -len("-reduced")], True
+    if arch_id not in ARCH_IDS:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported yet (ported: {ARCH_IDS}); see "
+            f"ROADMAP.md §A for the order of the remaining slices")
+    mod = importlib.import_module(f".{_module_name(arch_id)}", __package__)
+    cfg: ArchConfig = mod.CONFIG
+    if reduced:
+        cfg = cfg.reduced()
+    if precision != cfg.precision:
+        cfg = dataclasses.replace(cfg, precision=precision)
+    return cfg

@@ -1,0 +1,115 @@
+"""Shared helpers for the port's kernels: devices, launch counts, exact float
+helpers, and the in-register integer requant (``requant_block``).
+
+Dispatch rule for every kernel wrapper: a tensor on the CPU takes the
+kernel's plain PyTorch version; a tensor on a CUDA device launches the CUDA
+kernel or raises.  Nothing falls back from the card to the plain version.
+
+Two behaviours of the JAX reference under ``jax.jit`` on XLA:CPU decide
+bit-exactness, and every plain version and kernel here keeps them:
+
+1. A division by a Python-float constant becomes a multiply by its f32
+   reciprocal (``amax / 127.0`` is ``amax * f32(1/127)``); a division by a
+   traced value stays a true division.  ``rcp32`` gives that reciprocal.
+2. The bias epilogue ``acc*xs*ws + bias`` is FMA-contracted: one rounding of
+   ``(acc*xs)*ws + bias``.  ``fma_f32`` computes that exactly in PyTorch;
+   the CUDA kernels call ``__fmaf_rn``.
+"""
+from __future__ import annotations
+
+import collections
+
+import numpy as np
+import torch
+
+# Launch counts of the CUDA kernels: each wrapper adds one where it launches
+# its kernel, and nowhere else.  ``ops.launch_counts``/``reset_launch_counts``
+# read and clear them.
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for the CPU.  With no device given and no card present this raises —
+    entry points never fall back to the CPU on their own."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available: pass device='cpu' to run the "
+                "port's plain PyTorch versions on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not "
+                           f"available")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device!r} (cpu or cuda)")
+    return dev
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True if the kernel should launch: every tensor on one CUDA device.
+    CPU tensors take the plain version; anything else raises."""
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"kernel inputs span devices {sorted(map(str, devs))}")
+    (dev,) = devs
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {dev}")
+
+
+def rcp32(c: float) -> np.float32:
+    """The f32 reciprocal XLA multiplies by when a jitted function divides
+    by the Python-float constant ``c`` (finding 1)."""
+    return np.float32(1.0) / np.float32(c)
+
+
+def f32(v, device) -> torch.Tensor:
+    """A 0-dim float32 tensor: keeps scalar arithmetic in f32."""
+    return torch.tensor(np.float32(v), dtype=torch.float32, device=device)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 fused multiply-add ``a*b + c`` (one rounding).
+
+    The f64 product of two f32 values is exact.  The f64 sum with ``c`` is
+    turned into round-to-odd (TwoSum error term; an inexact even result
+    steps one ulp toward the exact value), and rounding a round-to-odd
+    f64 (53 bits >= 24 + 2) to f32 gives the correctly rounded result."""
+    p = a.double() * b.double()
+    cd = c.double().expand_as(p)
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    bits = s.view(torch.int64)
+    fix = (err != 0) & ((bits & 1) == 0)
+    # +1 on the magnitude bits moves away from zero for either sign
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    bits = torch.where(fix, bits + step, bits)
+    return bits.view(torch.float64).float()
+
+
+def requant_block(acc: torch.Tensor, s1: int, mult: int, s2: int) -> torch.Tensor:
+    """Shift/mul16/shift requantization of an int32 block to the int8 range
+    (round-half-up) — the in-register form of ``core.inumerics.requantize``
+    that every integer epilogue shares.  Its CUDA twin is
+    ``requant_block`` in ``csrc/int_epilogue.cuh``."""
+    if s1 > 0:
+        acc = (acc + (1 << (s1 - 1))) >> s1
+    acc = torch.clamp(acc, -(1 << 15), (1 << 15) - 1) * mult
+    if s2 > 0:
+        acc = (acc + (1 << (s2 - 1))) >> s2
+    return torch.clamp(acc, -128, 127)
+
+
+def check(cond: bool, msg: str) -> None:
+    """Validate a kernel argument (survives ``python -O``, unlike assert)."""
+    if not cond:
+        raise ValueError(msg)

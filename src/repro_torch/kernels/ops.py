@@ -1,0 +1,75 @@
+"""Public entry points for the port's kernels (mirrors ``repro.kernels.ops``).
+
+Call sites (models, serving engine) go through these wrappers, which take
+arbitrary leading dims and flatten them to the kernels' 2-D rows.  Dispatch
+goes by the tensor's device, never by a global switch: CPU tensors take the
+kernels' plain PyTorch versions, CUDA tensors launch the CUDA kernels.  Each
+kernel counts its launches; ``launch_counts`` / ``reset_launch_counts`` read
+and clear the counts.
+"""
+from __future__ import annotations
+
+import torch
+
+from .common import LAUNCHES
+from .int8_gemm import int8_gemm
+from .int8_kv_decode_attention import int8_kv_decode_attention
+from .int_layernorm import int_layernorm
+from .quantize import quantize_rows
+
+KERNELS = ("quantize_rows", "int8_gemm", "int_layernorm",
+           "int8_kv_decode_attention")
+
+
+def launch_counts() -> dict[str, int]:
+    return {k: LAUNCHES[k] for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES.clear()
+
+
+def quant_rows(x: torch.Tensor):
+    """float [..., D] -> (int8 [..., D], f32 [..., 1]) per-row absmax."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    q, s = quantize_rows(x.reshape(-1, d).float().contiguous())
+    return q.reshape(*lead, d), s.reshape(*lead, 1)
+
+
+def gemm_w8a8(x_q, x_scale, w_q, w_scale, bias=None, residual=None,
+              gelu_scale=None, out_dtype=torch.bfloat16):
+    """W8A8 linear with the dequant epilogue fused into the GEMM.
+
+    x_q [..., K] int8 with per-row scales x_scale [..., 1]; w_q [K, N] int8
+    with per-column scales w_scale [N].  Returns out_dtype [..., N] — or,
+    with ``gelu_scale``, the int8 GELU payload (dequant with
+    ``gelu_out_scale``)."""
+    lead, k = x_q.shape[:-1], x_q.shape[-1]
+    n = w_q.shape[1]
+    x2 = x_q.reshape(-1, k).contiguous()
+    xs2 = x_scale.reshape(-1, 1).contiguous()
+    r2 = None if residual is None else residual.reshape(-1, n).contiguous()
+    if gelu_scale is not None:
+        epi = "scaled_gelu"
+    elif r2 is not None:
+        epi = "scaled_add"
+    else:
+        epi = "scaled"
+    out = int8_gemm(x2, w_q, epi, x_scale=xs2, w_scale=w_scale, bias=bias,
+                    residual=r2, gelu_scale=gelu_scale, out_dtype=out_dtype)
+    return out.reshape(*lead, n)
+
+
+def layernorm_i8(x, gamma_q, beta_q, rms_only: bool = False):
+    """Integer LayerNorm / RMSNorm of int payload [..., D] -> int32."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    out = int_layernorm(x.reshape(-1, d), gamma_q, beta_q, rms_only=rms_only)
+    return out.reshape(*lead, d)
+
+
+def decode_attention_int8kv(q, k_q, k_s, v_q, v_s, pos_ids, qpos, scale=None,
+                            window: int = 0):
+    """Single-token attention over the int8 ring cache (serving hot path:
+    reads the cache once as int8, dequantizes in-register)."""
+    return int8_kv_decode_attention(q, k_q, k_s, v_q, v_s, pos_ids, qpos,
+                                    scale=scale, window=window)

@@ -1,0 +1,51 @@
+"""Per-row activation quantization (the paper's ``quant``): f32 [M, D] ->
+int8 [M, D] + f32 row scale [M, 1].
+
+Port of the Pallas kernel ``repro/kernels/quantize.py:41`` ``quantize_rows``
+to the CUDA kernel ``csrc/quantize.cu`` (source note there: bound by bytes,
+one block per row).  ``quantize_rows_ref`` is its plain version, the jitted
+``repro.kernels.ref.quantize_rows_ref``: the scale is ``amax * f32(1/127)``
+(XLA's form of ``amax / 127.0`` under jit), the division by it is a true
+division.  Bit-exact against the kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+from .common import LAUNCHES, check, f32, on_cuda, rcp32
+
+_RCP127 = rcp32(127.0)
+
+
+def quantize_rows_ref(x: torch.Tensor):
+    """Plain version: float [..., D] -> (int8 [..., D], f32 [..., 1])."""
+    x = x.float()
+    amax = torch.maximum(x.abs().amax(-1, keepdim=True), f32(1e-8, x.device))
+    scale = amax * f32(_RCP127, x.device)
+    q = torch.clamp(torch.round(x / scale), -128, 127).to(torch.int8)
+    return q, scale
+
+
+def _launch(x: torch.Tensor):
+    check(x.dtype == torch.float32 and x.dim() == 2 and x.is_contiguous(),
+          f"quantize_rows takes a contiguous f32 [M, D] tensor, got "
+          f"{x.dtype} {tuple(x.shape)}")
+    m, d = x.shape
+    q = torch.empty((m, d), dtype=torch.int8, device=x.device)
+    s = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    fn = build.entry("quantize", "repro_quantize_rows",
+                     [build.VP] * 3 + [build.I] * 2 + [build.VP])
+    rc = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), m, d,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    build.check_rc(rc, "quantize_rows")
+    LAUNCHES["quantize_rows"] += 1
+    return q, s
+
+
+def quantize_rows(x: torch.Tensor):
+    """f32 [M, D] -> (int8 [M, D], f32 [M, 1]): the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    if on_cuda(x):
+        return _launch(x)
+    return quantize_rows_ref(x)

@@ -1,0 +1,103 @@
+"""Serving launcher of the port: packed token-budget forward with the
+continuous-batching engine, on the card unless ``--device cpu``.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \\
+      --w8a8 --int8-kv --requests 16 --max-new 32 --lanes 8 --max-seq 1024 \\
+      --token-budget 256
+
+Flags mirror ``repro.launch.serve``; those whose feature is not ported yet
+(``--w4a8``, ``--paged``, ``--spec-k``, ``--tp``, ``--temperature``,
+``--token-budget 0``, ``--stream-gap-ms``) raise ``NotImplementedError``, and
+the flags that only tune those features (``--prefill-chunk``,
+``--page-size``, ``--pool-pages``, ``--tp-overlap``) are accepted and
+unused.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ..configs import get_config
+from ..kernels import ops
+from ..models import init_params
+from ..quant import ptq_quantize_params
+from ..serve import ServeConfig, ServingEngine
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--lanes", type=int, default=4)
+    ap.add_argument("--max-seq", type=int, default=256)
+    ap.add_argument("--int8-kv", action="store_true")
+    ap.add_argument("--w8a8", action="store_true")
+    ap.add_argument("--w4a8", action="store_true")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--token-budget", type=int, default=32)
+    ap.add_argument("--prefill-chunk", type=int, default=32)
+    ap.add_argument("--paged", action="store_true")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--pool-pages", type=int, default=0)
+    ap.add_argument("--queue-limit", type=int, default=0)
+    ap.add_argument("--spec-k", type=int, default=0)
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--tp-overlap", default="auto",
+                    choices=("auto", "overlap", "barrier"))
+    ap.add_argument("--stream-gap-ms", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the port runs (default: the card)")
+    args = ap.parse_args(argv)
+
+    if args.w8a8 and args.w4a8:
+        raise SystemExit("--w8a8 and --w4a8 are exclusive")
+    if args.w4a8:
+        raise NotImplementedError("--w4a8 (int4_gemm) is slice 2 of the port "
+                                  "(ROADMAP.md §B)")
+    if args.stream_gap_ms > 0:
+        raise NotImplementedError("--stream-gap-ms (run_stream) is not ported "
+                                  "yet (ROADMAP.md §A8)")
+    precision = "w8a8" if args.w8a8 else "bf16"
+    cfg = get_config(args.arch, precision=precision, reduced=args.reduced)
+    params = init_params(cfg, seed=args.seed, device=args.device)
+    if args.w8a8:
+        params = ptq_quantize_params(params)
+    engine = ServingEngine(
+        params, cfg,
+        ServeConfig(batch_lanes=args.lanes, max_seq=args.max_seq,
+                    int8_kv=args.int8_kv, temperature=args.temperature,
+                    token_budget=args.token_budget, paged=args.paged,
+                    queue_limit=args.queue_limit, spec_k=args.spec_k,
+                    tp=args.tp),
+        device=args.device)
+
+    rng = np.random.default_rng(args.seed)
+    for i in range(args.requests):
+        prompt = rng.integers(2, cfg.vocab_size, size=rng.integers(4, 12)).tolist()
+        engine.submit(prompt, max_new=args.max_new, request_id=i)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = engine.run_until_drained()
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    dt = time.perf_counter() - t0
+    total_tokens = sum(len(d["tokens"]) for d in done)
+    where = (torch.cuda.get_device_name(engine.device)
+             if engine.device.type == "cuda" else "cpu (plain versions)")
+    print(f"served {len(done)} requests, {total_tokens} tokens "
+          f"in {dt:.1f}s ({total_tokens / dt:.1f} tok/s on {where}, "
+          f"int8_kv={args.int8_kv}, precision={precision}, "
+          f"mode={engine.mode}, buckets={engine.chunk_buckets})")
+    print(engine.stats_summary())
+    print(f"kernel launches: {ops.launch_counts()}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,52 @@
+"""Block composition: the ``attn`` block of ``repro.models.blocks``
+(pre-norm self-attention with the skip folded into the out-projection, then
+pre-norm MLP).  The other block kinds are later slices (ROADMAP.md §A)."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .attention import Attention, attention, init_attn_params, init_cache
+from .config import ArchConfig
+from .layers import ExecMode, Norm, apply_norm
+from .mlp import MLP, init_mlp_params, mlp
+
+
+def _check_kind(kind: str) -> None:
+    if kind != "attn":
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet "
+                                  f"(ROADMAP.md §A)")
+
+
+class Block(nn.Module):
+    def __init__(self, norm1: Norm, attn: Attention, norm2: Norm, mlp_: MLP):
+        super().__init__()
+        self.norm1, self.attn, self.norm2, self.mlp = norm1, attn, norm2, mlp_
+
+
+def init_block_params(gen: torch.Generator, kind: str, cfg: ArchConfig,
+                      device) -> Block:
+    _check_kind(kind)
+    d, nt = cfg.d_model, cfg.norm_type
+    return Block(Norm(d, nt, device), init_attn_params(gen, cfg, device),
+                 Norm(d, nt, device), init_mlp_params(gen, cfg, device))
+
+
+def init_block_state(kind: str, cfg: ArchConfig, batch: int, max_seq: int,
+                     int8_kv: bool, dtype, device) -> dict:
+    _check_kind(kind)
+    return {"kv": init_cache(cfg, batch, max_seq, int8=int8_kv, dtype=dtype,
+                             device=device)}
+
+
+def block_forward(kind: str, params: Block, x, cfg: ArchConfig, mode: ExecMode,
+                  positions, state: dict | None = None, writes=None):
+    _check_kind(kind)
+    h = apply_norm(x, params.norm1, cfg, mode)
+    x, kv = attention(params.attn, h, cfg, mode, positions,
+                      cache=None if state is None else state["kv"],
+                      residual=x, writes=writes)
+    new_state = state if state is None else dict(state, kv=kv)
+    h = apply_norm(x, params.norm2, cfg, mode)
+    x = x + mlp(params.mlp, h, cfg, mode)
+    return x, new_state

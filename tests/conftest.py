@@ -16,6 +16,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: heavy equivalence-matrix case (excluded from "
         "the verify.sh fast tier via -m 'not slow')")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (the PyTorch/CUDA port's "
+        "kernels); skips when torch.cuda.is_available() is false")
 
 
 @pytest.fixture

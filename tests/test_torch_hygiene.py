@@ -1,0 +1,128 @@
+"""Ground rules of the PyTorch/CUDA port that no parity test sees:
+
+* no module of ``src/repro_torch`` and not ``chip_smoke.py`` imports ``jax``
+  or the ``repro`` package (an AST scan);
+* entry points run on the card unless the caller asks for the CPU, and
+  raise — never fall back — when no card is present;
+* every kernel is CUDA C++ under ``kernels/csrc`` built for ``sm_90a``
+  without fast math, and a CPU tensor takes its plain version.
+"""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import build, ops
+from repro_torch.kernels.common import resolve_device
+from repro_torch.models import init_params, init_states
+from repro_torch.serve import ServeConfig, ServingEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_repro(path):
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "flax"}
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_scan_sees_the_whole_port():
+    files = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    for need in ("models/layers.py", "models/attention.py", "models/lm.py",
+                 "kernels/ops.py", "serve/engine.py", "launch/serve.py",
+                 "convert.py", "quant/ptq.py", "core/inumerics.py"):
+        assert need in files
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_the_card(no_cuda):
+    cfg = get_config("starcoder2-3b", reduced=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_states(cfg, 1, 8)
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(params, cfg, ServeConfig(max_seq=16, token_budget=4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg, device="cuda")
+
+
+def test_explicit_cpu_runs_and_launches_nothing():
+    cfg = get_config("starcoder2-3b", precision="w8a8", reduced=True)
+    from repro_torch.quant import ptq_quantize_params
+    params = ptq_quantize_params(init_params(cfg, seed=1, device="cpu"))
+    eng = ServingEngine(params, cfg, ServeConfig(batch_lanes=2, max_seq=32,
+                                                 int8_kv=True, token_budget=4),
+                        device="cpu")
+    ops.reset_launch_counts()
+    eng.submit([5, 6, 7], max_new=3)
+    (rec,) = eng.run_until_drained()
+    assert len(rec["tokens"]) >= 1
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+
+
+def test_launcher_cpu(capsys):
+    from repro_torch.launch.serve import main
+    main(["--arch", "starcoder2-3b", "--reduced", "--w8a8", "--int8-kv",
+          "--requests", "2", "--max-new", "3", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "served 2 requests" in out and "mode=packed" in out
+
+
+def test_kernel_sources_and_flags():
+    for name in build.SOURCES:
+        src = build.CSRC / f"{name}.cu"
+        assert src.exists()
+        assert 'extern "C"' in src.read_text()
+    flags = " ".join(build.FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "fast_math" not in flags and "fast-math" not in flags
+    assert build.build_dir().parts[-2:] == ("build", "kernels") or \
+        os.environ.get("REPRO_TORCH_BUILD_DIR")
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def _run_smoke(cwd: Path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_chip_smoke_fails_without_a_card():
+    r = _run_smoke(ROOT)
+    assert r.returncode != 0 and r.stdout.strip() == ""
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    r = _run_smoke(tmp_path)
+    assert r.returncode != 0 and '"ok": true' not in r.stdout

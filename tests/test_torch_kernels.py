@@ -1,0 +1,336 @@
+"""The port's four kernels against the JAX reference, on the CPU.
+
+Each plain PyTorch version (what a CPU tensor runs) is held against
+``jax.jit`` of its ``repro.kernels.ref`` oracle and against the Pallas kernel
+in interpret mode, on the same numpy inputs: quantize_rows, int8_gemm and
+int_layernorm bit-exact; the decode attention within its stated tolerance.
+The CUDA kernels themselves are held against the plain versions on the card
+by the ``cuda``-marked tests at the end (skipped without a card) and by
+``chip_smoke.py``.
+"""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels import ref
+from repro.kernels.common import set_interpret
+from repro.kernels.int8_gemm import int8_gemm as pallas_gemm
+from repro.kernels.int8_kv_decode_attention import (
+    int8_kv_decode_attention as pallas_decode)
+from repro.kernels.int_layernorm import int_layernorm as pallas_ln
+from repro.kernels.quantize import quantize_rows as pallas_quant
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.common import fma_f32, rcp32
+from repro_torch.kernels.int8_gemm import gemm_w8a8_ref, int8_matmul_ref, split_k
+from repro_torch.kernels.int8_kv_decode_attention import (
+    ATOL, RTOL, int8_kv_decode_attention_ref, kv_split)
+from repro_torch.kernels.int_layernorm import int_layernorm_ref
+from repro_torch.kernels.quantize import quantize_rows_ref
+
+GELU = 8.0 / 127.0
+
+
+@pytest.fixture(autouse=True)
+def _interpret():
+    set_interpret(True)
+
+
+def T(a):
+    return torch.from_numpy(np.array(a))
+
+
+def bits_equal(port: torch.Tensor, jx) -> bool:
+    a = port.float().numpy() if port.dtype == torch.bfloat16 else port.numpy()
+    b = np.asarray(jnp.asarray(jx).astype(jnp.float32)
+                   if jnp.asarray(jx).dtype == jnp.bfloat16 else jx)
+    return a.shape == b.shape and np.array_equal(a, b)
+
+
+def rows(rng, m, d):
+    """f32 rows with a wide dynamic range, a zero row (the 1e-8 floor)."""
+    x = rng.standard_normal((m, d)) * rng.uniform(1e-3, 30.0, (m, 1))
+    x[0] = 0.0
+    return x.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# the two XLA behaviours the port reproduces
+# ---------------------------------------------------------------------------
+
+class TestJitNumerics:
+    def test_division_by_constant_is_reciprocal_product(self, rng):
+        a = rng.standard_normal(1 << 16).astype(np.float32) * 100
+        for c in (127.0, GELU):
+            got = np.asarray(jax.jit(lambda v: v / c)(a))
+            assert np.array_equal(got, a * rcp32(c))
+
+    def test_fma_f32_matches_contracted_bias_epilogue(self, rng):
+        a, b, c = (rng.standard_normal(1 << 16).astype(np.float32)
+                   * rng.uniform(1e-3, 1e3, 1 << 16).astype(np.float32)
+                   for _ in range(3))
+        got = np.asarray(jax.jit(lambda x, y, z: x * y + z)(a, b, c))
+        mine = fma_f32(T(a), T(b), T(c)).numpy()
+        assert np.array_equal(mine, got)
+        # and it is not the unfused two-rounding form
+        assert not np.array_equal((T(a) * T(b) + T(c)).numpy(), got)
+
+
+# ---------------------------------------------------------------------------
+# 1. quantize_rows
+# ---------------------------------------------------------------------------
+
+class TestQuantizeRows:
+    @pytest.mark.parametrize("m,d", [(8, 64), (5, 3072), (16, 12288)])
+    def test_exact_vs_jit_ref(self, rng, m, d):
+        x = rows(rng, m, d)
+        qj, sj = jax.jit(ref.quantize_rows_ref)(x)
+        q, s = quantize_rows_ref(T(x))
+        assert bits_equal(q, qj) and bits_equal(s, sj)
+
+    def test_exact_vs_pallas_interpret(self, rng):
+        x = rows(rng, 16, 256)
+        qp, sp = pallas_quant(jnp.asarray(x), bm=8, interpret=True)
+        q, s = quantize_rows_ref(T(x))
+        assert bits_equal(q, qp) and bits_equal(s, sp)
+
+    def test_ops_lead_dims(self, rng):
+        x = rows(rng, 6, 32).reshape(2, 3, 32)
+        q, s = ops.quant_rows(T(x))
+        qj, sj = jax.jit(ref.quantize_rows_ref)(x.reshape(6, 32))
+        assert q.shape == (2, 3, 32) and s.shape == (2, 3, 1)
+        assert bits_equal(q.reshape(6, 32), qj)
+        assert bits_equal(s.reshape(6, 1), sj)
+
+
+# ---------------------------------------------------------------------------
+# 2. int8_gemm (W8A8 epilogues)
+# ---------------------------------------------------------------------------
+
+def gemm_inputs(rng, m, k, n):
+    xq, xs = (np.asarray(a) for a in jax.jit(ref.quantize_rows_ref)(
+        rng.standard_normal((m, k)).astype(np.float32)))
+    w = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
+    ws = (np.abs(w).max(0) / 127.0).astype(np.float32)
+    wq = np.clip(np.round(w / ws), -128, 127).astype(np.int8)
+    bias = (rng.standard_normal(n) * 0.1).astype(np.float32)
+    res = jnp.asarray(rng.standard_normal((m, n)), jnp.bfloat16)
+    return xq, xs, wq, ws, bias, res
+
+
+CASES = [  # (label, kwargs of gemm_w8a8_ref beyond the operands)
+    ("scaled", {}),
+    ("scaled+bias", {"bias": True}),
+    ("scaled_add", {"residual": True}),
+    ("scaled_add+bias", {"bias": True, "residual": True}),
+    ("scaled_gelu", {"gelu_scale": GELU}),
+    ("head_f32", {"out_dtype": "f32"}),
+]
+
+
+def _kw(spec, bias, res, for_torch):
+    kw = {}
+    if spec.get("bias"):
+        kw["bias"] = T(bias) if for_torch else bias
+    if spec.get("residual"):
+        kw["residual"] = (torch.from_numpy(np.array(res.astype(jnp.float32)))
+                          .to(torch.bfloat16) if for_torch else res)
+    if "gelu_scale" in spec:
+        kw["gelu_scale"] = spec["gelu_scale"]
+    if spec.get("out_dtype") == "f32":
+        kw["out_dtype"] = torch.float32 if for_torch else jnp.float32
+    return kw
+
+
+class TestInt8Gemm:
+    @pytest.mark.parametrize("label,spec", CASES, ids=[c[0] for c in CASES])
+    @pytest.mark.parametrize("m,k,n", [(8, 64, 48), (13, 100, 70),
+                                       (4, 3072, 64)])
+    def test_exact_vs_jit_ref(self, rng, label, spec, m, k, n):
+        xq, xs, wq, ws, bias, res = gemm_inputs(rng, m, k, n)
+        jkw = _kw(spec, bias, res, False)
+        want = jax.jit(lambda *a: ref.gemm_w8a8_ref(*a, **jkw))(xq, xs, wq, ws)
+        got = gemm_w8a8_ref(T(xq), T(xs), T(wq), T(ws),
+                            **_kw(spec, bias, res, True))
+        assert bits_equal(got, want), label
+
+    @pytest.mark.parametrize("label,spec", CASES, ids=[c[0] for c in CASES])
+    def test_exact_vs_pallas_interpret(self, rng, label, spec):
+        m, k, n = 8, 128, 128
+        xq, xs, wq, ws, bias, res = gemm_inputs(rng, m, k, n)
+        epi = ("scaled_gelu" if "gelu_scale" in spec else
+               "scaled_add" if spec.get("residual") else "scaled")
+        out_dtype = jnp.float32 if spec.get("out_dtype") else jnp.bfloat16
+        want = pallas_gemm(
+            jnp.asarray(xq), jnp.asarray(wq), epilogue=epi,
+            gelu_scale=spec.get("gelu_scale"), x_scale=jnp.asarray(xs),
+            w_scale=jnp.asarray(ws).reshape(1, n),
+            bias=jnp.asarray(bias).reshape(1, n) if spec.get("bias") else None,
+            residual=res if spec.get("residual") else None,
+            out_dtype=out_dtype, bm=8, bn=128, bk=128, interpret=True)
+        got = gemm_w8a8_ref(T(xq), T(xs), T(wq), T(ws),
+                            **_kw(spec, bias, res, True))
+        assert bits_equal(got, want), label
+
+    def test_accumulator_exact(self, rng):
+        xq = rng.integers(-128, 128, (9, 300)).astype(np.int8)
+        wq = rng.integers(-128, 128, (300, 40)).astype(np.int8)
+        want = jax.jit(ref.int8_gemm_ref)(xq, wq)
+        assert bits_equal(int8_matmul_ref(T(xq), T(wq)), want)
+
+    def test_ops_lead_dims(self, rng):
+        xq, xs, wq, ws, bias, _ = gemm_inputs(rng, 6, 64, 32)
+        got = ops.gemm_w8a8(T(xq).reshape(2, 3, 64), T(xs).reshape(2, 3, 1),
+                            T(wq), T(ws), bias=T(bias))
+        want = jax.jit(lambda *a: ref.gemm_w8a8_ref(*a, bias=bias))(
+            xq, xs, wq, ws)
+        assert got.shape == (2, 3, 32)
+        assert bits_equal(got.reshape(6, 32), want)
+
+    @pytest.mark.parametrize("m,n,k", [(8, 3072, 3072), (8, 256, 3072),
+                                       (2048, 12288, 3072), (5, 70, 100)])
+    def test_split_k_covers_k_exactly(self, m, n, k):
+        split, k_len = split_k(m, n, k, n_sm=132)
+        assert k_len % 64 == 0 and split >= 1
+        assert (split - 1) * k_len < k <= split * k_len
+
+
+# ---------------------------------------------------------------------------
+# 3. int_layernorm
+# ---------------------------------------------------------------------------
+
+def ln_inputs(rng, m, d):
+    x = rng.integers(-128, 128, (m, d)).astype(np.int32)
+    x[0] -= 90                     # negative mean: floor division matters
+    x[-1] = np.abs(x[-1])          # positive mean
+    g = rng.integers(-128, 128, (d,)).astype(np.int32)
+    b = rng.integers(-128, 128, (d,)).astype(np.int32)
+    return x, g, b
+
+
+class TestIntLayerNorm:
+    @pytest.mark.parametrize("rms", [False, True])
+    @pytest.mark.parametrize("m,d", [(8, 64), (3, 3072), (2, 40000)])
+    def test_exact_vs_jit_ref(self, rng, rms, m, d):
+        x, g, b = ln_inputs(rng, m, d)
+        want = jax.jit(lambda *a: ref.int_layernorm_ref(*a, rms_only=rms))(
+            x, g, b)
+        assert bits_equal(int_layernorm_ref(T(x), T(g), T(b), rms), want)
+
+    @pytest.mark.parametrize("rms", [False, True])
+    def test_exact_vs_pallas_interpret(self, rng, rms):
+        x, g, b = ln_inputs(rng, 8, 256)
+        want = pallas_ln(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b),
+                         rms_only=rms, bm=8, interpret=True)
+        got = ops.layernorm_i8(T(x), T(g), T(b), rms_only=rms)
+        assert bits_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# 4. int8_kv_decode_attention
+# ---------------------------------------------------------------------------
+
+def decode_inputs(rng, b=4, s=64, hq=4, hkv=2, d=16, dtype=jnp.bfloat16):
+    k = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    k_s = (np.abs(k).max(-1, keepdims=True) / 127.0).astype(np.float32)
+    v_s = (np.abs(v).max(-1, keepdims=True) / 127.0).astype(np.float32)
+    k_q = np.clip(np.round(k / k_s), -128, 127).astype(np.int8)
+    v_q = np.clip(np.round(v / v_s), -128, 127).astype(np.int8)
+    fill = rng.integers(1, s + 1, b)
+    fill[1] = 0                                   # idle lane: all masked
+    slot = np.arange(s)
+    pos = np.where(slot[None] < fill[:, None], slot[None], -1).astype(np.int32)
+    qpos = (fill - 1).astype(np.int32)
+    q = jnp.asarray(rng.standard_normal((b, hq, d)), dtype)
+    return q, k_q, k_s, v_q, v_s, pos, qpos
+
+
+def _t_q(q):
+    return torch.from_numpy(np.array(q.astype(jnp.float32))).to(
+        torch.bfloat16 if q.dtype == jnp.bfloat16 else torch.float32)
+
+
+class TestDecodeAttention:
+    @pytest.mark.parametrize("window", [0, 8])
+    @pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
+    def test_close_vs_jit_ref(self, rng, window, dtype):
+        q, *rest = decode_inputs(rng, dtype=dtype)
+        want = jax.jit(lambda *a: ref.int8_kv_decode_attention_ref(
+            *a, window=window))(q, *rest)
+        got = int8_kv_decode_attention_ref(_t_q(q), *map(T, rest),
+                                           window=window)
+        w = np.asarray(want.astype(jnp.float32))
+        np.testing.assert_allclose(got.float().numpy(), w, rtol=RTOL, atol=ATOL)
+        assert np.isfinite(got.float().numpy()).all()
+
+    @pytest.mark.parametrize("window", [0, 8])
+    def test_close_vs_pallas_interpret(self, rng, window):
+        q, *rest = decode_inputs(rng)
+        want = pallas_decode(q, *map(jnp.asarray, rest), window=window,
+                             bk=16, interpret=True)
+        got = ops.decode_attention_int8kv(_t_q(q), *map(T, rest), window=window)
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want.astype(jnp.float32)),
+                                   rtol=RTOL, atol=ATOL)
+
+    def test_all_masked_lane_is_mean_of_v(self, rng):
+        q, k_q, k_s, v_q, v_s, pos, qpos = decode_inputs(rng, dtype=jnp.float32)
+        got = int8_kv_decode_attention_ref(_t_q(q), *map(T, (k_q, k_s, v_q,
+                                                             v_s, pos, qpos)))
+        v = (v_q.astype(np.float32) * v_s)[1].mean(0)     # (Hkv, D), lane 1
+        g = q.shape[1] // v.shape[0]
+        np.testing.assert_allclose(got[1].numpy(), np.repeat(v, g, 0),
+                                   rtol=1e-5, atol=1e-6)
+
+    @pytest.mark.parametrize("blocks,s", [(16, 1024), (16, 64), (4, 16),
+                                          (1, 100)])
+    def test_kv_split_chunks_cover_cache(self, blocks, s):
+        n_split, chunk = kv_split(blocks, s, n_sm=132)
+        assert chunk % 32 == 0 and (n_split - 1) * chunk < s <= n_split * chunk
+
+
+# ---------------------------------------------------------------------------
+# on the card: each CUDA kernel against its plain version (skipped here)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels run only on the "
+                    "card (chip_smoke.py covers them there)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+class TestKernelsOnCard:
+    def test_quantize_rows(self, rng, cuda_dev):
+        x = T(rows(rng, 8, 3072)).to(cuda_dev)
+        q, s = ops.quant_rows(x)
+        qr, sr = quantize_rows_ref(x)
+        assert torch.equal(q, qr) and torch.equal(s, sr)
+
+    @pytest.mark.parametrize("label,spec", CASES, ids=[c[0] for c in CASES])
+    def test_int8_gemm(self, rng, cuda_dev, label, spec):
+        xq, xs, wq, ws, bias, res = gemm_inputs(rng, 13, 100, 70)
+        kw = {k: (v.to(cuda_dev) if isinstance(v, torch.Tensor) else v)
+              for k, v in _kw(spec, bias, res, True).items()}
+        args = [T(a).to(cuda_dev) for a in (xq, xs, wq, ws)]
+        assert torch.equal(ops.gemm_w8a8(*args, **kw), gemm_w8a8_ref(*args, **kw))
+
+    def test_int_layernorm(self, rng, cuda_dev):
+        x, g, b = (T(a).to(cuda_dev) for a in ln_inputs(rng, 8, 3072))
+        for rms in (False, True):
+            assert torch.equal(ops.layernorm_i8(x, g, b, rms),
+                               int_layernorm_ref(x, g, b, rms))
+
+    def test_decode_attention(self, rng, cuda_dev):
+        q, *rest = decode_inputs(rng, b=8, s=1024, hq=24, hkv=2, d=128)
+        args = [_t_q(q).to(cuda_dev)] + [T(a).to(cuda_dev) for a in rest]
+        for window in (0, 100):
+            got = ops.decode_attention_int8kv(*args, window=window)
+            want = int8_kv_decode_attention_ref(*args, window=window)
+            torch.testing.assert_close(got.float(), want.float(), rtol=RTOL,
+                                       atol=ATOL)
