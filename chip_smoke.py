@@ -6,24 +6,32 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
 1. the card: CUDA present, ``nvidia-smi`` name and power limit;
 2. build: every CUDA kernel of the port compiled from ``src/repro_torch/
    kernels/csrc`` by ``nvcc`` (one process per source, all in parallel);
-3. kernels: each kernel's wrapper on the card at the starcoder2-3b
-   full-width shapes of the serving path (M in {8, 256}) against its plain
-   PyTorch version on the same inputs — bit-exact for quantize_rows,
-   int8_gemm (every epilogue, bias and no bias, the f32 head) and
-   int_layernorm; within the stated tolerance for the decode attention
-   (empty slots, a window, an all-masked lane).  Each is timed (CUDA
-   events, L2 flushed before every launch) beside its plain version, a
-   PyTorch library yardstick where one exists, and its bound: the larger of
-   bytes / 3.35 TB/s and operations / peak rate (1979 TOP/s int8, 67
-   TFLOP/s f32 outside the tensor cores; H100 SXM data sheet);
-4. reduced: starcoder2-3b-reduced at w8a8 with an int8 KV cache, the same
-   packed steps on the CPU (plain versions) and on the card (kernels): the
-   logits agree within ``REDUCED_TOL`` of their range;
-5. serve: full-width starcoder2-3b (random weights from ``--seed``, PTQ'd
-   to w8a8 by the port), int8 KV cache, 8 lanes, max_seq 1024, token
-   budget 256, 16 requests with prompts of 16-256 tokens and 32 new tokens
-   each, through ``ServingEngine``.  Launch counts are zeroed just before
-   the drain and read just after; every kernel must have launched.
+3. kernels: each kernel's wrapper on the card at the full-width shapes of
+   the serving paths (starcoder2-3b and codeqwen1.5-7b, M in {8, 256})
+   against its plain PyTorch version on the same inputs — bit-exact for
+   quantize_rows, int8_gemm, int4_gemm, the int8 dual_gemm_gated,
+   dual_int4_gemm_gated and int_layernorm; within the stated tolerances for
+   the bf16 dual_gemm_gated and the decode attention (empty slots, a window,
+   an all-masked lane).  Each is timed (CUDA events, L2 flushed before every
+   launch) beside its plain version, a PyTorch library yardstick where one
+   call computes the same function (``torch._int_mm`` for the integer GEMMs,
+   rows padded to 32 at M = 8, which it refuses; for int4_gemm on the
+   unpacked int8 weight, without the group scales: not the same function)
+   and its bound: the larger of bytes / 3.35 TB/s and operations / peak rate
+   (1979 TOP/s int8, 989 TFLOP/s bf16, 67 TFLOP/s f32 outside the tensor
+   cores; H100 SXM data sheet);
+4. reduced: starcoder2-3b-reduced at w8a8 and codeqwen1.5-7b-reduced at
+   w4a8, w8a8 and bf16, each with an int8 KV cache, the same packed steps on
+   the CPU (plain versions) and on the card (kernels): the logits agree
+   within ``REDUCED_TOL`` of their range;
+5. serve, each path through ``ServingEngine`` with random weights from
+   ``--seed`` PTQ'd by the port, an int8 KV cache, 8 lanes, max_seq 1024,
+   token budget 256 and prompts of 16-256 tokens, greedy:
+   full-width starcoder2-3b w8a8 (16 requests x 32 new tokens),
+   full-width codeqwen1.5-7b w4a8 (16 x 32: the slice's main path) and a
+   short full-width codeqwen1.5-7b w8a8 drain (4 x 8).  Launch counts are
+   zeroed just before each drain and read just after; every kernel of that
+   path must have launched.  Each model is freed before the next.
 
 The last three lines of standard output are the kernels JSON, the card's
 ``nvidia-smi`` name/power line and ``{"ok": true, "device": ...}``.  With
@@ -36,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import json
 import subprocess
 import sys
@@ -48,15 +57,18 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BPS = 3.35e12      # H100 SXM device memory
 INT8_OPS = 1979e12     # dense int8 tensor-core peak
+BF16_OPS = 989e12      # dense bf16 tensor-core peak
 F32_OPS = 67e12        # f32 outside the tensor cores
-# Phase 4 tolerance: |cpu - cuda| <= 10% of max|logit|.  Every kernel but the
-# decode attention is bit-exact; the CPU decode step takes the reference's
-# jnp branch (_sdpa, probabilities rounded to bf16 before P@V) where the card
-# runs the kernel (f32 probabilities), so attention outputs differ by about
-# one bf16 ulp, and each such difference can move an int8 activation level
-# of the next W8A8 GEMM.  Measured on an H100: up to 4.4% (seed 0).  Beyond
-# the bound, the greedy token must agree wherever the CPU top-2 margin is
-# more than twice the largest difference.
+# Phase 4 tolerance: |cpu - cuda| <= 10% of max|logit|.  Every integer kernel
+# is bit-exact; the CPU decode step takes the reference's jnp branch (_sdpa,
+# probabilities rounded to bf16 before P@V) where the card runs the kernel
+# (f32 probabilities), so attention outputs differ by about one bf16 ulp, and
+# each such difference can move an int8 activation level of the next integer
+# GEMM (at bf16 the float GEMMs add their own rounding differences).
+# Measured on an H100 at seed 0: up to 4.4% (starcoder2-3b w8a8), 7.8%
+# (codeqwen1.5-7b w4a8), 4.8% (w8a8), 1.4% (bf16).  Beyond the bound, the
+# greedy token must agree wherever the CPU top-2 margin is more than twice
+# the largest difference.
 REDUCED_TOL = 0.10
 
 
@@ -98,6 +110,18 @@ class Timer:
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def int_mm_ms(timer, x_q, w_q):
+    """Time of ``torch._int_mm`` (cuBLAS int8 GEMM, int32 out) on these
+    operands, with the rows zero-padded to 32 when M <= 16 (it refuses
+    those); None where K or N is not a multiple of 8 (refused too)."""
+    m, k = x_q.shape
+    if k % 8 or w_q.shape[1] % 8:
+        return None
+    if m <= 16:
+        x_q = torch.cat([x_q, x_q.new_zeros(32 - m, k)])
+    return timer(lambda: torch._int_mm(x_q, w_q))
 
 
 # ---------------------------------------------------------------------------
@@ -183,10 +207,7 @@ def check_kernels(dev, gen, timer) -> list[dict]:
                     f"int8_gemm {name} M={m}: {int((out != ref).sum())} of "
                     f"{out.numel()} differ from the plain version "
                     f"(max |d| {max_err(out, ref)})")
-            try:
-                lib = timer(lambda: torch._int_mm(x_q, w_q))
-            except RuntimeError:   # _int_mm refuses M <= 16 and ragged K/N
-                lib = None
+            lib = int_mm_ms(timer, x_q, w_q)
             out_size = out.element_size()
             nbytes = (m * k + k * n + 4 * (m + n) + (4 * n if has_bias else 0)
                       + (res.numel() * res.element_size() if res is not None
@@ -217,67 +238,211 @@ def check_kernels(dev, gen, timer) -> list[dict]:
                    timer(lambda: int_layernorm_ref(x, g, b, rms)), None,
                    bound(8 * m * d + 8 * d, 12 * m * d, F32_OPS))
 
-    # -- 4. int8_kv_decode_attention ---------------------------------------------
-    bsz, s, hq, hkv, d = 8, 1024, 24, 2, 128
+    # -- 4. int8_kv_decode_attention (starcoder GQA, codeqwen MHA) -----------
     from repro_torch.models.attention import _quant_kv
-    k_q, k_s = _quant_kv(randn(bsz, s, hkv, d))
-    v_q, v_s = _quant_kv(randn(bsz, s, hkv, d))
-    fill = torch.randint(1, s + 1, (bsz,), generator=gen, device=dev)
-    fill[3] = 0                              # an idle lane: every slot masked
-    slot = torch.arange(s, device=dev)
-    pos = torch.where(slot[None] < fill[:, None], slot[None], -1).to(torch.int32)
-    qpos = (fill - 1).to(torch.int32)
-    q = randn(bsz, hq, d).to(torch.bfloat16)
-    for window in (0, 100):
-        def run():
-            return ops.decode_attention_int8kv(q, k_q, k_s, v_q, v_s, pos,
-                                               qpos, window=window)
+    for bsz, s, hq, hkv, d, windows in ((8, 1024, 24, 2, 128, (0, 100)),
+                                        (8, 1024, 32, 32, 128, (0,))):
+        k_q, k_s = _quant_kv(randn(bsz, s, hkv, d))
+        v_q, v_s = _quant_kv(randn(bsz, s, hkv, d))
+        fill = torch.randint(1, s + 1, (bsz,), generator=gen, device=dev)
+        fill[3] = 0                          # an idle lane: every slot masked
+        slot = torch.arange(s, device=dev)
+        pos = torch.where(slot[None] < fill[:, None], slot[None],
+                          -1).to(torch.int32)
+        qpos = (fill - 1).to(torch.int32)
+        q = randn(bsz, hq, d).to(torch.bfloat16)
+        for window in windows:
+            def run():
+                return ops.decode_attention_int8kv(q, k_q, k_s, v_q, v_s, pos,
+                                                   qpos, window=window)
 
-        def plain():
-            return int8_kv_decode_attention_ref(q, k_q, k_s, v_q, v_s, pos,
-                                                qpos, window=window)
-        out, ref = run(), plain()
-        torch.cuda.synchronize()
-        if not torch.allclose(out.float(), ref.float(), rtol=RTOL, atol=ATOL):
-            raise AssertionError(f"decode attention window={window}: max |d| "
-                                 f"{max_err(out, ref)} beyond rtol={RTOL} "
-                                 f"atol={ATOL}")
-        if not torch.isfinite(out).all():
-            raise AssertionError("decode attention produced non-finite values")
-        # yardstick: SDPA over K/V dequantized to bf16 ahead of time
-        kd = (k_q.float() * k_s).to(torch.bfloat16).permute(0, 2, 1, 3)
-        vd = (v_q.float() * v_s).to(torch.bfloat16).permute(0, 2, 1, 3)
-        kd = kd.repeat_interleave(hq // hkv, 1).contiguous()
-        vd = vd.repeat_interleave(hq // hkv, 1).contiguous()
-        valid = (pos >= 0) & (pos <= qpos[:, None])
-        if window:
-            valid &= pos > (qpos[:, None] - window)
-        mask = valid[:, None, None, :]
-        q4 = q[:, :, None, :]
-        lib = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q4, kd, vd, attn_mask=mask))
-        nbytes = (2 * bsz * s * hkv * d + 8 * bsz * s * hkv + 4 * bsz * s
-                  + 4 * bsz + 4 * bsz * hq * d)
-        record("int8_kv_decode_attention",
-               f"B={bsz} S={s} Hq={hq} Hkv={hkv} D={d} window={window}",
-               max_err(out, ref), False, timer(run), timer(plain), lib,
-               bound(nbytes, 4 * bsz * hq * s * d, F32_OPS))
+            def plain():
+                return int8_kv_decode_attention_ref(q, k_q, k_s, v_q, v_s,
+                                                    pos, qpos, window=window)
+            out, ref = run(), plain()
+            torch.cuda.synchronize()
+            if not torch.allclose(out.float(), ref.float(), rtol=RTOL,
+                                  atol=ATOL):
+                raise AssertionError(
+                    f"decode attention Hq={hq} Hkv={hkv} window={window}: "
+                    f"max |d| {max_err(out, ref)} beyond rtol={RTOL} "
+                    f"atol={ATOL}")
+            if not torch.isfinite(out).all():
+                raise AssertionError("decode attention produced non-finite "
+                                     "values")
+            # yardstick: SDPA over K/V dequantized to bf16 ahead of time
+            kd = (k_q.float() * k_s).to(torch.bfloat16).permute(0, 2, 1, 3)
+            vd = (v_q.float() * v_s).to(torch.bfloat16).permute(0, 2, 1, 3)
+            kd = kd.repeat_interleave(hq // hkv, 1).contiguous()
+            vd = vd.repeat_interleave(hq // hkv, 1).contiguous()
+            valid = (pos >= 0) & (pos <= qpos[:, None])
+            if window:
+                valid &= pos > (qpos[:, None] - window)
+            mask = valid[:, None, None, :]
+            q4 = q[:, :, None, :]
+            lib = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, kd, vd, attn_mask=mask))
+            nbytes = (2 * bsz * s * hkv * d + 8 * bsz * s * hkv + 4 * bsz * s
+                      + 4 * bsz + 4 * bsz * hq * d)
+            record("int8_kv_decode_attention",
+                   f"B={bsz} S={s} Hq={hq} Hkv={hkv} D={d} window={window}",
+                   max_err(out, ref), False, timer(run), timer(plain), lib,
+                   bound(nbytes, 4 * bsz * hq * s * d, F32_OPS))
+
+    check_w4_and_gated(dev, gen, timer, record, randn)
     return cases
+
+
+def check_w4_and_gated(dev, gen, timer, record, randn) -> None:
+    """Phase 3 for the codeqwen1.5-7b kernels: int4_gemm (group 64) at the
+    W4A8 projections (plus starcoder's GELU up-projection and a ragged
+    case), and the three gated-MLP forms at [M, 4096] x 2 x [4096, 13440]."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.int8_gemm import (
+        DUAL_BF16_ATOL, DUAL_BF16_RTOL, gated_mlp_ref, gated_mlp_w4a8_ref,
+        gated_mlp_w8a8_ref, gemm_w4a8_ref, unpack_int4_ref)
+    from repro_torch.kernels.quantize import quantize_rows_ref
+    from repro_torch.models.layers import (GELU_INT_SCALE, SILU_INT_SCALE,
+                                           quantize_weight, quantize_weight_w4)
+
+    def same(kernel, what, out, ref):
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(
+                f"{kernel} {what}: {int((out != ref).sum())} of {out.numel()} "
+                f"differ from the plain version (max |d| {max_err(out, ref)})")
+
+    # -- 5. int4_gemm ----------------------------------------------------------
+    w4_cases = [("q_proj+bias", 4096, 4096, "scaled", True, 64),
+                ("o_proj+residual", 4096, 4096, "scaled_add", False, 64),
+                ("mlp_down", 13440, 4096, "scaled", False, 64),
+                ("starcoder_mlp_up+gelu", 3072, 12288, "scaled_gelu", False,
+                 64),
+                ("ragged+bias", 96, 70, "scaled_add", True, 32)]
+    for name, k, n, epi, has_bias, group in w4_cases:
+        wd = quantize_weight_w4(randn(k, n, scale=k ** -0.5), group=group)
+        w4, qmul, w_s = wd["w4"], wd["qmul"], wd["scale"]
+        w_unpacked = unpack_int4_ref(w4, k)     # the yardstick's int8 weight
+        bias = randn(n, scale=0.1) if has_bias else None
+        for m in ((5, 37) if name.startswith("ragged") else (8, 256)):
+            x_q, x_s = quantize_rows_ref(randn(m, k))
+            res = (randn(m, n).to(torch.bfloat16) if epi == "scaled_add"
+                   else None)
+            gs = GELU_INT_SCALE if epi == "scaled_gelu" else None
+
+            def run():
+                return ops.gemm_w4a8(x_q, x_s, w4, qmul, w_s, bias=bias,
+                                     residual=res, gelu_scale=gs)
+
+            def plain():
+                return gemm_w4a8_ref(x_q, x_s, w4, qmul, w_s, bias=bias,
+                                     residual=res, gelu_scale=gs)
+            out = run()
+            same("int4_gemm", f"{name} M={m}", out, plain())
+            nbytes = (m * k + k * n // 2 + (k // group) * n + 4 * (m + n)
+                      + (4 * n if has_bias else 0)
+                      + (2 * m * n if res is not None else 0)
+                      + m * n * out.element_size())
+            record("int4_gemm", f"{name} [{m},{k}]x[{k},{n}] {epi} g{group}",
+                   0.0, True, timer(run), timer(plain),
+                   int_mm_ms(timer, x_q, w_unpacked),
+                   bound(nbytes, 2 * m * n * k, INT8_OPS))
+
+    # -- 6. dual_int4_gemm_gated and dual_gemm_gated (int8, bf16) -----------
+    k, n, group = 4096, 13440, 64
+    up = quantize_weight_w4(randn(k, n, scale=k ** -0.5), group=group)
+    gate = quantize_weight_w4(randn(k, n, scale=k ** -0.5), group=group)
+    w4_args = (up["w4"], up["qmul"], up["scale"], gate["w4"], gate["qmul"],
+               gate["scale"])
+    upq = quantize_weight(randn(k, n, scale=k ** -0.5))
+    gateq = quantize_weight(randn(k, n, scale=k ** -0.5))
+    w8_args = (upq["w_q"], upq["scale"], gateq["w_q"], gateq["scale"])
+    wu_f = randn(k, n, scale=k ** -0.5).to(torch.bfloat16)
+    wg_f = randn(k, n, scale=k ** -0.5).to(torch.bfloat16)
+    b4 = 2 * (k * n // 2 + (k // group) * n + 4 * n)
+    b8 = 2 * (k * n + 4 * n)
+    for m, act in ((8, "silu"), (8, "gelu"), (256, "silu")):
+        sc = SILU_INT_SCALE if act == "silu" else GELU_INT_SCALE
+        x_q, x_s = quantize_rows_ref(randn(m, k))
+        shape = f"[{m},{k}]x2[{k},{n}] {act}"
+
+        def run4():
+            return ops.gated_mlp_w4a8(x_q, x_s, *w4_args, act=act, act_scale=sc)
+
+        def plain4():
+            return gated_mlp_w4a8_ref(x_q, x_s, *w4_args, act=act,
+                                      act_scale=sc)
+        same("dual_int4_gemm_gated", shape, run4(), plain4())
+        io = m * k + 4 * m + 2 * m * n
+        record("dual_int4_gemm_gated", f"{shape} g{group}", 0.0, True,
+               timer(run4), timer(plain4), None,
+               bound(io + b4, 4 * m * n * k, INT8_OPS))
+
+        def run8():
+            return ops.gated_mlp_w8a8(x_q, x_s, *w8_args, act=act, act_scale=sc)
+
+        def plain8():
+            return gated_mlp_w8a8_ref(x_q, x_s, *w8_args, act=act,
+                                      act_scale=sc)
+        same("dual_gemm_gated", f"int8 {shape}", run8(), plain8())
+        record("dual_gemm_gated", f"int8 {shape}", 0.0, True, timer(run8),
+               timer(plain8), None, bound(io + b8, 4 * m * n * k, INT8_OPS))
+        if act != "silu":
+            continue
+        x_f = randn(m, k).to(torch.bfloat16)
+
+        def runf():
+            return ops.gated_mlp(x_f, wu_f, wg_f, act)
+
+        def plainf():
+            return gated_mlp_ref(x_f, wu_f, wg_f, act)
+        out, ref = runf().float(), plainf().float()
+        torch.cuda.synchronize()
+        err = (out - ref).abs()
+        if not (torch.isfinite(out).all() and bool(
+                (err <= DUAL_BF16_ATOL + DUAL_BF16_RTOL * ref.abs()).all())):
+            raise AssertionError(f"dual_gemm_gated bf16 {shape}: max |d| "
+                                 f"{float(err.max())} beyond atol="
+                                 f"{DUAL_BF16_ATOL} rtol={DUAL_BF16_RTOL}")
+        record("dual_gemm_gated", f"bf16 {shape}", float(err.max()), False,
+               timer(runf), timer(plainf), None,
+               bound(2 * m * k + 4 * k * n + 2 * m * n, 4 * m * n * k,
+                     BF16_OPS))
 
 
 # ---------------------------------------------------------------------------
 # phase 4: the reduced model, CPU plain versions vs CUDA kernels
 # ---------------------------------------------------------------------------
 
-def check_reduced(dev, seed) -> float:
+def quantized(params, precision: str):
+    """PTQ as the launcher does: w4a8 by the default W4 policy, w8a8 all
+    int8, bf16 untouched."""
+    from repro_torch.quant import DEFAULT_W4_POLICY, ptq_quantize_params
+    if precision == "w4a8":
+        return ptq_quantize_params(params, policy=DEFAULT_W4_POLICY)
+    if precision == "w8a8":
+        return ptq_quantize_params(params)
+    return params
+
+
+# (arch, precision, kernels the reduced steps must launch on the card)
+REDUCED_PATHS = (
+    ("starcoder2-3b", "w8a8", ("int8_gemm", "int8_kv_decode_attention")),
+    ("codeqwen1.5-7b", "w4a8", ("int4_gemm", "dual_int4_gemm_gated",
+                                "int8_kv_decode_attention")),
+    ("codeqwen1.5-7b", "w8a8", ("dual_gemm_gated", "int8_kv_decode_attention")),
+    ("codeqwen1.5-7b", "bf16", ("dual_gemm_gated", "int8_kv_decode_attention")),
+)
+
+
+def check_reduced(dev, seed, arch: str, precision: str, must_launch) -> float:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import init_params, init_states
-    from repro_torch.quant import ptq_quantize_params
     from repro_torch.serve import packed_step
 
-    cfg = get_config("starcoder2-3b", precision="w8a8", reduced=True)
-    cpu = ptq_quantize_params(init_params(cfg, seed=seed, device="cpu"))
+    cfg = get_config(arch, precision=precision, reduced=True)
+    cpu = quantized(init_params(cfg, seed=seed, device="cpu"), precision)
     gpu = copy.deepcopy(cpu).to(dev)
     lanes, t = 4, 16
     st_c = init_states(cfg, lanes, 64, int8_kv=True, device="cpu")
@@ -303,22 +468,24 @@ def check_reduced(dev, seed) -> float:
         log(f"  step {step} (T={tok.shape[1]}): max |cpu - cuda| = {err:.4g} "
             f"({rel:.3%} of max|logit|)")
         if not (torch.isfinite(lg).all() and rel <= REDUCED_TOL):
-            raise AssertionError(f"reduced model: CUDA logits differ from the "
-                                 f"CPU plain path by {rel:.3%} (> "
-                                 f"{REDUCED_TOL:.0%})")
+            raise AssertionError(f"reduced {arch} {precision}: CUDA logits "
+                                 f"differ from the CPU plain path by "
+                                 f"{rel:.3%} (> {REDUCED_TOL:.0%})")
         top2 = lc.topk(2, dim=-1).values
         clear = (top2[:, 0] - top2[:, 1]) > 2 * err
         if not torch.equal(lc.argmax(-1)[clear], lg.argmax(-1)[clear]):
-            raise AssertionError("reduced model: greedy tokens differ where "
-                                 "the CPU margin is clear")
+            raise AssertionError(f"reduced {arch} {precision}: greedy tokens "
+                                 f"differ where the CPU margin is clear")
         # next step: every lane decodes the CPU argmax (same tokens on both)
         nxt = lc.argmax(-1).numpy()
         tok = nxt[:, None]
         pos = (pos.max(1) + 1)[:, None]
         last = np.zeros(lanes, np.int64)
     after = ops.launch_counts()
-    if after["int8_kv_decode_attention"] <= before["int8_kv_decode_attention"]:
-        raise AssertionError("reduced decode steps did not reach the kernel")
+    idle = [k for k in must_launch if after[k] <= before[k]]
+    if idle:
+        raise AssertionError(f"reduced {arch} {precision} steps did not reach "
+                             f"{idle}")
     return worst
 
 
@@ -326,23 +493,37 @@ def check_reduced(dev, seed) -> float:
 # phase 5: full-width serving
 # ---------------------------------------------------------------------------
 
-def serve_full(dev, seed) -> dict:
+COMMON = ("quantize_rows", "int8_gemm", "int_layernorm",
+          "int8_kv_decode_attention")
+# (label, arch, precision, requests, new tokens each, profiled, kernels that
+# must launch on the drain)
+SERVE_PATHS = (
+    ("starcoder2-3b w8a8", "starcoder2-3b", "w8a8", 16, 32, True, COMMON),
+    ("codeqwen1.5-7b w4a8", "codeqwen1.5-7b", "w4a8", 16, 32, True,
+     COMMON + ("int4_gemm", "dual_int4_gemm_gated")),
+    ("codeqwen1.5-7b w8a8", "codeqwen1.5-7b", "w8a8", 4, 8, False,
+     COMMON + ("dual_gemm_gated",)),
+)
+
+
+def serve_full(dev, seed, arch, precision, n_req, max_new, profiled,
+               must_launch) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import forward, init_params, init_states
-    from repro_torch.quant import ptq_quantize_params
     from repro_torch.serve import ServeConfig, ServingEngine
 
-    cfg = get_config("starcoder2-3b", precision="w8a8")
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config(arch, precision=precision)
     t0 = time.perf_counter()
-    params = ptq_quantize_params(init_params(cfg, seed=seed, device=dev))
+    params = quantized(init_params(cfg, seed=seed, device=dev), precision)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
+    after_ptq = torch.cuda.memory_allocated(dev) / 2 ** 30
     scfg = ServeConfig(batch_lanes=8, max_seq=1024, int8_kv=True,
                        token_budget=256)
     engine = ServingEngine(params, cfg, scfg, device=dev)
     rng = np.random.default_rng(seed)
-    n_req, max_new = 16, 32
     for i in range(n_req):
         n = int(rng.integers(16, 257))
         engine.submit(rng.integers(2, cfg.vocab_size, size=n).tolist(),
@@ -359,9 +540,10 @@ def serve_full(dev, seed) -> dict:
     for r in done:
         if not r["tokens"] or not all(0 <= t < cfg.vocab_size for t in r["tokens"]):
             raise AssertionError(f"request {r['id']}: bad tokens {r['tokens']}")
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in must_launch if counts[k] == 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+        raise AssertionError(f"kernels not launched on the {arch} {precision} "
+                             f"path: {missing}")
     st = engine.stats
     gen = sum(len(r["tokens"]) for r in done)
     res = {"requests": len(done), "generated_tokens": gen,
@@ -372,7 +554,7 @@ def serve_full(dev, seed) -> dict:
            "processed_tok_per_s": (gen + st["prompt_tokens"]) / wall,
            "init_ptq_s": t_init, "launches": counts,
            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-           "summary": engine.stats_summary()}
+           "after_ptq_gib": after_ptq, "summary": engine.stats_summary()}
     # one all-decode step (bucket 1) on fresh caches: launches per step and
     # finite logits of the expected shape
     st1 = init_states(cfg, 8, 1024, int8_kv=True, device=dev)
@@ -385,8 +567,10 @@ def serve_full(dev, seed) -> dict:
         raise AssertionError(f"decode logits: shape {tuple(lg.shape)}, "
                              f"finite={bool(torch.isfinite(lg).all())}")
     res["launches_per_decode_step"] = {k: after[k] - before[k] for k in after}
-    res["profile"] = {f"bucket{t}": profile_step(params, cfg, dev, t)
-                      for t in (1, 64)}
+    del st1, lg
+    if profiled:
+        res["profile"] = {f"bucket{t}": profile_step(params, cfg, dev, t)
+                          for t in (1, 64)}
     return res
 
 
@@ -456,47 +640,67 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     cases = check_kernels(dev, gen, Timer(dev))
 
-    log("[4/5] starcoder2-3b-reduced w8a8 int8-KV: CPU plain vs CUDA kernels")
-    worst = check_reduced(dev, args.seed)
+    worst = {}
+    for arch, precision, must in REDUCED_PATHS:
+        log(f"[4/5] {arch}-reduced {precision} int8-KV: CPU plain vs CUDA "
+            f"kernels")
+        worst[f"{arch} {precision}"] = check_reduced(dev, args.seed, arch,
+                                                     precision, must)
 
-    log("[5/5] serve full-width starcoder2-3b w8a8 int8-KV")
-    torch.cuda.reset_peak_memory_stats(dev)
-    srv = serve_full(dev, args.seed)
-    log(f"  {srv['requests']} requests, {srv['generated_tokens']} generated + "
-        f"{srv['prompt_tokens']} prompt tokens in {srv['wall_s']:.2f}s: "
-        f"{srv['generated_tok_per_s']:.1f} generated tok/s, "
-        f"{srv['processed_tok_per_s']:.1f} processed tok/s, "
-        f"{srv['steps']} steps, buckets {srv['forwards_by_bucket']}")
-    log(f"  launches on the main path: {srv['launches']}")
-    log(f"  launches per bucket-1 step: {srv['launches_per_decode_step']}")
-    for name, p in srv["profile"].items():
-        log(f"  profile {name} (8 lanes): wall {p['wall_ms']:.2f} ms, device "
-            f"busy {p['device_busy_ms']:.2f} ms ({p['busy_share']:.1%}); top "
-            + ", ".join(f"{k[:40]}={v:.2f}" for k, v in
-                        list(p["top_kernels_ms"].items())[:4]))
-    log(f"  {srv['summary']}")
+    served = {}
+    for label, arch, precision, n_req, max_new, profiled, must in SERVE_PATHS:
+        log(f"[5/5] serve full-width {label} int8-KV: {n_req} requests x "
+            f"{max_new} new tokens")
+        srv = served[label] = serve_full(dev, args.seed, arch, precision, n_req,
+                                         max_new, profiled, must)
+        gc.collect()                  # free this model before the next
+        torch.cuda.empty_cache()
+        log(f"  {srv['requests']} requests, {srv['generated_tokens']} "
+            f"generated + {srv['prompt_tokens']} prompt tokens in "
+            f"{srv['wall_s']:.2f}s: {srv['generated_tok_per_s']:.1f} generated "
+            f"tok/s, {srv['processed_tok_per_s']:.1f} processed tok/s, "
+            f"{srv['steps']} steps, buckets {srv['forwards_by_bucket']}, init+"
+            f"PTQ {srv['init_ptq_s']:.1f}s, {srv['after_ptq_gib']:.1f} GiB "
+            f"after PTQ, peak {srv['peak_mem_gib']:.1f} GiB")
+        log(f"  launches on the path: {srv['launches']}")
+        log(f"  launches per bucket-1 step: {srv['launches_per_decode_step']}")
+        for name, p in srv.get("profile", {}).items():
+            log(f"  profile {name} (8 lanes): wall {p['wall_ms']:.2f} ms, "
+                f"device busy {p['device_busy_ms']:.2f} ms "
+                f"({p['busy_share']:.1%}); top "
+                + ", ".join(f"{k[:40]}={v:.2f}" for k, v in
+                            list(p["top_kernels_ms"].items())[:4]))
+        log(f"  {srv['summary']}")
 
+    # the M = 8 (decode) case each kernel is reported at
     headline = {"quantize_rows": "[8,3072] f32",
                 "int8_gemm": "mlp_up+gelu [8,3072]x[3072,12288] scaled_gelu",
                 "int_layernorm": "[8,3072] ln",
                 "int8_kv_decode_attention":
-                    "B=8 S=1024 Hq=24 Hkv=2 D=128 window=0"}
-    sources = {"quantize_rows": ("src/repro_torch/kernels/csrc/quantize.cu",
-                                 "src/repro/kernels/quantize.py:41"),
-               "int8_gemm": ("src/repro_torch/kernels/csrc/int8_gemm.cu",
-                             "src/repro/kernels/int8_gemm.py:127"),
-               "int_layernorm": ("src/repro_torch/kernels/csrc/int_layernorm.cu",
-                                 "src/repro/kernels/int_layernorm.py:56"),
-               "int8_kv_decode_attention": (
-                   "src/repro_torch/kernels/csrc/int8_kv_decode_attention.cu",
-                   "src/repro/kernels/int8_kv_decode_attention.py:72")}
+                    "B=8 S=1024 Hq=24 Hkv=2 D=128 window=0",
+                "dual_gemm_gated": "int8 [8,4096]x2[4096,13440] silu",
+                "int4_gemm": "mlp_down [8,13440]x[13440,4096] scaled g64",
+                "dual_int4_gemm_gated": "[8,4096]x2[4096,13440] silu g64"}
+    csrc, tpu = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
+    sources = {"quantize_rows": ("quantize.cu", "quantize.py:41"),
+               "int8_gemm": ("int8_gemm.cu", "int8_gemm.py:127"),
+               "int_layernorm": ("int_layernorm.cu", "int_layernorm.py:56"),
+               "int8_kv_decode_attention": ("int8_kv_decode_attention.cu",
+                                            "int8_kv_decode_attention.py:72"),
+               "dual_gemm_gated": ("dual_gemm_gated.cu", "int8_gemm.py:280"),
+               "int4_gemm": ("int4_gemm.cu", "int8_gemm.py:433"),
+               "dual_int4_gemm_gated": ("dual_int4_gemm_gated.cu",
+                                        "int8_gemm.py:568")}
     kernels = []
     for name in ops.KERNELS:
         c = next(c for c in cases if c["kernel"] == name
                  and c["shape"] == headline[name])
+        by_path = {label: srv["launches"][name]
+                   for label, srv in served.items()}
         kernels.append({
-            "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": srv["launches"][name],
+            "name": name, "route": "cuda", "source": csrc + sources[name][0],
+            "replaces": tpu + sources[name][1],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(x["max_abs_err"] for x in cases
                                if x["kernel"] == name),
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
@@ -508,7 +712,7 @@ def main() -> int:
             "card": smi, "torch": torch.__version__,
             "cuda": torch.version.cuda,
             "build": {k: v["seconds"] for k, v in built.items()},
-            "cases": cases, "reduced_worst_rel": worst, "serve": srv,
+            "cases": cases, "reduced_worst_rel": worst, "serve": served,
             "kernels": kernels, "total_s": time.perf_counter() - t_start},
             indent=1))
     log(f"done in {time.perf_counter() - t_start:.1f}s")

@@ -1,7 +1,8 @@
 """Config registry: --arch <id> -> ArchConfig.
 
-Mirrors ``repro.configs.get_config``.  The port serves starcoder2-3b so far;
-every other architecture raises until its slice lands (ROADMAP.md §A).
+Mirrors ``repro.configs.get_config``.  The port serves starcoder2-3b and
+codeqwen1.5-7b so far; every other architecture raises until its slice
+lands (ROADMAP.md §A).
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import importlib
 
 from ..models.config import ArchConfig
 
-ARCH_IDS = ["starcoder2-3b"]
+ARCH_IDS = ["starcoder2-3b", "codeqwen1.5-7b"]
 
 
 def _module_name(arch_id: str) -> str:

@@ -5,8 +5,9 @@ modules, and back.
 ``repro.models.init_params`` (optionally after ``ptq_quantize_params``): a
 dict with ``embed``, ``final_norm``, ``unembed`` and ``periods[0]``, whose
 leaves are stacked over layers.  It unstacks them into one ``Block`` per
-layer and carries float leaves, the ``{w_q, scale}`` PTQ dicts and the f32
-embed/unembed over unchanged.  ``to_reference`` is its inverse (the same
+layer and carries float leaves, the ``{w_q, scale}`` and ``{w4, qmul,
+scale}`` PTQ dicts, the gated MLP's ``w_gate`` and the f32 embed/unembed
+over unchanged.  ``to_reference`` is its inverse (the same
 numpy tree layout), so a round trip reproduces the tree exactly.
 
 This module speaks numpy and torch only; the tests hand it the reference's
@@ -34,11 +35,7 @@ def _linear(leaf, i, dev) -> Linear:
     """Layer ``i`` of a stacked weight leaf (i=None: unstacked)."""
     pick = (lambda a: a) if i is None else (lambda a: a[i])
     if isinstance(leaf, dict):
-        if "w_q" not in leaf:
-            raise NotImplementedError("only int8 {w_q, scale} PTQ leaves are "
-                                      "ported (W4A8 is slice 2)")
-        return Linear(w_q=_t(pick(leaf["w_q"]), dev),
-                      scale=_t(pick(leaf["scale"]), dev))
+        return Linear(**{k: _t(pick(v), dev) for k, v in leaf.items()})
     return Linear(_t(pick(leaf), dev))
 
 
@@ -67,18 +64,21 @@ def from_reference(tree: dict, cfg: ArchConfig, device=None) -> LM:
         attn = Attention(_linear(a["wq"], i, dev), _linear(a["wk"], i, dev),
                          _linear(a["wv"], i, dev), _linear(a["wo"], i, dev),
                          **bias)
-        if "w_gate" in m:
-            raise NotImplementedError("gated MLPs are slice 2 of the port")
         layers.append(Block(_norm(per["norm1"], i, d, nt, dev), attn,
                             _norm(per["norm2"], i, d, nt, dev),
                             MLP(_linear(m["w_in"], i, dev),
-                                _linear(m["w_out"], i, dev))))
+                                _linear(m["w_out"], i, dev),
+                                _linear(m["w_gate"], i, dev)
+                                if "w_gate" in m else None)))
     return LM(_t(tree["embed"], dev), layers,
               _norm(tree["final_norm"], None, d, nt, dev),
               _linear(tree["unembed"], None, dev))
 
 
 def _leaf(lin: Linear):
+    if lin.int4:
+        return {k: getattr(lin, k).cpu().numpy()
+                for k in ("w4", "qmul", "scale")}
     if lin.quantized:
         return {"w_q": lin.w_q.cpu().numpy(), "scale": lin.scale.cpu().numpy()}
     return lin.weight.detach().cpu().numpy()
@@ -110,7 +110,8 @@ def to_reference(params: LM) -> dict:
              for k in ("norm1", "norm2")}
     per = {"norm1": norms["norm1"], "attn": attn, "norm2": norms["norm2"],
            "mlp": {k: _stack([_leaf(getattr(b.mlp, k)) for b in blocks])
-                   for k in ("w_in", "w_out")}}
+                   for k in ("w_in", "w_out", "w_gate")
+                   if getattr(blocks[0].mlp, k) is not None}}
     return {"embed": params.embed.detach().cpu().numpy(),
             "final_norm": _norm_leaf(params.final_norm),
             "periods": [per], "unembed": _leaf(params.unembed)}

@@ -1,8 +1,9 @@
 """Integer-only transformer numerics on int32 tensors.
 
 The subset of ``repro.core.inumerics`` that the ported kernels rest on: the
-shift / 16-bit-multiply / shift requantization, the I-BERT integer GELU, the
-Newton integer square root and the integer LayerNorm / RMSNorm.  Every
+shift / 16-bit-multiply / shift requantization, the I-BERT integer exp,
+sigmoid, SiLU and GELU, the Newton integer square root and the integer
+LayerNorm / RMSNorm.  Every
 function is bit-exact against its JAX counterpart (``tests/test_torch_
 inumerics.py``); the formulas are the same, written with torch int32 ops:
 
@@ -75,6 +76,65 @@ def requantize(acc: torch.Tensor, p: RequantParams, bits: int = 8) -> torch.Tens
     t = t * p.mult
     t = rshift_round(t, p.s2)
     return torch.clamp(t, -qmax - 1, qmax)
+
+
+# ---------------------------------------------------------------------------
+# Integer exp (I-BERT):  exp(x) = 2^(-z) * poly(r),  x = r - z*ln2, r in (-ln2,0]
+# ---------------------------------------------------------------------------
+
+_EXP_A, _EXP_B, _EXP_C = 0.35815147, 1.353, 0.344
+
+
+def exp_consts(scale: float) -> tuple[int, int, int, float]:
+    """(q_ln2, q_b, q_c, s_poly) of ``i_exp`` at input scale ``scale``,
+    in Python float64 as the reference computes them."""
+    q_ln2 = max(int(math.floor(math.log(2.0) / scale)), 1)
+    q_b = int(math.floor(_EXP_B / scale))
+    q_c = int(math.floor(_EXP_C / (_EXP_A * scale * scale)))
+    return q_ln2, q_b, q_c, _EXP_A * scale * scale
+
+
+def i_exp(q: torch.Tensor, scale: float) -> tuple[torch.Tensor, float]:
+    """Integer exp of non-positive fixed-point inputs: exp(q*scale) ~=
+    q_out * scale_out.  ``-q`` is non-negative, so ``//`` is the floor
+    division of the reference on either side."""
+    q = q.to(I32)
+    q_ln2, q_b, q_c, s_poly = exp_consts(scale)
+    z = (-q) // q_ln2                      # number of halvings
+    q_p = q + z * q_ln2                    # remainder in (-q_ln2, 0]
+    q_poly = (q_p + q_b) * (q_p + q_b) + q_c
+    z = torch.clamp(z, max=30)
+    return (q_poly >> z).to(I32), s_poly
+
+
+# ---------------------------------------------------------------------------
+# Integer sigmoid / SiLU (for SwiGLU archs)
+# ---------------------------------------------------------------------------
+
+
+def sigmoid_one(scale: float) -> int:
+    """1.0 in the exp scale of ``i_sigmoid`` (Python ``round``, as the
+    reference)."""
+    return max(int(round(1.0 / exp_consts(scale)[3])), 1)
+
+
+def i_sigmoid(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """sigmoid(q*scale) -> int32 payload in [0, 127], scale 1/127."""
+    q = q.to(I32)
+    q_exp, _ = i_exp(-torch.abs(q), scale)     # exp(-|x|), in (0, 1]
+    q_one = sigmoid_one(scale)
+    denom = torch.clamp(q_one + q_exp, min=1)
+    # sig(-|x|) = e / (1 + e); sig(|x|) = 1 / (1 + e)
+    pos = ((q_one * 127) + (denom >> 1)) // denom
+    neg = ((q_exp * 127) + (denom >> 1)) // denom
+    return torch.clamp(torch.where(q >= 0, pos, neg), 0, 127).to(I32)
+
+
+def i_silu(q: torch.Tensor, scale: float) -> tuple[torch.Tensor, float]:
+    """SiLU(x) = x * sigmoid(x); returns (int32 payload, scale_out).
+    |q| <= 2^15 (int8/int16 inputs) keeps the product exact."""
+    q = q.to(I32)
+    return q * i_sigmoid(q, scale), scale / 127.0
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,36 @@
-// In-register integer epilogues: CUDA twins of ``kernels/common.py``
-// ``requant_block`` and ``kernels/int_gelu.py`` ``gelu_block`` (themselves
-// the port of ``repro/kernels/common.py:54`` and ``int_gelu.py:36``).
+// In-register epilogues of the integer GEMMs.
 //
-// Right shifts of signed ints are arithmetic on nvcc, as in JAX; no value
-// here leaves int32 (|q*(q_erf+q_one)| < 2^19 for int8-range q).
+// ``requant_block``, ``gelu_block`` and ``silu_block`` are the CUDA twins of
+// ``kernels/common.py`` ``requant_block``, ``kernels/int_gelu.py``
+// ``gelu_block`` and ``kernels/int_silu.py`` ``silu_block`` (themselves the
+// port of ``repro/kernels/common.py:54``, ``int_gelu.py:36`` and
+// ``int_silu.py:32``).  Right shifts of signed ints are arithmetic on nvcc,
+// as in JAX; every C++ ``/`` here has a non-negative numerator and a
+// positive divisor, so it is the reference's floor division; no value leaves
+// int32 (|q*(q_erf+q_one)| < 2^19 and |q*sig| <= 128*127 for int8-range q).
+//
+// The float steps keep the reference's order under ``jax.jit`` on XLA:CPU,
+// each rounding written out (nvcc would contract a*b+c otherwise):
+//   W8A8 (int8 weights)   p = acc * xs;  h = p * ws   or fma(p, ws, bias)
+//   W4A8 (int4 weights)   p = acc * ws;  h = p * xs   or fma(p, xs, bias)
+// then the stream dtype (bf16 or f32), and
+//   scaled_add   + residual in the stream dtype (one rounding of the f32 sum)
+//   scaled_gelu  requant at the static scale (rint(h * f32(1/scale))), GELU
+//   gated        act(gate) * up, both rounded to bf16 first, the integer
+//                act's payload dequantized by one f32 multiply, one bf16
+//                rounding of the product.
 #pragma once
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 struct GeluConsts {
   int q_b, q_c, q_one;  // erf polynomial constants at the activation scale
   int s1, mult, s2;     // requant to the int8 output scale
+};
+
+struct SiluConsts {
+  int q_ln2, q_b, q_c;  // shift-exp constants at the activation scale
+  int q_one;            // 1.0 in the exp scale
 };
 
 __device__ __forceinline__ int requant_block(int acc, int s1, int mult, int s2) {
@@ -26,4 +47,98 @@ __device__ __forceinline__ int gelu_block(int q, const GeluConsts& c) {
   const int q_erf = sgn * (t * t + c.q_c);
   const int acc = -(q * (q_erf + c.q_one));  // s_out < 0 in the raw formula
   return requant_block(acc, c.s1, c.mult, c.s2);
+}
+
+// i_silu: q * i_sigmoid(q), sigmoid from the shift-exp of -|q|
+__device__ __forceinline__ int silu_block(int q, const SiluConsts& c) {
+  const int qn = -abs(q);                 // <= 0
+  int z = (-qn) / c.q_ln2;                // halvings (floor: -qn >= 0)
+  const int t = qn + z * c.q_ln2 + c.q_b; // remainder in (-q_ln2, 0], + q_b
+  z = min(z, 30);
+  const int e = (t * t + c.q_c) >> z;     // exp(-|x|), > 0
+  const int denom = max(c.q_one + e, 1);
+  const int sig = q >= 0 ? (c.q_one * 127 + (denom >> 1)) / denom
+                         : (e * 127 + (denom >> 1)) / denom;
+  return q * min(max(sig, 0), 127);
+}
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// f32 dequant of an int32 sum: ``first`` is the scale the reference
+// multiplies by first (xs for W8A8, ws for W4A8).
+__device__ __forceinline__ float dequant(int acc, float first, float second, const float* bias,
+                                         int n) {
+  const float p = __fmul_rn(__int2float_rn(acc), first);
+  return bias ? __fmaf_rn(p, second, bias[n]) : __fmul_rn(p, second);
+}
+
+enum { EPI_NONE = 0, EPI_SCALED = 1, EPI_SCALED_ADD = 2, EPI_SCALED_GELU = 3 };
+
+// the single-stream epilogues (int8_gemm, int4_gemm)
+struct Epi {
+  int kind;
+  int stream_f32;  // 1: f32 stream/out, 0: bf16
+  int w_first;     // 1: acc * ws * xs (W4A8), 0: acc * xs * ws (W8A8)
+  const float* xs;
+  const float* ws;
+  const float* bias;
+  const void* res;
+  void* out;
+  float inv_gelu_scale;
+  GeluConsts gelu;
+};
+
+__device__ __forceinline__ void store_out(const Epi& e, int m, int n, int N, int acc) {
+  const size_t idx = static_cast<size_t>(m) * N + n;
+  if (e.kind == EPI_NONE) {
+    static_cast<int32_t*>(e.out)[idx] = acc;
+    return;
+  }
+  const float h = e.w_first ? dequant(acc, e.ws[n], e.xs[m], e.bias, n)
+                            : dequant(acc, e.xs[m], e.ws[n], e.bias, n);
+  if (e.kind == EPI_SCALED_GELU) {
+    const float hs = e.stream_f32 ? h : bf16_round(h);
+    float qf = rintf(__fmul_rn(hs, e.inv_gelu_scale));
+    qf = fminf(fmaxf(qf, -128.0f), 127.0f);
+    static_cast<int8_t*>(e.out)[idx] =
+        static_cast<int8_t>(gelu_block(static_cast<int>(qf), e.gelu));
+    return;
+  }
+  if (e.stream_f32) {
+    float o = h;
+    if (e.kind == EPI_SCALED_ADD) o = __fadd_rn(o, static_cast<const float*>(e.res)[idx]);
+    static_cast<float*>(e.out)[idx] = o;
+  } else {
+    __nv_bfloat16 o = __float2bfloat16_rn(h);
+    if (e.kind == EPI_SCALED_ADD) {
+      const float r = __bfloat162float(static_cast<const __nv_bfloat16*>(e.res)[idx]);
+      o = __float2bfloat16_rn(__fadd_rn(__bfloat162float(o), r));
+    }
+    static_cast<__nv_bfloat16*>(e.out)[idx] = o;
+  }
+}
+
+enum { ACT_SILU = 0, ACT_GELU = 1 };
+
+// the integer gate activation at a static scale
+struct Act {
+  int kind;
+  float inv_scale;  // f32(1 / act_scale): the jitted form of g / act_scale
+  float out_scale;  // f32(silu_out_scale or gelu_out_scale)
+  SiluConsts silu;
+  GeluConsts gelu;
+};
+
+// act(gate) * up of the integer gated MLP, bf16 out: ``up``/``gate`` are the
+// f32 dequantized sums
+__device__ __forceinline__ __nv_bfloat16 gated_out(float up, float gate, const Act& a) {
+  const float h = bf16_round(up);
+  const float g = bf16_round(gate);
+  float qf = rintf(__fmul_rn(g, a.inv_scale));
+  const int q = static_cast<int>(fminf(fmaxf(qf, -128.0f), 127.0f));
+  const int pay = a.kind == ACT_SILU ? silu_block(q, a.silu) : gelu_block(q, a.gelu);
+  const float act = bf16_round(__fmul_rn(__int2float_rn(pay), a.out_scale));
+  return __float2bfloat16_rn(__fmul_rn(act, h));
 }

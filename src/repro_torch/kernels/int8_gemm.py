@@ -1,34 +1,63 @@
-"""int8 x int8 -> int32 GEMM with fused epilogues.
+"""Integer GEMMs with fused epilogues: W8A8 (int8 weights), W4A8 (packed
+int4 weights with two-level group scales) and the gated-MLP dual GEMMs.
 
-Port of the Pallas kernel ``repro/kernels/int8_gemm.py:127`` ``int8_gemm`` to
-the CUDA kernel ``csrc/int8_gemm.cu`` (source note there: bound by bytes at
-decode and by operations at prefill; 64x64 ``__dp4a`` tiles, split K with an
-exact int32 combine when the tiles alone cannot fill the card).  The
-epilogues the serving path runs are ported:
+Ports of the Pallas kernels of ``repro/kernels/int8_gemm.py`` to CUDA
+kernels for ``sm_90a`` (source notes in each ``csrc`` file; all but the
+float dual share the main loop of ``csrc/gemm_tile.cuh``: 64x64 ``__dp4a``
+tiles, W in the reference's layout transposed in registers, split K with
+an exact int32 combine when the tiles alone cannot fill the card):
 
-  none         int32 accumulator out
-  scaled       f32 dequant ``acc * xs * ws`` (+ bias), cast to the stream dtype
+  int8_gemm             (``:127``) -> ``csrc/int8_gemm.cu``
+  int4_gemm             (``:433``) -> ``csrc/int4_gemm.cu``
+  dual_gemm_gated       (``:280``) -> ``csrc/dual_gemm_gated.cu`` (int8, bf16)
+  dual_int4_gemm_gated  (``:568``) -> ``csrc/dual_int4_gemm_gated.cu``
+
+The single-stream epilogues the serving path runs:
+
+  none         int32 accumulator out (int8_gemm only)
+  scaled       f32 dequant (+ bias), cast to the stream dtype
   scaled_add   scaled, then + residual in the stream dtype
   scaled_gelu  scaled, then integer GELU at a static scale -> int8
 
-``gemm_w8a8_ref`` is the plain version, ``repro.kernels.ref.gemm_w8a8_ref``
-as ``jax.jit`` runs it on XLA:CPU: the bias-free dequant is two separate
-multiplies ``(acc*xs)*ws``; with a bias it is one fused multiply-add
-``fma(acc*xs, ws, bias)``; ``h / gelu_scale`` is ``h * f32(1/gelu_scale)``.
-Kernel and plain version are bit-exact.  The plain int32 accumulator is an
-f64 matmul, exact while K * 128 * 128 < 2^53.
+The plain versions are ``repro.kernels.ref``'s oracles as ``jax.jit`` runs
+them on XLA:CPU, and every integer kernel is bit-exact against its plain
+version:
+
+* the dequant chain is ``(acc*xs)*ws`` at W8A8 and ``(acc*ws)*xs`` at W4A8
+  (the reference writes them in those orders; f32 rounds them differently);
+  with a bias, the last multiply and the add are one FMA;
+* ``h / scale`` by a Python-float constant is ``h * f32(1/scale)``;
+* the gate's integer activation is dequantized by one f32 multiply and
+  rounded to bf16, and ``act * up`` is one bf16 multiply.
+
+The plain int32 sums are exact float matmuls: f64 for int8 weights (K*128*128
+< 2^53), f32 per W4 scale group (g*128*8 < 2^24), combined in int32.  The
+bf16 ``dual_gemm_gated`` sums in f32 and applies the float activation in
+f32, so it agrees with its unfused plain version ``gated_mlp_ref`` to a
+tolerance (``DUAL_BF16_RTOL``/``DUAL_BF16_ATOL``), not bit for bit.
 """
 from __future__ import annotations
 
 import torch
 
 from . import build
-from .common import LAUNCHES, cdiv, check, fma_f32, on_cuda, rcp32
-from .int_gelu import gelu_consts, int_gelu_ref
+from .common import LAUNCHES, cdiv, check, f32, fma_f32, on_cuda, rcp32
+from .int_gelu import gelu_consts, gelu_out_scale, int_gelu_ref
+from .int_silu import int_silu_ref, silu_consts, silu_out_scale
 
 I32 = torch.int32
 EPILOGUES = ("none", "scaled", "scaled_add", "scaled_gelu")
+W4A8_EPILOGUES = ("scaled", "scaled_add", "scaled_gelu")
 _EPI_CODE = {e: i for i, e in enumerate(EPILOGUES)}
+GATED_ACTS = ("silu", "gelu")
+# |kernel - plain| <= DUAL_BF16_ATOL + DUAL_BF16_RTOL * |plain| for the bf16
+# dual_gemm_gated: the plain version rounds h, g, act(g) and the product to
+# bf16 (each <= 2^-9 relative; the SiLU's relative slope, 1 + g*(1 -
+# sigmoid(g)), can double g's error), the kernel rounds once; f32 sums in
+# another order add ~1e-6.  Outputs below ~0.03 (a strongly negative gate)
+# fall under the absolute term.
+DUAL_BF16_RTOL = 2.0 ** -5
+DUAL_BF16_ATOL = 1e-3
 BM = BN = BK = 64
 
 
@@ -39,27 +68,131 @@ def int8_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.double() @ w.double()).to(I32)
 
 
+def _dequant(acc, first, second, bias):
+    """f32 dequant of an int32 sum in the reference's order: ``first`` is
+    the scale it multiplies by first; a bias makes the last step one FMA."""
+    p = acc.float() * first
+    if bias is None:
+        return p * second
+    return fma_f32(p, second.expand_as(p), bias.expand_as(p))
+
+
+def _finish(h, residual, gelu_scale, out_dtype):
+    """The scaled epilogues past the dequant: int GELU at a static scale
+    (int8 out), or the stream dtype (+ residual)."""
+    if gelu_scale is not None:
+        h = h.to(out_dtype).float()
+        q = torch.clamp(torch.round(h * f32(rcp32(gelu_scale), h.device)),
+                        -128, 127).to(I32)
+        return int_gelu_ref(q, gelu_scale)
+    h = h.to(out_dtype)
+    if residual is not None:
+        h = h + residual
+    return h
+
+
 def gemm_w8a8_ref(x_q, x_scale, w_q, w_scale, bias=None, residual=None,
                   gelu_scale=None, out_dtype=torch.bfloat16):
     """Plain W8A8 linear: int8 GEMM -> f32 rescale (-> int GELU | + res).
 
     x_q [M, K] int8, x_scale [M, 1] f32, w_q [K, N] int8, w_scale [N] f32,
     bias [N] f32, residual [M, N] in ``out_dtype``."""
-    acc = int8_matmul_ref(x_q, w_q)
-    p = acc.float() * x_scale
-    if bias is None:
-        h = p * w_scale
+    h = _dequant(int8_matmul_ref(x_q, w_q), x_scale, w_scale, bias)
+    return _finish(h, residual, gelu_scale, out_dtype)
+
+
+def _gate(g, act, act_scale, out_dtype):
+    """The integer gate of the gated MLP: the stream-dtype gate requantized
+    at the static ``act_scale``, integer SiLU/GELU, dequantized by one f32
+    multiply into the stream dtype."""
+    q = torch.clamp(torch.round(g.float() * f32(rcp32(act_scale), g.device)),
+                    -128, 127).to(I32)
+    if act == "silu":
+        pay, out_scale = int_silu_ref(q, act_scale), silu_out_scale(act_scale)
     else:
-        h = fma_f32(p, w_scale.expand_as(p), bias.expand_as(p))
-    if gelu_scale is not None:
-        h = h.to(out_dtype).float()
-        rcp = torch.tensor(rcp32(gelu_scale), device=h.device)
-        q = torch.clamp(torch.round(h * rcp), -128, 127).to(I32)
-        return int_gelu_ref(q, gelu_scale)
-    h = h.to(out_dtype)
-    if residual is not None:
-        h = h + residual
-    return h
+        pay, out_scale = int_gelu_ref(q, act_scale), gelu_out_scale(act_scale)
+    return (pay.float() * f32(out_scale, g.device)).to(out_dtype)
+
+
+def gated_mlp_ref(x, w_up, w_gate, act="silu", compute_dtype=torch.bfloat16):
+    """Plain float gated MLP, as the reference's model composes it: two
+    compute-dtype GEMMs, the float activation of the gate, a multiply.  Each
+    GEMM sums the compute-dtype products in f32 and rounds once, as XLA:CPU
+    does (cuBLAS's bf16 GEMM may reduce split-K partials in bf16)."""
+    xc = x.to(compute_dtype).float()
+    h = (xc @ w_up.to(compute_dtype).float()).to(compute_dtype)
+    g = (xc @ w_gate.to(compute_dtype).float()).to(compute_dtype)
+    a = (torch.nn.functional.silu(g) if act == "silu"
+         else torch.nn.functional.gelu(g, approximate="none"))
+    return a * h
+
+
+def gated_mlp_w8a8_ref(x_q, x_scale, w_up_q, up_scale, w_gate_q, gate_scale,
+                       act="silu", act_scale=None, out_dtype=torch.bfloat16):
+    """Plain W8A8 gated MLP: two scaled W8A8 GEMMs over the same quantized
+    activations -> integer activation of the gate -> multiply."""
+    h = gemm_w8a8_ref(x_q, x_scale, w_up_q, up_scale, out_dtype=out_dtype)
+    g = gemm_w8a8_ref(x_q, x_scale, w_gate_q, gate_scale, out_dtype=out_dtype)
+    return _gate(g, act, act_scale, out_dtype) * h
+
+
+def unpack_int4_ref(packed, k):
+    """packed int8 [..., ceil(K/2), N] -> sign-extended int8 [..., K, N],
+    written with modular arithmetic (independent of
+    ``quantize.unpack_int4``): the low nibble is ``((b & 0xF) ^ 8) - 8``, the
+    high nibble a floor division by 16."""
+    p = packed.to(I32)
+    lo = ((p & 0xF) ^ 8) - 8
+    hi = torch.div(p, 16, rounding_mode="floor")
+    kp, n = packed.shape[-2], packed.shape[-1]
+    w = torch.stack([lo, hi], dim=-2).reshape(*packed.shape[:-2], 2 * kp, n)
+    return w[..., :k, :].to(torch.int8)
+
+
+def w4_group(k: int, qmul: torch.Tensor) -> int:
+    """The scale group size of a W4 weight with contraction depth ``k``;
+    checks the reference's headroom bounds."""
+    groups = qmul.shape[-2]
+    g = k // groups
+    check(g * groups == k and g * 128 * 8 < 2 ** 24,
+          f"K={k} is not {groups} groups of an f32-exact size")
+    check(k * 128 * 8 * 127 < 2 ** 31, f"K={k} overflows the int32 combine")
+    return g
+
+
+def int4_matmul_ref(x_q, w4, qmul):
+    """Exact int32 group combine sum_g (x_g . w_g) * qmul[g] of int8
+    [M, K] x packed int4 [K/2, N]: each group's partial is an f32 batched
+    matmul (exact: |partial| <= g*128*8 < 2^24), cast to int32 and
+    multiplied by its int8 multiplier; the sum over groups is integer."""
+    m, k = x_q.shape
+    g = w4_group(k, qmul)
+    groups, n = qmul.shape
+    w = unpack_int4_ref(w4, k).float().reshape(groups, g, n)
+    xg = x_q.float().reshape(m, groups, g).transpose(0, 1)      # [G, M, g]
+    part = torch.bmm(xg, w).to(I32)                             # [G, M, N]
+    return (part * qmul.to(I32)[:, None, :]).sum(0, dtype=torch.int64).to(I32)
+
+
+def gemm_w4a8_ref(x_q, x_scale, w4, qmul, w_scale, bias=None, residual=None,
+                  gelu_scale=None, out_dtype=torch.bfloat16):
+    """Plain W4A8 linear: nibble unpack -> per-group int8 x int4 GEMM ->
+    integer group combine -> ONE f32 rescale ``(acc*ws)*xs`` (-> int GELU |
+    + res).  x_q [M, K] int8, x_scale [M, 1], w4 [K/2, N] packed, qmul
+    [K/g, N] int8, w_scale [N] f32."""
+    h = _dequant(int4_matmul_ref(x_q, w4, qmul), w_scale, x_scale, bias)
+    return _finish(h, residual, gelu_scale, out_dtype)
+
+
+def gated_mlp_w4a8_ref(x_q, x_scale, up4, up_mul, up_scale, gate4, gate_mul,
+                       gate_scale, act="silu", act_scale=None,
+                       out_dtype=torch.bfloat16):
+    """Plain W4A8 gated MLP: two group-scaled W4A8 GEMMs over the same
+    quantized activations -> integer activation of the gate -> multiply."""
+    h = gemm_w4a8_ref(x_q, x_scale, up4, up_mul, up_scale, out_dtype=out_dtype)
+    g = gemm_w4a8_ref(x_q, x_scale, gate4, gate_mul, gate_scale,
+                      out_dtype=out_dtype)
+    return _gate(g, act, act_scale, out_dtype) * h
 
 
 class _Workspace:
@@ -86,42 +219,63 @@ class _Workspace:
 _WORKSPACE = _Workspace()
 
 
-def split_k(m: int, n: int, k: int, n_sm: int) -> tuple[int, int]:
+def split_k(m: int, n: int, k: int, n_sm: int,
+            align: int = BK) -> tuple[int, int]:
     """(split, k_len): split K across blocks until about two blocks per SM
-    are in flight; k_len is a multiple of BK and every split is non-empty."""
+    are in flight; k_len is a multiple of ``align`` (BK, or the W4 group
+    when larger) and every split is non-empty."""
     tiles = cdiv(m, BM) * cdiv(n, BN)
-    steps = cdiv(k, BK)
+    steps = cdiv(k, align)
     split = max(1, min(steps, cdiv(2 * n_sm, tiles)))
-    k_len = cdiv(steps, split) * BK
+    k_len = cdiv(steps, split) * align
     return cdiv(k, k_len), k_len
 
 
-def _launch(x, w, epilogue, x_scale, w_scale, bias, residual, gelu_scale,
-            out_dtype):
-    check(x.dtype == torch.int8 and w.dtype == torch.int8 and x.dim() == 2
-          and w.dim() == 2 and x.shape[1] == w.shape[0],
-          f"int8 GEMM operands: x {x.dtype} {tuple(x.shape)}, w {w.dtype} "
-          f"{tuple(w.shape)}")
-    check(x.is_contiguous() and w.is_contiguous(), "GEMM operands must be "
-          "contiguous")
+def _tiling(x, weights, n: int, align: int, n_streams: int):
+    """(split, k_len, workspace, counters, vec) of an integer GEMM launch
+    over x [M, K]; ``vec``: A and W rows may load as 16- and 4-byte words."""
     m, k = x.shape
-    n = w.shape[1]
     dev = x.device
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    split, k_len = split_k(m, n, k, n_sm, align)
+    part, cnt = _WORKSPACE.get(dev, n_streams * m * n if split > 1 else 0,
+                               cdiv(m, BM) * cdiv(n, BN))
+    vec = int(k % 16 == 0 and n % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (x, *weights)))
+    return split, k_len, part.data_ptr(), cnt.data_ptr(), vec
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check_i8(t, shape, what):
+    check(t.dtype == torch.int8 and tuple(t.shape) == tuple(shape)
+          and t.is_contiguous(),
+          f"{what}: want contiguous int8 {tuple(shape)}, got "
+          f"{t.dtype} {tuple(t.shape)}")
+
+
+def _check_f32(t, numel, what):
+    check(t.dtype == torch.float32 and t.numel() == numel and t.is_contiguous(),
+          f"{what} must be contiguous f32 with {numel} values")
+
+
+def _epilogue_args(epilogue, m, n, x_scale, w_scale, bias, residual,
+                   gelu_scale, out_dtype, dev):
+    """(output tensor, C arguments from ``epilogue`` to the GELU consts) of
+    the single-stream epilogues (``Epi`` in ``csrc/int_epilogue.cuh``)."""
     xs = ws = b = r = 0                  # NULL unless the epilogue reads it
-    stream_f32 = int(out_dtype == torch.float32)
     if epilogue == "none":
         out = torch.empty((m, n), dtype=I32, device=dev)
     else:
         check(out_dtype in (torch.bfloat16, torch.float32),
               f"stream dtype must be bf16 or f32, got {out_dtype}")
-        check(x_scale.dtype == torch.float32 and x_scale.numel() == m
-              and x_scale.is_contiguous(), "x_scale must be contiguous f32 [M, 1]")
-        check(w_scale.dtype == torch.float32 and w_scale.numel() == n
-              and w_scale.is_contiguous(), "w_scale must be contiguous f32 [N]")
+        _check_f32(x_scale, m, "x_scale [M, 1]")
+        _check_f32(w_scale, n, "w_scale [N]")
         xs, ws = x_scale.data_ptr(), w_scale.data_ptr()
         if bias is not None:
-            check(bias.dtype == torch.float32 and bias.numel() == n
-                  and bias.is_contiguous(), "bias must be contiguous f32 [N]")
+            _check_f32(bias, n, "bias [N]")
             b = bias.data_ptr()
         if epilogue == "scaled_add":
             check(residual.dtype == out_dtype and tuple(residual.shape) == (m, n)
@@ -130,24 +284,40 @@ def _launch(x, w, epilogue, x_scale, w_scale, bias, residual, gelu_scale,
             r = residual.data_ptr()
         out = torch.empty((m, n), device=dev, dtype=torch.int8
                           if epilogue == "scaled_gelu" else out_dtype)
-    consts = (0,) * 6
-    inv = 0.0
+    consts, inv = (0,) * 6, 0.0
     if epilogue == "scaled_gelu":
-        consts = gelu_consts(gelu_scale)
-        inv = float(rcp32(gelu_scale))
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    split, k_len = split_k(m, n, k, n_sm)
-    part, cnt = _WORKSPACE.get(dev, m * n if split > 1 else 0,
-                               cdiv(m, BM) * cdiv(n, BN))
-    vec = int(k % 16 == 0 and n % 4 == 0 and x.data_ptr() % 16 == 0
-              and w.data_ptr() % 16 == 0)
+        consts, inv = gelu_consts(gelu_scale), float(rcp32(gelu_scale))
+    return out, (_EPI_CODE[epilogue], int(out_dtype == torch.float32), xs, ws,
+                 b, r, out.data_ptr(), inv, *consts)
+
+
+_EPI_ARGTYPES = ([build.I] * 2 + [build.VP] * 5 + [build.F] + [build.I] * 6)
+
+
+def _check_epilogue(epilogue, epilogues, gelu_scale, residual):
+    check(epilogue in epilogues, f"epilogue {epilogue!r} not in {epilogues}")
+    check((epilogue == "scaled_gelu") == (gelu_scale is not None),
+          "gelu_scale goes with the scaled_gelu epilogue")
+    check((epilogue == "scaled_add") == (residual is not None),
+          "residual goes with the scaled_add epilogue")
+
+
+def _launch(x, w, epilogue, x_scale, w_scale, bias, residual, gelu_scale,
+            out_dtype):
+    check(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[0],
+          f"int8 GEMM operands: x {tuple(x.shape)}, w {tuple(w.shape)}")
+    m, k = x.shape
+    n = w.shape[1]
+    _check_i8(x, (m, k), "x")
+    _check_i8(w, (k, n), "w")
+    out, epi = _epilogue_args(epilogue, m, n, x_scale, w_scale, bias,
+                              residual, gelu_scale, out_dtype, x.device)
+    split, k_len, part, cnt, vec = _tiling(x, (w,), n, BK, 1)
     fn = build.entry("int8_gemm", "repro_int8_gemm",
-                     [build.VP] * 2 + [build.I] * 5 + [build.VP] * 5
-                     + [build.F] + [build.I] * 9 + [build.VP] * 3)
-    rc = fn(x.data_ptr(), w.data_ptr(), m, n, k, _EPI_CODE[epilogue], stream_f32,
-            xs, ws, b, r, out.data_ptr(), inv, *consts, split, k_len, vec,
-            part.data_ptr(), cnt.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+                     [build.VP] * 2 + [build.I] * 3 + _EPI_ARGTYPES
+                     + [build.I] * 3 + [build.VP] * 3)
+    rc = fn(x.data_ptr(), w.data_ptr(), m, n, k, *epi, split, k_len, vec,
+            part, cnt, _stream(x.device))
     build.check_rc(rc, "int8_gemm")
     LAUNCHES["int8_gemm"] += 1
     return out
@@ -158,11 +328,7 @@ def int8_gemm(x, w, epilogue: str = "none", *, x_scale=None, w_scale=None,
               out_dtype=torch.bfloat16):
     """x [M, K] int8 @ w [K, N] int8 with a fused epilogue: the CUDA kernel
     for CUDA tensors, the plain version for CPU tensors."""
-    check(epilogue in EPILOGUES, f"epilogue {epilogue!r} not in {EPILOGUES}")
-    check((epilogue == "scaled_gelu") == (gelu_scale is not None),
-          "gelu_scale goes with the scaled_gelu epilogue")
-    check((epilogue == "scaled_add") == (residual is not None),
-          "residual goes with the scaled_add epilogue")
+    _check_epilogue(epilogue, EPILOGUES, gelu_scale, residual)
     if on_cuda(x, w, x_scale, w_scale, bias, residual):
         return _launch(x, w, epilogue, x_scale, w_scale, bias, residual,
                        gelu_scale, out_dtype)
@@ -170,3 +336,164 @@ def int8_gemm(x, w, epilogue: str = "none", *, x_scale=None, w_scale=None,
         return int8_matmul_ref(x, w)
     return gemm_w8a8_ref(x, x_scale, w, w_scale, bias=bias, residual=residual,
                          gelu_scale=gelu_scale, out_dtype=out_dtype)
+
+
+def _launch_int4(x, w4, qmul, w_scale, x_scale, epilogue, gelu_scale, bias,
+                 residual, out_dtype):
+    check(x.dim() == 2, f"x must be [M, K], got {tuple(x.shape)}")
+    m, k = x.shape
+    n = w4.shape[-1]
+    g = w4_group(k, qmul)
+    check(g in (32, 64, 128), f"W4 group {g} is not 32, 64 or 128")
+    _check_i8(x, (m, k), "x")
+    _check_i8(w4, (k // 2, n), "w4 [K/2, N]")
+    _check_i8(qmul, (k // g, n), "qmul [K/g, N]")
+    out, epi = _epilogue_args(epilogue, m, n, x_scale, w_scale, bias,
+                              residual, gelu_scale, out_dtype, x.device)
+    split, k_len, part, cnt, vec = _tiling(x, (w4,), n, max(BK, g), 1)
+    fn = build.entry("int4_gemm", "repro_int4_gemm",
+                     [build.VP] * 3 + [build.I] * 4 + _EPI_ARGTYPES
+                     + [build.I] * 3 + [build.VP] * 3)
+    rc = fn(x.data_ptr(), w4.data_ptr(), qmul.data_ptr(), m, n, k, g, *epi,
+            split, k_len, vec, part, cnt, _stream(x.device))
+    build.check_rc(rc, "int4_gemm")
+    LAUNCHES["int4_gemm"] += 1
+    return out
+
+
+def int4_gemm(x, w4, qmul, w_scale, x_scale, epilogue: str = "scaled", *,
+              gelu_scale=None, bias=None, residual=None,
+              out_dtype=torch.bfloat16):
+    """x [M, K] int8 @ unpack(w4) [K, N] int4 with two-level scales (group
+    multipliers qmul [K/g, N], column scales w_scale [N]) and a fused
+    epilogue: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    _check_epilogue(epilogue, W4A8_EPILOGUES, gelu_scale, residual)
+    if on_cuda(x, w4, qmul, w_scale, x_scale, bias, residual):
+        return _launch_int4(x, w4, qmul, w_scale, x_scale, epilogue,
+                            gelu_scale, bias, residual, out_dtype)
+    return gemm_w4a8_ref(x, x_scale, w4, qmul, w_scale, bias=bias,
+                         residual=residual, gelu_scale=gelu_scale,
+                         out_dtype=out_dtype)
+
+
+def _act_args(act, act_scale):
+    """C arguments of the integer gate (``Act`` in ``int_epilogue.cuh``)."""
+    if act == "silu":
+        out_scale, silu, gelu = silu_out_scale(act_scale), silu_consts(act_scale), (0,) * 6
+    else:
+        out_scale, silu, gelu = gelu_out_scale(act_scale), (0,) * 4, gelu_consts(act_scale)
+    return (GATED_ACTS.index(act), float(rcp32(act_scale)), out_scale, *silu,
+            *gelu)
+
+
+_ACT_ARGTYPES = [build.I, build.F, build.F] + [build.I] * 10
+
+
+def _check_gated(x, act, act_scale, out_dtype, scales):
+    check(act in GATED_ACTS, f"act {act!r} not in {GATED_ACTS}")
+    check(out_dtype == torch.bfloat16, "the gated MLP kernels write bf16")
+    if x.dtype == torch.int8:
+        check(act_scale is not None and all(s is not None for s in scales),
+              "the integer gated MLP needs the three scales and act_scale")
+
+
+def _launch_dual(x, w_up, w_gate, x_scale, up_scale, gate_scale, act,
+                 act_scale):
+    check(x.dim() == 2 and w_up.dim() == 2 and x.shape[1] == w_up.shape[0],
+          f"dual GEMM operands: x {tuple(x.shape)}, w {tuple(w_up.shape)}")
+    m, k = x.shape
+    n = w_up.shape[1]
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    if x.dtype == torch.int8:
+        _check_i8(x, (m, k), "x")
+        _check_i8(w_up, (k, n), "w_up")
+        _check_i8(w_gate, (k, n), "w_gate")
+        _check_f32(x_scale, m, "x_scale [M, 1]")
+        _check_f32(up_scale, n, "up_scale [N]")
+        _check_f32(gate_scale, n, "gate_scale [N]")
+        split, k_len, part, cnt, vec = _tiling(x, (w_up, w_gate), n, BK, 2)
+        fn = build.entry("dual_gemm_gated", "repro_dual_gemm_gated_i8",
+                         [build.VP] * 6 + [build.I] * 3 + _ACT_ARGTYPES
+                         + [build.VP] + [build.I] * 3 + [build.VP] * 3)
+        rc = fn(x.data_ptr(), w_up.data_ptr(), up_scale.data_ptr(),
+                w_gate.data_ptr(), gate_scale.data_ptr(), x_scale.data_ptr(),
+                m, n, k, *_act_args(act, act_scale), out.data_ptr(), split,
+                k_len, vec, part, cnt, _stream(x.device))
+    else:
+        for t, what in ((x, "x"), (w_up, "w_up"), (w_gate, "w_gate")):
+            check(t.dtype == torch.bfloat16 and t.is_contiguous(),
+                  f"{what} of the float gated MLP must be contiguous bf16, "
+                  f"got {t.dtype}")
+        check(tuple(w_gate.shape) == (k, n), "w_gate must match w_up")
+        vec = int(k % 8 == 0 and n % 8 == 0 and all(
+            t.data_ptr() % 16 == 0 for t in (x, w_up, w_gate)))
+        fn = build.entry("dual_gemm_gated", "repro_dual_gemm_gated_bf16",
+                         [build.VP] * 3 + [build.I] * 5 + [build.VP] * 2)
+        rc = fn(x.data_ptr(), w_up.data_ptr(), w_gate.data_ptr(), m, n, k,
+                GATED_ACTS.index(act), vec, out.data_ptr(), _stream(x.device))
+    build.check_rc(rc, "dual_gemm_gated")
+    LAUNCHES["dual_gemm_gated"] += 1
+    return out
+
+
+def dual_gemm_gated(x, w_up, w_gate, x_scale=None, up_scale=None,
+                    gate_scale=None, act: str = "silu", act_scale=None,
+                    out_dtype=torch.bfloat16):
+    """act(x @ w_gate) * (x @ w_up) with both GEMMs fused.  int8 x (W8A8):
+    needs the three scales and the static ``act_scale``; bf16 x: float
+    activation.  The CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    _check_gated(x, act, act_scale, out_dtype, (x_scale, up_scale, gate_scale))
+    if on_cuda(x, w_up, w_gate, x_scale, up_scale, gate_scale):
+        return _launch_dual(x, w_up, w_gate, x_scale, up_scale, gate_scale,
+                            act, act_scale)
+    if x.dtype == torch.int8:
+        return gated_mlp_w8a8_ref(x, x_scale, w_up, up_scale, w_gate,
+                                  gate_scale, act=act, act_scale=act_scale,
+                                  out_dtype=out_dtype)
+    return gated_mlp_ref(x, w_up, w_gate, act, out_dtype)
+
+
+def _launch_dual_int4(x, up4, up_mul, up_scale, gate4, gate_mul, gate_scale,
+                      x_scale, act, act_scale):
+    check(x.dim() == 2, f"x must be [M, K], got {tuple(x.shape)}")
+    m, k = x.shape
+    n = up4.shape[-1]
+    g = w4_group(k, up_mul)
+    check(g in (32, 64, 128), f"W4 group {g} is not 32, 64 or 128")
+    _check_i8(x, (m, k), "x")
+    for t, what in ((up4, "up4"), (gate4, "gate4")):
+        _check_i8(t, (k // 2, n), f"{what} [K/2, N]")
+    for t, what in ((up_mul, "up_mul"), (gate_mul, "gate_mul")):
+        _check_i8(t, (k // g, n), f"{what} [K/g, N]")
+    _check_f32(x_scale, m, "x_scale [M, 1]")
+    _check_f32(up_scale, n, "up_scale [N]")
+    _check_f32(gate_scale, n, "gate_scale [N]")
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    split, k_len, part, cnt, vec = _tiling(x, (up4, gate4), n, max(BK, g), 2)
+    fn = build.entry("dual_int4_gemm_gated", "repro_dual_int4_gemm_gated",
+                     [build.VP] * 8 + [build.I] * 4 + _ACT_ARGTYPES
+                     + [build.VP] + [build.I] * 3 + [build.VP] * 3)
+    rc = fn(x.data_ptr(), up4.data_ptr(), up_mul.data_ptr(),
+            up_scale.data_ptr(), gate4.data_ptr(), gate_mul.data_ptr(),
+            gate_scale.data_ptr(), x_scale.data_ptr(), m, n, k, g,
+            *_act_args(act, act_scale), out.data_ptr(), split, k_len, vec,
+            part, cnt, _stream(x.device))
+    build.check_rc(rc, "dual_int4_gemm_gated")
+    LAUNCHES["dual_int4_gemm_gated"] += 1
+    return out
+
+
+def dual_int4_gemm_gated(x, up4, up_mul, up_scale, gate4, gate_mul,
+                         gate_scale, x_scale, act: str = "silu",
+                         act_scale=None, out_dtype=torch.bfloat16):
+    """act(x @ gate4) * (x @ up4), both W4A8 GEMMs fused over one shared A:
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    _check_gated(x, act, act_scale, out_dtype, (x_scale, up_scale, gate_scale))
+    if on_cuda(x, up4, up_mul, up_scale, gate4, gate_mul, gate_scale, x_scale):
+        return _launch_dual_int4(x, up4, up_mul, up_scale, gate4, gate_mul,
+                                 gate_scale, x_scale, act, act_scale)
+    return gated_mlp_w4a8_ref(x, x_scale, up4, up_mul, up_scale, gate4,
+                              gate_mul, gate_scale, act=act,
+                              act_scale=act_scale, out_dtype=out_dtype)

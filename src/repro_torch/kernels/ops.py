@@ -12,13 +12,15 @@ from __future__ import annotations
 import torch
 
 from .common import LAUNCHES
-from .int8_gemm import int8_gemm
+from .int8_gemm import (dual_gemm_gated, dual_int4_gemm_gated, int4_gemm,
+                        int8_gemm)
 from .int8_kv_decode_attention import int8_kv_decode_attention
 from .int_layernorm import int_layernorm
 from .quantize import quantize_rows
 
 KERNELS = ("quantize_rows", "int8_gemm", "int_layernorm",
-           "int8_kv_decode_attention")
+           "int8_kv_decode_attention", "dual_gemm_gated", "int4_gemm",
+           "dual_int4_gemm_gated")
 
 
 def launch_counts() -> dict[str, int]:
@@ -49,14 +51,72 @@ def gemm_w8a8(x_q, x_scale, w_q, w_scale, bias=None, residual=None,
     x2 = x_q.reshape(-1, k).contiguous()
     xs2 = x_scale.reshape(-1, 1).contiguous()
     r2 = None if residual is None else residual.reshape(-1, n).contiguous()
+    out = int8_gemm(x2, w_q, _epilogue(gelu_scale, r2), x_scale=xs2,
+                    w_scale=w_scale, bias=bias, residual=r2,
+                    gelu_scale=gelu_scale, out_dtype=out_dtype)
+    return out.reshape(*lead, n)
+
+
+def _epilogue(gelu_scale, residual) -> str:
     if gelu_scale is not None:
-        epi = "scaled_gelu"
-    elif r2 is not None:
-        epi = "scaled_add"
-    else:
-        epi = "scaled"
-    out = int8_gemm(x2, w_q, epi, x_scale=xs2, w_scale=w_scale, bias=bias,
-                    residual=r2, gelu_scale=gelu_scale, out_dtype=out_dtype)
+        return "scaled_gelu"
+    return "scaled" if residual is None else "scaled_add"
+
+
+def gated_mlp(x, w_up, w_gate, act: str = "silu",
+              compute_dtype=torch.bfloat16):
+    """Fused dual-GEMM gated MLP (float): ``act(x @ w_gate) * (x @ w_up)``
+    with x read once and neither [T, d_ff] product written out."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    n = w_up.shape[1]
+    out = dual_gemm_gated(x.reshape(-1, k).to(compute_dtype).contiguous(),
+                          w_up.to(compute_dtype), w_gate.to(compute_dtype),
+                          act=act, out_dtype=compute_dtype)
+    return out.reshape(*lead, n)
+
+
+def gated_mlp_w8a8(x_q, x_scale, w_up_q, up_scale, w_gate_q, gate_scale,
+                   act: str = "silu", act_scale: float | None = None,
+                   out_dtype=torch.bfloat16):
+    """Fused W8A8 dual-GEMM gated MLP: x_q [..., K] int8 with per-row
+    scales, both weights [K, N] int8 with per-column scales; dequant and the
+    integer activation(gate) * up run in the GEMM epilogue."""
+    lead, k = x_q.shape[:-1], x_q.shape[-1]
+    n = w_up_q.shape[1]
+    out = dual_gemm_gated(x_q.reshape(-1, k).contiguous(), w_up_q, w_gate_q,
+                          x_scale.reshape(-1, 1).contiguous(), up_scale,
+                          gate_scale, act=act, act_scale=act_scale,
+                          out_dtype=out_dtype)
+    return out.reshape(*lead, n)
+
+
+def gemm_w4a8(x_q, x_scale, w4, qmul, w_scale, bias=None, residual=None,
+              gelu_scale=None, out_dtype=torch.bfloat16):
+    """W4A8 linear: packed-int4 weights w4 [K/2, N] with group multipliers
+    qmul [K/g, N] and column scales w_scale [N], nibbles unpacked in the
+    kernel, the same fused epilogues as ``gemm_w8a8``."""
+    lead, k = x_q.shape[:-1], x_q.shape[-1]
+    n = w4.shape[-1]
+    r2 = None if residual is None else residual.reshape(-1, n).contiguous()
+    out = int4_gemm(x_q.reshape(-1, k).contiguous(), w4, qmul, w_scale,
+                    x_scale.reshape(-1, 1).contiguous(),
+                    _epilogue(gelu_scale, r2), gelu_scale=gelu_scale,
+                    bias=bias, residual=r2, out_dtype=out_dtype)
+    return out.reshape(*lead, n)
+
+
+def gated_mlp_w4a8(x_q, x_scale, up4, up_mul, up_scale, gate4, gate_mul,
+                   gate_scale, act: str = "silu",
+                   act_scale: float | None = None, out_dtype=torch.bfloat16):
+    """Fused W4A8 dual-GEMM gated MLP: two packed-int4 weight streams share
+    one A tile; unpack, group dequant and the integer activation(gate) * up
+    run in the kernel."""
+    lead, k = x_q.shape[:-1], x_q.shape[-1]
+    n = up4.shape[-1]
+    out = dual_int4_gemm_gated(x_q.reshape(-1, k).contiguous(), up4, up_mul,
+                               up_scale, gate4, gate_mul, gate_scale,
+                               x_scale.reshape(-1, 1).contiguous(), act=act,
+                               act_scale=act_scale, out_dtype=out_dtype)
     return out.reshape(*lead, n)
 
 

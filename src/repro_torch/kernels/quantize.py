@@ -7,6 +7,9 @@ one block per row).  ``quantize_rows_ref`` is its plain version, the jitted
 ``repro.kernels.ref.quantize_rows_ref``: the scale is ``amax * f32(1/127)``
 (XLA's form of ``amax / 127.0`` under jit), the division by it is a true
 division.  Bit-exact against the kernel.
+
+``pack_int4`` / ``unpack_int4`` hold the W4A8 weight container in plain
+PyTorch (no kernel: PTQ packs once; the int4 GEMMs unpack in registers).
 """
 from __future__ import annotations
 
@@ -49,3 +52,28 @@ def quantize_rows(x: torch.Tensor):
     if on_cuda(x):
         return _launch(x)
     return quantize_rows_ref(x)
+
+
+def pack_int4(w4: torch.Tensor) -> torch.Tensor:
+    """int8 [..., K, N] with values in [-8, 7] -> packed int8
+    [..., ceil(K/2), N] (``repro.kernels.quantize.pack_int4``'s layout).
+
+    Byte i holds contraction rows 2i (low nibble) and 2i+1 (high nibble);
+    an odd K is padded with a zero nibble."""
+    check(w4.dtype == torch.int8, f"pack_int4 takes int8, got {w4.dtype}")
+    if w4.shape[-2] % 2:
+        w4 = torch.cat([w4, torch.zeros_like(w4[..., :1, :])], dim=-2)
+    lo = w4[..., 0::2, :].to(torch.int32) & 0xF
+    hi = w4[..., 1::2, :].to(torch.int32) & 0xF
+    return ((hi << 4) | lo).to(torch.uint8).view(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor, k: int) -> torch.Tensor:
+    """packed int8 [..., ceil(K/2), N] -> sign-extended int8 [..., K, N]:
+    the low nibble of byte i is row 2i, the high nibble row 2i+1."""
+    p = packed.to(torch.int32)
+    lo = ((p & 0xF) ^ 8) - 8
+    hi = p >> 4                              # arithmetic: the signed nibble
+    w = torch.stack([lo, hi], dim=-2)        # [..., kp, 2, N]
+    w = w.reshape(*packed.shape[:-2], 2 * packed.shape[-2], packed.shape[-1])
+    return w[..., :k, :].to(torch.int8)

@@ -2,16 +2,18 @@
 continuous-batching engine, on the card unless ``--device cpu``.
 
 Usage:
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \\
-      --w8a8 --int8-kv --requests 16 --max-new 32 --lanes 8 --max-seq 1024 \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \\
+      --w4a8 --int8-kv --requests 16 --max-new 32 --lanes 8 --max-seq 1024 \\
       --token-budget 256
 
-Flags mirror ``repro.launch.serve``; those whose feature is not ported yet
-(``--w4a8``, ``--paged``, ``--spec-k``, ``--tp``, ``--temperature``,
-``--token-budget 0``, ``--stream-gap-ms``) raise ``NotImplementedError``, and
-the flags that only tune those features (``--prefill-chunk``,
-``--page-size``, ``--pool-pages``, ``--tp-overlap``) are accepted and
-unused.
+``--w8a8`` quantizes every GEMM weight to int8; ``--w4a8`` applies the
+reference's default W4 policy (attention and MLP projections packed int4 at
+group 64, the lm head int8).  Flags mirror ``repro.launch.serve``; those
+whose feature is not ported yet (``--paged``, ``--spec-k``, ``--tp``,
+``--temperature``, ``--token-budget 0``, ``--stream-gap-ms``) raise
+``NotImplementedError``, and the flags that only tune those features
+(``--prefill-chunk``, ``--page-size``, ``--pool-pages``, ``--tp-overlap``)
+are accepted and unused.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 from ..configs import get_config
 from ..kernels import ops
 from ..models import init_params
-from ..quant import ptq_quantize_params
+from ..quant import DEFAULT_W4_POLICY, ptq_quantize_params
 from ..serve import ServeConfig, ServingEngine
 
 
@@ -58,16 +60,15 @@ def main(argv=None) -> None:
 
     if args.w8a8 and args.w4a8:
         raise SystemExit("--w8a8 and --w4a8 are exclusive")
-    if args.w4a8:
-        raise NotImplementedError("--w4a8 (int4_gemm) is slice 2 of the port "
-                                  "(ROADMAP.md §B)")
     if args.stream_gap_ms > 0:
         raise NotImplementedError("--stream-gap-ms (run_stream) is not ported "
                                   "yet (ROADMAP.md §A8)")
-    precision = "w8a8" if args.w8a8 else "bf16"
+    precision = "w4a8" if args.w4a8 else "w8a8" if args.w8a8 else "bf16"
     cfg = get_config(args.arch, precision=precision, reduced=args.reduced)
     params = init_params(cfg, seed=args.seed, device=args.device)
-    if args.w8a8:
+    if args.w4a8:
+        params = ptq_quantize_params(params, policy=DEFAULT_W4_POLICY)
+    elif args.w8a8:
         params = ptq_quantize_params(params)
     engine = ServingEngine(
         params, cfg,

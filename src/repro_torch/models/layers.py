@@ -1,10 +1,12 @@
-"""Base layers: Linear (bf16 + W8A8 integer path), norms, RoPE, embeddings.
+"""Base layers: Linear (bf16, W8A8 and W4A8 paths), norms, RoPE, embeddings.
 
 Port of ``repro.models.layers``.  ``Linear`` and ``Norm`` are the modules
 that hold the weights: a float ``Linear`` keeps its weight in the
-reference's [in, out] layout; after PTQ it holds an int8 ``w_q`` [in, out]
-and a per-output-channel f32 ``scale`` [out] as buffers.  The functions
-mirror the reference one for one.  Where the reference divides by a
+reference's [in, out] layout; after PTQ it holds, as buffers, an int8
+``w_q`` [in, out] and a per-output-channel f32 ``scale`` [out] (W8A8), or
+packed int4 ``w4`` [in/2, out], int8 group multipliers ``qmul``
+[in/group, out] and ``scale`` [out] (W4A8, two-level group scales).  The
+functions mirror the reference one for one.  Where the reference divides by a
 Python-float constant under ``jax.jit`` (``/ 127.0``), the port multiplies
 by the f32 reciprocal, as XLA does (``kernels/common.py``).
 """
@@ -17,8 +19,10 @@ import torch
 from torch import nn
 
 from ..kernels import ops
-from ..kernels.common import f32, rcp32
+from ..kernels.common import check, f32, rcp32
 from ..kernels.int_gelu import gelu_out_scale, int_gelu_ref
+from ..kernels.int_silu import int_silu_ref, silu_out_scale
+from ..kernels.quantize import pack_int4
 
 DEFAULT_DTYPE = torch.bfloat16
 F32 = torch.float32
@@ -26,6 +30,8 @@ F32 = torch.float32
 # canonical static activation scale for the integer GELU path (the
 # pre-activation clip range [-8, 8] mapped onto int8)
 GELU_INT_SCALE = 8.0 / 127.0
+# ... and for the integer SiLU (SwiGLU gate): the same clip range
+SILU_INT_SCALE = 8.0 / 127.0
 _RCP127 = rcp32(127.0)
 
 # ---------------------------------------------------------------------------
@@ -52,28 +58,43 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int,
 
 
 class Linear(nn.Module):
-    """One GEMM weight: float ``weight`` [in, out], or after PTQ int8
-    ``w_q`` [in, out] + f32 ``scale`` [out] (buffers)."""
+    """One GEMM weight in one of three forms: float ``weight`` [in, out];
+    after int8 PTQ ``w_q`` [in, out] + f32 ``scale`` [out]; after int4 PTQ
+    ``w4`` [in/2, out] + ``qmul`` [in/group, out] + f32 ``scale`` [out]
+    (buffers)."""
 
     def __init__(self, weight: torch.Tensor | None = None, *,
                  w_q: torch.Tensor | None = None,
+                 w4: torch.Tensor | None = None,
+                 qmul: torch.Tensor | None = None,
                  scale: torch.Tensor | None = None):
         super().__init__()
-        if (weight is None) == (w_q is None):
-            raise ValueError("Linear takes a float weight or an int8 w_q")
+        if sum(t is not None for t in (weight, w_q, w4)) != 1:
+            raise ValueError("Linear takes one of a float weight, an int8 "
+                             "w_q or a packed int4 w4")
         self.weight = (None if weight is None
                        else nn.Parameter(weight, requires_grad=False))
         self.register_buffer("w_q", w_q)
+        self.register_buffer("w4", w4)
+        self.register_buffer("qmul", qmul)
         self.register_buffer("scale", scale)
 
     @property
     def quantized(self) -> bool:
-        return self.w_q is not None
+        """True for either integer form (int8 or packed int4)."""
+        return self.w_q is not None or self.w4 is not None
 
-    def quantize_(self, w_q: torch.Tensor, scale: torch.Tensor) -> None:
-        """Replace the float weight by its int8 payload (in place)."""
+    @property
+    def int4(self) -> bool:
+        """True for the packed int4 form."""
+        return self.w4 is not None
+
+    def quantize_(self, payload: dict) -> None:
+        """Replace the float weight by a PTQ payload, ``{w_q, scale}`` or
+        ``{w4, qmul, scale}`` (in place)."""
         self.weight = None
-        self.w_q, self.scale = w_q, scale
+        for name, t in payload.items():
+            setattr(self, name, t)
 
 
 class Norm(nn.Module):
@@ -130,6 +151,19 @@ def linear_gelu_w8a8(x, w_q, w_scale, compute_dtype=DEFAULT_DTYPE):
             ).to(compute_dtype)
 
 
+def linear_gated_w8a8(x, up_q, up_scale, gate_q, gate_scale, act: str,
+                      compute_dtype=DEFAULT_DTYPE):
+    """Fused W8A8 gated-MLP hidden: one activation quant feeds the dual GEMM
+    over a shared A tile; dequant and the integer activation(gate) * up
+    finish in the epilogue.  Bit-identical to ``linear_w8a8`` twice, then
+    the integer ``activation`` and the multiply."""
+    x_q, x_scale = ops.quant_rows(x.float())
+    act_scale = GELU_INT_SCALE if act == "gelu" else SILU_INT_SCALE
+    return ops.gated_mlp_w8a8(x_q, x_scale, up_q, up_scale, gate_q,
+                              gate_scale, act=act, act_scale=act_scale,
+                              out_dtype=compute_dtype)
+
+
 def quantize_weight(w: torch.Tensor) -> dict:
     """PTQ a float [in, out] weight: per-output-channel symmetric int8
     (eager in the reference: a true division by 127)."""
@@ -140,22 +174,84 @@ def quantize_weight(w: torch.Tensor) -> dict:
     return {"w_q": w_q, "scale": scale.float()}
 
 
+def quantize_weight_w4(w: torch.Tensor, group: int = 64,
+                       clip_ratio: float = 1.0) -> dict:
+    """PTQ a float [in, out] weight to packed int4 with two-level group
+    scales (eager in the reference: true divisions).
+
+    Per ``group`` contraction rows the raw scale is clip_ratio * absmax / 7;
+    the column maximum of those / 127 is the f32 column ``scale``, and each
+    group keeps an int8 ratio ``qmul`` in [1, 127] against it.  Weights are
+    quantized against the effective scale ``scale * qmul``, so the GEMM's
+    group combine stays in int32.  Returns {"w4": [in/2, out], "qmul":
+    [in/group, out] int8, "scale": [out] f32}."""
+    wf = w.float()
+    k, n = wf.shape[-2], wf.shape[-1]
+    check(k % group == 0 and k % 2 == 0, f"K={k} is not a multiple of the "
+          f"group {group} (and even)")
+    wg = wf.reshape(*wf.shape[:-2], k // group, group, n)
+    amax = torch.clamp(wg.abs().amax(-2, keepdim=True), min=1e-8)
+    raw = (clip_ratio * amax) / 7.0                        # (.., K/g, 1, out)
+    col = raw.amax(-3, keepdim=True) / 127.0               # (.., 1, 1, out)
+    qmul = torch.clamp(torch.round(raw / col), 1, 127)
+    q = torch.clamp(torch.round(wg / (col * qmul)), -8, 7).to(torch.int8)
+    return {"w4": pack_int4(q.reshape(wf.shape)),
+            "qmul": qmul.squeeze(-2).to(torch.int8),
+            "scale": col.squeeze(-2).squeeze(-2).float()}
+
+
+def linear_w4a8(x, w4, qmul, w_scale, bias=None, compute_dtype=DEFAULT_DTYPE,
+                residual=None):
+    """W4A8: dynamic per-row activation quant -> packed-int4 GEMM with the
+    nibble unpack, group dequant (and residual add) fused in."""
+    x_q, x_scale = ops.quant_rows(x.float())
+    return ops.gemm_w4a8(x_q, x_scale, w4, qmul, w_scale, bias=bias,
+                         residual=residual, out_dtype=compute_dtype)
+
+
+def linear_gelu_w4a8(x, w4, qmul, w_scale, compute_dtype=DEFAULT_DTYPE):
+    """Fused W4A8 up-projection + integer GELU, the twin of
+    ``linear_gelu_w8a8``."""
+    x_q, x_scale = ops.quant_rows(x.float())
+    out_q = ops.gemm_w4a8(x_q, x_scale, w4, qmul, w_scale,
+                          gelu_scale=GELU_INT_SCALE, out_dtype=compute_dtype)
+    return (out_q.float() * f32(gelu_out_scale(GELU_INT_SCALE), x.device)
+            ).to(compute_dtype)
+
+
+def linear_gated_w4a8(x, up: Linear, gate: Linear, act: str,
+                      compute_dtype=DEFAULT_DTYPE):
+    """Fused W4A8 gated-MLP hidden: one activation quant feeds the dual
+    packed-int4 GEMM over a shared A tile, the twin of
+    ``linear_gated_w8a8``."""
+    x_q, x_scale = ops.quant_rows(x.float())
+    act_scale = GELU_INT_SCALE if act == "gelu" else SILU_INT_SCALE
+    return ops.gated_mlp_w4a8(x_q, x_scale, up.w4, up.qmul, up.scale,
+                              gate.w4, gate.qmul, gate.scale, act=act,
+                              act_scale=act_scale, out_dtype=compute_dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class ExecMode:
     """Execution-mode switch threaded through the model."""
 
-    precision: str = "bf16"        # bf16 | w8a8
+    precision: str = "bf16"        # bf16 | w8a8 | w4a8
     compute_dtype: object = DEFAULT_DTYPE
 
     @property
     def integer(self) -> bool:
+        # w4a8 weights may mix int8 and int4 leaves (the head stays int8);
+        # both ride the integer datapath and apply_linear dispatches per leaf
         return self.precision in ("w8a8", "w4a8")
 
 
 def apply_linear(x, p: Linear, mode: ExecMode, bias=None, residual=None):
-    """Dispatch on the weight the module holds: int8 ``w_q`` (W8A8 GEMM,
-    residual add in the epilogue) or a float weight (plain matmul, then the
-    residual add)."""
+    """Dispatch on the weight the module holds: packed int4 (W4A8 GEMM),
+    int8 ``w_q`` (W8A8 GEMM; both with the residual add in the epilogue) or
+    a float weight (plain matmul, then the residual add)."""
+    if p.int4:
+        return linear_w4a8(x, p.w4, p.qmul, p.scale, bias, mode.compute_dtype,
+                           residual=residual)
     if p.quantized:
         return linear_w8a8(x, p.w_q, p.scale, bias, mode.compute_dtype,
                            residual=residual)
@@ -228,16 +324,24 @@ def activation(x, kind: str, mode: ExecMode):
         if x.is_cuda:
             raise NotImplementedError(
                 "the stand-alone integer GELU kernel (int_gelu) is not ported "
-                "to CUDA yet (ROADMAP.md §B); w8a8 MLPs take the fused GEMM "
-                "epilogue instead")
+                "to CUDA yet (ROADMAP.md §B10); integer MLPs take the fused "
+                "GEMM epilogue instead")
         s = GELU_INT_SCALE
         q = torch.clamp(torch.round(x.float() * f32(rcp32(s), x.device)),
                         -128, 127).to(torch.int32)
         out = int_gelu_ref(q, s)
         return (out.float() * f32(gelu_out_scale(s), x.device)).to(x.dtype)
     if mode.integer and kind == "silu":
-        raise NotImplementedError("integer SiLU (int_silu) is slice 2 "
-                                  "(ROADMAP.md §B)")
+        if x.is_cuda:
+            raise NotImplementedError(
+                "the stand-alone integer SiLU kernel (int_silu) is not ported "
+                "to CUDA yet (ROADMAP.md §B10); gated MLPs take the fused "
+                "dual-GEMM epilogue instead")
+        s = SILU_INT_SCALE
+        q = torch.clamp(torch.round(x.float() * f32(rcp32(s), x.device)),
+                        -128, 127).to(torch.int32)
+        out = int_silu_ref(q, s)
+        return (out.float() * f32(silu_out_scale(s), x.device)).to(x.dtype)
     if kind == "gelu":
         return torch.nn.functional.gelu(x, approximate="none")
     if kind == "silu":

@@ -1,39 +1,74 @@
-"""Feed-forward block: the plain (non-gated) MLP of ``repro.models.mlp``.
+"""Feed-forward blocks: gated (SwiGLU/GeGLU) and plain (GELU) MLPs, the
+dense MLP of ``repro.models.mlp``.
 
-The w8a8 GELU MLP takes the fused up-projection (``linear_gelu_w8a8``: the
-GEMM epilogue requantizes and runs the integer GELU in-register).  Gated
-(SwiGLU/GeGLU) MLPs are slice 2 (ROADMAP.md §B: ``dual_gemm_gated``).
+Integer paths take the fused kernels: the gated hidden is one dual GEMM
+over a shared A tile with the integer activation in its epilogue
+(``dual_gemm_gated`` at W8A8, ``dual_int4_gemm_gated`` at W4A8); the GELU
+MLP's up-projection runs the integer GELU in the GEMM epilogue.  The float
+gated hidden is the float ``dual_gemm_gated``.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..kernels import ops
 from .config import ArchConfig
-from .layers import ExecMode, Linear, activation, apply_linear, dense_init, \
-    linear_gelu_w8a8
+from .layers import (ExecMode, Linear, activation, apply_linear, dense_init,
+                     linear_gated_w4a8, linear_gated_w8a8, linear_gelu_w4a8,
+                     linear_gelu_w8a8)
 
 
 class MLP(nn.Module):
-    def __init__(self, w_in: Linear, w_out: Linear):
+    def __init__(self, w_in: Linear, w_out: Linear,
+                 w_gate: Linear | None = None):
         super().__init__()
-        self.w_in, self.w_out = w_in, w_out
+        self.w_in, self.w_out, self.w_gate = w_in, w_out, w_gate
 
 
 def init_mlp_params(gen: torch.Generator, cfg: ArchConfig, device) -> MLP:
-    if cfg.activation == "silu":
-        raise NotImplementedError("gated (SwiGLU) MLPs are slice 2 of the "
-                                  "port (ROADMAP.md §B)")
+    """w_in [d, ff], w_out [ff, d], and w_gate [d, ff] for the SwiGLU
+    (``activation == "silu"``) lineage."""
     d, ff = cfg.d_model, cfg.d_ff
-    return MLP(Linear(dense_init(gen, d, ff, device)),
-               Linear(dense_init(gen, ff, d, device)))
+    w_in = Linear(dense_init(gen, d, ff, device))
+    w_out = Linear(dense_init(gen, ff, d, device))
+    w_gate = (Linear(dense_init(gen, d, ff, device))
+              if cfg.activation == "silu" else None)
+    return MLP(w_in, w_out, w_gate)
+
+
+def gated_ffn_hidden(params: MLP, x, cfg: ArchConfig, mode: ExecMode):
+    """``activation(x @ w_gate) * (x @ w_in)``: the fused dual GEMM for
+    int4, int8 and float weights; the unfused composition for the mixed
+    corners (PTQ'd weights under a float mode, or an integer mode over
+    float weights)."""
+    w_in, w_gate = params.w_in, params.w_gate
+    if mode.integer and w_in.int4 and w_gate.int4:
+        return linear_gated_w4a8(x, w_in, w_gate, cfg.activation,
+                                 compute_dtype=mode.compute_dtype)
+    if mode.integer and w_in.quantized and not w_in.int4:
+        return linear_gated_w8a8(x, w_in.w_q, w_in.scale, w_gate.w_q,
+                                 w_gate.scale, cfg.activation,
+                                 compute_dtype=mode.compute_dtype)
+    if not mode.integer and not w_in.quantized:
+        return ops.gated_mlp(x, w_in.weight, w_gate.weight, cfg.activation,
+                             mode.compute_dtype)
+    h = apply_linear(x, w_in, mode)
+    g = apply_linear(x, w_gate, mode)
+    return activation(g, cfg.activation, mode) * h
 
 
 def mlp(params: MLP, x, cfg: ArchConfig, mode: ExecMode):
-    if cfg.activation == "gelu" and mode.integer and params.w_in.quantized:
-        h = linear_gelu_w8a8(x, params.w_in.w_q, params.w_in.scale,
+    w_in = params.w_in
+    if params.w_gate is not None:
+        h = gated_ffn_hidden(params, x, cfg, mode)
+    elif cfg.activation == "gelu" and mode.integer and w_in.int4:
+        h = linear_gelu_w4a8(x, w_in.w4, w_in.qmul, w_in.scale,
+                             compute_dtype=mode.compute_dtype)
+    elif cfg.activation == "gelu" and mode.integer and w_in.quantized:
+        h = linear_gelu_w8a8(x, w_in.w_q, w_in.scale,
                              compute_dtype=mode.compute_dtype)
     else:
-        h = apply_linear(x, params.w_in, mode)
+        h = apply_linear(x, w_in, mode)
         h = activation(h, cfg.activation, mode)
     return apply_linear(h, params.w_out, mode)

@@ -1,4 +1,6 @@
-"""Post-training quantization of the port (W8A8)."""
-from .ptq import ptq_quantize_params
+"""Post-training quantization of the port (W8A8, W4A8)."""
+from .ptq import (DEFAULT_W4_POLICY, ptq_quantize_params,
+                  quantized_param_fraction)
 
-__all__ = ["ptq_quantize_params"]
+__all__ = ["DEFAULT_W4_POLICY", "ptq_quantize_params",
+           "quantized_param_fraction"]

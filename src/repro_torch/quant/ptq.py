@@ -1,33 +1,98 @@
-"""Post-training quantization: float weights -> W8A8 integer execution.
+"""Post-training quantization: float weights -> W8A8 / W4A8 integer execution.
 
-Port of ``repro.quant.ptq.ptq_quantize_params`` for the int8 policy
-(``policy=None``): every GEMM weight (attention wq/wk/wv/wo, MLP
-w_in/w_gate/w_out and the ``unembed`` head) becomes per-output-channel
-symmetric int8; embeddings and norms stay float.  The reference runs PTQ
-eagerly, so ``amax / 127.0`` is a true division here.  Bit-exact against the
-reference (``tests/test_torch_models.py``).
+Port of ``repro.quant.ptq`` (``ptq_quantize_params``, the W4 policy and
+``quantized_param_fraction``).  Every GEMM weight (attention wq/wk/wv/wo,
+MLP w_in/w_gate/w_out and the ``unembed`` head) becomes per-output-channel
+symmetric int8 ``{w_q, scale}`` or, where the policy says so, packed int4
+``{w4, qmul, scale}`` with two-level group scales; embeddings and norms
+stay float.  The reference runs PTQ eagerly, so its divisions are true
+divisions here.  Bit-exact against the reference
+(``tests/test_torch_models.py``).  ``calibrate_ptq``'s group/clip search is
+not ported yet (ROADMAP.md §A6).
 """
 from __future__ import annotations
 
 import torch
 
-from ..models.layers import Linear, quantize_weight
+from ..models.layers import Linear, quantize_weight, quantize_weight_w4
 from ..models.lm import LM
 
-_QUANT_NAMES = ("wq", "wk", "wv", "wo", "w_in", "w_gate", "w_out", "unembed")
+# policy class of each quantizable weight, by module name
+_CLASSES = {"wq": "attn", "wk": "attn", "wv": "attn", "wo": "attn",
+            "w_in": "mlp", "w_gate": "mlp", "w_out": "mlp", "unembed": "head"}
+
+# the reference's default W4A8 policy: projections in int4 at group 64, the
+# lm head in int8 (it feeds the sampler; its bytes are small next to the MLP)
+DEFAULT_W4_POLICY = {
+    "attn": {"bits": 4, "group": 64, "clip": 1.0},
+    "mlp": {"bits": 4, "group": 64, "clip": 1.0},
+    "head": "int8",
+}
+
+W4_GROUPS = (32, 64, 128)
+
+
+def weight_class(name: str) -> str:
+    """Quantization-policy class of a module path (``layers.3.mlp.w_in``):
+    attn, mlp, head, or other."""
+    return _CLASSES.get(name.rsplit(".", 1)[-1], "other")
+
+
+def _fit_group(k: int, group: int) -> int | None:
+    """Largest usable scale group <= the requested one that divides K (the
+    packed container needs an even K as well); None demotes to int8."""
+    if k % 2:
+        return None
+    for cand in [group] + [g for g in sorted(W4_GROUPS, reverse=True)
+                           if g < group]:
+        if k % cand == 0:
+            return cand
+    return None
 
 
 @torch.no_grad()
 def ptq_quantize_params(params: LM, policy: dict | None = None) -> LM:
-    """Quantize the model's GEMM weights to int8 IN PLACE (the float weight
-    is dropped as each payload is made, so peak memory stays near one
-    model) and return the model."""
-    if policy is not None:
-        raise NotImplementedError("W4A8 policies (int4_gemm) are slice 2 of "
-                                  "the port (ROADMAP.md §B)")
+    """Quantize the model's GEMM weights IN PLACE (each float weight is
+    dropped as its payload is made, so peak memory stays near one model)
+    and return the model.
+
+    ``policy`` maps weight class -> "int8" | {"bits": 4, "group": g, "clip":
+    c}; unlisted classes (and ``policy=None``) quantize to int8.  A w4 spec
+    whose group cannot divide a weight's contraction dim demotes it to int8.
+    """
     for name, mod in params.named_modules():
-        if (isinstance(mod, Linear) and not mod.quantized
-                and name.rsplit(".", 1)[-1] in _QUANT_NAMES):
-            q = quantize_weight(mod.weight)
-            mod.quantize_(q["w_q"], q["scale"])
+        cls = weight_class(name)
+        if not isinstance(mod, Linear) or mod.quantized or cls == "other":
+            continue
+        spec = (policy or {}).get(cls, "int8")
+        group = (_fit_group(mod.weight.shape[-2], int(spec["group"]))
+                 if isinstance(spec, dict) else None)
+        if group is None:
+            mod.quantize_(quantize_weight(mod.weight))
+        else:
+            clip = float(spec.get("clip", 1.0))
+            mod.quantize_(quantize_weight_w4(mod.weight, group=group,
+                                             clip_ratio=clip))
     return params
+
+
+def quantized_param_fraction(params: LM) -> float:
+    """Fraction of LOGICAL model parameters on an integer weight path,
+    weighted by parameter count — of a float model (predictive) or a PTQ'd
+    one (actual).  A packed int4 byte holds two logical weights; the scales
+    and group multipliers of a quantized weight are metadata, not
+    parameters."""
+    q = tot = 0
+    for name, mod in params.named_modules():
+        if isinstance(mod, Linear) and weight_class(name) != "other":
+            n = (2 * mod.w4.numel() if mod.int4 else
+                 mod.w_q.numel() if mod.quantized else mod.weight.numel())
+            q += n
+            tot += n
+    for name, p in params.named_parameters():
+        if not name.endswith(".weight") or weight_class(name[:-7]) == "other":
+            tot += p.numel()                  # embed, norms: float
+    for name, b in params.named_buffers():
+        if name.rsplit(".", 1)[-1] in ("bq", "bk", "bv"):
+            tot += b.numel()                  # qkv biases: float
+    return q / max(tot, 1)

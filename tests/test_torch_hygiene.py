@@ -90,6 +90,40 @@ def test_explicit_cpu_runs_and_launches_nothing():
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
 
 
+def test_explicit_cpu_w4a8_launches_nothing():
+    from repro_torch.quant import DEFAULT_W4_POLICY, ptq_quantize_params
+    cfg = get_config("codeqwen1.5-7b", precision="w4a8", reduced=True)
+    params = ptq_quantize_params(init_params(cfg, seed=1, device="cpu"),
+                                 policy=DEFAULT_W4_POLICY)
+    assert params.layers[0].mlp.w_gate.int4 and not params.unembed.int4
+    eng = ServingEngine(params, cfg, ServeConfig(batch_lanes=2, max_seq=32,
+                                                 int8_kv=True, token_budget=4),
+                        device="cpu")
+    ops.reset_launch_counts()
+    eng.submit([5, 6, 7], max_new=3)
+    (rec,) = eng.run_until_drained()
+    assert len(rec["tokens"]) >= 1
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+    assert {"int4_gemm", "dual_int4_gemm_gated", "dual_gemm_gated"} <= set(
+        ops.KERNELS)
+
+
+def test_codeqwen_is_ported():
+    from repro_torch.configs import ARCH_IDS
+    assert "codeqwen1.5-7b" in ARCH_IDS
+    cfg = get_config("codeqwen1.5-7b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+            cfg.vocab_size) == (32, 4096, 32, 32, 13440, 92416)
+
+
+def test_launcher_cpu_w4a8(capsys):
+    from repro_torch.launch.serve import main
+    main(["--arch", "codeqwen1.5-7b", "--reduced", "--w4a8", "--int8-kv",
+          "--requests", "2", "--max-new", "3", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "served 2 requests" in out and "precision=w4a8" in out
+
+
 def test_launcher_cpu(capsys):
     from repro_torch.launch.serve import main
     main(["--arch", "starcoder2-3b", "--reduced", "--w8a8", "--int8-kv",

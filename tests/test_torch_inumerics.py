@@ -1,7 +1,7 @@
 """The port's integer numerics (``repro_torch.core.inumerics``) against the
 JAX reference (``repro.core.inumerics``): bit-exact on every int8 input and
-on random int32, for the requant, GELU and integer-sqrt/LayerNorm subset the
-ported kernels rest on."""
+on random int32 (int16 for the SiLU), for the requant, exp/sigmoid/SiLU,
+GELU and integer-sqrt/LayerNorm subset the ported kernels rest on."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -17,11 +17,16 @@ from repro.core import inumerics as jnum
 from repro.kernels.common import requant_block as j_requant_block
 from repro.kernels.int_gelu import gelu_block as j_gelu_block
 from repro.kernels.int_gelu import gelu_requant_params as j_gelu_params
+from repro.kernels.int_silu import silu_block as j_silu_block
+from repro.kernels.int_silu import silu_out_scale as j_silu_out_scale
 
 from repro_torch.core import inumerics as tnum
 from repro_torch.kernels.common import requant_block
 from repro_torch.kernels.int_gelu import (gelu_block, gelu_consts,
                                           gelu_requant_params, int_gelu_ref)
+from repro_torch.kernels.int_silu import (int_silu_ref, silu_block,
+                                          silu_consts, silu_out_scale)
+from repro_torch.models.layers import SILU_INT_SCALE
 
 INT8 = np.arange(-128, 128, dtype=np.int32)
 MULTS = [(1e-4, 127 * 127 * 64), (3.1e-3, 127 * 127 * 3072), (0.07, 2 ** 20),
@@ -73,6 +78,55 @@ def test_gelu_every_int8(scale):
                              mult=p.mult, s2=p.s2))
     assert same(int_gelu_ref(T(INT8), scale).to(torch.int32), q_j)
     assert gelu_consts(scale)[3:] == (p.s1, p.mult, p.s2)
+
+
+SILU_SCALES = [SILU_INT_SCALE, 0.02, 0.2]
+
+
+def _silu_inputs(rng):
+    """every int8, then random int16 (the i_silu exactness range)."""
+    return np.concatenate([INT8, rng.integers(-2 ** 15, 2 ** 15, 8192)]
+                          ).astype(np.int32)
+
+
+@pytest.mark.parametrize("scale", SILU_SCALES)
+def test_exp_every_int8_and_random_int16(rng, scale):
+    q = -np.abs(_silu_inputs(rng))                  # i_exp takes q <= 0
+    want, s_j = jax.jit(lambda v: jnum.i_exp(v, scale))(q)
+    got, s_t = tnum.i_exp(T(q), scale)
+    assert same(got, want) and s_t == jnum.i_exp(q[:1], scale)[1]
+
+
+@pytest.mark.parametrize("scale", SILU_SCALES)
+def test_sigmoid_every_int8_and_random_int16(rng, scale):
+    q = _silu_inputs(rng)
+    assert same(tnum.i_sigmoid(T(q), scale),
+                jax.jit(lambda v: jnum.i_sigmoid(v, scale))(q))
+
+
+@pytest.mark.parametrize("scale", SILU_SCALES)
+def test_silu_every_int8_and_random_int16(rng, scale):
+    q = _silu_inputs(rng)
+    want, s_j = jax.jit(lambda v: jnum.i_silu(v, scale))(q)
+    got, s_t = tnum.i_silu(T(q), scale)
+    assert same(got, want) and s_t == jnum.i_silu(q[:1], scale)[1]
+    # the fused epilogues' in-register form and the plain int_silu_ref
+    assert same(silu_block(T(q), scale=scale),
+                j_silu_block(jnp.asarray(q), scale=scale))
+    assert same(int_silu_ref(T(q), scale), want)
+    assert silu_out_scale(scale) == j_silu_out_scale(scale)
+
+
+@pytest.mark.parametrize("scale", SILU_SCALES)
+def test_silu_consts_are_the_reference_constants(scale):
+    q_ln2, q_b, q_c, q_one = silu_consts(scale)
+    # a single value exercises each constant: i_exp(0) = q_b^2 + q_c, and
+    # i_sigmoid(0) = round(127 * q_one / (q_one + q_b^2 + q_c))
+    e0 = int(jnum.i_exp(jnp.zeros(1, jnp.int32), scale)[0][0])
+    assert e0 == q_b * q_b + q_c
+    assert q_ln2 == max(int(np.floor(np.log(2.0) / scale)), 1)
+    sig0 = int(jnum.i_sigmoid(jnp.zeros(1, jnp.int32), scale)[0])
+    assert sig0 == (q_one * 127 + (q_one + e0) // 2) // (q_one + e0)
 
 
 def test_isqrt_dense_range_and_random(rng):

@@ -1,9 +1,11 @@
-"""The port's four kernels against the JAX reference, on the CPU.
+"""The port's kernels against the JAX reference, on the CPU.
 
 Each plain PyTorch version (what a CPU tensor runs) is held against
 ``jax.jit`` of its ``repro.kernels.ref`` oracle and against the Pallas kernel
-in interpret mode, on the same numpy inputs: quantize_rows, int8_gemm and
-int_layernorm bit-exact; the decode attention within its stated tolerance.
+in interpret mode, on the same numpy inputs: quantize_rows, int8_gemm,
+int4_gemm, the integer dual_gemm_gated and dual_int4_gemm_gated, and
+int_layernorm bit-exact; the float dual_gemm_gated within ``BF16_TOL``; the
+decode attention within its stated tolerance.
 The CUDA kernels themselves are held against the plain versions on the card
 by the ``cuda``-marked tests at the end (skipped without a card) and by
 ``chip_smoke.py``.
@@ -16,7 +18,13 @@ import torch
 
 from repro.kernels import ref
 from repro.kernels.common import set_interpret
+from repro.kernels.int8_gemm import dual_gemm_gated as pallas_dual
+from repro.kernels.int8_gemm import dual_int4_gemm_gated as pallas_dual_int4
+from repro.kernels.int8_gemm import int4_gemm as pallas_int4
 from repro.kernels.int8_gemm import int8_gemm as pallas_gemm
+from repro.kernels.quantize import pack_int4 as j_pack_int4
+from repro.kernels.quantize import unpack_int4 as j_unpack_int4
+from repro.models.layers import quantize_weight_w4 as j_quantize_w4
 from repro.kernels.int8_kv_decode_attention import (
     int8_kv_decode_attention as pallas_decode)
 from repro.kernels.int_layernorm import int_layernorm as pallas_ln
@@ -24,13 +32,20 @@ from repro.kernels.quantize import quantize_rows as pallas_quant
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.common import fma_f32, rcp32
+from repro_torch.kernels import int8_gemm as tg
 from repro_torch.kernels.int8_gemm import gemm_w8a8_ref, int8_matmul_ref, split_k
+from repro_torch.kernels.quantize import pack_int4, unpack_int4
 from repro_torch.kernels.int8_kv_decode_attention import (
     ATOL, RTOL, int8_kv_decode_attention_ref, kv_split)
 from repro_torch.kernels.int_layernorm import int_layernorm_ref
 from repro_torch.kernels.quantize import quantize_rows_ref
 
 GELU = 8.0 / 127.0
+SILU = 8.0 / 127.0
+# float gated MLP, port vs jax.jit on the CPU: both round the two GEMMs, the
+# activation and the product to bf16, at points XLA and PyTorch may place
+# differently (one bf16 ulp = 2^-7 relative each), so allow a few ulps
+BF16_TOL = dict(rtol=2.0 ** -5, atol=2.0 ** -7)
 
 
 @pytest.fixture(autouse=True)
@@ -198,6 +213,197 @@ class TestInt8Gemm:
 
 
 # ---------------------------------------------------------------------------
+# int4 container, W4A8 and gated-MLP plain versions
+# ---------------------------------------------------------------------------
+
+class TestInt4Pack:
+    @pytest.mark.parametrize("k,n", [(8, 5), (7, 3), (64, 48), (1, 4)])
+    def test_pack_unpack_vs_jax(self, rng, k, n):
+        w = rng.integers(-8, 8, (2, k, n)).astype(np.int8)
+        packed = pack_int4(T(w))
+        want = j_pack_int4(jnp.asarray(w))
+        assert bits_equal(packed, want)
+        assert bits_equal(unpack_int4(packed, k), j_unpack_int4(want, k))
+        assert bits_equal(tg.unpack_int4_ref(packed, k),
+                          ref.unpack_int4_ref(want, k))
+        assert np.array_equal(unpack_int4(packed, k).numpy(), w)
+
+
+def w4_inputs(rng, k, n, group):
+    """x [k], packed int4 weight (the reference's quantize_weight_w4 of a
+    random f32 weight), bias, the W8A8 operands of the same shape."""
+    w = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
+    q = {a: np.asarray(b) for a, b in
+         j_quantize_w4(jnp.asarray(w), group=group).items()}
+    return q["w4"], q["qmul"], q["scale"]
+
+
+W4_CASES = [  # (label, kwargs of gemm_w4a8_ref beyond the operands)
+    ("scaled", {}),
+    ("scaled+bias", {"bias": True}),
+    ("scaled_add", {"residual": True}),
+    ("scaled_gelu", {"gelu_scale": GELU}),
+    ("head_f32", {"out_dtype": "f32"}),
+]
+
+
+class TestW4A8Gemm:
+    @pytest.mark.parametrize("label,spec", W4_CASES, ids=[c[0] for c in W4_CASES])
+    @pytest.mark.parametrize("group", [32, 64, 128])
+    @pytest.mark.parametrize("m", [8, 13])
+    def test_exact_vs_jit_ref(self, rng, label, spec, group, m):
+        k, n = 256, 72
+        xq, xs, _, _, bias, res = gemm_inputs(rng, m, k, n)
+        w4, qmul, ws = w4_inputs(rng, k, n, group)
+        jkw = _kw(spec, bias, res, False)
+        want = jax.jit(lambda *a: ref.gemm_w4a8_ref(*a, **jkw))(
+            xq, xs, w4, qmul, ws)
+        got = tg.gemm_w4a8_ref(T(xq), T(xs), T(w4), T(qmul), T(ws),
+                               **_kw(spec, bias, res, True))
+        assert bits_equal(got, want), label
+
+    @pytest.mark.parametrize("label,spec", W4_CASES[:4],
+                             ids=[c[0] for c in W4_CASES[:4]])
+    def test_exact_vs_pallas_interpret(self, rng, label, spec):
+        m, k, n, group = 8, 256, 128, 64
+        xq, xs, _, _, bias, res = gemm_inputs(rng, m, k, n)
+        w4, qmul, ws = w4_inputs(rng, k, n, group)
+        epi = ("scaled_gelu" if "gelu_scale" in spec else
+               "scaled_add" if spec.get("residual") else "scaled")
+        want = pallas_int4(
+            jnp.asarray(xq), jnp.asarray(w4), jnp.asarray(qmul),
+            jnp.asarray(ws), jnp.asarray(xs), group=group, epilogue=epi,
+            gelu_scale=spec.get("gelu_scale"),
+            bias=jnp.asarray(bias).reshape(1, n) if spec.get("bias") else None,
+            residual=res if spec.get("residual") else None,
+            bm=8, bn=128, bk=128, interpret=True)
+        got = tg.gemm_w4a8_ref(T(xq), T(xs), T(w4), T(qmul), T(ws),
+                               **_kw(spec, bias, res, True))
+        assert bits_equal(got, want), label
+
+    def test_ops_lead_dims_and_wrapper(self, rng):
+        xq, xs, _, _, bias, res = gemm_inputs(rng, 6, 128, 40)
+        w4, qmul, ws = w4_inputs(rng, 128, 40, 32)
+        rt = _kw({"residual": True}, bias, res, True)["residual"]
+        got = ops.gemm_w4a8(T(xq).reshape(2, 3, 128), T(xs).reshape(2, 3, 1),
+                            T(w4), T(qmul), T(ws), bias=T(bias),
+                            residual=rt.reshape(2, 3, 40))
+        want = jax.jit(lambda *a: ref.gemm_w4a8_ref(*a, bias=bias,
+                                                    residual=res))(
+            xq, xs, w4, qmul, ws)
+        assert got.shape == (2, 3, 40)
+        assert bits_equal(got.reshape(6, 40), want)
+
+    @pytest.mark.parametrize("m,n,k,g", [(8, 4096, 4096, 64),
+                                         (8, 4096, 13440, 64),
+                                         (8, 13440, 4096, 128),
+                                         (256, 4096, 13440, 32)])
+    def test_split_k_lands_on_group_boundaries(self, m, n, k, g):
+        split, k_len = split_k(m, n, k, n_sm=132, align=max(64, g))
+        assert k_len % max(64, g) == 0 and k_len % g == 0
+        assert (split - 1) * k_len < k <= split * k_len
+
+    def test_headroom_is_checked(self):
+        x = torch.zeros((1, 32768), dtype=torch.int8)
+        with pytest.raises(ValueError, match="int32 combine"):
+            tg.gemm_w4a8_ref(x, torch.ones(1, 1), torch.zeros(
+                (16384, 4), dtype=torch.int8), torch.ones(
+                (512, 4), dtype=torch.int8), torch.ones(4))
+
+
+def dual_inputs(rng, m, k, n, group=None):
+    xq, xs, wu, us, _, _ = gemm_inputs(rng, m, k, n)
+    _, _, wg, gs, _, _ = gemm_inputs(rng, m, k, n)
+    if group is None:
+        return xq, xs, (wu, us), (wg, gs)
+    return xq, xs, w4_inputs(rng, k, n, group), w4_inputs(rng, k, n, group)
+
+
+class TestGatedMLP:
+    @pytest.mark.parametrize("act", ["silu", "gelu"])
+    @pytest.mark.parametrize("m,k,n", [(8, 64, 128), (13, 100, 70)])
+    def test_w8a8_exact_vs_jit_ref(self, rng, act, m, k, n):
+        xq, xs, (wu, us), (wg, gs) = dual_inputs(rng, m, k, n)
+        sc = SILU if act == "silu" else GELU
+        want = jax.jit(lambda *a: ref.gated_mlp_w8a8_ref(
+            *a, act=act, act_scale=sc))(xq, xs, wu, us, wg, gs)
+        got = tg.gated_mlp_w8a8_ref(*map(T, (xq, xs, wu, us, wg, gs)),
+                                    act=act, act_scale=sc)
+        assert bits_equal(got, want)
+
+    @pytest.mark.parametrize("act", ["silu", "gelu"])
+    @pytest.mark.parametrize("group", [32, 64, 128])
+    def test_w4a8_exact_vs_jit_ref(self, rng, act, group):
+        xq, xs, up, gate = dual_inputs(rng, 13, 256, 72, group)
+        sc = SILU if act == "silu" else GELU
+        want = jax.jit(lambda *a: ref.gated_mlp_w4a8_ref(
+            *a, act=act, act_scale=sc))(xq, xs, *up, *gate)
+        got = tg.gated_mlp_w4a8_ref(T(xq), T(xs), *map(T, up), *map(T, gate),
+                                    act=act, act_scale=sc)
+        assert bits_equal(got, want)
+
+    @pytest.mark.parametrize("act", ["silu", "gelu"])
+    def test_float_close_vs_jit_ref(self, rng, act):
+        m, k, n = 12, 96, 80
+        x = rng.standard_normal((m, k)).astype(np.float32)
+        wu, wg = ((rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
+                  for _ in range(2))
+        want = np.asarray(jax.jit(lambda *a: ref.gated_mlp_ref(*a, act=act))(
+            x, wu, wg).astype(jnp.float32))
+        got = tg.gated_mlp_ref(T(x), T(wu), T(wg), act).float().numpy()
+        np.testing.assert_allclose(got, want, **BF16_TOL)
+
+    @pytest.mark.parametrize("act", ["silu", "gelu"])
+    def test_w8a8_exact_vs_pallas_interpret(self, rng, act):
+        m, k, n = 8, 128, 128
+        xq, xs, (wu, us), (wg, gs) = dual_inputs(rng, m, k, n)
+        sc = SILU if act == "silu" else GELU
+        want = pallas_dual(jnp.asarray(xq), jnp.asarray(wu), jnp.asarray(wg),
+                           x_scale=jnp.asarray(xs),
+                           up_scale=jnp.asarray(us).reshape(1, n),
+                           gate_scale=jnp.asarray(gs).reshape(1, n), act=act,
+                           act_scale=sc, bm=8, bn=128, bk=128, interpret=True)
+        got = ops.gated_mlp_w8a8(*map(T, (xq, xs, wu, us, wg, gs)), act=act,
+                                 act_scale=sc)
+        assert bits_equal(got, want)
+
+    @pytest.mark.parametrize("act", ["silu", "gelu"])
+    def test_w4a8_exact_vs_pallas_interpret(self, rng, act):
+        m, k, n, group = 8, 256, 128, 64
+        xq, xs, up, gate = dual_inputs(rng, m, k, n, group)
+        sc = SILU if act == "silu" else GELU
+        want = pallas_dual_int4(jnp.asarray(xq), *map(jnp.asarray, up),
+                                *map(jnp.asarray, gate), jnp.asarray(xs),
+                                group=group, act=act, act_scale=sc, bm=8,
+                                bn=128, bk=128, interpret=True)
+        got = ops.gated_mlp_w4a8(T(xq), T(xs), *map(T, up), *map(T, gate),
+                                 act=act, act_scale=sc)
+        assert bits_equal(got, want)
+
+    def test_float_close_vs_pallas_interpret(self, rng):
+        m, k, n = 8, 128, 128
+        x = jnp.asarray(rng.standard_normal((m, k)), jnp.bfloat16)
+        wu, wg = (jnp.asarray(rng.standard_normal((k, n)) / np.sqrt(k),
+                              jnp.bfloat16) for _ in range(2))
+        want = np.asarray(pallas_dual(x, wu, wg, act="silu", bm=8, bn=128,
+                                      bk=128, interpret=True
+                                      ).astype(jnp.float32))
+        got = ops.gated_mlp(*(T(np.asarray(a.astype(jnp.float32))).bfloat16()
+                              for a in (x, wu, wg)), "silu")
+        np.testing.assert_allclose(got.float().numpy(), want, **BF16_TOL)
+
+    def test_ops_lead_dims(self, rng):
+        xq, xs, up, gate = dual_inputs(rng, 6, 128, 40, 64)
+        got = ops.gated_mlp_w4a8(T(xq).reshape(3, 2, 128),
+                                 T(xs).reshape(3, 2, 1), *map(T, up),
+                                 *map(T, gate), act="silu", act_scale=SILU)
+        want = jax.jit(lambda *a: ref.gated_mlp_w4a8_ref(
+            *a, act="silu", act_scale=SILU))(xq, xs, *up, *gate)
+        assert got.shape == (3, 2, 40)
+        assert bits_equal(got.reshape(6, 40), want)
+
+
+# ---------------------------------------------------------------------------
 # 3. int_layernorm
 # ---------------------------------------------------------------------------
 
@@ -334,3 +540,37 @@ class TestKernelsOnCard:
             want = int8_kv_decode_attention_ref(*args, window=window)
             torch.testing.assert_close(got.float(), want.float(), rtol=RTOL,
                                        atol=ATOL)
+
+    @pytest.mark.parametrize("label,spec", W4_CASES, ids=[c[0] for c in W4_CASES])
+    def test_int4_gemm(self, rng, cuda_dev, label, spec):
+        xq, xs, _, _, bias, res = gemm_inputs(rng, 13, 96, 70)
+        w4, qmul, ws = w4_inputs(rng, 96, 70, 32)
+        kw = {k: (v.to(cuda_dev) if isinstance(v, torch.Tensor) else v)
+              for k, v in _kw(spec, bias, res, True).items()}
+        args = [T(a).to(cuda_dev) for a in (xq, xs, w4, qmul, ws)]
+        assert torch.equal(ops.gemm_w4a8(*args, **kw),
+                           tg.gemm_w4a8_ref(*args, **kw))
+
+    @pytest.mark.parametrize("act", ["silu", "gelu"])
+    def test_dual_gemm_gated(self, rng, cuda_dev, act):
+        sc = SILU if act == "silu" else GELU
+        xq, xs, (wu, us), (wg, gs) = dual_inputs(rng, 13, 200, 70)
+        args = [T(a).to(cuda_dev) for a in (xq, xs, wu, us, wg, gs)]
+        assert torch.equal(ops.gated_mlp_w8a8(*args, act=act, act_scale=sc),
+                           tg.gated_mlp_w8a8_ref(*args, act=act, act_scale=sc))
+        x = T(rng.standard_normal((13, 200)).astype(np.float32)).to(cuda_dev)
+        w = [T(rng.standard_normal((200, 70)).astype(np.float32) / 14).to(cuda_dev)
+             for _ in range(2)]
+        got = ops.gated_mlp(x, *w, act).float()
+        want = tg.gated_mlp_ref(x, *w, act).float()
+        assert bool(((got - want).abs() <= tg.DUAL_BF16_ATOL
+                     + tg.DUAL_BF16_RTOL * want.abs()).all())
+
+    @pytest.mark.parametrize("act", ["silu", "gelu"])
+    def test_dual_int4_gemm_gated(self, rng, cuda_dev, act):
+        sc = SILU if act == "silu" else GELU
+        xq, xs, up, gate = dual_inputs(rng, 13, 256, 72, 64)
+        args = ([T(xq).to(cuda_dev), T(xs).to(cuda_dev)]
+                + [T(a).to(cuda_dev) for a in (*up, *gate)])
+        assert torch.equal(ops.gated_mlp_w4a8(*args, act=act, act_scale=sc),
+                           tg.gated_mlp_w4a8_ref(*args, act=act, act_scale=sc))

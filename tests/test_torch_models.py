@@ -1,8 +1,10 @@
 """The port's model path against ``jax.jit`` of the JAX reference, on the CPU,
-at starcoder2-3b-reduced with the reference's own weights (``convert.py``).
+at starcoder2-3b-reduced (bf16, w8a8) and codeqwen1.5-7b-reduced (bf16,
+w8a8, w4a8: SwiGLU, RMSNorm) with the reference's own weights
+(``convert.py``).
 
 Tolerances (absolute, on logits of magnitude ~0.6 at this size):
-* w8a8: ``W8A8_TOL`` — every integer kernel is bit-exact and the float glue
+* w8a8 and w4a8: ``W8A8_TOL`` — every integer kernel is bit-exact and the float glue
   (RoPE, softmax, bf16 casts) matches XLA's closely enough that the logits
   come out identical at these seeds; the bound leaves room for one int8
   activation level to move if a bf16 rounding of the glue ever differs.
@@ -22,17 +24,22 @@ from repro.models import init_states as jinit_states
 from repro.models import layers as jlayers
 from repro.models.attention import _quant_kv as j_quant_kv
 from repro.quant import ptq_quantize_params as jptq
+from repro.quant.ptq import DEFAULT_W4_POLICY as J_W4_POLICY
+from repro.quant.ptq import quantized_param_fraction as jfraction
 
 from repro_torch.configs import get_config
 from repro_torch.convert import from_reference, to_reference
 from repro_torch.models import forward, init_states
 from repro_torch.models import layers
 from repro_torch.models.attention import _quant_kv, _write_cache, init_cache
-from repro_torch.quant import ptq_quantize_params
+from repro_torch.quant import (DEFAULT_W4_POLICY, ptq_quantize_params,
+                               quantized_param_fraction)
 
 W8A8_TOL = 0.02
 BF16_TOL = 0.02
 ARCH = "starcoder2-3b"
+QWEN = "codeqwen1.5-7b"
+PRECISIONS = ("bf16", "w8a8", "w4a8")
 
 
 def T(a):
@@ -52,17 +59,29 @@ def tree_equal(a, b) -> bool:
                             for x, y in zip(la, lb))
 
 
-@pytest.fixture(scope="module")
-def ref_params():
-    """{precision: (jax params, numpy tree)} for the reduced arch, seed 0."""
+def _ref_trees(arch, precisions):
+    """{precision: (jax params, numpy tree)} for the reduced arch, seed 0:
+    w8a8 by the int8 policy, w4a8 by the default W4 policy."""
     out = {}
-    for prec in ("bf16", "w8a8"):
-        cfg = jget_config(ARCH, precision=prec, reduced=True)
+    for prec in precisions:
+        cfg = jget_config(arch, precision=prec, reduced=True)
         p = jinit_params(jax.random.PRNGKey(0), cfg)
         if prec == "w8a8":
             p = jptq(p)
+        elif prec == "w4a8":
+            p = jptq(p, policy=J_W4_POLICY)
         out[prec] = (p, jax.device_get(p))
     return out
+
+
+@pytest.fixture(scope="module")
+def ref_params():
+    return _ref_trees(ARCH, ("bf16", "w8a8"))
+
+
+@pytest.fixture(scope="module")
+def qwen_params():
+    return _ref_trees(QWEN, PRECISIONS)
 
 
 # ---------------------------------------------------------------------------
@@ -114,6 +133,68 @@ class TestLayersExact:
         assert np.array_equal(q.numpy(), np.asarray(qj))
         assert np.array_equal(s.numpy(), np.asarray(sj))
 
+    def _w4(self, rng, k, n, group=64):
+        w = jnp.asarray(rng.standard_normal((k, n)) / np.sqrt(k), jnp.float32)
+        q = jlayers.quantize_weight_w4(w, group=group)
+        return q, T(q["w4"]), T(q["qmul"]), T(q["scale"])
+
+    def test_linear_w4a8_bias_and_residual(self, rng):
+        x = jnp.asarray(rng.standard_normal((2, 5, 128)), jnp.bfloat16)
+        q, w4, qm, ws = self._w4(rng, 128, 48)
+        b = jnp.asarray(rng.standard_normal(48) * 0.1, jnp.float32)
+        r = jnp.asarray(rng.standard_normal((2, 5, 48)), jnp.bfloat16)
+        xt, rt = T(as_np(x)).bfloat16(), T(as_np(r)).bfloat16()
+        want = jax.jit(jlayers.linear_w4a8)(x, q["w4"], q["qmul"], q["scale"], b)
+        got = layers.linear_w4a8(xt, w4, qm, ws, T(b))
+        assert np.array_equal(got.float().numpy(), as_np(want))
+        want = jax.jit(lambda *a: jlayers.linear_w4a8(*a, residual=r))(
+            x, q["w4"], q["qmul"], q["scale"])
+        got = layers.linear_w4a8(xt, w4, qm, ws, residual=rt)
+        assert np.array_equal(got.float().numpy(), as_np(want))
+
+    def test_linear_gelu_w4a8(self, rng):
+        x = jnp.asarray(rng.standard_normal((3, 7, 64)), jnp.bfloat16)
+        q, w4, qm, ws = self._w4(rng, 64, 128, group=32)
+        want = jax.jit(jlayers.linear_gelu_w4a8)(x, q["w4"], q["qmul"],
+                                                 q["scale"])
+        got = layers.linear_gelu_w4a8(T(as_np(x)).bfloat16(), w4, qm, ws)
+        assert np.array_equal(got.float().numpy(), as_np(want))
+
+    @pytest.mark.parametrize("act", ["silu", "gelu"])
+    def test_linear_gated(self, rng, act):
+        x = jnp.asarray(rng.standard_normal((2, 6, 64)), jnp.bfloat16)
+        xt = T(as_np(x)).bfloat16()
+        (qu, uq, us), (qg, gq, gs) = self._w(rng, 64, 96), self._w(rng, 64, 96)
+        want = jax.jit(lambda *a: jlayers.linear_gated_w8a8(*a, act))(
+            x, qu["w_q"], qu["scale"], qg["w_q"], qg["scale"])
+        got = layers.linear_gated_w8a8(xt, uq, us, gq, gs, act)
+        assert np.array_equal(got.float().numpy(), as_np(want))
+        (ju, *tu), (jg, *tgt) = self._w4(rng, 64, 96), self._w4(rng, 64, 96)
+        want = jax.jit(lambda u, g_: jlayers.linear_gated_w4a8(x, u, g_, act))(
+            ju, jg)
+        got = layers.linear_gated_w4a8(
+            xt, layers.Linear(w4=tu[0], qmul=tu[1], scale=tu[2]),
+            layers.Linear(w4=tgt[0], qmul=tgt[1], scale=tgt[2]), act)
+        assert np.array_equal(got.float().numpy(), as_np(want))
+
+    def test_integer_silu_activation(self, rng):
+        x = jnp.asarray(rng.standard_normal((4, 64)) * 4, jnp.bfloat16)
+        mode = jlayers.ExecMode(precision="w8a8")
+        want = jax.jit(lambda v: jlayers.activation(v, "silu", mode))(x)
+        got = layers.activation(T(as_np(x)).bfloat16(), "silu",
+                                layers.ExecMode(precision="w8a8"))
+        assert np.array_equal(got.float().numpy(), as_np(want))
+
+    @pytest.mark.parametrize("group,clip", [(32, 1.0), (64, 1.0), (128, 0.9)])
+    def test_quantize_weight_w4_eager(self, rng, group, clip):
+        w = jnp.asarray(rng.standard_normal((256, 48)), jnp.float32)
+        want = jlayers.quantize_weight_w4(w, group=group, clip_ratio=clip)
+        got = layers.quantize_weight_w4(T(w), group=group, clip_ratio=clip)
+        for k in ("w4", "qmul", "scale"):
+            assert got[k].dtype == {"w4": torch.int8, "qmul": torch.int8,
+                                    "scale": torch.float32}[k]
+            assert np.array_equal(got[k].numpy(), np.asarray(want[k])), k
+
     def test_quantize_weight_eager(self, rng):
         w = jnp.asarray(rng.standard_normal((64, 48)), jnp.float32)
         want = jlayers.quantize_weight(w)
@@ -158,6 +239,44 @@ class TestPTQConvert:
         assert tree_equal(to_reference(from_reference(tree, cfg, device="cpu")),
                           tree)
 
+    @pytest.mark.parametrize("prec", ["w8a8", "w4a8"])
+    def test_ptq_bit_exact_codeqwen(self, qwen_params, prec):
+        cfg = get_config(QWEN, precision=prec, reduced=True)
+        float_tree = qwen_params["bf16"][1]
+        policy = DEFAULT_W4_POLICY if prec == "w4a8" else None
+        mine = ptq_quantize_params(from_reference(float_tree, cfg, device="cpu"),
+                                   policy=policy)
+        jpol = J_W4_POLICY if prec == "w4a8" else None
+        want = jax.device_get(jptq(jax.tree.map(jnp.asarray, float_tree),
+                                   policy=jpol))
+        assert tree_equal(to_reference(mine), want)
+        assert quantized_param_fraction(mine) == pytest.approx(
+            jfraction(want), rel=1e-12)
+
+    @pytest.mark.parametrize("prec", PRECISIONS)
+    def test_convert_round_trip_codeqwen(self, qwen_params, prec):
+        cfg = get_config(QWEN, precision=prec, reduced=True)
+        tree = qwen_params[prec][1]
+        m = from_reference(tree, cfg, device="cpu")
+        assert tree_equal(to_reference(m), tree)
+        assert m.layers[0].mlp.w_gate is not None
+        assert m.layers[0].attn.wq.int4 == (prec == "w4a8")
+        assert not m.unembed.int4 and m.unembed.quantized == (prec != "bf16")
+        assert quantized_param_fraction(m) == pytest.approx(jfraction(tree),
+                                                            rel=1e-12)
+
+    def test_policy_classes_and_group_fit(self):
+        from repro.quant.ptq import _fit_group as j_fit
+        from repro.quant.ptq import weight_class as j_class
+        from repro_torch.quant.ptq import W4_GROUPS, _fit_group, weight_class
+        for mine, path in (("layers.2.attn.wq", "periods/0/attn/wq"),
+                           ("layers.0.mlp.w_gate", "periods/0/mlp/w_gate"),
+                           ("unembed", "unembed"), ("embed", "embed")):
+            assert weight_class(mine) == j_class(path)
+        for k in (64, 96, 100, 13440, 7, 4096):
+            for g in W4_GROUPS:
+                assert _fit_group(k, g) == j_fit(k, g)
+
     def test_layers_unstacked(self, ref_params):
         cfg = get_config(ARCH, precision="w8a8", reduced=True)
         m = from_reference(ref_params["w8a8"][1], cfg, device="cpu")
@@ -170,9 +289,9 @@ class TestPTQConvert:
 # forward: logits against jax.jit(repro.models.forward)
 # ---------------------------------------------------------------------------
 
-def _run_both(ref_params, prec, int8_kv, cached=True):
-    jcfg = jget_config(ARCH, precision=prec, reduced=True)
-    cfg = get_config(ARCH, precision=prec, reduced=True)
+def _run_both(ref_params, prec, int8_kv, cached=True, arch=ARCH):
+    jcfg = jget_config(arch, precision=prec, reduced=True)
+    cfg = get_config(arch, precision=prec, reduced=True)
     jp, tree = ref_params[prec]
     tp = from_reference(tree, cfg, device="cpu")
     rng = np.random.default_rng(1)
@@ -211,6 +330,14 @@ class TestForward:
     def test_bf16(self, ref_params, int8_kv):
         for lj, lt in _run_both(ref_params, "bf16", int8_kv):
             assert np.abs(lj - lt).max() <= BF16_TOL
+
+    @pytest.mark.parametrize("int8_kv", [True, False])
+    @pytest.mark.parametrize("prec", PRECISIONS)
+    def test_codeqwen(self, qwen_params, prec, int8_kv):
+        tol = BF16_TOL if prec == "bf16" else W8A8_TOL
+        for lj, lt in _run_both(qwen_params, prec, int8_kv, arch=QWEN):
+            assert np.isfinite(lt).all() and lt.shape == lj.shape
+            assert np.abs(lj - lt).max() <= tol
 
     def test_bf16_no_cache(self, ref_params):
         (lj, lt), = _run_both(ref_params, "bf16", False, cached=False)

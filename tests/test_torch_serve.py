@@ -1,5 +1,6 @@
 """The port's serving engine against ``repro.serve.ServingEngine`` on the CPU
-(starcoder2-3b-reduced, w8a8 weights, int8 KV cache, packed schedule).
+(starcoder2-3b-reduced at w8a8 and codeqwen1.5-7b-reduced at w4a8, both
+with the int8 KV cache and the packed schedule).
 
 Greedy tokens must match the reference's on fixed-seed prompts.  A
 divergence is allowed only at a step where the reference's own top-2 logit
@@ -17,11 +18,13 @@ from repro.models import forward as jforward
 from repro.models import init_params as jinit_params
 from repro.models import init_states as jinit_states
 from repro.quant import ptq_quantize_params as jptq
+from repro.quant.ptq import DEFAULT_W4_POLICY as J_W4_POLICY
 from repro.serve import ServeConfig as JServeConfig
 from repro.serve import ServingEngine as JServingEngine
 
 from repro_torch.configs import get_config
 from repro_torch.convert import from_reference
+from repro_torch.quant import DEFAULT_W4_POLICY, ptq_quantize_params
 from repro_torch.serve import (AdmissionQueue, QueueFullError, ServeConfig,
                                ServingEngine, percentile)
 
@@ -60,8 +63,22 @@ def jax_margin(jcfg, jp, context):
     return float(top[1] - top[0])
 
 
-def test_greedy_tokens_match_reference(setup):
-    jcfg, jp, cfg, tp, prompts = setup
+@pytest.fixture(scope="module")
+def setup_qwen_w4a8():
+    """codeqwen1.5-7b-reduced: the reference's float weights, PTQ'd by each
+    side with the default W4 policy (bit-identical trees)."""
+    jcfg = jget_config("codeqwen1.5-7b", precision="w4a8", reduced=True)
+    jf = jinit_params(jax.random.PRNGKey(5), jcfg)
+    cfg = get_config("codeqwen1.5-7b", precision="w4a8", reduced=True)
+    tp = ptq_quantize_params(from_reference(jax.device_get(jf), cfg,
+                                            device="cpu"),
+                             policy=DEFAULT_W4_POLICY)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(2, cfg.vocab_size, n).tolist() for n in (5, 12, 2, 8)]
+    return jcfg, jptq(jf, policy=J_W4_POLICY), cfg, tp, prompts
+
+
+def _assert_greedy_match(jcfg, jp, cfg, tp, prompts):
     ref = drain(JServingEngine(jp, jcfg, JServeConfig(**SCFG)), prompts)
     mine = drain(ServingEngine(tp, cfg, ServeConfig(**SCFG), device="cpu"),
                  prompts)
@@ -75,6 +92,14 @@ def test_greedy_tokens_match_reference(setup):
                 break
         else:
             assert len(got) == len(want), (rid, got, want)
+
+
+def test_greedy_tokens_match_reference(setup):
+    _assert_greedy_match(*setup)
+
+
+def test_greedy_tokens_match_reference_codeqwen_w4a8(setup_qwen_w4a8):
+    _assert_greedy_match(*setup_qwen_w4a8)
 
 
 def test_lane_isolation(setup):
