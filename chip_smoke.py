@@ -33,7 +33,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    zeroed just before each drain and read just after; every kernel of that
    path must have launched.  Each model is freed before the next.
 
-The last three lines of standard output are the kernels JSON, the card's
+The last three lines of standard output are the kernels JSON (each kernel
+timed at the M = 8 shape the main path, codeqwen1.5-7b w4a8, gives it, or
+the path that runs it; ``by_path`` holds every path's shape), the card's
 ``nvidia-smi`` name/power line and ``{"ok": true, "device": ...}``.  With
 ``--out PATH`` every case, the serving stats and the profiles are also
 written to PATH as JSON.
@@ -149,9 +151,9 @@ def check_kernels(dev, gen, timer) -> list[dict]:
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
-    # -- 1. quantize_rows ----------------------------------------------------
+    # -- 1. quantize_rows (starcoder's and codeqwen's activation widths) -----
     for m in (8, 256):
-        for d in (3072, 12288):
+        for d in (3072, 12288, 4096, 13440):
             x = randn(m, d, scale=3.0)
             x[0] = 0.0                      # the 1e-8 floor
             q, s = ops.quant_rows(x)
@@ -165,7 +167,7 @@ def check_kernels(dev, gen, timer) -> list[dict]:
                    timer(lambda: quantize_rows_ref(x)), None,
                    bound(m * d * 5 + m * 4, 3 * m * d, F32_OPS))
 
-    # -- 2. int8_gemm (the serving path's projections) ------------------------
+    # -- 2. int8_gemm (the serving paths' projections and heads) --------------
     gemms = [("q_proj+bias", 3072, 3072, "scaled", True, torch.bfloat16),
              ("kv_proj+bias", 3072, 256, "scaled", True, torch.bfloat16),
              ("o_proj+residual", 3072, 3072, "scaled_add", False, torch.bfloat16),
@@ -173,6 +175,14 @@ def check_kernels(dev, gen, timer) -> list[dict]:
              ("mlp_down", 12288, 3072, "scaled", False, torch.bfloat16),
              ("head_f32", 3072, 49152, "scaled", False, torch.float32),
              ("acc_only", 3072, 3072, "none", False, None),
+             ("codeqwen q_proj+bias", 4096, 4096, "scaled", True,
+              torch.bfloat16),
+             ("codeqwen o_proj+residual", 4096, 4096, "scaled_add", False,
+              torch.bfloat16),
+             ("codeqwen mlp_down", 13440, 4096, "scaled", False,
+              torch.bfloat16),
+             ("codeqwen head_f32", 4096, 92416, "scaled", False,
+              torch.float32),
              ("ragged+bias", 100, 70, "scaled_add", True, torch.bfloat16)]
     for name, k, n, epi, has_bias, out_dtype in gemms:
         wd = quantize_weight(randn(k, n, scale=k ** -0.5))
@@ -216,10 +226,9 @@ def check_kernels(dev, gen, timer) -> list[dict]:
                    timer(run), timer(plain), lib,
                    bound(nbytes, 2 * m * n * k, INT8_OPS))
 
-    # -- 3. int_layernorm ------------------------------------------------------
+    # -- 3. int_layernorm (starcoder's LayerNorm, both models' RMSNorm) ------
     for m in (8, 256):
-        for rms in (False, True):
-            d = 3072
+        for d, rms in ((3072, False), (3072, True), (4096, True)):
             x = torch.randint(-128, 128, (m, d), generator=gen, device=dev,
                               dtype=torch.int32)
             x[1] -= 100                       # a row with a negative mean
@@ -414,17 +423,6 @@ def check_w4_and_gated(dev, gen, timer, record, randn) -> None:
 # phase 4: the reduced model, CPU plain versions vs CUDA kernels
 # ---------------------------------------------------------------------------
 
-def quantized(params, precision: str):
-    """PTQ as the launcher does: w4a8 by the default W4 policy, w8a8 all
-    int8, bf16 untouched."""
-    from repro_torch.quant import DEFAULT_W4_POLICY, ptq_quantize_params
-    if precision == "w4a8":
-        return ptq_quantize_params(params, policy=DEFAULT_W4_POLICY)
-    if precision == "w8a8":
-        return ptq_quantize_params(params)
-    return params
-
-
 # (arch, precision, kernels the reduced steps must launch on the card)
 REDUCED_PATHS = (
     ("starcoder2-3b", "w8a8", ("int8_gemm", "int8_kv_decode_attention")),
@@ -439,10 +437,11 @@ def check_reduced(dev, seed, arch: str, precision: str, must_launch) -> float:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import init_params, init_states
+    from repro_torch.quant import quantize_for
     from repro_torch.serve import packed_step
 
     cfg = get_config(arch, precision=precision, reduced=True)
-    cpu = quantized(init_params(cfg, seed=seed, device="cpu"), precision)
+    cpu = quantize_for(init_params(cfg, seed=seed, device="cpu"), precision)
     gpu = copy.deepcopy(cpu).to(dev)
     lanes, t = 4, 16
     st_c = init_states(cfg, lanes, 64, int8_kv=True, device="cpu")
@@ -511,12 +510,13 @@ def serve_full(dev, seed, arch, precision, n_req, max_new, profiled,
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import forward, init_params, init_states
+    from repro_torch.quant import quantize_for
     from repro_torch.serve import ServeConfig, ServingEngine
 
     torch.cuda.reset_peak_memory_stats(dev)
     cfg = get_config(arch, precision=precision)
     t0 = time.perf_counter()
-    params = quantized(init_params(cfg, seed=seed, device=dev), precision)
+    params = quantize_for(init_params(cfg, seed=seed, device=dev), precision)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     after_ptq = torch.cuda.memory_allocated(dev) / 2 ** 30
@@ -672,15 +672,30 @@ def main() -> int:
                             list(p["top_kernels_ms"].items())[:4]))
         log(f"  {srv['summary']}")
 
-    # the M = 8 (decode) case each kernel is reported at
-    headline = {"quantize_rows": "[8,3072] f32",
-                "int8_gemm": "mlp_up+gelu [8,3072]x[3072,12288] scaled_gelu",
-                "int_layernorm": "[8,3072] ln",
-                "int8_kv_decode_attention":
-                    "B=8 S=1024 Hq=24 Hkv=2 D=128 window=0",
-                "dual_gemm_gated": "int8 [8,4096]x2[4096,13440] silu",
-                "int4_gemm": "mlp_down [8,13440]x[13440,4096] scaled g64",
-                "dual_int4_gemm_gated": "[8,4096]x2[4096,13440] silu g64"}
+    # the M = 8 (decode) case of each kernel at the shape each path gives it;
+    # a kernel's headline is the slice's main path (codeqwen1.5-7b w4a8) where
+    # it runs there, else the path that runs it
+    sc, cq4, cq8 = (label for label, *_ in SERVE_PATHS)
+    headline_by_path = {
+        sc: {"quantize_rows": "[8,3072] f32",
+             "int8_gemm": "mlp_up+gelu [8,3072]x[3072,12288] scaled_gelu",
+             "int_layernorm": "[8,3072] ln",
+             "int8_kv_decode_attention":
+                 "B=8 S=1024 Hq=24 Hkv=2 D=128 window=0"},
+        cq4: {"quantize_rows": "[8,4096] f32",
+              "int8_gemm":
+                  "codeqwen head_f32 [8,4096]x[4096,92416] scaled",
+              "int_layernorm": "[8,4096] rms",
+              "int8_kv_decode_attention":
+                  "B=8 S=1024 Hq=32 Hkv=32 D=128 window=0",
+              "int4_gemm": "mlp_down [8,13440]x[13440,4096] scaled g64",
+              "dual_int4_gemm_gated": "[8,4096]x2[4096,13440] silu g64"},
+        cq8: {"quantize_rows": "[8,4096] f32",
+              "int8_gemm": "codeqwen mlp_down [8,13440]x[13440,4096] scaled",
+              "int_layernorm": "[8,4096] rms",
+              "int8_kv_decode_attention":
+                  "B=8 S=1024 Hq=32 Hkv=32 D=128 window=0",
+              "dual_gemm_gated": "int8 [8,4096]x2[4096,13440] silu"}}
     csrc, tpu = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     sources = {"quantize_rows": ("quantize.cu", "quantize.py:41"),
                "int8_gemm": ("int8_gemm.cu", "int8_gemm.py:127"),
@@ -691,21 +706,28 @@ def main() -> int:
                "int4_gemm": ("int4_gemm.cu", "int8_gemm.py:433"),
                "dual_int4_gemm_gated": ("dual_int4_gemm_gated.cu",
                                         "int8_gemm.py:568")}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def case(name, shape):
+        return next(c for c in cases if c["kernel"] == name
+                    and c["shape"] == shape)
     kernels = []
     for name in ops.KERNELS:
-        c = next(c for c in cases if c["kernel"] == name
-                 and c["shape"] == headline[name])
         by_path = {label: srv["launches"][name]
                    for label, srv in served.items()}
+        at_path = {label: {"shape": shapes[name],
+                           **{k: case(name, shapes[name])[k] for k in keys}}
+                   for label, shapes in headline_by_path.items()
+                   if name in shapes}
+        c = at_path[cq4] if cq4 in at_path else next(iter(at_path.values()))
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + sources[name][0],
             "replaces": tpu + sources[name][1],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(x["max_abs_err"] for x in cases
                                if x["kernel"] == name),
-            "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-            "shape": c["shape"], "status": "ok"})
+            **{k: c[k] for k in keys}, "shape": c["shape"],
+            "by_path": at_path, "status": "ok"})
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({

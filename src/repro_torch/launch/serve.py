@@ -26,7 +26,7 @@ import torch
 from ..configs import get_config
 from ..kernels import ops
 from ..models import init_params
-from ..quant import DEFAULT_W4_POLICY, ptq_quantize_params
+from ..quant import quantize_for
 from ..serve import ServeConfig, ServingEngine
 
 
@@ -65,11 +65,8 @@ def main(argv=None) -> None:
                                   "yet (ROADMAP.md §A8)")
     precision = "w4a8" if args.w4a8 else "w8a8" if args.w8a8 else "bf16"
     cfg = get_config(args.arch, precision=precision, reduced=args.reduced)
-    params = init_params(cfg, seed=args.seed, device=args.device)
-    if args.w4a8:
-        params = ptq_quantize_params(params, policy=DEFAULT_W4_POLICY)
-    elif args.w8a8:
-        params = ptq_quantize_params(params)
+    params = quantize_for(init_params(cfg, seed=args.seed, device=args.device),
+                          precision)
     engine = ServingEngine(
         params, cfg,
         ServeConfig(batch_lanes=args.lanes, max_seq=args.max_seq,

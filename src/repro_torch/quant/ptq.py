@@ -1,7 +1,8 @@
 """Post-training quantization: float weights -> W8A8 / W4A8 integer execution.
 
 Port of ``repro.quant.ptq`` (``ptq_quantize_params``, the W4 policy and
-``quantized_param_fraction``).  Every GEMM weight (attention wq/wk/wv/wo,
+``quantized_param_fraction``), and ``quantize_for``, the launcher's choice
+of policy by precision.  Every GEMM weight (attention wq/wk/wv/wo,
 MLP w_in/w_gate/w_out and the ``unembed`` head) becomes per-output-channel
 symmetric int8 ``{w_q, scale}`` or, where the policy says so, packed int4
 ``{w4, qmul, scale}`` with two-level group scales; embeddings and norms
@@ -73,6 +74,19 @@ def ptq_quantize_params(params: LM, policy: dict | None = None) -> LM:
             clip = float(spec.get("clip", 1.0))
             mod.quantize_(quantize_weight_w4(mod.weight, group=group,
                                              clip_ratio=clip))
+    return params
+
+
+def quantize_for(params: LM, precision: str) -> LM:
+    """PTQ for a serving precision, as ``repro.launch.serve`` applies it:
+    w4a8 by ``DEFAULT_W4_POLICY``, w8a8 every GEMM weight int8, bf16
+    untouched."""
+    if precision == "w4a8":
+        return ptq_quantize_params(params, policy=DEFAULT_W4_POLICY)
+    if precision == "w8a8":
+        return ptq_quantize_params(params)
+    if precision != "bf16":
+        raise ValueError(f"unknown precision {precision!r}")
     return params
 
 

@@ -108,6 +108,24 @@ def test_explicit_cpu_w4a8_launches_nothing():
         ops.KERNELS)
 
 
+@pytest.mark.parametrize("precision,mlp,head", [
+    ("w4a8", "int4", "int8"), ("w8a8", "int8", "int8"),
+    ("bf16", "float", "float")])
+def test_quantize_for_picks_the_launchers_policy(precision, mlp, head):
+    from repro_torch.quant import quantize_for
+
+    def form(lin):
+        return "int4" if lin.int4 else "int8" if lin.quantized else "float"
+    cfg = get_config("codeqwen1.5-7b", precision=precision, reduced=True)
+    params = quantize_for(init_params(cfg, seed=1, device="cpu"), precision)
+    layer = params.layers[0]
+    assert {form(layer.attn.wq), form(layer.attn.wo), form(layer.mlp.w_in),
+            form(layer.mlp.w_gate), form(layer.mlp.w_out)} == {mlp}
+    assert form(params.unembed) == head
+    with pytest.raises(ValueError, match="precision"):
+        quantize_for(params, "fp8")
+
+
 def test_codeqwen_is_ported():
     from repro_torch.configs import ARCH_IDS
     assert "codeqwen1.5-7b" in ARCH_IDS
