@@ -12,7 +12,11 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    quantize_rows, int8_gemm, int4_gemm, the int8 dual_gemm_gated,
    dual_int4_gemm_gated and int_layernorm; within the stated tolerances for
    the bf16 dual_gemm_gated and the decode attention (empty slots, a window,
-   an all-masked lane).  Each is timed (CUDA events, L2 flushed before every
+   an all-masked lane); the paged decode attention on scrambled arenas (int8
+   and bf16 pages; shared, non-adjacent and null pages, slots cleared by
+   copy-on-write, an idle lane that must be exactly zero) within the same
+   tolerance, and bit for bit equal to the dense kernel on the same content
+   laid out densely.  Each is timed (CUDA events, L2 flushed before every
    launch) beside its plain version, a PyTorch library yardstick where one
    call computes the same function (``torch._int_mm`` for the integer GEMMs,
    rows padded to 32 at M = 8, which it refuses; for int4_gemm on the
@@ -23,19 +27,26 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
 4. reduced: starcoder2-3b-reduced at w8a8 and codeqwen1.5-7b-reduced at
    w4a8, w8a8 and bf16, each with an int8 KV cache, the same packed steps on
    the CPU (plain versions) and on the card (kernels): the logits agree
-   within ``REDUCED_TOL`` of their range;
+   within ``REDUCED_TOL`` of their range; codeqwen1.5-7b-reduced w4a8 with a
+   paged int8 arena the same, and its card logits equal the dense card
+   logits bit for bit;
 5. serve, each path through ``ServingEngine`` with random weights from
    ``--seed`` PTQ'd by the port, an int8 KV cache, 8 lanes, max_seq 1024,
    token budget 256 and prompts of 16-256 tokens, greedy:
    full-width starcoder2-3b w8a8 (16 requests x 32 new tokens),
-   full-width codeqwen1.5-7b w4a8 (16 x 32: the slice's main path) and a
-   short full-width codeqwen1.5-7b w8a8 drain (4 x 8).  Launch counts are
+   full-width codeqwen1.5-7b w4a8 (16 x 32) and a
+   short full-width codeqwen1.5-7b w8a8 drain (4 x 8).  The codeqwen w4a8
+   parameters then serve three paged drains (``serve_paged``: the same
+   schedule, which must give the dense drain's tokens; a shared 200-token
+   prefix; a 66-page pool under pressure; every copy-on-write page and
+   every swapped page held bit for bit on the card).  Launch counts are
    zeroed just before each drain and read just after; every kernel of that
    path must have launched.  Each model is freed before the next.
 
 The last three lines of standard output are the kernels JSON (each kernel
 timed at the M = 8 shape the main path, codeqwen1.5-7b w4a8, gives it, or
-the path that runs it; ``by_path`` holds every path's shape), the card's
+the path that runs it — the paged drains for the paged kernel; ``by_path``
+holds every path's shape, ``launches_by_path`` every drain's count), the card's
 ``nvidia-smi`` name/power line and ``{"ok": true, "device": ...}``.  With
 ``--out PATH`` every case, the serving stats and the profiles are also
 written to PATH as JSON.
@@ -299,7 +310,138 @@ def check_kernels(dev, gen, timer) -> list[dict]:
                    bound(nbytes, 4 * bsz * hq * s * d, F32_OPS))
 
     check_w4_and_gated(dev, gen, timer, record, randn)
+    check_paged(dev, gen, timer, record, randn)
     return cases
+
+
+# the paged arena of the serving paths: 8 lanes, max_seq 1024 in 16-slot
+# pages, the engine's default pool size (b + 2) * mp + 1
+PAGED_B, PAGED_PS, PAGED_MP = 8, 16, 64
+PAGED_POOL = (PAGED_B + 2) * PAGED_MP + 1
+IDLE_LANE = 3
+
+
+def paged_arena(dev, gen, randn, hkv, d, int8):
+    """A scrambled arena: random payload in every page (stale slots hold
+    data), each lane's pages drawn from a permutation of 1..n_pages-1 (never
+    adjacent by construction), lane 1's first page shared with lane 0's,
+    a hole (null entry) in lane 2's table, a slot run cleared as by
+    copy-on-write in lane 4's last page, and an idle lane (qpos -1)."""
+    from repro_torch.models.attention import _quant_kv
+    b, ps, mp, n = PAGED_B, PAGED_PS, PAGED_MP, PAGED_POOL
+    arena = {}
+    for key in ("k", "v"):
+        x = randn(n, ps, hkv, d)
+        if int8:
+            arena["p" + key], arena["p" + key + "s"] = _quant_kv(x)
+        else:
+            arena["p" + key], arena["p" + key + "s"] = x.to(torch.bfloat16), None
+    fill = torch.randint(1, ps * mp + 1, (b,), generator=gen, device=dev)
+    fill[0] = max(int(fill[0]), 2 * ps)
+    fill[1] = max(int(fill[1]), 2 * ps)
+    fill[IDLE_LANE] = 0
+    perm = torch.randperm(n - 1, generator=gen, device=dev) + 1
+    pt = torch.zeros((b, mp), dtype=torch.int32, device=dev)
+    ppos = torch.full((n, ps), -1, dtype=torch.int32, device=dev)
+    slot = torch.arange(ps, device=dev)
+    used = 0
+    for lane in range(b):
+        for j in range(-(-int(fill[lane]) // ps)):
+            if lane == 1 and j == 0:
+                pt[1, 0] = pt[0, 0]           # the shared prefix page
+                continue
+            page = perm[used]
+            used += 1
+            pt[lane, j] = page
+            pos = j * ps + slot
+            ppos[page] = torch.where(pos < fill[lane], pos, -1).to(torch.int32)
+    pt[2, 1] = 0                              # a null entry inside the span
+    last = pt[4, (int(fill[4]) - 1) // ps]
+    ppos[last, 5:] = -1                       # copy-on-write kept 5 slots
+    qpos = (fill - 1).to(torch.int32)
+    return arena, ppos, pt, qpos
+
+
+def check_paged(dev, gen, timer, record, randn) -> None:
+    """Phase 3 for paged_decode_attention: codeqwen's serving shape (G = 1,
+    int8 and bf16 pages) and starcoder's (G = 12), each on a scrambled arena
+    (``paged_arena``) without and with a window, against the plain version
+    (``RTOL``/``ATOL``; the idle lane exactly zero) and, for int8 pages,
+    against the dense kernel on the same content laid out densely: equal
+    bit for bit on every live lane."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.int8_kv_decode_attention import ATOL, RTOL
+    from repro_torch.kernels.paged_attention import paged_decode_attention_ref
+    b, ps, mp = PAGED_B, PAGED_PS, PAGED_MP
+    for hq, hkv, d, int8 in ((32, 32, 128, True), (24, 2, 128, True),
+                             (32, 32, 128, False)):
+        arena, ppos, pt, qpos = paged_arena(dev, gen, randn, hkv, d, int8)
+        pk, pks, pv, pvs = (arena[k] for k in ("pk", "pks", "pv", "pvs"))
+        q = randn(b, hq, d).to(torch.bfloat16)
+        ptc = pt.long()
+        kpos = ppos[ptc].reshape(b, mp * ps)
+        for window in (0, 100):
+            def run():
+                return ops.paged_attention_decode(q, pk, pks, pv, pvs, ppos,
+                                                  pt, qpos, window=window)
+
+            def plain():
+                return paged_decode_attention_ref(q, pk, pks, pv, pvs, ppos,
+                                                  pt, qpos, window=window)
+            out, ref = run(), plain()
+            torch.cuda.synchronize()
+            what = (f"paged decode attention Hq={hq} Hkv={hkv} "
+                    f"{'int8' if int8 else 'bf16'} window={window}")
+            if not (torch.isfinite(out).all() and torch.allclose(
+                    out.float(), ref.float(), rtol=RTOL, atol=ATOL)):
+                raise AssertionError(f"{what}: max |d| {max_err(out, ref)} "
+                                     f"beyond rtol={RTOL} atol={ATOL}")
+            if not bool((out[IDLE_LANE] == 0).all()):
+                raise AssertionError(f"{what}: the idle lane is not zero")
+            valid = (kpos >= 0) & (kpos <= qpos[:, None])
+            if window:
+                valid &= kpos > (qpos[:, None] - window)
+            live = valid.any(1)
+            if int8:
+                # the dense kernel over the same content laid out densely
+                def view(a):
+                    return a[ptc].reshape(b, mp * ps, hkv, -1).contiguous()
+                dense = ops.decode_attention_int8kv(
+                    q, view(pk), view(pks), view(pv), view(pvs),
+                    kpos.contiguous(), qpos, window=window)
+                torch.cuda.synchronize()
+                if not torch.equal(out[live], dense[live]):
+                    raise AssertionError(
+                        f"{what}: paged and dense kernels differ on live "
+                        f"lanes (max |d| {max_err(out[live], dense[live])})")
+            # yardstick: SDPA over K/V gathered and dequantized to bf16 ahead
+            # of time (not the same function: the gather and dequant are out)
+            ones = torch.ones((), device=dev)
+            kd = (pk[ptc].float() * (pks[ptc] if int8 else ones)).to(
+                torch.bfloat16).reshape(b, mp * ps, hkv, d).permute(0, 2, 1, 3)
+            vd = (pv[ptc].float() * (pvs[ptc] if int8 else ones)).to(
+                torch.bfloat16).reshape(b, mp * ps, hkv, d).permute(0, 2, 1, 3)
+            kd = kd.repeat_interleave(hq // hkv, 1).contiguous()
+            vd = vd.repeat_interleave(hq // hkv, 1).contiguous()
+            mask = valid[:, None, None, :]
+            q4 = q[:, :, None, :]
+            lib = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, kd, vd, attn_mask=mask))
+            # bytes this data needs: ppos of every distinct mapped page, the
+            # payload and scales of every distinct valid slot, the table,
+            # qpos, q and out
+            pages = torch.unique(ptc[ptc > 0]).numel()
+            vslots = torch.unique((ptc[:, :, None] * ps + torch.arange(
+                ps, device=dev)).reshape(b, -1)[valid]).numel()
+            per_slot = hkv * d * pk.element_size() * 2 + (8 * hkv if int8 else 0)
+            nbytes = (pages * ps * 4 + vslots * per_slot + pt.numel() * 4
+                      + 4 * b + 2 * 2 * b * hq * d)
+            ops_n = 4 * hq * d * int(valid.sum())
+            record("paged_decode_attention",
+                   f"B={b} ps={ps} MP={mp} Hq={hq} Hkv={hkv} D={d} "
+                   f"{'int8' if int8 else 'bf16'} window={window}",
+                   max_err(out, ref), False, timer(run), timer(plain), lib,
+                   bound(nbytes, ops_n, F32_OPS))
 
 
 def check_w4_and_gated(dev, gen, timer, record, randn) -> None:
@@ -488,6 +630,76 @@ def check_reduced(dev, seed, arch: str, precision: str, must_launch) -> float:
     return worst
 
 
+def check_reduced_paged(dev, seed) -> float:
+    """codeqwen1.5-7b-reduced w4a8 with a paged int8 arena (4 lanes, 16-slot
+    pages, a scrambled page table): the same packed steps as
+    ``check_reduced`` on the CPU (plain versions), on the card paged
+    (kernels, the paged decode kernel at T = 1) and on the card dense.  The
+    paged card logits must equal the dense card logits bit for bit, and lie
+    within ``REDUCED_TOL`` of the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, init_states
+    from repro_torch.quant import quantize_for
+    from repro_torch.serve import packed_step
+
+    cfg = get_config("codeqwen1.5-7b", precision="w4a8", reduced=True)
+    cpu = quantize_for(init_params(cfg, seed=seed, device="cpu"), "w4a8")
+    gpu = copy.deepcopy(cpu).to(dev)
+    lanes, t, max_seq, ps = 4, 16, 64, 16
+    mp = max_seq // ps
+    n_pages = (lanes + 2) * mp + 1
+    perm = np.random.default_rng(seed).permutation(np.arange(1, n_pages))
+    table = torch.from_numpy(perm[:lanes * mp].reshape(lanes, mp).astype(
+        np.int32))
+    st_c = init_states(cfg, lanes, max_seq, int8_kv=True, device="cpu",
+                       paged_pages=n_pages, page_size=ps)
+    st_p = init_states(cfg, lanes, max_seq, int8_kv=True, device=dev,
+                       paged_pages=n_pages, page_size=ps)
+    st_d = init_states(cfg, lanes, max_seq, int8_kv=True, device=dev)
+    st_c[0]["kv"]["pt"].copy_(table)          # one table, shared by layers
+    st_p[0]["kv"]["pt"].copy_(table)
+    rng = np.random.default_rng(seed)
+    lens = np.array([16, 9, 3, 12])
+    tok = rng.integers(2, cfg.vocab_size, size=(lanes, t))
+    pos = np.where(np.arange(t)[None] < lens[:, None], np.arange(t)[None], -1)
+    last = lens - 1
+    worst = 0.0
+    before = ops.launch_counts()
+    for step in range(6):
+        args = [torch.from_numpy(a) for a in (tok.astype(np.int64),
+                                              pos.astype(np.int32),
+                                              last.astype(np.int64))]
+        lc, _ = packed_step(cpu, cfg, args[0], args[1], st_c, args[2])
+        on_dev = [a.to(dev) for a in args]
+        lp, _ = packed_step(gpu, cfg, *on_dev[:2], st_p, on_dev[2])
+        ld, _ = packed_step(gpu, cfg, *on_dev[:2], st_d, on_dev[2])
+        torch.cuda.synchronize()
+        if not torch.equal(lp, ld):
+            raise AssertionError(f"reduced paged step {step}: paged logits "
+                                 f"differ from dense on the card (max |d| "
+                                 f"{max_err(lp, ld)})")
+        lp = lp.cpu()
+        err = float((lc - lp).abs().max())
+        rel = err / float(lc.abs().max())
+        worst = max(worst, rel)
+        log(f"  paged step {step} (T={tok.shape[1]}): paged == dense on the "
+            f"card; max |cpu - cuda| = {err:.4g} ({rel:.3%} of max|logit|)")
+        if not (torch.isfinite(lp).all() and rel <= REDUCED_TOL):
+            raise AssertionError(f"reduced paged codeqwen w4a8: CUDA logits "
+                                 f"differ from the CPU plain path by "
+                                 f"{rel:.3%} (> {REDUCED_TOL:.0%})")
+        nxt = lc.argmax(-1).numpy()
+        tok = nxt[:, None]
+        pos = (pos.max(1) + 1)[:, None]
+        last = np.zeros(lanes, np.int64)
+    after = ops.launch_counts()
+    if after["paged_decode_attention"] <= before["paged_decode_attention"]:
+        raise AssertionError("reduced paged steps did not reach "
+                             "paged_decode_attention")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 5: full-width serving
 # ---------------------------------------------------------------------------
@@ -495,22 +707,116 @@ def check_reduced(dev, seed, arch: str, precision: str, must_launch) -> float:
 COMMON = ("quantize_rows", "int8_gemm", "int_layernorm",
           "int8_kv_decode_attention")
 # (label, arch, precision, requests, new tokens each, profiled, kernels that
-# must launch on the drain)
+# must launch on the drain, paged drains after the dense one)
 SERVE_PATHS = (
-    ("starcoder2-3b w8a8", "starcoder2-3b", "w8a8", 16, 32, True, COMMON),
+    ("starcoder2-3b w8a8", "starcoder2-3b", "w8a8", 16, 32, True, COMMON,
+     False),
     ("codeqwen1.5-7b w4a8", "codeqwen1.5-7b", "w4a8", 16, 32, True,
-     COMMON + ("int4_gemm", "dual_int4_gemm_gated")),
+     COMMON + ("int4_gemm", "dual_int4_gemm_gated"), True),
     ("codeqwen1.5-7b w8a8", "codeqwen1.5-7b", "w8a8", 4, 8, False,
-     COMMON + ("dual_gemm_gated",)),
+     COMMON + ("dual_gemm_gated",), False),
 )
+PAGED_LABEL = "codeqwen1.5-7b w4a8 paged"
+
+
+SCFG = dict(batch_lanes=8, max_seq=1024, int8_kv=True, token_budget=256)
+
+
+def dense_requests(cfg, seed, n_req, max_new) -> list:
+    """``n_req`` prompts of 16-256 tokens, uniform from ``seed``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_req):
+        n = int(rng.integers(16, 257))
+        out.append((rng.integers(2, cfg.vocab_size, size=n).tolist(), max_new))
+    return out
+
+
+def timed_drain(engine, waves, dev, cfg, must_launch=(),
+                reset_peak: bool = True) -> tuple[dict, dict]:
+    """Submit each wave of (prompt, max_new) and drain it before the next.
+    Launch counts are zeroed just before the first submit and read just
+    after the last drain.  Returns (result, tokens by request id)."""
+    from repro_torch.kernels import ops
+    if reset_peak:
+        torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rid = 0
+    for wave in waves:
+        for prompt, max_new in wave:
+            engine.submit(prompt, max_new=max_new, request_id=rid)
+            rid += 1
+        engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    done = engine.finished
+    if len(done) != rid:
+        raise AssertionError(f"{len(done)} of {rid} requests finished")
+    for r in done:
+        if not r["tokens"] or not all(0 <= t < cfg.vocab_size for t in r["tokens"]):
+            raise AssertionError(f"request {r['id']}: bad tokens {r['tokens']}")
+    missing = [k for k in must_launch if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {cfg.name} "
+                             f"path: {missing}")
+    st = engine.stats
+    gen = sum(len(r["tokens"]) for r in done)
+    res = {"requests": len(done), "generated_tokens": gen,
+           "prompt_tokens": st["prompt_tokens"],
+           "prompt_len_sum": sum(len(p) for w in waves for p, _ in w),
+           "steps": st["steps"],
+           "forwards_by_bucket": {str(k): v for k, v in
+                                  sorted(st["forwards"].items())},
+           "wall_s": wall, "generated_tok_per_s": gen / wall,
+           "processed_tok_per_s": (gen + st["prompt_tokens"]) / wall,
+           "launches": counts, "metrics": engine.serving_metrics(),
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "summary": engine.stats_summary()}
+    return res, {r["id"]: r["tokens"] for r in done}
+
+
+def fresh_states(cfg, dev, paged: bool) -> list:
+    """Fresh int8 caches of 8 lanes x 1024 slots: dense, or the paged
+    arena with every lane's 64 logical pages mapped to distinct physical
+    pages (512 of the 641), so that a decode step reads as many distinct
+    bytes as the dense cache's."""
+    from repro_torch.models import init_states
+    if not paged:
+        return init_states(cfg, 8, 1024, int8_kv=True, device=dev)
+    st = init_states(cfg, 8, 1024, int8_kv=True, device=dev,
+                     paged_pages=PAGED_POOL, page_size=PAGED_PS)
+    st[0]["kv"]["pt"][:] = torch.arange(
+        1, PAGED_B * PAGED_MP + 1, dtype=torch.int32,
+        device=dev).reshape(PAGED_B, PAGED_MP)
+    return st
+
+
+def decode_step_launches(params, cfg, dev, paged: bool) -> dict:
+    """One all-decode step (bucket 1, 8 lanes at position 0) on fresh caches
+    (``fresh_states``): the launches of each kernel, and finite logits of
+    the expected shape."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import forward
+    st = fresh_states(cfg, dev, paged)
+    before = ops.launch_counts()
+    lg, _ = forward(params, cfg, torch.full((8, 1), 5, device=dev),
+                    torch.zeros((8, 1), dtype=torch.int32, device=dev), st)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    if tuple(lg.shape) != (8, 1, cfg.padded_vocab) or not torch.isfinite(lg).all():
+        raise AssertionError(f"decode logits: shape {tuple(lg.shape)}, "
+                             f"finite={bool(torch.isfinite(lg).all())}")
+    return {k: after[k] - before[k] for k in after}
 
 
 def serve_full(dev, seed, arch, precision, n_req, max_new, profiled,
-               must_launch) -> dict:
+               must_launch, paged: bool = False) -> dict:
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.models import forward, init_params, init_states
     from repro_torch.quant import quantize_for
+    from repro_torch.models import init_params
     from repro_torch.serve import ServeConfig, ServingEngine
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -520,68 +826,201 @@ def serve_full(dev, seed, arch, precision, n_req, max_new, profiled,
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     after_ptq = torch.cuda.memory_allocated(dev) / 2 ** 30
-    scfg = ServeConfig(batch_lanes=8, max_seq=1024, int8_kv=True,
-                       token_budget=256)
-    engine = ServingEngine(params, cfg, scfg, device=dev)
-    rng = np.random.default_rng(seed)
-    for i in range(n_req):
-        n = int(rng.integers(16, 257))
-        engine.submit(rng.integers(2, cfg.vocab_size, size=n).tolist(),
-                      max_new=max_new, request_id=i)
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = engine.run_until_drained()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    if len(done) != n_req:
-        raise AssertionError(f"{len(done)} of {n_req} requests finished")
-    for r in done:
-        if not r["tokens"] or not all(0 <= t < cfg.vocab_size for t in r["tokens"]):
-            raise AssertionError(f"request {r['id']}: bad tokens {r['tokens']}")
-    missing = [k for k in must_launch if counts[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the {arch} {precision} "
-                             f"path: {missing}")
-    st = engine.stats
-    gen = sum(len(r["tokens"]) for r in done)
-    res = {"requests": len(done), "generated_tokens": gen,
-           "prompt_tokens": st["prompt_tokens"], "steps": st["steps"],
-           "forwards_by_bucket": {str(k): v for k, v in
-                                  sorted(st["forwards"].items())},
-           "wall_s": wall, "generated_tok_per_s": gen / wall,
-           "processed_tok_per_s": (gen + st["prompt_tokens"]) / wall,
-           "init_ptq_s": t_init, "launches": counts,
-           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-           "after_ptq_gib": after_ptq, "summary": engine.stats_summary()}
-    # one all-decode step (bucket 1) on fresh caches: launches per step and
-    # finite logits of the expected shape
-    st1 = init_states(cfg, 8, 1024, int8_kv=True, device=dev)
-    before = ops.launch_counts()
-    lg, _ = forward(params, cfg, torch.full((8, 1), 5, device=dev),
-                    torch.zeros((8, 1), dtype=torch.int32, device=dev), st1)
-    torch.cuda.synchronize()
-    after = ops.launch_counts()
-    if tuple(lg.shape) != (8, 1, cfg.padded_vocab) or not torch.isfinite(lg).all():
-        raise AssertionError(f"decode logits: shape {tuple(lg.shape)}, "
-                             f"finite={bool(torch.isfinite(lg).all())}")
-    res["launches_per_decode_step"] = {k: after[k] - before[k] for k in after}
-    del st1, lg
+    engine = ServingEngine(params, cfg, ServeConfig(**SCFG), device=dev)
+    requests = dense_requests(cfg, seed, n_req, max_new)
+    res, tokens = timed_drain(engine, [requests], dev, cfg, must_launch,
+                              reset_peak=False)
+    del engine
+    res.update(init_ptq_s=t_init, after_ptq_gib=after_ptq,
+               launches_per_decode_step=decode_step_launches(params, cfg, dev,
+                                                             False))
     if profiled:
         res["profile"] = {f"bucket{t}": profile_step(params, cfg, dev, t)
                           for t in (1, 64)}
+    if paged:
+        res["paged"] = serve_paged(dev, seed, cfg, params, requests, tokens,
+                                   must_launch)
     return res
 
 
-def profile_step(params, cfg, dev, t: int) -> dict:
+def count_diff(got: dict, want: dict) -> int:
+    """Generated tokens of ``got`` that differ from ``want`` (position by
+    position, plus any length difference)."""
+    n = 0
+    for rid, w in want.items():
+        g = got[rid]
+        n += sum(a != b for a, b in zip(g, w)) + abs(len(g) - len(w))
+    return n
+
+
+class ArenaChecks:
+    """Card-side checks of the paged engine's in-place arena updates,
+    installed on one engine, whatever its schedule: each copy-on-write page
+    must equal its source on its ``keep`` slots (payload, scales,
+    positions) with position -1 beyond them, and each resumed lane's pages
+    must hold, bit for bit, what its pages held just before it was
+    preempted (the swap to host memory and back)."""
+
+    KEYS = ("pk", "pv", "pks", "pvs", "ppos")
+
+    def __init__(self, eng):
+        self.cow_pages = self.swap_pages = 0
+        self._saved = {}
+        copy, preempt, resume = (eng._copy_page, eng._preempt_lane,
+                                 eng._try_resume)
+        arenas = eng._arenas()
+
+        def lane_pages(lane):
+            js = [j for j in range(eng.pool.mp) if eng.pool.table[lane, j]]
+            idx = torch.as_tensor(eng.pool.table[lane, js].astype(np.int64),
+                                  device=eng.device)
+            return js, [{k: kv[k][idx] for k in self.KEYS if k in kv}
+                        for kv in arenas]
+
+        def copy_page(src, dst, keep):
+            copy(src, dst, keep)
+            for kv in arenas:
+                for k in self.KEYS:
+                    if k in kv and not torch.equal(kv[k][dst, :keep],
+                                                   kv[k][src, :keep]):
+                        raise AssertionError(f"COW page {src} -> {dst}: "
+                                             f"{k} differs on {keep} slots")
+                if not (kv["ppos"][dst, keep:] == -1).all():
+                    raise AssertionError(f"COW page {dst}: positions "
+                                         f"beyond {keep} not cleared")
+            self.cow_pages += 1
+
+        def preempt_lane(lane):
+            self._saved[id(eng.lane_request[lane])] = lane_pages(lane)
+            preempt(lane)
+
+        def try_resume(lane, req):
+            if not resume(lane, req):
+                return False
+            js, before = self._saved.pop(id(req))
+            now_js, after = lane_pages(lane)
+            if now_js != js or any(not torch.equal(a[k], b[k])
+                                   for a, b in zip(after, before) for k in a):
+                raise AssertionError(f"lane {lane}: resumed pages differ "
+                                     f"from the preempted lane's")
+            self.swap_pages += len(js)
+            return True
+
+        eng._copy_page, eng._preempt_lane, eng._try_resume = (
+            copy_page, preempt_lane, try_resume)
+
+
+def serve_paged(dev, seed, cfg, params, requests, dense_tokens,
+                must_launch) -> dict:
+    """Three paged drains of the full-width model (int8 arena of 16-slot
+    pages, the dense path's 8 lanes, max_seq 1024 and token budget 256),
+    reusing its parameters:
+
+    1. same-schedule: the dense drain's requests.  With no prefix hit the
+       schedule is the dense one, so its tokens must equal the dense
+       drain's exactly; its launches include paged_decode_attention and not
+       int8_kv_decode_attention;
+    2. shared prefix: one 200-token prefix + 16-64 unique tokens each, 32
+       new tokens; request 0 alone first (its prompt registers), then the
+       other 15 together.  prefix_hit_tokens >= 15 x 192, that many fewer
+       prompt tokens fed, at least one copy-on-write;
+    3. pressure: a 66-page pool (mp + 2), 8 requests of 200-256 prompt
+       tokens x 16 new: preemptions, resumes, swap-out == swap-in pages.
+
+    Every paged drain runs under ``ArenaChecks``, which hold the arena's
+    in-place updates on the card whatever the schedule: each COW page
+    against its source, each resumed lane's pages against what they held
+    before it was preempted, bit for bit.
+
+    Drains 2 and 3 change the batch composition (a lane's step can move
+    between the decode kernel and _sdpa), so their tokens are compared
+    with a dense and an unpressured run of the same requests and the
+    differing tokens reported, not required equal.  ``pool.check()`` holds
+    after each paged drain."""
+    from repro_torch.serve import ServeConfig, ServingEngine
+    paged_must = tuple(k for k in must_launch
+                       if k != "int8_kv_decode_attention") + (
+                           "paged_decode_attention",)
+    out = {}
+
+    def engine(**kw):
+        return ServingEngine(params, cfg, ServeConfig(**{**SCFG, **kw}),
+                             device=dev)
+
+    def paged_drain(label, waves, **kw):
+        eng = engine(paged=True, page_size=PAGED_PS, **kw)
+        checks = ArenaChecks(eng)
+        res, tok = timed_drain(eng, waves, dev, cfg, paged_must)
+        eng.pool.check()
+        res["pool"] = dict(eng.pool.stats, n_pages=eng.pool.n,
+                           page_size=eng.pool.ps)
+        res["checked_pages"] = {"cow": checks.cow_pages,
+                                "swap": checks.swap_pages}
+        out[label] = res
+        return res, tok
+
+    # 1. same schedule as the dense drain
+    res, tok = paged_drain("same-schedule", [requests])
+    if res["launches"]["int8_kv_decode_attention"]:
+        raise AssertionError("the paged drain launched the dense decode "
+                             "kernel")
+    res["tokens_differ"] = count_diff(tok, dense_tokens)
+    res["compared_with"] = "the dense drain"
+    res["equal_required"] = res["pool"]["prefix_hit_tokens"] == 0
+    if res["equal_required"] and res["tokens_differ"]:
+        raise AssertionError(f"same-schedule paged drain: "
+                             f"{res['tokens_differ']} tokens differ from "
+                             f"the dense drain")
+    res["launches_per_decode_step"] = decode_step_launches(params, cfg, dev,
+                                                           True)
+    res["profile"] = {"bucket1": profile_step(params, cfg, dev, 1, True)}
+
+    # 2. shared prefix: request 0 registers, the other 15 share it
+    rng = np.random.default_rng([seed, 2])
+    prefix = rng.integers(2, cfg.vocab_size, size=200).tolist()
+    shared = [(prefix + rng.integers(2, cfg.vocab_size, size=int(
+        rng.integers(16, 65))).tolist(), 32) for _ in range(16)]
+    waves = [shared[:1], shared[1:]]
+    res, tok = paged_drain("shared-prefix", waves)
+    need = 15 * (200 // PAGED_PS) * PAGED_PS
+    fed_less = res["prompt_len_sum"] - res["prompt_tokens"]
+    if not (res["pool"]["prefix_hit_tokens"] >= need and fed_less >= need
+            and res["pool"]["cow_copies"] >= 1
+            and res["checked_pages"]["cow"] == res["pool"]["cow_copies"]):
+        raise AssertionError(f"shared-prefix drain: {res['pool']}, "
+                             f"{fed_less} prompt tokens skipped (need "
+                             f">= {need}, and a copy-on-write)")
+    ref, ref_tok = timed_drain(engine(), waves, dev, cfg)
+    res.update(tokens_differ=count_diff(tok, ref_tok),
+               compared_with="the same waves served dense",
+               reference=ref)
+
+    # 3. pressure: a pool of mp + 2 pages for 8 long prompts
+    pressure = [(rng.integers(2, cfg.vocab_size, size=int(
+        rng.integers(200, 257))).tolist(), 16) for _ in range(8)]
+    res, tok = paged_drain("pressure", [pressure], pool_pages=PAGED_MP + 2)
+    m = res["metrics"]
+    if not (m["preemptions"] >= 1 and m["resumes"] >= 1
+            and m["swap_out_pages"] == m["swap_in_pages"]
+            == res["checked_pages"]["swap"] >= 1):
+        raise AssertionError(f"pressure drain: {m}")
+    ref, ref_tok = timed_drain(engine(paged=True, page_size=PAGED_PS),
+                               [pressure], dev, cfg)
+    res.update(tokens_differ=count_diff(tok, ref_tok),
+               compared_with="the same requests on the default pool",
+               reference=ref)
+    return out
+
+
+def profile_step(params, cfg, dev, t: int, paged: bool = False) -> dict:
     """Wall time and device kernel time of one packed forward of 8 lanes x
-    ``t`` rows on fresh int8 caches (torch.profiler, CUPTI): the device's
-    busy share of the step and the kernels that fill it."""
+    ``t`` rows on fresh int8 caches, dense or paged (torch.profiler,
+    CUPTI): the device's busy share of the step and the kernels that fill
+    it."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import forward, init_states
-    st = init_states(cfg, 8, 1024, int8_kv=True, device=dev)
+    from repro_torch.models import forward
+    st = fresh_states(cfg, dev, paged)
     tok = torch.full((8, t), 7, device=dev)
     pos = torch.arange(t, dtype=torch.int32, device=dev).expand(8, t)
     forward(params, cfg, tok, pos, st)                     # warm
@@ -605,6 +1044,29 @@ def profile_step(params, cfg, dev, t: int) -> dict:
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "busy_share": busy / wall_ms if wall_ms else 0.0,
             "top_kernels_ms": dict(top)}
+
+
+def log_drain(d: dict) -> None:
+    m = d["metrics"]
+    log(f"  {d['requests']} requests, {d['generated_tokens']} generated + "
+        f"{d['prompt_tokens']} prompt tokens fed (of {d['prompt_len_sum']}) in "
+        f"{d['wall_s']:.2f}s: {d['generated_tok_per_s']:.1f} generated tok/s, "
+        f"{d['processed_tok_per_s']:.1f} processed tok/s, {d['steps']} steps, "
+        f"buckets {d['forwards_by_bucket']}, TPOT p50/p99 "
+        f"{m['tpot_p50_ms']:.2f}/{m['tpot_p99_ms']:.2f} ms, TTFT p50/p99 "
+        f"{m['ttft_p50_ms']:.1f}/{m['ttft_p99_ms']:.1f} ms, peak "
+        f"{d['peak_mem_gib']:.1f} GiB")
+    log(f"  launches on the path: {d['launches']}")
+    log(f"  {d['summary']}")
+
+
+def log_profile(d: dict) -> None:
+    for name, p in d.get("profile", {}).items():
+        log(f"  profile {name} (8 lanes): wall {p['wall_ms']:.2f} ms, "
+            f"device busy {p['device_busy_ms']:.2f} ms "
+            f"({p['busy_share']:.1%}); top "
+            + ", ".join(f"{k[:40]}={v:.2f}" for k, v in
+                        list(p["top_kernels_ms"].items())[:4]))
 
 
 def main() -> int:
@@ -646,36 +1108,50 @@ def main() -> int:
             f"kernels")
         worst[f"{arch} {precision}"] = check_reduced(dev, args.seed, arch,
                                                      precision, must)
+    log("[4/5] codeqwen1.5-7b-reduced w4a8 paged int8 arena: CPU plain vs "
+        "CUDA kernels, paged vs dense on the card")
+    worst["codeqwen1.5-7b w4a8 paged"] = check_reduced_paged(dev, args.seed)
 
     served = {}
-    for label, arch, precision, n_req, max_new, profiled, must in SERVE_PATHS:
+    for (label, arch, precision, n_req, max_new, profiled, must,
+         paged) in SERVE_PATHS:
         log(f"[5/5] serve full-width {label} int8-KV: {n_req} requests x "
-            f"{max_new} new tokens")
+            f"{max_new} new tokens" + (", then three paged drains" if paged
+                                       else ""))
         srv = served[label] = serve_full(dev, args.seed, arch, precision, n_req,
-                                         max_new, profiled, must)
+                                         max_new, profiled, must, paged)
         gc.collect()                  # free this model before the next
         torch.cuda.empty_cache()
-        log(f"  {srv['requests']} requests, {srv['generated_tokens']} "
-            f"generated + {srv['prompt_tokens']} prompt tokens in "
-            f"{srv['wall_s']:.2f}s: {srv['generated_tok_per_s']:.1f} generated "
-            f"tok/s, {srv['processed_tok_per_s']:.1f} processed tok/s, "
-            f"{srv['steps']} steps, buckets {srv['forwards_by_bucket']}, init+"
-            f"PTQ {srv['init_ptq_s']:.1f}s, {srv['after_ptq_gib']:.1f} GiB "
-            f"after PTQ, peak {srv['peak_mem_gib']:.1f} GiB")
-        log(f"  launches on the path: {srv['launches']}")
+        log_drain(srv)
+        log(f"  init+PTQ {srv['init_ptq_s']:.1f}s, {srv['after_ptq_gib']:.1f} "
+            f"GiB after PTQ")
         log(f"  launches per bucket-1 step: {srv['launches_per_decode_step']}")
-        for name, p in srv.get("profile", {}).items():
-            log(f"  profile {name} (8 lanes): wall {p['wall_ms']:.2f} ms, "
-                f"device busy {p['device_busy_ms']:.2f} ms "
-                f"({p['busy_share']:.1%}); top "
-                + ", ".join(f"{k[:40]}={v:.2f}" for k, v in
-                            list(p["top_kernels_ms"].items())[:4]))
-        log(f"  {srv['summary']}")
+        log_profile(srv)
+        for name, drain in srv.pop("paged", {}).items():
+            # each paged drain is a path of its own in the kernels line
+            served[f"{PAGED_LABEL} {name}"] = drain
+            log(f"  paged drain {name}:")
+            log_drain(drain)
+            log(f"    {drain['tokens_differ']} generated tokens differ from "
+                f"{drain['compared_with']}"
+                + (" (required 0)" if drain.get("equal_required") else ""))
+            log(f"    pages held bit for bit on the card: "
+                f"{drain['checked_pages']}")
+            if "launches_per_decode_step" in drain:
+                per = drain["launches_per_decode_step"]
+                dense = srv["launches_per_decode_step"]
+                log(f"    launches per bucket-1 step: paged "
+                    f"{sum(per.values())} {per} | dense {sum(dense.values())}")
+            log_profile(drain)
+            if "reference" in drain:
+                log("    reference run:")
+                log_drain(drain["reference"])
 
     # the M = 8 (decode) case of each kernel at the shape each path gives it;
     # a kernel's headline is the slice's main path (codeqwen1.5-7b w4a8) where
     # it runs there, else the path that runs it
     sc, cq4, cq8 = (label for label, *_ in SERVE_PATHS)
+    cq4p = f"{PAGED_LABEL} same-schedule"
     headline_by_path = {
         sc: {"quantize_rows": "[8,3072] f32",
              "int8_gemm": "mlp_up+gelu [8,3072]x[3072,12288] scaled_gelu",
@@ -690,6 +1166,14 @@ def main() -> int:
                   "B=8 S=1024 Hq=32 Hkv=32 D=128 window=0",
               "int4_gemm": "mlp_down [8,13440]x[13440,4096] scaled g64",
               "dual_int4_gemm_gated": "[8,4096]x2[4096,13440] silu g64"},
+        cq4p: {"quantize_rows": "[8,4096] f32",
+               "int8_gemm":
+                   "codeqwen head_f32 [8,4096]x[4096,92416] scaled",
+               "int_layernorm": "[8,4096] rms",
+               "int4_gemm": "mlp_down [8,13440]x[13440,4096] scaled g64",
+               "dual_int4_gemm_gated": "[8,4096]x2[4096,13440] silu g64",
+               "paged_decode_attention":
+                   "B=8 ps=16 MP=64 Hq=32 Hkv=32 D=128 int8 window=0"},
         cq8: {"quantize_rows": "[8,4096] f32",
               "int8_gemm": "codeqwen mlp_down [8,13440]x[13440,4096] scaled",
               "int_layernorm": "[8,4096] rms",
@@ -705,7 +1189,9 @@ def main() -> int:
                "dual_gemm_gated": ("dual_gemm_gated.cu", "int8_gemm.py:280"),
                "int4_gemm": ("int4_gemm.cu", "int8_gemm.py:433"),
                "dual_int4_gemm_gated": ("dual_int4_gemm_gated.cu",
-                                        "int8_gemm.py:568")}
+                                        "int8_gemm.py:568"),
+               "paged_decode_attention": ("paged_decode_attention.cu",
+                                          "paged_attention.py:94")}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def case(name, shape):

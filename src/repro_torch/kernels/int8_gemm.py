@@ -137,10 +137,10 @@ def gated_mlp_w8a8_ref(x_q, x_scale, w_up_q, up_scale, w_gate_q, gate_scale,
 
 
 def unpack_int4_ref(packed, k):
-    """packed int8 [..., ceil(K/2), N] -> sign-extended int8 [..., K, N],
-    written with modular arithmetic (independent of
-    ``quantize.unpack_int4``): the low nibble is ``((b & 0xF) ^ 8) - 8``, the
-    high nibble a floor division by 16."""
+    """packed int8 [..., ceil(K/2), N] -> sign-extended int8 [..., K, N]
+    (the inverse of ``quantize.pack_int4``): the low nibble of byte i is
+    row 2i, ``((b & 0xF) ^ 8) - 8``; the high nibble row 2i+1, a floor
+    division by 16."""
     p = packed.to(I32)
     lo = ((p & 0xF) ^ 8) - 8
     hi = torch.div(p, 16, rounding_mode="floor")

@@ -16,11 +16,12 @@ from .int8_gemm import (dual_gemm_gated, dual_int4_gemm_gated, int4_gemm,
                         int8_gemm)
 from .int8_kv_decode_attention import int8_kv_decode_attention
 from .int_layernorm import int_layernorm
+from .paged_attention import paged_decode_attention
 from .quantize import quantize_rows
 
 KERNELS = ("quantize_rows", "int8_gemm", "int_layernorm",
            "int8_kv_decode_attention", "dual_gemm_gated", "int4_gemm",
-           "dual_int4_gemm_gated")
+           "dual_int4_gemm_gated", "paged_decode_attention")
 
 
 def launch_counts() -> dict[str, int]:
@@ -133,3 +134,12 @@ def decode_attention_int8kv(q, k_q, k_s, v_q, v_s, pos_ids, qpos, scale=None,
     reads the cache once as int8, dequantizes in-register)."""
     return int8_kv_decode_attention(q, k_q, k_s, v_q, v_s, pos_ids, qpos,
                                     scale=scale, window=window)
+
+
+def paged_attention_decode(q, pk, pks, pv, pvs, ppos, pt, qpos, scale=None,
+                           window: int = 0):
+    """Single-token attention over the PAGED KV arena (paged serving hot
+    path: pages gathered through the page table, int8 dequantized
+    in-register; ``pks``/``pvs`` None = bf16 pages)."""
+    return paged_decode_attention(q, pk, pks, pv, pvs, ppos, pt, qpos,
+                                  scale=scale, window=window)

@@ -8,8 +8,9 @@ one block per row).  ``quantize_rows_ref`` is its plain version, the jitted
 (XLA's form of ``amax / 127.0`` under jit), the division by it is a true
 division.  Bit-exact against the kernel.
 
-``pack_int4`` / ``unpack_int4`` hold the W4A8 weight container in plain
-PyTorch (no kernel: PTQ packs once; the int4 GEMMs unpack in registers).
+``pack_int4`` builds the W4A8 weight container in plain PyTorch (no kernel:
+PTQ packs once; the int4 GEMMs unpack in registers, and
+``int8_gemm.unpack_int4_ref`` is the plain unpacker).
 """
 from __future__ import annotations
 
@@ -66,14 +67,3 @@ def pack_int4(w4: torch.Tensor) -> torch.Tensor:
     lo = w4[..., 0::2, :].to(torch.int32) & 0xF
     hi = w4[..., 1::2, :].to(torch.int32) & 0xF
     return ((hi << 4) | lo).to(torch.uint8).view(torch.int8)
-
-
-def unpack_int4(packed: torch.Tensor, k: int) -> torch.Tensor:
-    """packed int8 [..., ceil(K/2), N] -> sign-extended int8 [..., K, N]:
-    the low nibble of byte i is row 2i, the high nibble row 2i+1."""
-    p = packed.to(torch.int32)
-    lo = ((p & 0xF) ^ 8) - 8
-    hi = p >> 4                              # arithmetic: the signed nibble
-    w = torch.stack([lo, hi], dim=-2)        # [..., kp, 2, N]
-    w = w.reshape(*packed.shape[:-2], 2 * packed.shape[-2], packed.shape[-1])
-    return w[..., :k, :].to(torch.int8)

@@ -4,16 +4,17 @@ continuous-batching engine, on the card unless ``--device cpu``.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \\
       --w4a8 --int8-kv --requests 16 --max-new 32 --lanes 8 --max-seq 1024 \\
-      --token-budget 256
+      --token-budget 256 [--paged --page-size 16 --pool-pages 0]
 
 ``--w8a8`` quantizes every GEMM weight to int8; ``--w4a8`` applies the
 reference's default W4 policy (attention and MLP projections packed int4 at
-group 64, the lm head int8).  Flags mirror ``repro.launch.serve``; those
-whose feature is not ported yet (``--paged``, ``--spec-k``, ``--tp``,
-``--temperature``, ``--token-budget 0``, ``--stream-gap-ms``) raise
-``NotImplementedError``, and the flags that only tune those features
-(``--prefill-chunk``, ``--page-size``, ``--pool-pages``, ``--tp-overlap``)
-are accepted and unused.
+group 64, the lm head int8).  ``--paged`` serves from the paged KV pool
+(prefix sharing, copy-on-write, preempt/swap under pressure) and prints its
+pool line.  Flags mirror ``repro.launch.serve``; those whose feature is not
+ported yet (``--spec-k``, ``--tp``, ``--temperature``, ``--token-budget 0``,
+``--stream-gap-ms``) raise ``NotImplementedError``, and the flags that only
+tune those features (``--prefill-chunk``, ``--tp-overlap``) are accepted and
+unused.
 """
 from __future__ import annotations
 
@@ -72,6 +73,7 @@ def main(argv=None) -> None:
         ServeConfig(batch_lanes=args.lanes, max_seq=args.max_seq,
                     int8_kv=args.int8_kv, temperature=args.temperature,
                     token_budget=args.token_budget, paged=args.paged,
+                    page_size=args.page_size, pool_pages=args.pool_pages,
                     queue_limit=args.queue_limit, spec_k=args.spec_k,
                     tp=args.tp),
         device=args.device)
@@ -94,6 +96,12 @@ def main(argv=None) -> None:
           f"int8_kv={args.int8_kv}, precision={precision}, "
           f"mode={engine.mode}, buckets={engine.chunk_buckets})")
     print(engine.stats_summary())
+    if engine.paged:
+        m = engine.serving_metrics()
+        print(f"paged pool: {engine.pool.n} pages of {engine.pool.ps} slots, "
+              f"peak {engine.pool.stats['pages_peak']} in use, "
+              f"preemptions={m['preemptions']} resumes={m['resumes']} "
+              f"swap_pages={m['swap_out_pages']}/{m['swap_in_pages']}")
     print(f"kernel launches: {ops.launch_counts()}")
 
 

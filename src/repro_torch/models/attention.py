@@ -1,24 +1,29 @@
-"""Attention: GQA/MQA with a dense ring KV cache (bf16 or int8).
+"""Attention: GQA/MQA over a dense ring KV cache or a paged KV arena
+(bf16 or int8).
 
-Port of ``repro.models.attention`` for self-attention with a dense cache:
+Port of ``repro.models.attention`` for self-attention with a cache.  The
+dense cache:
 
     cache = {"k": (B,S,Hkv,D), "v": (B,S,Hkv,D), "pos_ids": (B,S) int32}
     (+ "k_s"/"v_s": (B,S,Hkv,1) f32 per-(token, head) scales when int8)
 
-``pos_ids`` holds the absolute position stored in each slot (-1 = empty);
-masking always derives from it.  RoPE is applied at write time.
+The paged arena (``init_paged_cache``) keeps the same payload per page and a
+page table per lane.  ``pos_ids``/``ppos`` hold the absolute position stored
+in each slot (-1 = empty); masking always derives from them.  RoPE is
+applied at write time.
 
 Unlike the reference, which returns a new cache, the port writes the cache
 IN PLACE: pad tokens (position -1) are dropped before the write, so a lane
 that feeds only pads is left untouched — exactly what the reference's
 lane-masked commit keeps.
 
-The decode kernel (``ops.decode_attention_int8kv``) runs iff the cache is
-int8, the step feeds one token per lane and the cache lies on a CUDA device
-— the port's form of the reference's ``ops.backend() == "pallas"`` test.
+A decode kernel runs iff the cache is int8, the step feeds one token per
+lane and the cache lies on a CUDA device — the port's form of the
+reference's ``ops.backend() == "pallas"`` test: ``ops.decode_attention_int8kv``
+for the dense cache, ``ops.paged_attention_decode`` for the arena.
 Everywhere else (CPU, bf16 cache, mixed-depth packed rows) the port takes
-the reference's ``jnp``-backend branch: ``_read_cache`` -> ``_sdpa`` in
-plain PyTorch.  Cross-attention, paged caches and integer no-cache
+the reference's ``jnp``-backend branch: ``_read_cache``/``_read_paged`` ->
+``_sdpa`` in plain PyTorch.  Cross-attention and integer no-cache
 attention are later slices (ROADMAP.md §A).
 """
 from __future__ import annotations
@@ -93,11 +98,26 @@ def _quant_kv(x):
     return torch.clamp(torch.round(xf / s), -128, 127).to(torch.int8), s
 
 
-def cache_writes(positions: torch.Tensor):
-    """(lane, row) indices of the non-pad tokens of a (B, T) position batch.
-    ``forward`` computes them once per step (one host sync) and every
-    layer's ``_write_cache`` reuses them."""
-    return torch.nonzero(positions >= 0, as_tuple=True)
+def cache_writes(positions: torch.Tensor, cache: dict | None = None):
+    """The write indices of a (B, T) position batch, computed once per step
+    (one host sync) and reused by every layer's cache write.
+
+    Dense cache (or ``cache`` None): the (lane, row) indices of the non-pad
+    tokens.  Paged arena: (lane, row, physical page, slot) of the tokens
+    that land in a mapped page — slot = (pt[lane, pos // ps], pos % ps);
+    pads and null-page targets are dropped (the reference routes them out
+    of bounds).  Every layer's arena shares one page table, so one layer's
+    cache speaks for all."""
+    if cache is None or "pt" not in cache:
+        return torch.nonzero(positions >= 0, as_tuple=True)
+    pt = cache["pt"]
+    ps = cache["ppos"].shape[-1]
+    live = positions >= 0
+    logical = torch.where(live, positions // ps, 0).clamp(0, pt.shape[1] - 1)
+    phys = torch.gather(pt, 1, logical.long())
+    b_idx, t_idx = torch.nonzero(live & (phys > 0), as_tuple=True)
+    return (b_idx, t_idx, phys[b_idx, t_idx].long(),
+            positions[b_idx, t_idx].long() % ps)
 
 
 def _write_cache(cache: dict, k, v, positions, writes=None) -> dict:
@@ -142,6 +162,124 @@ def _read_cache(cache: dict, dtype):
         v = cache["v"].float() * cache["v_s"]
         return k.to(dtype), v.to(dtype)
     return cache["k"].to(dtype), cache["v"].to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# the paged KV arena
+# ---------------------------------------------------------------------------
+
+def init_paged_cache(cfg: ArchConfig, batch: int, n_pages: int,
+                     page_size: int, pages_per_lane: int, *, int8: bool,
+                     dtype=torch.bfloat16, device=None, pt=None) -> dict:
+    """Paged KV arena: ONE physical pool of ``n_pages`` fixed-size pages
+    shared by every lane, plus the per-lane page table.
+
+        cache = {"pk"/"pv": (n_pages, ps, Hkv, D),          # page payload
+                 "pks"/"pvs": (n_pages, ps, Hkv, 1) f32,    # int8 scales
+                 "ppos": (n_pages, ps) int32,               # -1 = empty slot
+                 "pt":   (B, max_pages) int32}              # page table
+
+    Page 0 is the permanent null page (``serve/kv_pool.py``): unmapped
+    table entries point at it and its ``ppos`` stays -1.  Logical page j of
+    a lane covers absolute positions [j*ps, (j+1)*ps); with ps | max_seq
+    the gathered per-lane view is element-for-element the dense
+    ``init_cache`` layout.  ``pt`` passes a page table to share: the
+    engine gives every layer the same tensor and updates it in place once
+    per step (the reference broadcasts a fresh table into every leaf)."""
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    shape = (n_pages, page_size, hkv, hd)
+    cache: dict[str, Any] = {
+        "ppos": torch.full((n_pages, page_size), -1, dtype=torch.int32,
+                           device=device)}
+    if int8:
+        cache["pk"] = torch.zeros(shape, dtype=torch.int8, device=device)
+        cache["pv"] = torch.zeros(shape, dtype=torch.int8, device=device)
+        cache["pks"] = torch.ones((*shape[:3], 1), dtype=F32, device=device)
+        cache["pvs"] = torch.ones((*shape[:3], 1), dtype=F32, device=device)
+    else:
+        cache["pk"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["pv"] = torch.zeros(shape, dtype=dtype, device=device)
+    cache["pt"] = (torch.zeros((batch, pages_per_lane), dtype=torch.int32,
+                               device=device) if pt is None else pt)
+    return cache
+
+
+def _write_paged(cache: dict, k, v, positions, writes=None) -> dict:
+    """Scatter k/v (B,T,Hkv,D) into the page arena through the page table,
+    in place: slot = (pt[lane, pos // ps], pos % ps).  Pad tokens (position
+    -1) and null-page targets are dropped (``cache_writes``); the engine
+    backs every real write with a lane-owned page
+    (``kv_pool.ensure_writable``).  The int8 quantization is ``_quant_kv``,
+    the dense cache's."""
+    b_idx, t_idx, phys, slot = (cache_writes(positions, cache)
+                                if writes is None else writes)
+    if "pks" in cache:
+        k_q, k_s = _quant_kv(k[b_idx, t_idx])
+        v_q, v_s = _quant_kv(v[b_idx, t_idx])
+        cache["pk"][phys, slot] = k_q
+        cache["pv"][phys, slot] = v_q
+        cache["pks"][phys, slot] = k_s
+        cache["pvs"][phys, slot] = v_s
+    else:
+        cache["pk"][phys, slot] = k[b_idx, t_idx].to(cache["pk"].dtype)
+        cache["pv"][phys, slot] = v[b_idx, t_idx].to(cache["pv"].dtype)
+    cache["ppos"][phys, slot] = positions[b_idx, t_idx].to(torch.int32)
+    return cache
+
+
+def _read_paged(cache: dict, dtype):
+    """Gather the per-lane dense view (B, MP*ps, Hkv, D) + positions.
+
+    With ps | max_seq this view is element-for-element what ``_read_cache``
+    returns for the dense cache (null/empty slots carry pos -1 and are
+    masked by position), so the attention math downstream is unchanged."""
+    npg, ps = cache["ppos"].shape
+    pt = cache["pt"].clamp(0, npg - 1).long()               # (B, MP)
+    b, mp = pt.shape
+    kpos = cache["ppos"][pt].reshape(b, mp * ps)
+    if "pks" in cache:
+        k = cache["pk"][pt].float() * cache["pks"][pt]
+        v = cache["pv"][pt].float() * cache["pvs"][pt]
+    else:
+        k, v = cache["pk"][pt], cache["pv"][pt]
+    shape = (b, mp * ps) + tuple(k.shape[3:])
+    return k.to(dtype).reshape(shape), v.to(dtype).reshape(shape), kpos
+
+
+_PAGE_KEYS = ("pk", "pv", "pks", "pvs", "ppos")
+
+
+def _page_axis(cache: dict) -> int:
+    """Page axis of a paged cache's leaves: 0 for one layer's cache
+    ((n_pages, ps)) — always, in the port, whose engine keeps one cache per
+    layer — and 1 for period-stacked leaves ((P, n_pages, ps))."""
+    return 0 if cache["ppos"].dim() == 2 else 1
+
+
+def gather_pages(cache: dict, page_ids) -> dict:
+    """Pull whole pages' payloads off the arena — the device side of KV
+    swap-OUT.  Returns ``{pk, pv[, pks, pvs], ppos}`` sliced to
+    ``page_ids`` along the page axis; pure data movement (no dequant, no
+    cast), so a gather -> ``scatter_pages`` round trip is bit-identical
+    whatever physical pages the content comes back to."""
+    ax = _page_axis(cache)
+    idx = torch.as_tensor(page_ids, dtype=torch.long,
+                          device=cache["ppos"].device)
+    return {k: cache[k].index_select(ax, idx) for k in _PAGE_KEYS if k in cache}
+
+
+def scatter_pages(cache: dict, page_ids, payload: dict) -> dict:
+    """Write gathered page payloads back into (possibly DIFFERENT) physical
+    pages, in place — the device side of swap-IN.  ``ppos`` is absolute,
+    so only the page table needs to name the new pages.  (The reference
+    pads ``page_ids`` with out-of-bounds ids to keep one compiled shape;
+    the port passes exactly the pages.)"""
+    ax = _page_axis(cache)
+    dev = cache["ppos"].device
+    idx = torch.as_tensor(page_ids, dtype=torch.long, device=dev)
+    for k, val in payload.items():
+        cache[k].index_copy_(ax, idx, val.to(dev, cache[k].dtype))
+    return cache
 
 
 def _sdpa(q, k, v, qpos, kpos, scale, dtype, *, causal=True, window=0,
@@ -192,7 +330,23 @@ def attention(params: Attention, x, cfg: ArchConfig, mode: ExecMode,
     scale = 1.0 / math.sqrt(hd)
     dtype = x.dtype
 
-    if cache is not None:
+    if cache is not None and "pt" in cache:
+        # paged serving path: scatter through the page table, then the
+        # paged decode kernel (all-decode step on the card, int8 pages) or
+        # the gathered view — element-identical to the dense cache — into
+        # the same _sdpa the dense path runs
+        cache = _write_paged(cache, k, v, positions, writes)
+        if "pks" in cache and t == 1 and cache["pk"].is_cuda:
+            out = ops.paged_attention_decode(
+                q[:, 0], cache["pk"], cache["pks"], cache["pv"], cache["pvs"],
+                cache["ppos"], cache["pt"],
+                positions[:, 0].to(torch.int32).contiguous(), scale=scale,
+                window=window)[:, None].to(dtype)
+        else:
+            kc, vc, kpos = _read_paged(cache, dtype)
+            out = _sdpa(q, kc, vc, positions, kpos, scale, dtype, causal=True,
+                        window=window, valid=kpos >= 0)
+    elif cache is not None:
         cache = _write_cache(cache, k, v, positions, writes)
         if "k_s" in cache and t == 1 and cache["k"].is_cuda:
             # serving hot path: the int8-KV decode kernel (one int8 pass

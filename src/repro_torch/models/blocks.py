@@ -6,7 +6,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .attention import Attention, attention, init_attn_params, init_cache
+from .attention import (Attention, attention, init_attn_params, init_cache,
+                        init_paged_cache)
 from .config import ArchConfig
 from .layers import ExecMode, Norm, apply_norm
 from .mlp import MLP, init_mlp_params, mlp
@@ -33,8 +34,16 @@ def init_block_params(gen: torch.Generator, kind: str, cfg: ArchConfig,
 
 
 def init_block_state(kind: str, cfg: ArchConfig, batch: int, max_seq: int,
-                     int8_kv: bool, dtype, device) -> dict:
+                     int8_kv: bool, dtype, device, paged_pages: int = 0,
+                     page_size: int = 0, pt=None) -> dict:
+    """The layer's KV cache: dense, or with ``paged_pages`` > 0 a paged
+    arena of that many ``page_size``-slot pages (``serve/kv_pool.py`` owns
+    the page bookkeeping) whose page table is ``pt`` when given."""
     _check_kind(kind)
+    if paged_pages:
+        return {"kv": init_paged_cache(cfg, batch, paged_pages, page_size,
+                                       -(-max_seq // page_size), int8=int8_kv,
+                                       dtype=dtype, device=device, pt=pt)}
     return {"kv": init_cache(cfg, batch, max_seq, int8=int8_kv, dtype=dtype,
                              device=device)}
 

@@ -59,12 +59,22 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> LM:
 
 
 def init_states(cfg: ArchConfig, batch: int, max_seq: int, int8_kv: bool = False,
-                dtype=DEFAULT_DTYPE, device=None) -> list:
+                dtype=DEFAULT_DTYPE, device=None, paged_pages: int = 0,
+                page_size: int = 0) -> list:
     """One ``{"kv": cache}`` per layer (the reference stacks them per
-    period)."""
+    period).  With ``paged_pages`` > 0 each cache is a paged arena of that
+    many ``page_size``-slot pages (``attention.init_paged_cache``), and
+    every layer shares ONE page table tensor."""
     dev = resolve_device(device)
-    return [init_block_state(kind, cfg, batch, max_seq, int8_kv, dtype, dev)
-            for kind in cfg.block_kinds]
+    states, pt = [], None
+    for kind in cfg.block_kinds:
+        st = init_block_state(kind, cfg, batch, max_seq, int8_kv, dtype, dev,
+                              paged_pages=paged_pages, page_size=page_size,
+                              pt=pt)
+        if paged_pages:
+            pt = st["kv"]["pt"]
+        states.append(st)
+    return states
 
 
 @torch.no_grad()
@@ -78,7 +88,8 @@ def forward(params: LM, cfg: ArchConfig, tokens, positions=None,
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32,
                                  device=x.device).expand(b, t)
-    writes = cache_writes(positions) if states is not None else None
+    writes = (cache_writes(positions, states[0]["kv"]) if states is not None
+              else None)
     new_states = [] if states is not None else None
     for i, (kind, block) in enumerate(zip(cfg.block_kinds, params.layers)):
         st = None if states is None else states[i]

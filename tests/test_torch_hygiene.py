@@ -52,7 +52,8 @@ def test_scan_sees_the_whole_port():
     files = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     for need in ("models/layers.py", "models/attention.py", "models/lm.py",
                  "kernels/ops.py", "serve/engine.py", "launch/serve.py",
-                 "convert.py", "quant/ptq.py", "core/inumerics.py"):
+                 "convert.py", "quant/ptq.py", "core/inumerics.py",
+                 "serve/kv_pool.py", "kernels/paged_attention.py"):
         assert need in files
 
 
@@ -104,8 +105,8 @@ def test_explicit_cpu_w4a8_launches_nothing():
     (rec,) = eng.run_until_drained()
     assert len(rec["tokens"]) >= 1
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
-    assert {"int4_gemm", "dual_int4_gemm_gated", "dual_gemm_gated"} <= set(
-        ops.KERNELS)
+    assert {"int4_gemm", "dual_int4_gemm_gated", "dual_gemm_gated",
+            "paged_decode_attention"} <= set(ops.KERNELS)
 
 
 @pytest.mark.parametrize("precision,mlp,head", [
@@ -150,7 +151,35 @@ def test_launcher_cpu(capsys):
     assert "served 2 requests" in out and "mode=packed" in out
 
 
+def test_explicit_cpu_paged_launches_nothing():
+    from repro_torch.quant import DEFAULT_W4_POLICY, ptq_quantize_params
+    cfg = get_config("codeqwen1.5-7b", precision="w4a8", reduced=True)
+    params = ptq_quantize_params(init_params(cfg, seed=1, device="cpu"),
+                                 policy=DEFAULT_W4_POLICY)
+    eng = ServingEngine(params, cfg, ServeConfig(batch_lanes=2, max_seq=32,
+                                                 int8_kv=True, token_budget=4,
+                                                 paged=True),
+                        device="cpu")
+    assert eng.paged and eng._pt.device.type == "cpu"
+    ops.reset_launch_counts()
+    eng.submit([5, 6, 7], max_new=3)
+    (rec,) = eng.run_until_drained()
+    assert len(rec["tokens"]) >= 1
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+
+
+def test_paged_engine_defaults_to_the_card(no_cuda):
+    cfg = get_config("starcoder2-3b", reduced=True)
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(params, cfg, ServeConfig(max_seq=16, token_budget=4,
+                                               paged=True))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_states(cfg, 1, 16, paged_pages=4, page_size=8)
+
+
 def test_kernel_sources_and_flags():
+    assert "paged_decode_attention" in build.SOURCES
     for name in build.SOURCES:
         src = build.CSRC / f"{name}.cu"
         assert src.exists()
@@ -161,6 +190,16 @@ def test_kernel_sources_and_flags():
     assert build.build_dir().parts[-2:] == ("build", "kernels") or \
         os.environ.get("REPRO_TORCH_BUILD_DIR")
     assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_decode_attentions_share_one_body():
+    """The dense and paged decode attentions are one body (so paged ==
+    dense bit for bit by construction): each source only names where key j
+    lives and defines no kernel of its own."""
+    for name in ("int8_kv_decode_attention", "paged_decode_attention"):
+        src = (build.CSRC / f"{name}.cu").read_text()
+        assert '#include "decode_tile.cuh"' in src
+        assert "__global__" not in src and "decode::launch<" in src
 
 
 def _run_smoke(cwd: Path):

@@ -127,7 +127,7 @@ def test_stats_and_buckets(setup):
         eng.submit([], max_new=2)
 
 
-@pytest.mark.parametrize("kw", [dict(paged=True), dict(spec_k=2), dict(tp=2),
+@pytest.mark.parametrize("kw", [dict(spec_k=2), dict(tp=2),
                                 dict(temperature=0.7), dict(token_budget=0)])
 def test_unported_features_raise(setup, kw):
     _, _, cfg, tp, _ = setup
