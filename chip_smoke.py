@@ -23,13 +23,21 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    unpacked int8 weight, without the group scales: not the same function)
    and its bound: the larger of bytes / 3.35 TB/s and operations / peak rate
    (1979 TOP/s int8, 989 TFLOP/s bf16, 67 TFLOP/s f32 outside the tensor
-   cores; H100 SXM data sheet);
+   cores; H100 SXM data sheet).  The no-cache forward's kernels at B = 4,
+   T = 1024 (``check_no_cache``): int8_flash_attention at codeqwen1.5-7b's
+   and starcoder2-3b's heads (integer probabilities bit-exact through its
+   debug output, the f32 output within rtol 1e-5, atol 1e-6; the int32 form
+   bit-exact), flash_attention (bf16, against SDPA's time too) and
+   int_softmax on [4096, 1024] rows (bit-exact; masked, and spread far past
+   30*q_ln2);
 4. reduced: starcoder2-3b-reduced at w8a8 and codeqwen1.5-7b-reduced at
    w4a8, w8a8 and bf16, each with an int8 KV cache, the same packed steps on
    the CPU (plain versions) and on the card (kernels): the logits agree
    within ``REDUCED_TOL`` of their range; codeqwen1.5-7b-reduced w4a8 with a
    paged int8 arena the same, and its card logits equal the dense card
-   logits bit for bit;
+   logits bit for bit; then the reduced no-cache forward (starcoder at bf16
+   and w8a8, codeqwen at bf16, w8a8 and w4a8) the same way, its attention
+   kernel launched once per layer;
 5. serve, each path through ``ServingEngine`` with random weights from
    ``--seed`` PTQ'd by the port, an int8 KV cache, 8 lanes, max_seq 1024,
    token budget 256 and prompts of 16-256 tokens, greedy:
@@ -41,12 +49,21 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    prefix; a 66-page pool under pressure; every copy-on-write page and
    every swapped page held bit for bit on the card).  Launch counts are
    zeroed just before each drain and read just after; every kernel of that
-   path must have launched.  Each model is freed before the next.
+   path must have launched.  Each model is freed before the next;
+6. the no-cache forward at full width and depth: codeqwen1.5-7b float
+   parameters from ``--seed``, ``calibrate_ptq`` with the reference's grid
+   (W4_GROUPS x W4_CLIPS for attn and mlp, 19 forwards of 2 x 128 tokens),
+   then ``lm_loss`` on 4 x 1024 random tokens at bf16, w8a8 and w4a8 (each
+   integer model quantized from the float one and freed; w4a8 also under
+   torch.profiler); starcoder2-3b at bf16 and w8a8; and ``ops.softmax_i8``
+   on causal score rows.  Every forward must launch int8_flash_attention
+   (integer) or flash_attention (bf16) exactly once per layer.
 
 The last three lines of standard output are the kernels JSON (each kernel
 timed at the M = 8 shape the main path, codeqwen1.5-7b w4a8, gives it, or
-the path that runs it — the paged drains for the paged kernel; ``by_path``
-holds every path's shape, ``launches_by_path`` every drain's count), the card's
+the path that runs it — the paged drains for the paged kernel, the
+no-cache forwards for the three attention and softmax kernels; ``by_path``
+holds every path's shape, ``launches_by_path`` every path's count), the card's
 ``nvidia-smi`` name/power line and ``{"ok": true, "device": ...}``.  With
 ``--out PATH`` every case, the serving stats and the profiles are also
 written to PATH as JSON.
@@ -57,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import gc
 import json
 import subprocess
@@ -79,7 +97,8 @@ F32_OPS = 67e12        # f32 outside the tensor cores
 # each such difference can move an int8 activation level of the next integer
 # GEMM (at bf16 the float GEMMs add their own rounding differences).
 # Measured on an H100 at seed 0: up to 4.4% (starcoder2-3b w8a8), 7.8%
-# (codeqwen1.5-7b w4a8), 4.8% (w8a8), 1.4% (bf16).  Beyond the bound, the
+# (codeqwen1.5-7b w4a8), 4.8% (w8a8), 1.4% (bf16); the no-cache forward 0
+# at every integer precision and 1.0-1.3% at bf16.  Beyond the bound, the
 # greedy token must agree wherever the CPU top-2 margin is more than twice
 # the largest difference.
 REDUCED_TOL = 0.10
@@ -311,7 +330,167 @@ def check_kernels(dev, gen, timer) -> list[dict]:
 
     check_w4_and_gated(dev, gen, timer, record, randn)
     check_paged(dev, gen, timer, record, randn)
+    check_no_cache(dev, gen, timer, record, randn)
     return cases
+
+
+# the no-cache forward's attention shapes: 4 sequences of 1024 tokens
+NC_B, NC_T = 4, 1024
+# (label, heads, kv heads) of codeqwen1.5-7b (MHA) and starcoder2-3b (GQA)
+NC_HEADS = (("codeqwen", 32, 32), ("starcoder", 24, 2))
+
+
+def int_attention_inputs(randn, h, hkv):
+    """int8 q/k/v and per-(token, head) V scales as ``_int_attention``
+    makes them from bf16 activations (q, k at the static 1/16 scale), with a
+    saturated query row against one aligned key: its scores spread far past
+    30*q_ln2 below the row max."""
+    from repro_torch.models.attention import ATTN_INT_SCALE, _quant_kv
+    b, t, d = NC_B, NC_T, 128
+
+    def static_int8(*shape):
+        x = randn(*shape) / ATTN_INT_SCALE
+        return torch.clamp(torch.round(x), -128, 127).to(torch.int8)
+    q, k = static_int8(b, h, t, d), static_int8(b, hkv, t, d)
+    q[0, 0, t * 7 // 10] = 127
+    k[0, 0, t * 3 // 10] = 127
+    v, v_s = _quant_kv(randn(b, t, hkv, d))
+    return q, k, v.transpose(1, 2).contiguous(), v_s.transpose(1, 2).contiguous()
+
+
+def check_no_cache(dev, gen, timer, record, randn) -> None:
+    """Phase 3 for the no-cache forward's kernels at B = 4, T = 1024:
+    int8_flash_attention (the v_scale form: integer probabilities bit-exact
+    through the kernel's debug output, f32 output within RTOL/ATOL; the
+    int32 form bit-exact) and flash_attention (bf16, RTOL/ATOL) at
+    codeqwen1.5-7b's and starcoder2-3b's heads, and int_softmax on
+    [4096, 1024] int32 rows without and with a mask and with rows spread
+    far past 30*q_ln2 (bit-exact).  Bounds: bytes over 3.35 TB/s against the
+    operations — QK^T at the int8 rate and PV at the f32 rate for the
+    integer attention, both products at the bf16 rate for flash_attention,
+    about 15 integer operations per element at the f32 rate for the
+    softmax — each pair counted once over the causal triangle."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (
+        ATOL as FA_ATOL, RTOL as FA_RTOL, flash_attention_ref)
+    from repro_torch.kernels.int8_flash_attention import (
+        ATOL, RTOL, int8_attention_probs_ref, int8_flash_attention,
+        int8_flash_attention_ref)
+    from repro_torch.kernels.int_softmax import int_softmax_ref
+    from repro_torch.models.attention import int_score_scale
+    b, t, d = NC_B, NC_T, 128
+    pairs = t * (t + 1) // 2                        # causal (query, key) pairs
+    sc = int_score_scale(d)
+
+    # -- 9. int8_flash_attention ----------------------------------------------
+    for label, h, hkv in NC_HEADS:
+        q, k, v, v_s = int_attention_inputs(randn, h, hkv)
+        p_out = torch.empty((b, h, t, t), dtype=torch.int8, device=dev)
+        out = int8_flash_attention(q, k, v, sc, v_scale=v_s, p_out=p_out)
+        probs = int8_attention_probs_ref(q, k, sc)
+        torch.cuda.synchronize()
+        what = f"int8_flash_attention {label} B={b} T={t} H={h} Hkv={hkv}"
+        if not torch.equal(p_out.int(), probs):
+            raise AssertionError(f"{what}: {int((p_out.int() != probs).sum())}"
+                                 f" integer probabilities differ from the "
+                                 f"plain version's")
+        del p_out, probs
+
+        def run():
+            return ops.attention_i8(q, k, v, sc, v_scale=v_s)
+
+        def plain():
+            return int8_flash_attention_ref(q, k, v, sc, v_scale=v_s)
+        ref = plain()
+        torch.cuda.synchronize()
+        if not (torch.isfinite(out).all() and torch.allclose(
+                out, ref, rtol=RTOL, atol=ATOL)):
+            raise AssertionError(f"{what}: max |d| {max_err(out, ref)} beyond "
+                                 f"rtol={RTOL} atol={ATOL}")
+        qk_ops = 2 * b * h * pairs * d
+        io = q.numel() + k.numel() + v.numel() + 4 * v_s.numel()
+        record("int8_flash_attention", f"v_scale {label} B={b} T={t} H={h} "
+               f"Hkv={hkv} D={d}", max_err(out, ref), False, timer(run),
+               timer(plain, iters=3, warmup=1), None,
+               bound(io + 4 * out.numel(),
+                     qk_ops * F32_OPS / INT8_OPS + qk_ops, F32_OPS))
+        del out, ref
+        if label != "codeqwen":
+            continue
+
+        def run32():
+            return ops.attention_i8(q, k, v, sc)
+
+        def plain32():
+            return int8_flash_attention_ref(q, k, v, sc)
+        out, ref = run32(), plain32()
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"int8_flash_attention int32 form {label}: "
+                                 f"{int((out != ref).sum())} of {out.numel()} "
+                                 f"differ from the plain version")
+        record("int8_flash_attention", f"int32 {label} B={b} T={t} H={h} "
+               f"Hkv={hkv} D={d}", 0.0, True, timer(run32),
+               timer(plain32, iters=3, warmup=1), None,
+               bound(q.numel() + k.numel() + v.numel() + 4 * out.numel(),
+                     2 * qk_ops, INT8_OPS))
+        del out, ref
+
+    # -- 10. flash_attention (bf16) -------------------------------------------
+    for label, h, hkv in NC_HEADS:
+        q = randn(b, h, t, d).to(torch.bfloat16)
+        k = randn(b, hkv, t, d).to(torch.bfloat16)
+        v = randn(b, hkv, t, d).to(torch.bfloat16)
+
+        def run():
+            return ops.attention(q, k, v)
+
+        def plain():
+            return flash_attention_ref(q, k, v)
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        if not (torch.isfinite(out).all() and torch.allclose(
+                out.float(), ref.float(), rtol=FA_RTOL, atol=FA_ATOL)):
+            raise AssertionError(f"flash_attention {label}: max |d| "
+                                 f"{max_err(out, ref)} beyond rtol={FA_RTOL} "
+                                 f"atol={FA_ATOL}")
+        # yardstick: SDPA, causal, K/V repeated to every head beforehand
+        kr = k.repeat_interleave(h // hkv, 1).contiguous()
+        vr = v.repeat_interleave(h // hkv, 1).contiguous()
+        lib = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, kr, vr, is_causal=True))
+        record("flash_attention", f"bf16 {label} B={b} T={t} H={h} Hkv={hkv} "
+               f"D={d}", max_err(out, ref), False, timer(run),
+               timer(plain, iters=3, warmup=1), lib,
+               bound(2 * (q.numel() + k.numel() + v.numel() + out.numel()),
+                     4 * b * h * pairs * d, BF16_OPS))
+        del out, ref, kr, vr
+
+    # -- 13. int_softmax --------------------------------------------------------
+    m, n = NC_B * NC_T, NC_T
+    x = torch.randint(-3000, 3000, (m, n), generator=gen, device=dev,
+                      dtype=torch.int32)
+    wide = torch.randint(-2 ** 20, 2 ** 20, (m, n), generator=gen, device=dev,
+                         dtype=torch.int32)
+    wide[::7, 9] = 129032                     # a saturated score in each row
+    keep = torch.ones((n, n), dtype=torch.bool, device=dev).tril().repeat(
+        NC_B, 1)                              # causal rows of 4 sequences
+    for name, xs, mask in (("int32", x, None), ("int32 causal mask", x, keep),
+                           ("int32 wide spread", wide, None)):
+        def run():
+            return ops.softmax_i8(xs, sc, mask)
+
+        def plain():
+            return int_softmax_ref(xs, sc, mask)
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"int_softmax {name}: {int((out != ref).sum())}"
+                                 f" of {out.numel()} differ from the plain "
+                                 f"version")
+        record("int_softmax", f"[{m},{n}] {name}", 0.0, True, timer(run),
+               timer(plain), None,
+               bound(m * n * (5 + (mask is not None)), 15 * m * n, F32_OPS))
 
 
 # the paged arena of the serving paths: 8 lanes, max_seq 1024 in 16-slot
@@ -700,6 +879,61 @@ def check_reduced_paged(dev, seed) -> float:
     return worst
 
 
+# (arch, precision) of the reduced no-cache forwards
+REDUCED_NO_CACHE = (("starcoder2-3b", "bf16"), ("starcoder2-3b", "w8a8"),
+                    ("codeqwen1.5-7b", "bf16"), ("codeqwen1.5-7b", "w8a8"),
+                    ("codeqwen1.5-7b", "w4a8"))
+
+
+def no_cache_kernel(precision: str) -> str:
+    """The attention kernel of the no-cache forward at ``precision``."""
+    return "flash_attention" if precision == "bf16" else "int8_flash_attention"
+
+
+def check_reduced_no_cache(dev, seed, arch: str, precision: str) -> float:
+    """The reduced model's no-cache forward (4 sequences x 32 tokens) on the
+    CPU (plain versions; the bf16 path takes ``_sdpa``, which rounds the
+    probabilities to bf16 before P@V, C3) and on the card (kernels): logits
+    within ``REDUCED_TOL`` of the range, greedy tokens equal where the CPU
+    top-2 margin is more than twice the difference, and the attention
+    kernel launched once per layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import forward, init_params
+    from repro_torch.quant import quantize_for
+
+    cfg = get_config(arch, precision=precision, reduced=True)
+    cpu = quantize_for(init_params(cfg, seed=seed, device="cpu"), precision)
+    gpu = copy.deepcopy(cpu).to(dev)
+    tok = torch.from_numpy(np.random.default_rng(seed).integers(
+        2, cfg.vocab_size, size=(4, 32)))
+    lc, _ = forward(cpu, cfg, tok)
+    ops.reset_launch_counts()
+    lg, _ = forward(gpu, cfg, tok.to(dev))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    lg = lg.cpu()
+    err = float((lc - lg).abs().max())
+    rel = err / float(lc.abs().max())
+    log(f"  no-cache forward (4 x 32): max |cpu - cuda| = {err:.4g} "
+        f"({rel:.3%} of max|logit|), launches {counts}")
+    if not (torch.isfinite(lg).all() and rel <= REDUCED_TOL):
+        raise AssertionError(f"reduced {arch} {precision} no-cache: CUDA "
+                             f"logits differ from the CPU plain path by "
+                             f"{rel:.3%} (> {REDUCED_TOL:.0%})")
+    top2 = lc.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * err
+    if not torch.equal(lc.argmax(-1)[clear], lg.argmax(-1)[clear]):
+        raise AssertionError(f"reduced {arch} {precision} no-cache: greedy "
+                             f"tokens differ where the CPU margin is clear")
+    kernel = no_cache_kernel(precision)
+    if counts[kernel] != cfg.n_layers:
+        raise AssertionError(f"reduced {arch} {precision} no-cache: {kernel} "
+                             f"launched {counts[kernel]} times for "
+                             f"{cfg.n_layers} layers")
+    return rel
+
+
 # ---------------------------------------------------------------------------
 # phase 5: full-width serving
 # ---------------------------------------------------------------------------
@@ -1030,6 +1264,175 @@ def profile_step(params, cfg, dev, t: int, paged: bool = False) -> dict:
         forward(params, cfg, tok, pos, st)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return profile_summary(prof, wall_ms)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the full-width no-cache forward (lm_loss, calibrate_ptq)
+# ---------------------------------------------------------------------------
+
+# (arch, precisions of the lm_loss forwards, calibrate first)
+NO_CACHE_PATHS = (("codeqwen1.5-7b", ("bf16", "w8a8", "w4a8"), True),
+                  ("starcoder2-3b", ("bf16", "w8a8"), False))
+CAL_B, CAL_T = 2, 128                      # calibration set: 2 x 128 tokens
+
+
+def no_cache_loss(params, cfg, dev, tokens, profiled: bool) -> dict:
+    """``lm_loss`` of one forward over ``tokens`` with next-token labels
+    (the last position masked): the loss, wall time, tokens/s, peak memory
+    and the launches of the forward (zeroed just before, read just after);
+    the attention kernel must have launched exactly once per layer.  With
+    ``profiled``, a second forward under torch.profiler."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm_loss
+    labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)], 1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = float(lm_loss(params, cfg, tokens, labels))
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    kernel = no_cache_kernel(cfg.precision)
+    other = ({"flash_attention", "int8_flash_attention"} - {kernel}).pop()
+    if not (np.isfinite(loss) and loss > 0):
+        raise AssertionError(f"{cfg.name} {cfg.precision} lm_loss = {loss}")
+    if counts[kernel] != cfg.n_layers or counts[other]:
+        raise AssertionError(f"{cfg.name} {cfg.precision} lm_loss forward: "
+                             f"{kernel} launched {counts[kernel]} times for "
+                             f"{cfg.n_layers} layers ({other}: "
+                             f"{counts[other]})")
+    res = {"loss": loss, "wall_s": wall, "tokens": tokens.numel(),
+           "tok_per_s": tokens.numel() / wall,
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "launches": counts}
+    if profiled:
+        res["profile"] = {f"forward {tokens.shape[0]} x {tokens.shape[1]}":
+                          profile_no_cache(params, cfg, tokens)}
+    return res
+
+
+def profile_no_cache(params, cfg, tokens) -> dict:
+    """Wall time, device busy time and the kernels by device time of one
+    no-cache forward under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import forward
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        forward(params, cfg, tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return profile_summary(prof, wall_ms)
+
+
+def calibrate(params, cfg, dev, seed) -> dict:
+    """``calibrate_ptq`` with the reference's default grid (W4_GROUPS x
+    W4_CLIPS for the attn and mlp classes) over CAL_B x CAL_T calibration
+    tokens from ``seed``: the chosen policy, every candidate's score, the
+    wall time, and B11 launched once per layer on each of its 19
+    forwards."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import forward
+    from repro_torch.quant import W4_CLIPS, W4_GROUPS, calibrate_ptq
+    cal = torch.from_numpy(np.random.default_rng([seed, 6]).integers(
+        2, cfg.vocab_size, size=(CAL_B, CAL_T))).to(dev)
+    qcfg = dataclasses.replace(cfg, precision="w4a8")
+
+    def forward_logits(model):
+        return forward(model, qcfg, cal)[0]
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    policy, report = calibrate_ptq(params, forward_logits)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    n_fwd = 1 + 2 * len(W4_GROUPS) * len(W4_CLIPS)
+    if counts["int8_flash_attention"] != n_fwd * cfg.n_layers:
+        raise AssertionError(f"calibrate_ptq: int8_flash_attention launched "
+                             f"{counts['int8_flash_attention']} times for "
+                             f"{n_fwd} forwards of {cfg.n_layers} layers")
+    for cls in ("attn", "mlp"):
+        if not all(np.isfinite(c["mse"]) for c in report[cls]["scores"]):
+            raise AssertionError(f"calibrate_ptq {cls}: non-finite scores")
+    return {"policy": policy, "report": report, "wall_s": wall,
+            "forwards": n_fwd, "tokens": CAL_B * CAL_T,
+            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "launches": counts}
+
+
+def no_cache_full(dev, seed, arch, precisions, calibrated) -> dict:
+    """Phase 6 for one model: float parameters from ``seed`` at full width
+    and depth, then ``lm_loss`` on NC_B x NC_T random tokens at each
+    precision (each integer model quantized from the float one and freed
+    before the next) and, first, ``calibrate_ptq``.  Returns {path label:
+    result}."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.quant import DEFAULT_W4_POLICY, quantized_copy
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    log(f"  float init {time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.1f} GiB")
+    tokens = torch.from_numpy(np.random.default_rng([seed, 5]).integers(
+        2, cfg.vocab_size, size=(NC_B, NC_T))).to(dev)
+    out = {}
+    if calibrated:
+        res = out[f"{arch} calibrate_ptq"] = calibrate(params, cfg, dev, seed)
+        log(f"  calibrate_ptq ({res['forwards']} forwards of {CAL_B} x "
+            f"{CAL_T} tokens) in {res['wall_s']:.1f}s, peak "
+            f"{res['peak_mem_gib']:.1f} GiB: policy {res['policy']}")
+        for cls in ("attn", "mlp"):
+            log(f"    {cls}: " + ", ".join(
+                f"g{c['group']}/c{c['clip']}={c['mse']:.4g}"
+                for c in res["report"][cls]["scores"]))
+    for precision in precisions:
+        pcfg = dataclasses.replace(cfg, precision=precision)
+        model = (params if precision == "bf16" else quantized_copy(
+            params, DEFAULT_W4_POLICY if precision == "w4a8" else None))
+        res = out[f"{arch} {precision} lm_loss"] = no_cache_loss(
+            model, pcfg, dev, tokens, profiled=precision == "w4a8")
+        del model
+        gc.collect()
+        log(f"  lm_loss {precision} ({NC_B} x {NC_T}): {res['loss']:.4f} in "
+            f"{res['wall_s']:.2f}s ({res['tok_per_s']:.0f} tok/s), peak "
+            f"{res['peak_mem_gib']:.1f} GiB; launches {res['launches']}")
+        log_profile(res)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def softmax_entry(dev, seed) -> dict:
+    """``ops.softmax_i8``, the integer softmax's public entry point, on the
+    causal score rows of NC_B sequences x NC_T tokens of one head (int32 at
+    the integer attention's score scale): launches counted around the call,
+    probabilities in [0, 127] whose rows sum to 127 within rounding."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import int_score_scale
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sc = int_score_scale(128)
+    x = torch.randint(-4000, 4000, (NC_B * NC_T, NC_T), generator=gen,
+                      device=dev, dtype=torch.int32)
+    keep = torch.ones((NC_T, NC_T), dtype=torch.bool, device=dev).tril()
+    ops.reset_launch_counts()
+    p = ops.softmax_i8(x.view(NC_B, NC_T, NC_T), sc, keep)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    rows = p.int().sum(-1)
+    if not (counts["int_softmax"] == 1 and int(p.min()) >= 0
+            and int((rows - 127).abs().max()) <= NC_T // 2):
+        raise AssertionError(f"ops.softmax_i8: launches {counts}, row sums "
+                             f"{int(rows.min())}..{int(rows.max())}")
+    return {"launches": counts, "row_sum_range": [int(rows.min()),
+                                                  int(rows.max())]}
+
+
+def profile_summary(prof, wall_ms: float) -> dict:
     by_name = {}
     for e in prof.key_averages():
         if "CUDA" not in str(getattr(e, "device_type", "")):
@@ -1062,7 +1465,7 @@ def log_drain(d: dict) -> None:
 
 def log_profile(d: dict) -> None:
     for name, p in d.get("profile", {}).items():
-        log(f"  profile {name} (8 lanes): wall {p['wall_ms']:.2f} ms, "
+        log(f"  profile {name}: wall {p['wall_ms']:.2f} ms, "
             f"device busy {p['device_busy_ms']:.2f} ms "
             f"({p['busy_share']:.1%}); top "
             + ", ".join(f"{k[:40]}={v:.2f}" for k, v in
@@ -1084,38 +1487,47 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
+    # f32 matmuls and convolutions of the plain versions in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    log(f"[1/5] card: {smi} | torch {torch.__version__} cuda "
+    log(f"[1/6] card: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
     built = build.build_all()
-    log(f"[2/5] built {len(built)} kernels in {time.perf_counter() - t0:.1f}s")
+    log(f"[2/6] built {len(built)} kernels in {time.perf_counter() - t0:.1f}s")
     for name, info in sorted(built.items()):
         regs = [ln.strip() for ln in info["ptxas"].splitlines()
                 if "registers" in ln or "Compiling entry" in ln]
         log(f"  {name}: {info['seconds']:.1f}s; " + " | ".join(regs))
 
-    log("[3/5] kernels vs plain versions on the card")
+    log("[3/6] kernels vs plain versions on the card")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     cases = check_kernels(dev, gen, Timer(dev))
+    torch.cuda.empty_cache()
 
     worst = {}
     for arch, precision, must in REDUCED_PATHS:
-        log(f"[4/5] {arch}-reduced {precision} int8-KV: CPU plain vs CUDA "
+        log(f"[4/6] {arch}-reduced {precision} int8-KV: CPU plain vs CUDA "
             f"kernels")
         worst[f"{arch} {precision}"] = check_reduced(dev, args.seed, arch,
                                                      precision, must)
-    log("[4/5] codeqwen1.5-7b-reduced w4a8 paged int8 arena: CPU plain vs "
+    log("[4/6] codeqwen1.5-7b-reduced w4a8 paged int8 arena: CPU plain vs "
         "CUDA kernels, paged vs dense on the card")
     worst["codeqwen1.5-7b w4a8 paged"] = check_reduced_paged(dev, args.seed)
+    for arch, precision in REDUCED_NO_CACHE:
+        log(f"[4/6] {arch}-reduced {precision} no-cache forward: CPU plain vs "
+            f"CUDA kernels")
+        worst[f"{arch} {precision} no-cache"] = check_reduced_no_cache(
+            dev, args.seed, arch, precision)
 
     served = {}
     for (label, arch, precision, n_req, max_new, profiled, must,
          paged) in SERVE_PATHS:
-        log(f"[5/5] serve full-width {label} int8-KV: {n_req} requests x "
+        log(f"[5/6] serve full-width {label} int8-KV: {n_req} requests x "
             f"{max_new} new tokens" + (", then three paged drains" if paged
                                        else ""))
         srv = served[label] = serve_full(dev, args.seed, arch, precision, n_req,
@@ -1146,6 +1558,18 @@ def main() -> int:
             if "reference" in drain:
                 log("    reference run:")
                 log_drain(drain["reference"])
+
+    no_cache = {}
+    for arch, precisions, calibrated in NO_CACHE_PATHS:
+        log(f"[6/6] full-width {arch} no-cache forward: lm_loss on {NC_B} x "
+            f"{NC_T} tokens at {', '.join(precisions)}"
+            + (", after calibrate_ptq" if calibrated else ""))
+        no_cache.update(no_cache_full(dev, args.seed, arch, precisions,
+                                      calibrated))
+    log("[6/6] ops.softmax_i8 on causal score rows")
+    no_cache["ops.softmax_i8"] = softmax_entry(dev, args.seed)
+    log(f"  launches {no_cache['ops.softmax_i8']['launches']}, row sums "
+        f"{no_cache['ops.softmax_i8']['row_sum_range']}")
 
     # the M = 8 (decode) case of each kernel at the shape each path gives it;
     # a kernel's headline is the slice's main path (codeqwen1.5-7b w4a8) where
@@ -1179,7 +1603,19 @@ def main() -> int:
               "int_layernorm": "[8,4096] rms",
               "int8_kv_decode_attention":
                   "B=8 S=1024 Hq=32 Hkv=32 D=128 window=0",
-              "dual_gemm_gated": "int8 [8,4096]x2[4096,13440] silu"}}
+              "dual_gemm_gated": "int8 [8,4096]x2[4096,13440] silu"},
+        # the no-cache paths' attention at B = 4, T = 1024 (phase 6)
+        "codeqwen1.5-7b w4a8 lm_loss": {"int8_flash_attention":
+            "v_scale codeqwen B=4 T=1024 H=32 Hkv=32 D=128"},
+        "codeqwen1.5-7b w8a8 lm_loss": {"int8_flash_attention":
+            "v_scale codeqwen B=4 T=1024 H=32 Hkv=32 D=128"},
+        "starcoder2-3b w8a8 lm_loss": {"int8_flash_attention":
+            "v_scale starcoder B=4 T=1024 H=24 Hkv=2 D=128"},
+        "codeqwen1.5-7b bf16 lm_loss": {"flash_attention":
+            "bf16 codeqwen B=4 T=1024 H=32 Hkv=32 D=128"},
+        "starcoder2-3b bf16 lm_loss": {"flash_attention":
+            "bf16 starcoder B=4 T=1024 H=24 Hkv=2 D=128"},
+        "ops.softmax_i8": {"int_softmax": "[4096,1024] int32 causal mask"}}
     csrc, tpu = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     sources = {"quantize_rows": ("quantize.cu", "quantize.py:41"),
                "int8_gemm": ("int8_gemm.cu", "int8_gemm.py:127"),
@@ -1191,16 +1627,22 @@ def main() -> int:
                "dual_int4_gemm_gated": ("dual_int4_gemm_gated.cu",
                                         "int8_gemm.py:568"),
                "paged_decode_attention": ("paged_decode_attention.cu",
-                                          "paged_attention.py:94")}
+                                          "paged_attention.py:94"),
+               "int_softmax": ("int_softmax.cu", "int_softmax.py:53"),
+               "int8_flash_attention": ("int8_flash_attention.cu",
+                                        "int8_flash_attention.py:155"),
+               "flash_attention": ("flash_attention.cu",
+                                   "flash_attention.py:74")}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def case(name, shape):
         return next(c for c in cases if c["kernel"] == name
                     and c["shape"] == shape)
     kernels = []
+    paths = {**served, **no_cache}
     for name in ops.KERNELS:
-        by_path = {label: srv["launches"][name]
-                   for label, srv in served.items()}
+        by_path = {label: res["launches"][name]
+                   for label, res in paths.items()}
         at_path = {label: {"shape": shapes[name],
                            **{k: case(name, shapes[name])[k] for k in keys}}
                    for label, shapes in headline_by_path.items()
@@ -1221,6 +1663,7 @@ def main() -> int:
             "cuda": torch.version.cuda,
             "build": {k: v["seconds"] for k, v in built.items()},
             "cases": cases, "reduced_worst_rel": worst, "serve": served,
+            "no_cache": no_cache,
             "kernels": kernels, "total_s": time.perf_counter() - t_start},
             indent=1))
     log(f"done in {time.perf_counter() - t_start:.1f}s")

@@ -2,7 +2,7 @@
 
 The subset of ``repro.core.inumerics`` that the ported kernels rest on: the
 shift / 16-bit-multiply / shift requantization, the I-BERT integer exp,
-sigmoid, SiLU and GELU, the Newton integer square root and the integer
+softmax, sigmoid, SiLU and GELU, the Newton integer square root and the integer
 LayerNorm / RMSNorm.  Every
 function is bit-exact against its JAX counterpart (``tests/test_torch_
 inumerics.py``); the formulas are the same, written with torch int32 ops:
@@ -105,6 +105,43 @@ def i_exp(q: torch.Tensor, scale: float) -> tuple[torch.Tensor, float]:
     q_poly = (q_p + q_b) * (q_p + q_b) + q_c
     z = torch.clamp(z, max=30)
     return (q_poly >> z).to(I32), s_poly
+
+
+# ---------------------------------------------------------------------------
+# Integer softmax (ITA-style int8 output, scale 1/127)
+# ---------------------------------------------------------------------------
+
+SOFTMAX_OUT_SCALE = 1.0 / 127.0
+SOFTMAX_NEG_INF = -(2 ** 24)   # large negative, shift-safe
+
+
+def exp_rescale_shift(scale: float) -> int:
+    """Static right shift bounding ``i_exp`` outputs to 14 bits (softmax
+    only needs ratios; without it e*127 overflows int32 at fine scales)."""
+    _, q_b, q_c, _ = exp_consts(scale)
+    return max(0, int(q_b * q_b + q_c).bit_length() - 14)
+
+
+def i_softmax(q: torch.Tensor, scale: float, dim: int = -1,
+              mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Integer-only softmax.  q: int32 logits with real value q*scale.
+
+    Returns int32 payload in [0, 127]; dequantize with SOFTMAX_OUT_SCALE.
+    With ``mask`` (bool, True = keep), masked positions get probability 0.
+    The row sum of 14-bit exps and ``e*127`` stay in int32 for rows of up
+    to 2^17 entries; ``//`` has non-negative operands throughout."""
+    q = q.to(I32)
+    if mask is not None:
+        q = torch.where(mask, q, SOFTMAX_NEG_INF)
+    q_max = q.amax(dim, keepdim=True)
+    q_shift = torch.clamp(q - q_max, min=SOFTMAX_NEG_INF)       # <= 0
+    q_exp, _ = i_exp(q_shift, scale)
+    q_exp = q_exp >> exp_rescale_shift(scale)
+    if mask is not None:
+        q_exp = torch.where(mask, q_exp, 0)
+    q_sum = torch.clamp(q_exp.sum(dim, keepdim=True, dtype=I32), min=1)
+    out = (q_exp * 127 + (q_sum >> 1)) // q_sum
+    return torch.clamp(out, 0, 127).to(I32)
 
 
 # ---------------------------------------------------------------------------

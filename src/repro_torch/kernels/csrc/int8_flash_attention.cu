@@ -1,0 +1,270 @@
+// int8_flash_attention: integer attention.  q int8 [B*H, S, D], k/v int8 [B*Hkv, Skv, D]
+// (GQA: query head h reads kv head h / (H/Hkv)), causal or not:
+//   scores   = (q . k) >> rshift                      int32 (int8 products, int32 sums)
+//   p        = i_softmax(scores)                      int8 payload in [0, 127]
+//   v_scale  : out = (sum_j p_j * (float(v_j) * s_v[j])) * f32(1/127)    f32 [B*H, S, D]
+//   no scale : out =  sum_j p_j * v_j                                    int32 [B*H, S, D]
+//
+// Replaces the Pallas kernel ``repro/kernels/int8_flash_attention.py``
+// ``int8_flash_attention`` (bodies ``_pass1_kernel``, ``_pass2_kernel``,
+// ``_pass3_pv_kernel`` and ``_pass3_kernel``).  The TPU kernel streams K three
+// times (row max; exp-sum; int8 p @ V) because an online integer softmax
+// cannot rescale exactly.  Bound on the H100: operations — the PV product
+// runs in f32 outside the tensor cores (2*S*Skv*D flops per head, halved by
+// the causal mask) against a few hundred KB of int8 inputs per head.
+//
+// Design: one block per (R query rows, head).  Pass 1 computes the block's
+// R x Skv integer scores once with ``__dp4a`` (K in tiles of BK keys staged
+// in shared memory, rows padded to an odd word count so that the 32 lanes of
+// a warp read 32 banks) and keeps them in shared memory, where pass 2 turns
+// them into exps and then int8 probabilities row by row (one warp per row) —
+// so QK^T is computed once, not three times.  Pass 3 streams V in tiles and
+// accumulates p * v for R rows x D columns, V dequantized in-register
+// (``__fmul_rn(float(v), s_v)``, the reference's f32 product).  Key tiles
+// wholly above the diagonal are skipped: their probabilities are exactly 0
+// (the wrapper checks that the exp of a masked score, -(2^24) - max, is 0).
+// R = 16 rows keep S x Skv = 1024 x 1024 at 83 KB of shared memory, two
+// blocks per SM; the score block bounds Skv at 3328 (the wrapper checks).
+//
+// Exactness: the integer scores, exps, sums and probabilities are bit-exact
+// (the exp follows the oracle ``inumerics.i_exp``: the remainder is formed
+// from the unclamped halving count, so (q_p + q_b)^2 + q_c stays in int32;
+// every ``//`` has non-negative operands, so C's ``/`` is the floor
+// division); the int32 form is exact.  The f32 PV sum runs key by key
+// (``fmaf``), another order than the reference's einsum, so the v_scale form
+// agrees to rtol 1e-5, atol 1e-6.  ``p_out`` (optional, int8 [B*H, S, Skv])
+// receives the integer probabilities for the exact check.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int BK = 128;                 // keys per tile
+constexpr int R = 16;                   // query rows per block
+constexpr int NEG_INF = -(1 << 24);
+
+struct Params {
+  const int8_t* q;
+  const int8_t* k;
+  const int8_t* v;
+  const float* vs;   // [B*Hkv, Skv] or null
+  void* out;
+  int8_t* p_out;     // [B*H, S, Skv] or null
+  int h, hkv, s, skv, skp;  // skp: Skv padded to whole tiles
+  int causal, rshift, q_ln2, q_b, q_c, es;
+  float rcp127;
+};
+
+// i_exp(max(s - m, NEG_INF)) >> es in the oracle's order; s - m <= 0
+__device__ __forceinline__ int int_exp(int s, int m, const Params& p) {
+  const int qs = max(s - m, NEG_INF);
+  const int z = (-qs) / p.q_ln2;
+  const int t = qs + z * p.q_ln2 + p.q_b;   // q_p + q_b, q_p in (-q_ln2, 0]
+  return ((t * t + p.q_c) >> min(z, 30)) >> p.es;
+}
+
+template <int D, bool VS>
+__global__ void __launch_bounds__(THREADS)
+int8_attention_kernel(Params p) {
+  constexpr int W = D / 4;              // int8x4 words per row
+  constexpr int KW = W + 1;             // padded K row in shared memory
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* sc = reinterpret_cast<int*>(smem);                    // [R][skp] scores/exps/probs
+  int* qw = sc + R * p.skp;                                  // [R][W]
+  unsigned char* tile = reinterpret_cast<unsigned char*>(qw + R * W);   // K or V tile
+  int* kw = reinterpret_cast<int*>(tile);                    // [BK][KW]
+  int8_t* vt = reinterpret_cast<int8_t*>(tile);              // [BK][D]
+  float* vsc = reinterpret_cast<float*>(tile + BK * D);      // [BK]
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * R;
+  const int g = p.h / p.hkv;
+  const size_t kvh = static_cast<size_t>(bh / p.h) * p.hkv + (bh % p.h) / g;
+  const int* qg = reinterpret_cast<const int*>(p.q + (static_cast<size_t>(bh) * p.s) * D);
+  const int* kg = reinterpret_cast<const int*>(p.k + kvh * p.skv * D);
+  const int8_t* vg = p.v + kvh * p.skv * D;
+  const int n_keys = p.causal ? min(p.skv, q0 + R) : p.skv;
+  const int n_tiles = (n_keys + BK - 1) / BK;
+
+  for (int i = tid; i < R * W; i += THREADS) {
+    const int r = i / W;
+    qw[i] = (q0 + r < p.s) ? qg[(q0 + r) * W + i % W] : 0;
+  }
+
+  // ---- pass 1: integer scores of R rows x n_tiles*BK keys ----
+  {
+    const int j = tid % BK, rg = tid / BK;   // key of the tile, row group (0, 1)
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      __syncthreads();                       // the previous tile is consumed
+      for (int i = tid; i < BK * W; i += THREADS) {
+        const int key = kt * BK + i / W;
+        kw[(i / W) * KW + i % W] = key < p.skv ? kg[static_cast<size_t>(key) * W + i % W] : 0;
+      }
+      __syncthreads();
+      int acc[R / 2];
+#pragma unroll
+      for (int i = 0; i < R / 2; ++i) acc[i] = 0;
+#pragma unroll 8
+      for (int w = 0; w < W; ++w) {
+        const int kv = kw[j * KW + w];
+#pragma unroll
+        for (int i = 0; i < R / 2; ++i) acc[i] = __dp4a(qw[(rg + 2 * i) * W + w], kv, acc[i]);
+      }
+      const int key = kt * BK + j;
+#pragma unroll
+      for (int i = 0; i < R / 2; ++i) {
+        const int r = rg + 2 * i;
+        const bool masked = key >= p.skv || (p.causal && key > q0 + r);
+        sc[r * p.skp + key] = masked ? NEG_INF : (acc[i] >> p.rshift);
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- pass 2: per row (one warp each) max, exps, sum, int8 probabilities ----
+  {
+    const int lane = tid & 31, warp = tid >> 5;
+    for (int r = warp; r < R; r += THREADS / 32) {
+      const int row = q0 + r;
+      int* srow = sc + r * p.skp;
+      const int n_r = row >= p.s ? 0 : (p.causal ? min(row + 1, p.skv) : p.skv);
+      int m = NEG_INF;
+      for (int j = lane; j < n_r; j += 32) m = max(m, srow[j]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+      int l = 0;
+      for (int j = lane; j < n_r; j += 32) {
+        const int e = int_exp(srow[j], m, p);
+        srow[j] = e;
+        l += e;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+      l = max(l, 1);
+      int8_t* prow = (p.p_out != nullptr && row < p.s)
+                         ? p.p_out + (static_cast<size_t>(bh) * p.s + row) * p.skv : nullptr;
+      for (int j = lane; j < n_tiles * BK; j += 32) {
+        const int pj = j < n_r ? min(max((srow[j] * 127 + (l >> 1)) / l, 0), 127) : 0;
+        if (prow != nullptr && j < p.skv) prow[j] = static_cast<int8_t>(pj);
+        if (VS)
+          reinterpret_cast<float*>(srow)[j] = static_cast<float>(pj);
+        else
+          srow[j] = pj;
+      }
+      if (prow != nullptr)                   // keys beyond the causal tiles
+        for (int j = n_tiles * BK + lane; j < p.skv; j += 32) prow[j] = 0;
+    }
+  }
+
+  // ---- pass 3: out[r][d] = sum_j p[r][j] * v[j][d] over the block's key tiles ----
+  constexpr int NRG = THREADS / D;                // row groups
+  constexpr int RPT = R / NRG;                    // rows per thread
+  static_assert(R % NRG == 0, "every thread owns whole rows");
+  const int d = tid % D, rg = tid / D;
+  float facc[RPT];
+  int iacc[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) facc[i] = 0.f, iacc[i] = 0;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    __syncthreads();                              // pass 2 / the previous tile is done
+    for (int i = tid; i < BK * D / 16; i += THREADS) {
+      const int key = kt * BK + (i * 16) / D;
+      int4 val = make_int4(0, 0, 0, 0);
+      if (key < p.skv)
+        val = *reinterpret_cast<const int4*>(vg + static_cast<size_t>(kt) * BK * D + i * 16);
+      reinterpret_cast<int4*>(vt)[i] = val;
+    }
+    if (VS)
+      for (int i = tid; i < BK; i += THREADS) {
+        const int key = kt * BK + i;
+        vsc[i] = key < p.skv ? p.vs[kvh * p.skv + key] : 0.f;
+      }
+    __syncthreads();
+#pragma unroll 2
+    for (int j = 0; j < BK; j += 4) {
+      float vf[4];
+      int vi[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        vi[u] = vt[(j + u) * D + d];
+        if (VS) vf[u] = __fmul_rn(static_cast<float>(vi[u]), vsc[j + u]);
+      }
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int r = rg + NRG * i;
+        const int4 pw = *reinterpret_cast<const int4*>(sc + r * p.skp + kt * BK + j);
+        if (VS) {
+          facc[i] = fmaf(__int_as_float(pw.x), vf[0], facc[i]);
+          facc[i] = fmaf(__int_as_float(pw.y), vf[1], facc[i]);
+          facc[i] = fmaf(__int_as_float(pw.z), vf[2], facc[i]);
+          facc[i] = fmaf(__int_as_float(pw.w), vf[3], facc[i]);
+        } else {
+          iacc[i] += pw.x * vi[0] + pw.y * vi[1] + pw.z * vi[2] + pw.w * vi[3];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int row = q0 + rg + NRG * i;
+    if (row >= p.s) continue;
+    const size_t o = (static_cast<size_t>(bh) * p.s + row) * D + d;
+    if (VS)
+      static_cast<float*>(p.out)[o] = __fmul_rn(facc[i], p.rcp127);
+    else
+      static_cast<int*>(p.out)[o] = iacc[i];
+  }
+}
+
+// scores, Q rows and the K or V tile; the wrapper's ``block_smem`` mirrors it
+size_t smem_bytes(int d, int skp) {
+  const size_t k_tile = static_cast<size_t>(BK) * (d / 4 + 1) * 4;
+  const size_t v_tile = static_cast<size_t>(BK) * d + BK * 4;
+  return static_cast<size_t>(R) * skp * 4 + static_cast<size_t>(R) * d
+         + (k_tile > v_tile ? k_tile : v_tile);
+}
+
+template <int D, bool VS>
+int launch(const Params& p, int bh, cudaStream_t st) {
+  const size_t smem = smem_bytes(D, p.skp);
+  auto kern = int8_attention_kernel<D, VS>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.s + R - 1) / R, bh);
+  kern<<<grid, THREADS, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool VS>
+int launch_d(const Params& p, int d, int bh, cudaStream_t st) {
+  switch (d) {   // the port's head dims: 128, and 16 in the reduced configs
+    case 16: return launch<16, VS>(p, bh, st);
+    case 128: return launch<128, VS>(p, bh, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+extern "C" int repro_int8_flash_attention(const void* q, const void* k, const void* v,
+                                          const void* v_scale, void* out, void* p_out, int b,
+                                          int h, int hkv, int s, int skv, int d, int causal, int rshift, int q_ln2, int q_b, int q_c,
+                                          int es, float rcp127, void* stream) {
+  if (b == 0 || s == 0) return static_cast<int>(cudaGetLastError());
+  Params p;
+  p.q = static_cast<const int8_t*>(q);
+  p.k = static_cast<const int8_t*>(k);
+  p.v = static_cast<const int8_t*>(v);
+  p.vs = static_cast<const float*>(v_scale);
+  p.out = out;
+  p.p_out = static_cast<int8_t*>(p_out);
+  p.h = h, p.hkv = hkv, p.s = s, p.skv = skv, p.skp = (skv + BK - 1) / BK * BK;
+  p.causal = causal, p.rshift = rshift, p.q_ln2 = q_ln2, p.q_b = q_b, p.q_c = q_c, p.es = es;
+  p.rcp127 = rcp127;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return v_scale != nullptr ? launch_d<true>(p, d, b * h, st)
+                            : launch_d<false>(p, d, b * h, st);
+}

@@ -1,0 +1,77 @@
+"""bf16 attention forward (the no-cache bf16 path): q [B,H,S,D] against
+k/v [B,Hkv,Skv,D], causal or not, f32 online softmax, bf16 out.
+
+Port of the Pallas kernel ``repro/kernels/flash_attention.py:74``
+``flash_attention`` to the CUDA kernel ``csrc/flash_attention.cu`` (source
+note there: bound by operations, one block per 64 query rows, key tiles
+above the diagonal skipped).  ``flash_attention_ref`` is its plain version,
+``repro.kernels.ref``'s oracle: f32 scores, softmax and P@V, rounded to the
+input dtype once.  The two sum in other orders and use their own ``exp``, so
+they agree within ``|kernel - plain| <= ATOL + RTOL * |plain|``: one bf16
+rounding of the output (2^-7 relative at most), ATOL for outputs near 0.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import build
+from .common import LAUNCHES, check, on_cuda
+
+NEG = -1e30
+HEAD_DIMS = (16, 128)   # the port's head dims (128; 16 when reduced)
+RTOL = 2.0 ** -7
+ATOL = 1e-3
+
+
+def flash_attention_ref(q, k, v, causal: bool = True, scale=None):
+    b, h, s, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if hkv != h:
+        k = k.repeat_interleave(h // hkv, dim=1)
+        v = v.repeat_interleave(h // hkv, dim=1)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale
+    if causal:
+        mask = torch.ones((s, skv), dtype=torch.bool,
+                          device=q.device).tril(skv - s)
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", p, v.float()).to(q.dtype)
+
+
+def _launch(q, k, v, causal: bool, scale: float):
+    b, h, s, d = q.shape
+    _, hkv, skv, d2 = k.shape
+    check(d2 == d and tuple(v.shape) == tuple(k.shape) and h % hkv == 0
+          and k.shape[0] == b, f"q {tuple(q.shape)} k {tuple(k.shape)} "
+          f"v {tuple(v.shape)}")
+    check(d in HEAD_DIMS, f"head_dim {d} not in {HEAD_DIMS}")
+    for t in (q, k, v):
+        check(t.dtype == torch.bfloat16, f"q/k/v must be bf16, got {t.dtype}")
+    check(skv >= 1, "no keys")
+    check(not causal or s == skv, f"causal attention needs S == Skv "
+          f"(got {s}, {skv})")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    fn = build.entry("flash_attention", "repro_flash_attention",
+                     [build.VP] * 4 + [build.I] * 6 + [build.F, build.I,
+                                                       build.VP])
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            hkv, s, skv, d, float(scale), int(causal),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check_rc(rc, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_attention(q, k, v, causal: bool = True, scale=None):
+    """bf16 attention of q [B,H,S,D] against k/v [B,Hkv,Skv,D] -> [B,H,S,D]:
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if on_cuda(q, k, v):
+        return _launch(q, k, v, causal, scale)
+    return flash_attention_ref(q, k, v, causal, scale)

@@ -12,16 +12,20 @@ from __future__ import annotations
 import torch
 
 from .common import LAUNCHES
+from .flash_attention import flash_attention
+from .int8_flash_attention import int8_flash_attention
 from .int8_gemm import (dual_gemm_gated, dual_int4_gemm_gated, int4_gemm,
                         int8_gemm)
 from .int8_kv_decode_attention import int8_kv_decode_attention
 from .int_layernorm import int_layernorm
+from .int_softmax import int_softmax
 from .paged_attention import paged_decode_attention
 from .quantize import quantize_rows
 
 KERNELS = ("quantize_rows", "int8_gemm", "int_layernorm",
            "int8_kv_decode_attention", "dual_gemm_gated", "int4_gemm",
-           "dual_int4_gemm_gated", "paged_decode_attention")
+           "dual_int4_gemm_gated", "paged_decode_attention", "int_softmax",
+           "int8_flash_attention", "flash_attention")
 
 
 def launch_counts() -> dict[str, int]:
@@ -126,6 +130,30 @@ def layernorm_i8(x, gamma_q, beta_q, rms_only: bool = False):
     lead, d = x.shape[:-1], x.shape[-1]
     out = int_layernorm(x.reshape(-1, d), gamma_q, beta_q, rms_only=rms_only)
     return out.reshape(*lead, d)
+
+
+def softmax_i8(x, scale: float, mask=None):
+    """Integer softmax over the last axis of an int8/int32 payload [..., N]
+    -> int8 probabilities (dequantize with 1/127); ``mask`` (bool, True =
+    keep) gives masked positions probability 0."""
+    lead, n = x.shape[:-1], x.shape[-1]
+    m2 = None if mask is None else mask.expand(x.shape).reshape(-1, n)
+    out = int_softmax(x.reshape(-1, n), scale, mask=m2)
+    return out.reshape(*lead, n)
+
+
+def attention(q, k, v, causal: bool = True, scale=None):
+    """bf16 attention, q [B,H,S,D] against k/v [B,Hkv,Skv,D] (the no-cache
+    forward's bf16 path)."""
+    return flash_attention(q, k, v, causal=causal, scale=scale)
+
+
+def attention_i8(q, k, v, scale: float, causal: bool = True, v_scale=None):
+    """Integer attention (int8 QK^T -> i-softmax -> PV).  Without
+    ``v_scale``: the int32 accumulator (real value acc/127 * the caller's
+    per-tensor s_v).  With ``v_scale`` [B,Hkv,Skv,1] f32 per-(token, head)
+    scales: V dequantized exactly in the kernel, f32 attention output."""
+    return int8_flash_attention(q, k, v, scale, causal=causal, v_scale=v_scale)
 
 
 def decode_attention_int8kv(q, k_q, k_s, v_q, v_s, pos_ids, qpos, scale=None,

@@ -1,8 +1,7 @@
 """Attention: GQA/MQA over a dense ring KV cache or a paged KV arena
-(bf16 or int8).
+(bf16 or int8), and the no-cache causal forward.
 
-Port of ``repro.models.attention`` for self-attention with a cache.  The
-dense cache:
+Port of ``repro.models.attention`` for self-attention.  The dense cache:
 
     cache = {"k": (B,S,Hkv,D), "v": (B,S,Hkv,D), "pos_ids": (B,S) int32}
     (+ "k_s"/"v_s": (B,S,Hkv,1) f32 per-(token, head) scales when int8)
@@ -17,14 +16,20 @@ IN PLACE: pad tokens (position -1) are dropped before the write, so a lane
 that feeds only pads is left untouched — exactly what the reference's
 lane-masked commit keeps.
 
-A decode kernel runs iff the cache is int8, the step feeds one token per
-lane and the cache lies on a CUDA device — the port's form of the
+With a cache, a decode kernel runs iff the cache is int8, the step feeds one
+token per lane and the cache lies on a CUDA device — the port's form of the
 reference's ``ops.backend() == "pallas"`` test: ``ops.decode_attention_int8kv``
 for the dense cache, ``ops.paged_attention_decode`` for the arena.
 Everywhere else (CPU, bf16 cache, mixed-depth packed rows) the port takes
 the reference's ``jnp``-backend branch: ``_read_cache``/``_read_paged`` ->
-``_sdpa`` in plain PyTorch.  Cross-attention and integer no-cache
-attention are later slices (ROADMAP.md §A).
+``_sdpa`` in plain PyTorch.
+
+Without a cache (scoring, ``lm_loss``, calibration) the reference's rule
+holds: an integer mode with no window runs ``_int_attention``
+(``ops.attention_i8``: the int8_flash_attention kernel on the card, its plain
+version on the CPU); otherwise a CUDA tensor with no window and T % 8 == 0
+runs ``ops.attention`` (the flash_attention kernel), and everything else
+``_sdpa``.  Cross-attention is a later slice (ROADMAP.md §A).
 """
 from __future__ import annotations
 
@@ -36,12 +41,16 @@ from torch import nn
 
 from ..kernels import ops
 from ..kernels.common import f32, rcp32
+from ..kernels.int8_flash_attention import head_shift
 from .config import ArchConfig
 from .layers import ExecMode, Linear, apply_linear, apply_rope, dense_init
 
 F32 = torch.float32
 NEG = -1e30
 _RCP127 = rcp32(127.0)
+
+# canonical static int8 scale for activations entering integer attention
+ATTN_INT_SCALE = 1.0 / 16.0
 
 
 class Attention(nn.Module):
@@ -246,14 +255,9 @@ def _read_paged(cache: dict, dtype):
     return k.to(dtype).reshape(shape), v.to(dtype).reshape(shape), kpos
 
 
+# the leaves of one layer's arena; the page axis is 0 (the port keeps one
+# cache per layer, where the reference stacks them per period)
 _PAGE_KEYS = ("pk", "pv", "pks", "pvs", "ppos")
-
-
-def _page_axis(cache: dict) -> int:
-    """Page axis of a paged cache's leaves: 0 for one layer's cache
-    ((n_pages, ps)) — always, in the port, whose engine keeps one cache per
-    layer — and 1 for period-stacked leaves ((P, n_pages, ps))."""
-    return 0 if cache["ppos"].dim() == 2 else 1
 
 
 def gather_pages(cache: dict, page_ids) -> dict:
@@ -262,10 +266,9 @@ def gather_pages(cache: dict, page_ids) -> dict:
     ``page_ids`` along the page axis; pure data movement (no dequant, no
     cast), so a gather -> ``scatter_pages`` round trip is bit-identical
     whatever physical pages the content comes back to."""
-    ax = _page_axis(cache)
     idx = torch.as_tensor(page_ids, dtype=torch.long,
                           device=cache["ppos"].device)
-    return {k: cache[k].index_select(ax, idx) for k in _PAGE_KEYS if k in cache}
+    return {k: cache[k].index_select(0, idx) for k in _PAGE_KEYS if k in cache}
 
 
 def scatter_pages(cache: dict, page_ids, payload: dict) -> dict:
@@ -274,11 +277,10 @@ def scatter_pages(cache: dict, page_ids, payload: dict) -> dict:
     so only the page table needs to name the new pages.  (The reference
     pads ``page_ids`` with out-of-bounds ids to keep one compiled shape;
     the port passes exactly the pages.)"""
-    ax = _page_axis(cache)
     dev = cache["ppos"].device
     idx = torch.as_tensor(page_ids, dtype=torch.long, device=dev)
     for k, val in payload.items():
-        cache[k].index_copy_(ax, idx, val.to(dev, cache[k].dtype))
+        cache[k].index_copy_(0, idx, val.to(dev, cache[k].dtype))
     return cache
 
 
@@ -309,6 +311,30 @@ def _sdpa(q, k, v, qpos, kpos, scale, dtype, *, causal=True, window=0,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bthgk,bhkd->bthgd", p.to(dtype).float(), vt)
     return o.reshape(b, tq, hq, d).to(dtype)
+
+
+def _int_attention(q, k, v, causal: bool = True):
+    """Integer no-cache attention (the paper's path): static-scale int8 q/k,
+    V in int8 with per-(token, head) scales dequantized EXACTLY in the PV
+    pass — the only error left against float attention is the input
+    quantization itself.  q (B,T,Hq,D), k/v (B,T,Hkv,D) -> f32 (B,T,Hq,D)."""
+    # x / ATTN_INT_SCALE under jit: a product with the f32 reciprocal (16.0)
+    inv = f32(rcp32(ATTN_INT_SCALE), q.device)
+    qi = torch.clamp(torch.round(q.float() * inv), -128, 127).to(torch.int8)
+    ki = torch.clamp(torch.round(k.float() * inv), -128, 127).to(torch.int8)
+    vi, v_s = _quant_kv(v)                        # per-(token, head) scales
+    out = ops.attention_i8(qi.transpose(1, 2), ki.transpose(1, 2),
+                           vi.transpose(1, 2),
+                           scale=int_score_scale(q.shape[-1]), causal=causal,
+                           v_scale=v_s.transpose(1, 2))    # (B,H,T,D) f32
+    return out.transpose(1, 2)
+
+
+def int_score_scale(hd: int) -> float:
+    """Real value of one unit of the integer attention's scores: q and k at
+    ATTN_INT_SCALE, after the power-of-two part of 1/sqrt(hd) is folded
+    into the scores as a shift; the residual sqrt factor is folded here."""
+    return ATTN_INT_SCALE * ATTN_INT_SCALE * (2.0 ** head_shift(hd)) / math.sqrt(hd)
 
 
 def attention(params: Attention, x, cfg: ArchConfig, mode: ExecMode,
@@ -361,9 +387,12 @@ def attention(params: Attention, x, cfg: ArchConfig, mode: ExecMode,
             out = _sdpa(q, kc, vc, positions, kpos, scale, dtype, causal=True,
                         window=window, valid=kpos >= 0)
     elif mode.integer and window == 0:
-        raise NotImplementedError(
-            "integer attention without a cache runs int8_flash_attention, "
-            "which is not ported yet (ROADMAP.md §B); serve with a cache")
+        # no-cache forward (scoring, lm_loss, calibration), integer path
+        out = _int_attention(q, k, v)
+    elif q.is_cuda and window == 0 and t % 8 == 0:
+        out = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=True,
+                            scale=scale).transpose(1, 2)
     else:
         out = _sdpa(q, k, v, positions, positions, scale, dtype, causal=True,
                     window=window)

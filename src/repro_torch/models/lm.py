@@ -1,4 +1,4 @@
-"""Decoder LM: init / forward (port of ``repro.models.lm``).
+"""Decoder LM: init / forward / lm_loss (port of ``repro.models.lm``).
 
 The reference scans ``lax.scan`` over periods with parameters stacked per
 period; the port holds one ``Block`` per layer in an ``nn.ModuleList`` and
@@ -105,3 +105,28 @@ def forward(params: LM, cfg: ArchConfig, tokens, positions=None,
         pad = torch.arange(cfg.padded_vocab, device=lg.device) >= cfg.vocab_size
         lg = torch.where(pad, torch.full_like(lg, -1e9), lg)
     return lg, new_states
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def lm_loss(params: LM, cfg: ArchConfig, tokens, labels):
+    """Mean next-token cross entropy of the no-cache forward over the
+    positions whose label is >= 0 (a 0-dim f32 tensor)."""
+    lg, _ = forward(params, cfg, tokens)
+    return xent_loss(lg, labels)
+
+
+def xent_loss(lg, labels):
+    """Cross entropy of logits (B, T, V) against labels (B, T), label < 0
+    masked.  The reference picks the gold logit with a one-hot contraction
+    (to keep the vocab axis sharded); adding zeros is exact, so the gather
+    here gives the same value."""
+    lg = lg.float()
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = labels >= 0
+    nll = torch.where(mask, logz - gold, torch.zeros_like(logz))
+    return nll.sum() / mask.sum().clamp(min=1)

@@ -1,17 +1,20 @@
 """Post-training quantization: float weights -> W8A8 / W4A8 integer execution.
 
-Port of ``repro.quant.ptq`` (``ptq_quantize_params``, the W4 policy and
-``quantized_param_fraction``), and ``quantize_for``, the launcher's choice
-of policy by precision.  Every GEMM weight (attention wq/wk/wv/wo,
-MLP w_in/w_gate/w_out and the ``unembed`` head) becomes per-output-channel
-symmetric int8 ``{w_q, scale}`` or, where the policy says so, packed int4
-``{w4, qmul, scale}`` with two-level group scales; embeddings and norms
-stay float.  The reference runs PTQ eagerly, so its divisions are true
-divisions here.  Bit-exact against the reference
-(``tests/test_torch_models.py``).  ``calibrate_ptq``'s group/clip search is
-not ported yet (ROADMAP.md §A6).
+Port of ``repro.quant.ptq`` (``ptq_quantize_params``, the W4 policy,
+``calibrate_ptq``'s group/clip search and ``quantized_param_fraction``), and
+``quantize_for``, the launcher's choice of policy by precision.  Every GEMM
+weight (attention wq/wk/wv/wo, MLP w_in/w_gate/w_out and the ``unembed``
+head) becomes per-output-channel symmetric int8 ``{w_q, scale}`` or, where
+the policy says so, packed int4 ``{w4, qmul, scale}`` with two-level group
+scales; embeddings and norms stay float.  The reference runs PTQ eagerly, so
+its divisions are true divisions here.  Bit-exact against the reference
+(``tests/test_torch_models.py``; ``calibrate_ptq`` in
+``tests/test_torch_no_cache.py``).
 """
 from __future__ import annotations
+
+import copy
+import itertools
 
 import torch
 
@@ -31,6 +34,7 @@ DEFAULT_W4_POLICY = {
 }
 
 W4_GROUPS = (32, 64, 128)
+W4_CLIPS = (1.0, 0.9, 0.8)
 
 
 def weight_class(name: str) -> str:
@@ -75,6 +79,55 @@ def ptq_quantize_params(params: LM, policy: dict | None = None) -> LM:
             mod.quantize_(quantize_weight_w4(mod.weight, group=group,
                                              clip_ratio=clip))
     return params
+
+
+def quantized_copy(params: LM, policy: dict | None = None) -> LM:
+    """``ptq_quantize_params`` on a copy of the float model ``params``,
+    which is left as it was: the copy shares every tensor it does not
+    quantize (embeddings, norms, biases, and the float weights until each
+    is replaced), so it costs one quantized model's memory."""
+    memo = {id(t): t for t in itertools.chain(params.parameters(),
+                                              params.buffers())}
+    return ptq_quantize_params(copy.deepcopy(params, memo), policy)
+
+
+@torch.no_grad()
+def calibrate_ptq(params: LM, forward_logits, groups=W4_GROUPS,
+                  clips=W4_CLIPS, classes=("attn", "mlp"),
+                  max_rel_mse: float | None = None):
+    """Greedy per-class W4 calibration search against a W8A8 quality proxy.
+
+    ``forward_logits(quantized_model) -> logits`` must run the model on a
+    FIXED calibration prompt set.  For each class (others int8), every
+    (group, clip) candidate is scored by logit MSE against the all-int8
+    forward; the per-class argmin wins.  With ``max_rel_mse``, a class
+    whose best candidate exceeds ``max_rel_mse * mean(w8a8_logits^2)``
+    falls back to int8.  Returns (policy, report): the policy feeds
+    ``ptq_quantize_params`` and the report records every candidate's score.
+    ``params`` (float) is left as it was; each candidate is quantized from
+    it and freed before the next is built."""
+    def logits(policy):
+        return forward_logits(quantized_copy(params, policy)).float()
+
+    base = logits(None)
+    base_mag = float(torch.mean(base * base))
+    policy, report = {"head": "int8"}, {}
+    for cls in classes:
+        scores = []
+        for g in groups:
+            for c in clips:
+                lg = logits({cls: {"bits": 4, "group": g, "clip": c}})
+                mse = float(torch.mean((lg - base) ** 2))
+                del lg
+                scores.append({"group": g, "clip": c, "mse": mse})
+        best = min(scores, key=lambda s: s["mse"])
+        demoted = (max_rel_mse is not None
+                   and best["mse"] > max_rel_mse * base_mag)
+        policy[cls] = "int8" if demoted else {
+            "bits": 4, "group": best["group"], "clip": best["clip"]}
+        report[cls] = {"best": best, "demoted_to_int8": demoted,
+                       "scores": scores, "base_logit_msq": base_mag}
+    return policy, report
 
 
 def quantize_for(params: LM, precision: str) -> LM:

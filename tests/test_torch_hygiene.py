@@ -53,7 +53,9 @@ def test_scan_sees_the_whole_port():
     for need in ("models/layers.py", "models/attention.py", "models/lm.py",
                  "kernels/ops.py", "serve/engine.py", "launch/serve.py",
                  "convert.py", "quant/ptq.py", "core/inumerics.py",
-                 "serve/kv_pool.py", "kernels/paged_attention.py"):
+                 "serve/kv_pool.py", "kernels/paged_attention.py",
+                 "kernels/int_softmax.py", "kernels/int8_flash_attention.py",
+                 "kernels/flash_attention.py"):
         assert need in files
 
 
@@ -179,7 +181,9 @@ def test_paged_engine_defaults_to_the_card(no_cuda):
 
 
 def test_kernel_sources_and_flags():
-    assert "paged_decode_attention" in build.SOURCES
+    assert {"paged_decode_attention", "int_softmax", "int8_flash_attention",
+            "flash_attention"} <= set(build.SOURCES)
+    assert set(build.SOURCES) <= set(ops.KERNELS) | {"quantize"}
     for name in build.SOURCES:
         src = build.CSRC / f"{name}.cu"
         assert src.exists()
@@ -190,6 +194,47 @@ def test_kernel_sources_and_flags():
     assert build.build_dir().parts[-2:] == ("build", "kernels") or \
         os.environ.get("REPRO_TORCH_BUILD_DIR")
     assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+@pytest.mark.parametrize("precision", ["bf16", "w8a8", "w4a8"])
+def test_explicit_cpu_no_cache_launches_nothing(precision):
+    from repro_torch.models import lm_loss
+    from repro_torch.quant import quantize_for
+    cfg = get_config("codeqwen1.5-7b", precision=precision, reduced=True)
+    params = quantize_for(init_params(cfg, seed=1, device="cpu"), precision)
+    toks = torch.randint(2, cfg.vocab_size, (2, 17),
+                         generator=torch.Generator().manual_seed(0))
+    ops.reset_launch_counts()
+    loss = lm_loss(params, cfg, toks[:, :-1], toks[:, 1:])
+    assert torch.isfinite(loss) and loss.dim() == 0
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+
+
+def _no_cache_calls():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int8_flash_attention as ia
+    from repro_torch.kernels import int_softmax as sm
+    i8 = torch.zeros((1, 2, 8, 16), dtype=torch.int8)
+    bf = torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16)
+    vs = torch.ones((1, 2, 8, 1))
+    return [(sm, lambda: ops.softmax_i8(torch.zeros((4, 8), dtype=torch.int32),
+                                        0.05)),
+            (ia, lambda: ops.attention_i8(i8, i8, i8, 1 / 256, v_scale=vs)),
+            (fa, lambda: ops.attention(bf, bf, bf))]
+
+
+@pytest.mark.parametrize("which", range(3))
+def test_no_cache_wrappers_never_fall_back(monkeypatch, which):
+    """With the tensors taken for CUDA ones, each new wrapper goes to its
+    kernel — here the build, which raises — and not to the plain version."""
+    mod, call = _no_cache_calls()[which]
+    monkeypatch.setattr(mod, "on_cuda", lambda *a: True)
+
+    def no_build(*a, **k):
+        raise RuntimeError("no nvcc here")
+    monkeypatch.setattr(build, "entry", no_build)
+    with pytest.raises(RuntimeError, match="no nvcc here"):
+        call()
 
 
 def test_decode_attentions_share_one_body():
