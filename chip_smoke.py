@@ -29,7 +29,15 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    debug output, the f32 output within rtol 1e-5, atol 1e-6; the int32 form
    bit-exact), flash_attention (bf16, against SDPA's time too) and
    int_softmax on [4096, 1024] rows (bit-exact; masked, and spread far past
-   30*q_ln2);
+   30*q_ln2); int8_flash_attention's streaming form at 4096 and 8192 causal
+   keys (``check_streaming_attention``, the same checks); and the rest of the
+   integer library (``check_int_library``, bit-exact): int_gelu
+   [4096, 12288], int_silu [4096, 13440], requantize_i32 [4096, 4096],
+   int8_gemm's requant, requant_gelu and requant_add epilogues at Table II's
+   [32, 64] x [64, 32] and at [4096, 3072] x [3072, 12288], and int8_conv2d
+   at Table II's [1, 128, 128, 3] x [3, 3, 3, 8] (int32 and requantized), a
+   3x3 conv [8, 56, 56, 64] x [3, 3, 64, 64] and the ViT-B/16 patch embed
+   [32, 14, 14, 768] x [1, 1, 768, 768];
 4. reduced: starcoder2-3b-reduced at w8a8 and codeqwen1.5-7b-reduced at
    w4a8, w8a8 and bf16, each with an int8 KV cache, the same packed steps on
    the CPU (plain versions) and on the card (kernels): the logits agree
@@ -37,7 +45,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    paged int8 arena the same, and its card logits equal the dense card
    logits bit for bit; then the reduced no-cache forward (starcoder at bf16
    and w8a8, codeqwen at bf16, w8a8 and w4a8) the same way, its attention
-   kernel launched once per layer;
+   kernel launched once per layer; and the integer-nonlinearity forward (a
+   w8a8 config over float parameters: integer norms, attention and GELU or
+   SiLU, float linears) of codeqwen and starcoder the same way, int_silu or
+   int_gelu launched once per layer too;
 5. serve, each path through ``ServingEngine`` with random weights from
    ``--seed`` PTQ'd by the port, an int8 KV cache, 8 lanes, max_seq 1024,
    token budget 256 and prompts of 16-256 tokens, greedy:
@@ -55,14 +66,22 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    (W4_GROUPS x W4_CLIPS for attn and mlp, 19 forwards of 2 x 128 tokens),
    then ``lm_loss`` on 4 x 1024 random tokens at bf16, w8a8 and w4a8 (each
    integer model quantized from the float one and freed; w4a8 also under
-   torch.profiler); starcoder2-3b at bf16 and w8a8; and ``ops.softmax_i8``
-   on causal score rows.  Every forward must launch int8_flash_attention
-   (integer) or flash_attention (bf16) exactly once per layer.
+   torch.profiler) and the integer-nonlinearity forward ("w8a8-float"),
+   then a w8a8 ``lm_loss`` on 1 x 4096 tokens; starcoder2-3b at bf16, w8a8
+   and w8a8-float; the integer library's entry points at Table II's shapes
+   and the ViT-B/16 patch embed (``int_library_entry``, equal to the CPU's);
+   and ``ops.softmax_i8`` on causal score rows.  Every forward must launch
+   int8_flash_attention (integer) or flash_attention (bf16) exactly once per
+   layer — int8_flash_attention in its streaming form exactly for the
+   4096-token sequence — and the w8a8-float forwards int_silu or int_gelu
+   once per layer.
 
 The last three lines of standard output are the kernels JSON (each kernel
 timed at the M = 8 shape the main path, codeqwen1.5-7b w4a8, gives it, or
 the path that runs it — the paged drains for the paged kernel, the
-no-cache forwards for the three attention and softmax kernels; ``by_path``
+no-cache forwards for the three attention and softmax kernels and for
+int_silu and int_gelu (at 4096 rows), the integer library path for
+requantize_i32 and int8_conv2d (the patch embed); ``by_path``
 holds every path's shape, ``launches_by_path`` every path's count), the card's
 ``nvidia-smi`` name/power line and ``{"ok": true, "device": ...}``.  With
 ``--out PATH`` every case, the serving stats and the profiles are also
@@ -171,12 +190,15 @@ def check_kernels(dev, gen, timer) -> list[dict]:
 
     cases = []
 
-    def record(kernel, shape, err, exact, ms, plain_ms, lib_ms, b):
+    def record(kernel, shape, err, exact, ms, plain_ms, lib_ms, b,
+               lib_note=None):
         cases.append({"kernel": kernel, "shape": shape, "max_abs_err": err,
                       "exact": exact, "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1]})
+                      "library_ms": lib_ms, "library_note": lib_note,
+                      "bound_ms": b[0], "bound_by": b[1]})
         log(f"  {kernel:26s} {shape:44s} err={err:.3g} ms={ms:.4f} "
-            f"plain={plain_ms:.4f} lib={lib_ms} bound={b[0]:.4f} ({b[1]})")
+            f"plain={plain_ms:.4f} lib={lib_ms} bound={b[0]:.4f} ({b[1]})"
+            + (f" [library: {lib_note}]" if lib_note else ""))
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
@@ -331,6 +353,8 @@ def check_kernels(dev, gen, timer) -> list[dict]:
     check_w4_and_gated(dev, gen, timer, record, randn)
     check_paged(dev, gen, timer, record, randn)
     check_no_cache(dev, gen, timer, record, randn)
+    check_streaming_attention(dev, gen, timer, record, randn)
+    check_int_library(dev, gen, timer, record, randn)
     return cases
 
 
@@ -340,13 +364,13 @@ NC_B, NC_T = 4, 1024
 NC_HEADS = (("codeqwen", 32, 32), ("starcoder", 24, 2))
 
 
-def int_attention_inputs(randn, h, hkv):
+def int_attention_inputs(randn, h, hkv, b=NC_B, t=NC_T):
     """int8 q/k/v and per-(token, head) V scales as ``_int_attention``
     makes them from bf16 activations (q, k at the static 1/16 scale), with a
     saturated query row against one aligned key: its scores spread far past
     30*q_ln2 below the row max."""
     from repro_torch.models.attention import ATTN_INT_SCALE, _quant_kv
-    b, t, d = NC_B, NC_T, 128
+    d = 128
 
     def static_int8(*shape):
         x = randn(*shape) / ATTN_INT_SCALE
@@ -491,6 +515,209 @@ def check_no_cache(dev, gen, timer, record, randn) -> None:
         record("int_softmax", f"[{m},{n}] {name}", 0.0, True, timer(run),
                timer(plain), None,
                bound(m * n * (5 + (mask is not None)), 15 * m * n, F32_OPS))
+
+
+# int8_flash_attention's streaming form: (B, T, H, Hkv) of causal sequences
+# past the block form's 3328 keys — codeqwen1.5-7b's heads at the 4096-token
+# forward of phase 6, and 8192 keys at fewer heads (the plain version holds
+# several [B, H, T, T] int32 tensors)
+STREAM_SHAPES = ((1, 4096, 32, 32), (1, 8192, 4, 4))
+
+
+def check_streaming_attention(dev, gen, timer, record, randn) -> None:
+    """Phase 3 for int8_flash_attention's streaming form (taken past 3328
+    keys): the integer probabilities bit-exact through the debug output, the
+    f32 output within RTOL/ATOL, the int32 form bit-exact, and every launch
+    counted as streaming.  The bound counts QK^T once, as the block form
+    computes it."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.int8_flash_attention import (
+        ATOL, RTOL, int8_attention_probs_ref, int8_flash_attention,
+        int8_flash_attention_ref, streams)
+    from repro_torch.models.attention import int_score_scale
+    d = 128
+    sc = int_score_scale(d)
+    for b, t, h, hkv in STREAM_SHAPES:
+        if not streams(t, d):
+            raise AssertionError(f"{t} keys should take the streaming form")
+        q, k, v, v_s = int_attention_inputs(randn, h, hkv, b, t)
+        what = f"int8_flash_attention streaming B={b} T={t} H={h} Hkv={hkv}"
+        before = LAUNCHES["int8_flash_attention.streaming"]
+        p_out = torch.empty((b, h, t, t), dtype=torch.int8, device=dev)
+        out = int8_flash_attention(q, k, v, sc, v_scale=v_s, p_out=p_out)
+        probs = int8_attention_probs_ref(q, k, sc)
+        torch.cuda.synchronize()
+        if LAUNCHES["int8_flash_attention.streaming"] != before + 1:
+            raise AssertionError(f"{what}: not launched in the streaming form")
+        if not torch.equal(p_out.int(), probs):
+            raise AssertionError(f"{what}: {int((p_out.int() != probs).sum())}"
+                                 f" integer probabilities differ from the "
+                                 f"plain version's")
+        del p_out, probs
+
+        def run():
+            return ops.attention_i8(q, k, v, sc, v_scale=v_s)
+
+        def plain():
+            return int8_flash_attention_ref(q, k, v, sc, v_scale=v_s)
+        ref = plain()
+        torch.cuda.synchronize()
+        if not (torch.isfinite(out).all() and torch.allclose(
+                out, ref, rtol=RTOL, atol=ATOL)):
+            raise AssertionError(f"{what}: max |d| {max_err(out, ref)} beyond "
+                                 f"rtol={RTOL} atol={ATOL}")
+        pairs = t * (t + 1) // 2
+        qk_ops = 2 * b * h * pairs * d
+        io = q.numel() + k.numel() + v.numel() + 4 * v_s.numel()
+        record("int8_flash_attention", f"streaming v_scale B={b} T={t} H={h} "
+               f"Hkv={hkv} D={d}", max_err(out, ref), False, timer(run, iters=5),
+               timer(plain, iters=2, warmup=1), None,
+               bound(io + 4 * out.numel(), qk_ops * F32_OPS / INT8_OPS + qk_ops,
+                     F32_OPS))
+        del out, ref
+        out, ref = ops.attention_i8(q, k, v, sc), int8_flash_attention_ref(
+            q, k, v, sc)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"{what} int32 form: {int((out != ref).sum())}"
+                                 f" of {out.numel()} differ from the plain "
+                                 f"version")
+        del out, ref, q, k, v, v_s
+        torch.cuda.empty_cache()
+
+
+# the integer library's Table II shapes (the paper's benchmark: a 3x128x128
+# image and 8 3x3x3 filters; a [32, 64] x [64, 32] GEMM) and full widths
+TABLE2_CONV = (1, 128, 128, 3, 3, 3, 8)
+TABLE2_GEMM = (32, 64, 32)
+VIT_IMAGES, VIT_SIDE, VIT_PATCH, VIT_D = 32, 224, 16, 768
+
+
+def check_int_library(dev, gen, timer, record, randn) -> None:
+    """Phase 3 for the rest of the integer library, each bit-exact against
+    its plain version: int_gelu at starcoder2-3b's d_ff and int_silu at
+    codeqwen1.5-7b's (4096 rows of the int8-range payload
+    ``layers.activation`` makes), requantize_i32 on int32 accumulators,
+    int8_gemm's requant, requant_gelu and requant_add epilogues at Table
+    II's shape and at starcoder's MLP up-projection over 4096 rows, and
+    int8_conv2d at Table II's shape (int32 and requantized), a 3x3 conv at
+    vision-model widths and the ViT-B/16 patch embed (the operands
+    ``frontend.conv_patch_embed_int8`` makes).  Library yardstick:
+    ``torch._int_mm`` for the GEMMs and the 1x1 conv as a matrix product
+    (not the same function: no requant, bias or GELU); none for the
+    elementwise kernels and the 3x3 conv (no PyTorch call computes them:
+    the integer GELU/SiLU and the requant are the port's own functions, and
+    PyTorch has no int8 convolution on CUDA)."""
+    from repro_torch.core.inumerics import compute_requant_params
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.conv2d import int8_conv2d_ref
+    from repro_torch.kernels.int8_gemm import (int8_gemm_add_ref,
+                                               int8_gemm_gelu_ref,
+                                               int8_gemm_ref)
+    from repro_torch.kernels.int_gelu import int_gelu_ref
+    from repro_torch.kernels.int_silu import int_silu_ref
+    from repro_torch.kernels.quantize import requantize_i32_ref
+    from repro_torch.models.frontend import patch_embed_operands
+    from repro_torch.models.layers import GELU_INT_SCALE, SILU_INT_SCALE
+    no_lib = "no PyTorch call computes it"
+
+    def ints(lo, hi, *shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    def exact(kernel, what, run, plain):
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"{kernel} {what}: {int((out != ref).sum())} "
+                                 f"of {out.numel()} differ from the plain "
+                                 f"version")
+        return out
+
+    # -- 11, 12. int_gelu, int_silu (the unfused MLP corners) -------------------
+    for kernel, m, n, scale, fn, ref_fn, out_bytes in (
+            ("int_gelu", 4096, 12288, GELU_INT_SCALE, ops.gelu_i8, int_gelu_ref,
+             1),
+            ("int_silu", 4096, 13440, SILU_INT_SCALE, ops.silu_i8, int_silu_ref,
+             4)):
+        x = ints(-128, 128, m, n)
+        exact(kernel, f"[{m},{n}]", lambda: fn(x, scale),
+              lambda: ref_fn(x, scale))
+        record(kernel, f"[{m},{n}] int32", 0.0, True,
+               timer(lambda: fn(x, scale)), timer(lambda: ref_fn(x, scale)),
+               None, bound(m * n * (4 + out_bytes), 30 * m * n, F32_OPS),
+               no_lib)
+        del x
+
+    # -- 14. requantize_i32 -----------------------------------------------------
+    rq = compute_requant_params(1 / 400000, acc_bound=3072 * 127 * 127)
+    x = ints(-3072 * 127 * 127, 3072 * 127 * 127, 4096, 4096)
+    exact("requantize_i32", "[4096,4096]", lambda: ops.requant(x, rq),
+          lambda: requantize_i32_ref(x, rq))
+    record("requantize_i32", "[4096,4096] int32", 0.0, True,
+           timer(lambda: ops.requant(x, rq)),
+           timer(lambda: requantize_i32_ref(x, rq)), None,
+           bound(4096 * 4096 * 5, 8 * 4096 * 4096, F32_OPS), no_lib)
+    del x
+
+    # -- 2. int8_gemm: the requant epilogues --------------------------------------
+    for m, k, n in (TABLE2_GEMM, (4096, 3072, 12288)):
+        x, w = ints(-128, 128, m, k, dtype=torch.int8), ints(
+            -128, 128, k, n, dtype=torch.int8)
+        r = ints(-128, 128, m, n, dtype=torch.int8)
+        rq = compute_requant_params(1 / (127 * k ** 0.5),
+                                    acc_bound=k * 127 * 127)
+        lib = int_mm_ms(timer, x, w)
+        for epi, run, plain, extra in (
+                ("requant", lambda: ops.gemm_i8(x, w, rq),
+                 lambda: int8_gemm_ref(x, w, rq), 0),
+                ("requant_gelu", lambda: ops.gemm_i8_gelu(x, w, GELU_INT_SCALE),
+                 lambda: int8_gemm_gelu_ref(x, w, GELU_INT_SCALE), 0),
+                ("requant_add", lambda: ops.gemm_i8_add(x, w, rq, r),
+                 lambda: int8_gemm_add_ref(x, w, rq, r), m * n)):
+            exact("int8_gemm", f"{epi} [{m},{k}]x[{k},{n}]", run, plain)
+            record("int8_gemm", f"[{m},{k}]x[{k},{n}] {epi}", 0.0, True,
+                   timer(run), timer(plain, iters=3, warmup=1), lib,
+                   bound(m * k + k * n + extra + m * n, 2 * m * n * k,
+                         INT8_OPS), "torch._int_mm, int32 out: not the same "
+                   "function")
+        del x, w, r
+
+    # -- 15. int8_conv2d ----------------------------------------------------------
+    rq = compute_requant_params(0.01, acc_bound=27 * 127 * 127)
+    img = randn(VIT_IMAGES, VIT_SIDE, VIT_SIDE, 3).clamp(-1, 1)
+    xv, wv, _ = patch_embed_operands(gen, img, VIT_D, VIT_PATCH)
+    del img
+    convs = []
+    for n_, h, wd, c, kh, kw, o in (TABLE2_CONV, (8, 56, 56, 64, 3, 3, 64)):
+        convs.append((ints(-128, 128, n_, h, wd, c, dtype=torch.int8),
+                      ints(-128, 128, kh, kw, c, o, dtype=torch.int8),
+                      ints(-2 ** 20, 2 ** 20, o), (rq, None) if c == 3
+                      else (None,)))
+    convs.append((xv, wv, ints(-2 ** 20, 2 ** 20, VIT_D), (None,)))
+    for x, w, b, params in convs:
+        n_, h, wd, c = x.shape
+        kh, kw, _, o = w.shape
+        m = n_ * (h - kh + 1) * (wd - kw + 1)
+        lib, note = None, "PyTorch has no int8 convolution on CUDA"
+        if kh == kw == 1:
+            lib = int_mm_ms(timer, x.reshape(-1, c), w.reshape(c, o))
+            note = "torch._int_mm of the 1x1 conv, no bias: not the same function"
+        for pp in params:
+            def run():
+                return ops.conv2d_i8(x, w, b, pp)
+
+            def plain():
+                return int8_conv2d_ref(x, w, b, pp)
+            shape = (f"[{n_},{h},{wd},{c}]x[{kh},{kw},{c},{o}] "
+                     + ("requant" if pp is not None else "int32"))
+            exact("int8_conv2d", shape, run, plain)
+            record("int8_conv2d", shape, 0.0, True, timer(run),
+                   timer(plain, iters=3, warmup=1), lib,
+                   bound(x.numel() + w.numel() + 4 * o
+                         + m * o * (1 if pp is not None else 4),
+                         2 * m * o * kh * kw * c, INT8_OPS), note)
 
 
 # the paged arena of the serving paths: 8 lanes, max_seq 1024 in 16-slot
@@ -885,25 +1112,35 @@ REDUCED_NO_CACHE = (("starcoder2-3b", "bf16"), ("starcoder2-3b", "w8a8"),
                     ("codeqwen1.5-7b", "w4a8"))
 
 
+# (arch, its integer activation kernel) of the reduced integer-nonlinearity
+# forwards over float weights (a w8a8 config, parameters left float)
+REDUCED_MIXED = (("codeqwen1.5-7b", "int_silu"), ("starcoder2-3b", "int_gelu"))
+
+
 def no_cache_kernel(precision: str) -> str:
     """The attention kernel of the no-cache forward at ``precision``."""
     return "flash_attention" if precision == "bf16" else "int8_flash_attention"
 
 
-def check_reduced_no_cache(dev, seed, arch: str, precision: str) -> float:
+def check_reduced_no_cache(dev, seed, arch: str, precision: str,
+                           act_kernel: str | None = None) -> float:
     """The reduced model's no-cache forward (4 sequences x 32 tokens) on the
     CPU (plain versions; the bf16 path takes ``_sdpa``, which rounds the
     probabilities to bf16 before P@V, C3) and on the card (kernels): logits
     within ``REDUCED_TOL`` of the range, greedy tokens equal where the CPU
     top-2 margin is more than twice the difference, and the attention
-    kernel launched once per layer."""
+    kernel launched once per layer.  With ``act_kernel`` the parameters stay
+    float under the integer ``precision`` (the integer-nonlinearity
+    forward), and that activation kernel must launch once per layer too."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import forward, init_params
     from repro_torch.quant import quantize_for
 
     cfg = get_config(arch, precision=precision, reduced=True)
-    cpu = quantize_for(init_params(cfg, seed=seed, device="cpu"), precision)
+    cpu = init_params(cfg, seed=seed, device="cpu")
+    if act_kernel is None:
+        cpu = quantize_for(cpu, precision)
     gpu = copy.deepcopy(cpu).to(dev)
     tok = torch.from_numpy(np.random.default_rng(seed).integers(
         2, cfg.vocab_size, size=(4, 32)))
@@ -926,11 +1163,11 @@ def check_reduced_no_cache(dev, seed, arch: str, precision: str) -> float:
     if not torch.equal(lc.argmax(-1)[clear], lg.argmax(-1)[clear]):
         raise AssertionError(f"reduced {arch} {precision} no-cache: greedy "
                              f"tokens differ where the CPU margin is clear")
-    kernel = no_cache_kernel(precision)
-    if counts[kernel] != cfg.n_layers:
-        raise AssertionError(f"reduced {arch} {precision} no-cache: {kernel} "
-                             f"launched {counts[kernel]} times for "
-                             f"{cfg.n_layers} layers")
+    for kernel in (no_cache_kernel(precision), act_kernel):
+        if kernel is not None and counts[kernel] != cfg.n_layers:
+            raise AssertionError(f"reduced {arch} {precision} no-cache: "
+                                 f"{kernel} launched {counts[kernel]} times "
+                                 f"for {cfg.n_layers} layers")
     return rel
 
 
@@ -1271,19 +1508,28 @@ def profile_step(params, cfg, dev, t: int, paged: bool = False) -> dict:
 # phase 6: the full-width no-cache forward (lm_loss, calibrate_ptq)
 # ---------------------------------------------------------------------------
 
-# (arch, precisions of the lm_loss forwards, calibrate first)
-NO_CACHE_PATHS = (("codeqwen1.5-7b", ("bf16", "w8a8", "w4a8"), True),
-                  ("starcoder2-3b", ("bf16", "w8a8"), False))
+# (arch, precisions of the lm_loss forwards, calibrate first); "w8a8-float"
+# is the integer-nonlinearity forward: a w8a8 config over float parameters
+NO_CACHE_PATHS = (("codeqwen1.5-7b", ("bf16", "w8a8", "w4a8", "w8a8-float"),
+                   True),
+                  ("starcoder2-3b", ("bf16", "w8a8", "w8a8-float"), False))
+ACT_KERNEL = dict(REDUCED_MIXED)
 CAL_B, CAL_T = 2, 128                      # calibration set: 2 x 128 tokens
+LONG_T = 4096          # one codeqwen w8a8 sequence past the block form's keys
 
 
-def no_cache_loss(params, cfg, dev, tokens, profiled: bool) -> dict:
+def no_cache_loss(params, cfg, dev, tokens, profiled: bool,
+                  act_kernel: str | None = None) -> dict:
     """``lm_loss`` of one forward over ``tokens`` with next-token labels
     (the last position masked): the loss, wall time, tokens/s, peak memory
     and the launches of the forward (zeroed just before, read just after);
-    the attention kernel must have launched exactly once per layer.  With
-    ``profiled``, a second forward under torch.profiler."""
+    the attention kernel must have launched exactly once per layer, in the
+    streaming form exactly when the sequence is past the block form's keys,
+    and so must ``act_kernel`` where given.  With ``profiled``, a second
+    forward under torch.profiler."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.int8_flash_attention import streams
     from repro_torch.models import lm_loss
     labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)], 1)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1293,6 +1539,7 @@ def no_cache_loss(params, cfg, dev, tokens, profiled: bool) -> dict:
     loss = float(lm_loss(params, cfg, tokens, labels))
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    streamed = LAUNCHES["int8_flash_attention.streaming"]
     kernel = no_cache_kernel(cfg.precision)
     other = ({"flash_attention", "int8_flash_attention"} - {kernel}).pop()
     if not (np.isfinite(loss) and loss > 0):
@@ -1302,10 +1549,20 @@ def no_cache_loss(params, cfg, dev, tokens, profiled: bool) -> dict:
                              f"{kernel} launched {counts[kernel]} times for "
                              f"{cfg.n_layers} layers ({other}: "
                              f"{counts[other]})")
+    want_streamed = (cfg.n_layers if kernel == "int8_flash_attention"
+                     and streams(tokens.shape[1], cfg.head_dim) else 0)
+    if streamed != want_streamed:
+        raise AssertionError(f"{cfg.name} {cfg.precision} lm_loss forward: "
+                             f"{streamed} streaming launches, want "
+                             f"{want_streamed}")
+    if act_kernel is not None and counts[act_kernel] != cfg.n_layers:
+        raise AssertionError(f"{cfg.name} {cfg.precision} lm_loss forward: "
+                             f"{act_kernel} launched {counts[act_kernel]} "
+                             f"times for {cfg.n_layers} layers")
     res = {"loss": loss, "wall_s": wall, "tokens": tokens.numel(),
            "tok_per_s": tokens.numel() / wall,
            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-           "launches": counts}
+           "launches": counts, "streaming_launches": streamed}
     if profiled:
         res["profile"] = {f"forward {tokens.shape[0]} x {tokens.shape[1]}":
                           profile_no_cache(params, cfg, tokens)}
@@ -1366,8 +1623,12 @@ def no_cache_full(dev, seed, arch, precisions, calibrated) -> dict:
     """Phase 6 for one model: float parameters from ``seed`` at full width
     and depth, then ``lm_loss`` on NC_B x NC_T random tokens at each
     precision (each integer model quantized from the float one and freed
-    before the next) and, first, ``calibrate_ptq``.  Returns {path label:
+    before the next; "w8a8-float" runs the w8a8 config over the float
+    parameters) and, first, ``calibrate_ptq``; for the calibrated model
+    (codeqwen) last a w8a8 ``lm_loss`` on 1 x LONG_T tokens, whose attention
+    takes int8_flash_attention's streaming form.  Returns {path label:
     result}."""
+    long_w8a8 = calibrated
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.quant import DEFAULT_W4_POLICY, quantized_copy
@@ -1389,17 +1650,27 @@ def no_cache_full(dev, seed, arch, precisions, calibrated) -> dict:
             log(f"    {cls}: " + ", ".join(
                 f"g{c['group']}/c{c['clip']}={c['mse']:.4g}"
                 for c in res["report"][cls]["scores"]))
-    for precision in precisions:
-        pcfg = dataclasses.replace(cfg, precision=precision)
-        model = (params if precision == "bf16" else quantized_copy(
+    runs = [(precision, tokens) for precision in precisions]
+    if long_w8a8:
+        runs.append(("w8a8", torch.from_numpy(np.random.default_rng(
+            [seed, 7]).integers(2, cfg.vocab_size, size=(1, LONG_T))).to(dev)))
+    for precision, toks in runs:
+        float_weights = precision in ("bf16", "w8a8-float")
+        pcfg = dataclasses.replace(cfg, precision=precision.split("-")[0])
+        model = (params if float_weights else quantized_copy(
             params, DEFAULT_W4_POLICY if precision == "w4a8" else None))
-        res = out[f"{arch} {precision} lm_loss"] = no_cache_loss(
-            model, pcfg, dev, tokens, profiled=precision == "w4a8")
+        label = f"{arch} {precision} lm_loss" + (
+            f" {toks.shape[0]}x{toks.shape[1]}" if toks is not tokens else "")
+        res = out[label] = no_cache_loss(
+            model, pcfg, dev, toks, profiled=precision == "w4a8",
+            act_kernel=ACT_KERNEL[arch] if precision == "w8a8-float" else None)
         del model
         gc.collect()
-        log(f"  lm_loss {precision} ({NC_B} x {NC_T}): {res['loss']:.4f} in "
-            f"{res['wall_s']:.2f}s ({res['tok_per_s']:.0f} tok/s), peak "
-            f"{res['peak_mem_gib']:.1f} GiB; launches {res['launches']}")
+        log(f"  lm_loss {precision} ({toks.shape[0]} x {toks.shape[1]}): "
+            f"{res['loss']:.4f} in {res['wall_s']:.2f}s "
+            f"({res['tok_per_s']:.0f} tok/s), peak "
+            f"{res['peak_mem_gib']:.1f} GiB; launches {res['launches']}, "
+            f"{res['streaming_launches']} in the streaming form")
         log_profile(res)
     del params
     gc.collect()
@@ -1430,6 +1701,84 @@ def softmax_entry(dev, seed) -> dict:
                              f"{int(rows.min())}..{int(rows.max())}")
     return {"launches": counts, "row_sum_range": [int(rows.min()),
                                                   int(rows.max())]}
+
+
+def int_library_entry(dev, seed) -> dict:
+    """The integer library's public entry points as a user calls them: the
+    paper's Table II kernels — ``ops.conv2d_i8`` with a requant on one
+    3x128x128 image and 8 3x3x3 filters, ``ops.gemm_i8`` (requant),
+    ``gemm_i8_gelu`` and ``gemm_i8_add`` at [32, 64] x [64, 32], and
+    ``ops.requant`` of the GEMM's int32 accumulator with ``gelu_i8`` and
+    ``silu_i8`` of its int8 payload — and ``frontend.conv_patch_embed_int8`` (ViT-B/16: 32
+    images of 224x224 into 768 channels), which must equal the same call on
+    the CPU bit for bit.  Counts are zeroed just before and read just after;
+    every one of the path's kernels must have launched, and each output
+    equals its plain version on the same inputs."""
+    from repro_torch.core.inumerics import compute_requant_params
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.conv2d import int8_conv2d_ref
+    from repro_torch.kernels.int8_gemm import (int8_gemm_add_ref,
+                                               int8_gemm_gelu_ref,
+                                               int8_gemm_ref, int8_matmul_ref)
+    from repro_torch.kernels.int_gelu import int_gelu_ref
+    from repro_torch.kernels.int_silu import int_silu_ref
+    from repro_torch.kernels.quantize import requantize_i32_ref
+    from repro_torch.models.frontend import conv_patch_embed_int8
+    from repro_torch.models.layers import GELU_INT_SCALE, SILU_INT_SCALE
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(lo, hi, *shape, dtype=torch.int8):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+    n_, h, wd, c, kh, kw, o = TABLE2_CONV
+    img, filt = ints(-128, 128, n_, h, wd, c), ints(-128, 128, kh, kw, c, o)
+    bias = ints(-2 ** 16, 2 ** 16, o, dtype=torch.int32)
+    crq = compute_requant_params(0.01, acc_bound=kh * kw * c * 127 * 127)
+    m, k, n = TABLE2_GEMM
+    x, w, r = ints(-128, 128, m, k), ints(-128, 128, k, n), ints(-128, 128, m, n)
+    grq = compute_requant_params(1 / (127 * k ** 0.5), acc_bound=k * 127 * 127)
+    cpu_gen = torch.Generator().manual_seed(seed)
+    images = torch.rand((VIT_IMAGES, VIT_SIDE, VIT_SIDE, 3),
+                        generator=cpu_gen) * 2 - 1
+    weight = torch.randn((1, 1, VIT_PATCH * VIT_PATCH * 3, VIT_D),
+                         generator=cpu_gen)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = {"conv2d_i8": ops.conv2d_i8(img, filt, bias, crq),
+           "gemm_i8": ops.gemm_i8(x, w, grq),
+           "gemm_i8_gelu": ops.gemm_i8_gelu(x, w, GELU_INT_SCALE),
+           "gemm_i8_add": ops.gemm_i8_add(x, w, grq, r)}
+    q = out["requant"] = ops.requant(ops.gemm_i8(x, w), grq)
+    out.update(gelu_i8=ops.gelu_i8(q, GELU_INT_SCALE),
+               silu_i8=ops.silu_i8(q, SILU_INT_SCALE))
+    emb = conv_patch_embed_int8(None, images.to(dev), VIT_D, VIT_PATCH,
+                                weight=weight)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    missing = [kn for kn in ("int8_conv2d", "int8_gemm", "requantize_i32",
+                             "int_gelu", "int_silu") if counts[kn] == 0]
+    if missing:
+        raise AssertionError(f"integer library path: {missing} not launched")
+    q_ref = requantize_i32_ref(int8_matmul_ref(x, w), grq)
+    plain = {"conv2d_i8": int8_conv2d_ref(img, filt, bias, crq),
+             "gemm_i8": int8_gemm_ref(x, w, grq),
+             "gemm_i8_gelu": int8_gemm_gelu_ref(x, w, GELU_INT_SCALE),
+             "gemm_i8_add": int8_gemm_add_ref(x, w, grq, r),
+             "requant": q_ref, "gelu_i8": int_gelu_ref(q_ref, GELU_INT_SCALE),
+             "silu_i8": int_silu_ref(q_ref, SILU_INT_SCALE)}
+    for name, got in out.items():
+        if not torch.equal(got, plain[name]):
+            raise AssertionError(f"ops.{name}: differs from its plain version")
+    emb_cpu = conv_patch_embed_int8(None, images, VIT_D, VIT_PATCH,
+                                    weight=weight)
+    if not (tuple(emb.shape) == (VIT_IMAGES, (VIT_SIDE // VIT_PATCH) ** 2,
+                                 VIT_D) and torch.isfinite(emb).all()
+            and torch.equal(emb.cpu(), emb_cpu)):
+        raise AssertionError(f"conv_patch_embed_int8: shape "
+                             f"{tuple(emb.shape)}, not equal to the CPU's "
+                             f"(max |d| {max_err(emb.cpu(), emb_cpu)})")
+    return {"launches": counts, "patch_embed_shape": list(emb.shape),
+            "outputs": {k: list(v.shape) for k, v in out.items()}}
 
 
 def profile_summary(prof, wall_ms: float) -> dict:
@@ -1523,6 +1872,12 @@ def main() -> int:
             f"CUDA kernels")
         worst[f"{arch} {precision} no-cache"] = check_reduced_no_cache(
             dev, args.seed, arch, precision)
+    for arch, act in REDUCED_MIXED:
+        log(f"[4/6] {arch}-reduced w8a8 over float weights (integer norms, "
+            f"attention and {act}) no-cache forward: CPU plain vs CUDA "
+            f"kernels")
+        worst[f"{arch} w8a8-float no-cache"] = check_reduced_no_cache(
+            dev, args.seed, arch, "w8a8", act)
 
     served = {}
     for (label, arch, precision, n_req, max_new, profiled, must,
@@ -1566,6 +1921,12 @@ def main() -> int:
             + (", after calibrate_ptq" if calibrated else ""))
         no_cache.update(no_cache_full(dev, args.seed, arch, precisions,
                                       calibrated))
+    log("[6/6] the integer library's entry points (Table II shapes) and "
+        "the ViT-B/16 patch embed")
+    no_cache["integer library"] = int_library_entry(dev, args.seed)
+    log(f"  launches {no_cache['integer library']['launches']}; patch embed "
+        f"{no_cache['integer library']['patch_embed_shape']} equal to the "
+        f"CPU's")
     log("[6/6] ops.softmax_i8 on causal score rows")
     no_cache["ops.softmax_i8"] = softmax_entry(dev, args.seed)
     log(f"  launches {no_cache['ops.softmax_i8']['launches']}, row sums "
@@ -1615,7 +1976,23 @@ def main() -> int:
             "bf16 codeqwen B=4 T=1024 H=32 Hkv=32 D=128"},
         "starcoder2-3b bf16 lm_loss": {"flash_attention":
             "bf16 starcoder B=4 T=1024 H=24 Hkv=2 D=128"},
-        "ops.softmax_i8": {"int_softmax": "[4096,1024] int32 causal mask"}}
+        "ops.softmax_i8": {"int_softmax": "[4096,1024] int32 causal mask"},
+        # the integer-nonlinearity forwards: their activation at 4096 rows
+        "codeqwen1.5-7b w8a8-float lm_loss": {
+            "int_silu": "[4096,13440] int32",
+            "int8_flash_attention":
+                "v_scale codeqwen B=4 T=1024 H=32 Hkv=32 D=128"},
+        "starcoder2-3b w8a8-float lm_loss": {
+            "int_gelu": "[4096,12288] int32",
+            "int8_flash_attention":
+                "v_scale starcoder B=4 T=1024 H=24 Hkv=2 D=128"},
+        f"codeqwen1.5-7b w8a8 lm_loss 1x{LONG_T}": {"int8_flash_attention":
+            f"streaming v_scale B=1 T={LONG_T} H=32 Hkv=32 D=128"},
+        # the Table II entry points and the patch embed
+        "integer library": {
+            "int8_conv2d": "[32,14,14,768]x[1,1,768,768] int32",
+            "int8_gemm": "[32,64]x[64,32] requant",
+            "requantize_i32": "[4096,4096] int32"}}
     csrc, tpu = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     sources = {"quantize_rows": ("quantize.cu", "quantize.py:41"),
                "int8_gemm": ("int8_gemm.cu", "int8_gemm.py:127"),
@@ -1632,8 +2009,13 @@ def main() -> int:
                "int8_flash_attention": ("int8_flash_attention.cu",
                                         "int8_flash_attention.py:155"),
                "flash_attention": ("flash_attention.cu",
-                                   "flash_attention.py:74")}
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+                                   "flash_attention.py:74"),
+               "int_gelu": ("int_gelu.cu", "int_gelu.py:61"),
+               "int_silu": ("int_silu.cu", "int_silu.py:48"),
+               "requantize_i32": ("requantize.cu", "quantize.py:111"),
+               "int8_conv2d": ("int8_conv2d.cu", "conv2d.py:51")}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_note")
 
     def case(name, shape):
         return next(c for c in cases if c["kernel"] == name

@@ -27,7 +27,8 @@ from pathlib import Path
 SOURCES = ("quantize", "int8_gemm", "int_layernorm", "int8_kv_decode_attention",
            "int4_gemm", "dual_gemm_gated", "dual_int4_gemm_gated",
            "paged_decode_attention", "int_softmax", "int8_flash_attention",
-           "flash_attention")
+           "flash_attention", "int_gelu", "int_silu", "requantize",
+           "int8_conv2d")
 CSRC = Path(__file__).resolve().with_name("csrc")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -75,30 +76,42 @@ def lib_path(name: str) -> Path:
 
 def build_all(names=SOURCES) -> dict[str, dict]:
     """Compile every missing library among ``names``, one ``nvcc`` per
-    source, all started together.  Returns ``BUILD_LOG``; raises with the
+    source, all started together.  Returns ``BUILD_LOG`` (each source's
+    seconds from the common start to its own end); raises with the
     compiler's output if any build fails."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    procs = {}
+    t0 = time.perf_counter()
+    pending = {}
     for name in names:
         dst = lib_path(name)
         if dst.exists():
             continue
         tmp = dst.with_suffix(f".{os.getpid()}.tmp")
+        log = tmp.with_suffix(".log")
         cmd = [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, dst, time.perf_counter())
+        with open(log, "w") as f:
+            pending[name] = (subprocess.Popen(cmd, stdout=f,
+                                              stderr=subprocess.STDOUT),
+                             tmp, log, dst)
     failed = []
-    for name, (proc, tmp, dst, t0) in procs.items():
-        log, _ = proc.communicate()
-        secs = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"--- nvcc {name}.cu (rc {proc.returncode}) ---\n{log}")
-            continue
-        os.replace(tmp, dst)
-        BUILD_LOG[name] = {"path": str(dst), "seconds": secs, "ptxas": log}
+    while pending:
+        for name, (proc, tmp, log, dst) in list(pending.items()):
+            if proc.poll() is None:
+                continue
+            del pending[name]
+            secs = time.perf_counter() - t0
+            text = log.read_text()
+            log.unlink()
+            if proc.returncode != 0:
+                failed.append(f"--- nvcc {name}.cu (rc {proc.returncode}) "
+                              f"---\n{text}")
+                continue
+            os.replace(tmp, dst)
+            BUILD_LOG[name] = {"path": str(dst), "seconds": secs,
+                               "ptxas": text}
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return BUILD_LOG

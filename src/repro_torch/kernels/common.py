@@ -22,6 +22,8 @@ import collections
 import numpy as np
 import torch
 
+from . import build
+
 # Launch counts of the CUDA kernels: each wrapper adds one where it launches
 # its kernel, and nowhere else.  ``ops.launch_counts``/``reset_launch_counts``
 # read and clear them.
@@ -113,3 +115,33 @@ def check(cond: bool, msg: str) -> None:
     """Validate a kernel argument (survives ``python -O``, unlike assert)."""
     if not cond:
         raise ValueError(msg)
+
+
+def check_requant(p) -> None:
+    """The requant params a kernel takes: shifts in [0, 30] (a C shift by 31
+    or more is undefined) and a multiplier below 2^15 (the int16 operand
+    times it stays in int32)."""
+    check(0 <= p.s1 <= 30 and 0 <= p.s2 <= 30 and 0 <= p.mult < 2 ** 15,
+          f"requant params {p} out of the kernels' range")
+
+
+def launch_elementwise(source: str, kernel: str, x: torch.Tensor, out_dtype,
+                       consts) -> torch.Tensor:
+    """Launch ``repro_<kernel>`` of ``csrc/<source>.cu`` (an
+    ``elementwise.cuh`` map) over the int payload ``x`` of any shape: int8
+    and int16 payloads are widened to int32 first; the C entry takes
+    (x, out, n, *consts, vec, stream)."""
+    check(x.dtype in (torch.int8, torch.int16, torch.int32),
+          f"{kernel} takes an int payload, got {x.dtype}")
+    x32 = x.to(torch.int32).contiguous()
+    check(x32.numel() < 2 ** 31, f"{kernel}: {x32.numel()} values > int32")
+    out = torch.empty(x32.shape, dtype=out_dtype, device=x.device)
+    vec = int(x32.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    fn = build.entry(source, f"repro_{kernel}",
+                     [build.VP, build.VP] + [build.I] * (len(consts) + 2)
+                     + [build.VP])
+    rc = fn(x32.data_ptr(), out.data_ptr(), x32.numel(), *consts, vec,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    build.check_rc(rc, kernel)
+    LAUNCHES[kernel] += 1
+    return out

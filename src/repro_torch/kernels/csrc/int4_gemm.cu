@@ -62,9 +62,9 @@ extern "C" int repro_int4_gemm(const void* x, const void* w4, const void* qmul, 
                                int k, int group, int epilogue, int stream_f32,
                                const void* xs, const void* ws, const void* bias,
                                const void* res, void* out, float inv_gelu_scale, int q_b,
-                               int q_c, int q_one, int s1, int mult, int s2, int split,
-                               int k_len, int vec, void* partial, void* counters,
-                               void* stream) {
+                               int q_c, int q_one, int s1, int mult, int s2, int rq_s1,
+                               int rq_mult, int rq_s2, int split, int k_len, int vec,
+                               void* partial, void* counters, void* stream) {
   Epi e;
   e.kind = epilogue;
   e.stream_f32 = stream_f32;
@@ -76,6 +76,7 @@ extern "C" int repro_int4_gemm(const void* x, const void* w4, const void* qmul, 
   e.out = out;
   e.inv_gelu_scale = inv_gelu_scale;
   e.gelu = GeluConsts{q_b, q_c, q_one, s1, mult, s2};
+  e.rq = RequantConsts{rq_s1, rq_mult, rq_s2};  // unused: no requant* epilogue at W4A8
   if (m <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
   const dim3 grid((n + gemm::BN - 1) / gemm::BN, (m + gemm::BM - 1) / gemm::BM, split);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

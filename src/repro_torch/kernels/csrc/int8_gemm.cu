@@ -2,8 +2,11 @@
 // fused epilogue in the reference's jitted float order.
 //
 // Replaces the Pallas kernel ``repro/kernels/int8_gemm.py`` ``int8_gemm``
-// (body ``_kernel``) for the epilogues the serving path runs:
+// (body ``_kernel``) with its seven epilogues:
 //   none         int32 accumulator out
+//   requant      requant_block(acc) (shift, 16-bit multiply, shift) -> int8
+//   requant_gelu integer GELU of the accumulator at a static scale -> int8
+//   requant_add  requant_block(acc) + an int8 residual, saturated -> int8
 //   scaled       p = f32(acc) * xs[m];  h = p * ws[n]  (or fma(p, ws[n], bias[n]))
 //                -> stream dtype (bf16 or f32)
 //   scaled_add   scaled, then + residual in the stream dtype
@@ -26,6 +29,8 @@
 
 namespace {
 
+// RQ: the requant family of epilogues (a kernel of its own, see ``store_out``)
+template <bool RQ>
 __global__ void __launch_bounds__(gemm::THREADS)
 int8_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, int M, int N,
                  int K, int k_len, int vec, Epi e, int32_t* __restrict__ partial,
@@ -38,7 +43,7 @@ int8_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, int
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int m = gemm::out_m(i), n = gemm::out_n(j);
-      if (m < M && n < N) store_out(e, m, n, N, acc[0][i][j]);
+      if (m < M && n < N) store_out<RQ>(e, m, n, N, acc[0][i][j]);
     }
 }
 
@@ -48,8 +53,9 @@ extern "C" int repro_int8_gemm(const void* x, const void* w, int m, int n, int k
                                int epilogue, int stream_f32, const void* xs,
                                const void* ws, const void* bias, const void* res,
                                void* out, float inv_gelu_scale, int q_b, int q_c,
-                               int q_one, int s1, int mult, int s2, int split, int k_len,
-                               int vec, void* partial, void* counters, void* stream) {
+                               int q_one, int s1, int mult, int s2, int rq_s1, int rq_mult,
+                               int rq_s2, int split, int k_len, int vec, void* partial,
+                               void* counters, void* stream) {
   Epi e;
   e.kind = epilogue;
   e.stream_f32 = stream_f32;
@@ -61,9 +67,12 @@ extern "C" int repro_int8_gemm(const void* x, const void* w, int m, int n, int k
   e.out = out;
   e.inv_gelu_scale = inv_gelu_scale;
   e.gelu = GeluConsts{q_b, q_c, q_one, s1, mult, s2};
+  e.rq = RequantConsts{rq_s1, rq_mult, rq_s2};
   if (m > 0 && n > 0) {
     const dim3 grid((n + gemm::BN - 1) / gemm::BN, (m + gemm::BM - 1) / gemm::BM, split);
-    int8_gemm_kernel<<<grid, gemm::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+    const bool rq = epilogue >= EPI_REQUANT && epilogue <= EPI_REQUANT_ADD;
+    auto kern = rq ? int8_gemm_kernel<true> : int8_gemm_kernel<false>;
+    kern<<<grid, gemm::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), m, n, k, k_len, vec,
         e, static_cast<int32_t*>(partial), static_cast<int*>(counters));
   }

@@ -8,6 +8,11 @@
 // as in JAX; every C++ ``/`` here has a non-negative numerator and a
 // positive divisor, so it is the reference's floor division; no value leaves
 // int32 (|q*(q_erf+q_one)| < 2^19 and |q*sig| <= 128*127 for int8-range q).
+// The stand-alone launches (``requantize.cu``, ``int_gelu.cu``) and the
+// ``requant*`` epilogues take any int32, and there the reference's int32
+// arithmetic wraps (a GEMM accumulator times the erf term, a bias near the
+// int32 range plus the rounding term): those steps are written as unsigned
+// arithmetic, which wraps the same way with no undefined behaviour.
 //
 // The float steps keep the reference's order under ``jax.jit`` on XLA:CPU,
 // each rounding written out (nvcc would contract a*b+c otherwise):
@@ -33,11 +38,29 @@ struct SiluConsts {
   int q_one;            // 1.0 in the exp scale
 };
 
+struct RequantConsts {
+  int s1, mult, s2;  // shift, 16-bit multiplier, shift (each shift in [0, 30])
+};
+
+__device__ __forceinline__ int wrap_add(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+
+__device__ __forceinline__ int wrap_mul(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
+}
+
+// |clamped acc * mult| < 2^15 * 2^15: the multiply and the second rounding
+// add stay in int32
 __device__ __forceinline__ int requant_block(int acc, int s1, int mult, int s2) {
-  if (s1 > 0) acc = (acc + (1 << (s1 - 1))) >> s1;
+  if (s1 > 0) acc = wrap_add(acc, 1 << (s1 - 1)) >> s1;
   acc = min(max(acc, -(1 << 15)), (1 << 15) - 1) * mult;
   if (s2 > 0) acc = (acc + (1 << (s2 - 1))) >> s2;
   return min(max(acc, -128), 127);
+}
+
+__device__ __forceinline__ int requant_block(int acc, const RequantConsts& r) {
+  return requant_block(acc, r.s1, r.mult, r.s2);
 }
 
 __device__ __forceinline__ int gelu_block(int q, const GeluConsts& c) {
@@ -45,7 +68,8 @@ __device__ __forceinline__ int gelu_block(int q, const GeluConsts& c) {
   const int q_abs = min(abs(q), -c.q_b);
   const int t = q_abs + c.q_b;
   const int q_erf = sgn * (t * t + c.q_c);
-  const int acc = -(q * (q_erf + c.q_one));  // s_out < 0 in the raw formula
+  // -(q * (q_erf + q_one)): s_out < 0 in the raw formula
+  const int acc = static_cast<int>(0u - static_cast<unsigned>(wrap_mul(q, q_erf + c.q_one)));
   return requant_block(acc, c.s1, c.mult, c.s2);
 }
 
@@ -74,7 +98,16 @@ __device__ __forceinline__ float dequant(int acc, float first, float second, con
   return bias ? __fmaf_rn(p, second, bias[n]) : __fmul_rn(p, second);
 }
 
-enum { EPI_NONE = 0, EPI_SCALED = 1, EPI_SCALED_ADD = 2, EPI_SCALED_GELU = 3 };
+// the reference's seven, in its order (``int8_gemm.EPILOGUES``)
+enum {
+  EPI_NONE = 0,
+  EPI_REQUANT = 1,
+  EPI_REQUANT_GELU = 2,
+  EPI_REQUANT_ADD = 3,
+  EPI_SCALED = 4,
+  EPI_SCALED_GELU = 5,
+  EPI_SCALED_ADD = 6
+};
 
 // the single-stream epilogues (int8_gemm, int4_gemm)
 struct Epi {
@@ -88,10 +121,28 @@ struct Epi {
   void* out;
   float inv_gelu_scale;
   GeluConsts gelu;
+  RequantConsts rq;  // requant, requant_add
 };
 
+// ``RQ``: the requant family (int8_gemm only; int8 out), compiled as a
+// kernel of its own so that the scaled family's code stays as it was (one
+// function holding both, inlined into a thread's 16 outputs, made ptxas take
+// minutes per GEMM and the scaled epilogues slower).
+template <bool RQ = false>
 __device__ __forceinline__ void store_out(const Epi& e, int m, int n, int N, int acc) {
   const size_t idx = static_cast<size_t>(m) * N + n;
+  if constexpr (RQ) {
+    int q;
+    if (e.kind == EPI_REQUANT_GELU) {  // integer GELU of the accumulator itself
+      q = gelu_block(acc, e.gelu);
+    } else {
+      q = requant_block(acc, e.rq);
+      if (e.kind == EPI_REQUANT_ADD)   // saturating int8 residual add
+        q = min(max(q + static_cast<int>(static_cast<const int8_t*>(e.res)[idx]), -128), 127);
+    }
+    static_cast<int8_t*>(e.out)[idx] = static_cast<int8_t>(q);
+    return;
+  }
   if (e.kind == EPI_NONE) {
     static_cast<int32_t*>(e.out)[idx] = acc;
     return;

@@ -5,8 +5,13 @@ and the f32 attention output returned; without it the int32 accumulator.
 
 Port of the Pallas kernel ``repro/kernels/int8_flash_attention.py:155``
 ``int8_flash_attention`` (three streaming passes) to the CUDA kernel
-``csrc/int8_flash_attention.cu`` (source note there: bound by operations,
-the block's scores computed once and kept in shared memory).
+``csrc/int8_flash_attention.cu`` (source note there: bound by operations).
+The kernel has two forms with the same bits: the block form keeps a block's
+scores in shared memory and computes QK^T once (up to 3328 keys at head
+dim 128); the streaming form, taken whenever that score block does not fit
+(``streams``), runs the TPU kernel's three passes over K and takes any
+number of keys.  ``LAUNCHES["int8_flash_attention.streaming"]`` counts the
+launches of the streaming form among the kernel's.
 ``int8_flash_attention_ref`` is its plain version, ``repro.kernels.ref``'s
 oracle: the integer probabilities and the int32 form are bit-exact; the f32
 PV sum runs in another order, so the ``v_scale`` form agrees within
@@ -82,11 +87,18 @@ def int8_flash_attention_ref(q, k, v, scale: float, causal: bool = True,
 
 
 def block_smem(skv: int, d: int) -> int:
-    """Shared memory of one block of the CUDA kernel: ROWS x Skv int32
-    scores (Skv padded to whole tiles), the Q rows and the K or V tile."""
+    """Shared memory of one block of the CUDA kernel's block form: ROWS x
+    Skv int32 scores (Skv padded to whole tiles), the Q rows and the K or V
+    tile.  The streaming form holds one tile of scores: ``block_smem(BK, d)``."""
     skp = cdiv(skv, BK) * BK
     return ROWS * skp * 4 + ROWS * d + max(BK * (d // 4 + 1) * 4,
                                            BK * d + BK * 4)
+
+
+def streams(skv: int, d: int) -> bool:
+    """True if the kernel takes its streaming form: the block form's
+    scores for ``skv`` keys do not fit a block's shared memory."""
+    return block_smem(skv, d) > SMEM_LIMIT
 
 
 def masked_exp_is_zero(scale: float, d: int) -> bool:
@@ -115,8 +127,6 @@ def _launch(q, k, v, scale, causal, v_scale, p_out):
     check(q_b * q_b + q_c < 2 ** 31, f"scale {scale} too fine for int32 exp")
     check(not causal or masked_exp_is_zero(scale, d),
           f"scale {scale}: a masked score's exp is not 0")
-    check(block_smem(skv, d) <= SMEM_LIMIT, f"int8_flash_attention: {skv} "
-          f"keys do not fit the kernel's shared-memory score block")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if v_scale is not None:
         check(tuple(v_scale.shape) == (b, hkv, skv, 1)
@@ -131,15 +141,19 @@ def _launch(q, k, v, scale, causal, v_scale, p_out):
         check(tuple(p_out.shape) == (b, h, s, skv) and p_out.dtype == torch.int8
               and p_out.is_contiguous(), "p_out must be contiguous int8 "
               f"{(b, h, s, skv)}")
+    streaming = streams(skv, d)
     fn = build.entry("int8_flash_attention", "repro_int8_flash_attention",
-                     [build.VP] * 6 + [build.I] * 12 + [build.F, build.VP])
+                     [build.VP] * 6 + [build.I] * 12 + [build.F, build.I,
+                                                        build.VP])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             0 if v_scale is None else v_scale.data_ptr(), out.data_ptr(),
             0 if p_out is None else p_out.data_ptr(), b, h, hkv, s, skv, d,
             int(causal), head_shift(d), q_ln2, q_b, q_c, es,
-            float(rcp32(127.0)), torch.cuda.current_stream(q.device).cuda_stream)
+            float(rcp32(127.0)), int(streaming),
+            torch.cuda.current_stream(q.device).cuda_stream)
     build.check_rc(rc, "int8_flash_attention")
     LAUNCHES["int8_flash_attention"] += 1
+    LAUNCHES["int8_flash_attention.streaming"] += streaming
     return out
 
 

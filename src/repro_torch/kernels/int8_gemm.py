@@ -12,12 +12,20 @@ an exact int32 combine when the tiles alone cannot fill the card):
   dual_gemm_gated       (``:280``) -> ``csrc/dual_gemm_gated.cu`` (int8, bf16)
   dual_int4_gemm_gated  (``:568``) -> ``csrc/dual_int4_gemm_gated.cu``
 
-The single-stream epilogues the serving path runs:
+The single-stream epilogues, the reference's seven (int8_gemm takes all;
+int4_gemm the scaled family):
 
-  none         int32 accumulator out (int8_gemm only)
-  scaled       f32 dequant (+ bias), cast to the stream dtype
-  scaled_add   scaled, then + residual in the stream dtype
-  scaled_gelu  scaled, then integer GELU at a static scale -> int8
+  none          int32 accumulator out
+  requant       shift/mul16/shift requant of the accumulator -> int8
+  requant_gelu  integer GELU of the accumulator at a static scale -> int8
+  requant_add   requant, then a saturating int8 residual add -> int8
+  scaled        f32 dequant (+ bias), cast to the stream dtype
+  scaled_gelu   scaled, then integer GELU at a static scale -> int8
+  scaled_add    scaled, then + residual in the stream dtype
+
+The serving paths run the scaled family; the requant family is the
+integer-in, integer-out GEMM of the paper's Table II (``ops.gemm_i8``,
+``gemm_i8_gelu``, ``gemm_i8_add``).
 
 The plain versions are ``repro.kernels.ref``'s oracles as ``jax.jit`` runs
 them on XLA:CPU, and every integer kernel is bit-exact against its plain
@@ -40,13 +48,16 @@ from __future__ import annotations
 
 import torch
 
+from ..core import inumerics as inum
 from . import build
-from .common import LAUNCHES, cdiv, check, f32, fma_f32, on_cuda, rcp32
+from .common import (LAUNCHES, cdiv, check, check_requant, f32, fma_f32,
+                     on_cuda, rcp32)
 from .int_gelu import gelu_consts, gelu_out_scale, int_gelu_ref
 from .int_silu import int_silu_ref, silu_consts, silu_out_scale
 
 I32 = torch.int32
-EPILOGUES = ("none", "scaled", "scaled_add", "scaled_gelu")
+EPILOGUES = ("none", "requant", "requant_gelu", "requant_add",
+             "scaled", "scaled_gelu", "scaled_add")
 W4A8_EPILOGUES = ("scaled", "scaled_add", "scaled_gelu")
 _EPI_CODE = {e: i for i, e in enumerate(EPILOGUES)}
 GATED_ACTS = ("silu", "gelu")
@@ -66,6 +77,28 @@ def int8_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     plain int32 matmul does not run on CUDA)."""
     check(x.shape[-1] * 128 * 128 < 2 ** 53, "K too deep for an exact f64 sum")
     return (x.double() @ w.double()).to(I32)
+
+
+def int8_gemm_ref(x, w, requant=None):
+    """Plain int8 GEMM (``ref.int8_gemm_ref``): the int32 accumulator, or
+    with ``requant`` (``RequantParams``) the int8 requantized one."""
+    acc = int8_matmul_ref(x, w)
+    if requant is None:
+        return acc
+    return inum.requantize(acc, requant).to(torch.int8)
+
+
+def int8_gemm_gelu_ref(x, w, gelu_scale: float):
+    """Plain ``requant_gelu`` (``ref.int8_gemm_gelu_ref``): the int32
+    accumulator -> integer GELU at ``gelu_scale`` -> int8."""
+    return int_gelu_ref(int8_matmul_ref(x, w), gelu_scale)
+
+
+def int8_gemm_add_ref(x, w, requant, residual):
+    """Plain ``requant_add`` (``ref.int8_gemm_add_ref``): the requantized
+    accumulator plus the int residual, saturated to int8."""
+    q = inum.requantize(int8_matmul_ref(x, w), requant)
+    return torch.clamp(q + residual.to(I32), -128, 127).to(torch.int8)
 
 
 def _dequant(acc, first, second, bias):
@@ -262,12 +295,21 @@ def _check_f32(t, numel, what):
 
 
 def _epilogue_args(epilogue, m, n, x_scale, w_scale, bias, residual,
-                   gelu_scale, out_dtype, dev):
-    """(output tensor, C arguments from ``epilogue`` to the GELU consts) of
-    the single-stream epilogues (``Epi`` in ``csrc/int_epilogue.cuh``)."""
+                   gelu_scale, out_dtype, dev, requant=None):
+    """(output tensor, C arguments from ``epilogue`` to the requant consts)
+    of the single-stream epilogues (``Epi`` in ``csrc/int_epilogue.cuh``)."""
     xs = ws = b = r = 0                  # NULL unless the epilogue reads it
+    rq = (0, 0, 0)
     if epilogue == "none":
         out = torch.empty((m, n), dtype=I32, device=dev)
+    elif epilogue.startswith("requant"):
+        out = torch.empty((m, n), dtype=torch.int8, device=dev)
+        if epilogue != "requant_gelu":
+            check_requant(requant)
+            rq = (requant.s1, requant.mult, requant.s2)
+        if epilogue == "requant_add":
+            _check_i8(residual, (m, n), "int8 residual [M, N]")
+            r = residual.data_ptr()
     else:
         check(out_dtype in (torch.bfloat16, torch.float32),
               f"stream dtype must be bf16 or f32, got {out_dtype}")
@@ -285,25 +327,27 @@ def _epilogue_args(epilogue, m, n, x_scale, w_scale, bias, residual,
         out = torch.empty((m, n), device=dev, dtype=torch.int8
                           if epilogue == "scaled_gelu" else out_dtype)
     consts, inv = (0,) * 6, 0.0
-    if epilogue == "scaled_gelu":
+    if epilogue.endswith("gelu"):
         consts, inv = gelu_consts(gelu_scale), float(rcp32(gelu_scale))
     return out, (_EPI_CODE[epilogue], int(out_dtype == torch.float32), xs, ws,
-                 b, r, out.data_ptr(), inv, *consts)
+                 b, r, out.data_ptr(), inv, *consts, *rq)
 
 
-_EPI_ARGTYPES = ([build.I] * 2 + [build.VP] * 5 + [build.F] + [build.I] * 6)
+_EPI_ARGTYPES = ([build.I] * 2 + [build.VP] * 5 + [build.F] + [build.I] * 9)
 
 
-def _check_epilogue(epilogue, epilogues, gelu_scale, residual):
+def _check_epilogue(epilogue, epilogues, gelu_scale, residual, requant=None):
     check(epilogue in epilogues, f"epilogue {epilogue!r} not in {epilogues}")
-    check((epilogue == "scaled_gelu") == (gelu_scale is not None),
-          "gelu_scale goes with the scaled_gelu epilogue")
-    check((epilogue == "scaled_add") == (residual is not None),
-          "residual goes with the scaled_add epilogue")
+    check(epilogue.endswith("gelu") == (gelu_scale is not None),
+          "gelu_scale goes with the scaled_gelu and requant_gelu epilogues")
+    check(epilogue.endswith("add") == (residual is not None),
+          "residual goes with the scaled_add and requant_add epilogues")
+    check((epilogue in ("requant", "requant_add")) == (requant is not None),
+          "requant params go with the requant and requant_add epilogues")
 
 
 def _launch(x, w, epilogue, x_scale, w_scale, bias, residual, gelu_scale,
-            out_dtype):
+            out_dtype, requant):
     check(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[0],
           f"int8 GEMM operands: x {tuple(x.shape)}, w {tuple(w.shape)}")
     m, k = x.shape
@@ -311,7 +355,8 @@ def _launch(x, w, epilogue, x_scale, w_scale, bias, residual, gelu_scale,
     _check_i8(x, (m, k), "x")
     _check_i8(w, (k, n), "w")
     out, epi = _epilogue_args(epilogue, m, n, x_scale, w_scale, bias,
-                              residual, gelu_scale, out_dtype, x.device)
+                              residual, gelu_scale, out_dtype, x.device,
+                              requant)
     split, k_len, part, cnt, vec = _tiling(x, (w,), n, BK, 1)
     fn = build.entry("int8_gemm", "repro_int8_gemm",
                      [build.VP] * 2 + [build.I] * 3 + _EPI_ARGTYPES
@@ -324,16 +369,21 @@ def _launch(x, w, epilogue, x_scale, w_scale, bias, residual, gelu_scale,
 
 
 def int8_gemm(x, w, epilogue: str = "none", *, x_scale=None, w_scale=None,
-              bias=None, residual=None, gelu_scale=None,
+              bias=None, residual=None, gelu_scale=None, requant=None,
               out_dtype=torch.bfloat16):
-    """x [M, K] int8 @ w [K, N] int8 with a fused epilogue: the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors."""
-    _check_epilogue(epilogue, EPILOGUES, gelu_scale, residual)
+    """x [M, K] int8 @ w [K, N] int8 with a fused epilogue (``requant``:
+    ``RequantParams`` of the requant and requant_add epilogues): the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    _check_epilogue(epilogue, EPILOGUES, gelu_scale, residual, requant)
     if on_cuda(x, w, x_scale, w_scale, bias, residual):
         return _launch(x, w, epilogue, x_scale, w_scale, bias, residual,
-                       gelu_scale, out_dtype)
-    if epilogue == "none":
-        return int8_matmul_ref(x, w)
+                       gelu_scale, out_dtype, requant)
+    if epilogue in ("none", "requant"):
+        return int8_gemm_ref(x, w, requant)
+    if epilogue == "requant_gelu":
+        return int8_gemm_gelu_ref(x, w, gelu_scale)
+    if epilogue == "requant_add":
+        return int8_gemm_add_ref(x, w, requant, residual)
     return gemm_w8a8_ref(x, x_scale, w, w_scale, bias=bias, residual=residual,
                          gelu_scale=gelu_scale, out_dtype=out_dtype)
 

@@ -1,11 +1,14 @@
 """Integer GELU (the paper's ``gelu``): the I-BERT erf polynomial on an int32
 block, requantized to int8 at a static output scale.
 
-``gelu_block`` is the in-register core the fused GEMM epilogue runs
-(``int8_gemm`` ``scaled_gelu``); its CUDA twin is ``gelu_block`` in
-``csrc/int_epilogue.cuh``, fed the constants ``gelu_consts`` derives.  The
-stand-alone ``int_gelu`` Pallas kernel (``repro/kernels/int_gelu.py:61``) is
-not on the ported path and is not launched by the port yet (ROADMAP.md §B).
+``gelu_block`` is the in-register core the fused GEMM epilogues run
+(``int8_gemm`` ``scaled_gelu`` and ``requant_gelu``); its CUDA twin is
+``gelu_block`` in ``csrc/int_epilogue.cuh``, fed the constants
+``gelu_consts`` derives.  ``int_gelu`` ports the stand-alone Pallas kernel
+(``repro/kernels/int_gelu.py:61``) to ``csrc/int_gelu.cu`` (the same block
+over a flat payload, bound by bytes); ``int_gelu_ref`` is its plain version.
+Bit-exact for any int32 input (where ``q * (q_erf + q_one)`` leaves int32,
+both wrap as the reference does).
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import math
 import torch
 
 from ..core import inumerics as inum
-from .common import requant_block
+from .common import launch_elementwise, on_cuda, requant_block
 
 I32 = torch.int32
 _ERF_A, _ERF_B, _ERF_C = -0.2888, -1.769, 1.0
@@ -65,3 +68,13 @@ def int_gelu_ref(x: torch.Tensor, scale: float) -> torch.Tensor:
     """Plain integer GELU (``ref.int_gelu_ref``): int payload -> int8."""
     q, _ = inum.i_gelu_int8(x.to(I32), scale)
     return q.to(torch.int8)
+
+
+def int_gelu(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """Integer GELU of an int payload of any shape (real value x * scale)
+    -> int8 at ``gelu_out_scale(scale)``: the CUDA kernel for a CUDA tensor,
+    the plain version for a CPU tensor."""
+    if on_cuda(x):
+        return launch_elementwise("int_gelu", "int_gelu", x, torch.int8,
+                                  gelu_consts(scale))
+    return int_gelu_ref(x, scale)

@@ -4,15 +4,18 @@ sigmoid times the input, on an int32 block, with a static output scale.
 ``silu_block`` is the in-register core that the fused gated-MLP epilogues
 run (``dual_gemm_gated`` and ``dual_int4_gemm_gated`` in ``int8_gemm.py``);
 its CUDA twin is ``silu_block`` in ``csrc/int_epilogue.cuh``, fed the
-constants ``silu_consts`` derives.  The stand-alone ``int_silu`` Pallas
-kernel (``repro/kernels/int_silu.py:48``) is not on the ported path and is
-not launched by the port yet (ROADMAP.md §B10).
+constants ``silu_consts`` derives.  ``int_silu`` ports the stand-alone
+Pallas kernel (``repro/kernels/int_silu.py:48``) to ``csrc/int_silu.cu``
+(the same block over a flat payload, bound by bytes); ``int_silu_ref`` is
+its plain version.  Bit-exact on int8- and int16-range payloads (the
+reference's own domain).
 """
 from __future__ import annotations
 
 import torch
 
 from ..core import inumerics as inum
+from .common import launch_elementwise, on_cuda
 
 I32 = torch.int32
 
@@ -38,3 +41,13 @@ def silu_block(q: torch.Tensor, *, scale: float) -> torch.Tensor:
 def int_silu_ref(x: torch.Tensor, scale: float) -> torch.Tensor:
     """Plain integer SiLU (``ref.int_silu_ref``): int payload -> int32."""
     return silu_block(x.to(I32), scale=scale)
+
+
+def int_silu(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """Integer SiLU of an int payload of any shape (real value x * scale)
+    -> int32 payload at ``silu_out_scale(scale)``: the CUDA kernel for a
+    CUDA tensor, the plain version for a CPU tensor."""
+    if on_cuda(x):
+        return launch_elementwise("int_silu", "int_silu", x, I32,
+                                  silu_consts(scale))
+    return int_silu_ref(x, scale)

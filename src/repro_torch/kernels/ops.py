@@ -12,20 +12,24 @@ from __future__ import annotations
 import torch
 
 from .common import LAUNCHES
+from .conv2d import int8_conv2d
 from .flash_attention import flash_attention
 from .int8_flash_attention import int8_flash_attention
 from .int8_gemm import (dual_gemm_gated, dual_int4_gemm_gated, int4_gemm,
                         int8_gemm)
 from .int8_kv_decode_attention import int8_kv_decode_attention
+from .int_gelu import int_gelu
 from .int_layernorm import int_layernorm
+from .int_silu import int_silu
 from .int_softmax import int_softmax
 from .paged_attention import paged_decode_attention
-from .quantize import quantize_rows
+from .quantize import quantize_rows, requantize_i32
 
 KERNELS = ("quantize_rows", "int8_gemm", "int_layernorm",
            "int8_kv_decode_attention", "dual_gemm_gated", "int4_gemm",
            "dual_int4_gemm_gated", "paged_decode_attention", "int_softmax",
-           "int8_flash_attention", "flash_attention")
+           "int8_flash_attention", "flash_attention", "int_gelu", "int_silu",
+           "requantize_i32", "int8_conv2d")
 
 
 def launch_counts() -> dict[str, int]:
@@ -41,6 +45,36 @@ def quant_rows(x: torch.Tensor):
     lead, d = x.shape[:-1], x.shape[-1]
     q, s = quantize_rows(x.reshape(-1, d).float().contiguous())
     return q.reshape(*lead, d), s.reshape(*lead, 1)
+
+
+def gemm_i8(x, w, requant=None):
+    """int8 GEMM of [..., K] x [K, N]: the int32 accumulator, or with
+    ``requant`` (``RequantParams``) int8 through shift/mul16/shift."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    out = int8_gemm(x.reshape(-1, k).contiguous(), w,
+                    "none" if requant is None else "requant", requant=requant)
+    return out.reshape(*lead, w.shape[1])
+
+
+def gemm_i8_gelu(x, w, gelu_scale: float):
+    """Fused ``gemm_i8 -> gelu_i8``: integer GELU of the int32 accumulator
+    at a static scale, int8 out (dequant with ``gelu_out_scale``); the int32
+    accumulator never leaves the kernel."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    out = int8_gemm(x.reshape(-1, k).contiguous(), w, "requant_gelu",
+                    gelu_scale=gelu_scale)
+    return out.reshape(*lead, w.shape[1])
+
+
+def gemm_i8_add(x, w, requant, residual):
+    """Fused ``requant(gemm_i8) + residual`` with int8 saturation: the
+    integer residual-stream form of an out-projection and its skip."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    n = w.shape[1]
+    out = int8_gemm(x.reshape(-1, k).contiguous(), w, "requant_add",
+                    requant=requant,
+                    residual=residual.reshape(-1, n).contiguous())
+    return out.reshape(*lead, n)
 
 
 def gemm_w8a8(x_q, x_scale, w_q, w_scale, bias=None, residual=None,
@@ -130,6 +164,30 @@ def layernorm_i8(x, gamma_q, beta_q, rms_only: bool = False):
     lead, d = x.shape[:-1], x.shape[-1]
     out = int_layernorm(x.reshape(-1, d), gamma_q, beta_q, rms_only=rms_only)
     return out.reshape(*lead, d)
+
+
+def gelu_i8(x, scale: float):
+    """Integer GELU of an int payload (real value x * scale): int8 out,
+    dequantize with ``gelu_out_scale(scale)``."""
+    return int_gelu(x, scale)
+
+
+def silu_i8(x, scale: float):
+    """Integer SiLU of an int payload (real value x * scale): int32 payload
+    out (±127*127 range), dequantize with ``silu_out_scale(scale)``."""
+    return int_silu(x, scale)
+
+
+def requant(x, params):
+    """int32 payload -> int8 through shift/mul16/shift (``params``:
+    ``RequantParams``)."""
+    return requantize_i32(x, params)
+
+
+def conv2d_i8(x, w, bias, requant_params=None):
+    """int8 NHWC x HWIO convolution, stride 1, VALID, + int32 bias: int32
+    out, or int8 with ``requant_params``."""
+    return int8_conv2d(x, w, bias, requant_params)
 
 
 def softmax_i8(x, scale: float, mask=None):

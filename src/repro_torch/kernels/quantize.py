@@ -1,5 +1,6 @@
-"""Per-row activation quantization (the paper's ``quant``): f32 [M, D] ->
-int8 [M, D] + f32 row scale [M, 1].
+"""Activation quantization (the paper's ``quant``): per-row f32 [M, D] ->
+int8 [M, D] + f32 row scale [M, 1] (``quantize_rows``), and the integer
+requantization of an int32 payload to int8 (``requantize_i32``).
 
 Port of the Pallas kernel ``repro/kernels/quantize.py:41`` ``quantize_rows``
 to the CUDA kernel ``csrc/quantize.cu`` (source note there: bound by bytes,
@@ -7,6 +8,12 @@ one block per row).  ``quantize_rows_ref`` is its plain version, the jitted
 ``repro.kernels.ref.quantize_rows_ref``: the scale is ``amax * f32(1/127)``
 (XLA's form of ``amax / 127.0`` under jit), the division by it is a true
 division.  Bit-exact against the kernel.
+
+``requantize_i32`` ports ``repro/kernels/quantize.py:111`` to
+``csrc/requantize.cu`` (``requant_block``, shift/mul16/shift, bound by
+bytes); ``requantize_i32_ref`` is its plain version,
+``core.inumerics.requantize``.  Bit-exact, wrapping where the reference's
+int32 wraps.
 
 ``pack_int4`` builds the W4A8 weight container in plain PyTorch (no kernel:
 PTQ packs once; the int4 GEMMs unpack in registers, and
@@ -16,8 +23,10 @@ from __future__ import annotations
 
 import torch
 
+from ..core import inumerics as inum
 from . import build
-from .common import LAUNCHES, check, f32, on_cuda, rcp32
+from .common import (LAUNCHES, check, check_requant, f32, launch_elementwise,
+                     on_cuda, rcp32)
 
 _RCP127 = rcp32(127.0)
 
@@ -53,6 +62,23 @@ def quantize_rows(x: torch.Tensor):
     if on_cuda(x):
         return _launch(x)
     return quantize_rows_ref(x)
+
+
+def requantize_i32_ref(x: torch.Tensor, params: inum.RequantParams):
+    """Plain version (``ref.requantize_i32_ref``): int payload -> int8."""
+    return inum.requantize(x.to(torch.int32), params).to(torch.int8)
+
+
+def requantize_i32(x: torch.Tensor, params: inum.RequantParams):
+    """int32 (or int8/int16) payload of any shape -> int8 through
+    shift/mul16/shift: the CUDA kernel for a CUDA tensor, the plain version
+    for a CPU tensor."""
+    if on_cuda(x):
+        check_requant(params)
+        return launch_elementwise("requantize", "requantize_i32", x,
+                                  torch.int8,
+                                  (params.s1, params.mult, params.s2))
+    return requantize_i32_ref(x, params)
 
 
 def pack_int4(w4: torch.Tensor) -> torch.Tensor:

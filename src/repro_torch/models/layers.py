@@ -20,8 +20,8 @@ from torch import nn
 
 from ..kernels import ops
 from ..kernels.common import check, f32, rcp32
-from ..kernels.int_gelu import gelu_out_scale, int_gelu_ref
-from ..kernels.int_silu import int_silu_ref, silu_out_scale
+from ..kernels.int_gelu import gelu_out_scale
+from ..kernels.int_silu import silu_out_scale
 from ..kernels.quantize import pack_int4
 
 DEFAULT_DTYPE = torch.bfloat16
@@ -320,28 +320,19 @@ def apply_norm(x, p: Norm, cfg, mode: ExecMode):
 # ---------------------------------------------------------------------------
 
 def activation(x, kind: str, mode: ExecMode):
-    if mode.integer and kind == "gelu":
-        if x.is_cuda:
-            raise NotImplementedError(
-                "the stand-alone integer GELU kernel (int_gelu) is not ported "
-                "to CUDA yet (ROADMAP.md §B10); integer MLPs take the fused "
-                "GEMM epilogue instead")
-        s = GELU_INT_SCALE
+    """The MLP non-linearity: in an integer mode the integer GELU or SiLU
+    kernel on the int8 requantization of ``x`` at a static scale (``x /
+    scale`` under jit: a product with the f32 reciprocal), dequantized into
+    ``x``'s dtype; else the float function."""
+    if mode.integer and kind in ("gelu", "silu"):
+        s = GELU_INT_SCALE if kind == "gelu" else SILU_INT_SCALE
         q = torch.clamp(torch.round(x.float() * f32(rcp32(s), x.device)),
                         -128, 127).to(torch.int32)
-        out = int_gelu_ref(q, s)
-        return (out.float() * f32(gelu_out_scale(s), x.device)).to(x.dtype)
-    if mode.integer and kind == "silu":
-        if x.is_cuda:
-            raise NotImplementedError(
-                "the stand-alone integer SiLU kernel (int_silu) is not ported "
-                "to CUDA yet (ROADMAP.md §B10); gated MLPs take the fused "
-                "dual-GEMM epilogue instead")
-        s = SILU_INT_SCALE
-        q = torch.clamp(torch.round(x.float() * f32(rcp32(s), x.device)),
-                        -128, 127).to(torch.int32)
-        out = int_silu_ref(q, s)
-        return (out.float() * f32(silu_out_scale(s), x.device)).to(x.dtype)
+        if kind == "gelu":
+            out, out_scale = ops.gelu_i8(q, s), gelu_out_scale(s)
+        else:
+            out, out_scale = ops.silu_i8(q, s), silu_out_scale(s)
+        return (out.float() * f32(out_scale, x.device)).to(x.dtype)
     if kind == "gelu":
         return torch.nn.functional.gelu(x, approximate="none")
     if kind == "silu":

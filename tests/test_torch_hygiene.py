@@ -55,7 +55,9 @@ def test_scan_sees_the_whole_port():
                  "convert.py", "quant/ptq.py", "core/inumerics.py",
                  "serve/kv_pool.py", "kernels/paged_attention.py",
                  "kernels/int_softmax.py", "kernels/int8_flash_attention.py",
-                 "kernels/flash_attention.py"):
+                 "kernels/flash_attention.py", "kernels/int_gelu.py",
+                 "kernels/int_silu.py", "kernels/conv2d.py",
+                 "models/frontend.py"):
         assert need in files
 
 
@@ -182,8 +184,11 @@ def test_paged_engine_defaults_to_the_card(no_cuda):
 
 def test_kernel_sources_and_flags():
     assert {"paged_decode_attention", "int_softmax", "int8_flash_attention",
-            "flash_attention"} <= set(build.SOURCES)
-    assert set(build.SOURCES) <= set(ops.KERNELS) | {"quantize"}
+            "flash_attention", "int_gelu", "int_silu", "requantize",
+            "int8_conv2d"} <= set(build.SOURCES)
+    # quantize.cu holds quantize_rows, requantize.cu requantize_i32
+    assert set(build.SOURCES) <= set(ops.KERNELS) | {"quantize", "requantize"}
+    assert len(ops.KERNELS) == 15
     for name in build.SOURCES:
         src = build.CSRC / f"{name}.cu"
         assert src.exists()
@@ -235,6 +240,68 @@ def test_no_cache_wrappers_never_fall_back(monkeypatch, which):
     monkeypatch.setattr(build, "entry", no_build)
     with pytest.raises(RuntimeError, match="no nvcc here"):
         call()
+
+
+def _int_library_calls():
+    from repro_torch.core.inumerics import RequantParams
+    from repro_torch.kernels import conv2d, int8_gemm, int_gelu, int_silu
+    from repro_torch.kernels import quantize
+    from repro_torch.models import layers
+    rq = RequantParams(s1=2, mult=9000, s2=14)
+    x32 = torch.zeros((4, 8), dtype=torch.int32)
+    i8 = torch.zeros((4, 8), dtype=torch.int8)
+    img = torch.zeros((1, 5, 5, 3), dtype=torch.int8)
+    filt = torch.zeros((3, 3, 3, 4), dtype=torch.int8)
+    bias = torch.zeros(4, dtype=torch.int32)
+    mode = layers.ExecMode("w8a8")
+    h = torch.zeros((2, 8), dtype=torch.bfloat16)
+    return [(quantize, lambda: ops.requant(x32, rq)),
+            (int_gelu, lambda: ops.gelu_i8(x32, 0.05)),
+            (int_silu, lambda: ops.silu_i8(x32, 0.05)),
+            (int8_gemm, lambda: ops.gemm_i8(i8, i8.T.contiguous(), rq)),
+            (int8_gemm, lambda: ops.gemm_i8_gelu(i8, i8.T.contiguous(), 0.05)),
+            (int8_gemm, lambda: ops.gemm_i8_add(i8, i8.T.contiguous(), rq,
+                                                i8[:, :4].contiguous())),
+            (conv2d, lambda: ops.conv2d_i8(img, filt, bias, rq)),
+            (int_gelu, lambda: layers.activation(h, "gelu", mode)),
+            (int_silu, lambda: layers.activation(h, "silu", mode))]
+
+
+@pytest.mark.parametrize("which", range(9))
+def test_int_library_wrappers_never_fall_back(monkeypatch, which):
+    """With the tensors taken for CUDA ones, each wrapper of the integer
+    library — and ``layers.activation``'s integer branch, which raised on
+    the card before it had a kernel — goes to its kernel (here the build,
+    which raises), never to the plain version."""
+    import types
+    from repro_torch.kernels import common
+    mod, call = _int_library_calls()[which]
+    monkeypatch.setattr(mod, "on_cuda", lambda *a: True)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda *a:
+                        types.SimpleNamespace(multi_processor_count=132))
+
+    def no_build(*a, **k):
+        raise RuntimeError("no nvcc here")
+    monkeypatch.setattr(build, "entry", no_build)
+    monkeypatch.setattr(common.build, "entry", no_build)
+    with pytest.raises(RuntimeError, match="no nvcc here"):
+        call()
+
+
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "starcoder2-3b"])
+def test_explicit_cpu_mixed_forward_launches_nothing(arch):
+    """The integer-nonlinearity forward (a w8a8 config over float
+    parameters) on the CPU: its integer activation, norms and attention
+    take their plain versions."""
+    from repro_torch.models import lm_loss
+    cfg = get_config(arch, precision="w8a8", reduced=True)
+    params = init_params(cfg, seed=1, device="cpu")
+    toks = torch.randint(2, cfg.vocab_size, (2, 17),
+                         generator=torch.Generator().manual_seed(0))
+    ops.reset_launch_counts()
+    loss = lm_loss(params, cfg, toks[:, :-1], toks[:, 1:])
+    assert torch.isfinite(loss) and loss.dim() == 0
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
 
 
 def test_decode_attentions_share_one_body():
