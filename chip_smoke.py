@@ -37,15 +37,29 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    [32, 64] x [64, 32] and at [4096, 3072] x [3072, 12288], and int8_conv2d
    at Table II's [1, 128, 128, 3] x [3, 3, 3, 8] (int32 and requantized), a
    3x3 conv [8, 56, 56, 64] x [3, 3, 64, 64] and the ViT-B/16 patch embed
-   [32, 14, 14, 768] x [1, 1, 768, 768];
+   [32, 14, 14, 768] x [1, 1, 768, 768]; ssd_scan at zamba2-2.7b's forward
+   shape (``check_ssd_scan``: B = 4, T = 1024, 80 heads, P = N = 64; and
+   the reduced model's P = 64, N = 16; y and the final state within
+   rtol = atol = 3e-4); the two no-cache attentions
+   also at zamba2's head dim 80 (the block and streaming forms); and the
+   decode kernels' multi-row form (``check_decode_rows``, dense and paged,
+   G = 1 and G = 12): every row of a T = 256 launch bit-equal to a T = 1
+   launch at its position with the same B;
 4. reduced: starcoder2-3b-reduced at w8a8 and codeqwen1.5-7b-reduced at
    w4a8, w8a8 and bf16, each with an int8 KV cache, the same packed steps on
    the CPU (plain versions) and on the card (kernels): the logits agree
-   within ``REDUCED_TOL`` of their range; codeqwen1.5-7b-reduced w4a8 with a
+   within ``REDUCED_TOL`` of their range, and with the CPU in the card's
+   order (``forward(card_order=True)``: the cache rows through the decode
+   kernels' plain versions) exactly at W8A8/W4A8 and within
+   ``CARD_ORDER_TOL`` at bf16, at three seeds; zamba2-2.7b-reduced W8A8's
+   forward with states (prefill through ssd_scan and the multi-row form,
+   then t = 1 steps) the same way, within ``STATES_TOL`` of the card
+   order; codeqwen1.5-7b-reduced w4a8 with a
    paged int8 arena the same, and its card logits equal the dense card
    logits bit for bit; then the reduced no-cache forward (starcoder at bf16
-   and w8a8, codeqwen at bf16, w8a8 and w4a8) the same way, its attention
-   kernel launched once per layer; and the integer-nonlinearity forward (a
+   and w8a8, codeqwen and zamba2 at bf16, w8a8 and w4a8) the same way, its
+   attention kernel launched once per attention layer and ssd_scan once per
+   Mamba-2 layer; and the integer-nonlinearity forward (a
    w8a8 config over float parameters: integer norms, attention and GELU or
    SiLU, float linears) of codeqwen and starcoder the same way, int_silu or
    int_gelu launched once per layer too;
@@ -58,7 +72,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    parameters then serve three paged drains (``serve_paged``: the same
    schedule, which must give the dense drain's tokens; a shared 200-token
    prefix; a 66-page pool under pressure; every copy-on-write page and
-   every swapped page held bit for bit on the card).  Launch counts are
+   every swapped page held bit for bit on the card; the shared-prefix and
+   pressure drains' tokens equal to the same requests served unshared and
+   unpressured).  Launch counts are
    zeroed just before each drain and read just after; every kernel of that
    path must have launched.  Each model is freed before the next;
 6. the no-cache forward at full width and depth: codeqwen1.5-7b float
@@ -70,24 +86,35 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    then a w8a8 ``lm_loss`` on 1 x 4096 tokens; starcoder2-3b at bf16, w8a8
    and w8a8-float; the integer library's entry points at Table II's shapes
    and the ViT-B/16 patch embed (``int_library_entry``, equal to the CPU's);
+   zamba2-2.7b (float parameters from ``--seed``, ``calibrate_ptq``, then
+   ``lm_loss`` on 4 x 1024 tokens at bf16, w8a8 and w4a8, w4a8 profiled);
    and ``ops.softmax_i8`` on causal score rows.  Every forward must launch
    int8_flash_attention (integer) or flash_attention (bf16) exactly once per
-   layer — int8_flash_attention in its streaming form exactly for the
-   4096-token sequence — and the w8a8-float forwards int_silu or int_gelu
-   once per layer.
+   attention layer — int8_flash_attention in its streaming form exactly for
+   the 4096-token sequence — ssd_scan once per Mamba-2 layer (zamba2: 9 and
+   45), and the w8a8-float forwards int_silu or int_gelu once per layer.
 
 The last three lines of standard output are the kernels JSON (each kernel
 timed at the M = 8 shape the main path, codeqwen1.5-7b w4a8, gives it, or
 the path that runs it — the paged drains for the paged kernel, the
 no-cache forwards for the three attention and softmax kernels and for
 int_silu and int_gelu (at 4096 rows), the integer library path for
-requantize_i32 and int8_conv2d (the patch embed); ``by_path``
+requantize_i32 and int8_conv2d (the patch embed), zamba2's no-cache
+forwards for ssd_scan; ``by_path``
 holds every path's shape, ``launches_by_path`` every path's count), the card's
 ``nvidia-smi`` name/power line and ``{"ok": true, "device": ...}``.  With
 ``--out PATH`` every case, the serving stats and the profiles are also
 written to PATH as JSON.
 
 Usage:  python3 chip_smoke.py [--seed 0] [--out results.json]
+
+``--serve-only`` builds and then runs only the two dense drains of phase 5
+with a bucket-256 step profiled too, and times a bucket-256 prefill's cache
+attention both ways (``serve_only``); with ``--src DIR`` it drives another
+tree of the port (say a parent commit's ``src`` unpacked under ``build/``),
+so that two trees are compared in one call:
+
+    python3 chip_smoke.py --serve-only --src build/parent/src
 """
 from __future__ import annotations
 
@@ -121,6 +148,18 @@ F32_OPS = 67e12        # f32 outside the tensor cores
 # greedy token must agree wherever the CPU top-2 margin is more than twice
 # the largest difference.
 REDUCED_TOL = 0.10
+# Phase 4 limits against the CPU in the card's order (C8): the int8-cache
+# rows through the decode kernels' plain versions (f32 probabilities, as the
+# kernels).  At W8A8 and W4A8 the dense models' card logits must then EQUAL
+# the CPU's bit for bit; at bf16 (float GEMMs round in other orders) they
+# must lie within CARD_ORDER_TOL of the range, and for zamba2's W8A8
+# forward with states (only the f32 scan and conv sum in another order)
+# within STATES_TOL.  Measured on an H100 (80GB HBM3, 700 W) over seeds
+# 0-2: 0 at every integer precision, up to 1.161% at codeqwen bf16, 4.0e-7
+# for zamba2 w8a8 with states.
+CARD_ORDER_TOL = 0.02
+STATES_TOL = 1e-4
+SEEDS = 3              # phase 4's card-order comparison: seeds seed..seed+2
 
 
 def log(msg: str) -> None:
@@ -178,6 +217,32 @@ def int_mm_ms(timer, x_q, w_q):
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+def decode_work(kpos, qp, hq, hkv, d, window=0, slot_ids=None,
+                pos_bytes=None, dense_rule=True) -> tuple[int, int]:
+    """(bytes, operations) a decode attention must move and do on this run's
+    data: key positions ``kpos`` (B, S), rows at ``qp`` (B, T), int8 K/V
+    with f32 scales.  The positions once (``pos_bytes``, default 4 per key);
+    K and V once for every slot valid for some row of its lane (distinct
+    ``slot_ids`` where lanes share pages); under the dense rule a row with
+    no valid key averages V, so V of every slot of its lane once more; q and
+    the bf16 output once; 4 operations per (row, head, d, valid key)."""
+    valid = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qp[:, :, None])
+    if window:
+        valid &= kpos[:, None, :] > (qp[:, :, None] - window)
+    used = valid.any(1)
+    ids = (slot_ids if slot_ids is not None else
+           torch.arange(kpos.numel(), device=kpos.device).reshape(kpos.shape))
+    n_kv = torch.unique(ids[used]).numel()
+    v_only = 0
+    if dense_rule:
+        dead_lane = (~valid.any(2)).any(1)
+        v_only = int((dead_lane[:, None] & ~used).sum())
+    nbytes = (n_kv * hkv * (2 * d + 8) + v_only * hkv * (d + 4)
+              + (4 * kpos.numel() if pos_bytes is None else pos_bytes)
+              + 4 * qp.numel() + 2 * 2 * qp.numel() * hq * d)
+    return nbytes, 4 * hq * d * int(valid.sum())
+
 
 def check_kernels(dev, gen, timer) -> list[dict]:
     from repro_torch.kernels import ops
@@ -343,34 +408,36 @@ def check_kernels(dev, gen, timer) -> list[dict]:
             q4 = q[:, :, None, :]
             lib = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q4, kd, vd, attn_mask=mask))
-            nbytes = (2 * bsz * s * hkv * d + 8 * bsz * s * hkv + 4 * bsz * s
-                      + 4 * bsz + 4 * bsz * hq * d)
             record("int8_kv_decode_attention",
                    f"B={bsz} S={s} Hq={hq} Hkv={hkv} D={d} window={window}",
                    max_err(out, ref), False, timer(run), timer(plain), lib,
-                   bound(nbytes, 4 * bsz * hq * s * d, F32_OPS))
+                   bound(*decode_work(pos, qpos[:, None], hq, hkv, d, window),
+                         F32_OPS))
 
     check_w4_and_gated(dev, gen, timer, record, randn)
     check_paged(dev, gen, timer, record, randn)
     check_no_cache(dev, gen, timer, record, randn)
     check_streaming_attention(dev, gen, timer, record, randn)
     check_int_library(dev, gen, timer, record, randn)
+    check_ssd_scan(dev, gen, timer, record, randn)
+    check_decode_rows(dev, gen, timer, record, randn)
     return cases
 
 
 # the no-cache forward's attention shapes: 4 sequences of 1024 tokens
 NC_B, NC_T = 4, 1024
-# (label, heads, kv heads) of codeqwen1.5-7b (MHA) and starcoder2-3b (GQA)
-NC_HEADS = (("codeqwen", 32, 32), ("starcoder", 24, 2))
+# (label, heads, kv heads, head dim) of codeqwen1.5-7b (MHA), starcoder2-3b
+# (GQA) and zamba2-2.7b's shared attention (MHA at head dim 80)
+NC_HEADS = (("codeqwen", 32, 32, 128), ("starcoder", 24, 2, 128),
+            ("zamba2", 32, 32, 80))
 
 
-def int_attention_inputs(randn, h, hkv, b=NC_B, t=NC_T):
+def int_attention_inputs(randn, h, hkv, b=NC_B, t=NC_T, d=128):
     """int8 q/k/v and per-(token, head) V scales as ``_int_attention``
     makes them from bf16 activations (q, k at the static 1/16 scale), with a
     saturated query row against one aligned key: its scores spread far past
     30*q_ln2 below the row max."""
     from repro_torch.models.attention import ATTN_INT_SCALE, _quant_kv
-    d = 128
 
     def static_int8(*shape):
         x = randn(*shape) / ATTN_INT_SCALE
@@ -387,7 +454,8 @@ def check_no_cache(dev, gen, timer, record, randn) -> None:
     int8_flash_attention (the v_scale form: integer probabilities bit-exact
     through the kernel's debug output, f32 output within RTOL/ATOL; the
     int32 form bit-exact) and flash_attention (bf16, RTOL/ATOL) at
-    codeqwen1.5-7b's and starcoder2-3b's heads, and int_softmax on
+    codeqwen1.5-7b's and starcoder2-3b's heads and at zamba2-2.7b's head
+    dim 80 (ROADMAP C7), and int_softmax on
     [4096, 1024] int32 rows without and with a mask and with rows spread
     far past 30*q_ln2 (bit-exact).  Bounds: bytes over 3.35 TB/s against the
     operations — QK^T at the int8 rate and PV at the f32 rate for the
@@ -402,13 +470,13 @@ def check_no_cache(dev, gen, timer, record, randn) -> None:
         int8_flash_attention_ref)
     from repro_torch.kernels.int_softmax import int_softmax_ref
     from repro_torch.models.attention import int_score_scale
-    b, t, d = NC_B, NC_T, 128
+    b, t = NC_B, NC_T
     pairs = t * (t + 1) // 2                        # causal (query, key) pairs
-    sc = int_score_scale(d)
 
     # -- 9. int8_flash_attention ----------------------------------------------
-    for label, h, hkv in NC_HEADS:
-        q, k, v, v_s = int_attention_inputs(randn, h, hkv)
+    for label, h, hkv, d in NC_HEADS:
+        sc = int_score_scale(d)
+        q, k, v, v_s = int_attention_inputs(randn, h, hkv, d=d)
         p_out = torch.empty((b, h, t, t), dtype=torch.int8, device=dev)
         out = int8_flash_attention(q, k, v, sc, v_scale=v_s, p_out=p_out)
         probs = int8_attention_probs_ref(q, k, sc)
@@ -439,7 +507,7 @@ def check_no_cache(dev, gen, timer, record, randn) -> None:
                bound(io + 4 * out.numel(),
                      qk_ops * F32_OPS / INT8_OPS + qk_ops, F32_OPS))
         del out, ref
-        if label != "codeqwen":
+        if label == "starcoder":
             continue
 
         def run32():
@@ -461,7 +529,7 @@ def check_no_cache(dev, gen, timer, record, randn) -> None:
         del out, ref
 
     # -- 10. flash_attention (bf16) -------------------------------------------
-    for label, h, hkv in NC_HEADS:
+    for label, h, hkv, d in NC_HEADS:
         q = randn(b, h, t, d).to(torch.bfloat16)
         k = randn(b, hkv, t, d).to(torch.bfloat16)
         v = randn(b, hkv, t, d).to(torch.bfloat16)
@@ -491,6 +559,7 @@ def check_no_cache(dev, gen, timer, record, randn) -> None:
         del out, ref, kr, vr
 
     # -- 13. int_softmax --------------------------------------------------------
+    sc = int_score_scale(128)
     m, n = NC_B * NC_T, NC_T
     x = torch.randint(-3000, 3000, (m, n), generator=gen, device=dev,
                       dtype=torch.int32)
@@ -517,11 +586,159 @@ def check_no_cache(dev, gen, timer, record, randn) -> None:
                bound(m * n * (5 + (mask is not None)), 15 * m * n, F32_OPS))
 
 
-# int8_flash_attention's streaming form: (B, T, H, Hkv) of causal sequences
-# past the block form's 3328 keys — codeqwen1.5-7b's heads at the 4096-token
-# forward of phase 6, and 8192 keys at fewer heads (the plain version holds
-# several [B, H, T, T] int32 tensors)
-STREAM_SHAPES = ((1, 4096, 32, 32), (1, 8192, 4, 4))
+# zamba2-2.7b's no-cache forward (phase 6): the Mamba-2 scan of 4 x 1024
+# tokens (80 heads of P = 64, N = 64, chunk 128)
+Z_B, Z_T, Z_H, Z_P, Z_N, Z_L = 4, 1024, 80, 64, 64, 128
+
+
+def ssd_scan_work(b, t, h, p, n, chunk) -> tuple[int, int]:
+    """(bytes, operations) the scan must move and do: x, dt, B, C and A read
+    once, y and the final state written once; per (lane, chunk) C.B^T over
+    the causal triangle, per (lane, head, chunk) the weights times x over
+    the triangle, C times the state and the state update (2 per
+    multiply-add)."""
+    nbytes = 4 * (2 * b * t * h * p + b * t * h + 2 * b * t * n + h
+                  + b * h * n * p)
+    nc, tri = t // chunk, chunk * (chunk + 1) // 2
+    ops = b * nc * 2 * tri * n + b * h * nc * (2 * tri * p + 4 * chunk * n * p)
+    return nbytes, ops
+
+
+def check_ssd_scan(dev, gen, timer, record, randn) -> None:
+    """Phase 3 for ssd_scan at zamba2-2.7b's forward shape and at the
+    reduced model's (P, N) = (64, 16) against its plain version: y and the
+    final state within rtol = atol = 3e-4, with the
+    model's A = -exp(log(linspace(1, 16, H))) and dt as softplus gives it;
+    timed beside its bound (``ssd_scan_work``) and the plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import (ATOL, RTOL, ssd_scan_ref)
+    # zamba2-2.7b's shape, then the reduced model's (P, N) = (64, 16)
+    for b, t, h, p, n in ((Z_B, Z_T, Z_H, Z_P, Z_N), (4, 512, 2, 64, 16)):
+        x = randn(b, t, h, p)
+        dt = torch.nn.functional.softplus(randn(b, t, h) - 1.0)
+        a = -torch.linspace(1.0, 16.0, h, device=dev)
+        bm, cm = randn(b, t, n), randn(b, t, n)
+
+        def run():
+            return ops.ssd_scan(x, dt, a, bm, cm)
+
+        def plain():
+            return ssd_scan_ref(x, dt, a, bm, cm)
+        (y, st), (yr, sr) = run(), plain()
+        torch.cuda.synchronize()
+        for what, got, want in (("y", y, yr), ("final state", st, sr)):
+            if not (torch.isfinite(got).all() and torch.allclose(
+                    got, want, rtol=RTOL, atol=ATOL)):
+                raise AssertionError(f"ssd_scan N={n} {what}: max |d| "
+                                     f"{max_err(got, want)} beyond "
+                                     f"rtol={RTOL} atol={ATOL}")
+        nbytes, n_ops = ssd_scan_work(b, t, h, p, n, Z_L)
+        record("ssd_scan", f"B={b} T={t} H={h} P={p} N={n} L={Z_L}",
+               max(max_err(y, yr), max_err(st, sr)), False, timer(run),
+               timer(plain, iters=3, warmup=1), None,
+               bound(nbytes, n_ops, F32_OPS),
+               "no PyTorch call computes the SSD scan")
+
+
+# the multi-row decode form (ROADMAP C3): a packed step of T rows per lane at
+# the serving cells' widths (8 lanes, 1024 slots), each row against the
+# cache up to its own position
+ROWS_T = 256
+
+
+def check_decode_rows(dev, gen, timer, record, randn) -> None:
+    """Phase 3 for the decode kernels' multi-row form, dense and paged, at
+    codeqwen1.5-7b's heads (G = 1) and starcoder2-3b's (G = 12): every row
+    of a T = 256 launch bit-equal to a T = 1 launch of the same kernel at
+    that row's position with the same B (the contract: a lane's tokens do
+    not depend on how its steps were batched), and the whole within
+    RTOL/ATOL of the plain version.  Each lane's rows sit at the end of its
+    filled span; lane 3's rows are idle (position -1)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.int8_kv_decode_attention import (
+        ATOL, RTOL, int8_kv_decode_attention_rows_ref)
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention_rows_ref)
+    from repro_torch.models.attention import _quant_kv
+    tr = ROWS_T
+    for paged in (False, True):
+        for hq, hkv, d in ((32, 32, 128), (24, 2, 128)):
+            if paged:
+                arena, ppos, pt, last = paged_arena(dev, gen, randn, hkv, d,
+                                                    True)
+                args = (arena["pk"], arena["pks"], arena["pv"], arena["pvs"],
+                        ppos, pt)
+                b = PAGED_B
+                one, rows = ops.paged_attention_decode, ops.paged_attention_decode_rows
+                plain_rows = paged_decode_attention_rows_ref
+            else:
+                b, s = 8, 1024
+                k_q, k_s = _quant_kv(randn(b, s, hkv, d))
+                v_q, v_s = _quant_kv(randn(b, s, hkv, d))
+                fill = torch.randint(tr, s + 1, (b,), generator=gen, device=dev)
+                fill[IDLE_LANE] = 0
+                slot = torch.arange(s, device=dev)
+                pos = torch.where(slot[None] < fill[:, None], slot[None],
+                                  -1).to(torch.int32)
+                last = (fill - 1).to(torch.int32)
+                args = (k_q, k_s, v_q, v_s, pos)
+                one, rows = ops.decode_attention_int8kv, ops.decode_attention_int8kv_rows
+                plain_rows = int8_kv_decode_attention_rows_ref
+            qp = (last[:, None] - torch.arange(tr - 1, -1, -1, device=dev,
+                                               dtype=torch.int32)[None])
+            qp = torch.where((last[:, None] >= 0) & (qp >= 0), qp,
+                             -1).to(torch.int32).contiguous()
+            q = randn(b, tr, hq, d).to(torch.bfloat16)
+            out = rows(q, *args, qp)
+            torch.cuda.synchronize()
+            what = (f"{'paged' if paged else 'dense'} decode rows T={tr} "
+                    f"Hq={hq} Hkv={hkv}")
+            for i in range(tr):
+                ref1 = one(q[:, i].contiguous(), *args, qp[:, i].contiguous())
+                if not torch.equal(out[:, i], ref1):
+                    raise AssertionError(
+                        f"{what}: row {i} differs from a T = 1 launch at its "
+                        f"position (max |d| {max_err(out[:, i], ref1)})")
+            ref = plain_rows(q, *args, qp)
+            torch.cuda.synchronize()
+            live = qp >= 0
+            if not (torch.isfinite(out).all() and torch.allclose(
+                    out[live].float(), ref[live].float(), rtol=RTOL,
+                    atol=ATOL)):
+                raise AssertionError(f"{what}: max |d| {max_err(out, ref)} "
+                                     f"beyond rtol={RTOL} atol={ATOL}")
+            # this run's data: the slots some row of the lane needs, once
+            if paged:
+                ptc = pt.long()
+                kpos = ppos[ptc].reshape(b, -1)
+                work = decode_work(
+                    kpos, qp, hq, hkv, d, slot_ids=(ptc[:, :, None] * PAGED_PS
+                                                    + torch.arange(PAGED_PS, device=dev)
+                                                    ).reshape(b, -1),
+                    pos_bytes=4 * PAGED_PS * torch.unique(ptc[ptc > 0]).numel(),
+                    dense_rule=False)
+            else:
+                kpos = args[4]
+                work = decode_work(kpos, qp, hq, hkv, d)
+            span = kpos.shape[1]
+            record("paged_decode_attention" if paged
+                   else "int8_kv_decode_attention",
+                   f"rows T={tr} B={b} S={span} Hq={hq} Hkv={hkv} D={d}",
+                   max_err(out[live], ref[live]), False,
+                   timer(lambda: rows(q, *args, qp), iters=5),
+                   timer(lambda: plain_rows(q, *args, qp), iters=1, warmup=0),
+                   None, bound(*work, F32_OPS),
+                   "bit-equal row by row to T = 1 launches")
+            del out, ref
+            torch.cuda.empty_cache()
+
+
+# int8_flash_attention's streaming form: (B, T, H, Hkv, D) of causal
+# sequences past the block form's keys — codeqwen1.5-7b's heads at the
+# 4096-token forward of phase 6, 8192 keys at fewer heads (the plain version
+# holds several [B, H, T, T] int32 tensors), and zamba2-2.7b's at head dim 80
+STREAM_SHAPES = ((1, 4096, 32, 32, 128), (1, 8192, 4, 4, 128),
+                 (1, 4096, 32, 32, 80))
 
 
 def check_streaming_attention(dev, gen, timer, record, randn) -> None:
@@ -536,12 +753,11 @@ def check_streaming_attention(dev, gen, timer, record, randn) -> None:
         ATOL, RTOL, int8_attention_probs_ref, int8_flash_attention,
         int8_flash_attention_ref, streams)
     from repro_torch.models.attention import int_score_scale
-    d = 128
-    sc = int_score_scale(d)
-    for b, t, h, hkv in STREAM_SHAPES:
+    for b, t, h, hkv, d in STREAM_SHAPES:
+        sc = int_score_scale(d)
         if not streams(t, d):
             raise AssertionError(f"{t} keys should take the streaming form")
-        q, k, v, v_s = int_attention_inputs(randn, h, hkv, b, t)
+        q, k, v, v_s = int_attention_inputs(randn, h, hkv, b, t, d)
         what = f"int8_flash_attention streaming B={b} T={t} H={h} Hkv={hkv}"
         before = LAUNCHES["int8_flash_attention.streaming"]
         p_out = torch.empty((b, h, t, t), dtype=torch.int8, device=dev)
@@ -981,9 +1197,30 @@ REDUCED_PATHS = (
 )
 
 
-def check_reduced(dev, seed, arch: str, precision: str, must_launch) -> float:
+def card_order_step(params, cfg, tokens, positions, states, last_idx):
+    """``packed_step`` with the int8-cache attention in the card's order
+    (``forward(card_order=True)``): on the CPU, each row through the decode
+    kernels' plain versions (ROADMAP C8)."""
+    from repro_torch.models import forward
+    lg, states = forward(params, cfg, tokens, positions, states,
+                         card_order=True)
+    return lg[torch.arange(lg.shape[0]), last_idx], states
+
+
+def check_reduced(dev, seed, arch: str, precision: str, must_launch,
+                  main: bool = True) -> dict:
+    """The reduced model's packed steps (a t = 16 step of mixed lengths,
+    then t = 1 steps) on the CPU (plain versions, the reference's ``_sdpa``
+    order), on the CPU in the card's order (``card_order_step``) and on the
+    card (kernels; the t = 16 step through the decode kernel's multi-row
+    form).  At every seed the card must equal the card-order CPU bit for bit
+    at W8A8/W4A8, and lie within ``CARD_ORDER_TOL`` of it at bf16; at the
+    ``main`` seed it must also lie within ``REDUCED_TOL`` of the ``_sdpa``
+    CPU, with greedy agreement where the margin is clear.  Returns the
+    worst relative differences."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.kernels.common import LAUNCHES
     from repro_torch.models import init_params, init_states
     from repro_torch.quant import quantize_for
     from repro_torch.serve import packed_step
@@ -993,43 +1230,58 @@ def check_reduced(dev, seed, arch: str, precision: str, must_launch) -> float:
     gpu = copy.deepcopy(cpu).to(dev)
     lanes, t = 4, 16
     st_c = init_states(cfg, lanes, 64, int8_kv=True, device="cpu")
+    st_o = init_states(cfg, lanes, 64, int8_kv=True, device="cpu")
     st_g = init_states(cfg, lanes, 64, int8_kv=True, device=dev)
     rng = np.random.default_rng(seed)
     lens = np.array([16, 9, 3, 12])
     tok = rng.integers(2, cfg.vocab_size, size=(lanes, t))
     pos = np.where(np.arange(t)[None] < lens[:, None], np.arange(t)[None], -1)
     last = lens - 1
-    worst = 0.0
+    worst = {"sdpa": 0.0, "card_order": 0.0}
     before = ops.launch_counts()
+    rows_before = LAUNCHES["int8_kv_decode_attention.rows"]
     for step in range(6):
         args = [torch.from_numpy(a) for a in (tok.astype(np.int64),
                                               pos.astype(np.int32),
                                               last.astype(np.int64))]
         lc, _ = packed_step(cpu, cfg, args[0], args[1], st_c, args[2])
+        lo, _ = card_order_step(cpu, cfg, args[0], args[1], st_o, args[2])
         lg, _ = packed_step(gpu, cfg, args[0].to(dev), args[1].to(dev), st_g,
                             args[2].to(dev))
         lg = lg.cpu()
         err = float((lc - lg).abs().max())
         rel = err / float(lc.abs().max())
-        worst = max(worst, rel)
-        log(f"  step {step} (T={tok.shape[1]}): max |cpu - cuda| = {err:.4g} "
-            f"({rel:.3%} of max|logit|)")
-        if not (torch.isfinite(lg).all() and rel <= REDUCED_TOL):
-            raise AssertionError(f"reduced {arch} {precision}: CUDA logits "
-                                 f"differ from the CPU plain path by "
-                                 f"{rel:.3%} (> {REDUCED_TOL:.0%})")
-        top2 = lc.topk(2, dim=-1).values
-        clear = (top2[:, 0] - top2[:, 1]) > 2 * err
-        if not torch.equal(lc.argmax(-1)[clear], lg.argmax(-1)[clear]):
-            raise AssertionError(f"reduced {arch} {precision}: greedy tokens "
-                                 f"differ where the CPU margin is clear")
-        # next step: every lane decodes the CPU argmax (same tokens on both)
+        rel_o = float((lo - lg).abs().max()) / float(lo.abs().max())
+        worst["sdpa"] = max(worst["sdpa"], rel)
+        worst["card_order"] = max(worst["card_order"], rel_o)
+        log(f"  seed {seed} step {step} (T={tok.shape[1]}): max |cpu - cuda| "
+            f"= {err:.4g} ({rel:.3%} of max|logit|); card order "
+            f"{rel_o:.3%}")
+        limit = CARD_ORDER_TOL if precision == "bf16" else 0.0
+        if not (torch.isfinite(lg).all() and rel_o <= limit):
+            raise AssertionError(f"reduced {arch} {precision} seed {seed}: "
+                                 f"CUDA logits differ from the card-order "
+                                 f"CPU path by {rel_o:.3%} (> {limit:.1%})")
+        if main:
+            if rel > REDUCED_TOL:
+                raise AssertionError(f"reduced {arch} {precision}: CUDA "
+                                     f"logits differ from the CPU plain path "
+                                     f"by {rel:.3%} (> {REDUCED_TOL:.0%})")
+            top2 = lc.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * err
+            if not torch.equal(lc.argmax(-1)[clear], lg.argmax(-1)[clear]):
+                raise AssertionError(f"reduced {arch} {precision}: greedy "
+                                     f"tokens differ where the CPU margin is "
+                                     f"clear")
+        # next step: every lane decodes the CPU argmax (same tokens on all)
         nxt = lc.argmax(-1).numpy()
         tok = nxt[:, None]
         pos = (pos.max(1) + 1)[:, None]
         last = np.zeros(lanes, np.int64)
     after = ops.launch_counts()
     idle = [k for k in must_launch if after[k] <= before[k]]
+    if LAUNCHES["int8_kv_decode_attention.rows"] <= rows_before:
+        idle.append("int8_kv_decode_attention.rows")
     if idle:
         raise AssertionError(f"reduced {arch} {precision} steps did not reach "
                              f"{idle}")
@@ -1109,7 +1361,8 @@ def check_reduced_paged(dev, seed) -> float:
 # (arch, precision) of the reduced no-cache forwards
 REDUCED_NO_CACHE = (("starcoder2-3b", "bf16"), ("starcoder2-3b", "w8a8"),
                     ("codeqwen1.5-7b", "bf16"), ("codeqwen1.5-7b", "w8a8"),
-                    ("codeqwen1.5-7b", "w4a8"))
+                    ("codeqwen1.5-7b", "w4a8"), ("zamba2-2.7b", "bf16"),
+                    ("zamba2-2.7b", "w8a8"), ("zamba2-2.7b", "w4a8"))
 
 
 # (arch, its integer activation kernel) of the reduced integer-nonlinearity
@@ -1163,12 +1416,87 @@ def check_reduced_no_cache(dev, seed, arch: str, precision: str,
     if not torch.equal(lc.argmax(-1)[clear], lg.argmax(-1)[clear]):
         raise AssertionError(f"reduced {arch} {precision} no-cache: greedy "
                              f"tokens differ where the CPU margin is clear")
-    for kernel in (no_cache_kernel(precision), act_kernel):
-        if kernel is not None and counts[kernel] != cfg.n_layers:
+    n_attn, n_mamba = layer_counts(cfg)
+    want = {no_cache_kernel(precision): n_attn, "ssd_scan": n_mamba}
+    if act_kernel is not None:
+        want[act_kernel] = cfg.n_layers
+    for kernel, n in want.items():
+        if counts[kernel] != n:
             raise AssertionError(f"reduced {arch} {precision} no-cache: "
-                                 f"{kernel} launched {counts[kernel]} times "
-                                 f"for {cfg.n_layers} layers")
+                                 f"{kernel} launched {counts[kernel]} times, "
+                                 f"want {n} (one per layer of its kind)")
     return rel
+
+
+def check_reduced_states(dev, seed, main: bool = True) -> dict:
+    """zamba2-2.7b-reduced at W8A8 with an int8 KV cache, the forward with
+    states: a prefill of 16 tokens per lane (t > 1: the Mamba-2 scan through
+    ssd_scan, the shared attention's rows through the decode kernel's
+    multi-row form) then 4 single-token steps (the one-step state update,
+    the decode kernel), each feeding the CPU's greedy token, on the CPU
+    (plain versions; and in the card's order) and on the card.  The same
+    limits as ``check_reduced`` (``REDUCED_TOL`` and greedy agreement at the
+    ``main`` seed), and ``STATES_TOL`` against the card-order CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.models import forward, init_params, init_states
+    from repro_torch.quant import quantize_for
+
+    cfg = get_config("zamba2-2.7b", precision="w8a8", reduced=True)
+    cpu = quantize_for(init_params(cfg, seed=seed, device="cpu"), "w8a8")
+    gpu = copy.deepcopy(cpu).to(dev)
+    lanes, t = 4, 16
+    sts = {k: init_states(cfg, lanes, 64, int8_kv=True,
+                          device=dev if k == "gpu" else "cpu")
+           for k in ("cpu", "order", "gpu")}
+    tok = torch.from_numpy(np.random.default_rng(seed).integers(
+        2, cfg.vocab_size, size=(lanes, t)))
+    pos = torch.arange(t, dtype=torch.int32).expand(lanes, t)
+    worst = {"sdpa": 0.0, "card_order": 0.0}
+    ops.reset_launch_counts()
+    rows_before = LAUNCHES["int8_kv_decode_attention.rows"]
+    for step in range(5):
+        lc, sts["cpu"] = forward(cpu, cfg, tok, pos, sts["cpu"])
+        lo, sts["order"] = forward(cpu, cfg, tok, pos, sts["order"],
+                                   card_order=True)
+        lg, sts["gpu"] = forward(gpu, cfg, tok.to(dev), pos.to(dev),
+                                 sts["gpu"])
+        lc, lo, lg = lc[:, -1], lo[:, -1], lg[:, -1].cpu()
+        err = float((lc - lg).abs().max())
+        rel = err / float(lc.abs().max())
+        rel_o = float((lo - lg).abs().max()) / float(lo.abs().max())
+        worst["sdpa"] = max(worst["sdpa"], rel)
+        worst["card_order"] = max(worst["card_order"], rel_o)
+        log(f"  step {step} (T={tok.shape[1]}): max |cpu - cuda| = {err:.4g} "
+            f"({rel:.3%} of max|logit|); card order {rel_o:.3%}")
+        if not (torch.isfinite(lg).all() and rel_o <= STATES_TOL):
+            raise AssertionError(f"reduced zamba2 w8a8 with states seed "
+                                 f"{seed}: CUDA logits differ from the "
+                                 f"card-order CPU by {rel_o:.3g} of the "
+                                 f"range (> {STATES_TOL:g})")
+        top2 = lc.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * err
+        if main and not (rel <= REDUCED_TOL and torch.equal(
+                lc.argmax(-1)[clear], lg.argmax(-1)[clear])):
+            raise AssertionError(f"reduced zamba2 w8a8 with states: CUDA "
+                                 f"logits differ from the CPU by {rel:.3%} "
+                                 f"(> {REDUCED_TOL:.0%}), or greedy tokens "
+                                 f"where the CPU margin is clear")
+        tok = lc.argmax(-1)[:, None]
+        pos = pos[:, -1:] + 1
+    counts = ops.launch_counts()
+    n_attn, n_mamba = layer_counts(cfg)
+    if not (counts["ssd_scan"] == n_mamba
+            and counts["int8_kv_decode_attention"] == 5 * n_attn
+            and LAUNCHES["int8_kv_decode_attention.rows"] - rows_before
+            == n_attn):
+        raise AssertionError(f"reduced zamba2 with states: launches {counts}, "
+                             f"{LAUNCHES['int8_kv_decode_attention.rows']} "
+                             f"multi-row; want ssd_scan {n_mamba} (prefill), "
+                             f"the decode kernel {n_attn} x 5 of which "
+                             f"{n_attn} multi-row")
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -1284,7 +1612,7 @@ def decode_step_launches(params, cfg, dev, paged: bool) -> dict:
 
 
 def serve_full(dev, seed, arch, precision, n_req, max_new, profiled,
-               must_launch, paged: bool = False) -> dict:
+               must_launch, paged: bool = False, buckets=(1, 64)) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.quant import quantize_for
     from repro_torch.models import init_params
@@ -1307,7 +1635,7 @@ def serve_full(dev, seed, arch, precision, n_req, max_new, profiled,
                                                              False))
     if profiled:
         res["profile"] = {f"bucket{t}": profile_step(params, cfg, dev, t)
-                          for t in (1, 64)}
+                          for t in buckets}
     if paged:
         res["paged"] = serve_paged(dev, seed, cfg, params, requests, tokens,
                                    must_launch)
@@ -1403,11 +1731,12 @@ def serve_paged(dev, seed, cfg, params, requests, dense_tokens,
     against its source, each resumed lane's pages against what they held
     before it was preempted, bit for bit.
 
-    Drains 2 and 3 change the batch composition (a lane's step can move
-    between the decode kernel and _sdpa), so their tokens are compared
-    with a dense and an unpressured run of the same requests and the
-    differing tokens reported, not required equal.  ``pool.check()`` holds
-    after each paged drain."""
+    Drains 2 and 3 change the batch composition (a lane's rows move
+    between packed t > 1 steps and t == 1 steps); every int8-cache row runs
+    the decode kernel's arithmetic at its position either way (the
+    multi-row form, ROADMAP C3), so their tokens must equal those of a
+    dense and an unpressured run of the same requests: 0 differences.
+    ``pool.check()`` holds after each paged drain."""
     from repro_torch.serve import ServeConfig, ServingEngine
     paged_must = tuple(k for k in must_launch
                        if k != "int8_kv_decode_attention") + (
@@ -1464,7 +1793,11 @@ def serve_paged(dev, seed, cfg, params, requests, dense_tokens,
     ref, ref_tok = timed_drain(engine(), waves, dev, cfg)
     res.update(tokens_differ=count_diff(tok, ref_tok),
                compared_with="the same waves served dense",
-               reference=ref)
+               equal_required=True, reference=ref)
+    if res["tokens_differ"]:
+        raise AssertionError(f"shared-prefix drain: {res['tokens_differ']} "
+                             f"tokens differ from the same waves served "
+                             f"dense")
 
     # 3. pressure: a pool of mp + 2 pages for 8 long prompts
     pressure = [(rng.integers(2, cfg.vocab_size, size=int(
@@ -1479,7 +1812,11 @@ def serve_paged(dev, seed, cfg, params, requests, dense_tokens,
                                [pressure], dev, cfg)
     res.update(tokens_differ=count_diff(tok, ref_tok),
                compared_with="the same requests on the default pool",
-               reference=ref)
+               equal_required=True, reference=ref)
+    if res["tokens_differ"]:
+        raise AssertionError(f"pressure drain: {res['tokens_differ']} tokens "
+                             f"differ from the same requests on the default "
+                             f"pool")
     return out
 
 
@@ -1504,15 +1841,94 @@ def profile_step(params, cfg, dev, t: int, paged: bool = False) -> dict:
     return profile_summary(prof, wall_ms)
 
 
+def prefill_attention(dev, seed) -> dict:
+    """The cache attention of one bucket-256 prefill step at the serving
+    paths' widths (8 lanes of 1024 slots, each lane's first prompt of
+    16-256 tokens from ``seed`` at positions 0.., pads at -1, the cache
+    holding what the step wrote), at starcoder2-3b's heads and
+    codeqwen1.5-7b's: device ms (CUDA events, cold L2) of the reference's
+    t > 1 path (``_read_cache`` then ``_sdpa``) and, where the port has it,
+    of the decode kernels' multi-row form."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import _quant_kv, _read_cache, _sdpa
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    timer = Timer(dev)
+    b, s, t, d = 8, 1024, 256, 128
+    fill = torch.from_numpy(np.random.default_rng(seed).integers(
+        16, t + 1, size=b)).to(dev)
+    slot = torch.arange(s, device=dev)
+    pos_ids = torch.where(slot[None] < fill[:, None], slot[None],
+                          -1).to(torch.int32)
+    qpos = pos_ids[:, :t].contiguous()
+    res = {"fill": fill.tolist()}
+    for label, hq, hkv in (("starcoder2-3b", 24, 2), ("codeqwen1.5-7b", 32, 32)):
+        cache = {}
+        cache["k"], cache["k_s"] = _quant_kv(
+            torch.randn((b, s, hkv, d), generator=gen, device=dev))
+        cache["v"], cache["v_s"] = _quant_kv(
+            torch.randn((b, s, hkv, d), generator=gen, device=dev))
+        cache["pos_ids"] = pos_ids
+        q = torch.randn((b, t, hq, d), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        scale = 1.0 / d ** 0.5
+
+        def sdpa():
+            kc, vc = _read_cache(cache, torch.bfloat16)
+            return _sdpa(q, kc, vc, qpos, pos_ids, scale, torch.bfloat16,
+                         causal=True, valid=pos_ids >= 0)
+        row = {"sdpa_ms": timer(sdpa)}
+        if hasattr(ops, "decode_attention_int8kv_rows"):
+            row["rows_ms"] = timer(lambda: ops.decode_attention_int8kv_rows(
+                q, cache["k"], cache["k_s"], cache["v"], cache["v_s"],
+                pos_ids, qpos, scale=scale))
+        res[label] = row
+        log(f"  {label} bucket-256 prefill attention: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in row.items()))
+    return res
+
+
+def serve_only(dev, seed) -> dict:
+    """The dense starcoder2-3b w8a8 and codeqwen1.5-7b w4a8 drains of phase
+    5, each with a bucket-1, 64 and 256 step profiled, then
+    ``prefill_attention``: what two trees of the port are compared on."""
+    out = {}
+    for (label, arch, precision, n_req, max_new, _, must,
+         _) in SERVE_PATHS[:2]:
+        log(f"[5/6] serve full-width {label} int8-KV: {n_req} requests x "
+            f"{max_new} new tokens")
+        srv = out[label] = serve_full(dev, seed, arch, precision, n_req,
+                                      max_new, True, must,
+                                      buckets=(1, 64, 256))
+        gc.collect()
+        torch.cuda.empty_cache()
+        log_drain(srv)
+        log_profile(srv)
+    out["prefill attention"] = prefill_attention(dev, seed)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 6: the full-width no-cache forward (lm_loss, calibrate_ptq)
 # ---------------------------------------------------------------------------
 
 # (arch, precisions of the lm_loss forwards, calibrate first); "w8a8-float"
 # is the integer-nonlinearity forward: a w8a8 config over float parameters
+# (arch, precisions of the lm_loss forwards, calibrate first, then a w8a8
+# lm_loss on 1 x LONG_T tokens)
 NO_CACHE_PATHS = (("codeqwen1.5-7b", ("bf16", "w8a8", "w4a8", "w8a8-float"),
-                   True),
-                  ("starcoder2-3b", ("bf16", "w8a8", "w8a8-float"), False))
+                   True, True),
+                  ("starcoder2-3b", ("bf16", "w8a8", "w8a8-float"), False,
+                   False),
+                  ("zamba2-2.7b", ("bf16", "w8a8", "w4a8"), True, False))
+
+
+def layer_counts(cfg) -> tuple[int, int]:
+    """(attention layers, Mamba-2 layers) of a config: the launches of the
+    no-cache attention kernel and of ssd_scan per forward."""
+    from repro_torch.models.blocks import ATTN_KINDS
+    kinds = cfg.block_kinds
+    return (sum(k in ATTN_KINDS for k in kinds),
+            sum(k == "mamba2" for k in kinds))
 ACT_KERNEL = dict(REDUCED_MIXED)
 CAL_B, CAL_T = 2, 128                      # calibration set: 2 x 128 tokens
 LONG_T = 4096          # one codeqwen w8a8 sequence past the block form's keys
@@ -1523,10 +1939,11 @@ def no_cache_loss(params, cfg, dev, tokens, profiled: bool,
     """``lm_loss`` of one forward over ``tokens`` with next-token labels
     (the last position masked): the loss, wall time, tokens/s, peak memory
     and the launches of the forward (zeroed just before, read just after);
-    the attention kernel must have launched exactly once per layer, in the
-    streaming form exactly when the sequence is past the block form's keys,
-    and so must ``act_kernel`` where given.  With ``profiled``, a second
-    forward under torch.profiler."""
+    the attention kernel must have launched exactly once per attention
+    layer, in the streaming form exactly when the sequence is past the block
+    form's keys, ssd_scan once per Mamba-2 layer, and ``act_kernel`` once
+    per layer where given.  With ``profiled``, a second forward under
+    torch.profiler."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.common import LAUNCHES
     from repro_torch.kernels.int8_flash_attention import streams
@@ -1544,12 +1961,17 @@ def no_cache_loss(params, cfg, dev, tokens, profiled: bool,
     other = ({"flash_attention", "int8_flash_attention"} - {kernel}).pop()
     if not (np.isfinite(loss) and loss > 0):
         raise AssertionError(f"{cfg.name} {cfg.precision} lm_loss = {loss}")
-    if counts[kernel] != cfg.n_layers or counts[other]:
+    n_attn, n_mamba = layer_counts(cfg)
+    if counts[kernel] != n_attn or counts[other]:
         raise AssertionError(f"{cfg.name} {cfg.precision} lm_loss forward: "
                              f"{kernel} launched {counts[kernel]} times for "
-                             f"{cfg.n_layers} layers ({other}: "
+                             f"{n_attn} attention layers ({other}: "
                              f"{counts[other]})")
-    want_streamed = (cfg.n_layers if kernel == "int8_flash_attention"
+    if counts["ssd_scan"] != n_mamba:
+        raise AssertionError(f"{cfg.name} {cfg.precision} lm_loss forward: "
+                             f"ssd_scan launched {counts['ssd_scan']} times "
+                             f"for {n_mamba} Mamba-2 layers")
+    want_streamed = (n_attn if kernel == "int8_flash_attention"
                      and streams(tokens.shape[1], cfg.head_dim) else 0)
     if streamed != want_streamed:
         raise AssertionError(f"{cfg.name} {cfg.precision} lm_loss forward: "
@@ -1587,8 +2009,8 @@ def calibrate(params, cfg, dev, seed) -> dict:
     """``calibrate_ptq`` with the reference's default grid (W4_GROUPS x
     W4_CLIPS for the attn and mlp classes) over CAL_B x CAL_T calibration
     tokens from ``seed``: the chosen policy, every candidate's score, the
-    wall time, and B11 launched once per layer on each of its 19
-    forwards."""
+    wall time, and B11 launched once per attention layer (B16 once per
+    Mamba-2 layer) on each of its 19 forwards."""
     from repro_torch.kernels import ops
     from repro_torch.models import forward
     from repro_torch.quant import W4_CLIPS, W4_GROUPS, calibrate_ptq
@@ -1606,10 +2028,14 @@ def calibrate(params, cfg, dev, seed) -> dict:
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     n_fwd = 1 + 2 * len(W4_GROUPS) * len(W4_CLIPS)
-    if counts["int8_flash_attention"] != n_fwd * cfg.n_layers:
+    n_attn, n_mamba = layer_counts(cfg)
+    if (counts["int8_flash_attention"] != n_fwd * n_attn
+            or counts["ssd_scan"] != n_fwd * n_mamba):
         raise AssertionError(f"calibrate_ptq: int8_flash_attention launched "
-                             f"{counts['int8_flash_attention']} times for "
-                             f"{n_fwd} forwards of {cfg.n_layers} layers")
+                             f"{counts['int8_flash_attention']} times and "
+                             f"ssd_scan {counts['ssd_scan']} for {n_fwd} "
+                             f"forwards of {n_attn} attention and {n_mamba} "
+                             f"Mamba-2 layers")
     for cls in ("attn", "mlp"):
         if not all(np.isfinite(c["mse"]) for c in report[cls]["scores"]):
             raise AssertionError(f"calibrate_ptq {cls}: non-finite scores")
@@ -1619,16 +2045,15 @@ def calibrate(params, cfg, dev, seed) -> dict:
             "launches": counts}
 
 
-def no_cache_full(dev, seed, arch, precisions, calibrated) -> dict:
+def no_cache_full(dev, seed, arch, precisions, calibrated, long_w8a8) -> dict:
     """Phase 6 for one model: float parameters from ``seed`` at full width
     and depth, then ``lm_loss`` on NC_B x NC_T random tokens at each
     precision (each integer model quantized from the float one and freed
     before the next; "w8a8-float" runs the w8a8 config over the float
-    parameters) and, first, ``calibrate_ptq``; for the calibrated model
-    (codeqwen) last a w8a8 ``lm_loss`` on 1 x LONG_T tokens, whose attention
-    takes int8_flash_attention's streaming form.  Returns {path label:
-    result}."""
-    long_w8a8 = calibrated
+    parameters) and, first, ``calibrate_ptq`` where ``calibrated``; with
+    ``long_w8a8`` last a w8a8 ``lm_loss`` on 1 x LONG_T tokens, whose
+    attention takes int8_flash_attention's streaming form.  Returns {path
+    label: result}."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.quant import DEFAULT_W4_POLICY, quantized_copy
@@ -1826,12 +2251,20 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the detailed results to this JSON file")
+    ap.add_argument("--src", type=Path, default=ROOT / "src",
+                    help="the source tree of the port to drive (default: "
+                    "this checkout's; another tree is compared with it)")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="build, then only the dense starcoder2-3b w8a8 and "
+                    "codeqwen1.5-7b w4a8 drains with bucket-1/64/256 "
+                    "profiles and a bucket-256 prefill's cache attention "
+                    "(serve_only); prints their summary and no ok line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — the port's kernels run only on the "
               "card", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(args.src.resolve()))
     from repro_torch.kernels import build, ops
 
     t_start = time.perf_counter()
@@ -1853,6 +2286,22 @@ def main() -> int:
                 if "registers" in ln or "Compiling entry" in ln]
         log(f"  {name}: {info['seconds']:.1f}s; " + " | ".join(regs))
 
+    if args.serve_only:
+        res = serve_only(dev, args.seed)
+        if args.out is not None:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(json.dumps({"card": smi, "src": str(
+                args.src), "serve": res}, indent=1))
+        print(json.dumps({"serve_only": {
+            label: ({k: r["metrics"][k] for k in ("ttft_p50_ms", "tpot_p50_ms")}
+                    | {"tok_s": r["generated_tok_per_s"],
+                       "profile": {k: (v["wall_ms"], v["device_busy_ms"])
+                                   for k, v in r["profile"].items()}}
+                    if "metrics" in r else r)
+            for label, r in res.items()}}))
+        print(smi)
+        return 0
+
     log("[3/6] kernels vs plain versions on the card")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     cases = check_kernels(dev, gen, Timer(dev))
@@ -1860,10 +2309,18 @@ def main() -> int:
 
     worst = {}
     for arch, precision, must in REDUCED_PATHS:
-        log(f"[4/6] {arch}-reduced {precision} int8-KV: CPU plain vs CUDA "
-            f"kernels")
-        worst[f"{arch} {precision}"] = check_reduced(dev, args.seed, arch,
-                                                     precision, must)
+        log(f"[4/6] {arch}-reduced {precision} int8-KV: CPU plain (and in "
+            f"the card's order, seeds {args.seed}..{args.seed + SEEDS - 1}) "
+            f"vs CUDA kernels")
+        for k in range(SEEDS):
+            worst[f"{arch} {precision} seed {args.seed + k}"] = check_reduced(
+                dev, args.seed + k, arch, precision, must, main=k == 0)
+    log("[4/6] zamba2-2.7b-reduced w8a8 int8-KV forward with states "
+        "(prefill through ssd_scan and the multi-row decode form, then "
+        "t = 1 steps): CPU plain vs CUDA kernels")
+    for k in range(SEEDS):
+        worst[f"zamba2-2.7b w8a8 states seed {args.seed + k}"] = (
+            check_reduced_states(dev, args.seed + k, main=k == 0))
     log("[4/6] codeqwen1.5-7b-reduced w4a8 paged int8 arena: CPU plain vs "
         "CUDA kernels, paged vs dense on the card")
     worst["codeqwen1.5-7b w4a8 paged"] = check_reduced_paged(dev, args.seed)
@@ -1915,12 +2372,12 @@ def main() -> int:
                 log_drain(drain["reference"])
 
     no_cache = {}
-    for arch, precisions, calibrated in NO_CACHE_PATHS:
+    for arch, precisions, calibrated, long_w8a8 in NO_CACHE_PATHS:
         log(f"[6/6] full-width {arch} no-cache forward: lm_loss on {NC_B} x "
             f"{NC_T} tokens at {', '.join(precisions)}"
             + (", after calibrate_ptq" if calibrated else ""))
         no_cache.update(no_cache_full(dev, args.seed, arch, precisions,
-                                      calibrated))
+                                      calibrated, long_w8a8))
     log("[6/6] the integer library's entry points (Table II shapes) and "
         "the ViT-B/16 patch embed")
     no_cache["integer library"] = int_library_entry(dev, args.seed)
@@ -1988,6 +2445,15 @@ def main() -> int:
                 "v_scale starcoder B=4 T=1024 H=24 Hkv=2 D=128"},
         f"codeqwen1.5-7b w8a8 lm_loss 1x{LONG_T}": {"int8_flash_attention":
             f"streaming v_scale B=1 T={LONG_T} H=32 Hkv=32 D=128"},
+        # zamba2-2.7b's no-cache forwards: the scan and the shared
+        # attention at head dim 80
+        **{f"zamba2-2.7b {prec} lm_loss": {
+            "ssd_scan": f"B={Z_B} T={Z_T} H={Z_H} P={Z_P} N={Z_N} L={Z_L}",
+            **({"flash_attention": "bf16 zamba2 B=4 T=1024 H=32 Hkv=32 D=80"}
+               if prec == "bf16" else {"int8_flash_attention":
+                                       "v_scale zamba2 B=4 T=1024 H=32 "
+                                       "Hkv=32 D=80"})}
+           for prec in ("bf16", "w8a8", "w4a8")},
         # the Table II entry points and the patch embed
         "integer library": {
             "int8_conv2d": "[32,14,14,768]x[1,1,768,768] int32",
@@ -2013,7 +2479,8 @@ def main() -> int:
                "int_gelu": ("int_gelu.cu", "int_gelu.py:61"),
                "int_silu": ("int_silu.cu", "int_silu.py:48"),
                "requantize_i32": ("requantize.cu", "quantize.py:111"),
-               "int8_conv2d": ("int8_conv2d.cu", "conv2d.py:51")}
+               "int8_conv2d": ("int8_conv2d.cu", "conv2d.py:51"),
+               "ssd_scan": ("ssd_scan.cu", "ssd_scan.py:70")}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_note")
 

@@ -1,8 +1,9 @@
 """Config registry: --arch <id> -> ArchConfig.
 
 Mirrors ``repro.configs.get_config``.  The port serves starcoder2-3b and
-codeqwen1.5-7b so far; every other architecture raises until its slice
-lands (ROADMAP.md §A).
+codeqwen1.5-7b, and runs zamba2-2.7b's forward (no cache, or with states;
+its serving waits for the tokenwise schedule, ROADMAP.md §A1); every other
+architecture raises until its slice lands (ROADMAP.md §A).
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import importlib
 
 from ..models.config import ArchConfig
 
-ARCH_IDS = ["starcoder2-3b", "codeqwen1.5-7b"]
+ARCH_IDS = ["starcoder2-3b", "codeqwen1.5-7b", "zamba2-2.7b"]
 
 
 def _module_name(arch_id: str) -> str:

@@ -3,12 +3,16 @@ modules, and back.
 
 ``from_reference`` takes ``jax.device_get(params)`` of
 ``repro.models.init_params`` (optionally after ``ptq_quantize_params``): a
-dict with ``embed``, ``final_norm``, ``unembed`` and ``periods[0]``, whose
-leaves are stacked over layers.  It unstacks them into one ``Block`` per
-layer and carries float leaves, the ``{w_q, scale}`` and ``{w4, qmul,
-scale}`` PTQ dicts, the gated MLP's ``w_gate`` and the f32 embed/unembed
-over unchanged.  ``to_reference`` is its inverse (the same
-numpy tree layout), so a round trip reproduces the tree exactly.
+dict with ``embed``, ``final_norm``, ``periods`` (one entry per position of
+the block pattern, each leaf stacked over the ``n_periods`` repetitions;
+None at a ``shared_attn`` position), ``shared`` (the one ``shared_attn``
+block, unstacked) and ``unembed`` (absent with tied embeddings).  It
+unstacks them into one block per layer — the shared block built once and
+placed at each of its positions — and carries float leaves, the ``{w_q,
+scale}`` and ``{w4, qmul, scale}`` PTQ dicts, the gated MLP's ``w_gate``,
+the Mamba-2 vectors and the f32 embed/unembed over unchanged.
+``to_reference`` is its inverse (the same numpy tree layout), so a round
+trip reproduces the tree exactly.
 
 This module speaks numpy and torch only; the tests hand it the reference's
 arrays.
@@ -20,20 +24,28 @@ import torch
 
 from .kernels.common import resolve_device
 from .models.attention import Attention
-from .models.blocks import Block
+from .models.blocks import Block, MambaBlock
 from .models.config import ArchConfig
 from .models.layers import Linear, Norm
 from .models.lm import LM
 from .models.mlp import MLP
+from .models.ssm import Mamba2
+
+_MAMBA_VECTORS = ("conv_w", "conv_b", "A_log", "D", "dt_bias", "norm_scale")
+_KINDS = ("attn", "shared_attn", "mamba2")
 
 
 def _t(a, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(dev)
 
 
+def _pick(i):
+    """Layer ``i`` of a stacked leaf (i=None: unstacked)."""
+    return (lambda a: a) if i is None else (lambda a: a[i])
+
+
 def _linear(leaf, i, dev) -> Linear:
-    """Layer ``i`` of a stacked weight leaf (i=None: unstacked)."""
-    pick = (lambda a: a) if i is None else (lambda a: a[i])
+    pick = _pick(i)
     if isinstance(leaf, dict):
         return Linear(**{k: _t(pick(v), dev) for k, v in leaf.items()})
     return Linear(_t(pick(leaf), dev))
@@ -41,38 +53,58 @@ def _linear(leaf, i, dev) -> Linear:
 
 def _norm(leaf, i, d, norm_type, dev) -> Norm:
     n = Norm(d, norm_type, dev)
-    pick = (lambda a: a) if i is None else (lambda a: a[i])
+    pick = _pick(i)
     n.scale.copy_(_t(pick(leaf["scale"]), dev))
     if n.bias is not None:
         n.bias.copy_(_t(pick(leaf["bias"]), dev))
     return n
 
 
+def _attn_block(per: dict, i, cfg: ArchConfig, dev) -> Block:
+    a, m = per["attn"], per["mlp"]
+    d, nt = cfg.d_model, cfg.norm_type
+    pick = _pick(i)
+    bias = {k: (_t(pick(a[k]), dev) if k in a else None)
+            for k in ("bq", "bk", "bv")}
+    attn = Attention(_linear(a["wq"], i, dev), _linear(a["wk"], i, dev),
+                     _linear(a["wv"], i, dev), _linear(a["wo"], i, dev),
+                     **bias)
+    return Block(_norm(per["norm1"], i, d, nt, dev), attn,
+                 _norm(per["norm2"], i, d, nt, dev),
+                 MLP(_linear(m["w_in"], i, dev), _linear(m["w_out"], i, dev),
+                     _linear(m["w_gate"], i, dev) if "w_gate" in m else None))
+
+
+def _mamba_block(per: dict, i, cfg: ArchConfig, dev) -> MambaBlock:
+    m = per["mamba"]
+    pick = _pick(i)
+    return MambaBlock(
+        _norm(per["norm1"], i, cfg.d_model, cfg.norm_type, dev),
+        Mamba2(_linear(m["in_proj"], i, dev), _linear(m["out_proj"], i, dev),
+               *(_t(pick(m[k]), dev) for k in _MAMBA_VECTORS)))
+
+
 def from_reference(tree: dict, cfg: ArchConfig, device=None) -> LM:
     """numpy parameter tree of the reference -> ``LM`` on ``device`` (the
     card unless device='cpu')."""
     dev = resolve_device(device)
-    if cfg.block_pattern != ("attn",) or "shared" in tree:
-        raise NotImplementedError("only the dense 'attn' pattern is ported")
-    per = tree["periods"][0]
-    d, nt = cfg.d_model, cfg.norm_type
+    if not set(cfg.block_pattern) <= set(_KINDS):
+        raise NotImplementedError(f"block pattern {cfg.block_pattern}: the "
+                                  f"port converts {_KINDS}")
+    shared = (_attn_block(tree["shared"], None, cfg, dev)
+              if "shared_attn" in cfg.block_pattern else None)
     layers = []
-    for i in range(cfg.n_layers):
-        a, m = per["attn"], per["mlp"]
-        bias = {k: (_t(a[k][i], dev) if k in a else None)
-                for k in ("bq", "bk", "bv")}
-        attn = Attention(_linear(a["wq"], i, dev), _linear(a["wk"], i, dev),
-                         _linear(a["wv"], i, dev), _linear(a["wo"], i, dev),
-                         **bias)
-        layers.append(Block(_norm(per["norm1"], i, d, nt, dev), attn,
-                            _norm(per["norm2"], i, d, nt, dev),
-                            MLP(_linear(m["w_in"], i, dev),
-                                _linear(m["w_out"], i, dev),
-                                _linear(m["w_gate"], i, dev)
-                                if "w_gate" in m else None)))
+    for i, kind in enumerate(cfg.block_kinds):
+        rep, pos = divmod(i, cfg.period)
+        if kind == "shared_attn":
+            layers.append(shared)
+        elif kind == "mamba2":
+            layers.append(_mamba_block(tree["periods"][pos], rep, cfg, dev))
+        else:
+            layers.append(_attn_block(tree["periods"][pos], rep, cfg, dev))
     return LM(_t(tree["embed"], dev), layers,
-              _norm(tree["final_norm"], None, d, nt, dev),
-              _linear(tree["unembed"], None, dev))
+              _norm(tree["final_norm"], None, cfg.d_model, cfg.norm_type, dev),
+              _linear(tree["unembed"], None, dev) if "unembed" in tree else None)
 
 
 def _leaf(lin: Linear):
@@ -97,21 +129,48 @@ def _norm_leaf(n: Norm) -> dict:
     return out
 
 
-def to_reference(params: LM) -> dict:
-    """``LM`` -> the reference's numpy tree layout (inverse of
-    ``from_reference``)."""
-    blocks = list(params.layers)
-    attn = {k: _stack([_leaf(getattr(b.attn, k)) for b in blocks])
+def _attn_tree(blocks: list[Block], stack) -> dict:
+    attn = {k: stack([_leaf(getattr(b.attn, k)) for b in blocks])
             for k in ("wq", "wk", "wv", "wo")}
     for k in ("bq", "bk", "bv"):
         if getattr(blocks[0].attn, k) is not None:
-            attn[k] = np.stack([getattr(b.attn, k).cpu().numpy() for b in blocks])
-    norms = {k: _stack([_norm_leaf(getattr(b, k)) for b in blocks])
+            attn[k] = stack([getattr(b.attn, k).cpu().numpy() for b in blocks])
+    norms = {k: stack([_norm_leaf(getattr(b, k)) for b in blocks])
              for k in ("norm1", "norm2")}
-    per = {"norm1": norms["norm1"], "attn": attn, "norm2": norms["norm2"],
-           "mlp": {k: _stack([_leaf(getattr(b.mlp, k)) for b in blocks])
-                   for k in ("w_in", "w_out", "w_gate")
-                   if getattr(blocks[0].mlp, k) is not None}}
-    return {"embed": params.embed.detach().cpu().numpy(),
-            "final_norm": _norm_leaf(params.final_norm),
-            "periods": [per], "unembed": _leaf(params.unembed)}
+    return {"norm1": norms["norm1"], "attn": attn, "norm2": norms["norm2"],
+            "mlp": {k: stack([_leaf(getattr(b.mlp, k)) for b in blocks])
+                    for k in ("w_in", "w_out", "w_gate")
+                    if getattr(blocks[0].mlp, k) is not None}}
+
+
+def _mamba_tree(blocks: list[MambaBlock]) -> dict:
+    mamba = {k: _stack([_leaf(getattr(b.mamba, k)) for b in blocks])
+             for k in ("in_proj", "out_proj")}
+    for k in _MAMBA_VECTORS:
+        mamba[k] = np.stack([getattr(b.mamba, k).detach().cpu().numpy()
+                             for b in blocks])
+    return {"norm1": _stack([_norm_leaf(b.norm1) for b in blocks]),
+            "mamba": mamba}
+
+
+def to_reference(params: LM, cfg: ArchConfig | None = None) -> dict:
+    """``LM`` -> the reference's numpy tree layout (inverse of
+    ``from_reference``); ``cfg`` gives the block pattern (default: the
+    dense ``attn`` pattern)."""
+    pattern = ("attn",) if cfg is None else cfg.block_pattern
+    per_pos = [list(params.layers)[pos::len(pattern)]
+               for pos in range(len(pattern))]
+    periods, tree = [], {}
+    for kind, blocks in zip(pattern, per_pos):
+        if kind == "shared_attn":
+            periods.append(None)
+            tree["shared"] = _attn_tree(blocks[:1], lambda xs: xs[0])
+        elif kind == "mamba2":
+            periods.append(_mamba_tree(blocks))
+        else:
+            periods.append(_attn_tree(blocks, _stack))
+    tree.update(embed=params.embed.detach().cpu().numpy(),
+                final_norm=_norm_leaf(params.final_norm), periods=periods)
+    if params.unembed is not None:
+        tree["unembed"] = _leaf(params.unembed)
+    return tree

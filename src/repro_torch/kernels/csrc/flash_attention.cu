@@ -13,7 +13,9 @@
 // warp reads distinct banks; each thread scores 4 rows x 4 keys (``fmaf`` in
 // d order, then ``* scale``), the 16 threads of a row reduce its max and sum
 // with shuffles, and the same thread keeps that row's running (m, l) and its
-// 4 x D/16 slice of the f32 accumulator.  Key tiles wholly above the
+// 4 x D/16 slice of the f32 accumulator.  D is a template argument: any
+// multiple of 16 up to 128 (zamba2-2.7b's 80 among them; 16-byte loads need
+// D % 8 == 0, the accumulator's column split D % 16 == 0).  Key tiles wholly above the
 // diagonal are skipped; masked scores take the reference's -1e30 and their
 // probabilities are exactly 0.  ``expf``, not ``__expf``; the output is
 // acc / max(l, 1e-30) rounded to bf16.
@@ -185,9 +187,12 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   auto* op = static_cast<__nv_bfloat16*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d) {   // the port's head dims: 128, and 16 in the reduced configs
-    case 16: return launch<16>(qp, kp, vp, op, b * h, h, hkv, s, skv, scale, causal, st);
-    case 128: return launch<128>(qp, kp, vp, op, b * h, h, hkv, s, skv, scale, causal, st);
+  switch (d) {   // any head dim that is a multiple of 16 up to 128
+#define REPRO_FA_CASE(D) \
+  case D: return launch<D>(qp, kp, vp, op, b * h, h, hkv, s, skv, scale, causal, st);
+    REPRO_FA_CASE(16) REPRO_FA_CASE(32) REPRO_FA_CASE(48) REPRO_FA_CASE(64)
+    REPRO_FA_CASE(80) REPRO_FA_CASE(96) REPRO_FA_CASE(112) REPRO_FA_CASE(128)
+#undef REPRO_FA_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -31,6 +31,12 @@
 //   block does not fit), follows the TPU kernel's three passes over K — row
 //   max, exp-sum, then the probabilities and PV — recomputing each tile's
 //   scores in every pass (3x the QK^T work) in 27 KB of shared memory.
+// D is a template argument, any multiple of 16 up to 128 (16-byte V loads
+// need D % 16 == 0).  Where D divides the block's 256 threads (16-128 but 48,
+// 80, 96, 112) a thread of the PV pass owns one column of R*D/256 rows; for
+// the others (zamba2-2.7b's 80) it owns R*D/256 outputs of the row-major
+// block, each reading its own V column.  Each output sums key by key in the
+// same order either way.
 //
 // Exactness: the integer scores, exps, sums and probabilities are bit-exact
 // (the exp follows the oracle ``inumerics.i_exp``: the remainder is formed
@@ -78,6 +84,54 @@ __device__ __forceinline__ int prob(int e, int l) {
 // keys of query row ``row`` that are not masked: [0, n_r)
 __device__ __forceinline__ int row_keys(int row, const Params& p) {
   return row >= p.s ? 0 : (p.causal ? min(row + 1, p.skv) : p.skv);
+}
+
+// the PV output i (of R*D/THREADS) of this thread: row and column.  With D
+// dividing THREADS a thread keeps one column of rows tid / D + (THREADS/D)*i;
+// otherwise output i is element tid + THREADS*i of the row-major R x D block.
+template <int D>
+__device__ __forceinline__ int out_row(int i) {
+  if constexpr (THREADS % D == 0) return threadIdx.x / D + (THREADS / D) * i;
+  return (threadIdx.x + THREADS * i) / D;
+}
+template <int D>
+__device__ __forceinline__ int out_col(int i) {
+  if constexpr (THREADS % D == 0) return threadIdx.x % D;
+  return (threadIdx.x + THREADS * i) % D;
+}
+
+// PV of one key tile for a D that does not divide THREADS (80 among them):
+// each of the thread's outputs reads its own V column; per output the sum
+// runs key by key in the same order as the other mapping, so the bits
+// do not depend on it.  ``sc`` holds the probabilities (f32 for VS) at
+// row stride ``stride`` from column ``col0``.
+template <int D, bool VS, int RPT>
+__device__ __forceinline__ void pv_outputs(const int* sc, int stride, int col0,
+                                           const int8_t* vt, const float* vsc,
+                                           float (&facc)[RPT], int (&iacc)[RPT]) {
+#pragma unroll 2
+  for (int j = 0; j < BK; j += 4) {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = out_row<D>(i), d = out_col<D>(i);
+      float vf[4];
+      int vi[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        vi[u] = vt[(j + u) * D + d];
+        if (VS) vf[u] = __fmul_rn(static_cast<float>(vi[u]), vsc[j + u]);
+      }
+      const int4 pw = *reinterpret_cast<const int4*>(sc + r * stride + col0 + j);
+      if (VS) {
+        facc[i] = fmaf(__int_as_float(pw.x), vf[0], facc[i]);
+        facc[i] = fmaf(__int_as_float(pw.y), vf[1], facc[i]);
+        facc[i] = fmaf(__int_as_float(pw.z), vf[2], facc[i]);
+        facc[i] = fmaf(__int_as_float(pw.w), vf[3], facc[i]);
+      } else {
+        iacc[i] += pw.x * vi[0] + pw.y * vi[1] + pw.z * vi[2] + pw.w * vi[3];
+      }
+    }
+  }
 }
 
 // the streaming form's view of one block's tensors and shared memory: one
@@ -190,13 +244,17 @@ struct Stream {
     __syncthreads();
   }
 
-  static constexpr int NRG = THREADS / D;         // row groups of PV
-  static constexpr int RPT = R / NRG;             // rows per thread
-  static_assert(R % NRG == 0, "every thread owns whole rows");
+  static constexpr int NRG = THREADS % D == 0 ? THREADS / D : 1;  // row groups of PV
+  static constexpr int RPT = R * D / THREADS;     // outputs per thread
+  static_assert(R * D % THREADS == 0, "every thread owns whole outputs");
 
   // acc[i] += sum over the tile's keys of p[r][j] * v[j][d], key by key
   template <bool VS>
   __device__ void pv(float (&facc)[RPT], int (&iacc)[RPT]) const {
+    if constexpr (THREADS % D != 0) {
+      pv_outputs<D, VS>(sc, BK, 0, vt, vsc, facc, iacc);
+      return;
+    }
     const int d = threadIdx.x % D, rg = threadIdx.x / D;
 #pragma unroll 2
     for (int j = 0; j < BK; j += 4) {
@@ -225,12 +283,11 @@ struct Stream {
 
   template <bool VS>
   __device__ void store(const float (&facc)[RPT], const int (&iacc)[RPT], const Params& p) const {
-    const int d = threadIdx.x % D, rg = threadIdx.x / D;
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
-      const int row = q0 + rg + NRG * i;
+      const int row = q0 + out_row<D>(i);
       if (row >= p.s) continue;
-      const size_t o = (static_cast<size_t>(bh) * p.s + row) * D + d;
+      const size_t o = (static_cast<size_t>(bh) * p.s + row) * D + out_col<D>(i);
       if (VS)
         static_cast<float*>(p.out)[o] = __fmul_rn(facc[i], p.rcp127);
       else
@@ -347,9 +404,11 @@ int8_attention_kernel(Params p) {
   }
 
   // ---- pass 3: out[r][d] = sum_j p[r][j] * v[j][d] over the block's key tiles ----
-  constexpr int NRG = THREADS / D;                // row groups
-  constexpr int RPT = R / NRG;                    // rows per thread
-  static_assert(R % NRG == 0, "every thread owns whole rows");
+  // (D dividing THREADS: thread tid owns column tid % D of rows tid / D + NRG*i;
+  // otherwise output i of thread tid is (tid + THREADS*i) / D, % D — pv_outputs)
+  constexpr int NRG = THREADS % D == 0 ? THREADS / D : 1;   // row groups
+  constexpr int RPT = R * D / THREADS;            // outputs per thread
+  static_assert(R * D % THREADS == 0, "every thread owns whole outputs");
   const int d = tid % D, rg = tid / D;
   float facc[RPT];
   int iacc[RPT];
@@ -370,6 +429,10 @@ int8_attention_kernel(Params p) {
         vsc[i] = key < p.skv ? p.vs[kvh * p.skv + key] : 0.f;
       }
     __syncthreads();
+    if constexpr (THREADS % D != 0) {
+      pv_outputs<D, VS>(sc, p.skp, kt * BK, vt, vsc, facc, iacc);
+      continue;
+    }
 #pragma unroll 2
     for (int j = 0; j < BK; j += 4) {
       float vf[4];
@@ -396,9 +459,9 @@ int8_attention_kernel(Params p) {
   }
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
-    const int row = q0 + rg + NRG * i;
+    const int row = q0 + out_row<D>(i);
     if (row >= p.s) continue;
-    const size_t o = (static_cast<size_t>(bh) * p.s + row) * D + d;
+    const size_t o = (static_cast<size_t>(bh) * p.s + row) * D + out_col<D>(i);
     if (VS)
       static_cast<float*>(p.out)[o] = __fmul_rn(facc[i], p.rcp127);
     else
@@ -484,9 +547,12 @@ int launch(const Params& p, int bh, int streaming, cudaStream_t st) {
 
 template <bool VS>
 int launch_d(const Params& p, int d, int bh, int streaming, cudaStream_t st) {
-  switch (d) {   // the port's head dims: 128, and 16 in the reduced configs
-    case 16: return launch<16, VS>(p, bh, streaming, st);
-    case 128: return launch<128, VS>(p, bh, streaming, st);
+  switch (d) {   // any head dim that is a multiple of 16 up to 128
+#define REPRO_IFA_CASE(D) \
+  case D: return launch<D, VS>(p, bh, streaming, st);
+    REPRO_IFA_CASE(16) REPRO_IFA_CASE(32) REPRO_IFA_CASE(48) REPRO_IFA_CASE(64)
+    REPRO_IFA_CASE(80) REPRO_IFA_CASE(96) REPRO_IFA_CASE(112) REPRO_IFA_CASE(128)
+#undef REPRO_IFA_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,17 +1,19 @@
-// paged_decode_attention: one query token per lane against the PAGED KV arena,
-// GQA, int8 pages with per-(token, head) f32 scales or bf16 pages.
-//   q [B, Hq, D] bf16|f32; pk/pv [n_pages, ps, Hkv, D] int8 (+ pks/pvs
+// paged_decode_attention: T query rows per lane (T = 1 at decode; the rows of a
+// packed t > 1 step in the multi-row form) against the PAGED KV arena, GQA,
+// int8 pages with per-(token, head) f32 scales or bf16 pages.
+//   q [B, T, Hq, D] bf16|f32; pk/pv [n_pages, ps, Hkv, D] int8 (+ pks/pvs
 //   [n_pages, ps, Hkv, 1] f32) or bf16 (no scales); ppos [n_pages, ps] int32
 //   (-1 = empty slot); pt [B, MP] int32 page table (0 = the null page);
-//   qpos [B] int32 (-1 = idle lane) -> out [B, Hq, D] (q's dtype)
+//   qpos [B, T] int32 (-1 = idle row) -> out [B, T, Hq, D] (q's dtype)
 //
 // Replaces the Pallas kernel ``repro/kernels/paged_attention.py:94``
 // ``paged_decode_attention`` (body ``_kernel``), whose page table rides the
 // TPU's scalar prefetch so that each grid step DMAs one physical page.  Bound
-// on the H100: bytes — the live pages are read once (2*MP*ps*Hkv*D payload
-// bytes per lane plus 8 bytes of scales and 4 of ppos per slot, ~69 MB per
-// codeqwen1.5-7b step at 8 lanes x 1024 slots x 32 layers, as the dense
-// kernel) plus the page table, for about 4*G flops per byte.
+// on the H100: bytes — the live pages are read once (at most 2*MP*ps*Hkv*D
+// payload bytes per lane plus 8 bytes of scales and 4 of ppos per slot, ~69
+// MB per codeqwen1.5-7b step at 8 lanes x 1024 full slots x 32 layers, as
+// the dense kernel; tiles with no valid key are skipped) plus the page
+// table, for about 4*G flops per byte.
 //
 // Design: the body of the port's dense kernel, ``decode_tile.cuh``, with key
 // j of lane b at page pt[b, j / ps], slot j % ps (the tile's slots are
@@ -44,14 +46,15 @@ template <typename QT>
 int launch_pages(int kv_int8, const void* q, const void* pk, const void* pks, const void* pv,
                  const void* pvs, const void* ppos, const void* qpos, void* out, int b,
                  int hq, int hkv, int s_len, int d, float scale, int window, int n_split,
-                 int chunk, void* part, PagedRows rows, cudaStream_t stream) {
+                 int chunk, int t_len, int rows, void* part, PagedRows rows_of,
+                 cudaStream_t stream) {
   if (kv_int8)
     return decode::launch<QT, int8_t, true>(q, pk, pks, pv, pvs, ppos, qpos, out, b, hq, hkv,
-                                            s_len, d, scale, window, n_split, chunk, part,
-                                            rows, stream);
+                                            s_len, d, scale, window, n_split, chunk, t_len,
+                                            rows, part, rows_of, stream);
   return decode::launch<QT, __nv_bfloat16, true>(q, pk, pks, pv, pvs, ppos, qpos, out, b, hq,
                                                  hkv, s_len, d, scale, window, n_split,
-                                                 chunk, part, rows, stream);
+                                                 chunk, t_len, rows, part, rows_of, stream);
 }
 
 }  // namespace
@@ -62,14 +65,15 @@ extern "C" int repro_paged_decode_attention(const void* q, int q_bf16, const voi
                                             const void* qpos, void* out, int b, int hq,
                                             int hkv, int n_pages, int ps, int mp, int d,
                                             float scale, int window, int n_split, int chunk,
-                                            void* part, void* stream) {
-  if (b == 0) return static_cast<int>(cudaGetLastError());
+                                            int t_len, int rows, void* part, void* stream) {
+  if (b == 0 || t_len == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const PagedRows rows{static_cast<const int32_t*>(pt), n_pages, ps, mp};
+  const PagedRows rows_of{static_cast<const int32_t*>(pt), n_pages, ps, mp};
   if (q_bf16)
     return launch_pages<__nv_bfloat16>(kv_int8, q, pk, pks, pv, pvs, ppos, qpos, out, b, hq,
-                                       hkv, mp * ps, d, scale, window, n_split, chunk, part,
-                                       rows, st);
+                                       hkv, mp * ps, d, scale, window, n_split, chunk, t_len,
+                                       rows, part, rows_of, st);
   return launch_pages<float>(kv_int8, q, pk, pks, pv, pvs, ppos, qpos, out, b, hq, hkv,
-                             mp * ps, d, scale, window, n_split, chunk, part, rows, st);
+                             mp * ps, d, scale, window, n_split, chunk, t_len, rows, part,
+                             rows_of, st);
 }

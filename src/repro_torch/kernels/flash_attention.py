@@ -20,9 +20,14 @@ from . import build
 from .common import LAUNCHES, check, on_cuda
 
 NEG = -1e30
-HEAD_DIMS = (16, 128)   # the port's head dims (128; 16 when reduced)
 RTOL = 2.0 ** -7
 ATOL = 1e-3
+
+
+def head_dim_ok(d: int) -> bool:
+    """The head dims both no-cache attention kernels take: multiples of 16
+    up to 128 (16 reduced; 64, 80 and 128 at full width)."""
+    return d % 16 == 0 and 16 <= d <= 128
 
 
 def flash_attention_ref(q, k, v, causal: bool = True, scale=None):
@@ -48,7 +53,8 @@ def _launch(q, k, v, causal: bool, scale: float):
     check(d2 == d and tuple(v.shape) == tuple(k.shape) and h % hkv == 0
           and k.shape[0] == b, f"q {tuple(q.shape)} k {tuple(k.shape)} "
           f"v {tuple(v.shape)}")
-    check(d in HEAD_DIMS, f"head_dim {d} not in {HEAD_DIMS}")
+    check(head_dim_ok(d), f"head_dim {d}: the kernel takes multiples of 16 "
+          f"up to 128")
     for t in (q, k, v):
         check(t.dtype == torch.bfloat16, f"q/k/v must be bf16, got {t.dtype}")
     check(skv >= 1, "no keys")

@@ -30,13 +30,13 @@ import torch
 from ..core import inumerics as inum
 from . import build
 from .common import LAUNCHES, cdiv, check, f32, on_cuda, rcp32
+from .flash_attention import head_dim_ok
 from .int_softmax import NEG_INF, _exp_consts
 
 I32 = torch.int32
 BK = 128              # keys per tile of the CUDA kernel
 ROWS = 16             # query rows per block of the CUDA kernel
 SMEM_LIMIT = 232448   # opt-in shared memory per block on the H100
-HEAD_DIMS = (16, 128)
 # the v_scale form against its plain version (the reference's tolerance)
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -117,7 +117,8 @@ def _launch(q, k, v, scale, causal, v_scale, p_out):
     check(d2 == d and tuple(v.shape) == tuple(k.shape) and h % hkv == 0
           and k.shape[0] == b, f"q {tuple(q.shape)} k {tuple(k.shape)} "
           f"v {tuple(v.shape)}")
-    check(d in HEAD_DIMS, f"head_dim {d} not in {HEAD_DIMS}")
+    check(head_dim_ok(d), f"head_dim {d}: the kernel takes multiples of 16 "
+          f"up to 128")
     check(skv >= 1, "no keys")
     for t in (q, k, v):
         check(t.dtype == torch.int8, f"q/k/v must be int8, got {t.dtype}")

@@ -9,6 +9,16 @@ block per (lane, kv head), a loop over key tiles).  The plain version
 attend oracle.  The two sum in different orders and use their own ``exp``:
 they agree within ``|kernel - plain| <= ATOL + RTOL * |plain|``, not bit
 for bit.
+
+The multi-row form (``int8_kv_decode_attention_rows``) takes the T rows of a
+packed t > 1 step, each at its own position, against the same cache: the
+same kernel with a block per tile of rows of one lane (each K/V tile read
+once for all of them), and the split of the cache taken from the lanes, as
+at T = 1.  Each row is bit-equal to a T = 1 launch at its position, so on
+the card a lane's tokens do not depend on how its steps were batched (ROADMAP
+C3).  Its plain version applies the T = 1 plain version row by row.  The
+model calls it at every T; its launches count under the kernel's name, and
+those with T > 1 also under ``<name>.rows``.
 """
 from __future__ import annotations
 
@@ -50,44 +60,87 @@ def int8_kv_decode_attention_ref(q, k_q, k_s, v_q, v_s, pos_ids, qpos,
 
 def kv_split(blocks: int, s: int, n_sm: int) -> tuple[int, int]:
     """(n_split, chunk): split the cache into chunks of whole BS-key tiles
-    until about two blocks per SM are in flight; every chunk is non-empty."""
+    until about two blocks per SM are in flight; every chunk is non-empty.
+    ``blocks`` is B * Hkv (lanes times kv heads), never a row count, so the
+    multi-row form splits a lane's cache as its T = 1 launch does."""
     tiles = cdiv(s, BS)
     n_split = max(1, min(tiles, cdiv(2 * n_sm, blocks)))
     chunk = cdiv(tiles, n_split) * BS
     return cdiv(s, chunk), chunk
 
 
-def _launch(q, k_q, k_s, v_q, v_s, pos_ids, qpos, scale, window):
-    b, hq, d = q.shape
-    _, s, hkv, d2 = k_q.shape
-    check(d2 == d and hq % hkv == 0, f"q {tuple(q.shape)} vs cache "
-          f"{tuple(k_q.shape)}")
+ROWS_SMEM = 160 * 1024  # shared memory a multi-row block may take
+
+
+def block_smem(g: int, d: int, rows: int) -> int:
+    """Shared memory of one block of ``rows`` query rows of G heads
+    (``smem_bytes`` in ``csrc/decode_tile.cuh``)."""
+    rg = rows * g
+    return 4 * (2 * rg * d + BS * (d + 1) + BS * d + rg * BS + 3 * rg) + \
+        4 * (2 * BS + 2 * rows + 1)
+
+
+def rows_per_block(t: int, g: int, d: int) -> int:
+    """Rows of one lane that share a block (and each K/V tile read): up to
+    16 (at most 32: a tile's rows are one bit mask), halved until the block
+    fits ``ROWS_SMEM``; 1 at T = 1.  The bits of a row do not depend on
+    it."""
+    r = 16
+    while r > 1 and block_smem(g, d, r) > ROWS_SMEM:
+        r //= 2
+    return max(1, min(r, t))
+
+
+def launch_rows(entry, q, qpos, b, hkv, s):
+    """Common part of the dense and paged launches: q (B, T, Hq, D) and
+    qpos (B, T); ``entry(q, qpos, out, n_split, chunk, t, rows, part)``
+    calls the C entry and returns its rc."""
+    _, t, hq, d = q.shape
     check(q.dtype in (torch.bfloat16, torch.float32),
           f"q must be bf16 or f32, got {q.dtype}")
-    for t, dt, shape in ((k_q, torch.int8, (b, s, hkv, d)),
-                         (v_q, torch.int8, (b, s, hkv, d)),
-                         (k_s, torch.float32, (b, s, hkv, 1)),
-                         (v_s, torch.float32, (b, s, hkv, 1)),
-                         (pos_ids, torch.int32, (b, s)),
-                         (qpos, torch.int32, (b,))):
-        check(t.dtype == dt and tuple(t.shape) == shape and t.is_contiguous(),
-              f"decode attention operand: want contiguous {dt} {shape}, got "
-              f"{t.dtype} {tuple(t.shape)}")
-    q = q.contiguous()
+    check(tuple(qpos.shape) == (b, t) and qpos.dtype == torch.int32,
+          f"qpos must be int32 {(b, t)}, got {qpos.dtype} {tuple(qpos.shape)}")
+    q, qpos = q.contiguous(), qpos.contiguous()
     out = torch.empty_like(q)
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
     n_split, chunk = kv_split(b * hkv, s, n_sm)
-    part = torch.empty(b * hkv * n_split * (hq // hkv) * (d + 2),
+    g = hq // hkv
+    rows = rows_per_block(t, g, d)
+    check(block_smem(g, d, rows) <= 232448, f"G={g} D={d}: a decode block "
+          f"does not fit the shared memory")
+    # each chunk's (acc, m, l) per (row, head), then the dead rows' V sums
+    # and key counts per (lane, kv head, chunk)
+    part = torch.empty(b * hkv * n_split * (t * g * (d + 2) + d + 1),
                        dtype=torch.float32, device=q.device)
+    return out, entry(q, qpos, out, n_split, chunk, t, rows, part)
+
+
+def _launch(q, k_q, k_s, v_q, v_s, pos_ids, qpos, scale, window):
+    b, t, hq, d = q.shape
+    _, s, hkv, d2 = k_q.shape
+    check(d2 == d and hq % hkv == 0, f"q {tuple(q.shape)} vs cache "
+          f"{tuple(k_q.shape)}")
+    for x, dt, shape in ((k_q, torch.int8, (b, s, hkv, d)),
+                         (v_q, torch.int8, (b, s, hkv, d)),
+                         (k_s, torch.float32, (b, s, hkv, 1)),
+                         (v_s, torch.float32, (b, s, hkv, 1)),
+                         (pos_ids, torch.int32, (b, s))):
+        check(x.dtype == dt and tuple(x.shape) == shape and x.is_contiguous(),
+              f"decode attention operand: want contiguous {dt} {shape}, got "
+              f"{x.dtype} {tuple(x.shape)}")
     fn = build.entry("int8_kv_decode_attention",
                      "repro_int8_kv_decode_attention",
                      [build.VP, build.I] + [build.VP] * 7 + [build.I] * 5
-                     + [build.F] + [build.I] * 3 + [build.VP] * 2)
-    rc = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), k_q.data_ptr(),
-            k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(), pos_ids.data_ptr(),
-            qpos.data_ptr(), out.data_ptr(), b, hq, hkv, s, d, float(scale),
-            int(window), n_split, chunk, part.data_ptr(),
-            torch.cuda.current_stream(q.device).cuda_stream)
+                     + [build.F] + [build.I] * 5 + [build.VP] * 2)
+
+    def entry(q, qpos, out, n_split, chunk, t, rows, part):
+        return fn(q.data_ptr(), int(q.dtype == torch.bfloat16), k_q.data_ptr(),
+                  k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(),
+                  pos_ids.data_ptr(), qpos.data_ptr(), out.data_ptr(), b, hq,
+                  hkv, s, d, float(scale), int(window), n_split, chunk, t,
+                  rows, part.data_ptr(),
+                  torch.cuda.current_stream(q.device).cuda_stream)
+    out, rc = launch_rows(entry, q, qpos, b, hkv, s)
     build.check_rc(rc, "int8_kv_decode_attention")
     LAUNCHES["int8_kv_decode_attention"] += 1
     return out
@@ -101,6 +154,35 @@ def int8_kv_decode_attention(q, k_q, k_s, v_q, v_s, pos_ids, qpos,
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if on_cuda(q, k_q, k_s, v_q, v_s, pos_ids, qpos):
-        return _launch(q, k_q, k_s, v_q, v_s, pos_ids, qpos, scale, window)
+        check(tuple(qpos.shape) == (q.shape[0],), f"qpos must be (B,), got "
+              f"{tuple(qpos.shape)}")
+        return _launch(q[:, None], k_q, k_s, v_q, v_s, pos_ids, qpos[:, None],
+                       scale, window)[:, 0]
     return int8_kv_decode_attention_ref(q, k_q, k_s, v_q, v_s, pos_ids, qpos,
                                         scale, window)
+
+
+def int8_kv_decode_attention_rows_ref(q, k_q, k_s, v_q, v_s, pos_ids, qpos,
+                                      scale=None, window: int = 0):
+    """Plain version of the multi-row form: row i of q (B, T, Hq, D) through
+    the T = 1 plain version at positions qpos[:, i]."""
+    return torch.stack([int8_kv_decode_attention_ref(
+        q[:, i], k_q, k_s, v_q, v_s, pos_ids, qpos[:, i], scale, window)
+        for i in range(q.shape[1])], dim=1)
+
+
+def int8_kv_decode_attention_rows(q, k_q, k_s, v_q, v_s, pos_ids, qpos,
+                                  scale=None, window: int = 0):
+    """The multi-row form: q (B, T, Hq, D) at positions qpos (B, T) against
+    the int8 cache -> (B, T, Hq, D); each row equals a T = 1 launch at its
+    position on the card, and the plain version's row on the CPU.  At
+    T = 1 it is the single-token launch."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if on_cuda(q, k_q, k_s, v_q, v_s, pos_ids, qpos):
+        out = _launch(q, k_q, k_s, v_q, v_s, pos_ids, qpos, scale, window)
+        if q.shape[1] > 1:
+            LAUNCHES["int8_kv_decode_attention.rows"] += 1
+        return out
+    return int8_kv_decode_attention_rows_ref(q, k_q, k_s, v_q, v_s, pos_ids,
+                                             qpos, scale, window)

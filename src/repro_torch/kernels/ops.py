@@ -17,19 +17,22 @@ from .flash_attention import flash_attention
 from .int8_flash_attention import int8_flash_attention
 from .int8_gemm import (dual_gemm_gated, dual_int4_gemm_gated, int4_gemm,
                         int8_gemm)
-from .int8_kv_decode_attention import int8_kv_decode_attention
+from .int8_kv_decode_attention import (int8_kv_decode_attention,
+                                       int8_kv_decode_attention_rows)
 from .int_gelu import int_gelu
 from .int_layernorm import int_layernorm
 from .int_silu import int_silu
 from .int_softmax import int_softmax
-from .paged_attention import paged_decode_attention
+from .paged_attention import (paged_decode_attention,
+                              paged_decode_attention_rows)
 from .quantize import quantize_rows, requantize_i32
+from .ssd_scan import ssd_scan
 
 KERNELS = ("quantize_rows", "int8_gemm", "int_layernorm",
            "int8_kv_decode_attention", "dual_gemm_gated", "int4_gemm",
            "dual_int4_gemm_gated", "paged_decode_attention", "int_softmax",
            "int8_flash_attention", "flash_attention", "int_gelu", "int_silu",
-           "requantize_i32", "int8_conv2d")
+           "requantize_i32", "int8_conv2d", "ssd_scan")
 
 
 def launch_counts() -> dict[str, int]:
@@ -220,6 +223,23 @@ def decode_attention_int8kv(q, k_q, k_s, v_q, v_s, pos_ids, qpos, scale=None,
     reads the cache once as int8, dequantizes in-register)."""
     return int8_kv_decode_attention(q, k_q, k_s, v_q, v_s, pos_ids, qpos,
                                     scale=scale, window=window)
+
+
+def decode_attention_int8kv_rows(q, k_q, k_s, v_q, v_s, pos_ids, qpos,
+                                 scale=None, window: int = 0):
+    """The T rows of a packed t > 1 step (q (B, T, Hq, D), qpos (B, T))
+    over the int8 ring cache, each row as a single-token step at its
+    position would compute it."""
+    return int8_kv_decode_attention_rows(q, k_q, k_s, v_q, v_s, pos_ids, qpos,
+                                         scale=scale, window=window)
+
+
+def paged_attention_decode_rows(q, pk, pks, pv, pvs, ppos, pt, qpos,
+                                scale=None, window: int = 0):
+    """The T rows of a packed t > 1 step over the PAGED KV arena, each row as
+    a single-token step at its position would compute it."""
+    return paged_decode_attention_rows(q, pk, pks, pv, pvs, ppos, pt, qpos,
+                                       scale=scale, window=window)
 
 
 def paged_attention_decode(q, pk, pks, pv, pvs, ppos, pt, qpos, scale=None,

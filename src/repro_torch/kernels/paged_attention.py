@@ -12,7 +12,10 @@ so that paged == dense bit for bit on the card).  The plain version
 oracle: the per-lane view through the page table, the dense decode oracle on
 it, zeros for dead lanes.  Kernel and plain version agree within the dense
 kernel's tolerance (``int8_kv_decode_attention.RTOL``/``ATOL``), not bit
-for bit.
+for bit.  ``paged_decode_attention_rows`` is the multi-row form (the T rows
+of a packed t > 1 step, each bit-equal to a T = 1 launch at its position;
+the model calls it at every T), counted under the kernel's name and, at
+T > 1, under ``paged_decode_attention.rows``.
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ import torch
 
 from . import build
 from .common import LAUNCHES, check, on_cuda
-from .int8_kv_decode_attention import int8_kv_decode_attention_ref, kv_split
+from .int8_kv_decode_attention import (int8_kv_decode_attention_ref,
+                                       launch_rows)
 
 
 def paged_decode_attention_ref(q, pk, pks, pv, pvs, ppos, pt, qpos,
@@ -50,44 +54,39 @@ def paged_decode_attention_ref(q, pk, pks, pv, pvs, ppos, pt, qpos,
 
 
 def _launch(q, pk, pks, pv, pvs, ppos, pt, qpos, scale, window):
-    b, hq, d = q.shape
+    b, t, hq, d = q.shape
     n_pages, ps, hkv, d2 = pk.shape
     mp = pt.shape[1]
     int8 = pks is not None
     check(d2 == d and hq % hkv == 0, f"q {tuple(q.shape)} vs pages "
           f"{tuple(pk.shape)}")
-    check(q.dtype in (torch.bfloat16, torch.float32),
-          f"q must be bf16 or f32, got {q.dtype}")
     check((pvs is not None) == int8, "pks and pvs come together")
     check(n_pages * ps < 2 ** 31, f"{n_pages} pages of {ps} slots overflow "
           f"the kernel's int32 slot index")
     kdt = torch.int8 if int8 else torch.bfloat16
     operands = [(pk, kdt, (n_pages, ps, hkv, d)), (pv, kdt, (n_pages, ps, hkv, d)),
-                (ppos, torch.int32, (n_pages, ps)), (pt, torch.int32, (b, mp)),
-                (qpos, torch.int32, (b,))]
+                (ppos, torch.int32, (n_pages, ps)), (pt, torch.int32, (b, mp))]
     if int8:
         operands += [(pks, torch.float32, (n_pages, ps, hkv, 1)),
                      (pvs, torch.float32, (n_pages, ps, hkv, 1))]
-    for t, dt, shape in operands:
-        check(t.dtype == dt and tuple(t.shape) == shape and t.is_contiguous(),
+    for x, dt, shape in operands:
+        check(x.dtype == dt and tuple(x.shape) == shape and x.is_contiguous(),
               f"paged decode attention operand: want contiguous {dt} {shape}, "
-              f"got {t.dtype} {tuple(t.shape)}")
-    q = q.contiguous()
-    out = torch.empty_like(q)
-    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    n_split, chunk = kv_split(b * hkv, mp * ps, n_sm)
-    part = torch.empty(b * hkv * n_split * (hq // hkv) * (d + 2),
-                       dtype=torch.float32, device=q.device)
+              f"got {x.dtype} {tuple(x.shape)}")
     fn = build.entry("paged_decode_attention", "repro_paged_decode_attention",
                      [build.VP, build.I] + [build.VP] * 4 + [build.I]
                      + [build.VP] * 4 + [build.I] * 7 + [build.F]
-                     + [build.I] * 3 + [build.VP] * 2)
-    rc = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), pk.data_ptr(),
-            pks.data_ptr() if int8 else None, pv.data_ptr(),
-            pvs.data_ptr() if int8 else None, int(int8), ppos.data_ptr(),
-            pt.data_ptr(), qpos.data_ptr(), out.data_ptr(), b, hq, hkv,
-            n_pages, ps, mp, d, float(scale), int(window), n_split, chunk,
-            part.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
+                     + [build.I] * 5 + [build.VP] * 2)
+
+    def entry(q, qpos, out, n_split, chunk, t, rows, part):
+        return fn(q.data_ptr(), int(q.dtype == torch.bfloat16), pk.data_ptr(),
+                  pks.data_ptr() if int8 else None, pv.data_ptr(),
+                  pvs.data_ptr() if int8 else None, int(int8), ppos.data_ptr(),
+                  pt.data_ptr(), qpos.data_ptr(), out.data_ptr(), b, hq, hkv,
+                  n_pages, ps, mp, d, float(scale), int(window), n_split,
+                  chunk, t, rows, part.data_ptr(),
+                  torch.cuda.current_stream(q.device).cuda_stream)
+    out, rc = launch_rows(entry, q, qpos, b, hkv, mp * ps)
     build.check_rc(rc, "paged_decode_attention")
     LAUNCHES["paged_decode_attention"] += 1
     return out
@@ -102,6 +101,34 @@ def paged_decode_attention(q, pk, pks, pv, pvs, ppos, pt, qpos, scale=None,
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if on_cuda(q, pk, pks, pv, pvs, ppos, pt, qpos):
-        return _launch(q, pk, pks, pv, pvs, ppos, pt, qpos, scale, window)
+        check(tuple(qpos.shape) == (q.shape[0],), f"qpos must be (B,), got "
+              f"{tuple(qpos.shape)}")
+        return _launch(q[:, None], pk, pks, pv, pvs, ppos, pt, qpos[:, None],
+                       scale, window)[:, 0]
     return paged_decode_attention_ref(q, pk, pks, pv, pvs, ppos, pt, qpos,
                                       scale, window)
+
+
+def paged_decode_attention_rows_ref(q, pk, pks, pv, pvs, ppos, pt, qpos,
+                                    scale=None, window: int = 0):
+    """Plain version of the multi-row form: row i of q (B, T, Hq, D) through
+    the T = 1 plain version at positions qpos[:, i]."""
+    return torch.stack([paged_decode_attention_ref(
+        q[:, i], pk, pks, pv, pvs, ppos, pt, qpos[:, i], scale, window)
+        for i in range(q.shape[1])], dim=1)
+
+
+def paged_decode_attention_rows(q, pk, pks, pv, pvs, ppos, pt, qpos,
+                                scale=None, window: int = 0):
+    """The multi-row form: q (B, T, Hq, D) at positions qpos (B, T) against
+    the page arena -> (B, T, Hq, D); each row equals a T = 1 launch at its
+    position on the card, and the plain version's row on the CPU."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if on_cuda(q, pk, pks, pv, pvs, ppos, pt, qpos):
+        out = _launch(q, pk, pks, pv, pvs, ppos, pt, qpos, scale, window)
+        if q.shape[1] > 1:
+            LAUNCHES["paged_decode_attention.rows"] += 1
+        return out
+    return paged_decode_attention_rows_ref(q, pk, pks, pv, pvs, ppos, pt, qpos,
+                                           scale, window)

@@ -63,7 +63,7 @@ def main(argv=None) -> None:
         raise SystemExit("--w8a8 and --w4a8 are exclusive")
     if args.stream_gap_ms > 0:
         raise NotImplementedError("--stream-gap-ms (run_stream) is not ported "
-                                  "yet (ROADMAP.md §A8)")
+                                  "yet (ROADMAP.md §A1)")
     precision = "w4a8" if args.w4a8 else "w8a8" if args.w8a8 else "bf16"
     cfg = get_config(args.arch, precision=precision, reduced=args.reduced)
     params = quantize_for(init_params(cfg, seed=args.seed, device=args.device),

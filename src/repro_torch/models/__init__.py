@@ -1,4 +1,5 @@
-"""Model substrate of the port (dense decoder with the ``attn`` block)."""
+"""Model substrate of the port (the ``attn``, ``shared_attn`` and ``mamba2``
+blocks: the dense decoders and zamba2)."""
 from .config import ArchConfig
 from .lm import (LM, exec_mode, forward, init_params, init_states, lm_loss,
                  xent_loss)

@@ -16,13 +16,19 @@ IN PLACE: pad tokens (position -1) are dropped before the write, so a lane
 that feeds only pads is left untouched — exactly what the reference's
 lane-masked commit keeps.
 
-With a cache, a decode kernel runs iff the cache is int8, the step feeds one
-token per lane and the cache lies on a CUDA device — the port's form of the
-reference's ``ops.backend() == "pallas"`` test: ``ops.decode_attention_int8kv``
-for the dense cache, ``ops.paged_attention_decode`` for the arena.
-Everywhere else (CPU, bf16 cache, mixed-depth packed rows) the port takes
-the reference's ``jnp``-backend branch: ``_read_cache``/``_read_paged`` ->
-``_sdpa`` in plain PyTorch.
+With a cache, the decode kernels run iff the cache is int8 and lies on a CUDA
+device — the port's form of the reference's ``ops.backend() == "pallas"``
+test: the decode kernels' multi-row forms (``ops.decode_attention_int8kv_rows``
+for the dense cache, ``ops.paged_attention_decode_rows`` for the arena) at
+every t, each of a step's rows computed exactly as a one-token step at its
+position would compute it (at t = 1 they are the one-token launch), so a
+lane's tokens on the card do not depend on how its steps were batched (the
+reference's TPU path sends such rows to ``_sdpa``, whose probabilities are
+rounded to bf16 before P@V).  Everywhere else (CPU, bf16 cache) the port
+takes the reference's ``jnp``-backend branch: ``_read_cache``/``_read_paged``
+-> ``_sdpa`` in plain PyTorch.  ``card_order=True`` sends int8-cache rows on
+the CPU through the decode kernels' plain versions instead, the card's order
+(a check of the card against the CPU, not the reference's path).
 
 Without a cache (scoring, ``lm_loss``, calibration) the reference's rule
 holds: an integer mode with no window runs ``_int_attention``
@@ -337,12 +343,19 @@ def int_score_scale(hd: int) -> float:
     return ATTN_INT_SCALE * ATTN_INT_SCALE * (2.0 ** head_shift(hd)) / math.sqrt(hd)
 
 
+def _card_route(cache_leaf, card_order: bool) -> bool:
+    """True where int8-cache rows take the decode kernels: a cache on the
+    card, or any cache with ``card_order`` (module note)."""
+    return cache_leaf.is_cuda or card_order
+
+
 def attention(params: Attention, x, cfg: ArchConfig, mode: ExecMode,
               positions, cache: dict | None = None, window: int = 0,
-              residual=None, writes=None):
+              residual=None, writes=None, card_order: bool = False):
     """Self-attention of x (B, T, D) at absolute ``positions`` (B, T), with
     the skip connection ``residual`` folded into the out-projection.
-    Returns (out, cache); the cache is updated in place."""
+    Returns (out, cache); the cache is updated in place.  ``card_order``:
+    int8-cache rows take the decode kernels on any device (module note)."""
     b, t, _ = x.shape
     hd = cfg.head_dim
     q = apply_linear(x, params.wq, mode, params.bq)
@@ -358,29 +371,30 @@ def attention(params: Attention, x, cfg: ArchConfig, mode: ExecMode,
 
     if cache is not None and "pt" in cache:
         # paged serving path: scatter through the page table, then the
-        # paged decode kernel (all-decode step on the card, int8 pages) or
+        # paged decode kernel (on the card, int8 pages) or
         # the gathered view — element-identical to the dense cache — into
         # the same _sdpa the dense path runs
         cache = _write_paged(cache, k, v, positions, writes)
-        if "pks" in cache and t == 1 and cache["pk"].is_cuda:
-            out = ops.paged_attention_decode(
-                q[:, 0], cache["pk"], cache["pks"], cache["pv"], cache["pvs"],
-                cache["ppos"], cache["pt"],
-                positions[:, 0].to(torch.int32).contiguous(), scale=scale,
-                window=window)[:, None].to(dtype)
+        if "pks" in cache and _card_route(cache["pk"], card_order):
+            args = (cache["pk"], cache["pks"], cache["pv"], cache["pvs"],
+                    cache["ppos"], cache["pt"])
+            out = ops.paged_attention_decode_rows(
+                q, *args, positions.to(torch.int32).contiguous(),
+                scale=scale, window=window).to(dtype)
         else:
             kc, vc, kpos = _read_paged(cache, dtype)
             out = _sdpa(q, kc, vc, positions, kpos, scale, dtype, causal=True,
                         window=window, valid=kpos >= 0)
     elif cache is not None:
         cache = _write_cache(cache, k, v, positions, writes)
-        if "k_s" in cache and t == 1 and cache["k"].is_cuda:
+        if "k_s" in cache and _card_route(cache["k"], card_order):
             # serving hot path: the int8-KV decode kernel (one int8 pass
-            # over the cache, in-register dequant)
-            out = ops.decode_attention_int8kv(
-                q[:, 0], cache["k"], cache["k_s"], cache["v"], cache["v_s"],
-                cache["pos_ids"], positions[:, 0].to(torch.int32).contiguous(),
-                scale=scale, window=window)[:, None].to(dtype)
+            # over the cache, in-register dequant), each row at its position
+            args = (cache["k"], cache["k_s"], cache["v"], cache["v_s"],
+                    cache["pos_ids"])
+            out = ops.decode_attention_int8kv_rows(
+                q, *args, positions.to(torch.int32).contiguous(),
+                scale=scale, window=window).to(dtype)
         else:
             kc, vc = _read_cache(cache, dtype)              # (B,S,Hkv,D)
             kpos = cache["pos_ids"]

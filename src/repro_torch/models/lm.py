@@ -1,11 +1,16 @@
 """Decoder LM: init / forward / lm_loss (port of ``repro.models.lm``).
 
 The reference scans ``lax.scan`` over periods with parameters stacked per
-period; the port holds one ``Block`` per layer in an ``nn.ModuleList`` and
-runs a Python loop.  ``states`` is a list with one ``{"kv": cache}`` per
-layer.  Weights come from an explicit ``torch.Generator`` seeded by the
-caller (not jax.random: the numbers differ from the reference's; tests
-convert the reference's weights with ``convert.py`` instead).
+period; the port holds one block per layer in an ``nn.ModuleList`` and runs
+a Python loop.  A ``shared_attn`` block (zamba2) is one ``Block`` that the
+list holds at every position of its kind — the reference's
+``params["shared"]``, held once.  ``states`` is a list with one state per
+layer: ``{"kv": cache}`` for attention, ``{"conv", "ssd"}`` for mamba2.
+With tied embeddings (``unembed`` None) the head is the f32 product with
+``embed.T``, as in the reference.  Weights come from an explicit
+``torch.Generator`` seeded by the caller (not jax.random: the numbers differ
+from the reference's; tests convert the reference's weights with
+``convert.py`` instead).
 """
 from __future__ import annotations
 
@@ -14,10 +19,10 @@ from torch import nn
 
 from ..kernels.common import resolve_device
 from .attention import cache_writes
-from .blocks import Block, block_forward, init_block_params, init_block_state
+from .blocks import ATTN_KINDS, block_forward, init_block_params, init_block_state
 from .config import ArchConfig
 from .layers import (DEFAULT_DTYPE, ExecMode, Linear, Norm, apply_linear,
-                     apply_norm, embed_init, embed_lookup)
+                     apply_norm, embed_init, embed_lookup, linear)
 
 F32 = torch.float32
 
@@ -27,11 +32,12 @@ def exec_mode(cfg: ArchConfig) -> ExecMode:
 
 
 class LM(nn.Module):
-    """embed [padded_vocab, d] f32, ``layers`` (one ``Block`` each), the
-    final norm and the ``unembed`` head [d, padded_vocab]."""
+    """embed [padded_vocab, d] f32, ``layers`` (one block each; a shared
+    block appears at each of its positions), the final norm and the
+    ``unembed`` head [d, padded_vocab], None with tied embeddings."""
 
-    def __init__(self, embed: torch.Tensor, layers: list[Block],
-                 final_norm: Norm, unembed: Linear):
+    def __init__(self, embed: torch.Tensor, layers: list[nn.Module],
+                 final_norm: Norm, unembed: Linear | None):
         super().__init__()
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.layers = nn.ModuleList(layers)
@@ -47,60 +53,85 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> LM:
     """Random weights from ``seed`` on ``device`` — the card unless the
     caller passes device='cpu'."""
     dev = resolve_device(device)
-    if cfg.tie_embeddings:
-        raise NotImplementedError("tied embeddings are not ported yet "
-                                  "(ROADMAP.md §A)")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    layers = [init_block_params(gen, kind, cfg, dev) for kind in cfg.block_kinds]
+    shared = None
+    layers = []
+    for kind in cfg.block_kinds:
+        if kind == "shared_attn":
+            if shared is None:
+                shared = init_block_params(gen, kind, cfg, dev)
+            layers.append(shared)
+        else:
+            layers.append(init_block_params(gen, kind, cfg, dev))
     embed = embed_init(gen, cfg.padded_vocab, cfg.d_model, dev)
-    unembed = embed_init(gen, cfg.padded_vocab, cfg.d_model, dev).T.contiguous()
-    return LM(embed, layers, Norm(cfg.d_model, cfg.norm_type, dev),
-              Linear(unembed))
+    unembed = (None if cfg.tie_embeddings else Linear(embed_init(
+        gen, cfg.padded_vocab, cfg.d_model, dev).T.contiguous()))
+    return LM(embed, layers, Norm(cfg.d_model, cfg.norm_type, dev), unembed)
 
 
 def init_states(cfg: ArchConfig, batch: int, max_seq: int, int8_kv: bool = False,
                 dtype=DEFAULT_DTYPE, device=None, paged_pages: int = 0,
                 page_size: int = 0) -> list:
-    """One ``{"kv": cache}`` per layer (the reference stacks them per
-    period).  With ``paged_pages`` > 0 each cache is a paged arena of that
-    many ``page_size``-slot pages (``attention.init_paged_cache``), and
-    every layer shares ONE page table tensor."""
+    """One state per layer (the reference stacks them per period): a
+    ``{"kv": cache}`` per attention layer — a shared block's too — and a
+    ``{"conv", "ssd"}`` recurrent state per mamba2 layer.  With
+    ``paged_pages`` > 0 each cache is a paged arena of that many
+    ``page_size``-slot pages (``attention.init_paged_cache``), and every
+    layer shares ONE page table tensor."""
     dev = resolve_device(device)
     states, pt = [], None
     for kind in cfg.block_kinds:
         st = init_block_state(kind, cfg, batch, max_seq, int8_kv, dtype, dev,
                               paged_pages=paged_pages, page_size=page_size,
                               pt=pt)
-        if paged_pages:
+        if paged_pages and kind in ATTN_KINDS:
             pt = st["kv"]["pt"]
         states.append(st)
     return states
 
 
+def _first_cache(cfg: ArchConfig, states: list):
+    """The KV cache of the first attention layer (every layer's cache takes
+    the same write indices), or None for a model without one."""
+    for kind, st in zip(cfg.block_kinds, states):
+        if kind in ATTN_KINDS:
+            return st["kv"]
+    return None
+
+
 @torch.no_grad()
 def forward(params: LM, cfg: ArchConfig, tokens, positions=None,
-            states: list | None = None, logits: bool = True):
+            states: list | None = None, logits: bool = True,
+            card_order: bool = False):
     """tokens (B, T) int -> (logits (B, T, padded_vocab) f32, states).
-    Caches in ``states`` are updated in place."""
+    Caches in ``states`` are updated in place; recurrent states come back
+    new in the returned list.  ``card_order`` (checks only): int8-cache
+    attention takes the decode kernels on any device, the card's order
+    (``attention.attention``)."""
     mode = exec_mode(cfg)
     x = embed_lookup(tokens, params.embed, mode.compute_dtype)
     b, t = x.shape[:2]
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32,
                                  device=x.device).expand(b, t)
-    writes = (cache_writes(positions, states[0]["kv"]) if states is not None
-              else None)
+    cache = None if states is None else _first_cache(cfg, states)
+    writes = None if cache is None else cache_writes(positions, cache)
     new_states = [] if states is not None else None
     for i, (kind, block) in enumerate(zip(cfg.block_kinds, params.layers)):
         st = None if states is None else states[i]
         x, st = block_forward(kind, block, x, cfg, mode, positions, state=st,
-                              writes=writes)
+                              writes=writes, card_order=card_order)
         if new_states is not None:
             new_states.append(st)
     x = apply_norm(x, params.final_norm, cfg, mode)
     if not logits:
         return x, new_states
-    lg = apply_linear(x, params.unembed, ExecMode(cfg.precision, F32))
+    if params.unembed is None:
+        # tied head: a float f32 product with the embedding table, as the
+        # reference's apply_linear on a bare array at compute dtype f32
+        lg = linear(x, params.embed.T, None, F32)
+    else:
+        lg = apply_linear(x, params.unembed, ExecMode(cfg.precision, F32))
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=lg.device) >= cfg.vocab_size
         lg = torch.where(pad, torch.full_like(lg, -1e9), lg)

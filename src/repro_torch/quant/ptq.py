@@ -3,10 +3,13 @@
 Port of ``repro.quant.ptq`` (``ptq_quantize_params``, the W4 policy,
 ``calibrate_ptq``'s group/clip search and ``quantized_param_fraction``), and
 ``quantize_for``, the launcher's choice of policy by precision.  Every GEMM
-weight (attention wq/wk/wv/wo, MLP w_in/w_gate/w_out and the ``unembed``
-head) becomes per-output-channel symmetric int8 ``{w_q, scale}`` or, where
-the policy says so, packed int4 ``{w4, qmul, scale}`` with two-level group
-scales; embeddings and norms stay float.  The reference runs PTQ eagerly, so
+weight (attention wq/wk/wv/wo, MLP w_in/w_gate/w_out, Mamba-2 in_proj/
+out_proj — class ``attn``, as the reference's ``_CLASS_PATTERNS`` have it —
+and the ``unembed`` head) becomes per-output-channel symmetric int8 ``{w_q,
+scale}`` or, where the policy says so, packed int4 ``{w4, qmul, scale}``
+with two-level group scales; embeddings (a tied head with them), norms and
+the Mamba-2 conv and vectors stay float.  A shared block is one module, so
+it is quantized once.  The reference runs PTQ eagerly, so
 its divisions are true divisions here.  Bit-exact against the reference
 (``tests/test_torch_models.py``; ``calibrate_ptq`` in
 ``tests/test_torch_no_cache.py``).
@@ -23,6 +26,7 @@ from ..models.lm import LM
 
 # policy class of each quantizable weight, by module name
 _CLASSES = {"wq": "attn", "wk": "attn", "wv": "attn", "wo": "attn",
+            "in_proj": "attn", "out_proj": "attn",
             "w_in": "mlp", "w_gate": "mlp", "w_out": "mlp", "unembed": "head"}
 
 # the reference's default W4A8 policy: projections in int4 at group 64, the

@@ -66,21 +66,24 @@ class ServeConfig:
     tp: int = 1
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md §A8)")
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
+                               f"{item})")
 
 
 def _check_supported(cfg: ArchConfig, scfg: ServeConfig) -> None:
     if scfg.spec_k > 0:
-        raise _not_ported("self-speculative decoding (spec_k > 0)")
+        raise _not_ported("self-speculative decoding (spec_k > 0)", "§A2")
     if scfg.tp > 1:
-        raise _not_ported("tensor-parallel serving (tp > 1)")
+        raise _not_ported("tensor-parallel serving (tp > 1)", "§A10")
     if scfg.temperature > 0.0:
-        raise _not_ported("sampled decoding (temperature > 0)")
+        raise _not_ported("sampled decoding (temperature > 0)", "§A1")
     if scfg.token_budget <= 0:
-        raise _not_ported("the chunked / tokenwise schedules (token_budget=0)")
+        raise _not_ported("the chunked / tokenwise schedules (token_budget=0)",
+                          "§A1")
     if cfg.has_recurrent_state:
-        raise _not_ported("tokenwise serving of recurrent archs")
+        raise _not_ported(f"serving {cfg.name} (recurrent state: the "
+                          f"tokenwise schedule)", "§A1")
 
 
 def packed_step(params: LM, cfg: ArchConfig, tokens, positions, states,
@@ -122,7 +125,8 @@ class ServingEngine:
         b = serve_cfg.batch_lanes
         self._buckets = self._token_buckets()
         if not self._buckets:
-            raise _not_ported("tokenwise serving (no bucket below max_seq)")
+            raise _not_ported("tokenwise serving (no bucket below max_seq)",
+                              "§A1")
         self._paged = self._resolve_paged()
         self.pool: PagedKVPool | None = None
         if self._paged:
@@ -581,7 +585,7 @@ class ServingEngine:
         return self.finished
 
     def run_stream(self, schedule, max_iters: int = 1_000_000):
-        raise _not_ported("run_stream (timed arrivals)")
+        raise _not_ported("run_stream (timed arrivals)", "§A1")
 
     def serving_metrics(self) -> dict:
         st = self.stats

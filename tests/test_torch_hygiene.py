@@ -57,7 +57,8 @@ def test_scan_sees_the_whole_port():
                  "kernels/int_softmax.py", "kernels/int8_flash_attention.py",
                  "kernels/flash_attention.py", "kernels/int_gelu.py",
                  "kernels/int_silu.py", "kernels/conv2d.py",
-                 "models/frontend.py"):
+                 "models/frontend.py", "models/ssm.py", "models/blocks.py",
+                 "kernels/ssd_scan.py", "configs/zamba2_2_7b.py"):
         assert need in files
 
 
@@ -185,10 +186,10 @@ def test_paged_engine_defaults_to_the_card(no_cuda):
 def test_kernel_sources_and_flags():
     assert {"paged_decode_attention", "int_softmax", "int8_flash_attention",
             "flash_attention", "int_gelu", "int_silu", "requantize",
-            "int8_conv2d"} <= set(build.SOURCES)
+            "int8_conv2d", "ssd_scan"} <= set(build.SOURCES)
     # quantize.cu holds quantize_rows, requantize.cu requantize_i32
     assert set(build.SOURCES) <= set(ops.KERNELS) | {"quantize", "requantize"}
-    assert len(ops.KERNELS) == 15
+    assert len(ops.KERNELS) == 16
     for name in build.SOURCES:
         src = build.CSRC / f"{name}.cu"
         assert src.exists()
@@ -312,6 +313,113 @@ def test_decode_attentions_share_one_body():
         src = (build.CSRC / f"{name}.cu").read_text()
         assert '#include "decode_tile.cuh"' in src
         assert "__global__" not in src and "decode::launch<" in src
+
+
+# ---------------------------------------------------------------------------
+# zamba2-2.7b: the Mamba-2 path (ssd_scan) and the multi-row decode form
+# ---------------------------------------------------------------------------
+
+def test_zamba2_entry_points_default_to_the_card(no_cuda):
+    from repro_torch.convert import from_reference, to_reference
+    cfg = get_config("zamba2-2.7b", reduced=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_states(cfg, 1, 8)
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        from_reference(to_reference(params, cfg), cfg)
+
+
+def test_serving_zamba2_names_the_tokenwise_schedule():
+    """Recurrent archs serve tokenwise, which is not ported yet (§A1)."""
+    cfg = get_config("zamba2-2.7b", precision="w8a8", reduced=True)
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="§A1"):
+        ServingEngine(params, cfg, ServeConfig(max_seq=16, token_budget=4,
+                                               int8_kv=True), device="cpu")
+
+
+@pytest.mark.parametrize("precision", ["bf16", "w8a8", "w4a8"])
+def test_explicit_cpu_zamba2_launches_nothing(precision):
+    """zamba2's no-cache lm_loss and its forward with states (a t > 1
+    prefill, then a t == 1 step) on the CPU take every plain version."""
+    from repro_torch.models import forward, lm_loss
+    from repro_torch.quant import quantize_for
+    cfg = get_config("zamba2-2.7b", precision=precision, reduced=True)
+    params = quantize_for(init_params(cfg, seed=1, device="cpu"), precision)
+    toks = torch.randint(2, cfg.vocab_size, (2, 17),
+                         generator=torch.Generator().manual_seed(0))
+    ops.reset_launch_counts()
+    loss = lm_loss(params, cfg, toks[:, :-1], toks[:, 1:])
+    st = init_states(cfg, 2, 32, int8_kv=precision != "bf16", device="cpu")
+    pos = torch.arange(16, dtype=torch.int32).expand(2, 16)
+    lg, st = forward(params, cfg, toks[:, :16], pos, st)
+    lg, st = forward(params, cfg, lg[:, -1:].argmax(-1), pos[:, -1:] + 1, st)
+    assert torch.isfinite(loss) and torch.isfinite(lg).all()
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+
+
+def _no_build(monkeypatch):
+    import types
+
+    def no_build(*a, **k):
+        raise RuntimeError("no nvcc here")
+    monkeypatch.setattr(build, "entry", no_build)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda *a:
+                        types.SimpleNamespace(multi_processor_count=132))
+
+
+def test_ssd_scan_never_falls_back(monkeypatch):
+    """With the tensors taken for CUDA ones, ``ops.ssd_scan`` and the
+    Mamba-2 block's t > 1 branch go to the kernel — here the build, which
+    raises — never to the plain version."""
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import ExecMode
+    monkeypatch.setattr(ssd_scan, "on_cuda", lambda *a: True)
+    _no_build(monkeypatch)
+    x, dt, a = torch.zeros(1, 128, 2, 64), torch.ones(1, 128, 2), -torch.ones(2)
+    bm = torch.zeros(1, 128, 16)
+    with pytest.raises(RuntimeError, match="no nvcc here"):
+        ops.ssd_scan(x, dt, a, bm, bm)
+    cfg = get_config("zamba2-2.7b", reduced=True)
+    block = init_params(cfg, device="cpu").layers[0].mamba
+    with pytest.raises(RuntimeError, match="no nvcc here"):
+        ssm.mamba2(block, torch.zeros(1, 5, cfg.d_model, dtype=torch.bfloat16),
+                   cfg, ExecMode("bf16"))
+
+
+@pytest.mark.parametrize("t", [1, 3])
+@pytest.mark.parametrize("paged", [False, True])
+def test_cache_rows_take_the_multi_row_form(monkeypatch, paged, t):
+    """On the card (``_card_route`` taken for true, the decode wrappers'
+    tensors for CUDA ones) a step against an int8 cache, t = 1 or t > 1,
+    reaches the decode kernels' multi-row form — here the build, which
+    raises — and never ``_sdpa``."""
+    from repro_torch.kernels import int8_kv_decode_attention as dense_mod
+    from repro_torch.kernels import paged_attention as paged_mod
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import forward
+
+    def no_sdpa(*a, **k):
+        raise AssertionError("a cache row took _sdpa on the card")
+    cfg = get_config("codeqwen1.5-7b", precision="w8a8", reduced=True)
+    from repro_torch.quant import quantize_for
+    params = quantize_for(init_params(cfg, seed=1, device="cpu"), "w8a8")
+    kw = dict(paged_pages=9, page_size=8) if paged else {}
+    st = init_states(cfg, 2, 32, int8_kv=True, device="cpu", **kw)
+    if paged:
+        st[0]["kv"]["pt"].copy_(torch.arange(1, 9, dtype=torch.int32
+                                             ).reshape(2, 4))
+    monkeypatch.setattr(attn_mod, "_card_route", lambda *a: True)
+    monkeypatch.setattr(attn_mod, "_sdpa", no_sdpa)
+    monkeypatch.setattr(dense_mod, "on_cuda", lambda *a: True)
+    monkeypatch.setattr(paged_mod, "on_cuda", lambda *a: True)
+    _no_build(monkeypatch)
+    pos = torch.arange(t, dtype=torch.int32).expand(2, t)
+    with pytest.raises(RuntimeError, match="no nvcc here"):
+        forward(params, cfg, torch.full((2, t), 5), pos, st)
 
 
 def _run_smoke(cwd: Path):

@@ -36,7 +36,8 @@ from repro_torch.kernels import int8_gemm as tg
 from repro_torch.kernels.int8_gemm import gemm_w8a8_ref, int8_matmul_ref, split_k
 from repro_torch.kernels.quantize import pack_int4
 from repro_torch.kernels.int8_kv_decode_attention import (
-    ATOL, RTOL, int8_kv_decode_attention_ref, kv_split)
+    ATOL, ROWS_SMEM, RTOL, block_smem, int8_kv_decode_attention_ref,
+    int8_kv_decode_attention_rows_ref, kv_split, rows_per_block)
 from repro_torch.kernels.int_layernorm import int_layernorm_ref
 from repro_torch.kernels.quantize import quantize_rows_ref
 
@@ -498,6 +499,54 @@ class TestDecodeAttention:
         assert chunk % 32 == 0 and (n_split - 1) * chunk < s <= n_split * chunk
 
 
+class TestDecodeAttentionRows:
+    """The multi-row form (the rows of a packed t > 1 step, ROADMAP C3)."""
+
+    def _rows(self, rng, t=5, dtype=jnp.bfloat16):
+        q, k_q, k_s, v_q, v_s, pos, qpos = decode_inputs(rng, dtype=dtype)
+        b, hq, d = q.shape
+        qr = jnp.asarray(rng.standard_normal((b, t, hq, d)), dtype)
+        # each row its own position: a lane's last t slots, a pad row (-1)
+        # and, on lane 1, every row idle
+        qp = (qpos[:, None] - np.arange(t)[::-1][None]).astype(np.int32)
+        qp[0, 0] = -1
+        qp[1] = -1
+        return qr, k_q, k_s, v_q, v_s, pos, qp
+
+    def test_rows_equal_single_row_launches(self, rng):
+        """Row i of the multi-row plain version is the T = 1 plain version
+        at that row's position, bit for bit."""
+        qr, *rest, qp = self._rows(rng)
+        args = [T(a) for a in rest]
+        got = ops.decode_attention_int8kv_rows(_t_q(qr), *args, T(qp))
+        assert got.shape == tuple(qr.shape) and got.dtype == torch.bfloat16
+        for i in range(qr.shape[1]):
+            one = ops.decode_attention_int8kv(_t_q(qr[:, i]), *args,
+                                              T(qp[:, i]).contiguous())
+            assert torch.equal(got[:, i], one)
+
+    @pytest.mark.parametrize("window", [0, 8])
+    def test_rows_close_vs_jit_ref(self, rng, window):
+        qr, *rest, qp = self._rows(rng, dtype=jnp.float32)
+        got = int8_kv_decode_attention_rows_ref(_t_q(qr), *map(T, rest),
+                                                T(qp), window=window)
+        f = jax.jit(lambda q, qpos: ref.int8_kv_decode_attention_ref(
+            q, *rest, qpos, window=window))
+        for i in range(qr.shape[1]):
+            np.testing.assert_allclose(got[:, i].numpy(),
+                                       np.asarray(f(qr[:, i], qp[:, i])),
+                                       rtol=RTOL, atol=ATOL)
+
+    @pytest.mark.parametrize("t,g,d,want", [(1, 1, 128, 1), (256, 1, 128, 16),
+                                            (3, 1, 128, 3), (256, 12, 128, 8),
+                                            (256, 32, 128, 2)])
+    def test_rows_per_block_fit(self, t, g, d, want):
+        """Up to 16 rows of a lane share a block (and each K/V tile read),
+        fewer where G heads of them would not fit ``ROWS_SMEM``."""
+        assert rows_per_block(t, g, d) == want
+        assert block_smem(g, d, want) <= ROWS_SMEM
+
+
 # ---------------------------------------------------------------------------
 # on the card: each CUDA kernel against its plain version (skipped here)
 # ---------------------------------------------------------------------------
@@ -574,3 +623,20 @@ class TestKernelsOnCard:
                 + [T(a).to(cuda_dev) for a in (*up, *gate)])
         assert torch.equal(ops.gated_mlp_w4a8(*args, act=act, act_scale=sc),
                            tg.gated_mlp_w4a8_ref(*args, act=act, act_scale=sc))
+
+
+@pytest.mark.cuda
+def test_decode_rows_on_card(rng, cuda_dev):
+    """The multi-row form on the card: each row bit-equal to a T = 1 launch
+    at its position with the same B, and close to the plain version."""
+    inputs = TestDecodeAttentionRows()._rows(rng, t=20)
+    qr, *rest, qp = [(_t_q(a) if i == 0 else T(a)).to(cuda_dev)
+                     for i, a in enumerate(inputs)]
+    got = ops.decode_attention_int8kv_rows(qr, *rest, qp)
+    for i in range(qr.shape[1]):
+        one = ops.decode_attention_int8kv(qr[:, i].contiguous(), *rest,
+                                          qp[:, i].contiguous())
+        assert torch.equal(got[:, i], one)
+    torch.testing.assert_close(
+        got.float(), int8_kv_decode_attention_rows_ref(qr, *rest, qp).float(),
+        rtol=RTOL, atol=ATOL)

@@ -311,6 +311,89 @@ class TestFlashAttention:
 
 
 # ---------------------------------------------------------------------------
+# any head dim that is a multiple of 16 up to 128 (B11, B12; ROADMAP C7)
+# ---------------------------------------------------------------------------
+
+class TestHeadDims:
+    @pytest.mark.parametrize("d", [64, 80])
+    @pytest.mark.parametrize("v_scale", [False, True])
+    def test_int8_vs_pallas_interpret(self, rng, d, v_scale):
+        q, k, v, vs = attn_inputs(rng, b=1, s=48, d=d)
+        sc = int_score_scale(d)
+        want = pallas_int8_attention(
+            *map(jnp.asarray, (q, k, v)), sc, causal=True,
+            v_scale=jnp.asarray(vs) if v_scale else None, bq=16, bk=16,
+            interpret=True)
+        got = ops.attention_i8(T(q), T(k), T(v), sc, causal=True,
+                               v_scale=T(vs) if v_scale else None)
+        if v_scale:
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=RTOL, atol=ATOL)
+        else:
+            assert same(got, want)
+
+    @pytest.mark.parametrize("d", [64, 80])
+    def test_int8_probs_exact_vs_jit_oracle(self, rng, d):
+        q, k, v, _ = attn_inputs(rng, h=4, hkv=2, s=40, d=d, wide=True)
+        sc = int_score_scale(d)
+        want = jax.jit(lambda *a: ref.int8_flash_attention_ref(
+            *a, sc, True))(q, k, v)
+        assert same(int8_flash_attention_ref(T(q), T(k), T(v), sc), want)
+        pj = jax.jit(lambda a, b_: _jax_probs(a, b_, sc, True))(q, k)
+        assert same(int8_attention_probs_ref(T(q), T(k), sc), pj)
+
+    @pytest.mark.parametrize("d", [64, 80])
+    def test_flash_vs_oracle(self, rng, d):
+        q = rng.standard_normal((1, 4, 40, d)).astype(np.float32)
+        k, v = (rng.standard_normal((1, 2, 40, d)).astype(np.float32)
+                for _ in range(2))
+        want = jax.jit(ref.flash_attention_ref)(q, k, v)
+        got = flash_attention_ref(T(q), T(k), T(v))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+    @pytest.mark.parametrize("d,shift", [(48, 3), (80, 3), (96, 3),
+                                         (112, 3)])
+    def test_new_dims_shift_and_masked_exp(self, d, shift):
+        """zamba2's 80 (2560 / 32 heads) and the other new widths: the
+        score shift and the skippable masked exp at the model's scale."""
+        assert head_shift(d) == shift
+        assert masked_exp_is_zero(int_score_scale(d), d)
+
+    def test_block_form_at_80(self):
+        """zamba2's forward (T = 1024) takes the block form; the streaming
+        form past its shared memory, as at 128."""
+        assert block_smem(1024, 80) <= SMEM_LIMIT
+        assert block_smem(4096, 80) > SMEM_LIMIT
+        assert (block_smem(1024, 80)
+                == 16 * 1024 * 4 + 16 * 80 + 128 * (80 // 4 + 1) * 4)
+
+    @pytest.mark.parametrize("d,ok", [(16, True), (64, True), (80, True),
+                                      (128, True), (8, False), (72, False),
+                                      (144, False)])
+    def test_wrappers_take_multiples_of_16(self, monkeypatch, d, ok):
+        """On the card a head dim the kernels take reaches the build (here
+        it raises); any other raises the wrapper's check, never a
+        fallback."""
+        from repro_torch.kernels import build
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import int8_flash_attention as ia
+
+        def no_build(*a, **k):
+            raise RuntimeError("no nvcc here")
+        monkeypatch.setattr(build, "entry", no_build)
+        for mod in (fa, ia):
+            monkeypatch.setattr(mod, "on_cuda", lambda *a: True)
+        i8 = torch.zeros((1, 2, 16, d), dtype=torch.int8)
+        bf = torch.zeros((1, 2, 16, d), dtype=torch.bfloat16)
+        for call in (lambda: ops.attention(bf, bf, bf),
+                     lambda: ops.attention_i8(i8, i8, i8,
+                                              int_score_scale(max(d, 16)))):
+            with pytest.raises(RuntimeError if ok else ValueError,
+                               match="no nvcc" if ok else "head_dim"):
+                call()
+
+
+# ---------------------------------------------------------------------------
 # lm_loss and calibrate_ptq at reduced codeqwen1.5-7b
 # ---------------------------------------------------------------------------
 
@@ -421,4 +504,20 @@ class TestNoCacheKernelsOnCard:
             np.float32)).to(cuda_dev).bfloat16() for _ in range(3))
         torch.testing.assert_close(ops.attention(q, k, v).float(),
                                    flash_attention_ref(q, k, v).float(),
+                                   rtol=FA_RTOL, atol=FA_ATOL)
+
+    @pytest.mark.parametrize("d", [48, 64, 80, 112])
+    def test_any_head_dim(self, rng, cuda_dev, d):
+        q, k, v, vs = (T(a).to(cuda_dev) for a in attn_inputs(
+            rng, b=1, h=4, hkv=2, s=300, d=d, wide=True))
+        sc = int_score_scale(d)
+        torch.testing.assert_close(
+            int8_flash_attention(q, k, v, sc, v_scale=vs),
+            int8_flash_attention_ref(q, k, v, sc, v_scale=vs),
+            rtol=RTOL, atol=ATOL)
+        assert torch.equal(int8_flash_attention(q, k, v, sc),
+                           int8_flash_attention_ref(q, k, v, sc))
+        qb, kb, vb = (x.float().bfloat16() for x in (q, k, v))
+        torch.testing.assert_close(ops.attention(qb, kb, vb).float(),
+                                   flash_attention_ref(qb, kb, vb).float(),
                                    rtol=FA_RTOL, atol=FA_ATOL)

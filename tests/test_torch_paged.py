@@ -254,6 +254,46 @@ def tbf(a):
     return T(a).to(torch.bfloat16)
 
 
+class TestPagedRows:
+    """The paged multi-row form (the rows of a packed t > 1 step, ROADMAP
+    C3)."""
+
+    def _rows(self, rng, int8, t=4):
+        q, pk, pks, pv, pvs, ppos, pt, qpos = kernel_inputs(rng, 8, 2,
+                                                            int8=int8)
+        qr = rng.normal(size=(4, t, 8, q.shape[-1])).astype(np.float32)
+        qp = (qpos[:, None] - np.arange(t)[::-1][None]).astype(np.int32)
+        qp[IDLE] = -1
+        qp[0, 0] = -1                              # a pad row
+        return (T(qr).to(torch.bfloat16),) + to_port(
+            q, pk, pks, pv, pvs, ppos, pt, qpos, torch.bfloat16)[1:7] + (
+                T(qp),)
+
+    @pytest.mark.parametrize("int8", [True, False])
+    def test_rows_equal_single_row_launches(self, rng, int8):
+        """Row i of the multi-row plain version is the T = 1 plain version
+        at that row's position, bit for bit; idle rows are exact zeros."""
+        qr, *args, qp = self._rows(rng, int8)
+        got = ops.paged_attention_decode_rows(qr, *args, qp)
+        assert got.shape == qr.shape and got.dtype == torch.bfloat16
+        for i in range(qr.shape[1]):
+            one = ops.paged_attention_decode(qr[:, i], *args,
+                                             qp[:, i].contiguous())
+            assert torch.equal(got[:, i], one)
+        assert (got[IDLE] == 0).all() and (got[0, 0] == 0).all()
+
+    def test_rows_close_vs_jit_ref(self, rng):
+        qr, *args, qp = self._rows(rng, True)
+        got = ops.paged_attention_decode_rows(qr.float(), *args, qp)
+        jargs = [jnp.asarray(a.numpy()) for a in args]
+        f = jax.jit(lambda q, qpos: ref.paged_decode_attention_ref(
+            q, *jargs, qpos))
+        for i in range(qr.shape[1]):
+            want = f(jnp.asarray(qr[:, i].float().numpy()),
+                     jnp.asarray(qp[:, i].numpy()))
+            np.testing.assert_allclose(got[:, i].numpy(), as_f32(want), **TOL)
+
+
 @pytest.mark.parametrize("int8", [True, False])
 class TestPagedCacheFunctions:
     def test_write_paged_bit_exact(self, rng, int8):
@@ -572,6 +612,20 @@ def cuda_dev():
         pytest.skip("needs a CUDA device: the port's kernels run only on the "
                     "card (chip_smoke.py covers them there)")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [True, False])
+def test_paged_rows_on_card(rng, cuda_dev, int8):
+    """The paged multi-row form on the card: each row bit-equal to a T = 1
+    launch at its position with the same B."""
+    qr, *args, qp = [None if a is None else a.to(cuda_dev)
+                     for a in TestPagedRows()._rows(rng, int8, t=20)]
+    got = ops.paged_attention_decode_rows(qr, *args, qp)
+    for i in range(qr.shape[1]):
+        one = ops.paged_attention_decode(qr[:, i].contiguous(), *args,
+                                         qp[:, i].contiguous())
+        assert torch.equal(got[:, i], one)
 
 
 @pytest.mark.cuda
