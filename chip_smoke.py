@@ -16,11 +16,14 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    and bf16 pages; shared, non-adjacent and null pages, slots cleared by
    copy-on-write, an idle lane that must be exactly zero) within the same
    tolerance, and bit for bit equal to the dense kernel on the same content
-   laid out densely.  Each is timed (CUDA events, L2 flushed before every
-   launch) beside its plain version, a PyTorch library yardstick where one
-   call computes the same function (``torch._int_mm`` for the integer GEMMs,
-   rows padded to 32 at M = 8, which it refuses; for int4_gemm on the
-   unpacked int8 weight, without the group scales: not the same function)
+   laid out densely; int4_gemm also at the W4A8 forwards' 4 x 1024 rows
+   (codeqwen1.5-7b's q/o and mlp_down, zamba2-2.7b's in_proj, out_proj and
+   shared GELU MLP; ``W4_SHAPES``).  Each is timed (CUDA events, L2 flushed
+   before every launch) beside its plain version, a PyTorch library
+   yardstick where one call computes the same function (``torch._int_mm``
+   for the integer GEMMs, rows padded to 32 at M = 8, which it refuses; for
+   int4_gemm on the unpacked int8 weight, without the group scales: not the
+   same function)
    and its bound: the larger of bytes / 3.35 TB/s and operations / peak rate
    (1979 TOP/s int8, 989 TFLOP/s bf16, 67 TFLOP/s f32 outside the tensor
    cores; H100 SXM data sheet).  The no-cache forward's kernels at B = 4,
@@ -92,7 +95,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    int8_flash_attention (integer) or flash_attention (bf16) exactly once per
    attention layer — int8_flash_attention in its streaming form exactly for
    the 4096-token sequence — ssd_scan once per Mamba-2 layer (zamba2: 9 and
-   45), and the w8a8-float forwards int_silu or int_gelu once per layer.
+   45), and the w8a8-float forwards int_silu or int_gelu once per layer.  The
+   bf16 and w4a8 forwards run once more under torch.profiler; each profile
+   reports the device ms of int4_gemm and flash_attention
+   (``PROFILED_KERNELS``).
 
 The last three lines of standard output are the kernels JSON (each kernel
 timed at the M = 8 shape the main path, codeqwen1.5-7b w4a8, gives it, or
@@ -115,6 +121,18 @@ tree of the port (say a parent commit's ``src`` unpacked under ``build/``),
 so that two trees are compared in one call:
 
     python3 chip_smoke.py --serve-only --src build/parent/src
+
+``--cal-only`` builds and then runs only phase 6's ``calibrate_ptq`` of
+codeqwen1.5-7b and zamba2-2.7b, timed and then under the profiler
+(``cal_only``); with ``--src DIR`` likewise on another tree.
+
+``--kernels flash_attention,int4_gemm`` builds only those kernels (of the
+tree ``--src`` names) and runs only their phase 3 cases, held against the
+plain versions and timed; run it on two trees in turns (parent, change,
+change, parent) to compare a kernel's two versions in one call:
+
+    python3 chip_smoke.py --kernels flash_attention,int4_gemm \
+        --src build/parent/src
 """
 from __future__ import annotations
 
@@ -244,6 +262,28 @@ def decode_work(kpos, qp, hq, hkv, d, window=0, slot_ids=None,
     return nbytes, 4 * hq * d * int(valid.sum())
 
 
+def case_recorder(cases: list):
+    """``record(kernel, shape, err, exact, ms, plain_ms, lib_ms, bound,
+    lib_note)``: appends one phase 3 case to ``cases`` and logs it."""
+    def record(kernel, shape, err, exact, ms, plain_ms, lib_ms, b,
+               lib_note=None):
+        cases.append({"kernel": kernel, "shape": shape, "max_abs_err": err,
+                      "exact": exact, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "library_note": lib_note,
+                      "bound_ms": b[0], "bound_by": b[1]})
+        log(f"  {kernel:26s} {shape:44s} err={err:.3g} ms={ms:.4f} "
+            f"plain={plain_ms:.4f} lib={lib_ms} bound={b[0]:.4f} ({b[1]})"
+            + (f" [library: {lib_note}]" if lib_note else ""))
+        return cases[-1]
+    return record
+
+
+def randn_on(dev, gen):
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+    return randn
+
+
 def check_kernels(dev, gen, timer) -> list[dict]:
     from repro_torch.kernels import ops
     from repro_torch.kernels.int8_gemm import gemm_w8a8_ref, int8_matmul_ref
@@ -254,19 +294,7 @@ def check_kernels(dev, gen, timer) -> list[dict]:
     from repro_torch.models.layers import GELU_INT_SCALE, quantize_weight
 
     cases = []
-
-    def record(kernel, shape, err, exact, ms, plain_ms, lib_ms, b,
-               lib_note=None):
-        cases.append({"kernel": kernel, "shape": shape, "max_abs_err": err,
-                      "exact": exact, "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": lib_ms, "library_note": lib_note,
-                      "bound_ms": b[0], "bound_by": b[1]})
-        log(f"  {kernel:26s} {shape:44s} err={err:.3g} ms={ms:.4f} "
-            f"plain={plain_ms:.4f} lib={lib_ms} bound={b[0]:.4f} ({b[1]})"
-            + (f" [library: {lib_note}]" if lib_note else ""))
-
-    def randn(*shape, scale=1.0):
-        return torch.randn(shape, generator=gen, device=dev) * scale
+    record, randn = case_recorder(cases), randn_on(dev, gen)
 
     # -- 1. quantize_rows (starcoder's and codeqwen's activation widths) -----
     for m in (8, 256):
@@ -453,8 +481,8 @@ def check_no_cache(dev, gen, timer, record, randn) -> None:
     """Phase 3 for the no-cache forward's kernels at B = 4, T = 1024:
     int8_flash_attention (the v_scale form: integer probabilities bit-exact
     through the kernel's debug output, f32 output within RTOL/ATOL; the
-    int32 form bit-exact) and flash_attention (bf16, RTOL/ATOL) at
-    codeqwen1.5-7b's and starcoder2-3b's heads and at zamba2-2.7b's head
+    int32 form bit-exact) and flash_attention (``check_flash_attention``)
+    at codeqwen1.5-7b's and starcoder2-3b's heads and at zamba2-2.7b's head
     dim 80 (ROADMAP C7), and int_softmax on
     [4096, 1024] int32 rows without and with a mask and with rows spread
     far past 30*q_ln2 (bit-exact).  Bounds: bytes over 3.35 TB/s against the
@@ -463,8 +491,6 @@ def check_no_cache(dev, gen, timer, record, randn) -> None:
     about 15 integer operations per element at the f32 rate for the
     softmax — each pair counted once over the causal triangle."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import (
-        ATOL as FA_ATOL, RTOL as FA_RTOL, flash_attention_ref)
     from repro_torch.kernels.int8_flash_attention import (
         ATOL, RTOL, int8_attention_probs_ref, int8_flash_attention,
         int8_flash_attention_ref)
@@ -528,7 +554,47 @@ def check_no_cache(dev, gen, timer, record, randn) -> None:
                      2 * qk_ops, INT8_OPS))
         del out, ref
 
-    # -- 10. flash_attention (bf16) -------------------------------------------
+    check_flash_attention(dev, gen, timer, record, randn)
+
+    # -- 13. int_softmax --------------------------------------------------------
+    sc = int_score_scale(128)
+    m, n = NC_B * NC_T, NC_T
+    x = torch.randint(-3000, 3000, (m, n), generator=gen, device=dev,
+                      dtype=torch.int32)
+    wide = torch.randint(-2 ** 20, 2 ** 20, (m, n), generator=gen, device=dev,
+                         dtype=torch.int32)
+    wide[::7, 9] = 129032                     # a saturated score in each row
+    keep = torch.ones((n, n), dtype=torch.bool, device=dev).tril().repeat(
+        NC_B, 1)                              # causal rows of 4 sequences
+    for name, xs, mask in (("int32", x, None), ("int32 causal mask", x, keep),
+                           ("int32 wide spread", wide, None)):
+        def run():
+            return ops.softmax_i8(xs, sc, mask)
+
+        def plain():
+            return int_softmax_ref(xs, sc, mask)
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"int_softmax {name}: {int((out != ref).sum())}"
+                                 f" of {out.numel()} differ from the plain "
+                                 f"version")
+        record("int_softmax", f"[{m},{n}] {name}", 0.0, True, timer(run),
+               timer(plain), None,
+               bound(m * n * (5 + (mask is not None)), 15 * m * n, F32_OPS))
+
+
+def check_flash_attention(dev, gen, timer, record, randn) -> None:
+    """Phase 3's flash_attention cases (bf16, causal, B = 4, T = 1024) at
+    codeqwen1.5-7b's, starcoder2-3b's and zamba2-2.7b's heads: within
+    RTOL/ATOL of the plain version, timed beside SDPA over K/V repeated to
+    every head and the bound (bytes against both products at the bf16
+    rate, each pair counted once over the causal triangle)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (
+        ATOL as FA_ATOL, RTOL as FA_RTOL, flash_attention_ref)
+    b, t = NC_B, NC_T
+    pairs = t * (t + 1) // 2                        # causal (query, key) pairs
     for label, h, hkv, d in NC_HEADS:
         q = randn(b, h, t, d).to(torch.bfloat16)
         k = randn(b, hkv, t, d).to(torch.bfloat16)
@@ -557,33 +623,6 @@ def check_no_cache(dev, gen, timer, record, randn) -> None:
                bound(2 * (q.numel() + k.numel() + v.numel() + out.numel()),
                      4 * b * h * pairs * d, BF16_OPS))
         del out, ref, kr, vr
-
-    # -- 13. int_softmax --------------------------------------------------------
-    sc = int_score_scale(128)
-    m, n = NC_B * NC_T, NC_T
-    x = torch.randint(-3000, 3000, (m, n), generator=gen, device=dev,
-                      dtype=torch.int32)
-    wide = torch.randint(-2 ** 20, 2 ** 20, (m, n), generator=gen, device=dev,
-                         dtype=torch.int32)
-    wide[::7, 9] = 129032                     # a saturated score in each row
-    keep = torch.ones((n, n), dtype=torch.bool, device=dev).tril().repeat(
-        NC_B, 1)                              # causal rows of 4 sequences
-    for name, xs, mask in (("int32", x, None), ("int32 causal mask", x, keep),
-                           ("int32 wide spread", wide, None)):
-        def run():
-            return ops.softmax_i8(xs, sc, mask)
-
-        def plain():
-            return int_softmax_ref(xs, sc, mask)
-        out, ref = run(), plain()
-        torch.cuda.synchronize()
-        if not torch.equal(out, ref):
-            raise AssertionError(f"int_softmax {name}: {int((out != ref).sum())}"
-                                 f" of {out.numel()} differ from the plain "
-                                 f"version")
-        record("int_softmax", f"[{m},{n}] {name}", 0.0, True, timer(run),
-               timer(plain), None,
-               bound(m * n * (5 + (mask is not None)), 15 * m * n, F32_OPS))
 
 
 # zamba2-2.7b's no-cache forward (phase 6): the Mamba-2 scan of 4 x 1024
@@ -1066,14 +1105,111 @@ def check_paged(dev, gen, timer, record, randn) -> None:
                    bound(nbytes, ops_n, F32_OPS))
 
 
+# int4_gemm's phase 3 shapes (name, K, N, epilogue, bias, group, rows): the
+# codeqwen1.5-7b W4A8 projections at decode (M = 8), bucket-64 and -256
+# prefill steps and the no-cache forward's 4 x 1024 rows; starcoder's GELU
+# up-projection;
+# zamba2-2.7b's W4A8 forward (the Mamba-2 in_proj to 10448 columns, a
+# ragged 82nd tile of 80, and out_proj; the shared block's GELU MLP); a
+# ragged case through the byte-load path; then codeqwen's projections at
+# calibrate_ptq's other groups (W4_GROUPS: 32 and 128) at its 2 x 128 rows
+# and at decode
+W4_SHAPES = (("q_proj+bias", 4096, 4096, "scaled", True, 64,
+              (8, 64, 256, 4096)),
+             ("o_proj+residual", 4096, 4096, "scaled_add", False, 64,
+              (8, 64, 256, 4096)),
+             ("mlp_down", 13440, 4096, "scaled", False, 64,
+              (8, 64, 256, 4096)),
+             ("starcoder_mlp_up+gelu", 3072, 12288, "scaled_gelu", False, 64,
+              (8, 256)),
+             ("zamba2 in_proj", 2560, 10448, "scaled", False, 64, (4096,)),
+             ("zamba2 out_proj", 5120, 2560, "scaled", False, 64, (4096,)),
+             ("zamba2 mlp_up+gelu", 2560, 10240, "scaled_gelu", False, 64,
+              (4096,)),
+             ("zamba2 mlp_down", 10240, 2560, "scaled", False, 64, (4096,)),
+             ("ragged+bias", 96, 70, "scaled_add", True, 32, (5, 37)),
+             *((name, k, 4096, epi, has_bias, group, (8, 256))
+               for group in (32, 128)
+               for name, k, epi, has_bias in (
+                   ("q_proj+bias", 4096, "scaled", True),
+                   ("o_proj+residual", 4096, "scaled_add", False),
+                   ("mlp_down", 13440, "scaled", False))))
+PLAIN_ROWS = 512       # the plain W4A8 GEMM runs by row blocks past this
+
+
+def check_int4_gemm(dev, gen, timer, record, randn) -> None:
+    """Phase 3's int4_gemm cases (``W4_SHAPES``): bit-exact against the
+    plain version (run by blocks of PLAIN_ROWS rows, which are independent,
+    where M is larger: its [groups, M, N] partials would not fit), timed
+    beside ``torch._int_mm`` on the unpacked weight (no group scales: not
+    the same function) and the bound (bytes against the int8 rate)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.int8_gemm import gemm_w4a8_ref, unpack_int4_ref
+    from repro_torch.kernels.quantize import quantize_rows_ref
+    from repro_torch.models.layers import GELU_INT_SCALE, quantize_weight_w4
+    for name, k, n, epi, has_bias, group, rows in W4_SHAPES:
+        wd = quantize_weight_w4(randn(k, n, scale=k ** -0.5), group=group)
+        w4, qmul, w_s = wd["w4"], wd["qmul"], wd["scale"]
+        w_unpacked = unpack_int4_ref(w4, k)     # the yardstick's int8 weight
+        bias = randn(n, scale=0.1) if has_bias else None
+        for m in rows:
+            x_q, x_s = quantize_rows_ref(randn(m, k))
+            res = (randn(m, n).to(torch.bfloat16) if epi == "scaled_add"
+                   else None)
+            gs = GELU_INT_SCALE if epi == "scaled_gelu" else None
+
+            def run():
+                return ops.gemm_w4a8(x_q, x_s, w4, qmul, w_s, bias=bias,
+                                     residual=res, gelu_scale=gs)
+
+            def plain():
+                return torch.cat([gemm_w4a8_ref(
+                    x_q[r:r + PLAIN_ROWS], x_s[r:r + PLAIN_ROWS], w4, qmul,
+                    w_s, bias=bias, gelu_scale=gs,
+                    residual=None if res is None else res[r:r + PLAIN_ROWS])
+                    for r in range(0, m, PLAIN_ROWS)])
+            out, ref = run(), plain()
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                raise AssertionError(
+                    f"int4_gemm {name} M={m}: {int((out != ref).sum())} of "
+                    f"{out.numel()} differ from the plain version (max |d| "
+                    f"{max_err(out, ref)})")
+            del ref
+            nbytes = (m * k + k * n // 2 + (k // group) * n + 4 * (m + n)
+                      + (4 * n if has_bias else 0)
+                      + (2 * m * n if res is not None else 0)
+                      + m * n * out.element_size())
+            c = record("int4_gemm", f"{name} [{m},{k}]x[{k},{n}] {epi} "
+                       f"g{group}", 0.0, True, timer(run),
+                       timer(plain, iters=3, warmup=1) if m > PLAIN_ROWS
+                       else timer(plain),
+                       int_mm_ms(timer, x_q, w_unpacked),
+                       bound(nbytes, 2 * m * n * k, INT8_OPS),
+                       lib_note="_int_mm, unpacked weight, no group scales: "
+                       "not the same function")
+            if m <= 8 and w4.numel() % 4 == 0:
+                # what this timer lets a plain read of the same nibbles
+                # take (a reduction over them): the decode cases' ceiling
+                flat = w4.reshape(-1).view(torch.int32)
+                c["read_ms"] = timer(lambda: flat.amax())
+                log(f"    a read of the {w4.numel()} weight bytes "
+                    f"(torch amax): {c['read_ms']:.4f} ms")
+
+
+# the kernels ``--kernels`` can time alone, each with its phase 3 cases
+KERNEL_CASES = {"flash_attention": check_flash_attention,
+                "int4_gemm": check_int4_gemm}
+
+
 def check_w4_and_gated(dev, gen, timer, record, randn) -> None:
-    """Phase 3 for the codeqwen1.5-7b kernels: int4_gemm (group 64) at the
-    W4A8 projections (plus starcoder's GELU up-projection and a ragged
-    case), and the three gated-MLP forms at [M, 4096] x 2 x [4096, 13440]."""
+    """Phase 3 for the W4A8 and gated-MLP kernels: int4_gemm
+    (``check_int4_gemm``), and the three gated-MLP forms at [M, 4096] x 2 x
+    [4096, 13440]."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.int8_gemm import (
         DUAL_BF16_ATOL, DUAL_BF16_RTOL, gated_mlp_ref, gated_mlp_w4a8_ref,
-        gated_mlp_w8a8_ref, gemm_w4a8_ref, unpack_int4_ref)
+        gated_mlp_w8a8_ref)
     from repro_torch.kernels.quantize import quantize_rows_ref
     from repro_torch.models.layers import (GELU_INT_SCALE, SILU_INT_SCALE,
                                            quantize_weight, quantize_weight_w4)
@@ -1085,41 +1221,7 @@ def check_w4_and_gated(dev, gen, timer, record, randn) -> None:
                 f"{kernel} {what}: {int((out != ref).sum())} of {out.numel()} "
                 f"differ from the plain version (max |d| {max_err(out, ref)})")
 
-    # -- 5. int4_gemm ----------------------------------------------------------
-    w4_cases = [("q_proj+bias", 4096, 4096, "scaled", True, 64),
-                ("o_proj+residual", 4096, 4096, "scaled_add", False, 64),
-                ("mlp_down", 13440, 4096, "scaled", False, 64),
-                ("starcoder_mlp_up+gelu", 3072, 12288, "scaled_gelu", False,
-                 64),
-                ("ragged+bias", 96, 70, "scaled_add", True, 32)]
-    for name, k, n, epi, has_bias, group in w4_cases:
-        wd = quantize_weight_w4(randn(k, n, scale=k ** -0.5), group=group)
-        w4, qmul, w_s = wd["w4"], wd["qmul"], wd["scale"]
-        w_unpacked = unpack_int4_ref(w4, k)     # the yardstick's int8 weight
-        bias = randn(n, scale=0.1) if has_bias else None
-        for m in ((5, 37) if name.startswith("ragged") else (8, 256)):
-            x_q, x_s = quantize_rows_ref(randn(m, k))
-            res = (randn(m, n).to(torch.bfloat16) if epi == "scaled_add"
-                   else None)
-            gs = GELU_INT_SCALE if epi == "scaled_gelu" else None
-
-            def run():
-                return ops.gemm_w4a8(x_q, x_s, w4, qmul, w_s, bias=bias,
-                                     residual=res, gelu_scale=gs)
-
-            def plain():
-                return gemm_w4a8_ref(x_q, x_s, w4, qmul, w_s, bias=bias,
-                                     residual=res, gelu_scale=gs)
-            out = run()
-            same("int4_gemm", f"{name} M={m}", out, plain())
-            nbytes = (m * k + k * n // 2 + (k // group) * n + 4 * (m + n)
-                      + (4 * n if has_bias else 0)
-                      + (2 * m * n if res is not None else 0)
-                      + m * n * out.element_size())
-            record("int4_gemm", f"{name} [{m},{k}]x[{k},{n}] {epi} g{group}",
-                   0.0, True, timer(run), timer(plain),
-                   int_mm_ms(timer, x_q, w_unpacked),
-                   bound(nbytes, 2 * m * n * k, INT8_OPS))
+    check_int4_gemm(dev, gen, timer, record, randn)
 
     # -- 6. dual_int4_gemm_gated and dual_gemm_gated (int8, bf16) -----------
     k, n, group = 4096, 13440, 64
@@ -2045,6 +2147,37 @@ def calibrate(params, cfg, dev, seed) -> dict:
             "launches": counts}
 
 
+def cal_only(dev, seed) -> dict:
+    """Phase 6's ``calibrate`` for each calibrated model (float parameters
+    from ``seed`` at full width and depth), run twice: timed, then under
+    torch.profiler (device busy ms, int4_gemm's share): what two trees of
+    the port are compared on."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    out = {}
+    for arch, _, calibrated, _ in NO_CACHE_PATHS:
+        if not calibrated:
+            continue
+        cfg = get_config(arch)
+        params = init_params(cfg, seed=seed, device=dev)
+        res = out[f"{arch} calibrate_ptq"] = calibrate(params, cfg, dev, seed)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            calibrate(params, cfg, dev, seed)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        res["profile"] = {"calibrate_ptq": profile_summary(prof, wall_ms)}
+        log(f"  {arch} calibrate_ptq in {res['wall_s']:.2f}s: policy "
+            f"{res['policy']}")
+        log_profile(res)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def no_cache_full(dev, seed, arch, precisions, calibrated, long_w8a8) -> dict:
     """Phase 6 for one model: float parameters from ``seed`` at full width
     and depth, then ``lm_loss`` on NC_B x NC_T random tokens at each
@@ -2087,7 +2220,7 @@ def no_cache_full(dev, seed, arch, precisions, calibrated, long_w8a8) -> dict:
         label = f"{arch} {precision} lm_loss" + (
             f" {toks.shape[0]}x{toks.shape[1]}" if toks is not tokens else "")
         res = out[label] = no_cache_loss(
-            model, pcfg, dev, toks, profiled=precision == "w4a8",
+            model, pcfg, dev, toks, profiled=precision in ("w4a8", "bf16"),
             act_kernel=ACT_KERNEL[arch] if precision == "w8a8-float" else None)
         del model
         gc.collect()
@@ -2206,6 +2339,11 @@ def int_library_entry(dev, seed) -> dict:
             "outputs": {k: list(v.shape) for k, v in out.items()}}
 
 
+# kernels whose device ms every profile reports (summed over the CUDA
+# functions named ``<kernel>_kernel``): the two redesigned for tensor cores
+PROFILED_KERNELS = ("int4_gemm", "flash_attention")
+
+
 def profile_summary(prof, wall_ms: float) -> dict:
     by_name = {}
     for e in prof.key_averages():
@@ -2220,7 +2358,10 @@ def profile_summary(prof, wall_ms: float) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "busy_share": busy / wall_ms if wall_ms else 0.0,
-            "top_kernels_ms": dict(top)}
+            "top_kernels_ms": dict(top),
+            "kernel_ms": {k: sum(v for name, v in by_name.items()
+                                 if f"{k}_kernel" in name)
+                          for k in PROFILED_KERNELS}}
 
 
 def log_drain(d: dict) -> None:
@@ -2241,9 +2382,11 @@ def log_profile(d: dict) -> None:
     for name, p in d.get("profile", {}).items():
         log(f"  profile {name}: wall {p['wall_ms']:.2f} ms, "
             f"device busy {p['device_busy_ms']:.2f} ms "
-            f"({p['busy_share']:.1%}); top "
-            + ", ".join(f"{k[:40]}={v:.2f}" for k, v in
-                        list(p["top_kernels_ms"].items())[:4]))
+            f"({p['busy_share']:.1%}); "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in
+                        p.get("kernel_ms", {}).items() if v)
+            + "; top " + ", ".join(f"{k[:40]}={v:.2f}" for k, v in
+                                   list(p["top_kernels_ms"].items())[:4]))
 
 
 def main() -> int:
@@ -2259,7 +2402,19 @@ def main() -> int:
                     "codeqwen1.5-7b w4a8 drains with bucket-1/64/256 "
                     "profiles and a bucket-256 prefill's cache attention "
                     "(serve_only); prints their summary and no ok line")
+    ap.add_argument("--cal-only", action="store_true",
+                    help="build, then only codeqwen1.5-7b's and zamba2-2.7b's "
+                    "calibrate_ptq, timed and then profiled (cal_only); "
+                    "prints their summary and no ok line")
+    ap.add_argument("--kernels", default=None,
+                    help="comma-separated kernels among "
+                    f"{', '.join(KERNEL_CASES)}: build only these from --src "
+                    "and run only their phase 3 cases, held against the plain "
+                    "versions and timed; prints the cases and no ok line")
     args = ap.parse_args()
+    only = args.kernels.split(",") if args.kernels else None
+    if only and not set(only) <= set(KERNEL_CASES):
+        ap.error(f"--kernels takes {', '.join(KERNEL_CASES)}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — the port's kernels run only on the "
               "card", file=sys.stderr)
@@ -2279,12 +2434,29 @@ def main() -> int:
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    built = build.build_all()
+    built = build.build_all(*([only] if only else []))
     log(f"[2/6] built {len(built)} kernels in {time.perf_counter() - t0:.1f}s")
     for name, info in sorted(built.items()):
         regs = [ln.strip() for ln in info["ptxas"].splitlines()
                 if "registers" in ln or "Compiling entry" in ln]
         log(f"  {name}: {info['seconds']:.1f}s; " + " | ".join(regs))
+
+    if only:
+        log(f"[3/6] {', '.join(only)} vs plain versions on the card "
+            f"({args.src})")
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        cases, timer = [], Timer(dev)
+        for name in only:
+            KERNEL_CASES[name](dev, gen, timer, case_recorder(cases),
+                               randn_on(dev, gen))
+        if args.out is not None:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(json.dumps({"card": smi, "src": str(
+                args.src), "cases": cases}, indent=1))
+        print(json.dumps({"src": str(args.src), "cases": {
+            f"{c['kernel']} {c['shape']}": c["ms"] for c in cases}}))
+        print(smi)
+        return 0
 
     if args.serve_only:
         res = serve_only(dev, args.seed)
@@ -2298,6 +2470,20 @@ def main() -> int:
                        "profile": {k: (v["wall_ms"], v["device_busy_ms"])
                                    for k, v in r["profile"].items()}}
                     if "metrics" in r else r)
+            for label, r in res.items()}}))
+        print(smi)
+        return 0
+
+    if args.cal_only:
+        res = cal_only(dev, args.seed)
+        if args.out is not None:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(json.dumps({"card": smi, "src": str(
+                args.src), "calibrate": res}, indent=1))
+        print(json.dumps({"cal_only": {
+            label: {"wall_s": r["wall_s"], "profile": {
+                k: (v["wall_ms"], v["device_busy_ms"], v["kernel_ms"])
+                for k, v in r["profile"].items()}}
             for label, r in res.items()}}))
         print(smi)
         return 0
@@ -2424,7 +2610,11 @@ def main() -> int:
               "dual_gemm_gated": "int8 [8,4096]x2[4096,13440] silu"},
         # the no-cache paths' attention at B = 4, T = 1024 (phase 6)
         "codeqwen1.5-7b w4a8 lm_loss": {"int8_flash_attention":
-            "v_scale codeqwen B=4 T=1024 H=32 Hkv=32 D=128"},
+            "v_scale codeqwen B=4 T=1024 H=32 Hkv=32 D=128",
+            "int4_gemm": "mlp_down [4096,13440]x[13440,4096] scaled g64"},
+        # calibrate_ptq's 2 x 128 rows (its candidates at groups 32 to 128)
+        "codeqwen1.5-7b calibrate_ptq": {
+            "int4_gemm": "mlp_down [256,13440]x[13440,4096] scaled g32"},
         "codeqwen1.5-7b w8a8 lm_loss": {"int8_flash_attention":
             "v_scale codeqwen B=4 T=1024 H=32 Hkv=32 D=128"},
         "starcoder2-3b w8a8 lm_loss": {"int8_flash_attention":
@@ -2452,7 +2642,9 @@ def main() -> int:
             **({"flash_attention": "bf16 zamba2 B=4 T=1024 H=32 Hkv=32 D=80"}
                if prec == "bf16" else {"int8_flash_attention":
                                        "v_scale zamba2 B=4 T=1024 H=32 "
-                                       "Hkv=32 D=80"})}
+                                       "Hkv=32 D=80"}),
+            **({"int4_gemm": "zamba2 in_proj [4096,2560]x[2560,10448] "
+                             "scaled g64"} if prec == "w4a8" else {})}
            for prec in ("bf16", "w8a8", "w4a8")},
         # the Table II entry points and the patch embed
         "integer library": {

@@ -16,54 +16,69 @@
 //
 // Bound on the H100: at decode (M = 8) bytes — half a byte of weight per
 // 8 multiply-adds (mlp_down [8,13440]x[13440,4096]: 27.5 MB of nibbles, 8.2 us
-// at 3.35 TB/s); at prefill buckets operations.  Design, simple first: the
-// shared main loop of ``gemm_tile.cuh`` with one packed stream — each thread
-// loads two packed row words (4 columns each), sign-extends the nibbles in
-// registers into the int8 words ``__dp4a`` reads, and folds each group's
-// int32 sums into the accumulator times qmul when the group ends; the
-// packed bytes never widen in device memory.  Split K as in int8_gemm, with
-// each block's K range on group boundaries.
-#include "gemm_tile.cuh"
+// at 3.35 TB/s); at prefill rows and in the no-cache forwards (M = 4096)
+// operations at the int8 tensor-core rate.  Design: the tensor-core loop of
+// ``gemm_mma.cuh`` with one stream — raw nibbles and A through a 4-stage
+// ``cp.async`` ring, widened to int8 B fragments at the ``ldmatrix.trans``
+// load, ``mma.sync`` m16n8k32 with the group fold on the accumulator
+// fragments — in its decode shape (16 x 128 blocks of 4 warps, K split until
+// each SM holds ~32 KB of weight in flight) or its prefill shape (64 x 128,
+// 8 warps, two blocks an SM); the wrapper picks
+// (``int8_gemm.w4_tiling``) and keeps each block's K range on group
+// boundaries.  The packed bytes never widen in device memory.
+#include "gemm_mma.cuh"
 #include "int_epilogue.cuh"
 
 namespace {
 
-template <int G>
-__global__ void __launch_bounds__(gemm::THREADS)
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 int4_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w4,
-                 const int8_t* __restrict__ qmul, int M, int N, int K, int k_len, int vec, Epi e,
-                 int32_t* __restrict__ partial, int* __restrict__ counters) {
-  const gemm::Streams<1> s{{w4}, {qmul}};
-  int acc[1][4][4];
-  if (!gemm::mainloop<1, G>(x, s, M, N, K, k_len, vec, partial, counters, acc)) return;
+                 const int8_t* __restrict__ qmul, int M, int N, int K, int G, int k_len,
+                 int vec, Epi e, int32_t* __restrict__ partial, int* __restrict__ counters) {
+  const mma_gemm::Streams<1> s{{w4}, {qmul}};
+  mma_gemm::Acc<C, 1> acc;
+  if (!mma_gemm::mainloop<C, 1>(x, s, M, N, K, G, k_len, vec, partial, counters, acc)) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < C::MT; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = gemm::out_m(i), n = gemm::out_n(j);
-      if (m < M && n < N) store_out(e, m, n, N, acc[0][i][j]);
-    }
+    for (int j = 0; j < C::NP; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int m = mma_gemm::out_row<C>(i, c), n = mma_gemm::out_col<C>(j, h, c);
+          if (m < M && n < N) store_out(e, m, n, N, acc[0][i][j][h][c]);
+        }
 }
 
-template <int G>
-void launch(const dim3& grid, cudaStream_t stream, const void* x, const void* w4,
-            const void* qmul, int m, int n, int k, int k_len, int vec, const Epi& e,
-            void* partial, void* counters) {
-  int4_gemm_kernel<G><<<grid, gemm::THREADS, 0, stream>>>(
+template <class C>
+int launch(cudaStream_t stream, const void* x, const void* w4, const void* qmul, int m, int n,
+           int k, int group, int split, int k_len, int vec, const Epi& e, void* partial,
+           void* counters) {
+  const int smem = C::template smem_bytes<1>();
+  cudaError_t err = cudaFuncSetAttribute(int4_gemm_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + C::BN - 1) / C::BN, (m + C::BM - 1) / C::BM, split);
+  int4_gemm_kernel<C><<<grid, C::THREADS, smem, stream>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w4),
-      static_cast<const int8_t*>(qmul), m, n, k, k_len, vec, e,
+      static_cast<const int8_t*>(qmul), m, n, k, group, k_len, vec, e,
       static_cast<int32_t*>(partial), static_cast<int*>(counters));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// group: 32, 64 or 128 (anything else returns cudaErrorInvalidValue)
+// group: 32, 64 or 128; bm 16: the decode shape, 64: the prefill shape;
+// anything else returns cudaErrorInvalidValue
 extern "C" int repro_int4_gemm(const void* x, const void* w4, const void* qmul, int m, int n,
                                int k, int group, int epilogue, int stream_f32,
                                const void* xs, const void* ws, const void* bias,
                                const void* res, void* out, float inv_gelu_scale, int q_b,
                                int q_c, int q_one, int s1, int mult, int s2, int rq_s1,
-                               int rq_mult, int rq_s2, int split, int k_len, int vec,
+                               int rq_mult, int rq_s2, int bm, int split,
+                               int k_len, int vec,
                                void* partial, void* counters, void* stream) {
   Epi e;
   e.kind = epilogue;
@@ -78,13 +93,13 @@ extern "C" int repro_int4_gemm(const void* x, const void* w4, const void* qmul, 
   e.gelu = GeluConsts{q_b, q_c, q_one, s1, mult, s2};
   e.rq = RequantConsts{rq_s1, rq_mult, rq_s2};  // unused: no requant* epilogue at W4A8
   if (m <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid((n + gemm::BN - 1) / gemm::BN, (m + gemm::BM - 1) / gemm::BM, split);
+  if (group != 32 && group != 64 && group != 128) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (group) {
-    case 32: launch<32>(grid, st, x, w4, qmul, m, n, k, k_len, vec, e, partial, counters); break;
-    case 64: launch<64>(grid, st, x, w4, qmul, m, n, k, k_len, vec, e, partial, counters); break;
-    case 128: launch<128>(grid, st, x, w4, qmul, m, n, k, k_len, vec, e, partial, counters); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (bm == mma_gemm::Prefill::BM)
+    return launch<mma_gemm::Prefill>(st, x, w4, qmul, m, n, k, group, split, k_len, vec, e,
+                                     partial, counters);
+  if (bm == mma_gemm::Decode::BM)
+    return launch<mma_gemm::Decode>(st, x, w4, qmul, m, n, k, group, split, k_len, vec, e,
+                                    partial, counters);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

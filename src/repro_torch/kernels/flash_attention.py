@@ -3,12 +3,15 @@ k/v [B,Hkv,Skv,D], causal or not, f32 online softmax, bf16 out.
 
 Port of the Pallas kernel ``repro/kernels/flash_attention.py:74``
 ``flash_attention`` to the CUDA kernel ``csrc/flash_attention.cu`` (source
-note there: bound by operations, one block per 64 query rows, key tiles
-above the diagonal skipped).  ``flash_attention_ref`` is its plain version,
+note there: both products on bf16 tensor cores, K/V streamed by
+``cp.async``, one block per 64 query rows, key tiles above the diagonal
+skipped).  ``flash_attention_ref`` is its plain version,
 ``repro.kernels.ref``'s oracle: f32 scores, softmax and P@V, rounded to the
-input dtype once.  The two sum in other orders and use their own ``exp``, so
-they agree within ``|kernel - plain| <= ATOL + RTOL * |plain|``: one bf16
-rounding of the output (2^-7 relative at most), ATOL for outputs near 0.
+input dtype once.  The two sum in other orders and use their own ``exp``, and
+the kernel carries P into P@V as two bf16 terms, so they agree within
+``|kernel - plain| <= ATOL + RTOL * |plain|``: one bf16 rounding of the
+output (2^-7 relative at most), ATOL for outputs near 0.
+``flash_attention_tiled_ref`` is the kernel's order in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ from .common import LAUNCHES, check, on_cuda
 NEG = -1e30
 RTOL = 2.0 ** -7
 ATOL = 1e-3
+BK = 64                      # the kernel's key tile
+LOG2E = 1.4426950408889634
 
 
 def head_dim_ok(d: int) -> bool:
@@ -45,6 +50,47 @@ def flash_attention_ref(q, k, v, causal: bool = True, scale=None):
         logits = torch.where(mask, logits, torch.full_like(logits, NEG))
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bhst,bhtd->bhsd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_tiled_ref(q, k, v, causal: bool = True, scale=None,
+                              bk: int = BK, split: bool = True):
+    """The kernel's order in plain PyTorch: key tiles of ``bk`` in order,
+    an f32 online softmax per tile (``exp(x) = exp2(x * log2 e)``), l summing
+    the f32 probabilities, and P split into two bf16 terms before P@V,
+    ``hi = bf16(p)``, ``lo = bf16(p - hi)`` (``split=False``: ``hi`` alone,
+    one bf16 rounding, which misses ``RTOL``/``ATOL`` on early causal rows,
+    where one probability carries the row).  It shows on the CPU that the
+    kernel's rounding fits the tolerance; the wrappers never call it."""
+    b, h, s, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if hkv != h:
+        k = k.repeat_interleave(h // hkv, dim=1)
+        v = v.repeat_interleave(h // hkv, dim=1)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    rows = torch.arange(s, device=q.device)[:, None] + (skv - s)
+    m = torch.full((b, h, s, 1), NEG, device=q.device)
+    l = torch.zeros((b, h, s, 1), device=q.device)
+    acc = torch.zeros((b, h, s, d), device=q.device)
+    for k0 in range(0, skv, bk):
+        kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+        x = torch.einsum("bhsd,bhtd->bhst", qf, kt) * scale
+        if causal:
+            keys = torch.arange(k0, k0 + kt.shape[2], device=q.device)[None]
+            x = torch.where(keys <= rows, x, torch.full_like(x, NEG))
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * LOG2E)
+        p = torch.exp2((x - m_new) * LOG2E)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        pv = torch.einsum("bhst,bhtd->bhsd", hi, vt)
+        if split:
+            lo = (p - hi).to(torch.bfloat16).float()
+            pv = pv + torch.einsum("bhst,bhtd->bhsd", lo, vt)
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
 
 
 def _launch(q, k, v, causal: bool, scale: float):

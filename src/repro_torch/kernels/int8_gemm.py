@@ -2,10 +2,13 @@
 int4 weights with two-level group scales) and the gated-MLP dual GEMMs.
 
 Ports of the Pallas kernels of ``repro/kernels/int8_gemm.py`` to CUDA
-kernels for ``sm_90a`` (source notes in each ``csrc`` file; all but the
-float dual share the main loop of ``csrc/gemm_tile.cuh``: 64x64 ``__dp4a``
-tiles, W in the reference's layout transposed in registers, split K with
-an exact int32 combine when the tiles alone cannot fill the card):
+kernels for ``sm_90a`` (source notes in each ``csrc`` file).  int8_gemm and
+the dual GEMMs share the main loop of ``csrc/gemm_tile.cuh`` (64x64
+``__dp4a`` tiles, W in the reference's layout transposed in registers);
+int4_gemm runs the tensor-core loop of ``csrc/gemm_mma.cuh`` (int8
+``mma.sync``, the raw nibbles streamed by ``cp.async`` and widened at the
+fragment load, tiles chosen by ``w4_tiling``).  Both split K with an exact
+int32 combine when the tiles alone cannot fill the card:
 
   int8_gemm             (``:127``) -> ``csrc/int8_gemm.cu``
   int4_gemm             (``:433``) -> ``csrc/int4_gemm.cu``
@@ -45,6 +48,8 @@ f32, so it agrees with its unfused plain version ``gated_mlp_ref`` to a
 tolerance (``DUAL_BF16_RTOL``/``DUAL_BF16_ATOL``), not bit for bit.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -252,16 +257,56 @@ class _Workspace:
 _WORKSPACE = _Workspace()
 
 
-def split_k(m: int, n: int, k: int, n_sm: int,
-            align: int = BK) -> tuple[int, int]:
-    """(split, k_len): split K across blocks until about two blocks per SM
-    are in flight; k_len is a multiple of ``align`` (BK, or the W4 group
-    when larger) and every split is non-empty."""
-    tiles = cdiv(m, BM) * cdiv(n, BN)
+def split_k(m: int, n: int, k: int, n_sm: int, align: int = BK, *,
+            bm: int = BM, bn: int = BN,
+            want: int | None = None) -> tuple[int, int]:
+    """(split, k_len): split K across blocks of ``bm`` x ``bn`` output
+    until about ``want`` blocks are in flight (default: two per SM); k_len
+    is a multiple of ``align`` (BK, or the W4 group when larger) and every
+    split is non-empty."""
+    tiles = cdiv(m, bm) * cdiv(n, bn)
     steps = cdiv(k, align)
-    split = max(1, min(steps, cdiv(2 * n_sm, tiles)))
+    split = max(1, min(steps, cdiv(2 * n_sm if want is None else want, tiles)))
     k_len = cdiv(steps, split) * align
     return cdiv(k, k_len), k_len
+
+
+# the tensor-core W4A8 loop (``csrc/gemm_mma.cuh``): K per stage, stages
+# in the ring, rows at or below which the decode shape runs, and the weight
+# bytes each SM should have in flight there
+W4_BK, W4_STAGES, W4_DECODE_M, W4_INFLIGHT = 128, 4, 64, 32 << 10
+
+
+@dataclasses.dataclass(frozen=True)
+class W4Tiling:
+    """One launch of ``gemm_mma.cuh``: block rows (16: the decode shape, 64:
+    the prefill shape) and columns, the split of K and each block's K range,
+    the output tiles (split-K counters) and the int32 workspace the split
+    needs."""
+    bm: int
+    bn: int
+    split: int
+    k_len: int
+    tiles: int
+    workspace: int
+
+
+def w4_tiling(m: int, n: int, k: int, g: int, n_sm: int) -> W4Tiling:
+    """The tile shape and split of a W4A8 GEMM [m, k] x [k, n] with scale
+    group ``g``.  Decode (m <= 64): blocks of 16 rows (rows computed up to
+    the next multiple of 16 >= m) x 128 columns, K split until each SM has
+    about ``W4_INFLIGHT`` bytes of nibbles in flight ((W4_STAGES - 1)
+    stages of a block's [W4_BK/2, 128] tile each); prefill: 64 x 128, K
+    split only until each SM has its two blocks.  K ranges are multiples of
+    max(W4_BK, g), so they start and end on group boundaries, and no split
+    is empty."""
+    bm, bn = (64, 128) if m > W4_DECODE_M else (16, 128)
+    in_flight = (W4_STAGES - 1) * (W4_BK // 2) * bn
+    want = 2 * n_sm if bm == 64 else cdiv(W4_INFLIGHT, in_flight) * n_sm
+    split, k_len = split_k(m, n, k, n_sm, max(W4_BK, g), bm=bm, bn=bn,
+                           want=want)
+    return W4Tiling(bm, bn, split, k_len, cdiv(m, bm) * cdiv(n, bn),
+                    m * n if split > 1 else 0)
 
 
 def _tiling(x, weights, n: int, align: int, n_streams: int):
@@ -400,12 +445,18 @@ def _launch_int4(x, w4, qmul, w_scale, x_scale, epilogue, gelu_scale, bias,
     _check_i8(qmul, (k // g, n), "qmul [K/g, N]")
     out, epi = _epilogue_args(epilogue, m, n, x_scale, w_scale, bias,
                               residual, gelu_scale, out_dtype, x.device)
-    split, k_len, part, cnt, vec = _tiling(x, (w4,), n, max(BK, g), 1)
+    dev = x.device
+    tl = w4_tiling(m, n, k, g,
+                   torch.cuda.get_device_properties(dev).multi_processor_count)
+    part, cnt = _WORKSPACE.get(dev, tl.workspace, tl.tiles)
+    vec = int(k % 16 == 0 and n % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (x, w4, qmul)))
     fn = build.entry("int4_gemm", "repro_int4_gemm",
                      [build.VP] * 3 + [build.I] * 4 + _EPI_ARGTYPES
-                     + [build.I] * 3 + [build.VP] * 3)
+                     + [build.I] * 4 + [build.VP] * 3)
     rc = fn(x.data_ptr(), w4.data_ptr(), qmul.data_ptr(), m, n, k, g, *epi,
-            split, k_len, vec, part, cnt, _stream(x.device))
+            tl.bm, tl.split, tl.k_len, vec, part.data_ptr(),
+            cnt.data_ptr(), _stream(dev))
     build.check_rc(rc, "int4_gemm")
     LAUNCHES["int4_gemm"] += 1
     return out

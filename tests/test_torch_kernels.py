@@ -304,6 +304,32 @@ class TestW4A8Gemm:
         assert k_len % max(64, g) == 0 and k_len % g == 0
         assert (split - 1) * k_len < k <= split * k_len
 
+    @pytest.mark.parametrize("m,n,k,g", [
+        (1, 4096, 4096, 64), (5, 70, 96, 32), (8, 4096, 13440, 64),
+        (8, 13440, 4096, 128), (17, 10448, 2560, 32), (37, 4096, 4096, 64),
+        (64, 4096, 13440, 128), (65, 4096, 4096, 64), (256, 4096, 13440, 32),
+        (4096, 10448, 2560, 64), (4096, 4096, 13440, 128)])
+    def test_w4_tiling(self, m, n, k, g):
+        """The tensor-core W4A8 loop's tiles: the decode shape exactly at
+        M <= 64 (16-row blocks: no row computed past the next multiple of
+        16), K ranges on group boundaries, no empty split, the split-K
+        workspace only where K is split, and at decode enough blocks for
+        ~32 KB of nibbles in flight per SM unless K cannot split further."""
+        n_sm = 132
+        t = tg.w4_tiling(m, n, k, g, n_sm)
+        decode = m <= 64
+        assert (t.bm, t.bn) == ((16, 128) if decode else (64, 128))
+        if decode:
+            rows = t.bm * -(-m // t.bm)
+            assert rows == 16 * -(-m // 16) and rows - m < 16
+        assert t.k_len % max(tg.W4_BK, g) == 0 and t.k_len % g == 0
+        assert (t.split - 1) * t.k_len < k <= t.split * t.k_len
+        assert t.tiles == -(-m // t.bm) * -(-n // t.bn)
+        assert t.workspace == (m * n if t.split > 1 else 0)
+        if decode and t.k_len > max(tg.W4_BK, g):
+            in_flight = (tg.W4_STAGES - 1) * tg.W4_BK // 2 * t.bn
+            assert t.tiles * t.split * in_flight >= tg.W4_INFLIGHT * n_sm
+
     def test_headroom_is_checked(self):
         x = torch.zeros((1, 32768), dtype=torch.int8)
         with pytest.raises(ValueError, match="int32 combine"):
@@ -596,6 +622,18 @@ class TestKernelsOnCard:
         w4, qmul, ws = w4_inputs(rng, 96, 70, 32)
         kw = {k: (v.to(cuda_dev) if isinstance(v, torch.Tensor) else v)
               for k, v in _kw(spec, bias, res, True).items()}
+        args = [T(a).to(cuda_dev) for a in (xq, xs, w4, qmul, ws)]
+        assert torch.equal(ops.gemm_w4a8(*args, **kw),
+                           tg.gemm_w4a8_ref(*args, **kw))
+
+    @pytest.mark.parametrize("group", [32, 64, 128])
+    def test_int4_gemm_prefill_rows(self, rng, cuda_dev, group):
+        """M = 1024: the prefill tile shape of the tensor-core loop."""
+        xq, xs, _, _, bias, res = gemm_inputs(rng, 1024, 512, 160)
+        w4, qmul, ws = w4_inputs(rng, 512, 160, group)
+        kw = {k: (v.to(cuda_dev) if isinstance(v, torch.Tensor) else v)
+              for k, v in _kw({"bias": True, "residual": True}, bias, res,
+                              True).items()}
         args = [T(a).to(cuda_dev) for a in (xq, xs, w4, qmul, ws)]
         assert torch.equal(ops.gemm_w4a8(*args, **kw),
                            tg.gemm_w4a8_ref(*args, **kw))

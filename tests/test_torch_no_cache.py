@@ -34,6 +34,7 @@ from repro.kernels import ref
 from repro.kernels.common import set_interpret
 from repro.kernels.int8_flash_attention import (
     int8_flash_attention as pallas_int8_attention)
+from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.kernels.int_softmax import _exp_consts as j_exp_consts
 from repro.kernels.int_softmax import int_softmax as pallas_softmax
 from repro.models import init_params as jinit_params
@@ -48,7 +49,8 @@ from repro_torch.core import inumerics as tnum
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (ATOL as FA_ATOL,
                                                  RTOL as FA_RTOL,
-                                                 flash_attention_ref)
+                                                 flash_attention_ref,
+                                                 flash_attention_tiled_ref)
 from repro_torch.kernels.int8_flash_attention import (
     ATOL, RTOL, SMEM_LIMIT, block_smem, head_shift, int8_attention_probs_ref,
     int8_flash_attention, int8_flash_attention_ref, masked_exp_is_zero)
@@ -310,6 +312,58 @@ class TestFlashAttention:
                                    rtol=FA_RTOL, atol=FA_ATOL)
 
 
+def bf16_qkv(rng, b, h, hkv, s, d):
+    """bf16 q [B,H,S,D], k/v [B,Hkv,S,D] as numpy f32 (exact in bf16) and
+    as torch bf16."""
+    arrs = [np.asarray(jnp.asarray(rng.standard_normal(shape), jnp.bfloat16)
+                       .astype(jnp.float32))
+            for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+    return arrs, [T(a).bfloat16() for a in arrs]
+
+
+def within_tol(got: torch.Tensor, want) -> bool:
+    want = torch.as_tensor(np.asarray(want, dtype=np.float32))
+    return bool(((got.float() - want).abs()
+                 <= FA_ATOL + FA_RTOL * want.abs()).all())
+
+
+class TestFlashAttentionKernelOrder:
+    """``flash_attention_tiled_ref``, the CUDA kernel's order (64-key tiles,
+    an online softmax, P split into bf16 hi + lo before P@V), within the
+    unchanged RTOL/ATOL of the plain version and of the Pallas kernel in
+    interpret mode: the kernel's rounding fits the tolerance."""
+
+    @pytest.mark.parametrize("d", [16, 80, 128])
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_close_to_plain_and_pallas(self, rng, d, causal):
+        (q, k, v), (tq, tk, tv) = bf16_qkv(rng, 1, 4, 1, 160, d)
+        got = flash_attention_tiled_ref(tq, tk, tv, causal)
+        assert got.dtype == torch.bfloat16
+        assert within_tol(got, flash_attention_ref(tq, tk, tv, causal).float())
+        want = pallas_flash(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                            causal=causal, bq=32, bk=32, interpret=True)
+        assert within_tol(got, want.astype(jnp.float32))
+
+    def test_long_sequence(self, rng):
+        """T = 1024 (16 key tiles, the no-cache forward's length), H = 2."""
+        (q, k, v), (tq, tk, tv) = bf16_qkv(rng, 1, 2, 2, 1024, 128)
+        got = flash_attention_tiled_ref(tq, tk, tv)
+        assert within_tol(got, flash_attention_ref(tq, tk, tv).float())
+        want = pallas_flash(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                            bq=128, bk=128, interpret=True)
+        assert within_tol(got, want.astype(jnp.float32))
+
+    def test_one_bf16_term_misses_the_tolerance(self, rng):
+        """Why the kernel splits P: one bf16 rounding of P before P@V leaves
+        early causal rows (one probability carrying the row) outside
+        RTOL/ATOL; hi + lo stays inside."""
+        _, (tq, tk, tv) = bf16_qkv(rng, 1, 8, 8, 256, 128)
+        plain = flash_attention_ref(tq, tk, tv).float()
+        assert not within_tol(flash_attention_tiled_ref(tq, tk, tv,
+                                                        split=False), plain)
+        assert within_tol(flash_attention_tiled_ref(tq, tk, tv), plain)
+
+
 # ---------------------------------------------------------------------------
 # any head dim that is a multiple of 16 up to 128 (B11, B12; ROADMAP C7)
 # ---------------------------------------------------------------------------
@@ -505,6 +559,17 @@ class TestNoCacheKernelsOnCard:
         torch.testing.assert_close(ops.attention(q, k, v).float(),
                                    flash_attention_ref(q, k, v).float(),
                                    rtol=FA_RTOL, atol=FA_ATOL)
+
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_flash_attention_d80(self, rng, cuda_dev, causal):
+        """zamba2-2.7b's head dim on the tensor-core kernel: GQA 4:1, a
+        ragged last query block and key tile."""
+        _, qkv = bf16_qkv(rng, 2, 8, 2, 300, 80)
+        q, k, v = (a.to(cuda_dev) for a in qkv)
+        torch.testing.assert_close(
+            ops.attention(q, k, v, causal=causal).float(),
+            flash_attention_ref(q, k, v, causal).float(),
+            rtol=FA_RTOL, atol=FA_ATOL)
 
     @pytest.mark.parametrize("d", [48, 64, 80, 112])
     def test_any_head_dim(self, rng, cuda_dev, d):
