@@ -18,12 +18,18 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    tolerance, and bit for bit equal to the dense kernel on the same content
    laid out densely; int4_gemm also at the W4A8 forwards' 4 x 1024 rows
    (codeqwen1.5-7b's q/o and mlp_down, zamba2-2.7b's in_proj, out_proj and
-   shared GELU MLP; ``W4_SHAPES``).  Each is timed (CUDA events, L2 flushed
+   shared GELU MLP; ``W4_SHAPES``); the three gated-MLP forms at
+   codeqwen1.5-7b's [M, 4096] x 2 x [4096, 13440] for M in {8, 64, 256,
+   4096} with SiLU and GELU (``GATED_ROWS``; dual_int4_gemm_gated also at
+   groups 32 and 128 for M in {8, 256}; a ragged case of each form through
+   the byte-load path; the bf16 form also bit-identical across two runs).
+   Each is timed (CUDA events, L2 flushed
    before every launch) beside its plain version, a PyTorch library
    yardstick where one call computes the same function (``torch._int_mm``
    for the integer GEMMs, rows padded to 32 at M = 8, which it refuses; for
    int4_gemm on the unpacked int8 weight, without the group scales: not the
-   same function)
+   same function; for the gated MLPs two ``_int_mm`` or two bf16
+   ``torch.matmul``, without scales or activation: not the same function)
    and its bound: the larger of bytes / 3.35 TB/s and operations / peak rate
    (1979 TOP/s int8, 989 TFLOP/s bf16, 67 TFLOP/s f32 outside the tensor
    cores; H100 SXM data sheet).  The no-cache forward's kernels at B = 4,
@@ -96,9 +102,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    attention layer — int8_flash_attention in its streaming form exactly for
    the 4096-token sequence — ssd_scan once per Mamba-2 layer (zamba2: 9 and
    45), and the w8a8-float forwards int_silu or int_gelu once per layer.  The
-   bf16 and w4a8 forwards run once more under torch.profiler; each profile
-   reports the device ms of int4_gemm and flash_attention
-   (``PROFILED_KERNELS``).
+   bf16 and w4a8 forwards and codeqwen's w8a8 one run once more under
+   torch.profiler; each profile reports the device ms of int4_gemm,
+   flash_attention and the two gated-MLP dual GEMMs (``PROFILED_KERNELS``).
 
 The last three lines of standard output are the kernels JSON (each kernel
 timed at the M = 8 shape the main path, codeqwen1.5-7b w4a8, gives it, or
@@ -126,8 +132,9 @@ so that two trees are compared in one call:
 codeqwen1.5-7b and zamba2-2.7b, timed and then under the profiler
 (``cal_only``); with ``--src DIR`` likewise on another tree.
 
-``--kernels flash_attention,int4_gemm`` builds only those kernels (of the
-tree ``--src`` names) and runs only their phase 3 cases, held against the
+``--kernels flash_attention,int4_gemm`` (or ``dual_gemm_gated``,
+``dual_int4_gemm_gated``) builds only those kernels (of the tree ``--src``
+names) and runs only their phase 3 cases, held against the
 plain versions and timed; run it on two trees in turns (parent, change,
 change, parent) to compare a kernel's two versions in one call:
 
@@ -220,16 +227,16 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
-def int_mm_ms(timer, x_q, w_q):
-    """Time of ``torch._int_mm`` (cuBLAS int8 GEMM, int32 out) on these
-    operands, with the rows zero-padded to 32 when M <= 16 (it refuses
+def int_mm_ms(timer, x_q, *weights):
+    """Time of ``torch._int_mm`` (cuBLAS int8 GEMM, int32 out) of x_q by
+    each weight, with the rows zero-padded to 32 when M <= 16 (it refuses
     those); None where K or N is not a multiple of 8 (refused too)."""
     m, k = x_q.shape
-    if k % 8 or w_q.shape[1] % 8:
+    if k % 8 or weights[0].shape[1] % 8:
         return None
     if m <= 16:
         x_q = torch.cat([x_q, x_q.new_zeros(32 - m, k)])
-    return timer(lambda: torch._int_mm(x_q, w_q))
+    return timer(lambda: [torch._int_mm(x_q, w) for w in weights])
 
 
 # ---------------------------------------------------------------------------
@@ -442,7 +449,9 @@ def check_kernels(dev, gen, timer) -> list[dict]:
                    bound(*decode_work(pos, qpos[:, None], hq, hkv, d, window),
                          F32_OPS))
 
-    check_w4_and_gated(dev, gen, timer, record, randn)
+    check_int4_gemm(dev, gen, timer, record, randn)
+    check_dual_int4_gemm_gated(dev, gen, timer, record, randn)
+    check_dual_gemm_gated(dev, gen, timer, record, randn)
     check_paged(dev, gen, timer, record, randn)
     check_no_cache(dev, gen, timer, record, randn)
     check_streaming_attention(dev, gen, timer, record, randn)
@@ -1134,7 +1143,15 @@ W4_SHAPES = (("q_proj+bias", 4096, 4096, "scaled", True, 64,
                    ("q_proj+bias", 4096, "scaled", True),
                    ("o_proj+residual", 4096, "scaled_add", False),
                    ("mlp_down", 13440, "scaled", False))))
-PLAIN_ROWS = 512       # the plain W4A8 GEMM runs by row blocks past this
+PLAIN_ROWS = 512       # the plain GEMMs run by row blocks past this
+
+
+def by_rows(fn, m: int):
+    """``fn(r0, r1)`` over row blocks of PLAIN_ROWS, concatenated: the plain
+    GEMMs at M = 4096, whose W4 group partials would not fit at once (the
+    rows are independent)."""
+    return torch.cat([fn(r, min(m, r + PLAIN_ROWS))
+                      for r in range(0, m, PLAIN_ROWS)])
 
 
 def check_int4_gemm(dev, gen, timer, record, randn) -> None:
@@ -1163,11 +1180,10 @@ def check_int4_gemm(dev, gen, timer, record, randn) -> None:
                                      residual=res, gelu_scale=gs)
 
             def plain():
-                return torch.cat([gemm_w4a8_ref(
-                    x_q[r:r + PLAIN_ROWS], x_s[r:r + PLAIN_ROWS], w4, qmul,
-                    w_s, bias=bias, gelu_scale=gs,
-                    residual=None if res is None else res[r:r + PLAIN_ROWS])
-                    for r in range(0, m, PLAIN_ROWS)])
+                return by_rows(lambda r0, r1: gemm_w4a8_ref(
+                    x_q[r0:r1], x_s[r0:r1], w4, qmul, w_s, bias=bias,
+                    gelu_scale=gs,
+                    residual=None if res is None else res[r0:r1]), m)
             out, ref = run(), plain()
             torch.cuda.synchronize()
             if not torch.equal(out, ref):
@@ -1197,92 +1213,156 @@ def check_int4_gemm(dev, gen, timer, record, randn) -> None:
                     f"(torch amax): {c['read_ms']:.4f} ms")
 
 
-# the kernels ``--kernels`` can time alone, each with its phase 3 cases
-KERNEL_CASES = {"flash_attention": check_flash_attention,
-                "int4_gemm": check_int4_gemm}
+# the gated MLP's phase 3 shapes: codeqwen1.5-7b's [M, 4096] x 2 x [4096,
+# 13440] at decode (M = 8), bucket-64 and -256 steps and the no-cache
+# forward's 4 x 1024 rows, SiLU and GELU; dual_int4_gemm_gated also at
+# calibrate_ptq's other groups (W4_GROUPS: 32 and 128) at decode and at its
+# 2 x 128 rows; a ragged case of each form through the byte-load path
+GATED_K, GATED_N = 4096, 13440
+GATED_ROWS = (8, 64, 256, 4096)
+GATED_RAGGED = ((5, 96, 70), (37, 96, 70))   # (M, K, N), K % 16 and N % 16 != 0
 
 
-def check_w4_and_gated(dev, gen, timer, record, randn) -> None:
-    """Phase 3 for the W4A8 and gated-MLP kernels: int4_gemm
-    (``check_int4_gemm``), and the three gated-MLP forms at [M, 4096] x 2 x
-    [4096, 13440]."""
+def same(kernel, what, out, ref):
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError(
+            f"{kernel} {what}: {int((out != ref).sum())} of {out.numel()} "
+            f"differ from the plain version (max |d| {max_err(out, ref)})")
+
+
+def check_dual_int4_gemm_gated(dev, gen, timer, record, randn) -> None:
+    """Phase 3's dual_int4_gemm_gated cases: bit-exact against
+    ``gated_mlp_w4a8_ref`` (by row blocks past PLAIN_ROWS), timed beside two
+    ``torch._int_mm`` on the unpacked weights (no group scales, no
+    activation: not the same function) and the bound (bytes or operations
+    at the int8 rate)."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.int8_gemm import (
-        DUAL_BF16_ATOL, DUAL_BF16_RTOL, gated_mlp_ref, gated_mlp_w4a8_ref,
-        gated_mlp_w8a8_ref)
+    from repro_torch.kernels.int8_gemm import (gated_mlp_w4a8_ref,
+                                               unpack_int4_ref)
     from repro_torch.kernels.quantize import quantize_rows_ref
     from repro_torch.models.layers import (GELU_INT_SCALE, SILU_INT_SCALE,
-                                           quantize_weight, quantize_weight_w4)
+                                           quantize_weight_w4)
+    cases = [(GATED_K, GATED_N, 64, m, act) for m in GATED_ROWS
+             for act in ("silu", "gelu")]
+    cases += [(GATED_K, GATED_N, g, m, "silu") for g in (32, 128)
+              for m in (8, 256)]
+    cases += [(k, n, 32, m, "gelu") for m, k, n in GATED_RAGGED]
+    weights = {}
+    for k, n, group, m, act in cases:
+        if (k, n, group) not in weights:
+            weights.clear()              # one weight pair on the card at a time
+            up, gate = (quantize_weight_w4(randn(k, n, scale=k ** -0.5),
+                                           group=group) for _ in range(2))
+            weights[(k, n, group)] = (
+                (up["w4"], up["qmul"], up["scale"], gate["w4"], gate["qmul"],
+                 gate["scale"]),
+                unpack_int4_ref(up["w4"], k), unpack_int4_ref(gate["w4"], k))
+        w_args, wu8, wg8 = weights[(k, n, group)]
+        sc = SILU_INT_SCALE if act == "silu" else GELU_INT_SCALE
+        x_q, x_s = quantize_rows_ref(randn(m, k))
+        shape = f"[{m},{k}]x2[{k},{n}] {act} g{group}"
 
-    def same(kernel, what, out, ref):
-        torch.cuda.synchronize()
-        if not torch.equal(out, ref):
-            raise AssertionError(
-                f"{kernel} {what}: {int((out != ref).sum())} of {out.numel()} "
-                f"differ from the plain version (max |d| {max_err(out, ref)})")
+        def run():
+            return ops.gated_mlp_w4a8(x_q, x_s, *w_args, act=act, act_scale=sc)
 
-    check_int4_gemm(dev, gen, timer, record, randn)
+        def plain():
+            return by_rows(lambda r0, r1: gated_mlp_w4a8_ref(
+                x_q[r0:r1], x_s[r0:r1], *w_args, act=act, act_scale=sc), m)
+        same("dual_int4_gemm_gated", shape, run(), plain())
+        nbytes = (m * k + 4 * m + 2 * m * n
+                  + 2 * (k * n // 2 + (k // group) * n + 4 * n))
+        record("dual_int4_gemm_gated", shape, 0.0, True, timer(run),
+               timer(plain, iters=3, warmup=1) if m > PLAIN_ROWS
+               else timer(plain), int_mm_ms(timer, x_q, wu8, wg8),
+               bound(nbytes, 4 * m * n * k, INT8_OPS),
+               lib_note="two _int_mm, unpacked weights, no group scales or "
+               "activation: not the same function")
 
-    # -- 6. dual_int4_gemm_gated and dual_gemm_gated (int8, bf16) -----------
-    k, n, group = 4096, 13440, 64
-    up = quantize_weight_w4(randn(k, n, scale=k ** -0.5), group=group)
-    gate = quantize_weight_w4(randn(k, n, scale=k ** -0.5), group=group)
-    w4_args = (up["w4"], up["qmul"], up["scale"], gate["w4"], gate["qmul"],
-               gate["scale"])
-    upq = quantize_weight(randn(k, n, scale=k ** -0.5))
-    gateq = quantize_weight(randn(k, n, scale=k ** -0.5))
-    w8_args = (upq["w_q"], upq["scale"], gateq["w_q"], gateq["scale"])
-    wu_f = randn(k, n, scale=k ** -0.5).to(torch.bfloat16)
-    wg_f = randn(k, n, scale=k ** -0.5).to(torch.bfloat16)
-    b4 = 2 * (k * n // 2 + (k // group) * n + 4 * n)
-    b8 = 2 * (k * n + 4 * n)
-    for m, act in ((8, "silu"), (8, "gelu"), (256, "silu")):
+
+def check_dual_gemm_gated(dev, gen, timer, record, randn) -> None:
+    """Phase 3's dual_gemm_gated cases, both forms: the int8 form bit-exact
+    against ``gated_mlp_w8a8_ref`` and timed beside two ``torch._int_mm``
+    (int32 out, no scales or activation: not the same function); the bf16
+    form within ``DUAL_BF16_RTOL``/``ATOL`` of ``gated_mlp_ref``, the same
+    bits in two runs, timed beside two bf16 ``torch.matmul`` (no
+    activation: not the same function)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.int8_gemm import (
+        DUAL_BF16_ATOL, DUAL_BF16_RTOL, gated_mlp_ref, gated_mlp_w8a8_ref)
+    from repro_torch.kernels.quantize import quantize_rows_ref
+    from repro_torch.models.layers import (GELU_INT_SCALE, SILU_INT_SCALE,
+                                           quantize_weight)
+    cases = [(GATED_K, GATED_N, m, act) for m in GATED_ROWS
+             for act in ("silu", "gelu")]
+    cases += [(k, n, m, "gelu") for m, k, n in GATED_RAGGED]
+    weights = {}
+    for k, n, m, act in cases:
+        if (k, n) not in weights:
+            weights.clear()              # one weight set on the card at a time
+            up, gate = (quantize_weight(randn(k, n, scale=k ** -0.5))
+                        for _ in range(2))
+            weights[(k, n)] = (
+                (up["w_q"], up["scale"], gate["w_q"], gate["scale"]),
+                *(randn(k, n, scale=k ** -0.5).to(torch.bfloat16)
+                  for _ in range(2)))
+        w8_args, wu_f, wg_f = weights[(k, n)]
         sc = SILU_INT_SCALE if act == "silu" else GELU_INT_SCALE
         x_q, x_s = quantize_rows_ref(randn(m, k))
         shape = f"[{m},{k}]x2[{k},{n}] {act}"
 
-        def run4():
-            return ops.gated_mlp_w4a8(x_q, x_s, *w4_args, act=act, act_scale=sc)
-
-        def plain4():
-            return gated_mlp_w4a8_ref(x_q, x_s, *w4_args, act=act,
-                                      act_scale=sc)
-        same("dual_int4_gemm_gated", shape, run4(), plain4())
-        io = m * k + 4 * m + 2 * m * n
-        record("dual_int4_gemm_gated", f"{shape} g{group}", 0.0, True,
-               timer(run4), timer(plain4), None,
-               bound(io + b4, 4 * m * n * k, INT8_OPS))
-
         def run8():
-            return ops.gated_mlp_w8a8(x_q, x_s, *w8_args, act=act, act_scale=sc)
+            return ops.gated_mlp_w8a8(x_q, x_s, *w8_args, act=act,
+                                      act_scale=sc)
 
         def plain8():
-            return gated_mlp_w8a8_ref(x_q, x_s, *w8_args, act=act,
-                                      act_scale=sc)
+            return by_rows(lambda r0, r1: gated_mlp_w8a8_ref(
+                x_q[r0:r1], x_s[r0:r1], *w8_args, act=act, act_scale=sc), m)
         same("dual_gemm_gated", f"int8 {shape}", run8(), plain8())
+        io = m * k + 4 * m + 2 * m * n
         record("dual_gemm_gated", f"int8 {shape}", 0.0, True, timer(run8),
-               timer(plain8), None, bound(io + b8, 4 * m * n * k, INT8_OPS))
-        if act != "silu":
-            continue
+               timer(plain8, iters=3, warmup=1) if m > PLAIN_ROWS
+               else timer(plain8),
+               int_mm_ms(timer, x_q, w8_args[0], w8_args[2]),
+               bound(io + 2 * (k * n + 4 * n), 4 * m * n * k, INT8_OPS),
+               lib_note="two _int_mm, int32 out, no scales or activation: "
+               "not the same function")
+
         x_f = randn(m, k).to(torch.bfloat16)
 
         def runf():
             return ops.gated_mlp(x_f, wu_f, wg_f, act)
 
         def plainf():
-            return gated_mlp_ref(x_f, wu_f, wg_f, act)
-        out, ref = runf().float(), plainf().float()
+            return by_rows(lambda r0, r1: gated_mlp_ref(x_f[r0:r1], wu_f,
+                                                        wg_f, act), m)
+        out, again, ref = runf(), runf(), plainf()
         torch.cuda.synchronize()
-        err = (out - ref).abs()
+        err = (out.float() - ref.float()).abs()
         if not (torch.isfinite(out).all() and bool(
-                (err <= DUAL_BF16_ATOL + DUAL_BF16_RTOL * ref.abs()).all())):
+                (err <= DUAL_BF16_ATOL + DUAL_BF16_RTOL
+                 * ref.float().abs()).all())):
             raise AssertionError(f"dual_gemm_gated bf16 {shape}: max |d| "
                                  f"{float(err.max())} beyond atol="
                                  f"{DUAL_BF16_ATOL} rtol={DUAL_BF16_RTOL}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"dual_gemm_gated bf16 {shape}: two runs "
+                                 f"on the same inputs differ")
         record("dual_gemm_gated", f"bf16 {shape}", float(err.max()), False,
-               timer(runf), timer(plainf), None,
+               timer(runf), timer(plainf, iters=3, warmup=1)
+               if m > PLAIN_ROWS else timer(plainf),
+               timer(lambda: (x_f @ wu_f, x_f @ wg_f)),
                bound(2 * m * k + 4 * k * n + 2 * m * n, 4 * m * n * k,
-                     BF16_OPS))
+                     BF16_OPS),
+               lib_note="two torch.matmul, no activation: not the same "
+               "function")
+
+
+# the kernels ``--kernels`` can time alone, each with its phase 3 cases
+KERNEL_CASES = {"flash_attention": check_flash_attention,
+                "int4_gemm": check_int4_gemm,
+                "dual_gemm_gated": check_dual_gemm_gated,
+                "dual_int4_gemm_gated": check_dual_int4_gemm_gated}
 
 
 # ---------------------------------------------------------------------------
@@ -2032,6 +2112,8 @@ def layer_counts(cfg) -> tuple[int, int]:
     return (sum(k in ATTN_KINDS for k in kinds),
             sum(k == "mamba2" for k in kinds))
 ACT_KERNEL = dict(REDUCED_MIXED)
+# the w8a8 forwards profiled beside every bf16 and w4a8 one
+PROFILED_W8A8 = ("codeqwen1.5-7b",)
 CAL_B, CAL_T = 2, 128                      # calibration set: 2 x 128 tokens
 LONG_T = 4096          # one codeqwen w8a8 sequence past the block form's keys
 
@@ -2220,7 +2302,9 @@ def no_cache_full(dev, seed, arch, precisions, calibrated, long_w8a8) -> dict:
         label = f"{arch} {precision} lm_loss" + (
             f" {toks.shape[0]}x{toks.shape[1]}" if toks is not tokens else "")
         res = out[label] = no_cache_loss(
-            model, pcfg, dev, toks, profiled=precision in ("w4a8", "bf16"),
+            model, pcfg, dev, toks, profiled=precision in ("w4a8", "bf16")
+            or (precision == "w8a8" and arch in PROFILED_W8A8
+                and toks is tokens),
             act_kernel=ACT_KERNEL[arch] if precision == "w8a8-float" else None)
         del model
         gc.collect()
@@ -2340,8 +2424,10 @@ def int_library_entry(dev, seed) -> dict:
 
 
 # kernels whose device ms every profile reports (summed over the CUDA
-# functions named ``<kernel>_kernel``): the two redesigned for tensor cores
-PROFILED_KERNELS = ("int4_gemm", "flash_attention")
+# functions whose names hold ``<kernel>_kernel``): the four redesigned for
+# tensor cores
+PROFILED_KERNELS = ("int4_gemm", "flash_attention", "dual_gemm_gated",
+                    "dual_int4_gemm_gated")
 
 
 def profile_summary(prof, wall_ms: float) -> dict:
@@ -2438,7 +2524,8 @@ def main() -> int:
     log(f"[2/6] built {len(built)} kernels in {time.perf_counter() - t0:.1f}s")
     for name, info in sorted(built.items()):
         regs = [ln.strip() for ln in info["ptxas"].splitlines()
-                if "registers" in ln or "Compiling entry" in ln]
+                if "registers" in ln or "Compiling entry" in ln
+                or "spill" in ln]
         log(f"  {name}: {info['seconds']:.1f}s; " + " | ".join(regs))
 
     if only:
@@ -2611,16 +2698,20 @@ def main() -> int:
         # the no-cache paths' attention at B = 4, T = 1024 (phase 6)
         "codeqwen1.5-7b w4a8 lm_loss": {"int8_flash_attention":
             "v_scale codeqwen B=4 T=1024 H=32 Hkv=32 D=128",
-            "int4_gemm": "mlp_down [4096,13440]x[13440,4096] scaled g64"},
+            "int4_gemm": "mlp_down [4096,13440]x[13440,4096] scaled g64",
+            "dual_int4_gemm_gated": "[4096,4096]x2[4096,13440] silu g64"},
         # calibrate_ptq's 2 x 128 rows (its candidates at groups 32 to 128)
         "codeqwen1.5-7b calibrate_ptq": {
-            "int4_gemm": "mlp_down [256,13440]x[13440,4096] scaled g32"},
+            "int4_gemm": "mlp_down [256,13440]x[13440,4096] scaled g32",
+            "dual_int4_gemm_gated": "[256,4096]x2[4096,13440] silu g32"},
         "codeqwen1.5-7b w8a8 lm_loss": {"int8_flash_attention":
-            "v_scale codeqwen B=4 T=1024 H=32 Hkv=32 D=128"},
+            "v_scale codeqwen B=4 T=1024 H=32 Hkv=32 D=128",
+            "dual_gemm_gated": "int8 [4096,4096]x2[4096,13440] silu"},
         "starcoder2-3b w8a8 lm_loss": {"int8_flash_attention":
             "v_scale starcoder B=4 T=1024 H=24 Hkv=2 D=128"},
         "codeqwen1.5-7b bf16 lm_loss": {"flash_attention":
-            "bf16 codeqwen B=4 T=1024 H=32 Hkv=32 D=128"},
+            "bf16 codeqwen B=4 T=1024 H=32 Hkv=32 D=128",
+            "dual_gemm_gated": "bf16 [4096,4096]x2[4096,13440] silu"},
         "starcoder2-3b bf16 lm_loss": {"flash_attention":
             "bf16 starcoder B=4 T=1024 H=24 Hkv=2 D=128"},
         "ops.softmax_i8": {"int_softmax": "[4096,1024] int32 causal mask"},
@@ -2634,7 +2725,8 @@ def main() -> int:
             "int8_flash_attention":
                 "v_scale starcoder B=4 T=1024 H=24 Hkv=2 D=128"},
         f"codeqwen1.5-7b w8a8 lm_loss 1x{LONG_T}": {"int8_flash_attention":
-            f"streaming v_scale B=1 T={LONG_T} H=32 Hkv=32 D=128"},
+            f"streaming v_scale B=1 T={LONG_T} H=32 Hkv=32 D=128",
+            "dual_gemm_gated": "int8 [4096,4096]x2[4096,13440] silu"},
         # zamba2-2.7b's no-cache forwards: the scan and the shared
         # attention at head dim 80
         **{f"zamba2-2.7b {prec} lm_loss": {

@@ -1,28 +1,20 @@
-// The main loop shared by the port's integer GEMMs (int8_gemm, int4_gemm,
-// dual_gemm_gated's int8 form, dual_int4_gemm_gated): NS weight streams
-// (1, or 2 for the gated MLP's up and gate) over one shared A tile.
+// The SIMT main loop of the port's int8 GEMM (int8_gemm) and the tiles that
+// int8_conv2d's implicit GEMM shares: int8 activations [M, K] x one int8
+// weight [K, N].  (The W4A8 GEMMs and both gated-MLP dual GEMMs run the
+// tensor-core loop of ``gemm_mma.cuh``.)
 //
-// A block owns a 64x64 output tile of every stream and walks its K range in
-// 64-deep steps through shared memory; 256 threads each keep a 4x4 register
-// tile of int32 sums per stream, built with ``__dp4a``.  A is row-major and
-// loads as 16-byte vectors.  W stays in the reference's layout, [K, N] int8
-// or packed int4 [K/2, N] (``quantize.pack_int4``: the low nibble of byte i
-// is row 2i, the high nibble row 2i+1): each thread reads four row words of
-// 4 columns, sign-extends the nibbles in registers (``__vsub4``) where the
-// weight is int4, and transposes the 4x4 bytes (``__byte_perm``) so shared
+// A block owns a 64x64 output tile and walks its K range in 64-deep steps
+// through shared memory; 256 threads each keep a 4x4 register tile of int32
+// sums, built with ``__dp4a``.  A is row-major and loads as 16-byte vectors.
+// W stays in the reference's [K, N] layout: each thread reads four row words
+// of 4 columns and transposes the 4x4 bytes (``__byte_perm``) so shared
 // memory holds K-contiguous words for both operands.  Ragged M, N and K are
 // masked.
 //
-// int4 weights (G > 0, the scale group size): each scale group's sums build
-// in a second register tile ``part`` and fold into ``acc`` as
-// ``acc += part * qmul[g, n]`` when the group ends — the reference's int32
-// group combine, exact in any order.  A block's K range starts and ends on
-// group boundaries (the wrapper aligns ``k_len``).
-//
 // Split K: when the M x N tiles alone cannot fill the card, K is split across
 // blocks (gridDim.z).  Each block atomically adds its int32 sums into a
-// workspace [NS][M][N]; the last block of a tile (a per-tile counter) takes
-// the totals, resets workspace and counter to zero for the next launch, and
+// workspace [M][N]; the last block of a tile (a per-tile counter) takes the
+// totals, resets workspace and counter to zero for the next launch, and
 // runs the epilogue.  Integer adds are exact in any order, so the split
 // changes no bit.  The workspace is shared by launches on one stream only.
 #pragma once
@@ -55,11 +47,6 @@ __device__ __forceinline__ unsigned load_word(const int8_t* p, int n, int N, int
   for (int j = 0; j < 4; ++j)
     if (n + j < N) v |= static_cast<unsigned>(static_cast<uint8_t>(p[j])) << (8 * j);
   return v;
-}
-
-// four nibbles (one per byte, bits 0..3) sign-extended to four int8 bytes
-__device__ __forceinline__ unsigned sext_nibbles(unsigned v) {
-  return __vsub4((v & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
 }
 
 __device__ __forceinline__ void load_a(int32_t (*As)[KW + 1], const int8_t* __restrict__ x,
@@ -112,107 +99,41 @@ __device__ __forceinline__ void load_w8(int32_t (*Bs)[KW + 1], const int8_t* __r
   store_cols(Bs, r);
 }
 
-// packed int4 W [K/2, N]: packed rows (k0 + bk)/2 and +1 hold k0+bk .. +3
-__device__ __forceinline__ void load_w4(int32_t (*Bs)[KW + 1], const int8_t* __restrict__ w4,
-                                        int N, int n0, int k0, int kend, int vec) {
-  const int bk = (threadIdx.x >> 4) * 4, n = n0 + (threadIdx.x & 15) * 4;
-  unsigned p[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int kp = (k0 + bk) / 2 + i;  // holds rows 2kp, 2kp+1 (K and kend are even)
-    p[i] = 2 * kp < kend ? load_word(w4 + static_cast<size_t>(kp) * N + n, n, N, vec) : 0u;
-  }
-  const unsigned r[4] = {sext_nibbles(p[0]), sext_nibbles(p[0] >> 4), sext_nibbles(p[1]),
-                         sext_nibbles(p[1] >> 4)};
-  store_cols(Bs, r);
-}
-
-template <int NS>
-struct Streams {
-  const int8_t* w[NS];     // int8 [K, N] or packed int4 [K/2, N]
-  const int8_t* qmul[NS];  // int4 only: int8 group multipliers [K/G, N]
-};
-
-// acc += part * qmul[grp, n] for every stream; part back to zero
-template <int NS>
-__device__ __forceinline__ void fold_group(int (&part)[NS][4][4], int (&acc)[NS][4][4],
-                                           const Streams<NS>& s, int grp, int n_groups, int N) {
-#pragma unroll
-  for (int st = 0; st < NS; ++st)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = out_n(j);
-      // past the last group (ragged K) the sums are zero: skip the read
-      const int qm = (grp < n_groups && n < N)
-                         ? static_cast<int>(__ldg(s.qmul[st] + static_cast<size_t>(grp) * N + n))
-                         : 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[st][i][j] += part[st][i][j] * qm;
-        part[st][i][j] = 0;
-      }
-    }
-}
-
 // Run this block's K range and the split-K combine.  Returns true in the
 // block that holds the tile's totals in ``acc`` and must run the epilogue.
-// G = 0: int8 weights; G = 32, 64 or 128: packed int4 with that group size.
-template <int NS, int G>
-__device__ __forceinline__ bool mainloop(const int8_t* __restrict__ x, const Streams<NS>& s,
-                                         int M, int N, int K, int k_len, int vec,
-                                         int32_t* __restrict__ partial, int* __restrict__ counters,
-                                         int (&acc)[NS][4][4]) {
-  static_assert(G == 0 || G == 32 || G == 64 || G == 128, "group size");
-  __shared__ int32_t As[BM][KW + 1];      // As[m][kw]: x[m0+m, k0+4kw .. +3]
-  __shared__ int32_t Bs[NS][BN][KW + 1];  // Bs[st][n][kw]: w_st[k0+4kw .. +3, n0+n]
+__device__ __forceinline__ bool mainloop(const int8_t* __restrict__ x,
+                                         const int8_t* __restrict__ w, int M, int N, int K,
+                                         int k_len, int vec, int32_t* __restrict__ partial,
+                                         int* __restrict__ counters, int (&acc)[4][4]) {
+  __shared__ int32_t As[BM][KW + 1];  // As[m][kw]: x[m0+m, k0+4kw .. +3]
+  __shared__ int32_t Bs[BN][KW + 1];  // Bs[n][kw]: w[k0+4kw .. +3, n0+n]
   __shared__ int is_last;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int kbeg = blockIdx.z * k_len;
   const int kend = min(K, kbeg + k_len);
-  const int n_groups = G > 0 ? K / G : 0;
   const bool active = m0 + ty < M;
-  int part[NS][4][4];
 #pragma unroll
-  for (int st = 0; st < NS; ++st)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[st][i][j] = part[st][i][j] = 0;
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
 
   for (int k0 = kbeg; k0 < kend; k0 += BK) {
     load_a(As, x, M, K, m0, k0, kend, vec);
-#pragma unroll
-    for (int st = 0; st < NS; ++st) {
-      if constexpr (G == 0) load_w8(Bs[st], s.w[st], N, n0, k0, kend, vec);
-      else load_w4(Bs[st], s.w[st], N, n0, k0, kend, vec);
-    }
+    load_w8(Bs, w, N, n0, k0, kend, vec);
     __syncthreads();
     if (active) {
 #pragma unroll
       for (int kw = 0; kw < KW; ++kw) {
-        int a[4];
+        int a[4], b[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) a[i] = As[ty + 16 * i][kw];
 #pragma unroll
-        for (int st = 0; st < NS; ++st) {
-          int b[4];
+        for (int j = 0; j < 4; ++j) b[j] = Bs[tx + 16 * j][kw];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) b[j] = Bs[st][tx + 16 * j][kw];
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              if constexpr (G == 0) acc[st][i][j] = __dp4a(a[i], b[j], acc[st][i][j]);
-              else part[st][i][j] = __dp4a(a[i], b[j], part[st][i][j]);
-            }
-        }
-        if constexpr (G > 0 && G <= BK) {
-          if ((kw + 1) % (G / 4) == 0) fold_group(part, acc, s, (k0 + 4 * kw) / G, n_groups, N);
-        }
-      }
-      if constexpr (G > BK) {
-        if ((k0 + BK) % G == 0) fold_group(part, acc, s, k0 / G, n_groups, N);
+          for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
       }
     }
     __syncthreads();
@@ -220,18 +141,14 @@ __device__ __forceinline__ bool mainloop(const int8_t* __restrict__ x, const Str
 
   if (gridDim.z > 1) {  // split K: combine the int32 sums
     const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-    const size_t mn = static_cast<size_t>(M) * N;
     if (active) {
 #pragma unroll
-      for (int st = 0; st < NS; ++st)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int m = out_m(i), n = out_n(j);
-            if (m < M && n < N)
-              atomicAdd(&partial[st * mn + static_cast<size_t>(m) * N + n], acc[st][i][j]);
-          }
+        for (int j = 0; j < 4; ++j) {
+          const int m = out_m(i), n = out_n(j);
+          if (m < M && n < N) atomicAdd(&partial[static_cast<size_t>(m) * N + n], acc[i][j]);
+        }
     }
     __threadfence();
     __syncthreads();
@@ -241,15 +158,13 @@ __device__ __forceinline__ bool mainloop(const int8_t* __restrict__ x, const Str
     __threadfence();
     if (active) {
 #pragma unroll
-      for (int st = 0; st < NS; ++st)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int m = out_m(i), n = out_n(j);
-            if (m < M && n < N)
-              acc[st][i][j] = atomicExch(&partial[st * mn + static_cast<size_t>(m) * N + n], 0);
-          }
+        for (int j = 0; j < 4; ++j) {
+          const int m = out_m(i), n = out_n(j);
+          if (m < M && n < N)
+            acc[i][j] = atomicExch(&partial[static_cast<size_t>(m) * N + n], 0);
+        }
     }
     if (tid == 0) counters[tile] = 0;
   }

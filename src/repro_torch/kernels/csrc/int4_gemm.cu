@@ -18,7 +18,7 @@
 // 8 multiply-adds (mlp_down [8,13440]x[13440,4096]: 27.5 MB of nibbles, 8.2 us
 // at 3.35 TB/s); at prefill rows and in the no-cache forwards (M = 4096)
 // operations at the int8 tensor-core rate.  Design: the tensor-core loop of
-// ``gemm_mma.cuh`` with one stream — raw nibbles and A through a 4-stage
+// ``gemm_mma.cuh`` with one W4 stream — raw nibbles and A through a 4-stage
 // ``cp.async`` ring, widened to int8 B fragments at the ``ldmatrix.trans``
 // load, ``mma.sync`` m16n8k32 with the group fold on the accumulator
 // fragments — in its decode shape (16 x 128 blocks of 4 warps, K split until
@@ -31,14 +31,17 @@
 
 namespace {
 
+using mma_gemm::W4;
+
 template <class C>
 __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 int4_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w4,
                  const int8_t* __restrict__ qmul, int M, int N, int K, int G, int k_len,
                  int vec, Epi e, int32_t* __restrict__ partial, int* __restrict__ counters) {
   const mma_gemm::Streams<1> s{{w4}, {qmul}};
-  mma_gemm::Acc<C, 1> acc;
-  if (!mma_gemm::mainloop<C, 1>(x, s, M, N, K, G, k_len, vec, partial, counters, acc)) return;
+  mma_gemm::Acc<C, W4, 1> acc;
+  if (!mma_gemm::mainloop<C, W4, 1>(x, s, M, N, K, G, k_len, vec, partial, counters, acc))
+    return;
 #pragma unroll
   for (int i = 0; i < C::MT; ++i)
 #pragma unroll
@@ -47,7 +50,7 @@ int4_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w4,
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          const int m = mma_gemm::out_row<C>(i, c), n = mma_gemm::out_col<C>(j, h, c);
+          const int m = mma_gemm::out_row<C>(i, c), n = mma_gemm::out_col<C, W4>(j, h, c);
           if (m < M && n < N) store_out(e, m, n, N, acc[0][i][j][h][c]);
         }
 }
@@ -56,7 +59,7 @@ template <class C>
 int launch(cudaStream_t stream, const void* x, const void* w4, const void* qmul, int m, int n,
            int k, int group, int split, int k_len, int vec, const Epi& e, void* partial,
            void* counters) {
-  const int smem = C::template smem_bytes<1>();
+  const int smem = mma_gemm::Stage<C, W4, 1>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(int4_gemm_kernel<C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

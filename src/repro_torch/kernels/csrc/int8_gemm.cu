@@ -35,15 +35,14 @@ __global__ void __launch_bounds__(gemm::THREADS)
 int8_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, int M, int N,
                  int K, int k_len, int vec, Epi e, int32_t* __restrict__ partial,
                  int* __restrict__ counters) {
-  const gemm::Streams<1> s{{w}, {nullptr}};
-  int acc[1][4][4];
-  if (!gemm::mainloop<1, 0>(x, s, M, N, K, k_len, vec, partial, counters, acc)) return;
+  int acc[4][4];
+  if (!gemm::mainloop(x, w, M, N, K, k_len, vec, partial, counters, acc)) return;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int m = gemm::out_m(i), n = gemm::out_n(j);
-      if (m < M && n < N) store_out<RQ>(e, m, n, N, acc[0][i][j]);
+      if (m < M && n < N) store_out<RQ>(e, m, n, N, acc[i][j]);
     }
 }
 

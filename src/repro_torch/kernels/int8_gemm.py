@@ -2,18 +2,22 @@
 int4 weights with two-level group scales) and the gated-MLP dual GEMMs.
 
 Ports of the Pallas kernels of ``repro/kernels/int8_gemm.py`` to CUDA
-kernels for ``sm_90a`` (source notes in each ``csrc`` file).  int8_gemm and
-the dual GEMMs share the main loop of ``csrc/gemm_tile.cuh`` (64x64
-``__dp4a`` tiles, W in the reference's layout transposed in registers);
-int4_gemm runs the tensor-core loop of ``csrc/gemm_mma.cuh`` (int8
-``mma.sync``, the raw nibbles streamed by ``cp.async`` and widened at the
-fragment load, tiles chosen by ``w4_tiling``).  Both split K with an exact
-int32 combine when the tiles alone cannot fill the card:
+kernels for ``sm_90a`` (source notes in each ``csrc`` file).  int8_gemm
+runs the SIMT loop of ``csrc/gemm_tile.cuh`` (64x64 ``__dp4a`` tiles, W in
+the reference's layout transposed in registers); int4_gemm and both
+gated-MLP dual GEMMs run the tensor-core loop of ``csrc/gemm_mma.cuh``
+(``mma.sync`` on int8 or bf16, the raw weight tiles streamed by
+``cp.async`` in the reference's layout and turned into fragments at the
+``ldmatrix`` load), templated on the weight's kind — packed int4 with the
+group fold (W4), int8 (W8) or bf16 — with tiles chosen by ``w4_tiling``,
+``w8_tiling`` and ``bf16_tiling``.  The integer GEMMs split K with an exact
+int32 combine when the tiles alone cannot fill the card; the bf16 form
+never splits K:
 
-  int8_gemm             (``:127``) -> ``csrc/int8_gemm.cu``
-  int4_gemm             (``:433``) -> ``csrc/int4_gemm.cu``
-  dual_gemm_gated       (``:280``) -> ``csrc/dual_gemm_gated.cu`` (int8, bf16)
-  dual_int4_gemm_gated  (``:568``) -> ``csrc/dual_int4_gemm_gated.cu``
+  int8_gemm             (``:127``) -> ``csrc/int8_gemm.cu``: SIMT loop
+  int4_gemm             (``:433``) -> ``csrc/int4_gemm.cu``: W4
+  dual_gemm_gated       (``:280``) -> ``csrc/dual_gemm_gated.cu``: W8, BF16
+  dual_int4_gemm_gated  (``:568``) -> ``csrc/dual_int4_gemm_gated.cu``: 2 x W4
 
 The single-stream epilogues, the reference's seven (int8_gemm takes all;
 int4_gemm the scaled family):
@@ -74,7 +78,7 @@ GATED_ACTS = ("silu", "gelu")
 # fall under the absolute term.
 DUAL_BF16_RTOL = 2.0 ** -5
 DUAL_BF16_ATOL = 1e-3
-BM = BN = BK = 64
+BM = BN = BK = 64      # int8_gemm's SIMT tiles (``gemm_tile.cuh``)
 
 
 def int8_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -271,18 +275,45 @@ def split_k(m: int, n: int, k: int, n_sm: int, align: int = BK, *,
     return cdiv(k, k_len), k_len
 
 
-# the tensor-core W4A8 loop (``csrc/gemm_mma.cuh``): K per stage, stages
-# in the ring, rows at or below which the decode shape runs, and the weight
-# bytes each SM should have in flight there
-W4_BK, W4_STAGES, W4_DECODE_M, W4_INFLIGHT = 128, 4, 64, 32 << 10
+# the tensor-core loop (``csrc/gemm_mma.cuh``): K per stage of each weight
+# kind (W4 packed int4, W8 int8, BF16), stages in the ring, rows at or below
+# which int4_gemm's and the dual GEMMs' decode shapes run, and the weight
+# bytes each SM should have in flight there; an integer kind's stage holds
+# 64 rows of BN bytes of each weight stream (W4: BK/2 packed rows; W8: BK)
+W4_BK, W8_BK, BF16_BK = 128, 64, 64
+W4_STAGES, W4_DECODE_M, W4_INFLIGHT = 4, 64, 32 << 10
+DUAL_DECODE_M = 32
+MMA_STAGE_ROWS = 64
+# (k per stage, bytes of an activation, shared rows of a weight stage,
+# bytes of a weight column in a row) of each kind (``gemm_mma.cuh``)
+MMA_KINDS = {"w4": (W4_BK, 1, W4_BK // 2, 1), "w8": (W8_BK, 1, W8_BK, 1),
+             "bf16": (BF16_BK, 2, BF16_BK, 2)}
+# every launched instantiation: (kind, streams, bm) -> (bn, blocks an SM
+# that ``__launch_bounds__`` asks for)
+MMA_CONFIGS = {("w4", 1, 16): (128, 1), ("w4", 1, 64): (128, 2),
+               ("w4", 2, 16): (128, 1), ("w4", 2, 32): (128, 2),
+               ("w8", 2, 16): (128, 1), ("w8", 2, 64): (128, 2),
+               ("bf16", 2, 16): (64, 1), ("bf16", 2, 64): (128, 1),
+               ("bf16", 2, 128): (128, 1)}
+SMEM_PER_BLOCK, SMEM_PER_SM = 232448, 233472   # H100: a block's limit, an SM's
+
+
+def mma_smem_bytes(kind: str, bm: int, bn: int, streams: int) -> int:
+    """Dynamic shared memory of a ``gemm_mma.cuh`` launch (its ``Stage``
+    ``SMEM``): W4_STAGES x (A [bm][BK * a + 16] + streams x (weight
+    [rows][bn * w + 16] + W4's qmul rows [BK/32][bn]))."""
+    bk, a_elem, w_rows, w_elem = MMA_KINDS[kind]
+    q = bk // 32 * bn if kind == "w4" else 0
+    return W4_STAGES * (bm * (bk * a_elem + 16)
+                        + streams * (w_rows * (bn * w_elem + 16) + q))
 
 
 @dataclasses.dataclass(frozen=True)
-class W4Tiling:
-    """One launch of ``gemm_mma.cuh``: block rows (16: the decode shape, 64:
-    the prefill shape) and columns, the split of K and each block's K range,
+class MmaTiling:
+    """One launch of ``gemm_mma.cuh``: block rows (16: the decode shape; 32,
+    64 or 128: the prefill shapes) and columns, the split of K and each block's K range,
     the output tiles (split-K counters) and the int32 workspace the split
-    needs."""
+    needs ([streams][M][N])."""
     bm: int
     bn: int
     split: int
@@ -291,35 +322,72 @@ class W4Tiling:
     workspace: int
 
 
-def w4_tiling(m: int, n: int, k: int, g: int, n_sm: int) -> W4Tiling:
-    """The tile shape and split of a W4A8 GEMM [m, k] x [k, n] with scale
-    group ``g``.  Decode (m <= 64): blocks of 16 rows (rows computed up to
-    the next multiple of 16 >= m) x 128 columns, K split until each SM has
-    about ``W4_INFLIGHT`` bytes of nibbles in flight ((W4_STAGES - 1)
-    stages of a block's [W4_BK/2, 128] tile each); prefill: 64 x 128, K
-    split only until each SM has its two blocks.  K ranges are multiples of
-    max(W4_BK, g), so they start and end on group boundaries, and no split
-    is empty."""
-    bm, bn = (64, 128) if m > W4_DECODE_M else (16, 128)
-    in_flight = (W4_STAGES - 1) * (W4_BK // 2) * bn
-    want = 2 * n_sm if bm == 64 else cdiv(W4_INFLIGHT, in_flight) * n_sm
-    split, k_len = split_k(m, n, k, n_sm, max(W4_BK, g), bm=bm, bn=bn,
-                           want=want)
-    return W4Tiling(bm, bn, split, k_len, cdiv(m, bm) * cdiv(n, bn),
-                    m * n if split > 1 else 0)
+def mma_tiling(m: int, n: int, k: int, align: int, n_sm: int,
+               streams: int = 1, decode_m: int = W4_DECODE_M,
+               prefill_bm: int = 64) -> MmaTiling:
+    """The tile shape and split of an integer GEMM [m, k] x ``streams``
+    weights [k, n] on the tensor-core loop.  Decode (m <= ``decode_m``):
+    blocks of 16 rows (rows computed up to the next multiple of 16 >= m) x
+    128 columns, K split until each SM has about ``W4_INFLIGHT`` bytes of
+    weight in flight ((W4_STAGES - 1) stages of a block's [MMA_STAGE_ROWS,
+    128] tile of every stream); prefill: ``prefill_bm`` x 128, K split only
+    until each SM has two blocks.  K ranges are multiples of ``align`` (a
+    stage, or the W4 group when larger), and no split is empty."""
+    decode = m <= decode_m
+    bm, bn = (16 if decode else prefill_bm), 128
+    in_flight = (W4_STAGES - 1) * MMA_STAGE_ROWS * bn * streams
+    want = cdiv(W4_INFLIGHT, in_flight) * n_sm if decode else 2 * n_sm
+    split, k_len = split_k(m, n, k, n_sm, align, bm=bm, bn=bn, want=want)
+    return MmaTiling(bm, bn, split, k_len, cdiv(m, bm) * cdiv(n, bn),
+                     streams * m * n if split > 1 else 0)
 
 
-def _tiling(x, weights, n: int, align: int, n_streams: int):
-    """(split, k_len, workspace, counters, vec) of an integer GEMM launch
-    over x [M, K]; ``vec``: A and W rows may load as 16- and 4-byte words."""
+def w4_tiling(m: int, n: int, k: int, g: int, n_sm: int,
+              streams: int = 1) -> MmaTiling:
+    """int4_gemm (one stream: decode up to M = 64, prefill blocks of 64
+    rows) and dual_int4_gemm_gated (two: decode up to DUAL_DECODE_M,
+    prefill blocks of 32 rows): K ranges on multiples of max(W4_BK, g), so
+    they start and end on group boundaries."""
+    if streams == 1:
+        return mma_tiling(m, n, k, max(W4_BK, g), n_sm)
+    return mma_tiling(m, n, k, max(W4_BK, g), n_sm, streams, DUAL_DECODE_M,
+                      32)
+
+
+def w8_tiling(m: int, n: int, k: int, n_sm: int) -> MmaTiling:
+    """dual_gemm_gated's int8 form (two streams): decode up to
+    DUAL_DECODE_M, K ranges on multiples of W8_BK."""
+    return mma_tiling(m, n, k, W8_BK, n_sm, 2, DUAL_DECODE_M)
+
+
+def bf16_tiling(m: int, n: int, k: int) -> MmaTiling:
+    """dual_gemm_gated's bf16 form: never a split of K (f32 sums would
+    depend on the blocks' arrival order), so its decode blocks (up to
+    DUAL_DECODE_M) are 16 x 64 (210 at N = 13440 for 132 SMs); then 64 x 128
+    up to M = 128 and 128 x 128 past it."""
+    bm, bn = ((16, 64) if m <= DUAL_DECODE_M else (64, 128) if m <= 128
+              else (128, 128))
+    return MmaTiling(bm, bn, 1, k, cdiv(m, bm) * cdiv(n, bn), 0)
+
+
+def _n_sm(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _tiling(x, w, n: int):
+    """(split, k_len, workspace, counters, vec) of an int8_gemm launch over
+    x [M, K] (the SIMT loop); ``vec``: A and W rows may load as 16- and
+    4-byte words."""
     m, k = x.shape
     dev = x.device
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    split, k_len = split_k(m, n, k, n_sm, align)
-    part, cnt = _WORKSPACE.get(dev, n_streams * m * n if split > 1 else 0,
+    split, k_len = split_k(m, n, k, _n_sm(dev), BK)
+    part, cnt = _WORKSPACE.get(dev, m * n if split > 1 else 0,
                                cdiv(m, BM) * cdiv(n, BN))
-    vec = int(k % 16 == 0 and n % 4 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (x, *weights)))
+    vec = int(k % 16 == 0 and n % 4 == 0 and _aligned(x, w))
     return split, k_len, part.data_ptr(), cnt.data_ptr(), vec
 
 
@@ -402,7 +470,7 @@ def _launch(x, w, epilogue, x_scale, w_scale, bias, residual, gelu_scale,
     out, epi = _epilogue_args(epilogue, m, n, x_scale, w_scale, bias,
                               residual, gelu_scale, out_dtype, x.device,
                               requant)
-    split, k_len, part, cnt, vec = _tiling(x, (w,), n, BK, 1)
+    split, k_len, part, cnt, vec = _tiling(x, w, n)
     fn = build.entry("int8_gemm", "repro_int8_gemm",
                      [build.VP] * 2 + [build.I] * 3 + _EPI_ARGTYPES
                      + [build.I] * 3 + [build.VP] * 3)
@@ -446,11 +514,9 @@ def _launch_int4(x, w4, qmul, w_scale, x_scale, epilogue, gelu_scale, bias,
     out, epi = _epilogue_args(epilogue, m, n, x_scale, w_scale, bias,
                               residual, gelu_scale, out_dtype, x.device)
     dev = x.device
-    tl = w4_tiling(m, n, k, g,
-                   torch.cuda.get_device_properties(dev).multi_processor_count)
+    tl = w4_tiling(m, n, k, g, _n_sm(dev))
     part, cnt = _WORKSPACE.get(dev, tl.workspace, tl.tiles)
-    vec = int(k % 16 == 0 and n % 16 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (x, w4, qmul)))
+    vec = int(k % 16 == 0 and n % 16 == 0 and _aligned(x, w4, qmul))
     fn = build.entry("int4_gemm", "repro_int4_gemm",
                      [build.VP] * 3 + [build.I] * 4 + _EPI_ARGTYPES
                      + [build.I] * 4 + [build.VP] * 3)
@@ -513,26 +579,29 @@ def _launch_dual(x, w_up, w_gate, x_scale, up_scale, gate_scale, act,
         _check_f32(x_scale, m, "x_scale [M, 1]")
         _check_f32(up_scale, n, "up_scale [N]")
         _check_f32(gate_scale, n, "gate_scale [N]")
-        split, k_len, part, cnt, vec = _tiling(x, (w_up, w_gate), n, BK, 2)
+        tl = w8_tiling(m, n, k, _n_sm(x.device))
+        part, cnt = _WORKSPACE.get(x.device, tl.workspace, tl.tiles)
+        vec = int(k % 16 == 0 and n % 16 == 0 and _aligned(x, w_up, w_gate))
         fn = build.entry("dual_gemm_gated", "repro_dual_gemm_gated_i8",
                          [build.VP] * 6 + [build.I] * 3 + _ACT_ARGTYPES
-                         + [build.VP] + [build.I] * 3 + [build.VP] * 3)
+                         + [build.VP] + [build.I] * 4 + [build.VP] * 3)
         rc = fn(x.data_ptr(), w_up.data_ptr(), up_scale.data_ptr(),
                 w_gate.data_ptr(), gate_scale.data_ptr(), x_scale.data_ptr(),
-                m, n, k, *_act_args(act, act_scale), out.data_ptr(), split,
-                k_len, vec, part, cnt, _stream(x.device))
+                m, n, k, *_act_args(act, act_scale), out.data_ptr(), tl.bm,
+                tl.split, tl.k_len, vec, part.data_ptr(), cnt.data_ptr(),
+                _stream(x.device))
     else:
         for t, what in ((x, "x"), (w_up, "w_up"), (w_gate, "w_gate")):
             check(t.dtype == torch.bfloat16 and t.is_contiguous(),
                   f"{what} of the float gated MLP must be contiguous bf16, "
                   f"got {t.dtype}")
         check(tuple(w_gate.shape) == (k, n), "w_gate must match w_up")
-        vec = int(k % 8 == 0 and n % 8 == 0 and all(
-            t.data_ptr() % 16 == 0 for t in (x, w_up, w_gate)))
+        vec = int(k % 8 == 0 and n % 8 == 0 and _aligned(x, w_up, w_gate))
         fn = build.entry("dual_gemm_gated", "repro_dual_gemm_gated_bf16",
-                         [build.VP] * 3 + [build.I] * 5 + [build.VP] * 2)
+                         [build.VP] * 3 + [build.I] * 6 + [build.VP] * 2)
         rc = fn(x.data_ptr(), w_up.data_ptr(), w_gate.data_ptr(), m, n, k,
-                GATED_ACTS.index(act), vec, out.data_ptr(), _stream(x.device))
+                GATED_ACTS.index(act), bf16_tiling(m, n, k).bm, vec,
+                out.data_ptr(), _stream(x.device))
     build.check_rc(rc, "dual_gemm_gated")
     LAUNCHES["dual_gemm_gated"] += 1
     return out
@@ -572,15 +641,19 @@ def _launch_dual_int4(x, up4, up_mul, up_scale, gate4, gate_mul, gate_scale,
     _check_f32(up_scale, n, "up_scale [N]")
     _check_f32(gate_scale, n, "gate_scale [N]")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    split, k_len, part, cnt, vec = _tiling(x, (up4, gate4), n, max(BK, g), 2)
+    dev = x.device
+    tl = w4_tiling(m, n, k, g, _n_sm(dev), streams=2)
+    part, cnt = _WORKSPACE.get(dev, tl.workspace, tl.tiles)
+    vec = int(k % 16 == 0 and n % 16 == 0
+              and _aligned(x, up4, gate4, up_mul, gate_mul))
     fn = build.entry("dual_int4_gemm_gated", "repro_dual_int4_gemm_gated",
                      [build.VP] * 8 + [build.I] * 4 + _ACT_ARGTYPES
-                     + [build.VP] + [build.I] * 3 + [build.VP] * 3)
+                     + [build.VP] + [build.I] * 4 + [build.VP] * 3)
     rc = fn(x.data_ptr(), up4.data_ptr(), up_mul.data_ptr(),
             up_scale.data_ptr(), gate4.data_ptr(), gate_mul.data_ptr(),
             gate_scale.data_ptr(), x_scale.data_ptr(), m, n, k, g,
-            *_act_args(act, act_scale), out.data_ptr(), split, k_len, vec,
-            part, cnt, _stream(x.device))
+            *_act_args(act, act_scale), out.data_ptr(), tl.bm, tl.split,
+            tl.k_len, vec, part.data_ptr(), cnt.data_ptr(), _stream(dev))
     build.check_rc(rc, "dual_int4_gemm_gated")
     LAUNCHES["dual_int4_gemm_gated"] += 1
     return out

@@ -330,6 +330,87 @@ class TestW4A8Gemm:
             in_flight = (tg.W4_STAGES - 1) * tg.W4_BK // 2 * t.bn
             assert t.tiles * t.split * in_flight >= tg.W4_INFLIGHT * n_sm
 
+    @pytest.mark.parametrize("g", [32, 64, 128])
+    @pytest.mark.parametrize("m,n,k", [
+        (1, 13440, 4096), (8, 13440, 4096), (8, 10240, 2560), (13, 72, 256),
+        (32, 13440, 4096), (33, 13440, 4096), (64, 13440, 4096),
+        (256, 13440, 4096), (4096, 13440, 4096), (8, 256, 1024)])
+    def test_dual_w4_tiling(self, m, n, k, g):
+        """dual_int4_gemm_gated's two-stream tiling: decode blocks of 16 rows
+        up to DUAL_DECODE_M, then 32-row blocks; K ranges on group
+        boundaries, no empty split, a workspace for both streams' sums
+        ([2][M][N]) exactly when K is split, and at decode enough blocks for
+        ~32 KB of both streams' nibbles in flight per SM — no more than one
+        stream would ask for."""
+        n_sm = 132
+        t = tg.w4_tiling(m, n, k, g, n_sm, streams=2)
+        one = tg.w4_tiling(m, n, k, g, n_sm)
+        decode = m <= tg.DUAL_DECODE_M
+        assert (t.bm, t.bn) == ((16, 128) if decode else (32, 128))
+        assert t.k_len % max(tg.W4_BK, g) == 0 and t.k_len % g == 0
+        assert (t.split - 1) * t.k_len < k <= t.split * t.k_len
+        assert t.tiles == -(-m // t.bm) * -(-n // t.bn)
+        assert t.workspace == (2 * m * n if t.split > 1 else 0)
+        if decode:
+            in_flight = (tg.W4_STAGES - 1) * tg.MMA_STAGE_ROWS * t.bn * 2
+            if t.k_len > max(tg.W4_BK, g):
+                assert t.tiles * t.split * in_flight >= tg.W4_INFLIGHT * n_sm
+            assert t.split <= one.split
+
+    @pytest.mark.parametrize("m,n,k", [
+        (1, 13440, 4096), (8, 13440, 4096), (5, 70, 100), (13, 70, 200),
+        (32, 12288, 3072), (64, 13440, 4096), (256, 13440, 4096),
+        (4096, 13440, 4096)])
+    def test_w8_tiling(self, m, n, k):
+        """dual_gemm_gated's int8 tiling: K ranges on multiples of W8_BK, no
+        empty split, a [2][M][N] workspace exactly when K is split."""
+        t = tg.w8_tiling(m, n, k, 132)
+        assert (t.bm, t.bn) == ((16, 128) if m <= tg.DUAL_DECODE_M
+                                else (64, 128))
+        assert t.k_len % tg.W8_BK == 0
+        assert (t.split - 1) * t.k_len < k <= t.split * t.k_len
+        assert t.workspace == (2 * m * n if t.split > 1 else 0)
+
+    @pytest.mark.parametrize("m,want", [(1, (16, 64)), (8, (16, 64)),
+                                        (32, (16, 64)), (33, (64, 128)),
+                                        (128, (64, 128)), (129, (128, 128)),
+                                        (4096, (128, 128))])
+    def test_bf16_tiling(self, m, want):
+        """The bf16 form never splits K (its f32 sums would depend on the
+        arrival order), so its decode tile is narrow enough that M = 8 at
+        codeqwen1.5-7b's N = 13440 fills 132 SMs."""
+        t = tg.bf16_tiling(m, 13440, 4096)
+        assert (t.bm, t.bn) == want and t.split == 1 and t.workspace == 0
+        assert t.k_len == 4096
+        if m <= tg.DUAL_DECODE_M:
+            assert t.tiles >= 132
+
+    @pytest.mark.parametrize("cfg", sorted(tg.MMA_CONFIGS),
+                             ids=lambda c: f"{c[0]}-s{c[1]}-bm{c[2]}")
+    def test_mma_shared_memory_fits(self, cfg):
+        """Every instantiation of the tensor-core loop fits a block's shared
+        memory on the H100, and as many blocks as its launch bounds ask for
+        fit an SM (1 KB reserved per block); the configs and kinds mirror
+        ``csrc/gemm_mma.cuh``."""
+        import re
+        from pathlib import Path
+        kind, streams, bm = cfg
+        bn, blocks = tg.MMA_CONFIGS[cfg]
+        smem = tg.mma_smem_bytes(kind, bm, bn, streams)
+        assert smem <= tg.SMEM_PER_BLOCK
+        assert blocks * (smem + 1024) <= tg.SMEM_PER_SM
+        src = (Path(tg.__file__).with_name("csrc") / "gemm_mma.cuh").read_text()
+        cfgs = {(16 * int(mt) * int(wm), 16 * int(np_) * int(wn), int(mb or 1))
+                for wm, wn, mt, np_, mb in re.findall(
+                    r"using \w+ = Cfg<(\d+), (\d+), (\d+), (\d+)(?:, (\d+))?>;",
+                    src)}
+        assert (bm, bn, blocks) in cfgs
+        bk, a_elem, w_rows, w_elem = tg.MMA_KINDS[kind]
+        body = re.search(r"struct %s \{(.*?)\};" % kind.upper(), src, re.S)
+        assert f"BK = {bk}, A_ELEM = {a_elem}" in body.group(1)
+        assert f"W_ELEM = {w_elem}" in body.group(1)
+        assert w_rows == (bk // 2 if kind == "w4" else bk)
+
     def test_headroom_is_checked(self):
         x = torch.zeros((1, 32768), dtype=torch.int8)
         with pytest.raises(ValueError, match="int32 combine"):
@@ -638,25 +719,34 @@ class TestKernelsOnCard:
         assert torch.equal(ops.gemm_w4a8(*args, **kw),
                            tg.gemm_w4a8_ref(*args, **kw))
 
+    @pytest.mark.parametrize("m", [13, 200])
     @pytest.mark.parametrize("act", ["silu", "gelu"])
-    def test_dual_gemm_gated(self, rng, cuda_dev, act):
+    def test_dual_gemm_gated(self, rng, cuda_dev, act, m):
+        """Both forms at a decode shape (M = 13) and a prefill shape (M =
+        200: the bf16 form's 128-row blocks); K = 200 takes the int8 form's
+        byte loads."""
         sc = SILU if act == "silu" else GELU
-        xq, xs, (wu, us), (wg, gs) = dual_inputs(rng, 13, 200, 70)
+        xq, xs, (wu, us), (wg, gs) = dual_inputs(rng, m, 200, 70)
         args = [T(a).to(cuda_dev) for a in (xq, xs, wu, us, wg, gs)]
         assert torch.equal(ops.gated_mlp_w8a8(*args, act=act, act_scale=sc),
                            tg.gated_mlp_w8a8_ref(*args, act=act, act_scale=sc))
-        x = T(rng.standard_normal((13, 200)).astype(np.float32)).to(cuda_dev)
+        x = T(rng.standard_normal((m, 200)).astype(np.float32)).to(cuda_dev)
         w = [T(rng.standard_normal((200, 70)).astype(np.float32) / 14).to(cuda_dev)
              for _ in range(2)]
         got = ops.gated_mlp(x, *w, act).float()
         want = tg.gated_mlp_ref(x, *w, act).float()
         assert bool(((got - want).abs() <= tg.DUAL_BF16_ATOL
                      + tg.DUAL_BF16_RTOL * want.abs()).all())
+        assert torch.equal(ops.gated_mlp(x, *w, act).float(), got)
 
+    @pytest.mark.parametrize("m", [13, 100])
+    @pytest.mark.parametrize("group", [32, 64, 128])
     @pytest.mark.parametrize("act", ["silu", "gelu"])
-    def test_dual_int4_gemm_gated(self, rng, cuda_dev, act):
+    def test_dual_int4_gemm_gated(self, rng, cuda_dev, act, group, m):
+        """Decode (M = 13) and prefill (M = 100: 32-row blocks) shapes at
+        every scale group."""
         sc = SILU if act == "silu" else GELU
-        xq, xs, up, gate = dual_inputs(rng, 13, 256, 72, 64)
+        xq, xs, up, gate = dual_inputs(rng, m, 256, 72, group)
         args = ([T(xq).to(cuda_dev), T(xs).to(cuda_dev)]
                 + [T(a).to(cuda_dev) for a in (*up, *gate)])
         assert torch.equal(ops.gated_mlp_w4a8(*args, act=act, act_scale=sc),
