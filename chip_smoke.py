@@ -16,7 +16,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    and bf16 pages; shared, non-adjacent and null pages, slots cleared by
    copy-on-write, an idle lane that must be exactly zero) within the same
    tolerance, and bit for bit equal to the dense kernel on the same content
-   laid out densely; int4_gemm also at the W4A8 forwards' 4 x 1024 rows
+   laid out densely; int8_gemm at the W8A8 projections of both models for
+   M in {8, 64, 256, 4096} (``I8_SHAPES``), each beside its ``none``
+   epilogue, and its requant family at Table II's and a full-width shape;
+   int4_gemm also at the W4A8 forwards' 4 x 1024 rows
    (codeqwen1.5-7b's q/o and mlp_down, zamba2-2.7b's in_proj, out_proj and
    shared GELU MLP; ``W4_SHAPES``); the three gated-MLP forms at
    codeqwen1.5-7b's [M, 4096] x 2 x [4096, 13440] for M in {8, 64, 256,
@@ -42,14 +45,14 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    keys (``check_streaming_attention``, the same checks); and the rest of the
    integer library (``check_int_library``, bit-exact): int_gelu
    [4096, 12288], int_silu [4096, 13440], requantize_i32 [4096, 4096],
-   int8_gemm's requant, requant_gelu and requant_add epilogues at Table II's
-   [32, 64] x [64, 32] and at [4096, 3072] x [3072, 12288], and int8_conv2d
+   and int8_conv2d
    at Table II's [1, 128, 128, 3] x [3, 3, 3, 8] (int32 and requantized), a
    3x3 conv [8, 56, 56, 64] x [3, 3, 64, 64] and the ViT-B/16 patch embed
    [32, 14, 14, 768] x [1, 1, 768, 768]; ssd_scan at zamba2-2.7b's forward
    shape (``check_ssd_scan``: B = 4, T = 1024, 80 heads, P = N = 64; and
    the reduced model's P = 64, N = 16; y and the final state within
-   rtol = atol = 3e-4); the two no-cache attentions
+   rtol = atol = 3e-4 of the plain version evaluated in f64); the two
+   no-cache attentions
    also at zamba2's head dim 80 (the block and streaming forms); and the
    decode kernels' multi-row form (``check_decode_rows``, dense and paged,
    G = 1 and G = 12): every row of a T = 256 launch bit-equal to a T = 1
@@ -103,8 +106,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    the 4096-token sequence — ssd_scan once per Mamba-2 layer (zamba2: 9 and
    45), and the w8a8-float forwards int_silu or int_gelu once per layer.  The
    bf16 and w4a8 forwards and codeqwen's w8a8 one run once more under
-   torch.profiler; each profile reports the device ms of int4_gemm,
-   flash_attention and the two gated-MLP dual GEMMs (``PROFILED_KERNELS``).
+   torch.profiler; each profile reports the device ms of the tensor-core
+   GEMMs, flash_attention and both decode attentions
+   (``PROFILED_KERNELS``).
 
 The last three lines of standard output are the kernels JSON (each kernel
 timed at the M = 8 shape the main path, codeqwen1.5-7b w4a8, gives it, or
@@ -130,13 +134,18 @@ so that two trees are compared in one call:
 
 ``--cal-only`` builds and then runs only phase 6's ``calibrate_ptq`` of
 codeqwen1.5-7b and zamba2-2.7b, timed and then under the profiler
-(``cal_only``); with ``--src DIR`` likewise on another tree.
+(``cal_only``); with ``--src DIR`` likewise on another tree.  ``--lm-only``
+runs only codeqwen1.5-7b's and starcoder2-3b's W8A8 ``lm_loss`` on 4 x 1024
+tokens, timed and then under the profiler (``lm_only``), likewise.
 
 ``--kernels flash_attention,int4_gemm`` (or ``dual_gemm_gated``,
-``dual_int4_gemm_gated``) builds only those kernels (of the tree ``--src``
-names) and runs only their phase 3 cases, held against the
-plain versions and timed; run it on two trees in turns (parent, change,
-change, parent) to compare a kernel's two versions in one call:
+``dual_int4_gemm_gated``, ``int8_gemm``, ``int8_kv_decode_attention``,
+``paged_decode_attention``) builds only those kernels (of the tree
+``--src`` names) and runs only their phase 3 cases, held against the
+plain versions and timed, each case with the SHA-1 of its output's bytes
+(``sha1=`` in its line and the ``sha1`` map of the JSON line); run it on
+two trees in turns (parent, change, change, parent) to compare a kernel's
+two versions, time and bits, in one call:
 
     python3 chip_smoke.py --kernels flash_attention,int4_gemm \
         --src build/parent/src
@@ -147,6 +156,7 @@ import argparse
 import copy
 import dataclasses
 import gc
+import hashlib
 import json
 import subprocess
 import sys
@@ -269,18 +279,29 @@ def decode_work(kpos, qp, hq, hkv, d, window=0, slot_ids=None,
     return nbytes, 4 * hq * d * int(valid.sum())
 
 
-def case_recorder(cases: list):
+def digest(t: torch.Tensor) -> str:
+    """SHA-1 of a tensor's bytes on the host: two trees' outputs compared
+    bit for bit across processes."""
+    return hashlib.sha1(t.detach().contiguous().view(torch.uint8).cpu()
+                        .numpy().tobytes()).hexdigest()
+
+
+def case_recorder(cases: list, digests: bool = False):
     """``record(kernel, shape, err, exact, ms, plain_ms, lib_ms, bound,
-    lib_note)``: appends one phase 3 case to ``cases`` and logs it."""
+    lib_note, out)``: appends one phase 3 case to ``cases`` and logs it;
+    with ``digests``, also the SHA-1 of ``out``, the kernel's output."""
     def record(kernel, shape, err, exact, ms, plain_ms, lib_ms, b,
-               lib_note=None):
+               lib_note=None, out=None):
         cases.append({"kernel": kernel, "shape": shape, "max_abs_err": err,
                       "exact": exact, "ms": ms, "plain_ms": plain_ms,
                       "library_ms": lib_ms, "library_note": lib_note,
                       "bound_ms": b[0], "bound_by": b[1]})
+        if digests and out is not None:
+            cases[-1]["sha1"] = digest(out)
         log(f"  {kernel:26s} {shape:44s} err={err:.3g} ms={ms:.4f} "
             f"plain={plain_ms:.4f} lib={lib_ms} bound={b[0]:.4f} ({b[1]})"
-            + (f" [library: {lib_note}]" if lib_note else ""))
+            + (f" [library: {lib_note}]" if lib_note else "")
+            + (f" sha1={cases[-1]['sha1']}" if "sha1" in cases[-1] else ""))
         return cases[-1]
     return record
 
@@ -293,12 +314,8 @@ def randn_on(dev, gen):
 
 def check_kernels(dev, gen, timer) -> list[dict]:
     from repro_torch.kernels import ops
-    from repro_torch.kernels.int8_gemm import gemm_w8a8_ref, int8_matmul_ref
-    from repro_torch.kernels.int8_kv_decode_attention import (
-        ATOL, RTOL, int8_kv_decode_attention_ref)
     from repro_torch.kernels.int_layernorm import int_layernorm_ref
     from repro_torch.kernels.quantize import quantize_rows_ref
-    from repro_torch.models.layers import GELU_INT_SCALE, quantize_weight
 
     cases = []
     record, randn = case_recorder(cases), randn_on(dev, gen)
@@ -318,65 +335,6 @@ def check_kernels(dev, gen, timer) -> list[dict]:
                    timer(lambda: ops.quant_rows(x)),
                    timer(lambda: quantize_rows_ref(x)), None,
                    bound(m * d * 5 + m * 4, 3 * m * d, F32_OPS))
-
-    # -- 2. int8_gemm (the serving paths' projections and heads) --------------
-    gemms = [("q_proj+bias", 3072, 3072, "scaled", True, torch.bfloat16),
-             ("kv_proj+bias", 3072, 256, "scaled", True, torch.bfloat16),
-             ("o_proj+residual", 3072, 3072, "scaled_add", False, torch.bfloat16),
-             ("mlp_up+gelu", 3072, 12288, "scaled_gelu", False, torch.bfloat16),
-             ("mlp_down", 12288, 3072, "scaled", False, torch.bfloat16),
-             ("head_f32", 3072, 49152, "scaled", False, torch.float32),
-             ("acc_only", 3072, 3072, "none", False, None),
-             ("codeqwen q_proj+bias", 4096, 4096, "scaled", True,
-              torch.bfloat16),
-             ("codeqwen o_proj+residual", 4096, 4096, "scaled_add", False,
-              torch.bfloat16),
-             ("codeqwen mlp_down", 13440, 4096, "scaled", False,
-              torch.bfloat16),
-             ("codeqwen head_f32", 4096, 92416, "scaled", False,
-              torch.float32),
-             ("ragged+bias", 100, 70, "scaled_add", True, torch.bfloat16)]
-    for name, k, n, epi, has_bias, out_dtype in gemms:
-        wd = quantize_weight(randn(k, n, scale=k ** -0.5))
-        w_q, w_s = wd["w_q"], wd["scale"]
-        bias = randn(n, scale=0.1) if has_bias else None
-        for m in ((5, 37) if name.startswith("ragged") else (8, 256)):
-            x_q, x_s = quantize_rows_ref(randn(m, k))
-            res = (randn(m, n).to(out_dtype) if epi == "scaled_add" else None)
-            gs = GELU_INT_SCALE if epi == "scaled_gelu" else None
-            if epi == "none":
-                from repro_torch.kernels.int8_gemm import int8_gemm
-
-                def run():
-                    return int8_gemm(x_q, w_q)
-
-                def plain():
-                    return int8_matmul_ref(x_q, w_q)
-            else:
-                def run():
-                    return ops.gemm_w8a8(x_q, x_s, w_q, w_s, bias=bias,
-                                         residual=res, gelu_scale=gs,
-                                         out_dtype=out_dtype)
-
-                def plain():
-                    return gemm_w8a8_ref(x_q, x_s, w_q, w_s, bias=bias,
-                                         residual=res, gelu_scale=gs,
-                                         out_dtype=out_dtype)
-            out, ref = run(), plain()
-            torch.cuda.synchronize()
-            if not torch.equal(out, ref):
-                raise AssertionError(
-                    f"int8_gemm {name} M={m}: {int((out != ref).sum())} of "
-                    f"{out.numel()} differ from the plain version "
-                    f"(max |d| {max_err(out, ref)})")
-            lib = int_mm_ms(timer, x_q, w_q)
-            out_size = out.element_size()
-            nbytes = (m * k + k * n + 4 * (m + n) + (4 * n if has_bias else 0)
-                      + (res.numel() * res.element_size() if res is not None
-                         else 0) + m * n * out_size)
-            record("int8_gemm", f"{name} [{m},{k}]x[{k},{n}] {epi}", 0.0, True,
-                   timer(run), timer(plain), lib,
-                   bound(nbytes, 2 * m * n * k, INT8_OPS))
 
     # -- 3. int_layernorm (starcoder's LayerNorm, both models' RMSNorm) ------
     for m in (8, 256):
@@ -399,7 +357,163 @@ def check_kernels(dev, gen, timer) -> list[dict]:
                    timer(lambda: int_layernorm_ref(x, g, b, rms)), None,
                    bound(8 * m * d + 8 * d, 12 * m * d, F32_OPS))
 
-    # -- 4. int8_kv_decode_attention (starcoder GQA, codeqwen MHA) -----------
+    check_int8_gemm(dev, gen, timer, record, randn)
+    check_decode_attention(dev, gen, timer, record, randn)
+    check_int4_gemm(dev, gen, timer, record, randn)
+    check_dual_int4_gemm_gated(dev, gen, timer, record, randn)
+    check_dual_gemm_gated(dev, gen, timer, record, randn)
+    check_paged(dev, gen, timer, record, randn)
+    check_no_cache(dev, gen, timer, record, randn)
+    check_streaming_attention(dev, gen, timer, record, randn)
+    check_int_library(dev, gen, timer, record, randn)
+    check_ssd_scan(dev, gen, timer, record, randn)
+    check_decode_rows(dev, gen, timer, record, randn)
+    return cases
+
+
+# int8_gemm's phase 3 shapes (name, K, N, epilogue, bias, stream dtype,
+# rows): the W8A8 projections of starcoder2-3b (q and kv with bias, o with
+# the residual, the GELU up-projection, down) and codeqwen1.5-7b (q with
+# bias, o with the residual, down, the f32 head) at one decode row per lane
+# (M = 8), bucket-64 and -256 prefill steps and the no-cache forward's
+# 4 x 1024 rows; starcoder's f32 head; a ragged case through the byte loads
+GEMM_ROWS = (8, 64, 256, 4096)
+I8_SHAPES = (("q_proj+bias", 3072, 3072, "scaled", True, torch.bfloat16,
+              GEMM_ROWS),
+             ("kv_proj+bias", 3072, 256, "scaled", True, torch.bfloat16,
+              GEMM_ROWS),
+             ("o_proj+residual", 3072, 3072, "scaled_add", False,
+              torch.bfloat16, GEMM_ROWS),
+             ("mlp_up+gelu", 3072, 12288, "scaled_gelu", False,
+              torch.bfloat16, GEMM_ROWS),
+             ("mlp_down", 12288, 3072, "scaled", False, torch.bfloat16,
+              GEMM_ROWS),
+             ("head_f32", 3072, 49152, "scaled", False, torch.float32,
+              (8, 256)),
+             ("codeqwen q_proj+bias", 4096, 4096, "scaled", True,
+              torch.bfloat16, GEMM_ROWS),
+             ("codeqwen o_proj+residual", 4096, 4096, "scaled_add", False,
+              torch.bfloat16, GEMM_ROWS),
+             ("codeqwen mlp_down", 13440, 4096, "scaled", False,
+              torch.bfloat16, GEMM_ROWS),
+             ("codeqwen head_f32", 4096, 92416, "scaled", False,
+              torch.float32, GEMM_ROWS),
+             ("ragged+bias", 100, 70, "scaled_add", True, torch.bfloat16,
+              (5, 37)))
+# the integer library's Table II shapes (the paper's benchmark: a 3x128x128
+# image and 8 3x3x3 filters; a [32, 64] x [64, 32] GEMM) and full widths
+TABLE2_CONV = (1, 128, 128, 3, 3, 3, 8)
+TABLE2_GEMM = (32, 64, 32)
+
+
+def check_int8_gemm(dev, gen, timer, record, randn) -> None:
+    """Phase 3's int8_gemm cases, every one ``torch.equal`` to its plain
+    version: the serving and scoring paths' projections (``I8_SHAPES``),
+    each beside the ``none`` epilogue (the int32 sums) at the same shape,
+    timed with ``torch._int_mm`` (rows padded to 32 at M <= 16: the same
+    function as ``none``, not as the fused epilogues); then the requant
+    family (requant, requant_gelu, requant_add: the integer-in,
+    integer-out GEMM of Table II) at Table II's [32, 64] x [64, 32] and at
+    starcoder2-3b's MLP up-projection over 4096 rows."""
+    from repro_torch.core.inumerics import compute_requant_params
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.int8_gemm import (
+        gemm_w8a8_ref, int8_gemm, int8_gemm_add_ref, int8_gemm_gelu_ref,
+        int8_gemm_ref, int8_matmul_ref)
+    from repro_torch.kernels.quantize import quantize_rows_ref
+    from repro_torch.models.layers import GELU_INT_SCALE, quantize_weight
+
+    def exact(what, out, ref):
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(
+                f"int8_gemm {what}: {int((out != ref).sum())} of "
+                f"{out.numel()} differ from the plain version (max |d| "
+                f"{max_err(out, ref)})")
+
+    for name, k, n, epi, has_bias, out_dtype, rows in I8_SHAPES:
+        wd = quantize_weight(randn(k, n, scale=k ** -0.5))
+        w_q, w_s = wd["w_q"], wd["scale"]
+        bias = randn(n, scale=0.1) if has_bias else None
+        for m in rows:
+            x_q, x_s = quantize_rows_ref(randn(m, k))
+            res = (randn(m, n).to(out_dtype) if epi == "scaled_add" else None)
+            gs = GELU_INT_SCALE if epi == "scaled_gelu" else None
+
+            def run():
+                return ops.gemm_w8a8(x_q, x_s, w_q, w_s, bias=bias,
+                                     residual=res, gelu_scale=gs,
+                                     out_dtype=out_dtype)
+
+            def plain():
+                return by_rows(lambda r0, r1: gemm_w8a8_ref(
+                    x_q[r0:r1], x_s[r0:r1], w_q, w_s, bias=bias,
+                    residual=None if res is None else res[r0:r1],
+                    gelu_scale=gs, out_dtype=out_dtype), m)
+            out = run()
+            exact(f"{name} M={m}", out, plain())
+            lib = int_mm_ms(timer, x_q, w_q)
+            nbytes = (m * k + k * n + 4 * (m + n) + (4 * n if has_bias else 0)
+                      + (res.numel() * res.element_size() if res is not None
+                         else 0) + m * n * out.element_size())
+            slow = m > PLAIN_ROWS
+            record("int8_gemm", f"{name} [{m},{k}]x[{k},{n}] {epi}", 0.0, True,
+                   timer(run), timer(plain, iters=3, warmup=1) if slow
+                   else timer(plain), lib,
+                   bound(nbytes, 2 * m * n * k, INT8_OPS),
+                   "torch._int_mm, int32 out: not the same function", out)
+            del out
+            # the int32 sums alone, the function torch._int_mm computes
+            acc = int8_gemm(x_q, w_q)
+            exact(f"{name} none M={m}", acc,
+                  by_rows(lambda r0, r1: int8_matmul_ref(x_q[r0:r1], w_q), m))
+            record("int8_gemm", f"{name} [{m},{k}]x[{k},{n}] none", 0.0, True,
+                   timer(lambda: int8_gemm(x_q, w_q)),
+                   timer(lambda: int8_matmul_ref(x_q, w_q), iters=3,
+                         warmup=1) if slow
+                   else timer(lambda: int8_matmul_ref(x_q, w_q)), lib,
+                   bound(m * k + k * n + 4 * m * n, 2 * m * n * k, INT8_OPS),
+                   "torch._int_mm: the same function", acc)
+            del acc
+        del w_q, w_s
+        torch.cuda.empty_cache()
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+    for m, k, n in (TABLE2_GEMM, (4096, 3072, 12288)):
+        x, w, r = ints(-128, 128, m, k), ints(-128, 128, k, n), ints(
+            -128, 128, m, n)
+        rq = compute_requant_params(1 / (127 * k ** 0.5),
+                                    acc_bound=k * 127 * 127)
+        lib = int_mm_ms(timer, x, w)
+        for epi, run, plain, extra in (
+                ("requant", lambda: ops.gemm_i8(x, w, rq),
+                 lambda: int8_gemm_ref(x, w, rq), 0),
+                ("requant_gelu", lambda: ops.gemm_i8_gelu(x, w, GELU_INT_SCALE),
+                 lambda: int8_gemm_gelu_ref(x, w, GELU_INT_SCALE), 0),
+                ("requant_add", lambda: ops.gemm_i8_add(x, w, rq, r),
+                 lambda: int8_gemm_add_ref(x, w, rq, r), m * n)):
+            out = run()
+            exact(f"{epi} [{m},{k}]x[{k},{n}]", out, plain())
+            record("int8_gemm", f"[{m},{k}]x[{k},{n}] {epi}", 0.0, True,
+                   timer(run), timer(plain, iters=3, warmup=1), lib,
+                   bound(m * k + k * n + extra + m * n, 2 * m * n * k,
+                         INT8_OPS), "torch._int_mm, int32 out: not the same "
+                   "function", out)
+        del x, w, r
+
+
+def check_decode_attention(dev, gen, timer, record, randn) -> None:
+    """Phase 3's int8_kv_decode_attention cases at T = 1: starcoder2-3b's
+    GQA (G = 12, without and with a window) and codeqwen1.5-7b's MHA
+    (G = 1) over 8 lanes of 1024 slots, each lane filled to a random
+    length and lane 3 idle (every slot masked: the mean of V), within
+    RTOL/ATOL of the plain version, timed beside SDPA over K/V dequantized
+    to bf16 ahead of time (not the same function)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.int8_kv_decode_attention import (
+        ATOL, RTOL, int8_kv_decode_attention_ref)
     from repro_torch.models.attention import _quant_kv
     for bsz, s, hq, hkv, d, windows in ((8, 1024, 24, 2, 128, (0, 100)),
                                         (8, 1024, 32, 32, 128, (0,))):
@@ -447,18 +561,7 @@ def check_kernels(dev, gen, timer) -> list[dict]:
                    f"B={bsz} S={s} Hq={hq} Hkv={hkv} D={d} window={window}",
                    max_err(out, ref), False, timer(run), timer(plain), lib,
                    bound(*decode_work(pos, qpos[:, None], hq, hkv, d, window),
-                         F32_OPS))
-
-    check_int4_gemm(dev, gen, timer, record, randn)
-    check_dual_int4_gemm_gated(dev, gen, timer, record, randn)
-    check_dual_gemm_gated(dev, gen, timer, record, randn)
-    check_paged(dev, gen, timer, record, randn)
-    check_no_cache(dev, gen, timer, record, randn)
-    check_streaming_attention(dev, gen, timer, record, randn)
-    check_int_library(dev, gen, timer, record, randn)
-    check_ssd_scan(dev, gen, timer, record, randn)
-    check_decode_rows(dev, gen, timer, record, randn)
-    return cases
+                         F32_OPS), out=out)
 
 
 # the no-cache forward's attention shapes: 4 sequences of 1024 tokens
@@ -654,10 +757,14 @@ def ssd_scan_work(b, t, h, p, n, chunk) -> tuple[int, int]:
 
 def check_ssd_scan(dev, gen, timer, record, randn) -> None:
     """Phase 3 for ssd_scan at zamba2-2.7b's forward shape and at the
-    reduced model's (P, N) = (64, 16) against its plain version: y and the
-    final state within rtol = atol = 3e-4, with the
-    model's A = -exp(log(linspace(1, 16, H))) and dt as softplus gives it;
-    timed beside its bound (``ssd_scan_work``) and the plain version."""
+    reduced model's (P, N) = (64, 16) against its plain version evaluated
+    in f64 (its arithmetic in its order): two f32 scans over 1024 steps,
+    each within the tolerance of it, can differ from each other by more,
+    at small outputs where large terms cancel: y and the final state within
+    rtol = atol = 3e-4,
+    with the model's A = -exp(log(linspace(1, 16, H))) and dt as softplus
+    gives it; timed beside its bound (``ssd_scan_work``) and the plain
+    version in f32."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ssd_scan import (ATOL, RTOL, ssd_scan_ref)
     # zamba2-2.7b's shape, then the reduced model's (P, N) = (64, 16)
@@ -672,7 +779,9 @@ def check_ssd_scan(dev, gen, timer, record, randn) -> None:
 
         def plain():
             return ssd_scan_ref(x, dt, a, bm, cm)
-        (y, st), (yr, sr) = run(), plain()
+        y, st = run()
+        yr, sr = (v.float() for v in ssd_scan_ref(
+            *(v.double() for v in (x, dt, a, bm, cm))))
         torch.cuda.synchronize()
         for what, got, want in (("y", y, yr), ("final state", st, sr)):
             if not (torch.isfinite(got).all() and torch.allclose(
@@ -694,9 +803,10 @@ def check_ssd_scan(dev, gen, timer, record, randn) -> None:
 ROWS_T = 256
 
 
-def check_decode_rows(dev, gen, timer, record, randn) -> None:
-    """Phase 3 for the decode kernels' multi-row form, dense and paged, at
-    codeqwen1.5-7b's heads (G = 1) and starcoder2-3b's (G = 12): every row
+def check_decode_rows(dev, gen, timer, record, randn,
+                      forms=(False, True)) -> None:
+    """Phase 3 for the decode kernels' multi-row form, dense and paged
+    (``forms``: False dense, True paged), at codeqwen1.5-7b's heads (G = 1) and starcoder2-3b's (G = 12): every row
     of a T = 256 launch bit-equal to a T = 1 launch of the same kernel at
     that row's position with the same B (the contract: a lane's tokens do
     not depend on how its steps were batched), and the whole within
@@ -709,7 +819,7 @@ def check_decode_rows(dev, gen, timer, record, randn) -> None:
         paged_decode_attention_rows_ref)
     from repro_torch.models.attention import _quant_kv
     tr = ROWS_T
-    for paged in (False, True):
+    for paged in forms:
         for hq, hkv, d in ((32, 32, 128), (24, 2, 128)):
             if paged:
                 arena, ppos, pt, last = paged_arena(dev, gen, randn, hkv, d,
@@ -776,7 +886,7 @@ def check_decode_rows(dev, gen, timer, record, randn) -> None:
                    timer(lambda: rows(q, *args, qp), iters=5),
                    timer(lambda: plain_rows(q, *args, qp), iters=1, warmup=0),
                    None, bound(*work, F32_OPS),
-                   "bit-equal row by row to T = 1 launches")
+                   "bit-equal row by row to T = 1 launches", out)
             del out, ref
             torch.cuda.empty_cache()
 
@@ -851,10 +961,6 @@ def check_streaming_attention(dev, gen, timer, record, randn) -> None:
         torch.cuda.empty_cache()
 
 
-# the integer library's Table II shapes (the paper's benchmark: a 3x128x128
-# image and 8 3x3x3 filters; a [32, 64] x [64, 32] GEMM) and full widths
-TABLE2_CONV = (1, 128, 128, 3, 3, 3, 8)
-TABLE2_GEMM = (32, 64, 32)
 VIT_IMAGES, VIT_SIDE, VIT_PATCH, VIT_D = 32, 224, 16, 768
 
 
@@ -924,29 +1030,6 @@ def check_int_library(dev, gen, timer, record, randn) -> None:
            timer(lambda: requantize_i32_ref(x, rq)), None,
            bound(4096 * 4096 * 5, 8 * 4096 * 4096, F32_OPS), no_lib)
     del x
-
-    # -- 2. int8_gemm: the requant epilogues --------------------------------------
-    for m, k, n in (TABLE2_GEMM, (4096, 3072, 12288)):
-        x, w = ints(-128, 128, m, k, dtype=torch.int8), ints(
-            -128, 128, k, n, dtype=torch.int8)
-        r = ints(-128, 128, m, n, dtype=torch.int8)
-        rq = compute_requant_params(1 / (127 * k ** 0.5),
-                                    acc_bound=k * 127 * 127)
-        lib = int_mm_ms(timer, x, w)
-        for epi, run, plain, extra in (
-                ("requant", lambda: ops.gemm_i8(x, w, rq),
-                 lambda: int8_gemm_ref(x, w, rq), 0),
-                ("requant_gelu", lambda: ops.gemm_i8_gelu(x, w, GELU_INT_SCALE),
-                 lambda: int8_gemm_gelu_ref(x, w, GELU_INT_SCALE), 0),
-                ("requant_add", lambda: ops.gemm_i8_add(x, w, rq, r),
-                 lambda: int8_gemm_add_ref(x, w, rq, r), m * n)):
-            exact("int8_gemm", f"{epi} [{m},{k}]x[{k},{n}]", run, plain)
-            record("int8_gemm", f"[{m},{k}]x[{k},{n}] {epi}", 0.0, True,
-                   timer(run), timer(plain, iters=3, warmup=1), lib,
-                   bound(m * k + k * n + extra + m * n, 2 * m * n * k,
-                         INT8_OPS), "torch._int_mm, int32 out: not the same "
-                   "function")
-        del x, w, r
 
     # -- 15. int8_conv2d ----------------------------------------------------------
     rq = compute_requant_params(0.01, acc_bound=27 * 127 * 127)
@@ -1111,7 +1194,7 @@ def check_paged(dev, gen, timer, record, randn) -> None:
                    f"B={b} ps={ps} MP={mp} Hq={hq} Hkv={hkv} D={d} "
                    f"{'int8' if int8 else 'bf16'} window={window}",
                    max_err(out, ref), False, timer(run), timer(plain), lib,
-                   bound(nbytes, ops_n, F32_OPS))
+                   bound(nbytes, ops_n, F32_OPS), out=out)
 
 
 # int4_gemm's phase 3 shapes (name, K, N, epilogue, bias, group, rows): the
@@ -1358,11 +1441,35 @@ def check_dual_gemm_gated(dev, gen, timer, record, randn) -> None:
                "function")
 
 
-# the kernels ``--kernels`` can time alone, each with its phase 3 cases
-KERNEL_CASES = {"flash_attention": check_flash_attention,
-                "int4_gemm": check_int4_gemm,
-                "dual_gemm_gated": check_dual_gemm_gated,
-                "dual_int4_gemm_gated": check_dual_int4_gemm_gated}
+def check_dense_decode(dev, gen, timer, record, randn) -> None:
+    """int8_kv_decode_attention's phase 3 cases: T = 1, then the T = 256
+    multi-row form."""
+    check_decode_attention(dev, gen, timer, record, randn)
+    check_decode_rows(dev, gen, timer, record, randn, forms=(False,))
+
+
+def check_paged_decode(dev, gen, timer, record, randn) -> None:
+    """paged_decode_attention's phase 3 cases: T = 1 on scrambled arenas
+    (against the dense kernel too), then the T = 256 multi-row form."""
+    check_paged(dev, gen, timer, record, randn)
+    check_decode_rows(dev, gen, timer, record, randn, forms=(True,))
+
+
+# the kernels ``--kernels`` can time alone: each one's phase 3 cases and the
+# sources they build (the paged cases hold the dense kernel beside it)
+KERNEL_CASES = {"flash_attention": (check_flash_attention,
+                                    ("flash_attention",)),
+                "int4_gemm": (check_int4_gemm, ("int4_gemm",)),
+                "dual_gemm_gated": (check_dual_gemm_gated,
+                                    ("dual_gemm_gated",)),
+                "dual_int4_gemm_gated": (check_dual_int4_gemm_gated,
+                                         ("dual_int4_gemm_gated",)),
+                "int8_gemm": (check_int8_gemm, ("int8_gemm",)),
+                "int8_kv_decode_attention": (check_dense_decode,
+                                             ("int8_kv_decode_attention",)),
+                "paged_decode_attention": (check_paged_decode,
+                                           ("paged_decode_attention",
+                                            "int8_kv_decode_attention"))}
 
 
 # ---------------------------------------------------------------------------
@@ -2113,7 +2220,7 @@ def layer_counts(cfg) -> tuple[int, int]:
             sum(k == "mamba2" for k in kinds))
 ACT_KERNEL = dict(REDUCED_MIXED)
 # the w8a8 forwards profiled beside every bf16 and w4a8 one
-PROFILED_W8A8 = ("codeqwen1.5-7b",)
+PROFILED_W8A8 = ("codeqwen1.5-7b", "starcoder2-3b")
 CAL_B, CAL_T = 2, 128                      # calibration set: 2 x 128 tokens
 LONG_T = 4096          # one codeqwen w8a8 sequence past the block form's keys
 
@@ -2257,6 +2364,17 @@ def cal_only(dev, seed) -> dict:
         del params
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+def lm_only(dev, seed) -> dict:
+    """Phase 6's W8A8 ``lm_loss`` of codeqwen1.5-7b and starcoder2-3b (NC_B
+    x NC_T tokens), each timed and then profiled: the forwards where
+    int8_gemm takes most of the device time, what two trees are compared
+    on."""
+    out = {}
+    for arch in ("codeqwen1.5-7b", "starcoder2-3b"):
+        out.update(no_cache_full(dev, seed, arch, ("w8a8",), False, False))
     return out
 
 
@@ -2424,10 +2542,11 @@ def int_library_entry(dev, seed) -> dict:
 
 
 # kernels whose device ms every profile reports (summed over the CUDA
-# functions whose names hold ``<kernel>_kernel``): the four redesigned for
-# tensor cores
+# functions whose names hold ``<kernel>_kernel``): those redesigned for
+# Hopper — the tensor-core GEMMs, flash_attention, both decode attentions
 PROFILED_KERNELS = ("int4_gemm", "flash_attention", "dual_gemm_gated",
-                    "dual_int4_gemm_gated")
+                    "dual_int4_gemm_gated", "int8_gemm",
+                    "int8_kv_decode_attention", "paged_decode_attention")
 
 
 def profile_summary(prof, wall_ms: float) -> dict:
@@ -2492,6 +2611,10 @@ def main() -> int:
                     help="build, then only codeqwen1.5-7b's and zamba2-2.7b's "
                     "calibrate_ptq, timed and then profiled (cal_only); "
                     "prints their summary and no ok line")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="build, then only codeqwen1.5-7b's and "
+                    "starcoder2-3b's W8A8 lm_loss, timed and profiled "
+                    "(lm_only); prints their summary and no ok line")
     ap.add_argument("--kernels", default=None,
                     help="comma-separated kernels among "
                     f"{', '.join(KERNEL_CASES)}: build only these from --src "
@@ -2520,7 +2643,9 @@ def main() -> int:
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    built = build.build_all(*([only] if only else []))
+    built = build.build_all(*([sorted({src for name in only
+                                       for src in KERNEL_CASES[name][1]})]
+                               if only else []))
     log(f"[2/6] built {len(built)} kernels in {time.perf_counter() - t0:.1f}s")
     for name, info in sorted(built.items()):
         regs = [ln.strip() for ln in info["ptxas"].splitlines()
@@ -2534,14 +2659,17 @@ def main() -> int:
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         cases, timer = [], Timer(dev)
         for name in only:
-            KERNEL_CASES[name](dev, gen, timer, case_recorder(cases),
-                               randn_on(dev, gen))
+            KERNEL_CASES[name][0](dev, gen, timer,
+                                  case_recorder(cases, digests=True),
+                                  randn_on(dev, gen))
         if args.out is not None:
             args.out.parent.mkdir(parents=True, exist_ok=True)
             args.out.write_text(json.dumps({"card": smi, "src": str(
                 args.src), "cases": cases}, indent=1))
         print(json.dumps({"src": str(args.src), "cases": {
-            f"{c['kernel']} {c['shape']}": c["ms"] for c in cases}}))
+            f"{c['kernel']} {c['shape']}": c["ms"] for c in cases},
+            "sha1": {f"{c['kernel']} {c['shape']}": c["sha1"]
+                     for c in cases if "sha1" in c}}))
         print(smi)
         return 0
 
@@ -2557,6 +2685,20 @@ def main() -> int:
                        "profile": {k: (v["wall_ms"], v["device_busy_ms"])
                                    for k, v in r["profile"].items()}}
                     if "metrics" in r else r)
+            for label, r in res.items()}}))
+        print(smi)
+        return 0
+
+    if args.lm_only:
+        res = lm_only(dev, args.seed)
+        if args.out is not None:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(json.dumps({"card": smi, "src": str(
+                args.src), "no_cache": res}, indent=1))
+        print(json.dumps({"lm_only": {
+            label: {"wall_s": r["wall_s"], "loss": r["loss"], "profile": {
+                k: (v["wall_ms"], v["device_busy_ms"], v["kernel_ms"])
+                for k, v in r.get("profile", {}).items()}}
             for label, r in res.items()}}))
         print(smi)
         return 0
@@ -2706,9 +2848,12 @@ def main() -> int:
             "dual_int4_gemm_gated": "[256,4096]x2[4096,13440] silu g32"},
         "codeqwen1.5-7b w8a8 lm_loss": {"int8_flash_attention":
             "v_scale codeqwen B=4 T=1024 H=32 Hkv=32 D=128",
-            "dual_gemm_gated": "int8 [4096,4096]x2[4096,13440] silu"},
+            "dual_gemm_gated": "int8 [4096,4096]x2[4096,13440] silu",
+            "int8_gemm":
+                "codeqwen q_proj+bias [4096,4096]x[4096,4096] scaled"},
         "starcoder2-3b w8a8 lm_loss": {"int8_flash_attention":
-            "v_scale starcoder B=4 T=1024 H=24 Hkv=2 D=128"},
+            "v_scale starcoder B=4 T=1024 H=24 Hkv=2 D=128",
+            "int8_gemm": "mlp_up+gelu [4096,3072]x[3072,12288] scaled_gelu"},
         "codeqwen1.5-7b bf16 lm_loss": {"flash_attention":
             "bf16 codeqwen B=4 T=1024 H=32 Hkv=32 D=128",
             "dual_gemm_gated": "bf16 [4096,4096]x2[4096,13440] silu"},

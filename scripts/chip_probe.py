@@ -1,0 +1,181 @@
+#!/usr/bin/env python3
+"""Probes behind the port's tile and pipeline choices, on one NVIDIA card.
+
+    python3 scripts/chip_probe.py tiles    # int8_gemm's tilings
+    python3 scripts/chip_probe.py decode   # variants of the decode body
+
+``tiles`` times int8_gemm (the ``scaled`` epilogue, GELU on starcoder2-3b's
+up-projection) at starcoder2-3b's and codeqwen1.5-7b's W8A8 projections and
+codeqwen1.5-7b's f32 head, with the tiling forced: 16-row decode blocks
+against one 64-row block for M = 16 to 128, 64 x 128 against 128 x 128
+blocks at M = 256 and 4096.  Every tiling's output must equal the first
+one's.  ``int8_gemm.w8_tiling`` keeps what it decided.
+
+``decode`` rebuilds ``csrc/decode_tile.cuh`` with other constants (threads a
+block, tiles a round, tiles in the copy ring, the blocks an SM its launch
+bounds ask for) into ``build/probe_decode/`` and times each
+at codeqwen1.5-7b's (G = 1) and starcoder2-3b's (G = 12) heads over 8 lanes
+of 1024 slots, at T = 1 and in the T = 256 multi-row form; every variant's
+output must equal the committed source's.
+
+Times: CUDA events over ten launches with a cold L2 (``chip_smoke.Timer``).
+Prints one line a shape or variant; needs nvcc and one card.
+"""
+from __future__ import annotations
+
+import ctypes
+import shutil
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+
+def tiles() -> None:
+    import chip_smoke as cs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import int8_gemm as tg
+    from repro_torch.kernels.quantize import quantize_rows_ref
+    from repro_torch.models.layers import GELU_INT_SCALE, quantize_weight
+    forced = {}
+
+    def w8_tiling(m, n, k, n_sm, streams=1):
+        bm = forced["bm"]
+        return tg.mma_tiling(m, n, k, tg.W8_BK, n_sm, 1,
+                             m if bm == 16 else 0, bm)
+    tg.w8_tiling = w8_tiling
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    randn, timer = cs.randn_on(dev, gen), cs.Timer(dev)
+    for name, k, n, gs in (("starcoder q_proj", 3072, 3072, None),
+                           ("starcoder kv_proj", 3072, 256, None),
+                           ("starcoder mlp_up+gelu", 3072, 12288, GELU_INT_SCALE),
+                           ("starcoder mlp_down", 12288, 3072, None),
+                           ("codeqwen q_proj", 4096, 4096, None),
+                           ("codeqwen mlp_down", 13440, 4096, None),
+                           ("codeqwen head_f32", 4096, 92416, None)):
+        wd = quantize_weight(randn(k, n, scale=k ** -0.5))
+        od = torch.float32 if "head" in name else torch.bfloat16
+        for m, bms in ((16, (16, 64)), (32, (16, 64)), (48, (16, 64)),
+                       (64, (16, 64)), (128, (16, 64)), (256, (64, 128)),
+                       (4096, (64, 128))):
+            x_q, x_s = quantize_rows_ref(randn(m, k))
+            ref, line = None, []
+            for bm in bms:
+                forced["bm"] = bm
+
+                def run():
+                    return ops.gemm_w8a8(x_q, x_s, wd["w_q"], wd["scale"],
+                                         gelu_scale=gs, out_dtype=od)
+                out = run()
+                if ref is None:
+                    ref = out
+                elif not torch.equal(out, ref):
+                    raise AssertionError(f"{name} M={m}: bm={bm} differs")
+                split = w8_tiling(m, n, k, 132).split
+                line.append(f"bm={bm} (split {split}) {timer(run):.5f} ms")
+            print(f"{name:22s} M={m:5d}: " + " | ".join(line), flush=True)
+        del wd
+        torch.cuda.empty_cache()
+
+
+# the decode body's variants: name -> (threads, tiles a round, tiles in the
+# ring, copy items a thread, blocks an SM its launch bounds ask for);
+# "committed" is the source as it stands
+DECODE_VARIANTS = {"committed": (256, 2, 4, 3, 3), "bounds1": (256, 2, 4, 3, 1),
+                   "stages6": (256, 2, 6, 3, 3), "round4": (256, 4, 8, 3, 3),
+                   "threads128": (128, 2, 4, 5, 3)}
+
+
+def build_variant(name, cfg):
+    from repro_torch.kernels import build
+    threads, nr, stages, maxi, mb = cfg
+    work = ROOT / "build/probe_decode" / name
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.copytree(ROOT / "src/repro_torch/kernels/csrc", work)
+    t = (work / "decode_tile.cuh").read_text()
+    for old, new in (("constexpr int THREADS = 256,", f"constexpr int THREADS = {threads},"),
+                     ("constexpr int NR = 2;", f"constexpr int NR = {nr};"),
+                     ("constexpr int STAGES = 4;", f"constexpr int STAGES = {stages};"),
+                     ("constexpr int MAXI = 3;", f"constexpr int MAXI = {maxi};"),
+                     ("__launch_bounds__(THREADS, 3) attend_kernel",
+                      f"__launch_bounds__(THREADS, {mb}) attend_kernel")):
+        if old not in t:
+            raise RuntimeError(f"decode_tile.cuh no longer has {old!r}")
+        t = t.replace(old, new)
+    (work / "decode_tile.cuh").write_text(t)
+    so = work / "probe.so"
+    r = subprocess.run([build.nvcc_path(), *build.FLAGS, "-o", str(so),
+                        str(work / "int8_kv_decode_attention.cu")],
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"{name}: nvcc failed\n{r.stdout}{r.stderr}")
+    regs = [ln.split(":", 1)[1].strip() for ln in (r.stdout + r.stderr).splitlines()
+            if "registers" in ln]
+    return name, ctypes.CDLL(str(so)), regs
+
+
+def decode() -> None:
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.kernels import int8_kv_decode_attention as dk
+    from repro_torch.models.attention import _quant_kv
+    with ThreadPoolExecutor(len(DECODE_VARIANTS)) as ex:
+        libs = list(ex.map(lambda kv: build_variant(*kv), DECODE_VARIANTS.items()))
+    current = {}
+
+    def entry(name, symbol, argtypes):
+        fn = getattr(current["lib"], symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        return fn
+    build.entry = entry
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    randn, timer = cs.randn_on(dev, gen), cs.Timer(dev)
+    cases = []
+    for hq, hkv in ((32, 32), (24, 2)):
+        b, s, d = 8, 1024, 128
+        k_q, k_s = _quant_kv(randn(b, s, hkv, d))
+        v_q, v_s = _quant_kv(randn(b, s, hkv, d))
+        fill = torch.randint(256, s + 1, (b,), generator=gen, device=dev)
+        fill[3] = 0
+        slot = torch.arange(s, device=dev)
+        pos = torch.where(slot[None] < fill[:, None], slot[None], -1).to(torch.int32)
+        last = (fill - 1).to(torch.int32)
+        for t in (1, 256):
+            qp = last[:, None] - torch.arange(t - 1, -1, -1, device=dev,
+                                              dtype=torch.int32)[None]
+            qp = torch.where((last[:, None] >= 0) & (qp >= 0), qp, -1).to(
+                torch.int32).contiguous()
+            cases.append((f"G={hq // hkv} T={t}", (randn(b, t, hq, d).to(
+                torch.bfloat16), k_q, k_s, v_q, v_s, pos, qp)))
+    ref = {}
+    for name, lib, regs in libs:
+        current["lib"] = lib
+        build._ENTRIES.clear()
+        _, nr, stages, _, _ = DECODE_VARIANTS[name]
+        dk.NR, dk.STAGES = nr, stages
+        line = []
+        for label, args in cases:
+            def run():
+                return dk.int8_kv_decode_attention_rows(*args)
+            out = run()
+            if label in ref and not torch.equal(out, ref[label]):
+                raise AssertionError(f"{name} {label}: differs from the committed body")
+            ref.setdefault(label, out)
+            line.append(f"{label} {timer(run):.5f} ms")
+        print(f"{name:10s} " + " | ".join(line) + f" [{'; '.join(regs)}]", flush=True)
+
+
+if __name__ == "__main__":
+    if len(sys.argv) != 2 or sys.argv[1] not in ("tiles", "decode"):
+        sys.exit(__doc__)
+    if not torch.cuda.is_available():
+        sys.exit("chip_probe: no CUDA device")
+    {"tiles": tiles, "decode": decode}[sys.argv[1]]()

@@ -4,16 +4,17 @@
 //   W4    int8 activations x packed int4 weights [K/2, N], each with its
 //         per-group int8 multipliers qmul [K/G, N], G in {32, 64, 128}
 //         (int4_gemm, dual_int4_gemm_gated);
-//   W8    int8 activations x int8 weights [K, N] (dual_gemm_gated, int8);
+//   W8    int8 activations x int8 weights [K, N] (int8_gemm,
+//         dual_gemm_gated's int8 form);
 //   BF16  bf16 activations x bf16 weights [K, N], f32 sums
 //         (dual_gemm_gated, bf16).
 //
 // Bound on the H100: at decode rows (M <= 64) bytes — the weight streams
 // must run near HBM's rate (half a byte, one byte or two bytes of weight per
 // multiply-add and row); at prefill rows operations at the int8 or bf16
-// tensor-core rate.  What the SIMT loop of ``gemm_tile.cuh`` lost on both:
-// ``__dp4a`` or f32 FMAs from shared memory, and loads through registers
-// with no copy in flight while the block computes.
+// tensor-core rate.  What the SIMT loop these GEMMs ran on before lost on
+// both: ``__dp4a`` or f32 FMAs from shared memory, and loads through
+// registers with no copy in flight while the block computes.
 //
 // Design:
 // * products with ``mma.sync.m16n8k32.s32.s8.s8.s32`` (W4, W8: exact int32
@@ -60,11 +61,14 @@
 // * tile shapes (``int8_gemm.w4_tiling``, ``w8_tiling``, ``bf16_tiling``
 //   pick): decode, blocks of 16 rows x 128 columns (4 warps of 16 x 32; rows
 //   past M are computed only up to the next multiple of 16), K split until
-//   each SM has about 32 KB of weight in flight — int4_gemm up to M = 64 (one
-//   block over all 64 rows of a bucket-64 step ran slower than four 16-row
-//   blocks at its N of 4096), the dual GEMMs up to M = 32 (at N = 13440 a
-//   64-row block over 105 column tiles ran 1.1-2.4x faster at M = 64 than
-//   four 16-row blocks, which read the weights four times); BF16's decode
+//   each SM has about 32 KB of weight in flight — int4_gemm and int8_gemm
+//   up to M = 64 (one block over all 64 rows of a bucket-64 step ran slower
+//   than four 16-row blocks at N = 4096; int8_gemm takes 64-row blocks from
+//   the first row for a weight past 64 MiB, the heads, which 16-row blocks
+//   would read from device memory once per 16 rows), the dual GEMMs up to
+//   M = 32 (at N = 13440 a 64-row block over 105 column tiles ran 1.1-2.4x
+//   faster at M = 64 than four 16-row blocks, which read the weights four
+//   times); BF16's decode
 //   blocks are 16 x 64 (4 warps of 16 x 16: 210 blocks at N = 13440 without
 //   a split); prefill, BM = 64, BN = 128, 8 warps of 32 x 32 and two blocks
 //   an SM (<= 128 registers a thread; for int4_gemm 8 warps of 64 x 32, one
@@ -75,7 +79,8 @@
 //   an SM); BF16 runs 64 x 128 blocks up to M = 128 (``MidPrefill``: BK = 64
 //   fills 176 KB, one block an SM) and 128 x 128 blocks of 8 warps of 64 x 32
 //   past it (``WidePrefill``, one block an SM: 23% faster at M = 4096 than
-//   64 x 128 blocks at BK = 32).
+//   64 x 128 blocks at BK = 32); int8_gemm runs ``WidePrefill`` for deep K
+//   (the down projections) at scoring rows (``int8_gemm.w8_tiling``).
 // ``wgmma`` with TMA is the next step: it would need the widened W4 tile
 // written back to shared memory K-major first, and flash_attention's first
 // ``wgmma`` form ran slower than its ``mma.sync`` one, so this loop stays on

@@ -9,13 +9,14 @@
 // patch embed (a 1x1 conv over 768 channels reads each input and weight byte
 // once for 768 or 6272 multiply-adds, and writes int32), operations for a 3x3
 // conv over 64 channels.  Design, simple first: an implicit GEMM on the
-// integer GEMMs' tiles (``gemm_tile.cuh``): the rows are the N*OH*OW output
-// pixels, the columns the O output channels, the depth the KH*KW*Cp window
-// (C zero-padded to Cp, a multiple of 4, so every ``__dp4a`` word holds four
-// channels of one tap: the Table II input has C = 3).  A block owns 64 pixels
+// SIMT tiles of ``gemm_tile.cuh`` (its only user): the rows are the
+// N*OH*OW output pixels, the columns the O output channels, the depth the
+// KH*KW*Cp window (C zero-padded to Cp, a multiple of 4, so every
+// ``__dp4a`` word holds four channels of one tap: the Table II input has
+// C = 3).  A block owns 64 pixels
 // x 64 channels and stages, per 64-deep step, its pixels' window words in
 // shared memory (one 4-byte load per word when C % 4 == 0) and the matching
-// weight rows transposed in registers as the GEMMs do; 256 threads keep 4x4
+// weight rows transposed in registers (``store_cols``); 256 threads keep 4x4
 // int32 sums each.  The epilogue adds the bias (int32, wrapping as the
 // reference's add does) and requantizes in-register.  No ``wgmma`` or TMA yet.
 //

@@ -17,44 +17,94 @@
 // bias-free chain is two separate multiplies; the bf16 residual add rounds
 // once from the f32 sum, as PyTorch and XLA do.
 //
-// Bound on the H100: at decode (M = 8) bytes — every weight byte is read once
-// for 8 multiply-adds; at prefill buckets (M up to 2048) operations.  Design,
-// simple first: the shared main loop of ``gemm_tile.cuh`` (64x64 output
-// tiles, 64-deep K steps, ``__dp4a`` on 4x4 register tiles, W read in its
-// [K, N] layout and transposed in registers, split K with an exact int32
-// combine when the tiles alone cannot fill the card) with one weight stream,
-// then ``store_out`` of ``int_epilogue.cuh``.
-#include "gemm_tile.cuh"
+// Bound on the H100: at decode rows (M <= 64) bytes — every weight byte is
+// read once for M multiply-adds (the f32 head [8,4096]x[4096,92416]: 379 MB,
+// 0.113 ms at 3.35 TB/s); at prefill rows and in the no-cache forwards
+// (M = 4096) operations at the int8 tensor-core rate.  Design: the
+// tensor-core loop of ``gemm_mma.cuh`` with one W8 stream — A and the int8
+// [K, N] weight tile through a 4-stage ``cp.async`` ring, B fragments from
+// ``ldmatrix.trans`` at permuted rows and two byte permutes, ``mma.sync``
+// m16n8k32 with exact int32 sums — in its decode shape (16 x 128 blocks of 4
+// warps, K split until each SM holds ~32 KB of weight in flight, the int32
+// combine exact in any order) or its prefill shapes (64 x 128, 8 warps, two
+// blocks an SM; 128 x 128, 8 warps of 64 x 32, one an SM, for deep K at
+// scoring rows); the wrapper picks (``int8_gemm.w8_tiling``, which keeps
+// the probe that decided each choice).  Each output
+// fragment is finished in registers by ``store_out`` of ``int_epilogue.cuh``
+// on int4_gemm's column map ("even"/"odd" columns 4t .. 4t + 3 of rows g and
+// g + 8).  Integer sums are exact in any order, so every output equals the
+// plain version's bit for bit.
+#include "gemm_mma.cuh"
 #include "int_epilogue.cuh"
 
 namespace {
 
+using mma_gemm::W8;
+
 // RQ: the requant family of epilogues (a kernel of its own, see ``store_out``)
-template <bool RQ>
-__global__ void __launch_bounds__(gemm::THREADS)
+template <class C, bool RQ>
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 int8_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, int M, int N,
                  int K, int k_len, int vec, Epi e, int32_t* __restrict__ partial,
                  int* __restrict__ counters) {
-  int acc[4][4];
-  if (!gemm::mainloop(x, w, M, N, K, k_len, vec, partial, counters, acc)) return;
+  const mma_gemm::Streams<1> s{{w}, {nullptr}};
+  mma_gemm::Acc<C, W8, 1> acc;
+  if (!mma_gemm::mainloop<C, W8, 1>(x, s, M, N, K, 0, k_len, vec, partial, counters, acc))
+    return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < C::MT; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = gemm::out_m(i), n = gemm::out_n(j);
-      if (m < M && n < N) store_out<RQ>(e, m, n, N, acc[i][j]);
-    }
+    for (int j = 0; j < C::NP; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int m = mma_gemm::out_row<C>(i, c), n = mma_gemm::out_col<C, W8>(j, h, c);
+          if (m < M && n < N) store_out<RQ>(e, m, n, N, acc[0][i][j][h][c]);
+        }
+}
+
+template <class C, bool RQ>
+int launch(cudaStream_t stream, const void* x, const void* w, int m, int n, int k, int split,
+           int k_len, int vec, const Epi& e, void* partial, void* counters) {
+  const int smem = mma_gemm::Stage<C, W8, 1>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(int8_gemm_kernel<C, RQ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + C::BN - 1) / C::BN, (m + C::BM - 1) / C::BM, split);
+  int8_gemm_kernel<C, RQ><<<grid, C::THREADS, smem, stream>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), m, n, k, k_len, vec, e,
+      static_cast<int32_t*>(partial), static_cast<int*>(counters));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool RQ>
+int launch_bm(cudaStream_t stream, int bm, const void* x, const void* w, int m, int n, int k,
+              int split, int k_len, int vec, const Epi& e, void* partial, void* counters) {
+  if (bm == mma_gemm::WidePrefill::BM)
+    return launch<mma_gemm::WidePrefill, RQ>(stream, x, w, m, n, k, split, k_len, vec, e,
+                                             partial, counters);
+  if (bm == mma_gemm::Prefill::BM)
+    return launch<mma_gemm::Prefill, RQ>(stream, x, w, m, n, k, split, k_len, vec, e, partial,
+                                         counters);
+  if (bm == mma_gemm::Decode::BM)
+    return launch<mma_gemm::Decode, RQ>(stream, x, w, m, n, k, split, k_len, vec, e, partial,
+                                        counters);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
+// bm 16: the decode shape, 64 or 128: the prefill shapes (anything else
+// returns cudaErrorInvalidValue); vec: K and N multiples of 16, operands 16-byte
+// aligned
 extern "C" int repro_int8_gemm(const void* x, const void* w, int m, int n, int k,
                                int epilogue, int stream_f32, const void* xs,
                                const void* ws, const void* bias, const void* res,
                                void* out, float inv_gelu_scale, int q_b, int q_c,
                                int q_one, int s1, int mult, int s2, int rq_s1, int rq_mult,
-                               int rq_s2, int split, int k_len, int vec, void* partial,
-                               void* counters, void* stream) {
+                               int rq_s2, int bm, int split, int k_len, int vec,
+                               void* partial, void* counters, void* stream) {
   Epi e;
   e.kind = epilogue;
   e.stream_f32 = stream_f32;
@@ -67,13 +117,9 @@ extern "C" int repro_int8_gemm(const void* x, const void* w, int m, int n, int k
   e.inv_gelu_scale = inv_gelu_scale;
   e.gelu = GeluConsts{q_b, q_c, q_one, s1, mult, s2};
   e.rq = RequantConsts{rq_s1, rq_mult, rq_s2};
-  if (m > 0 && n > 0) {
-    const dim3 grid((n + gemm::BN - 1) / gemm::BN, (m + gemm::BM - 1) / gemm::BM, split);
-    const bool rq = epilogue >= EPI_REQUANT && epilogue <= EPI_REQUANT_ADD;
-    auto kern = rq ? int8_gemm_kernel<true> : int8_gemm_kernel<false>;
-    kern<<<grid, gemm::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), m, n, k, k_len, vec,
-        e, static_cast<int32_t*>(partial), static_cast<int*>(counters));
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (m <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (epilogue >= EPI_REQUANT && epilogue <= EPI_REQUANT_ADD)
+    return launch_bm<true>(st, bm, x, w, m, n, k, split, k_len, vec, e, partial, counters);
+  return launch_bm<false>(st, bm, x, w, m, n, k, split, k_len, vec, e, partial, counters);
 }

@@ -16,24 +16,27 @@
 // table, for about 4*G flops per byte.
 //
 // Design: the body of the port's dense kernel, ``decode_tile.cuh``, with key
-// j of lane b at page pt[b, j / ps], slot j % ps (the tile's slots are
-// resolved into shared memory once per tile; a tile of 32 keys spans two
-// physical pages at ps = 16, which need not be adjacent or unshared).  With
-// the dense split (``kv_split(B*Hkv, MP*ps)``), the paged kernel over an
-// arena equals the dense kernel over the same content laid out densely, BIT
-// FOR BIT, for any live lane: a paged drain then gives a dense drain's
-// tokens.  Masking comes from ``ppos`` only (a page copied on write keeps
-// ``keep`` valid slots; the null page's are -1), never from a lane's length.
-// Out-of-range table entries clamp into the arena, as the reference's oracle
-// clips them.  The merge takes the TPU kernel's dead-lane rule: a (lane,
-// head) with no valid slot (an idle lane, an all-null table, a window that
-// excludes everything) emits exact zeros where the dense kernel averages V.
+// j of lane b at page pt[b, j / ps], slot j % ps (the table is read by the
+// body's prescan into shared memory ahead of the ``cp.async`` copies of the
+// keys' rows; a tile of 32 keys spans two physical pages at ps = 16, which
+// need not be adjacent or unshared).  With the dense split (``kv_split(B*Hkv,
+// MP*ps)``), the paged kernel over an arena equals the dense kernel over the
+// same content laid out densely, BIT FOR BIT, for any live lane: a paged
+// drain then gives a dense drain's tokens.  Masking comes from ``ppos`` only
+// (a page copied on write keeps ``keep`` valid slots; the null page's are
+// -1), never from a lane's length.  Out-of-range table entries clamp into
+// the arena, as the reference's oracle clips them.  The merge takes the TPU
+// kernel's dead-lane rule: a (lane, head) with no valid slot (an idle lane,
+// an all-null table, a window that excludes everything) emits exact zeros
+// where the dense kernel averages V.
 #include "decode_tile.cuh"
 
 namespace {
 
-// key j of lane b: slot j % ps of physical page pt[b, j / ps] of the arena
-struct PagedRows {
+// the paged form: key j of lane b is slot j % ps of physical page pt[b, j /
+// ps] of the arena; named after the kernel, which profiles list by it
+struct paged_decode_attention_kernel {
+  static constexpr bool ZERO_DEAD = true;  // a dead (lane, head) emits zeros
   const int32_t* pt;
   int n_pages, ps, mp;
   __device__ __forceinline__ int operator()(int b, int key) const {
@@ -42,38 +45,55 @@ struct PagedRows {
   }
 };
 
+template <typename QT, typename KT>
+int launch(const void* q, const void* pk, const void* pks, const void* pv, const void* pvs,
+           const void* ppos, const void* qpos, void* out, int b, int hq, int hkv, int s_len,
+           int d, float scale, int window, int n_split, int chunk, int t_len, int rows,
+           void* part, paged_decode_attention_kernel form, cudaStream_t stream) {
+  const decode::Args<QT, KT> a{
+      static_cast<const QT*>(q), static_cast<const KT*>(pk), static_cast<const float*>(pks),
+      static_cast<const KT*>(pv), static_cast<const float*>(pvs),
+      static_cast<const int32_t*>(ppos), static_cast<const int32_t*>(qpos),
+      static_cast<float*>(part), nullptr, hq, hkv, s_len, d, scale, window, chunk, t_len,
+      rows};
+  return decode::launch<QT, KT>(a, form, out, b, n_split, stream);
+}
+
 template <typename QT>
 int launch_pages(int kv_int8, const void* q, const void* pk, const void* pks, const void* pv,
                  const void* pvs, const void* ppos, const void* qpos, void* out, int b,
                  int hq, int hkv, int s_len, int d, float scale, int window, int n_split,
-                 int chunk, int t_len, int rows, void* part, PagedRows rows_of,
-                 cudaStream_t stream) {
+                 int chunk, int t_len, int rows, void* part,
+                 paged_decode_attention_kernel form, cudaStream_t stream) {
   if (kv_int8)
-    return decode::launch<QT, int8_t, true>(q, pk, pks, pv, pvs, ppos, qpos, out, b, hq, hkv,
-                                            s_len, d, scale, window, n_split, chunk, t_len,
-                                            rows, part, rows_of, stream);
-  return decode::launch<QT, __nv_bfloat16, true>(q, pk, pks, pv, pvs, ppos, qpos, out, b, hq,
-                                                 hkv, s_len, d, scale, window, n_split,
-                                                 chunk, t_len, rows, part, rows_of, stream);
+    return launch<QT, int8_t>(q, pk, pks, pv, pvs, ppos, qpos, out, b, hq, hkv, s_len, d,
+                              scale, window, n_split, chunk, t_len, rows, part, form,
+                              stream);
+  return launch<QT, __nv_bfloat16>(q, pk, pks, pv, pvs, ppos, qpos, out, b, hq, hkv, s_len, d,
+                                   scale, window, n_split, chunk, t_len, rows, part, form,
+                                   stream);
 }
 
 }  // namespace
 
+// d: a multiple of 16 (int8 pages) or 8 (bf16) with at most 256 bytes a row;
+// pk and pv 16-byte aligned
 extern "C" int repro_paged_decode_attention(const void* q, int q_bf16, const void* pk,
                                             const void* pks, const void* pv, const void* pvs,
                                             int kv_int8, const void* ppos, const void* pt,
                                             const void* qpos, void* out, int b, int hq,
                                             int hkv, int n_pages, int ps, int mp, int d,
                                             float scale, int window, int n_split, int chunk,
-                                            int t_len, int rows, void* part, void* stream) {
+                                            int t_len, int rows, void* part,
+                                            void* stream) {
   if (b == 0 || t_len == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const PagedRows rows_of{static_cast<const int32_t*>(pt), n_pages, ps, mp};
+  const paged_decode_attention_kernel form{static_cast<const int32_t*>(pt), n_pages, ps, mp};
   if (q_bf16)
     return launch_pages<__nv_bfloat16>(kv_int8, q, pk, pks, pv, pvs, ppos, qpos, out, b, hq,
                                        hkv, mp * ps, d, scale, window, n_split, chunk, t_len,
-                                       rows, part, rows_of, st);
+                                       rows, part, form, st);
   return launch_pages<float>(kv_int8, q, pk, pks, pv, pvs, ppos, qpos, out, b, hq, hkv,
                              mp * ps, d, scale, window, n_split, chunk, t_len, rows, part,
-                             rows_of, st);
+                             form, st);
 }

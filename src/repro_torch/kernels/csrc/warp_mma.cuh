@@ -1,6 +1,7 @@
 // Warp-level tensor-core and async-copy instructions of sm_80+ (all run on
 // Hopper), as PTX wrappers shared by the tensor-core kernels
-// (flash_attention.cu, gemm_mma.cuh).
+// (flash_attention.cu, gemm_mma.cuh; the cp.async helpers also
+// decode_tile.cuh).
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16" and
 // "mma.m16n8k32"), for lane = 4 * g + t:
@@ -61,6 +62,13 @@ __device__ __forceinline__ void mma_s8_16832(int (&d)[4], const uint32_t (&a)[4]
 // (0 or 16) are zero-filled
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
+}
+
+// 4 bytes global -> shared through L1 (``.cg`` takes only 16); zero-filled
+// when ``src_bytes`` is 0
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                ::"r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
 }
 

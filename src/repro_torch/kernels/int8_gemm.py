@@ -2,21 +2,18 @@
 int4 weights with two-level group scales) and the gated-MLP dual GEMMs.
 
 Ports of the Pallas kernels of ``repro/kernels/int8_gemm.py`` to CUDA
-kernels for ``sm_90a`` (source notes in each ``csrc`` file).  int8_gemm
-runs the SIMT loop of ``csrc/gemm_tile.cuh`` (64x64 ``__dp4a`` tiles, W in
-the reference's layout transposed in registers); int4_gemm and both
-gated-MLP dual GEMMs run the tensor-core loop of ``csrc/gemm_mma.cuh``
-(``mma.sync`` on int8 or bf16, the raw weight tiles streamed by
-``cp.async`` in the reference's layout and turned into fragments at the
-``ldmatrix`` load), templated on the weight's kind — packed int4 with the
-group fold (W4), int8 (W8) or bf16 — with tiles chosen by ``w4_tiling``,
-``w8_tiling`` and ``bf16_tiling``.  The integer GEMMs split K with an exact
-int32 combine when the tiles alone cannot fill the card; the bf16 form
-never splits K:
+kernels for ``sm_90a`` (source notes in each ``csrc`` file).  All four run
+the tensor-core loop of ``csrc/gemm_mma.cuh`` (``mma.sync`` on int8 or bf16,
+the raw weight tiles streamed by ``cp.async`` in the reference's layout and
+turned into fragments at the ``ldmatrix`` load), templated on the weight's
+kind — packed int4 with the group fold (W4), int8 (W8) or bf16 — with tiles
+chosen by ``w4_tiling``, ``w8_tiling`` and ``bf16_tiling``.  The integer
+GEMMs split K with an exact int32 combine when the tiles alone cannot fill
+the card; the bf16 form never splits K:
 
-  int8_gemm             (``:127``) -> ``csrc/int8_gemm.cu``: SIMT loop
+  int8_gemm             (``:127``) -> ``csrc/int8_gemm.cu``: W8
   int4_gemm             (``:433``) -> ``csrc/int4_gemm.cu``: W4
-  dual_gemm_gated       (``:280``) -> ``csrc/dual_gemm_gated.cu``: W8, BF16
+  dual_gemm_gated       (``:280``) -> ``csrc/dual_gemm_gated.cu``: 2 x W8, BF16
   dual_int4_gemm_gated  (``:568``) -> ``csrc/dual_int4_gemm_gated.cu``: 2 x W4
 
 The single-stream epilogues, the reference's seven (int8_gemm takes all;
@@ -78,7 +75,6 @@ GATED_ACTS = ("silu", "gelu")
 # fall under the absolute term.
 DUAL_BF16_RTOL = 2.0 ** -5
 DUAL_BF16_ATOL = 1e-3
-BM = BN = BK = 64      # int8_gemm's SIMT tiles (``gemm_tile.cuh``)
 
 
 def int8_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -261,13 +257,39 @@ class _Workspace:
 _WORKSPACE = _Workspace()
 
 
-def split_k(m: int, n: int, k: int, n_sm: int, align: int = BK, *,
-            bm: int = BM, bn: int = BN,
+# the tensor-core loop (``csrc/gemm_mma.cuh``): K per stage of each weight
+# kind (W4 packed int4, W8 int8, BF16), stages in the ring, rows at or below
+# which the decode shapes run (int4_gemm and int8_gemm: one block over all
+# rows of a bucket-64 step ran slower than four 16-row blocks; the dual GEMMs:
+# 64-row blocks won at M = 64), and the weight bytes each SM should have in
+# flight there; an integer kind's stage holds 64 rows of 128 bytes of each
+# weight stream (W4: BK/2 packed rows; W8: BK)
+W4_BK, W8_BK, BF16_BK = 128, 64, 64
+W4_STAGES, W4_DECODE_M, W4_INFLIGHT = 4, 64, 32 << 10
+DUAL_DECODE_M = 32
+MMA_STAGE_ROWS = 64
+# int8_gemm's tiles, from both tilings timed at starcoder2-3b's and
+# codeqwen1.5-7b's projections on an H100 (``scripts/chip_probe.py tiles``):
+# 16-row decode blocks up to M = 64 while the weight fits W8_DECODE_BYTES
+# (they read it once per 16 rows: at M = 64, 0.029 against 0.049 ms for
+# starcoder's q_proj, 0.072 against 0.079 for codeqwen's 55 MB mlp_down),
+# else 64-row blocks from the first row (codeqwen's 378 MB head: 0.204
+# against 0.569 ms at M = 64); 128 x 128 blocks (one an SM) where K >=
+# W8_WIDE_K at M >= W8_WIDE_M (the down projections at M = 4096: 0.617
+# against 0.770 ms, 0.877 against 1.142; 64 x 128 won for K <= 4096 and at
+# M = 256)
+W8_DECODE_M, W8_DECODE_BYTES = 64, 64 << 20
+W8_WIDE_K, W8_WIDE_M = 8192, 1024
+
+
+def split_k(m: int, n: int, k: int, n_sm: int, align: int = W8_BK, *,
+            bm: int = 64, bn: int = 128,
             want: int | None = None) -> tuple[int, int]:
-    """(split, k_len): split K across blocks of ``bm`` x ``bn`` output
-    until about ``want`` blocks are in flight (default: two per SM); k_len
-    is a multiple of ``align`` (BK, or the W4 group when larger) and every
-    split is non-empty."""
+    """(split, k_len): split K across blocks of ``bm`` x ``bn`` output (by
+    default the prefill tile of the tensor-core loop) until about ``want``
+    blocks are in flight (default: two per SM); k_len is a multiple of
+    ``align`` (a stage's K, or the W4 group when larger) and every split is
+    non-empty."""
     tiles = cdiv(m, bm) * cdiv(n, bn)
     steps = cdiv(k, align)
     split = max(1, min(steps, cdiv(2 * n_sm if want is None else want, tiles)))
@@ -275,15 +297,6 @@ def split_k(m: int, n: int, k: int, n_sm: int, align: int = BK, *,
     return cdiv(k, k_len), k_len
 
 
-# the tensor-core loop (``csrc/gemm_mma.cuh``): K per stage of each weight
-# kind (W4 packed int4, W8 int8, BF16), stages in the ring, rows at or below
-# which int4_gemm's and the dual GEMMs' decode shapes run, and the weight
-# bytes each SM should have in flight there; an integer kind's stage holds
-# 64 rows of BN bytes of each weight stream (W4: BK/2 packed rows; W8: BK)
-W4_BK, W8_BK, BF16_BK = 128, 64, 64
-W4_STAGES, W4_DECODE_M, W4_INFLIGHT = 4, 64, 32 << 10
-DUAL_DECODE_M = 32
-MMA_STAGE_ROWS = 64
 # (k per stage, bytes of an activation, shared rows of a weight stage,
 # bytes of a weight column in a row) of each kind (``gemm_mma.cuh``)
 MMA_KINDS = {"w4": (W4_BK, 1, W4_BK // 2, 1), "w8": (W8_BK, 1, W8_BK, 1),
@@ -292,6 +305,8 @@ MMA_KINDS = {"w4": (W4_BK, 1, W4_BK // 2, 1), "w8": (W8_BK, 1, W8_BK, 1),
 # that ``__launch_bounds__`` asks for)
 MMA_CONFIGS = {("w4", 1, 16): (128, 1), ("w4", 1, 64): (128, 2),
                ("w4", 2, 16): (128, 1), ("w4", 2, 32): (128, 2),
+               ("w8", 1, 16): (128, 1), ("w8", 1, 64): (128, 2),
+               ("w8", 1, 128): (128, 1),
                ("w8", 2, 16): (128, 1), ("w8", 2, 64): (128, 2),
                ("bf16", 2, 16): (64, 1), ("bf16", 2, 64): (128, 1),
                ("bf16", 2, 128): (128, 1)}
@@ -354,10 +369,19 @@ def w4_tiling(m: int, n: int, k: int, g: int, n_sm: int,
                       32)
 
 
-def w8_tiling(m: int, n: int, k: int, n_sm: int) -> MmaTiling:
-    """dual_gemm_gated's int8 form (two streams): decode up to
-    DUAL_DECODE_M, K ranges on multiples of W8_BK."""
-    return mma_tiling(m, n, k, W8_BK, n_sm, 2, DUAL_DECODE_M)
+def w8_tiling(m: int, n: int, k: int, n_sm: int,
+              streams: int = 1) -> MmaTiling:
+    """The int8 weight kind, K ranges on multiples of W8_BK: int8_gemm (one
+    stream: decode up to W8_DECODE_M where the weight fits
+    W8_DECODE_BYTES, prefill blocks of 64 rows, or 128 at deep K and
+    scoring rows) and dual_gemm_gated's int8 form (two: decode up to
+    DUAL_DECODE_M)."""
+    if streams == 2:
+        return mma_tiling(m, n, k, W8_BK, n_sm, 2, DUAL_DECODE_M)
+    wide = k >= W8_WIDE_K and m >= W8_WIDE_M
+    return mma_tiling(m, n, k, W8_BK, n_sm, 1,
+                      W8_DECODE_M if k * n <= W8_DECODE_BYTES else 0,
+                      128 if wide else 64)
 
 
 def bf16_tiling(m: int, n: int, k: int) -> MmaTiling:
@@ -376,19 +400,6 @@ def _n_sm(dev) -> int:
 
 def _aligned(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
-
-
-def _tiling(x, w, n: int):
-    """(split, k_len, workspace, counters, vec) of an int8_gemm launch over
-    x [M, K] (the SIMT loop); ``vec``: A and W rows may load as 16- and
-    4-byte words."""
-    m, k = x.shape
-    dev = x.device
-    split, k_len = split_k(m, n, k, _n_sm(dev), BK)
-    part, cnt = _WORKSPACE.get(dev, m * n if split > 1 else 0,
-                               cdiv(m, BM) * cdiv(n, BN))
-    vec = int(k % 16 == 0 and n % 4 == 0 and _aligned(x, w))
-    return split, k_len, part.data_ptr(), cnt.data_ptr(), vec
 
 
 def _stream(dev) -> int:
@@ -470,12 +481,15 @@ def _launch(x, w, epilogue, x_scale, w_scale, bias, residual, gelu_scale,
     out, epi = _epilogue_args(epilogue, m, n, x_scale, w_scale, bias,
                               residual, gelu_scale, out_dtype, x.device,
                               requant)
-    split, k_len, part, cnt, vec = _tiling(x, w, n)
+    dev = x.device
+    tl = w8_tiling(m, n, k, _n_sm(dev))
+    part, cnt = _WORKSPACE.get(dev, tl.workspace, tl.tiles)
+    vec = int(k % 16 == 0 and n % 16 == 0 and _aligned(x, w))
     fn = build.entry("int8_gemm", "repro_int8_gemm",
                      [build.VP] * 2 + [build.I] * 3 + _EPI_ARGTYPES
-                     + [build.I] * 3 + [build.VP] * 3)
-    rc = fn(x.data_ptr(), w.data_ptr(), m, n, k, *epi, split, k_len, vec,
-            part, cnt, _stream(x.device))
+                     + [build.I] * 4 + [build.VP] * 3)
+    rc = fn(x.data_ptr(), w.data_ptr(), m, n, k, *epi, tl.bm, tl.split,
+            tl.k_len, vec, part.data_ptr(), cnt.data_ptr(), _stream(dev))
     build.check_rc(rc, "int8_gemm")
     LAUNCHES["int8_gemm"] += 1
     return out
@@ -579,7 +593,7 @@ def _launch_dual(x, w_up, w_gate, x_scale, up_scale, gate_scale, act,
         _check_f32(x_scale, m, "x_scale [M, 1]")
         _check_f32(up_scale, n, "up_scale [N]")
         _check_f32(gate_scale, n, "gate_scale [N]")
-        tl = w8_tiling(m, n, k, _n_sm(x.device))
+        tl = w8_tiling(m, n, k, _n_sm(x.device), streams=2)
         part, cnt = _WORKSPACE.get(x.device, tl.workspace, tl.tiles)
         vec = int(k % 16 == 0 and n % 16 == 0 and _aligned(x, w_up, w_gate))
         fn = build.entry("dual_gemm_gated", "repro_dual_gemm_gated_i8",

@@ -3,8 +3,11 @@ per-(token, head) scales dequantized in-register, f32 online softmax.
 
 Port of the Pallas kernel ``repro/kernels/int8_kv_decode_attention.py:72``
 ``int8_kv_decode_attention`` to the CUDA kernel
-``csrc/int8_kv_decode_attention.cu`` (source note there: bound by bytes, one
-block per (lane, kv head), a loop over key tiles).  The plain version
+``csrc/int8_kv_decode_attention.cu`` (source notes there and in
+``csrc/decode_tile.cuh``: bound by bytes; a block per (lane, kv head, KV
+split) walks the listed tiles of its chunk, their raw rows streamed by
+``cp.async`` through a ring and dequantized at the point of use, two tiles
+scored per barrier round).  The plain version
 ``int8_kv_decode_attention_ref`` is ``repro.kernels.ref``'s dequantize-then-
 attend oracle.  The two sum in different orders and use their own ``exp``:
 they agree within ``|kernel - plain| <= ATOL + RTOL * |plain|``, not bit
@@ -70,44 +73,63 @@ def kv_split(blocks: int, s: int, n_sm: int) -> tuple[int, int]:
 
 
 ROWS_SMEM = 160 * 1024  # shared memory a multi-row block may take
+# the body's constants (``csrc/decode_tile.cuh``): tiles a round, tiles in
+# the copy ring, tiles prescanned at once
+NR, STAGES, SEG = 2, 4, 16
 
 
-def block_smem(g: int, d: int, rows: int) -> int:
-    """Shared memory of one block of ``rows`` query rows of G heads
-    (``smem_bytes`` in ``csrc/decode_tile.cuh``)."""
+def block_smem(g: int, d: int, rows: int, kv_bytes: int = 1) -> int:
+    """Shared memory of one block of ``rows`` query rows of G heads over
+    payloads of ``kv_bytes`` a value (1: int8 with f32 scales, 2: bf16;
+    ``smem_bytes`` in ``csrc/decode_tile.cuh``): the ring of STAGES stages,
+    each a K tile (rows padded to an odd number of 16-byte chunks) and a V
+    tile with their scales; then q, acc, the round's scores, max, sum and
+    rescales of every (row, head); then each prescanned key's position and
+    slot, the tiles' masks and list, the rows' positions and liveness."""
+    rb = d * kv_bytes
+    ldk = rb + (16 if (rb // 16) % 2 == 0 else 0)
+    sc = 4 * BS if kv_bytes == 1 else 0
     rg = rows * g
-    return 4 * (2 * rg * d + BS * (d + 1) + BS * d + rg * BS + 3 * rg) + \
-        4 * (2 * BS + 2 * rows + 1)
+    return (STAGES * (BS * ldk + BS * rb + 2 * sc)
+            + 4 * (2 * rg * d + rg * NR * BS + 2 * rg + rg * NR)
+            + 4 * (2 * SEG * BS + 2 * SEG + 2 * rows + 1))
 
 
-def rows_per_block(t: int, g: int, d: int) -> int:
+def rows_per_block(t: int, g: int, d: int, kv_bytes: int = 1) -> int:
     """Rows of one lane that share a block (and each K/V tile read): up to
     16 (at most 32: a tile's rows are one bit mask), halved until the block
     fits ``ROWS_SMEM``; 1 at T = 1.  The bits of a row do not depend on
     it."""
     r = 16
-    while r > 1 and block_smem(g, d, r) > ROWS_SMEM:
+    while r > 1 and block_smem(g, d, r, kv_bytes) > ROWS_SMEM:
         r //= 2
     return max(1, min(r, t))
 
 
-def launch_rows(entry, q, qpos, b, hkv, s):
+def launch_rows(entry, q, qpos, b, hkv, s, kv, kv_bytes=1):
     """Common part of the dense and paged launches: q (B, T, Hq, D) and
-    qpos (B, T); ``entry(q, qpos, out, n_split, chunk, t, rows, part)``
-    calls the C entry and returns its rc."""
+    qpos (B, T) over the payloads ``kv`` (K and V, ``kv_bytes`` a value,
+    copied in 16-byte chunks); ``entry(q, qpos, out, n_split, chunk, t,
+    rows, part)`` calls the C entry and returns its rc."""
     _, t, hq, d = q.shape
     check(q.dtype in (torch.bfloat16, torch.float32),
           f"q must be bf16 or f32, got {q.dtype}")
     check(tuple(qpos.shape) == (b, t) and qpos.dtype == torch.int32,
           f"qpos must be int32 {(b, t)}, got {qpos.dtype} {tuple(qpos.shape)}")
+    check(d * kv_bytes % 16 == 0 and d * kv_bytes <= 256,
+          f"head dim {d}: the decode kernels take rows of 16 to 256 bytes "
+          f"in 16-byte chunks")
+    check(all(x.data_ptr() % 16 == 0 for x in kv),
+          "the decode kernels copy K and V in 16-byte chunks: their "
+          "payloads must be 16-byte aligned")
     q, qpos = q.contiguous(), qpos.contiguous()
     out = torch.empty_like(q)
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
     n_split, chunk = kv_split(b * hkv, s, n_sm)
     g = hq // hkv
-    rows = rows_per_block(t, g, d)
-    check(block_smem(g, d, rows) <= 232448, f"G={g} D={d}: a decode block "
-          f"does not fit the shared memory")
+    rows = rows_per_block(t, g, d, kv_bytes)
+    check(block_smem(g, d, rows, kv_bytes) <= 232448, f"G={g} D={d}: a "
+          f"decode block does not fit the shared memory")
     # each chunk's (acc, m, l) per (row, head), then the dead rows' V sums
     # and key counts per (lane, kv head, chunk)
     part = torch.empty(b * hkv * n_split * (t * g * (d + 2) + d + 1),
@@ -140,7 +162,7 @@ def _launch(q, k_q, k_s, v_q, v_s, pos_ids, qpos, scale, window):
                   hkv, s, d, float(scale), int(window), n_split, chunk, t,
                   rows, part.data_ptr(),
                   torch.cuda.current_stream(q.device).cuda_stream)
-    out, rc = launch_rows(entry, q, qpos, b, hkv, s)
+    out, rc = launch_rows(entry, q, qpos, b, hkv, s, (k_q, v_q))
     build.check_rc(rc, "int8_kv_decode_attention")
     LAUNCHES["int8_kv_decode_attention"] += 1
     return out

@@ -6,8 +6,9 @@ softmax.  A lane with no valid slot emits exact zeros.
 Port of the Pallas kernel ``repro/kernels/paged_attention.py:94``
 ``paged_decode_attention`` to the CUDA kernel
 ``csrc/paged_decode_attention.cu`` (source note there: bound by bytes; the
-dense kernel's split-S grid and sum order with a page-table lookup per key,
-so that paged == dense bit for bit on the card).  The plain version
+dense kernel's body, split and sum order with the page table read by its
+prescan ahead of the copies, so that paged == dense bit for bit on the
+card).  The plain version
 ``paged_decode_attention_ref`` is ``repro.kernels.ref``'s gather-then-attend
 oracle: the per-lane view through the page table, the dense decode oracle on
 it, zeros for dead lanes.  Kernel and plain version agree within the dense
@@ -86,7 +87,8 @@ def _launch(q, pk, pks, pv, pvs, ppos, pt, qpos, scale, window):
                   n_pages, ps, mp, d, float(scale), int(window), n_split,
                   chunk, t, rows, part.data_ptr(),
                   torch.cuda.current_stream(q.device).cuda_stream)
-    out, rc = launch_rows(entry, q, qpos, b, hkv, mp * ps)
+    out, rc = launch_rows(entry, q, qpos, b, hkv, mp * ps, (pk, pv),
+                          1 if int8 else 2)
     build.check_rc(rc, "paged_decode_attention")
     LAUNCHES["paged_decode_attention"] += 1
     return out

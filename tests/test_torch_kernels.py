@@ -206,11 +206,52 @@ class TestInt8Gemm:
         assert bits_equal(got.reshape(6, 32), want)
 
     @pytest.mark.parametrize("m,n,k", [(8, 3072, 3072), (8, 256, 3072),
-                                       (2048, 12288, 3072), (5, 70, 100)])
+                                       (2048, 12288, 3072), (5, 70, 100),
+                                       (8, 92416, 4096), (64, 4096, 13440),
+                                       (256, 256, 3072), (4096, 3072, 12288),
+                                       (13, 70, 100)])
     def test_split_k_covers_k_exactly(self, m, n, k):
+        """The split of K covers it exactly, in whole stages: by default and
+        in the single-stream W8 tiling int8_gemm launches."""
         split, k_len = split_k(m, n, k, n_sm=132)
         assert k_len % 64 == 0 and split >= 1
         assert (split - 1) * k_len < k <= split * k_len
+        t = tg.w8_tiling(m, n, k, 132)
+        assert t.k_len % tg.W8_BK == 0 and t.split >= 1
+        assert (t.split - 1) * t.k_len < k <= t.split * t.k_len
+        assert t.workspace == (m * n if t.split > 1 else 0)
+
+    @pytest.mark.parametrize("m", [1, 8, 16, 17, 32, 33, 63, 64, 65, 256,
+                                   4096])
+    @pytest.mark.parametrize("n,k", [(3072, 3072), (256, 3072),
+                                     (12288, 3072), (3072, 12288),
+                                     (4096, 13440), (92416, 4096)])
+    def test_int8_gemm_tiling(self, m, n, k):
+        """int8_gemm's single-stream W8 tiling at starcoder2-3b's and
+        codeqwen1.5-7b's widths: 16-row decode blocks exactly up to
+        W8_DECODE_M (no row computed past the next multiple of 16) where the
+        weight fits W8_DECODE_BYTES (every projection; not the heads), 64 x
+        128 prefill blocks past it, 128 x 128 at deep K (the down
+        projections) from W8_WIDE_M rows; at decode, K split until ~32 KB
+        of weight is in flight per SM (within the halving that whole stages
+        per split can cost) unless K cannot split further; past it, only a
+        grid under two blocks an SM is split."""
+        n_sm = 132
+        t = tg.w8_tiling(m, n, k, n_sm)
+        decode = m <= tg.W8_DECODE_M and k * n <= tg.W8_DECODE_BYTES
+        assert decode == (m <= 64 and n != 92416)
+        wide = k >= 8192 and m >= 1024
+        assert (t.bm, t.bn) == ((16, 128) if decode else (128, 128) if wide
+                                else (64, 128))
+        assert tg.MMA_CONFIGS[("w8", 1, t.bm)][0] == t.bn
+        assert t.tiles == -(-m // t.bm) * -(-n // t.bn)
+        if decode:
+            assert t.bm * -(-m // t.bm) - m < 16
+            in_flight = (tg.W4_STAGES - 1) * tg.MMA_STAGE_ROWS * t.bn
+            if t.k_len > tg.W8_BK:
+                assert 2 * t.tiles * t.split * in_flight >= tg.W4_INFLIGHT * n_sm
+        elif t.split > 1:
+            assert t.tiles < 2 * n_sm
 
 
 # ---------------------------------------------------------------------------
@@ -364,7 +405,7 @@ class TestW4A8Gemm:
     def test_w8_tiling(self, m, n, k):
         """dual_gemm_gated's int8 tiling: K ranges on multiples of W8_BK, no
         empty split, a [2][M][N] workspace exactly when K is split."""
-        t = tg.w8_tiling(m, n, k, 132)
+        t = tg.w8_tiling(m, n, k, 132, streams=2)
         assert (t.bm, t.bn) == ((16, 128) if m <= tg.DUAL_DECODE_M
                                 else (64, 128))
         assert t.k_len % tg.W8_BK == 0
@@ -605,6 +646,16 @@ class TestDecodeAttention:
         n_split, chunk = kv_split(blocks, s, n_sm=132)
         assert chunk % 32 == 0 and (n_split - 1) * chunk < s <= n_split * chunk
 
+    @pytest.mark.parametrize("blocks,s,want", [(256, 1024, (2, 512)),
+                                               (16, 1024, (16, 64)),
+                                               (512, 1024, (1, 1024)),
+                                               (64, 4096, (5, 832))])
+    def test_kv_split_serving_values(self, blocks, s, want):
+        """The split of the serving paths' caches (codeqwen1.5-7b's 8 x 32
+        (lane, kv head) blocks, starcoder2-3b's 8 x 2, 16 lanes of codeqwen)
+        is the one every row's sum order follows: a change here moves bits."""
+        assert kv_split(blocks, s, n_sm=132) == want
+
 
 class TestDecodeAttentionRows:
     """The multi-row form (the rows of a packed t > 1 step, ROADMAP C3)."""
@@ -645,13 +696,42 @@ class TestDecodeAttentionRows:
                                        rtol=RTOL, atol=ATOL)
 
     @pytest.mark.parametrize("t,g,d,want", [(1, 1, 128, 1), (256, 1, 128, 16),
-                                            (3, 1, 128, 3), (256, 12, 128, 8),
+                                            (3, 1, 128, 3), (256, 12, 128, 4),
                                             (256, 32, 128, 2)])
     def test_rows_per_block_fit(self, t, g, d, want):
         """Up to 16 rows of a lane share a block (and each K/V tile read),
-        fewer where G heads of them would not fit ``ROWS_SMEM``."""
+        fewer where G heads of them would not fit ``ROWS_SMEM`` beside the
+        copy ring."""
         assert rows_per_block(t, g, d) == want
         assert block_smem(g, d, want) <= ROWS_SMEM
+
+    @pytest.mark.parametrize("kv_bytes", [1, 2])
+    @pytest.mark.parametrize("t", [1, 256])
+    @pytest.mark.parametrize("d", [64, 80, 128])
+    @pytest.mark.parametrize("g", [1, 6, 7, 12])
+    def test_block_smem_fits(self, g, d, t, kv_bytes):
+        """The decode body's shared memory (the ring of STAGES raw K and V
+        tiles with their scales, then the per-(row, head) state and the
+        prescan) at
+        the rows ``rows_per_block`` picks: within ``ROWS_SMEM`` and an H100
+        block's limit, and at T = 1 over int8 payloads (the serving paths')
+        small enough for four blocks an SM (1 KB reserved each).  The layout mirrors ``csrc/decode_tile.cuh``'s
+        ``smem_bytes`` term by term."""
+        import re
+        from pathlib import Path
+        from repro_torch.kernels import int8_kv_decode_attention as dk
+        rows = rows_per_block(t, g, d, kv_bytes)
+        smem = block_smem(g, d, rows, kv_bytes)
+        assert smem <= ROWS_SMEM <= tg.SMEM_PER_BLOCK
+        if t == 1 and kv_bytes == 1:
+            assert 4 * (smem + 1024) <= tg.SMEM_PER_SM
+        rb = d * kv_bytes
+        ldk = rb + (16 if (rb // 16) % 2 == 0 else 0)
+        assert (ldk // 16) % 2 == 1            # an odd number of 16-byte chunks
+        src = (Path(dk.__file__).with_name("csrc") / "decode_tile.cuh").read_text()
+        consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+        assert (int(consts["NR"]), int(consts["STAGES"]), int(consts["SEG"]),
+                int(consts["BS"])) == (dk.NR, dk.STAGES, dk.SEG, dk.BS)
 
 
 # ---------------------------------------------------------------------------
@@ -681,6 +761,34 @@ class TestKernelsOnCard:
               for k, v in _kw(spec, bias, res, True).items()}
         args = [T(a).to(cuda_dev) for a in (xq, xs, wq, ws)]
         assert torch.equal(ops.gemm_w8a8(*args, **kw), gemm_w8a8_ref(*args, **kw))
+
+    @pytest.mark.parametrize("m", [64, 4096])
+    @pytest.mark.parametrize("label,spec", CASES, ids=[c[0] for c in CASES])
+    def test_int8_gemm_rows(self, rng, cuda_dev, label, spec, m):
+        """M = 64 (the last decode shape of the tensor-core loop) and 4096
+        (its prefill shape); K = 320 splits into whole stages."""
+        xq, xs, wq, ws, bias, res = gemm_inputs(rng, m, 320, 144)
+        kw = {k: (v.to(cuda_dev) if isinstance(v, torch.Tensor) else v)
+              for k, v in _kw(spec, bias, res, True).items()}
+        args = [T(a).to(cuda_dev) for a in (xq, xs, wq, ws)]
+        assert torch.equal(ops.gemm_w8a8(*args, **kw), gemm_w8a8_ref(*args, **kw))
+
+    @pytest.mark.parametrize("m", [64, 4096])
+    def test_int8_gemm_rows_requant(self, rng, cuda_dev, m):
+        """The integer-out epilogues (none, requant, requant_gelu,
+        requant_add) at M = 64 and 4096."""
+        from repro_torch.core.inumerics import compute_requant_params
+        k, n = 320, 144
+        x = T(rng.integers(-128, 128, (m, k)).astype(np.int8)).to(cuda_dev)
+        w = T(rng.integers(-128, 128, (k, n)).astype(np.int8)).to(cuda_dev)
+        r = T(rng.integers(-128, 128, (m, n)).astype(np.int8)).to(cuda_dev)
+        rq = compute_requant_params(1 / (127 * k ** 0.5), acc_bound=k * 127 * 127)
+        assert torch.equal(tg.int8_gemm(x, w), int8_matmul_ref(x, w))
+        assert torch.equal(ops.gemm_i8(x, w, rq), tg.int8_gemm_ref(x, w, rq))
+        assert torch.equal(ops.gemm_i8_gelu(x, w, GELU),
+                           tg.int8_gemm_gelu_ref(x, w, GELU))
+        assert torch.equal(ops.gemm_i8_add(x, w, rq, r),
+                           tg.int8_gemm_add_ref(x, w, rq, r))
 
     def test_int_layernorm(self, rng, cuda_dev):
         x, g, b = (T(a).to(cuda_dev) for a in ln_inputs(rng, 8, 3072))
