@@ -9,8 +9,13 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
 3. kernels: each kernel's wrapper on the card at the full-width shapes of
    the serving paths (starcoder2-3b and codeqwen1.5-7b, M in {8, 256})
    against its plain PyTorch version on the same inputs — bit-exact for
-   quantize_rows, int8_gemm, int4_gemm, the int8 dual_gemm_gated,
-   dual_int4_gemm_gated and int_layernorm; within the stated tolerances for
+   quantize_rows (f32 rows, and bf16 rows ``B1_BF16`` — decode rows and the
+   KV write's rows of the head dim — equal to the f32 path too), int8_gemm,
+   int4_gemm, the int8 dual_gemm_gated, dual_int4_gemm_gated and
+   int_layernorm (the integer library's int32 form, and the models' fused
+   norm -> quantize form at the three models' norms for 8, 256 and 4096
+   bf16 rows and at D = 16384 past 2^24, each also equal to the chain of
+   standalone kernels and timed beside it); within the stated tolerances for
    the bf16 dual_gemm_gated and the decode attention (empty slots, a window,
    an all-masked lane); the paged decode attention on scrambled arenas (int8
    and bf16 pages; shared, non-adjacent and null pages, slots cleared by
@@ -88,7 +93,13 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    pressure drains' tokens equal to the same requests served unshared and
    unpressured).  Launch counts are
    zeroed just before each drain and read just after; every kernel of that
-   path must have launched.  Each model is freed before the next;
+   path must have launched.  One bucket-1 step of each dense path counts
+   its launches (quantize_rows must launch 4 times a layer, before o_proj
+   and down and for the k and v writes, int_layernorm's fused form twice a
+   layer and once more) and its synchronizing calls (under
+   ``torch.cuda.set_sync_debug_mode("warn")``); every profile counts all
+   device kernels and the host's synchronizing runtime calls.  Each model
+   is freed before the next;
 6. the no-cache forward at full width and depth: codeqwen1.5-7b float
    parameters from ``--seed``, ``calibrate_ptq`` with the reference's grid
    (W4_GROUPS x W4_CLIPS for attn and mlp, 19 forwards of 2 x 128 tokens),
@@ -140,7 +151,9 @@ tokens, timed and then under the profiler (``lm_only``), likewise.
 
 ``--kernels flash_attention,int4_gemm`` (or ``dual_gemm_gated``,
 ``dual_int4_gemm_gated``, ``int8_gemm``, ``int8_kv_decode_attention``,
-``paged_decode_attention``) builds only those kernels (of the tree
+``paged_decode_attention``, ``quantize_rows``, ``int_layernorm``; a tree
+without the fused norm times only its chain) builds only those kernels (of
+the tree
 ``--src`` names) and runs only their phase 3 cases, held against the
 plain versions and timed, each case with the SHA-1 of its output's bytes
 (``sha1=`` in its line and the ``sha1`` map of the JSON line); run it on
@@ -153,6 +166,7 @@ two versions, time and bits, in one call:
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
 import dataclasses
 import gc
@@ -313,30 +327,128 @@ def randn_on(dev, gen):
 
 
 def check_kernels(dev, gen, timer) -> list[dict]:
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.int_layernorm import int_layernorm_ref
-    from repro_torch.kernels.quantize import quantize_rows_ref
-
     cases = []
     record, randn = case_recorder(cases), randn_on(dev, gen)
+    check_quantize_rows(dev, gen, timer, record, randn)
+    check_int_layernorm(dev, gen, timer, record, randn)
+    check_int8_gemm(dev, gen, timer, record, randn)
+    check_decode_attention(dev, gen, timer, record, randn)
+    check_int4_gemm(dev, gen, timer, record, randn)
+    check_dual_int4_gemm_gated(dev, gen, timer, record, randn)
+    check_dual_gemm_gated(dev, gen, timer, record, randn)
+    check_paged(dev, gen, timer, record, randn)
+    check_no_cache(dev, gen, timer, record, randn)
+    check_streaming_attention(dev, gen, timer, record, randn)
+    check_int_library(dev, gen, timer, record, randn)
+    check_ssd_scan(dev, gen, timer, record, randn)
+    check_decode_rows(dev, gen, timer, record, randn)
+    return cases
 
-    # -- 1. quantize_rows (starcoder's and codeqwen's activation widths) -----
-    for m in (8, 256):
-        for d in (3072, 12288, 4096, 13440):
-            x = randn(m, d, scale=3.0)
+
+# quantize_rows' phase 3 rows beyond the f32 activations: the bf16 rows the
+# main path now hands it (o_proj's and down's inputs of both models, 8 decode
+# rows and a bucket-256 step) and the KV write's rows of the head dim (8
+# lanes x 32 kv heads or x 2 at 128, zamba2's 8 x 32 at 80)
+B1_BF16 = ((8, 3072), (8, 4096), (8, 12288), (8, 13440), (256, 4096),
+           (256, 128), (16, 128), (256, 80))
+
+
+def bytes_of(outs) -> torch.Tensor:
+    """The bytes of several outputs in one tensor, for one digest."""
+    return torch.cat([t.contiguous().view(torch.uint8).flatten() for t in outs])
+
+
+def check_quantize_rows(dev, gen, timer, record, randn) -> None:
+    """B1 on the card, bit-exact against its plain version: f32 rows of
+    starcoder2-3b's and codeqwen1.5-7b's activation widths (an all-zero
+    row takes the 1e-8 floor), and bf16 rows (``B1_BF16``), which must also
+    give the f32 path's bits.  Bound: each input byte read once, one int8
+    an element and one f32 a row written."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.quantize import quantize_rows_ref
+    no_lib = "no PyTorch call computes it"
+
+    def same(what, got, *wants):
+        torch.cuda.synchronize()
+        for want in wants:
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"quantize_rows {what} differs")
+        return got
+
+    for dtype, shapes in ((torch.float32, [(m, d) for m in (8, 256)
+                                           for d in (3072, 12288, 4096,
+                                                     13440)]),
+                          (torch.bfloat16, B1_BF16)):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        for m, d in shapes:
+            x = randn(m, d, scale=3.0).to(dtype)
             x[0] = 0.0                      # the 1e-8 floor
-            q, s = ops.quant_rows(x)
-            qr, sr = quantize_rows_ref(x)
-            torch.cuda.synchronize()
-            if not (torch.equal(q, qr) and torch.equal(s, sr)):
-                raise AssertionError(f"quantize_rows [{m},{d}] differs from "
-                                     f"its plain version")
-            record("quantize_rows", f"[{m},{d}] f32", 0.0, True,
+            wants = [quantize_rows_ref(x)]
+            if dtype == torch.bfloat16:
+                wants.append(ops.quant_rows(x.float()))
+            got = same(f"[{m},{d}] {name}", ops.quant_rows(x), *wants)
+            record("quantize_rows", f"[{m},{d}] {name}", 0.0, True,
                    timer(lambda: ops.quant_rows(x)),
                    timer(lambda: quantize_rows_ref(x)), None,
-                   bound(m * d * 5 + m * 4, 3 * m * d, F32_OPS))
+                   bound(m * d * (x.element_size() + 1) + m * 4, 3 * m * d,
+                         F32_OPS), no_lib,
+                   out=bytes_of(got))
 
-    # -- 3. int_layernorm (starcoder's LayerNorm, both models' RMSNorm) ------
+
+# the models' norms at full width: (label, D, rms_only)
+NORMS = (("starcoder", 3072, False), ("codeqwen", 4096, True),
+         ("zamba2", 2560, True))
+NORM_ROWS = (8, 256, 4096)
+
+
+def norm_inputs(randn, m, d, rms, spike: bool = False):
+    """bf16 residual-stream rows (an all-zero row, a row of negative mean;
+    with ``spike``, the rows after those hold one value at column 77 and
+    zeros, where gamma is largest, so that at D = 16384 the norm output
+    passes 2^24) and a norm's integer constants (``layers.quantize_norm`` of
+    random gamma and, for LayerNorm, beta)."""
+    from repro_torch.models.layers import quantize_norm
+    x = randn(m, d, scale=3.0)
+    gamma = randn(d, scale=0.5) + 1.0
+    if spike:
+        x[2:] = 0.0
+        x[2:, 77] = 5.0
+        gamma[77] = 8.0
+    x[0] = 0.0
+    x[1] -= 4.0
+    beta = None if rms else randn(d, scale=0.2)
+    return x.to(torch.bfloat16), quantize_norm(gamma, beta)
+
+
+def norm_chain(x, g_q, b_q, gb_s, rms):
+    """The norm as the standalone kernels compute it: B1, B9 on the int32
+    payload, the dequant, the cast, B1 again (``ops.quant_rows`` and
+    ``ops.layernorm_i8``, in any tree of the port; the constant 2^-7 built
+    outside, so that only device work is timed)."""
+    from repro_torch.kernels import ops
+    step = gb_s * 2.0 ** -7
+    xq, _ = ops.quant_rows(x)
+    out = ops.layernorm_i8(xq.to(torch.int32), g_q, b_q, rms_only=rms)
+    h = (out.float() * step).to(x.dtype)
+    hq, hs = ops.quant_rows(h)
+    return h, hq, hs
+
+
+def check_int_layernorm(dev, gen, timer, record, randn) -> None:
+    """B9 on the card, bit-exact: the integer library's form on int32 rows
+    (starcoder2-3b's LayerNorm and both models' RMSNorm widths, a row of
+    negative mean), then the models' fused norm -> quantize form
+    (``ops.norm_quant_rows``) at every norm of ``NORMS`` for ``NORM_ROWS``
+    bf16 rows, ``torch.equal`` to its plain version and to the chain of
+    standalone kernels (``norm_chain``), timed beside both and its bound
+    (bf16 in and out, one int8 an element, one f32 a row, gamma and for
+    LayerNorm beta once);
+    and at D = 16384, where a lone spike's norm output passes 2^24.  A tree
+    without the fused form (``--src`` of an older tree) times its chain."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.int_layernorm import int_layernorm_ref
+    no_lib = "no PyTorch call computes it"
+    fused = hasattr(ops, "norm_quant_rows")
     for m in (8, 256):
         for d, rms in ((3072, False), (3072, True), (4096, True)):
             x = torch.randint(-128, 128, (m, d), generator=gen, device=dev,
@@ -355,20 +467,76 @@ def check_kernels(dev, gen, timer) -> list[dict]:
             record("int_layernorm", f"[{m},{d}] {'rms' if rms else 'ln'}",
                    0.0, True, timer(lambda: ops.layernorm_i8(x, g, b, rms)),
                    timer(lambda: int_layernorm_ref(x, g, b, rms)), None,
-                   bound(8 * m * d + 8 * d, 12 * m * d, F32_OPS))
+                   bound(8 * m * d + 8 * d, 12 * m * d, F32_OPS), no_lib,
+                   out=out)
 
-    check_int8_gemm(dev, gen, timer, record, randn)
-    check_decode_attention(dev, gen, timer, record, randn)
-    check_int4_gemm(dev, gen, timer, record, randn)
-    check_dual_int4_gemm_gated(dev, gen, timer, record, randn)
-    check_dual_gemm_gated(dev, gen, timer, record, randn)
-    check_paged(dev, gen, timer, record, randn)
-    check_no_cache(dev, gen, timer, record, randn)
-    check_streaming_attention(dev, gen, timer, record, randn)
-    check_int_library(dev, gen, timer, record, randn)
-    check_ssd_scan(dev, gen, timer, record, randn)
-    check_decode_rows(dev, gen, timer, record, randn)
-    return cases
+    cases = [(label, m, d, rms) for label, d, rms in NORMS for m in NORM_ROWS]
+    cases.append(("spike", 8, 16384, True))
+    for label, m, d, rms in cases:
+        x, (g_q, b_q, gb_s) = norm_inputs(randn, m, d, rms, label == "spike")
+        kind = "rms" if rms else "ln"
+        chain = norm_chain(x, g_q, b_q, gb_s, rms)
+        torch.cuda.synchronize()
+        # bf16 in and out and int8 out an element, one f32 a row, gamma
+        # (and beta, which RMSNorm never reads) once, gb_s
+        b = bound(m * d * 5 + m * 4 + (4 if rms else 8) * d + 4, 40 * m * d,
+                  F32_OPS)
+        chain_ms = timer(lambda: norm_chain(x, g_q, b_q, gb_s, rms))
+        record("int_layernorm", f"chain {label} [{m},{d}] {kind} bf16", 0.0,
+               True, chain_ms, chain_ms, None, b, "the chain of standalone "
+               "kernels: B1, B9, dequant, cast, B1", out=bytes_of(chain))
+        if not fused:
+            continue
+        from repro_torch.kernels.int_layernorm import int_layernorm_rows_ref
+        got = ops.norm_quant_rows(x, g_q, b_q, gb_s, rms)
+        plain = int_layernorm_rows_ref(x, g_q, b_q, gb_s, rms)
+        torch.cuda.synchronize()
+        for what, want in (("plain version", plain), ("chain", chain)):
+            if not all(torch.equal(a, w) for a, w in zip(got, want)):
+                raise AssertionError(f"int_layernorm fused {label} [{m},{d}] "
+                                     f"differs from its {what}")
+        c = record("int_layernorm", f"fused {label} [{m},{d}] {kind} bf16",
+                   0.0, True,
+                   timer(lambda: ops.norm_quant_rows(x, g_q, b_q, gb_s, rms)),
+                   timer(lambda: int_layernorm_rows_ref(x, g_q, b_q, gb_s,
+                                                        rms)),
+                   None, b, no_lib, out=bytes_of(got))
+        c["chain_ms"] = chain_ms
+    if fused:
+        check_norm_refusals(dev)
+
+
+def check_norm_refusals(dev) -> None:
+    """Rows the fused form cannot hold in registers (D not a multiple of
+    16 bytes, past 2048 chunks, or off a 16-byte address) make it raise and
+    launch nothing, while B1 on the same rows keeps its plain version's
+    bits."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.quantize import quantize_rows_ref
+    from repro_torch.models.layers import Norm
+    for d, dtype, shift in ((100, torch.bfloat16, 0),
+                            (16384 + 8, torch.bfloat16, 0),
+                            (8192 + 4, torch.float32, 0),
+                            (4096, torch.bfloat16, 1)):
+        x = torch.ones(2 * d + shift, dtype=dtype, device=dev)[shift:]
+        x = x.view(2, d)
+        consts = [t.to(dev) for t in Norm(d, "rmsnorm").int_consts()]
+        before = ops.launch_counts().get("int_layernorm", 0)
+        try:
+            ops.norm_quant_rows(x, *consts, True)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"int_layernorm fused form took {dtype} "
+                                 f"rows of D = {d} (offset {shift})")
+        if ops.launch_counts().get("int_layernorm", 0) != before:
+            raise AssertionError("a refused fused norm counted a launch")
+        got = ops.quant_rows(x)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, w) for a, w in zip(got,
+                                                     quantize_rows_ref(x))):
+            raise AssertionError(f"quantize_rows [2,{d}] offset {shift} "
+                                 f"differs from its plain version")
 
 
 # int8_gemm's phase 3 shapes (name, K, N, epilogue, bias, stream dtype,
@@ -1457,7 +1625,10 @@ def check_paged_decode(dev, gen, timer, record, randn) -> None:
 
 # the kernels ``--kernels`` can time alone: each one's phase 3 cases and the
 # sources they build (the paged cases hold the dense kernel beside it)
-KERNEL_CASES = {"flash_attention": (check_flash_attention,
+KERNEL_CASES = {"quantize_rows": (check_quantize_rows, ("quantize",)),
+                "int_layernorm": (check_int_layernorm,
+                                  ("int_layernorm", "quantize")),
+                "flash_attention": (check_flash_attention,
                                     ("flash_attention",)),
                 "int4_gemm": (check_int4_gemm, ("int4_gemm",)),
                 "dual_gemm_gated": (check_dual_gemm_gated,
@@ -1477,12 +1648,18 @@ KERNEL_CASES = {"flash_attention": (check_flash_attention,
 # ---------------------------------------------------------------------------
 
 # (arch, precision, kernels the reduced steps must launch on the card)
+# (the fused norm counts as int_layernorm; every int8 KV write launches
+# quantize_rows)
 REDUCED_PATHS = (
-    ("starcoder2-3b", "w8a8", ("int8_gemm", "int8_kv_decode_attention")),
+    ("starcoder2-3b", "w8a8", ("int8_gemm", "int8_kv_decode_attention",
+                               "int_layernorm", "quantize_rows")),
     ("codeqwen1.5-7b", "w4a8", ("int4_gemm", "dual_int4_gemm_gated",
-                                "int8_kv_decode_attention")),
-    ("codeqwen1.5-7b", "w8a8", ("dual_gemm_gated", "int8_kv_decode_attention")),
-    ("codeqwen1.5-7b", "bf16", ("dual_gemm_gated", "int8_kv_decode_attention")),
+                                "int8_kv_decode_attention", "int_layernorm",
+                                "quantize_rows")),
+    ("codeqwen1.5-7b", "w8a8", ("dual_gemm_gated", "int8_kv_decode_attention",
+                                "int_layernorm", "quantize_rows")),
+    ("codeqwen1.5-7b", "bf16", ("dual_gemm_gated", "int8_kv_decode_attention",
+                                "quantize_rows")),
 )
 
 
@@ -1882,22 +2059,38 @@ def fresh_states(cfg, dev, paged: bool) -> list:
     return st
 
 
-def decode_step_launches(params, cfg, dev, paged: bool) -> dict:
+def decode_step_launches(params, cfg, dev, paged: bool) -> tuple[dict, dict]:
     """One all-decode step (bucket 1, 8 lanes at position 0) on fresh caches
-    (``fresh_states``): the launches of each kernel, and finite logits of
-    the expected shape."""
+    (``fresh_states``): the launches of each kernel; the host's
+    synchronizing calls in the step (``torch.cuda.set_sync_debug_mode
+    ("warn")`` warns once for each: a copy to or from pageable host memory,
+    ``nonzero``, a stream synchronize), counted by the Python line that made
+    them; and finite logits of the expected shape."""
+    import warnings
+
     from repro_torch.kernels import ops
     from repro_torch.models import forward
     st = fresh_states(cfg, dev, paged)
+    tok = torch.full((8, 1), 5, device=dev)
+    pos = torch.zeros((8, 1), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
     before = ops.launch_counts()
-    lg, _ = forward(params, cfg, torch.full((8, 1), 5, device=dev),
-                    torch.zeros((8, 1), dtype=torch.int32, device=dev), st)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            lg, _ = forward(params, cfg, tok, pos, st)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     after = ops.launch_counts()
+    syncs = collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
     if tuple(lg.shape) != (8, 1, cfg.padded_vocab) or not torch.isfinite(lg).all():
         raise AssertionError(f"decode logits: shape {tuple(lg.shape)}, "
                              f"finite={bool(torch.isfinite(lg).all())}")
-    return {k: after[k] - before[k] for k in after}
+    return {k: after[k] - before[k] for k in after}, syncs
 
 
 def serve_full(dev, seed, arch, precision, n_req, max_new, profiled,
@@ -1919,9 +2112,9 @@ def serve_full(dev, seed, arch, precision, n_req, max_new, profiled,
     res, tokens = timed_drain(engine, [requests], dev, cfg, must_launch,
                               reset_peak=False)
     del engine
+    per_step, syncs = decode_step_launches(params, cfg, dev, False)
     res.update(init_ptq_s=t_init, after_ptq_gib=after_ptq,
-               launches_per_decode_step=decode_step_launches(params, cfg, dev,
-                                                             False))
+               launches_per_decode_step=per_step, syncs_per_decode_step=syncs)
     if profiled:
         res["profile"] = {f"bucket{t}": profile_step(params, cfg, dev, t)
                           for t in buckets}
@@ -2060,8 +2253,8 @@ def serve_paged(dev, seed, cfg, params, requests, dense_tokens,
         raise AssertionError(f"same-schedule paged drain: "
                              f"{res['tokens_differ']} tokens differ from "
                              f"the dense drain")
-    res["launches_per_decode_step"] = decode_step_launches(params, cfg, dev,
-                                                           True)
+    res["launches_per_decode_step"], res["syncs_per_decode_step"] = (
+        decode_step_launches(params, cfg, dev, True))
     res["profile"] = {"bucket1": profile_step(params, cfg, dev, 1, True)}
 
     # 2. shared prefix: request 0 registers, the other 15 share it
@@ -2191,6 +2384,10 @@ def serve_only(dev, seed) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         log_drain(srv)
+        per, syncs = (srv["launches_per_decode_step"],
+                      srv["syncs_per_decode_step"])
+        log(f"  bucket-1 step: {sum(per.values())} launches {per}; "
+            f"{sum(syncs.values())} synchronizing calls {dict(syncs)}")
         log_profile(srv)
     out["prefill attention"] = prefill_attention(dev, seed)
     return out
@@ -2546,14 +2743,27 @@ def int_library_entry(dev, seed) -> dict:
 # Hopper — the tensor-core GEMMs, flash_attention, both decode attentions
 PROFILED_KERNELS = ("int4_gemm", "flash_attention", "dual_gemm_gated",
                     "dual_int4_gemm_gated", "int8_gemm",
-                    "int8_kv_decode_attention", "paged_decode_attention")
+                    "int8_kv_decode_attention", "paged_decode_attention",
+                    "quantize_rows", "int_layernorm")
+# the host's CUDA runtime calls that wait for the card (a pageable copy is
+# ``cudaMemcpyAsync`` then ``cudaStreamSynchronize``)
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
 
 
 def profile_summary(prof, wall_ms: float) -> dict:
+    """Device ms by kernel name, the device's busy share of ``wall_ms``, the
+    device ms of each of ``PROFILED_KERNELS``, the count of device kernels
+    (every kernel, PyTorch's own too; copies and fills not counted) and the
+    host's synchronizing runtime calls (``SYNC_CALLS``)."""
     by_name = {}
+    kernels = syncs = 0
     for e in prof.key_averages():
         if "CUDA" not in str(getattr(e, "device_type", "")):
+            syncs += e.count if e.key in SYNC_CALLS else 0
             continue                     # host ops: their kernels are listed
+        if not e.key.startswith(("Memcpy", "Memset")):
+            kernels += e.count
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
@@ -2563,6 +2773,7 @@ def profile_summary(prof, wall_ms: float) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "busy_share": busy / wall_ms if wall_ms else 0.0,
+            "device_kernels": kernels, "sync_calls": syncs,
             "top_kernels_ms": dict(top),
             "kernel_ms": {k: sum(v for name, v in by_name.items()
                                  if f"{k}_kernel" in name)
@@ -2587,7 +2798,8 @@ def log_profile(d: dict) -> None:
     for name, p in d.get("profile", {}).items():
         log(f"  profile {name}: wall {p['wall_ms']:.2f} ms, "
             f"device busy {p['device_busy_ms']:.2f} ms "
-            f"({p['busy_share']:.1%}); "
+            f"({p['busy_share']:.1%}), {p.get('device_kernels')} device "
+            f"kernels, {p.get('sync_calls')} synchronizing calls; "
             + ", ".join(f"{k} {v:.2f} ms" for k, v in
                         p.get("kernel_ms", {}).items() if v)
             + "; top " + ", ".join(f"{k[:40]}={v:.2f}" for k, v in
@@ -2629,6 +2841,7 @@ def main() -> int:
               "card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(args.src.resolve()))
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops
 
     t_start = time.perf_counter()
@@ -2682,7 +2895,13 @@ def main() -> int:
         print(json.dumps({"serve_only": {
             label: ({k: r["metrics"][k] for k in ("ttft_p50_ms", "tpot_p50_ms")}
                     | {"tok_s": r["generated_tok_per_s"],
-                       "profile": {k: (v["wall_ms"], v["device_busy_ms"])
+                       "bucket1_launches": sum(
+                           r["launches_per_decode_step"].values()),
+                       "bucket1_syncs": r["syncs_per_decode_step"],
+                       "bucket1_device_kernels":
+                           r["profile"]["bucket1"]["device_kernels"],
+                       "profile": {k: (v["wall_ms"], v["device_busy_ms"],
+                                       v["device_kernels"], v["sync_calls"])
                                    for k, v in r["profile"].items()}}
                     if "metrics" in r else r)
             for label, r in res.items()}}))
@@ -2764,7 +2983,18 @@ def main() -> int:
         log_drain(srv)
         log(f"  init+PTQ {srv['init_ptq_s']:.1f}s, {srv['after_ptq_gib']:.1f} "
             f"GiB after PTQ")
-        log(f"  launches per bucket-1 step: {srv['launches_per_decode_step']}")
+        per = srv["launches_per_decode_step"]
+        syncs = srv["syncs_per_decode_step"]
+        log(f"  launches per bucket-1 step: {sum(per.values())} {per}; "
+            f"{sum(syncs.values())} synchronizing calls {dict(syncs)}")
+        # each quantization once: B1 before o_proj and down and for the k
+        # and v writes, the fused norm twice a layer and once at the end
+        n_layers = get_config(arch, precision=precision).n_layers
+        want = {"quantize_rows": 4 * n_layers,
+                "int_layernorm": 2 * n_layers + 1}
+        if any(per[k] != v for k, v in want.items()):
+            raise AssertionError(f"{label}: a bucket-1 step launched "
+                                 f"{ {k: per[k] for k in want} }, not {want}")
         log_profile(srv)
         for name, drain in srv.pop("paged", {}).items():
             # each paged drain is a path of its own in the kernels line
@@ -2780,7 +3010,9 @@ def main() -> int:
                 per = drain["launches_per_decode_step"]
                 dense = srv["launches_per_decode_step"]
                 log(f"    launches per bucket-1 step: paged "
-                    f"{sum(per.values())} {per} | dense {sum(dense.values())}")
+                    f"{sum(per.values())} {per} | dense {sum(dense.values())}"
+                    f"; {sum(drain['syncs_per_decode_step'].values())} "
+                    f"synchronizing calls")
             log_profile(drain)
             if "reference" in drain:
                 log("    reference run:")
@@ -2810,30 +3042,30 @@ def main() -> int:
     sc, cq4, cq8 = (label for label, *_ in SERVE_PATHS)
     cq4p = f"{PAGED_LABEL} same-schedule"
     headline_by_path = {
-        sc: {"quantize_rows": "[8,3072] f32",
+        sc: {"quantize_rows": "[8,3072] bf16",
              "int8_gemm": "mlp_up+gelu [8,3072]x[3072,12288] scaled_gelu",
-             "int_layernorm": "[8,3072] ln",
+             "int_layernorm": "fused starcoder [8,3072] ln bf16",
              "int8_kv_decode_attention":
                  "B=8 S=1024 Hq=24 Hkv=2 D=128 window=0"},
-        cq4: {"quantize_rows": "[8,4096] f32",
+        cq4: {"quantize_rows": "[8,4096] bf16",
               "int8_gemm":
                   "codeqwen head_f32 [8,4096]x[4096,92416] scaled",
-              "int_layernorm": "[8,4096] rms",
+              "int_layernorm": "fused codeqwen [8,4096] rms bf16",
               "int8_kv_decode_attention":
                   "B=8 S=1024 Hq=32 Hkv=32 D=128 window=0",
               "int4_gemm": "mlp_down [8,13440]x[13440,4096] scaled g64",
               "dual_int4_gemm_gated": "[8,4096]x2[4096,13440] silu g64"},
-        cq4p: {"quantize_rows": "[8,4096] f32",
+        cq4p: {"quantize_rows": "[8,4096] bf16",
                "int8_gemm":
                    "codeqwen head_f32 [8,4096]x[4096,92416] scaled",
-               "int_layernorm": "[8,4096] rms",
+               "int_layernorm": "fused codeqwen [8,4096] rms bf16",
                "int4_gemm": "mlp_down [8,13440]x[13440,4096] scaled g64",
                "dual_int4_gemm_gated": "[8,4096]x2[4096,13440] silu g64",
                "paged_decode_attention":
                    "B=8 ps=16 MP=64 Hq=32 Hkv=32 D=128 int8 window=0"},
-        cq8: {"quantize_rows": "[8,4096] f32",
+        cq8: {"quantize_rows": "[8,4096] bf16",
               "int8_gemm": "codeqwen mlp_down [8,13440]x[13440,4096] scaled",
-              "int_layernorm": "[8,4096] rms",
+              "int_layernorm": "fused codeqwen [8,4096] rms bf16",
               "int8_kv_decode_attention":
                   "B=8 S=1024 Hq=32 Hkv=32 D=128 window=0",
               "dual_gemm_gated": "int8 [8,4096]x2[4096,13440] silu"},

@@ -73,9 +73,20 @@ def rcp32(c: float) -> np.float32:
     return np.float32(1.0) / np.float32(c)
 
 
+_CONSTS: dict = {}
+
+
 def f32(v, device) -> torch.Tensor:
-    """A 0-dim float32 tensor: keeps scalar arithmetic in f32."""
-    return torch.tensor(np.float32(v), dtype=torch.float32, device=device)
+    """A 0-dim float32 tensor: keeps scalar arithmetic in f32.  Built once
+    per (value, device) and shared, so a forward on the card copies no
+    constant from the host after its first step.  Read it only; never
+    write into it."""
+    key = (float(np.float32(v)), torch.device(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(np.float32(v), dtype=torch.float32,
+                                        device=key[1])
+    return t
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,7 @@ from .int8_gemm import (dual_gemm_gated, dual_int4_gemm_gated, int4_gemm,
 from .int8_kv_decode_attention import (int8_kv_decode_attention,
                                        int8_kv_decode_attention_rows)
 from .int_gelu import int_gelu
-from .int_layernorm import int_layernorm
+from .int_layernorm import int_layernorm, int_layernorm_rows
 from .int_silu import int_silu
 from .int_softmax import int_softmax
 from .paged_attention import (paged_decode_attention,
@@ -44,10 +44,26 @@ def reset_launch_counts() -> None:
 
 
 def quant_rows(x: torch.Tensor):
-    """float [..., D] -> (int8 [..., D], f32 [..., 1]) per-row absmax."""
+    """float [..., D] -> (int8 [..., D], f32 [..., 1]) per-row absmax.
+    bf16 and f32 rows go to the kernel as they are; another float dtype is
+    widened to f32 first."""
     lead, d = x.shape[:-1], x.shape[-1]
-    q, s = quantize_rows(x.reshape(-1, d).float().contiguous())
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.float()
+    q, s = quantize_rows(x.reshape(-1, d).contiguous())
     return q.reshape(*lead, d), s.reshape(*lead, 1)
+
+
+def norm_quant_rows(x, gamma_q, beta_q, gb_s, rms_only: bool = False):
+    """The models' integer norm of float rows [..., D] (int32 payloads
+    gamma_q/beta_q [D] on the 0-dim f32 scale gb_s) fused with the row
+    quantization of its output: (normed rows in x's dtype [..., D], int8
+    [..., D], f32 [..., 1]) — what ``layernorm_i8`` between two
+    ``quant_rows`` computes, in one launch."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    h, q, s = int_layernorm_rows(x.reshape(-1, d).contiguous(), gamma_q,
+                                 beta_q, gb_s, rms_only=rms_only)
+    return h.reshape(*lead, d), q.reshape(*lead, d), s.reshape(*lead, 1)
 
 
 def gemm_i8(x, w, requant=None):

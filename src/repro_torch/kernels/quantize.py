@@ -3,11 +3,17 @@ int8 [M, D] + f32 row scale [M, 1] (``quantize_rows``), and the integer
 requantization of an int32 payload to int8 (``requantize_i32``).
 
 Port of the Pallas kernel ``repro/kernels/quantize.py:41`` ``quantize_rows``
-to the CUDA kernel ``csrc/quantize.cu`` (source note there: bound by bytes,
-one block per row).  ``quantize_rows_ref`` is its plain version, the jitted
-``repro.kernels.ref.quantize_rows_ref``: the scale is ``amax * f32(1/127)``
-(XLA's form of ``amax / 127.0`` under jit), the division by it is a true
-division.  Bit-exact against the kernel.
+to the CUDA kernel ``csrc/quantize.cu`` (source note there: bound by bytes
+and a launch's fixed time; bf16 or f32 rows read once into registers, a
+warp per row up to 1024 values, a block per row past that; the arithmetic
+in ``csrc/quant_row.cuh``, which the fused norm form of
+``int_layernorm.cu`` shares).  ``quantize_rows_ref`` is its plain version,
+the jitted ``repro.kernels.ref.quantize_rows_ref``: the scale is ``amax *
+f32(1/127)`` (XLA's form of ``amax / 127.0`` under jit), the division by it
+is a true division.  Bit-exact against the kernel, on bf16 rows too (a bf16
+value widens to f32 exactly).  The KV cache's per-(token, head)
+quantization (``attention._quant_kv``, the reference's ``_quant_kv``) is
+the same function over rows of the head dim.
 
 ``requantize_i32`` ports ``repro/kernels/quantize.py:111`` to
 ``csrc/requantize.cu`` (``requant_block``, shift/mul16/shift, bound by
@@ -25,8 +31,8 @@ import torch
 
 from ..core import inumerics as inum
 from . import build
-from .common import (LAUNCHES, check, check_requant, f32, launch_elementwise,
-                     on_cuda, rcp32)
+from .common import (LAUNCHES, check, check_requant, f32,
+                     launch_elementwise, on_cuda, rcp32)
 
 _RCP127 = rcp32(127.0)
 
@@ -34,22 +40,24 @@ _RCP127 = rcp32(127.0)
 def quantize_rows_ref(x: torch.Tensor):
     """Plain version: float [..., D] -> (int8 [..., D], f32 [..., 1])."""
     x = x.float()
-    amax = torch.maximum(x.abs().amax(-1, keepdim=True), f32(1e-8, x.device))
+    amax = torch.maximum(x.abs().amax(-1, keepdim=True),
+                         f32(1e-8, x.device))
     scale = amax * f32(_RCP127, x.device)
     q = torch.clamp(torch.round(x / scale), -128, 127).to(torch.int8)
     return q, scale
 
 
 def _launch(x: torch.Tensor):
-    check(x.dtype == torch.float32 and x.dim() == 2 and x.is_contiguous(),
-          f"quantize_rows takes a contiguous f32 [M, D] tensor, got "
-          f"{x.dtype} {tuple(x.shape)}")
+    check(x.dtype in (torch.float32, torch.bfloat16) and x.dim() == 2
+          and x.is_contiguous(), f"quantize_rows takes a contiguous f32 or "
+          f"bf16 [M, D] tensor, got {x.dtype} {tuple(x.shape)}")
     m, d = x.shape
     q = torch.empty((m, d), dtype=torch.int8, device=x.device)
     s = torch.empty((m, 1), dtype=torch.float32, device=x.device)
     fn = build.entry("quantize", "repro_quantize_rows",
-                     [build.VP] * 3 + [build.I] * 2 + [build.VP])
+                     [build.VP] * 3 + [build.I] * 3 + [build.VP])
     rc = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), m, d,
+            int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check_rc(rc, "quantize_rows")
     LAUNCHES["quantize_rows"] += 1
@@ -57,8 +65,8 @@ def _launch(x: torch.Tensor):
 
 
 def quantize_rows(x: torch.Tensor):
-    """f32 [M, D] -> (int8 [M, D], f32 [M, 1]): the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor."""
+    """f32 or bf16 [M, D] -> (int8 [M, D], f32 [M, 1]): the CUDA kernel for
+    a CUDA tensor, the plain version for a CPU tensor."""
     if on_cuda(x):
         return _launch(x)
     return quantize_rows_ref(x)

@@ -49,11 +49,11 @@ from ..kernels import ops
 from ..kernels.common import f32, rcp32
 from ..kernels.int8_flash_attention import head_shift
 from .config import ArchConfig
-from .layers import ExecMode, Linear, apply_linear, apply_rope, dense_init
+from .layers import (ExecMode, Linear, QRows, apply_linear, apply_rope,
+                     dense_init)
 
 F32 = torch.float32
 NEG = -1e30
-_RCP127 = rcp32(127.0)
 
 # canonical static int8 scale for activations entering integer attention
 ATTN_INT_SCALE = 1.0 / 16.0
@@ -106,11 +106,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, int8: bool,
 
 
 def _quant_kv(x):
-    """per-(token, head) symmetric int8 (``amax / 127.0`` as jitted)."""
-    xf = x.float()
-    amax = torch.maximum(xf.abs().amax(-1, keepdim=True), f32(1e-8, x.device))
-    s = amax * f32(_RCP127, x.device)
-    return torch.clamp(torch.round(xf / s), -128, 127).to(torch.int8), s
+    """per-(token, head) symmetric int8 (``amax / 127.0`` as jitted): the
+    row quantization over rows of the head dim, ``ops.quant_rows`` (the
+    quantize_rows kernel on the card, reading x's bf16 rows as they are)."""
+    return ops.quant_rows(x)
 
 
 def cache_writes(positions: torch.Tensor, cache: dict | None = None):
@@ -351,17 +350,20 @@ def _card_route(cache_leaf, card_order: bool) -> bool:
 
 def attention(params: Attention, x, cfg: ArchConfig, mode: ExecMode,
               positions, cache: dict | None = None, window: int = 0,
-              residual=None, writes=None, card_order: bool = False):
+              residual=None, writes=None, card_order: bool = False,
+              xq: QRows | None = None):
     """Self-attention of x (B, T, D) at absolute ``positions`` (B, T), with
     the skip connection ``residual`` folded into the out-projection.
     Returns (out, cache); the cache is updated in place.  ``card_order``:
-    int8-cache rows take the decode kernels on any device (module note)."""
+    int8-cache rows take the decode kernels on any device (module note).
+    ``xq``: x's rows already quantized (the fused norm's), which q, k and v
+    share."""
     b, t, _ = x.shape
     hd = cfg.head_dim
-    q = apply_linear(x, params.wq, mode, params.bq)
+    q = apply_linear(x, params.wq, mode, params.bq, xq=xq)
     q = q.reshape(b, t, q.shape[-1] // hd, hd)
-    k = apply_linear(x, params.wk, mode, params.bk)
-    v = apply_linear(x, params.wv, mode, params.bv)
+    k = apply_linear(x, params.wk, mode, params.bk, xq=xq)
+    v = apply_linear(x, params.wv, mode, params.bv, xq=xq)
     k = k.reshape(b, t, k.shape[-1] // hd, hd)
     v = v.reshape(b, t, v.shape[-1] // hd, hd)
     q = apply_rope(q, positions, cfg.rope_theta)

@@ -72,15 +72,17 @@ def block_forward(kind: str, params: nn.Module, x, cfg: ArchConfig,
                   mode: ExecMode, positions, state: dict | None = None,
                   writes=None, card_order: bool = False):
     _check_kind(kind)
+    # each pre-norm hands its output's quantized rows (integer modes) to the
+    # integer projections that read it: in_proj; q, k and v; up and gate
     if kind == "mamba2":
-        h = apply_norm(x, params.norm1, cfg, mode)
-        y, st = mamba2(params.mamba, h, cfg, mode, state=state)
+        h, hq = apply_norm(x, params.norm1, cfg, mode)
+        y, st = mamba2(params.mamba, h, cfg, mode, state=state, xq=hq)
         return x + y, st
-    h = apply_norm(x, params.norm1, cfg, mode)
+    h, hq = apply_norm(x, params.norm1, cfg, mode)
     x, kv = attention(params.attn, h, cfg, mode, positions,
                       cache=None if state is None else state["kv"],
-                      residual=x, writes=writes, card_order=card_order)
+                      residual=x, writes=writes, card_order=card_order, xq=hq)
     new_state = state if state is None else dict(state, kv=kv)
-    h = apply_norm(x, params.norm2, cfg, mode)
-    x = x + mlp(params.mlp, h, cfg, mode)
+    h, hq = apply_norm(x, params.norm2, cfg, mode)
+    x = x + mlp(params.mlp, h, cfg, mode, xq=hq)
     return x, new_state

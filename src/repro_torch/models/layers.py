@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -124,6 +125,23 @@ class Norm(nn.Module):
 # Linear: float path + integer path
 # ---------------------------------------------------------------------------
 
+class QRows(NamedTuple):
+    """Rows quantized once for every integer GEMM that reads them: int8
+    ``q`` [..., D] and f32 row scales ``scale`` [..., 1] (``ops.quant_rows``
+    of the rows, bit for bit).  The fused norm returns them with its output,
+    so q/k/v, the MLP's up and gate, Mamba-2's in_proj and the head quantize
+    nothing themselves."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+
+def _quant(x, xq: QRows | None):
+    """The activation quant of an integer linear: ``xq`` where the caller
+    has it, else ``ops.quant_rows(x)``."""
+    return ops.quant_rows(x) if xq is None else xq
+
+
 def linear(x, w, bias=None, compute_dtype=DEFAULT_DTYPE):
     """Matmul in the compute dtype (f32 accumulation inside)."""
     out = x.to(compute_dtype) @ w.to(compute_dtype)
@@ -133,31 +151,33 @@ def linear(x, w, bias=None, compute_dtype=DEFAULT_DTYPE):
 
 
 def linear_w8a8(x, w_q, w_scale, bias=None, compute_dtype=DEFAULT_DTYPE,
-                residual=None):
-    """W8A8: dynamic per-row activation quant -> int8 GEMM with the dequant
-    (and optional residual add) fused into the epilogue."""
-    x_q, x_scale = ops.quant_rows(x.float())
+                residual=None, xq: QRows | None = None):
+    """W8A8: dynamic per-row activation quant (or ``xq``, x's rows already
+    quantized) -> int8 GEMM with the dequant (and optional residual add)
+    fused into the epilogue."""
+    x_q, x_scale = _quant(x, xq)
     return ops.gemm_w8a8(x_q, x_scale, w_q, w_scale, bias=bias,
                          residual=residual, out_dtype=compute_dtype)
 
 
-def linear_gelu_w8a8(x, w_q, w_scale, compute_dtype=DEFAULT_DTYPE):
+def linear_gelu_w8a8(x, w_q, w_scale, compute_dtype=DEFAULT_DTYPE,
+                     xq: QRows | None = None):
     """Fused W8A8 up-projection + integer GELU (MLP hot path), bit-identical
     to ``linear_w8a8`` followed by ``activation(..., "gelu")``."""
-    x_q, x_scale = ops.quant_rows(x.float())
+    x_q, x_scale = _quant(x, xq)
     out_q = ops.gemm_w8a8(x_q, x_scale, w_q, w_scale,
                           gelu_scale=GELU_INT_SCALE, out_dtype=compute_dtype)
-    return (out_q.float() * f32(gelu_out_scale(GELU_INT_SCALE), x.device)
-            ).to(compute_dtype)
+    return (out_q.float() * f32(gelu_out_scale(GELU_INT_SCALE),
+                                      x.device)).to(compute_dtype)
 
 
 def linear_gated_w8a8(x, up_q, up_scale, gate_q, gate_scale, act: str,
-                      compute_dtype=DEFAULT_DTYPE):
+                      compute_dtype=DEFAULT_DTYPE, xq: QRows | None = None):
     """Fused W8A8 gated-MLP hidden: one activation quant feeds the dual GEMM
     over a shared A tile; dequant and the integer activation(gate) * up
     finish in the epilogue.  Bit-identical to ``linear_w8a8`` twice, then
     the integer ``activation`` and the multiply."""
-    x_q, x_scale = ops.quant_rows(x.float())
+    x_q, x_scale = _quant(x, xq)
     act_scale = GELU_INT_SCALE if act == "gelu" else SILU_INT_SCALE
     return ops.gated_mlp_w8a8(x_q, x_scale, up_q, up_scale, gate_q,
                               gate_scale, act=act, act_scale=act_scale,
@@ -201,30 +221,32 @@ def quantize_weight_w4(w: torch.Tensor, group: int = 64,
 
 
 def linear_w4a8(x, w4, qmul, w_scale, bias=None, compute_dtype=DEFAULT_DTYPE,
-                residual=None):
-    """W4A8: dynamic per-row activation quant -> packed-int4 GEMM with the
-    nibble unpack, group dequant (and residual add) fused in."""
-    x_q, x_scale = ops.quant_rows(x.float())
+                residual=None, xq: QRows | None = None):
+    """W4A8: dynamic per-row activation quant (or ``xq``) -> packed-int4
+    GEMM with the nibble unpack, group dequant (and residual add) fused
+    in."""
+    x_q, x_scale = _quant(x, xq)
     return ops.gemm_w4a8(x_q, x_scale, w4, qmul, w_scale, bias=bias,
                          residual=residual, out_dtype=compute_dtype)
 
 
-def linear_gelu_w4a8(x, w4, qmul, w_scale, compute_dtype=DEFAULT_DTYPE):
+def linear_gelu_w4a8(x, w4, qmul, w_scale, compute_dtype=DEFAULT_DTYPE,
+                     xq: QRows | None = None):
     """Fused W4A8 up-projection + integer GELU, the twin of
     ``linear_gelu_w8a8``."""
-    x_q, x_scale = ops.quant_rows(x.float())
+    x_q, x_scale = _quant(x, xq)
     out_q = ops.gemm_w4a8(x_q, x_scale, w4, qmul, w_scale,
                           gelu_scale=GELU_INT_SCALE, out_dtype=compute_dtype)
-    return (out_q.float() * f32(gelu_out_scale(GELU_INT_SCALE), x.device)
-            ).to(compute_dtype)
+    return (out_q.float() * f32(gelu_out_scale(GELU_INT_SCALE),
+                                      x.device)).to(compute_dtype)
 
 
 def linear_gated_w4a8(x, up: Linear, gate: Linear, act: str,
-                      compute_dtype=DEFAULT_DTYPE):
+                      compute_dtype=DEFAULT_DTYPE, xq: QRows | None = None):
     """Fused W4A8 gated-MLP hidden: one activation quant feeds the dual
     packed-int4 GEMM over a shared A tile, the twin of
     ``linear_gated_w8a8``."""
-    x_q, x_scale = ops.quant_rows(x.float())
+    x_q, x_scale = _quant(x, xq)
     act_scale = GELU_INT_SCALE if act == "gelu" else SILU_INT_SCALE
     return ops.gated_mlp_w4a8(x_q, x_scale, up.w4, up.qmul, up.scale,
                               gate.w4, gate.qmul, gate.scale, act=act,
@@ -245,16 +267,18 @@ class ExecMode:
         return self.precision in ("w8a8", "w4a8")
 
 
-def apply_linear(x, p: Linear, mode: ExecMode, bias=None, residual=None):
+def apply_linear(x, p: Linear, mode: ExecMode, bias=None, residual=None,
+                 xq: QRows | None = None):
     """Dispatch on the weight the module holds: packed int4 (W4A8 GEMM),
-    int8 ``w_q`` (W8A8 GEMM; both with the residual add in the epilogue) or
-    a float weight (plain matmul, then the residual add)."""
+    int8 ``w_q`` (W8A8 GEMM; both with the residual add in the epilogue and
+    x's rows quantized once, or taken from ``xq``) or a float weight (plain
+    matmul of x, then the residual add)."""
     if p.int4:
         return linear_w4a8(x, p.w4, p.qmul, p.scale, bias, mode.compute_dtype,
-                           residual=residual)
+                           residual=residual, xq=xq)
     if p.quantized:
         return linear_w8a8(x, p.w_q, p.scale, bias, mode.compute_dtype,
-                           residual=residual)
+                           residual=residual, xq=xq)
     out = linear(x, p.weight.to(mode.compute_dtype), bias, mode.compute_dtype)
     if residual is not None:
         out = out + residual
@@ -293,26 +317,30 @@ def quantize_norm(gamma, beta):
 
 
 def norm_int_q(x, g_q, b_q, gb_s, rms_only: bool):
-    """Integer norm of x with prequantized gamma/beta payloads."""
-    x_q, _ = ops.quant_rows(x.float())
-    out = ops.layernorm_i8(x_q.to(torch.int32), g_q, b_q, rms_only=rms_only)
-    return (out.float() * (gb_s * f32(1.0 / 128.0, x.device))).to(x.dtype)
+    """Integer norm of x with prequantized gamma/beta payloads, and its
+    output's rows quantized for the next integer GEMM: (h in x's dtype,
+    ``QRows``), one fused kernel on the card (``ops.norm_quant_rows``)."""
+    h, q, s = ops.norm_quant_rows(x, g_q, b_q, gb_s, rms_only=rms_only)
+    return h, QRows(q, s)
 
 
 def norm_int(x, gamma, beta, rms_only: bool):
     """Integer-only norm (paper's ``norm`` kernel) for the w8a8 path:
     quantize the residual stream to int8, integer layernorm, dequantize."""
     g_q, b_q, gb_s = quantize_norm(gamma, beta)
-    return norm_int_q(x, g_q, b_q, gb_s, rms_only)
+    return norm_int_q(x, g_q, b_q, gb_s, rms_only)[0]
 
 
 def apply_norm(x, p: Norm, cfg, mode: ExecMode):
+    """The block's pre-norm: (h, ``QRows`` of h) in an integer mode, where
+    the integer linears that read h take the quantized rows; (h, None) in a
+    float mode."""
     if mode.integer:
         return norm_int_q(x, *p.int_consts(),
                           rms_only=cfg.norm_type == "rmsnorm")
     if cfg.norm_type == "layernorm":
-        return layernorm(x, p.scale, p.bias, cfg.norm_eps)
-    return rmsnorm(x, p.scale, cfg.norm_eps)
+        return layernorm(x, p.scale, p.bias, cfg.norm_eps), None
+    return rmsnorm(x, p.scale, cfg.norm_eps), None
 
 
 # ---------------------------------------------------------------------------
@@ -326,8 +354,9 @@ def activation(x, kind: str, mode: ExecMode):
     ``x``'s dtype; else the float function."""
     if mode.integer and kind in ("gelu", "silu"):
         s = GELU_INT_SCALE if kind == "gelu" else SILU_INT_SCALE
-        q = torch.clamp(torch.round(x.float() * f32(rcp32(s), x.device)),
-                        -128, 127).to(torch.int32)
+        inv = f32(rcp32(s), x.device)
+        q = torch.clamp(torch.round(x.float() * inv), -128, 127)
+        q = q.to(torch.int32)
         if kind == "gelu":
             out, out_scale = ops.gelu_i8(q, s), gelu_out_scale(s)
         else:

@@ -123,7 +123,7 @@ def forward(params: LM, cfg: ArchConfig, tokens, positions=None,
                               writes=writes, card_order=card_order)
         if new_states is not None:
             new_states.append(st)
-    x = apply_norm(x, params.final_norm, cfg, mode)
+    x, xq = apply_norm(x, params.final_norm, cfg, mode)
     if not logits:
         return x, new_states
     if params.unembed is None:
@@ -131,7 +131,9 @@ def forward(params: LM, cfg: ArchConfig, tokens, positions=None,
         # reference's apply_linear on a bare array at compute dtype f32
         lg = linear(x, params.embed.T, None, F32)
     else:
-        lg = apply_linear(x, params.unembed, ExecMode(cfg.precision, F32))
+        # an integer head reads the final norm's quantized rows
+        lg = apply_linear(x, params.unembed, ExecMode(cfg.precision, F32),
+                          xq=xq)
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=lg.device) >= cfg.vocab_size
         lg = torch.where(pad, torch.full_like(lg, -1e9), lg)

@@ -27,7 +27,7 @@ from torch import nn
 from ..kernels import ops
 from ..kernels.ssd_scan import CHUNK
 from .config import ArchConfig
-from .layers import ExecMode, Linear, apply_linear, dense_init, rmsnorm
+from .layers import ExecMode, Linear, QRows, apply_linear, dense_init, rmsnorm
 
 F32 = torch.float32
 
@@ -104,11 +104,13 @@ def _causal_conv(x, w, b, state):
 
 
 def mamba2(params: Mamba2, x, cfg: ArchConfig, mode: ExecMode,
-           state: dict | None = None, chunk: int = CHUNK):
-    """Mamba-2 block of x (B, T, d).  Returns (out, new_state)."""
+           state: dict | None = None, chunk: int = CHUNK,
+           xq: QRows | None = None):
+    """Mamba-2 block of x (B, T, d).  Returns (out, new_state).  ``xq``: x's
+    rows already quantized (the fused norm's) for an integer in_proj."""
     b, t, _ = x.shape
     d_inner, n_heads, d_head, d_state = _mamba_dims(cfg)
-    zxbcdt = apply_linear(x, params.in_proj, mode).float()
+    zxbcdt = apply_linear(x, params.in_proj, mode, xq=xq).float()
     z, xr, Bm, Cm, dt = torch.split(
         zxbcdt, [d_inner, d_inner, d_state, d_state, n_heads], dim=-1)
     conv_in = torch.cat([xr, Bm, Cm], dim=-1)

@@ -796,6 +796,54 @@ class TestKernelsOnCard:
             assert torch.equal(ops.layernorm_i8(x, g, b, rms),
                                int_layernorm_ref(x, g, b, rms))
 
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("d,rms", [(3072, False), (4096, True),
+                                       (2560, True)])
+    def test_int_layernorm_rows(self, rng, cuda_dev, d, rms, dtype):
+        """The fused norm -> quantize form against its plain version, all
+        three outputs (an all-zero row, a row of negative mean)."""
+        from repro_torch.kernels.int_layernorm import int_layernorm_rows_ref
+        from repro_torch.models.layers import quantize_norm
+        x = rng.standard_normal((13, d)).astype(np.float32) * 3
+        x[0] = 0.0
+        x[1] -= 4.0
+        x = T(x).to(dtype).to(cuda_dev)
+        g = T(rng.standard_normal(d).astype(np.float32) + 1).to(cuda_dev)
+        b = T(rng.standard_normal(d).astype(np.float32) * 0.2).to(cuda_dev)
+        consts = quantize_norm(g, None if rms else b)
+        got = ops.norm_quant_rows(x, *consts, rms)
+        want = int_layernorm_rows_ref(x, *consts, rms)
+        assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+    @pytest.mark.parametrize("d,dtype,shift", [
+        (100, torch.bfloat16, 0), (16384 + 8, torch.bfloat16, 0),
+        (8192 + 4, torch.float32, 0), (4096, torch.bfloat16, 1)])
+    def test_int_layernorm_rows_refuses(self, cuda_dev, d, dtype, shift):
+        """Rows the fused kernel cannot hold in registers (not a multiple
+        of 16 bytes, past 2048 chunks, or off a 16-byte address) raise;
+        B1 on the same rows still gives its plain version's bits."""
+        from repro_torch.models.layers import Norm
+        buf = torch.ones(2 * d + shift, dtype=dtype, device=cuda_dev)
+        x = buf[shift:].view(2, d)
+        consts = [t.to(cuda_dev) for t in Norm(d, "rmsnorm").int_consts()]
+        with pytest.raises(ValueError, match="int_layernorm_rows"):
+            ops.norm_quant_rows(x, *consts, True)
+        assert all(torch.equal(a, w) for a, w in zip(ops.quant_rows(x),
+                                                     quantize_rows_ref(x)))
+
+    @pytest.mark.parametrize("m,d", [(8, 4096), (256, 128), (16, 80),
+                                     (8, 13440), (5, 100)])
+    def test_quantize_rows_bf16(self, rng, cuda_dev, m, d):
+        """bf16 rows read as they are (a warp a row up to 1024, a block past
+        it, the element-wise form for a ragged width): the f32 path's bits."""
+        x = T(rng.standard_normal((m, d)).astype(np.float32) * 3)
+        x = x.bfloat16().to(cuda_dev)
+        q, s = ops.quant_rows(x)
+        qr, sr = quantize_rows_ref(x)
+        assert torch.equal(q, qr) and torch.equal(s, sr)
+        assert all(torch.equal(a, w) for a, w in zip(ops.quant_rows(x.float()),
+                                                     (q, s)))
+
     def test_decode_attention(self, rng, cuda_dev):
         q, *rest = decode_inputs(rng, b=8, s=1024, hq=24, hkv=2, d=128)
         args = [_t_q(q).to(cuda_dev)] + [T(a).to(cuda_dev) for a in rest]
