@@ -41,13 +41,14 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    and its bound: the larger of bytes / 3.35 TB/s and operations / peak rate
    (1979 TOP/s int8, 989 TFLOP/s bf16, 67 TFLOP/s f32 outside the tensor
    cores; H100 SXM data sheet).  The no-cache forward's kernels at B = 4,
-   T = 1024 (``check_no_cache``): int8_flash_attention at codeqwen1.5-7b's
-   and starcoder2-3b's heads (integer probabilities bit-exact through its
-   debug output, the f32 output within rtol 1e-5, atol 1e-6; the int32 form
-   bit-exact), flash_attention (bf16, against SDPA's time too) and
-   int_softmax on [4096, 1024] rows (bit-exact; masked, and spread far past
-   30*q_ln2); int8_flash_attention's streaming form at 4096 and 8192 causal
-   keys (``check_streaming_attention``, the same checks); and the rest of the
+   T = 1024: int8_flash_attention (``check_int8_attention``) at
+   codeqwen1.5-7b's and starcoder2-3b's heads (integer probabilities
+   bit-exact through its debug output, the f32 output within rtol 1e-5,
+   atol 1e-6; the int32 form bit-exact), then at 4096 and 8192 causal keys
+   (``check_streaming_attention``, the same checks, every launch counted as
+   streaming); flash_attention (bf16, against SDPA's time too) and
+   int_softmax on [4096, 1024] rows (``check_no_cache``; bit-exact; masked,
+   and spread far past 30*q_ln2); and the rest of the
    integer library (``check_int_library``, bit-exact): int_gelu
    [4096, 12288], int_silu [4096, 13440], requantize_i32 [4096, 4096],
    and int8_conv2d
@@ -58,7 +59,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    the reduced model's P = 64, N = 16; y and the final state within
    rtol = atol = 3e-4 of the plain version evaluated in f64); the two
    no-cache attentions
-   also at zamba2's head dim 80 (the block and streaming forms); and the
+   also at zamba2's head dim 80 (T = 1024 and 4096); and the
    decode kernels' multi-row form (``check_decode_rows``, dense and paged,
    G = 1 and G = 12): every row of a T = 256 launch bit-equal to a T = 1
    launch at its position with the same B;
@@ -113,13 +114,14 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    ``lm_loss`` on 4 x 1024 tokens at bf16, w8a8 and w4a8, w4a8 profiled);
    and ``ops.softmax_i8`` on causal score rows.  Every forward must launch
    int8_flash_attention (integer) or flash_attention (bf16) exactly once per
-   attention layer — int8_flash_attention in its streaming form exactly for
-   the 4096-token sequence — ssd_scan once per Mamba-2 layer (zamba2: 9 and
+   attention layer — every int8_flash_attention launch counted as
+   streaming (its one form) — ssd_scan once per Mamba-2 layer (zamba2: 9 and
    45), and the w8a8-float forwards int_silu or int_gelu once per layer.  The
-   bf16 and w4a8 forwards and codeqwen's w8a8 one run once more under
+   bf16 and w4a8 forwards and the W8A8 ones of codeqwen, starcoder and
+   zamba2 run once more under
    torch.profiler; each profile reports the device ms of the tensor-core
-   GEMMs, flash_attention and both decode attentions
-   (``PROFILED_KERNELS``).
+   GEMMs, flash_attention, both decode attentions, the norm and quantize
+   kernels, int8_flash_attention and ssd_scan (``PROFILED_KERNELS``).
 
 The last three lines of standard output are the kernels JSON (each kernel
 timed at the M = 8 shape the main path, codeqwen1.5-7b w4a8, gives it, or
@@ -146,12 +148,14 @@ so that two trees are compared in one call:
 ``--cal-only`` builds and then runs only phase 6's ``calibrate_ptq`` of
 codeqwen1.5-7b and zamba2-2.7b, timed and then under the profiler
 (``cal_only``); with ``--src DIR`` likewise on another tree.  ``--lm-only``
-runs only codeqwen1.5-7b's and starcoder2-3b's W8A8 ``lm_loss`` on 4 x 1024
-tokens, timed and then under the profiler (``lm_only``), likewise.
+runs only codeqwen1.5-7b's, starcoder2-3b's and zamba2-2.7b's W8A8
+``lm_loss`` on 4 x 1024 tokens, timed and then under the profiler
+(``lm_only``), likewise.
 
 ``--kernels flash_attention,int4_gemm`` (or ``dual_gemm_gated``,
 ``dual_int4_gemm_gated``, ``int8_gemm``, ``int8_kv_decode_attention``,
-``paged_decode_attention``, ``quantize_rows``, ``int_layernorm``; a tree
+``paged_decode_attention``, ``quantize_rows``, ``int_layernorm``,
+``int8_flash_attention``, ``ssd_scan``; a tree
 without the fused norm times only its chain) builds only those kernels (of
 the tree
 ``--src`` names) and runs only their phase 3 cases, held against the
@@ -337,8 +341,8 @@ def check_kernels(dev, gen, timer) -> list[dict]:
     check_dual_int4_gemm_gated(dev, gen, timer, record, randn)
     check_dual_gemm_gated(dev, gen, timer, record, randn)
     check_paged(dev, gen, timer, record, randn)
+    check_int8_attention(dev, gen, timer, record, randn)
     check_no_cache(dev, gen, timer, record, randn)
-    check_streaming_attention(dev, gen, timer, record, randn)
     check_int_library(dev, gen, timer, record, randn)
     check_ssd_scan(dev, gen, timer, record, randn)
     check_decode_rows(dev, gen, timer, record, randn)
@@ -757,29 +761,24 @@ def int_attention_inputs(randn, h, hkv, b=NC_B, t=NC_T, d=128):
     return q, k, v.transpose(1, 2).contiguous(), v_s.transpose(1, 2).contiguous()
 
 
-def check_no_cache(dev, gen, timer, record, randn) -> None:
-    """Phase 3 for the no-cache forward's kernels at B = 4, T = 1024:
-    int8_flash_attention (the v_scale form: integer probabilities bit-exact
-    through the kernel's debug output, f32 output within RTOL/ATOL; the
-    int32 form bit-exact) and flash_attention (``check_flash_attention``)
-    at codeqwen1.5-7b's and starcoder2-3b's heads and at zamba2-2.7b's head
-    dim 80 (ROADMAP C7), and int_softmax on
-    [4096, 1024] int32 rows without and with a mask and with rows spread
-    far past 30*q_ln2 (bit-exact).  Bounds: bytes over 3.35 TB/s against the
-    operations — QK^T at the int8 rate and PV at the f32 rate for the
-    integer attention, both products at the bf16 rate for flash_attention,
-    about 15 integer operations per element at the f32 rate for the
-    softmax — each pair counted once over the causal triangle."""
+def check_int8_attention(dev, gen, timer, record, randn) -> None:
+    """Phase 3 for int8_flash_attention at B = 4, T = 1024 (codeqwen1.5-7b's
+    and starcoder2-3b's heads and zamba2-2.7b's head dim 80, ROADMAP C7),
+    then at 4096 and 8192 keys (``check_streaming_attention``): the integer
+    probabilities (the kernel's debug output) and the int32 form bit-exact,
+    each recorded with its output (``--kernels`` digests them: equal to the
+    parent tree's); the f32 output of the v_scale form within RTOL/ATOL,
+    its max |d| reported.  Bounds: bytes over 3.35 TB/s against the
+    operations — QK^T at the int8 rate and PV at the f32 rate (the int32
+    form's PV at the int8 rate) — each pair counted once over the causal
+    triangle."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.int8_flash_attention import (
         ATOL, RTOL, int8_attention_probs_ref, int8_flash_attention,
         int8_flash_attention_ref)
-    from repro_torch.kernels.int_softmax import int_softmax_ref
     from repro_torch.models.attention import int_score_scale
     b, t = NC_B, NC_T
     pairs = t * (t + 1) // 2                        # causal (query, key) pairs
-
-    # -- 9. int8_flash_attention ----------------------------------------------
     for label, h, hkv, d in NC_HEADS:
         sc = int_score_scale(d)
         q, k, v, v_s = int_attention_inputs(randn, h, hkv, d=d)
@@ -792,6 +791,9 @@ def check_no_cache(dev, gen, timer, record, randn) -> None:
             raise AssertionError(f"{what}: {int((p_out.int() != probs).sum())}"
                                  f" integer probabilities differ from the "
                                  f"plain version's")
+        record("int8_flash_attention", f"probs {label} B={b} T={t} H={h} "
+               f"Hkv={hkv} D={d}", 0.0, True, 0.0, 0.0, None, (0.0, "bytes"),
+               "the debug output, not timed", p_out)
         del p_out, probs
 
         def run():
@@ -811,7 +813,8 @@ def check_no_cache(dev, gen, timer, record, randn) -> None:
                f"Hkv={hkv} D={d}", max_err(out, ref), False, timer(run),
                timer(plain, iters=3, warmup=1), None,
                bound(io + 4 * out.numel(),
-                     qk_ops * F32_OPS / INT8_OPS + qk_ops, F32_OPS))
+                     qk_ops * F32_OPS / INT8_OPS + qk_ops, F32_OPS),
+               None, out)
         del out, ref
         if label == "starcoder":
             continue
@@ -831,9 +834,21 @@ def check_no_cache(dev, gen, timer, record, randn) -> None:
                f"Hkv={hkv} D={d}", 0.0, True, timer(run32),
                timer(plain32, iters=3, warmup=1), None,
                bound(q.numel() + k.numel() + v.numel() + 4 * out.numel(),
-                     2 * qk_ops, INT8_OPS))
+                     2 * qk_ops, INT8_OPS), None, out)
         del out, ref
+    check_streaming_attention(dev, gen, timer, record, randn)
 
+
+def check_no_cache(dev, gen, timer, record, randn) -> None:
+    """Phase 3 for the no-cache forward's other kernels at B = 4, T = 1024:
+    flash_attention (``check_flash_attention``) at codeqwen1.5-7b's,
+    starcoder2-3b's and zamba2-2.7b's heads, and int_softmax on [4096, 1024]
+    int32 rows without and with a mask and with rows spread far past
+    30*q_ln2 (bit-exact; about 15 integer operations per element at the f32
+    rate against the bytes)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.int_softmax import int_softmax_ref
+    from repro_torch.models.attention import int_score_scale
     check_flash_attention(dev, gen, timer, record, randn)
 
     # -- 13. int_softmax --------------------------------------------------------
@@ -962,7 +977,7 @@ def check_ssd_scan(dev, gen, timer, record, randn) -> None:
                max(max_err(y, yr), max_err(st, sr)), False, timer(run),
                timer(plain, iters=3, warmup=1), None,
                bound(nbytes, n_ops, F32_OPS),
-               "no PyTorch call computes the SSD scan")
+               "no PyTorch call computes the SSD scan", bytes_of([y, st]))
 
 
 # the multi-row decode form (ROADMAP C3): a packed step of T rows per lane at
@@ -1059,20 +1074,22 @@ def check_decode_rows(dev, gen, timer, record, randn,
             torch.cuda.empty_cache()
 
 
-# int8_flash_attention's streaming form: (B, T, H, Hkv, D) of causal
-# sequences past the block form's keys — codeqwen1.5-7b's heads at the
-# 4096-token forward of phase 6, 8192 keys at fewer heads (the plain version
-# holds several [B, H, T, T] int32 tensors), and zamba2-2.7b's at head dim 80
+# int8_flash_attention at long causal sequences: (B, T, H, Hkv, D) —
+# codeqwen1.5-7b's heads at the 4096-token forward of phase 6, 8192 keys at
+# fewer heads (the plain version holds several [B, H, T, T] int32 tensors),
+# and zamba2-2.7b's at head dim 80; past 3328 keys, where the block form of
+# PRs 14-20 gave way to its streaming form
 STREAM_SHAPES = ((1, 4096, 32, 32, 128), (1, 8192, 4, 4, 128),
                  (1, 4096, 32, 32, 80))
 
 
 def check_streaming_attention(dev, gen, timer, record, randn) -> None:
-    """Phase 3 for int8_flash_attention's streaming form (taken past 3328
-    keys): the integer probabilities bit-exact through the debug output, the
-    f32 output within RTOL/ATOL, the int32 form bit-exact, and every launch
-    counted as streaming.  The bound counts QK^T once, as the block form
-    computes it."""
+    """Phase 3 for int8_flash_attention past 3328 keys: every launch counted
+    as streaming (the kernel's one form streams K three times at any key
+    count; a tree of PRs 15-20 takes its streaming form here), the integer
+    probabilities and the int32 form bit-exact (recorded with their
+    outputs for ``--kernels``' digests), the f32 output within RTOL/ATOL.
+    The bound counts QK^T once."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.common import LAUNCHES
     from repro_torch.kernels.int8_flash_attention import (
@@ -1085,6 +1102,7 @@ def check_streaming_attention(dev, gen, timer, record, randn) -> None:
             raise AssertionError(f"{t} keys should take the streaming form")
         q, k, v, v_s = int_attention_inputs(randn, h, hkv, b, t, d)
         what = f"int8_flash_attention streaming B={b} T={t} H={h} Hkv={hkv}"
+        shape = f"B={b} T={t} H={h} Hkv={hkv} D={d}"
         before = LAUNCHES["int8_flash_attention.streaming"]
         p_out = torch.empty((b, h, t, t), dtype=torch.int8, device=dev)
         out = int8_flash_attention(q, k, v, sc, v_scale=v_s, p_out=p_out)
@@ -1096,6 +1114,9 @@ def check_streaming_attention(dev, gen, timer, record, randn) -> None:
             raise AssertionError(f"{what}: {int((p_out.int() != probs).sum())}"
                                  f" integer probabilities differ from the "
                                  f"plain version's")
+        record("int8_flash_attention", f"streaming probs {shape}", 0.0, True,
+               0.0, 0.0, None, (0.0, "bytes"), "the debug output, not timed",
+               p_out)
         del p_out, probs
 
         def run():
@@ -1112,11 +1133,11 @@ def check_streaming_attention(dev, gen, timer, record, randn) -> None:
         pairs = t * (t + 1) // 2
         qk_ops = 2 * b * h * pairs * d
         io = q.numel() + k.numel() + v.numel() + 4 * v_s.numel()
-        record("int8_flash_attention", f"streaming v_scale B={b} T={t} H={h} "
-               f"Hkv={hkv} D={d}", max_err(out, ref), False, timer(run, iters=5),
+        record("int8_flash_attention", f"streaming v_scale {shape}",
+               max_err(out, ref), False, timer(run, iters=5),
                timer(plain, iters=2, warmup=1), None,
                bound(io + 4 * out.numel(), qk_ops * F32_OPS / INT8_OPS + qk_ops,
-                     F32_OPS))
+                     F32_OPS), None, out)
         del out, ref
         out, ref = ops.attention_i8(q, k, v, sc), int8_flash_attention_ref(
             q, k, v, sc)
@@ -1125,6 +1146,10 @@ def check_streaming_attention(dev, gen, timer, record, randn) -> None:
             raise AssertionError(f"{what} int32 form: {int((out != ref).sum())}"
                                  f" of {out.numel()} differ from the plain "
                                  f"version")
+        record("int8_flash_attention", f"streaming int32 {shape}", 0.0, True,
+               timer(lambda: ops.attention_i8(q, k, v, sc), iters=5), 0.0,
+               None, bound(io - 4 * v_s.numel() + 4 * out.numel(), 2 * qk_ops,
+                           INT8_OPS), "plain version not timed", out)
         del out, ref, q, k, v, v_s
         torch.cuda.empty_cache()
 
@@ -1640,7 +1665,10 @@ KERNEL_CASES = {"quantize_rows": (check_quantize_rows, ("quantize",)),
                                              ("int8_kv_decode_attention",)),
                 "paged_decode_attention": (check_paged_decode,
                                            ("paged_decode_attention",
-                                            "int8_kv_decode_attention"))}
+                                            "int8_kv_decode_attention")),
+                "int8_flash_attention": (check_int8_attention,
+                                         ("int8_flash_attention",)),
+                "ssd_scan": (check_ssd_scan, ("ssd_scan",))}
 
 
 # ---------------------------------------------------------------------------
@@ -2417,7 +2445,7 @@ def layer_counts(cfg) -> tuple[int, int]:
             sum(k == "mamba2" for k in kinds))
 ACT_KERNEL = dict(REDUCED_MIXED)
 # the w8a8 forwards profiled beside every bf16 and w4a8 one
-PROFILED_W8A8 = ("codeqwen1.5-7b", "starcoder2-3b")
+PROFILED_W8A8 = ("codeqwen1.5-7b", "starcoder2-3b", "zamba2-2.7b")
 CAL_B, CAL_T = 2, 128                      # calibration set: 2 x 128 tokens
 LONG_T = 4096          # one codeqwen w8a8 sequence past the block form's keys
 
@@ -2428,9 +2456,11 @@ def no_cache_loss(params, cfg, dev, tokens, profiled: bool,
     (the last position masked): the loss, wall time, tokens/s, peak memory
     and the launches of the forward (zeroed just before, read just after);
     the attention kernel must have launched exactly once per attention
-    layer, in the streaming form exactly when the sequence is past the block
-    form's keys, ssd_scan once per Mamba-2 layer, and ``act_kernel`` once
-    per layer where given.  With ``profiled``, a second forward under
+    layer, each int8 launch counted as streaming where the tree's
+    ``streams`` says so (every launch since PR 21's one form; in a tree of
+    PRs 15-20 exactly when the sequence is past the block form's keys),
+    ssd_scan once per Mamba-2 layer, and ``act_kernel`` once per layer where
+    given.  With ``profiled``, a second forward under
     torch.profiler."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.common import LAUNCHES
@@ -2565,12 +2595,12 @@ def cal_only(dev, seed) -> dict:
 
 
 def lm_only(dev, seed) -> dict:
-    """Phase 6's W8A8 ``lm_loss`` of codeqwen1.5-7b and starcoder2-3b (NC_B
-    x NC_T tokens), each timed and then profiled: the forwards where
-    int8_gemm takes most of the device time, what two trees are compared
-    on."""
+    """Phase 6's W8A8 ``lm_loss`` of codeqwen1.5-7b, starcoder2-3b and
+    zamba2-2.7b (NC_B x NC_T tokens), each timed and then profiled: the
+    forwards where int8_gemm, int8_flash_attention and ssd_scan take their
+    device time, what two trees are compared on."""
     out = {}
-    for arch in ("codeqwen1.5-7b", "starcoder2-3b"):
+    for arch in ("codeqwen1.5-7b", "starcoder2-3b", "zamba2-2.7b"):
         out.update(no_cache_full(dev, seed, arch, ("w8a8",), False, False))
     return out
 
@@ -2739,12 +2769,20 @@ def int_library_entry(dev, seed) -> dict:
 
 
 # kernels whose device ms every profile reports (summed over the CUDA
-# functions whose names hold ``<kernel>_kernel``): those redesigned for
-# Hopper — the tensor-core GEMMs, flash_attention, both decode attentions
+# functions whose names hold ``<kernel>_kernel``, or the pattern
+# ``PROFILED_NAMES`` gives): those redesigned for Hopper — the tensor-core
+# GEMMs, flash_attention, both decode attentions, the norm and quantize
+# kernels, int8_flash_attention (``int8_attention_kernel``, and the
+# ``int8_attention_stream_kernel`` of trees before PR 21: never
+# flash_attention's) and ssd_scan (its four ``ssd_scan_*`` kernels, and the
+# ``ssd_scan_kernel`` of trees before PR 21)
 PROFILED_KERNELS = ("int4_gemm", "flash_attention", "dual_gemm_gated",
                     "dual_int4_gemm_gated", "int8_gemm",
                     "int8_kv_decode_attention", "paged_decode_attention",
-                    "quantize_rows", "int_layernorm")
+                    "quantize_rows", "int_layernorm", "int8_flash_attention",
+                    "ssd_scan")
+PROFILED_NAMES = {"int8_flash_attention": "int8_attention_",
+                  "ssd_scan": "ssd_scan_"}
 # the host's CUDA runtime calls that wait for the card (a pageable copy is
 # ``cudaMemcpyAsync`` then ``cudaStreamSynchronize``)
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -2776,7 +2814,8 @@ def profile_summary(prof, wall_ms: float) -> dict:
             "device_kernels": kernels, "sync_calls": syncs,
             "top_kernels_ms": dict(top),
             "kernel_ms": {k: sum(v for name, v in by_name.items()
-                                 if f"{k}_kernel" in name)
+                                 if PROFILED_NAMES.get(k, f"{k}_kernel")
+                                 in name)
                           for k in PROFILED_KERNELS}}
 
 

@@ -3,6 +3,8 @@
 
     python3 scripts/chip_probe.py tiles    # int8_gemm's tilings
     python3 scripts/chip_probe.py decode   # variants of the decode body
+    python3 scripts/chip_probe.py ablate   # where int8_flash_attention's
+                                           # and ssd_scan's time goes
 
 ``tiles`` times int8_gemm (the ``scaled`` epilogue, GELU on starcoder2-3b's
 up-projection) at starcoder2-3b's and codeqwen1.5-7b's W8A8 projections and
@@ -17,6 +19,15 @@ bounds ask for) into ``build/probe_decode/`` and times each
 at codeqwen1.5-7b's (G = 1) and starcoder2-3b's (G = 12) heads over 8 lanes
 of 1024 slots, at T = 1 and in the T = 256 multi-row form; every variant's
 output must equal the committed source's.
+
+``ablate`` rebuilds ``csrc/int8_flash_attention.cu`` and ``csrc/ssd_scan.cu``
+with one part of the work taken out (``ABLATIONS``: a textual edit of the
+source each) into ``build/probe_ablate/`` and times every CUDA kernel of a
+call under torch.profiler (ten calls): int8_flash_attention at
+codeqwen1.5-7b's [4, 32, 1024, 128] with v_scale and in its int32 form,
+ssd_scan at zamba2-2.7b's [4, 1024, 80] x (64, 64).  An ablated variant's
+output is wrong by design; ``full`` (no edit) must equal the committed
+build's output.
 
 Times: CUDA events over ten launches with a cold L2 (``chip_smoke.Timer``).
 Prints one line a shape or variant; needs nvcc and one card.
@@ -173,9 +184,114 @@ def decode() -> None:
         print(f"{name:10s} " + " | ".join(line) + f" [{'; '.join(regs)}]", flush=True)
 
 
+# (source, variant, [(text, replacement), ...]): the work each variant drops
+ABLATIONS = (
+    ("int8_flash_attention", "full", []),
+    ("int8_flash_attention", "no PV FMAs", [
+        ("        while (todo != 0u) {", "        todo = 0u; while (todo != 0u) {")]),
+    ("int8_flash_attention", "every key (no mask)", [
+        ("        while (todo != 0u) {", "        todo = ~0u; while (todo != 0u) {")]),
+    ("int8_flash_attention", "no V dequant", [
+        ("if constexpr (VS) {                  // the V tile", "if (kt < 0) {  //")]),
+    ("int8_flash_attention", "no integer exp", [
+        ("  const int qs = max(s - m, NEG_INF);\n  const int z",
+         "  return (s - m) & 127;\n  const int qs = max(s - m, NEG_INF);\n  const int z")]),
+    ("ssd_scan", "full", []),
+    ("ssd_scan", "no W exp", [
+        ("expf(static_cast<float>(ck[i] - cj)) * dj;", "dj;")]),
+    ("ssd_scan", "no y products", [
+        ("    for (int j = 0; j < j1; ++j)\n", "    for (int j = 0; j < 0; ++j)\n"),
+        ("    for (int j = j1; j < j2; ++j) {", "    for (int j = j1; j < j1; ++j) {"),
+        ("      for (int n = 0; n < N; ++n)\n        fma8", "      for (int n = 0; n < 0; ++n)\n        fma8")]),
+)
+
+
+def build_ablation(source, name, edits):
+    from repro_torch.kernels import build
+    work = ROOT / "build/probe_ablate" / f"{source}-{name.replace(' ', '_')}"
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.copytree(ROOT / "src/repro_torch/kernels/csrc", work)
+    t = (work / f"{source}.cu").read_text()
+    for old, new in edits:
+        if old not in t:
+            raise RuntimeError(f"{source}.cu no longer has {old!r}")
+        t = t.replace(old, new)
+    (work / f"{source}.cu").write_text(t)
+    so = work / "probe.so"
+    r = subprocess.run([build.nvcc_path(), *build.FLAGS, "-o", str(so),
+                        str(work / f"{source}.cu")], capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"{source} {name}: nvcc failed\n{r.stdout}{r.stderr}")
+    return source, name, ctypes.CDLL(str(so))
+
+
+def ablate() -> None:
+    import chip_smoke as cs
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import build, ops
+    from repro_torch.models.attention import int_score_scale
+    with ThreadPoolExecutor(len(ABLATIONS)) as ex:
+        libs = list(ex.map(lambda a: build_ablation(*a), ABLATIONS))
+    committed, current = build.entry, {}
+
+    def entry(name, symbol, argtypes):
+        if name != current["source"]:            # the inputs' own kernels
+            return committed(name, symbol, argtypes)
+        fn = getattr(current["lib"], symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        return fn
+    build.entry = entry
+    current["source"] = None
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    randn = cs.randn_on(dev, gen)
+    q, k, v, v_s = cs.int_attention_inputs(randn, 32, 32)
+    sc = int_score_scale(128)
+    x = randn(cs.Z_B, cs.Z_T, cs.Z_H, cs.Z_P)
+    dt = torch.nn.functional.softplus(randn(cs.Z_B, cs.Z_T, cs.Z_H) - 1.0)
+    a = -torch.linspace(1.0, 16.0, cs.Z_H, device=dev)
+    bm, cm = randn(cs.Z_B, cs.Z_T, cs.Z_N), randn(cs.Z_B, cs.Z_T, cs.Z_N)
+    calls = {"int8_flash_attention": (
+                ("v_scale", lambda: ops.attention_i8(q, k, v, sc, v_scale=v_s)),
+                ("int32", lambda: ops.attention_i8(q, k, v, sc))),
+             "ssd_scan": (("N=64", lambda: ops.ssd_scan(x, dt, a, bm, cm)),)}
+    ref = {}
+    for source, name, lib in libs:
+        current.update(lib=lib, source=source)
+        build._ENTRIES.clear()
+        line = []
+        for label, fn in calls[source]:
+            out = fn()
+            if name == "full":
+                ref[label] = out
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    fn()
+                torch.cuda.synchronize()
+            ms = {e.key.split("<")[0].split("::")[-1].split("(")[0]:
+                  (getattr(e, "self_device_time_total", 0)
+                   or getattr(e, "self_cuda_time_total", 0)) / 1e4
+                  for e in prof.key_averages()
+                  if e.key.split("<")[0].split("::")[-1].startswith(
+                      ("int8_attention", "ssd_scan"))}
+            line.append(f"{label} {sum(ms.values()):.4f} ms ("
+                        + ", ".join(f"{kn} {t:.4f}" for kn, t in ms.items()) + ")")
+        print(f"{source} {name:20s} " + " | ".join(line), flush=True)
+    # the committed build's output against the unedited copy's
+    build._ENTRIES.clear()
+    build.entry = committed
+    for label, fn in (*calls["int8_flash_attention"], *calls["ssd_scan"]):
+        got = fn()
+        got, want = (got[0], ref[label][0]) if isinstance(got, tuple) else (got, ref[label])
+        if not torch.equal(got, want):
+            raise AssertionError(f"ablate: the unedited copy's {label} output differs")
+
+
 if __name__ == "__main__":
-    if len(sys.argv) != 2 or sys.argv[1] not in ("tiles", "decode"):
+    if len(sys.argv) != 2 or sys.argv[1] not in ("tiles", "decode", "ablate"):
         sys.exit(__doc__)
     if not torch.cuda.is_available():
         sys.exit("chip_probe: no CUDA device")
-    {"tiles": tiles, "decode": decode}[sys.argv[1]]()
+    {"tiles": tiles, "decode": decode, "ablate": ablate}[sys.argv[1]]()

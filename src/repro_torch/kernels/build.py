@@ -35,6 +35,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 VP = ctypes.c_void_p  # every pointer and the stream
 I = ctypes.c_int
+U = ctypes.c_uint
 F = ctypes.c_float
 
 _LIBS: dict[str, ctypes.CDLL] = {}

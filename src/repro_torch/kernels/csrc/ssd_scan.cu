@@ -10,232 +10,420 @@
 // Replaces the Pallas kernel ``repro/kernels/ssd_scan.py`` ``ssd_scan``
 // (body ``_kernel``), whose grid (B*H, chunks) walks the chunks of one head in
 // order with the (N, P) state in VMEM scratch, and whose test broadcasts B and
-// C over the heads.  Bound on the H100: operations — per (lane, head, chunk)
-// about 4 MFLOP of f32 products (the L x L weights' C.B^T, the weights times
-// x, C times the state, the state update) against 96 KB of x, B, C read and
-// 32 KB of y written; f32 on the CUDA cores (TF32 tensor cores would not keep
-// the reference's 3e-4).
+// C over the heads.  Bound on the H100: operations — per (lane, chunk) C.B^T
+// over the causal triangle, per (lane, head, chunk) the weights times x over
+// the triangle, C times the state and the chunk's own state (about 3.2 MFLOP
+// of f32 products) against 96 KB of x, B, C read and 32 KB of y written;
+// f32 on the CUDA cores (TF32 tensor cores would not keep the reference's
+// 3e-4; 3xTF32 is not used).
 //
-// Design: one block of 256 threads per (lane, head) carries the state through
-// the chunks of its sequence in shared memory — the TPU grid's sequential
-// chunk axis becomes a loop inside the block.  Per chunk the block stages the
-// x tile [L][P], the lane's B and C tiles [L][N+1] (rows padded so that the 16
-// rows a warp reads sit in distinct banks) and dt; warp 0 forms cum with a
-// shuffle scan; each thread then computes an 8 x 8 patch of the weights
-// W = (C.B^T) o exp(cum_i - cum_j) o dt_j (zero above the diagonal, where the
-// reference masks the exponent to -1e30), an 8 x P/16 patch of y (the
-// intra-chunk product stops at the thread's last row) plus exp(cum_i) C_i.H,
-// and an N/16 x P/16 patch of the new state.  Shared memory at P = N = 64:
-// 184 KB, one block per SM; B = 4 lanes x 80 heads of zamba2-2.7b are 320
-// blocks.  ``expf`` and IEEE division, no fast math; sums run in other orders
-// than the reference's einsums, so the kernel agrees with the plain version
-// within rtol = atol = 3e-4 (the reference's own tolerance for its kernel).
+// What held the first form (PR 16, one block per (lane, head) carrying the
+// state through the chunks) at 7.9x its bound: C.B^T formed again for every
+// head (about 40% of its FMAs), 320 blocks of 184 KB on 132 SMs (3 waves,
+// the last 42% full, 8 warps an SM), five barrier-separated phases per chunk
+// behind synchronous loads.
+//
+// Design: the decomposition the plain version writes out (``ssd_scan_ref``),
+// in four kernels of one launch, all named ``ssd_scan_*``:
+// 1. ``ssd_scan_cb``: C.B^T once per (lane, chunk) over the triangle j <= i,
+//    into a scratch cbt[j][i] (4 x 8 tiles of 128 x 128 at zamba2-2.7b, 2 MB:
+//    it stays in L2 for kernel 4);
+// 2. ``ssd_scan_state``: per (lane, chunk, group of 5 heads) each chunk's own
+//    state sum_j exp(cum_L - cum_j) dt_j B_j x_j^T (x scaled in shared memory,
+//    then a register-blocked product, 4 x 4 outputs a thread) and the chunk's
+//    decay exp(cum_L) — 512 blocks at zamba2's shape, two an SM, the next
+//    head's x copied (``cp.async``) while this one's product runs;
+// 3. ``ssd_scan_pass``: the sequential pass over the chunk states, elementwise
+//    over (lane, head, N x P): H_c = exp(cum_L) H_{c-1} + S_c, each chunk's
+//    state replaced in place by the state before it; the final state out;
+// 4. ``ssd_scan_y``: per (lane, chunk, group of 4 heads) y = exp(cum_i) C_i .
+//    H_{c-1} + W x, W = C.B^T o exp(cum_i - cum_j) o dt_j formed per head in
+//    shared memory from kernel 1's tile, staged once a block (8256 ``expf``
+//    a head; the upper triangle is zeroed once a block).  A thread owns 4
+//    columns of rows [4r, 4r + 4) and [124 - 4r, 128 - 4r): every warp does
+//    the same number of FMAs over the triangle.  640 blocks of 221 KB, one
+//    an SM; a head's x and state arrive (``cp.async``) while its W forms.
+// ``cum`` is one f64 warp scan (``chunk_cum``) shared by kernels 2 and 4,
+// so both see the same values.  ``expf`` and IEEE arithmetic, no fast math; sums run
+// in other orders than the reference's einsums, so the kernel agrees with the
+// plain version within rtol = atol = 3e-4 (the reference's own tolerance for
+// its kernel).  The wrapper allocates the scratch (``ssd_scan.scratch_floats``).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "warp_mma.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int L = 128;   // steps per chunk
+constexpr int L = 128;       // steps per chunk
+constexpr int LW = L + 4;    // a padded row of L floats (16-byte aligned)
+constexpr int HG_STATE = 5;  // heads per block of ssd_scan_state
+constexpr int HG_Y = 4;      // heads per block of ssd_scan_y
 
+// cum[l] = sum_{l' <= l} dt[l'] * a over a chunk, in f64, by one warp: each
+// lane sums 4 steps, then a shuffle scan of the lanes' sums.  f64 because
+// the weights take exp(cum_i - cum_j) of two sums that reach -300 and more
+// within a chunk: an f32 cumsum's rounding (about 1e-3 there) moved y by
+// up to 0.003 where its terms cancel; the f64 difference, rounded once to
+// f32, is what ``expf`` sees
+__device__ __forceinline__ void chunk_cum(const float* dts, float a, double* cum) {
+  const int lane = threadIdx.x & 31;
+  double v[L / 32], run = 0.0;
+#pragma unroll
+  for (int k = 0; k < L / 32; ++k) {
+    run += static_cast<double>(dts[lane * (L / 32) + k]) * a;
+    v[k] = run;
+  }
+  double tot = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double up = __shfl_up_sync(0xffffffffu, tot, o);
+    if (lane >= o) tot += up;
+  }
+  double excl = __shfl_up_sync(0xffffffffu, tot, 1);
+  if (lane == 0) excl = 0.0;
+#pragma unroll
+  for (int k = 0; k < L / 32; ++k) cum[lane * (L / 32) + k] = excl + v[k];
+}
+
+// dt of the chunk's heads h0 .. h0 + hg - 1 into dts[k][l]; then warp k's
+// scan of head h0 + k into cum[k][l] (one warp per head, hg <= 8); ends
+// synchronized
+__device__ __forceinline__ void group_cum(const float* __restrict__ dt,
+                                          const float* __restrict__ a, size_t t0, int h_n,
+                                          int h0, int hg, float* dts, double* cum) {
+  for (int e = threadIdx.x; e < L * hg; e += THREADS) {
+    const int l = e / hg, k = e % hg;
+    dts[k * L + l] = dt[(t0 + l) * h_n + h0 + k];
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  if (warp < hg) chunk_cum(dts + warp * L, a[h0 + warp], cum + warp * L);
+  __syncthreads();
+}
+
+// 1. cbt[j][i] = C_i . B_j for j <= i; a block per (lane x chunk, 16
+// columns j0 .. j0 + 15); thread: row i = tid % L, columns
+// j0 + 8 * (tid / L) + r, r < 8 (writes coalesced over i)
+template <int N>
+__global__ void __launch_bounds__(THREADS)
+ssd_scan_cb(const float* __restrict__ bm, const float* __restrict__ cm,
+            float* __restrict__ cbt) {
+  __shared__ float cs[L][N + 1];      // C of the chunk, rows padded
+  __shared__ float bs[16][N];         // the block's 16 rows of B
+  const int tid = threadIdx.x;
+  const size_t t0 = static_cast<size_t>(blockIdx.x) * L;   // (lane, chunk) = row of step 0
+  const int j0 = 16 * blockIdx.y;
+  for (int e = tid; e < L * N; e += THREADS) cs[e / N][e % N] = cm[t0 * N + e];
+  for (int e = tid; e < 16 * N; e += THREADS) bs[e / N][e % N] = bm[(t0 + j0) * N + e];
+  __syncthreads();
+  const int i = tid % L, jb = 8 * (tid / L);
+  if (i < j0) return;                   // row i has no column j >= j0 with j <= i
+  float acc[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) acc[r] = 0.0f;
+#pragma unroll 8
+  for (int n = 0; n < N; ++n) {
+    const float c = cs[i][n];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) acc[r] = fmaf(c, bs[jb + r][n], acc[r]);
+  }
+  float* out = cbt + static_cast<size_t>(blockIdx.x) * L * L;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int j = j0 + jb + r;
+    if (j <= i) out[j * L + i] = acc[r];
+  }
+}
+
+// 2. each chunk's own state and decay, per (lane x chunk, group of HG_STATE
+// heads).  Thread: state rows n0 .. n0 + RN - 1 (n0 = RN * (tid / 16)),
+// columns 4 * (tid % 16) .. + 3
 template <int P, int N>
-struct Layout {          // shared memory, in floats
-  static constexpr int BN = N + 1;   // padded B / C row
-  static constexpr int LW = L + 1;   // padded weight row
-  static constexpr int X = L * P;
-  static constexpr int BC = L * BN;
-  static constexpr int S = N * P;
-  static constexpr int W = L * LW;
-  static constexpr int TOTAL = X + 2 * BC + S + W + 4 * L;
+__global__ void __launch_bounds__(THREADS, 2)
+ssd_scan_state(const float* __restrict__ x, const float* __restrict__ dt,
+               const float* __restrict__ a, const float* __restrict__ bm,
+               float* __restrict__ states, float* __restrict__ dec, int h_n) {
+  static_assert(P == 64 && N % 16 == 0, "16 x 16 threads of RN x 4 outputs");
+  constexpr int RN = N / 16;
+  extern __shared__ __align__(16) float smem[];
+  double* cum = reinterpret_cast<double*>(smem);   // [HG][L]
+  float* bs = smem + 2 * HG_STATE * L;              // [L][N]
+  float* xs = bs + L * N;             // [2][L][P] x of a head, then scaled
+  float* dts = xs + 2 * L * P;        // [HG][L]
+  float* wj = dts + HG_STATE * L;     // [L] exp(cum_L - cum_j) dt_j
+  const int tid = threadIdx.x;
+  const int bc = blockIdx.x, h0 = blockIdx.y * HG_STATE;
+  const int hg = min(HG_STATE, h_n - h0);
+  const size_t t0 = static_cast<size_t>(bc) * L;
+  auto load_x = [&](int k) {          // x of head h0 + k into buffer k & 1
+    float* dst = xs + (k & 1) * L * P;
+    for (int e = tid; e < L * P / 4; e += THREADS) {
+      const int l = e / (P / 4), c = e % (P / 4);
+      wmma::cp_async_16(dst + l * P + 4 * c, x + ((t0 + l) * h_n + h0 + k) * P + 4 * c, 16);
+    }
+    wmma::cp_async_commit();
+  };
+  load_x(0);
+  for (int e = tid; e < L * N / 4; e += THREADS)
+    reinterpret_cast<float4*>(bs)[e] = reinterpret_cast<const float4*>(bm + t0 * N)[e];
+  group_cum(dt, a, t0, h_n, h0, hg, dts, cum);
+  const int n0 = RN * (tid / 16), p0 = 4 * (tid % 16);
+  for (int k = 0; k < hg; ++k) {
+    const double* ck = cum + k * L;
+    if (k + 1 < hg) load_x(k + 1);
+    for (int l = tid; l < L; l += THREADS)
+      wj[l] = expf(static_cast<float>(ck[L - 1] - ck[l])) * dts[k * L + l];
+    if (tid == 0)
+      dec[static_cast<size_t>(bc) * h_n + h0 + k] = expf(static_cast<float>(ck[L - 1]));
+    if (k + 1 < hg)
+      wmma::cp_async_wait<1>();
+    else
+      wmma::cp_async_wait<0>();
+    __syncthreads();                  // x of head k and wj
+    float* xk = xs + (k & 1) * L * P;
+    for (int e = tid; e < L * P / 4; e += THREADS) {
+      float4 v = reinterpret_cast<float4*>(xk)[e];
+      const float w = wj[e / (P / 4)];
+      v.x *= w, v.y *= w, v.z *= w, v.w *= w;
+      reinterpret_cast<float4*>(xk)[e] = v;
+    }
+    __syncthreads();
+    float acc[RN][4];
+#pragma unroll
+    for (int r = 0; r < RN; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
+#pragma unroll 4
+    for (int j = 0; j < L; ++j) {
+      const float4 xv = *reinterpret_cast<const float4*>(xk + j * P + p0);
+      float bv[RN];
+      if constexpr (RN == 4) {
+        const float4 b4 = *reinterpret_cast<const float4*>(bs + j * N + n0);
+        bv[0] = b4.x, bv[1] = b4.y, bv[2] = b4.z, bv[3] = b4.w;
+      } else {
+#pragma unroll
+        for (int r = 0; r < RN; ++r) bv[r] = bs[j * N + n0 + r];
+      }
+#pragma unroll
+      for (int r = 0; r < RN; ++r) {
+        acc[r][0] = fmaf(bv[r], xv.x, acc[r][0]);
+        acc[r][1] = fmaf(bv[r], xv.y, acc[r][1]);
+        acc[r][2] = fmaf(bv[r], xv.z, acc[r][2]);
+        acc[r][3] = fmaf(bv[r], xv.w, acc[r][3]);
+      }
+    }
+    float* sk = states + (static_cast<size_t>(bc) * h_n + h0 + k) * N * P;
+#pragma unroll
+    for (int r = 0; r < RN; ++r)
+      *reinterpret_cast<float4*>(sk + (n0 + r) * P + p0) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    __syncthreads();                  // buffer k & 1 and wj are free
+  }
+}
+
+// 3. the pass over the chunk states, one float4 of (lane, head) a thread:
+// states[c] becomes the state before chunk c; the final state to h_out
+__global__ void __launch_bounds__(THREADS)
+ssd_scan_pass(float* __restrict__ states, const float* __restrict__ dec,
+              float* __restrict__ h_out, int nc, int h_n, int np4, int total) {
+  const int e = blockIdx.x * THREADS + threadIdx.x;
+  if (e >= total) return;
+  const int q = e % np4, bh = e / np4, hh = bh % h_n, b = bh / h_n;
+  float4 hcur = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = 0; c0 < nc; c0 += 8) {   // 8 chunks' loads in flight at once
+    float4 s[8];
+    float d[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (c0 + u >= nc) break;
+      const size_t row = static_cast<size_t>(b * nc + c0 + u) * h_n + hh;
+      s[u] = reinterpret_cast<const float4*>(states)[row * np4 + q];
+      d[u] = dec[row];
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (c0 + u >= nc) break;
+      const size_t row = static_cast<size_t>(b * nc + c0 + u) * h_n + hh;
+      reinterpret_cast<float4*>(states)[row * np4 + q] = hcur;
+      hcur = make_float4(fmaf(d[u], hcur.x, s[u].x), fmaf(d[u], hcur.y, s[u].y),
+                         fmaf(d[u], hcur.z, s[u].z), fmaf(d[u], hcur.w, s[u].w));
+    }
+  }
+  reinterpret_cast<float4*>(h_out)[static_cast<size_t>(bh) * np4 + q] = hcur;
+}
+
+// shared memory of ssd_scan_y (floats): cum (f64) of the group, the chunk's
+// C.B^T tile, W^T, C^T, x and the state of one head, dt and exp(cum) of the
+// group
+template <int P, int N>
+struct YLay {
+  static constexpr int CB = L * LW, CT = N * LW, X = L * P, S = N * P;
+  static constexpr int TOTAL = 2 * HG_Y * L + 2 * CB + CT + X + S + 2 * HG_Y * L;
 };
 
+// 4. y per (lane x chunk, group of HG_Y heads).  Thread: columns
+// p0 .. p0 + 3 (p0 = 4 * (lane & 15)) of rows [4r, 4r + 4) and
+// [124 - 4r, 128 - 4r), r = 2 * warp + (lane >> 4)
 template <int P, int N>
-__global__ void __launch_bounds__(THREADS)
-ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ a, const float* __restrict__ bm,
-                const float* __restrict__ cm, float* __restrict__ y,
-                float* __restrict__ h_out, int t_len, int h_n) {
-  using Lay = Layout<P, N>;
-  constexpr int BN = Lay::BN, LW = Lay::LW, PC = P / 16, NR = N / 16;
+__global__ void __launch_bounds__(THREADS, 1)
+ssd_scan_y(const float* __restrict__ x, const float* __restrict__ dt,
+           const float* __restrict__ a, const float* __restrict__ cm,
+           const float* __restrict__ cbt, const float* __restrict__ states,
+           float* __restrict__ y, int nc, int h_n) {
+  static_assert(P == 64, "16 column groups of 4");
+  using Y = YLay<P, N>;
   extern __shared__ __align__(16) float smem[];
-  float* xs = smem;              // [L][P]   x of the chunk
-  float* bs = xs + Lay::X;       // [L][BN]  B of the chunk
-  float* cs = bs + Lay::BC;      // [L][BN]  C of the chunk
-  float* hs = cs + Lay::BC;      // [N][P]   the state
-  float* ws = hs + Lay::S;       // [L][LW]  intra-chunk weights
-  float* cum = ws + Lay::W;      // [L]      in-chunk cumsum of dt * A
-  float* dts = cum + L;          // [L]      dt
-  float* ecum = dts + L;         // [L]      exp(cum_i)
-  float* wj = ecum + L;          // [L]      exp(cum_L - cum_j) dt_j
-
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int b = blockIdx.x / h_n, hh = blockIdx.x % h_n;
-  const float a_h = a[hh];
-  const int t16 = tid / 16, c16 = tid % 16;   // the thread's patch row and column
-  for (int i = tid; i < N * P; i += THREADS) hs[i] = 0.0f;
-
-  for (int c0 = 0; c0 < t_len; c0 += L) {
-    const size_t t0 = static_cast<size_t>(b) * t_len + c0;   // (lane, step) row of step 0
-    // 1. the chunk's tiles (the previous chunk's readers passed its last barrier)
-    for (int i = tid; i < L * P; i += THREADS) {
-      const int l = i / P, p = i % P;
-      xs[i] = x[((t0 + l) * h_n + hh) * P + p];
+  double* cum = reinterpret_cast<double*>(smem);   // [HG][L]
+  float* cbs = smem + 2 * HG_Y * L;   // [L][LW] the chunk's C.B^T: cbs[j][i]
+  float* wt = cbs + Y::CB;            // [L][LW] W^T of a head: wt[j][i]
+  float* ct = wt + Y::CB;             // [N][LW] C^T
+  float* xs = ct + Y::CT;             // [L][P]
+  float* hs = xs + Y::X;              // [N][P] the state before the chunk
+  float* dts = hs + Y::S;             // [HG][L]
+  float* ecum = dts + HG_Y * L;       // [HG][L] exp(cum)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bc = blockIdx.x, c = bc % nc, h0 = blockIdx.y * HG_Y;
+  const int hg = min(HG_Y, h_n - h0);
+  const size_t t0 = static_cast<size_t>(bc) * L;
+  const bool inter = c > 0;           // chunk 0 starts from a zero state
+  auto load = [&](int k) {            // x and state of head h0 + k
+    for (int e = tid; e < L * P / 4; e += THREADS) {
+      const int l = e / (P / 4), q = e % (P / 4);
+      wmma::cp_async_16(xs + l * P + 4 * q, x + ((t0 + l) * h_n + h0 + k) * P + 4 * q, 16);
     }
-    for (int i = tid; i < L * N; i += THREADS) {
-      const int l = i / N, n = i % N;
-      bs[l * BN + n] = bm[(t0 + l) * N + n];
-      cs[l * BN + n] = cm[(t0 + l) * N + n];
+    if (inter) {
+      const float* sg = states + (static_cast<size_t>(bc) * h_n + h0 + k) * N * P;
+      for (int e = tid; e < N * P / 4; e += THREADS) wmma::cp_async_16(hs + 4 * e, sg + 4 * e, 16);
     }
-    for (int l = tid; l < L; l += THREADS) dts[l] = dt[(t0 + l) * h_n + hh];
-    __syncthreads();
-    // 2. cum: each lane of warp 0 sums 4 steps, then a shuffle scan of the sums
-    if (tid < 32) {
-      float v[L / 32], run = 0.0f;
-#pragma unroll
-      for (int k = 0; k < L / 32; ++k) {
-        run += dts[lane * (L / 32) + k] * a_h;
-        v[k] = run;
-      }
-      float tot = run;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float up = __shfl_up_sync(0xffffffffu, tot, o);
-        if (lane >= o) tot += up;
-      }
-      float excl = __shfl_up_sync(0xffffffffu, tot, 1);
-      if (lane == 0) excl = 0.0f;
-#pragma unroll
-      for (int k = 0; k < L / 32; ++k) cum[lane * (L / 32) + k] = excl + v[k];
+    wmma::cp_async_commit();
+  };
+  {                                   // kernel 1's tile (rows j, columns i >= j used)
+    const float* tile = cbt + static_cast<size_t>(bc) * L * L;
+    for (int e = tid; e < L * L / 4; e += THREADS) {
+      const int j = e / (L / 4), q = e % (L / 4);
+      wmma::cp_async_16(cbs + j * LW + 4 * q, tile + j * L + 4 * q, 16);
     }
-    __syncthreads();
-    for (int l = tid; l < L; l += THREADS) {
-      ecum[l] = expf(cum[l]);
-      wj[l] = expf(cum[L - 1] - cum[l]) * dts[l];
-    }
-    // 3. the weights: rows t16*8 + r, columns c16 + 16*k
-    {
-      float acc[8][8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int k = 0; k < 8; ++k) acc[r][k] = 0.0f;
-#pragma unroll 4
-      for (int n = 0; n < N; ++n) {
-        float cv[8], bv[8];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) cv[r] = cs[(t16 * 8 + r) * BN + n];
-#pragma unroll
-        for (int k = 0; k < 8; ++k) bv[k] = bs[(c16 + 16 * k) * BN + n];
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-#pragma unroll
-          for (int k = 0; k < 8; ++k) acc[r][k] = fmaf(cv[r], bv[k], acc[r][k]);
-      }
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const int i = t16 * 8 + r;
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int j = c16 + 16 * k;
-          ws[i * LW + j] = j <= i ? acc[r][k] * expf(cum[i] - cum[j]) * dts[j] : 0.0f;
-        }
-      }
-    }
-    __syncthreads();
-    // 4. y: rows t16*8 + r, columns c16 + 16*k
-    {
-      float acc[8][PC], ch[8][PC];
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int k = 0; k < PC; ++k) acc[r][k] = 0.0f, ch[r][k] = 0.0f;
-      const int j_end = t16 * 8 + 8;   // weights past the thread's last row are 0
-      for (int j = 0; j < j_end; ++j) {
-        float wv[8], xv[PC];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) wv[r] = ws[(t16 * 8 + r) * LW + j];
-#pragma unroll
-        for (int k = 0; k < PC; ++k) xv[k] = xs[j * P + c16 + 16 * k];
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-#pragma unroll
-          for (int k = 0; k < PC; ++k) acc[r][k] = fmaf(wv[r], xv[k], acc[r][k]);
-      }
-#pragma unroll 4
-      for (int n = 0; n < N; ++n) {
-        float cv[8], hv[PC];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) cv[r] = cs[(t16 * 8 + r) * BN + n];
-#pragma unroll
-        for (int k = 0; k < PC; ++k) hv[k] = hs[n * P + c16 + 16 * k];
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-#pragma unroll
-          for (int k = 0; k < PC; ++k) ch[r][k] = fmaf(cv[r], hv[k], ch[r][k]);
-      }
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const int i = t16 * 8 + r;
-        float* yr = y + ((t0 + i) * h_n + hh) * P + c16;
-#pragma unroll
-        for (int k = 0; k < PC; ++k) yr[16 * k] = acc[r][k] + ecum[i] * ch[r][k];
-      }
-    }
-    __syncthreads();
-    // 5. the state: rows t16 + 16*r, columns c16 + 16*k
-    {
-      float acc[NR][PC];
-#pragma unroll
-      for (int r = 0; r < NR; ++r)
-#pragma unroll
-        for (int k = 0; k < PC; ++k) acc[r][k] = 0.0f;
-#pragma unroll 4
-      for (int j = 0; j < L; ++j) {
-        const float w = wj[j];
-        float bv[NR], xv[PC];
-#pragma unroll
-        for (int r = 0; r < NR; ++r) bv[r] = bs[j * BN + t16 + 16 * r] * w;
-#pragma unroll
-        for (int k = 0; k < PC; ++k) xv[k] = xs[j * P + c16 + 16 * k];
-#pragma unroll
-        for (int r = 0; r < NR; ++r)
-#pragma unroll
-          for (int k = 0; k < PC; ++k) acc[r][k] = fmaf(bv[r], xv[k], acc[r][k]);
-      }
-      const float dec = expf(cum[L - 1]);
-#pragma unroll
-      for (int r = 0; r < NR; ++r)
-#pragma unroll
-        for (int k = 0; k < PC; ++k) {
-          float* hp = hs + (t16 + 16 * r) * P + c16 + 16 * k;
-          *hp = dec * *hp + acc[r][k];
-        }
-    }
-    __syncthreads();
+    wmma::cp_async_commit();
   }
-  float* ho = h_out + static_cast<size_t>(blockIdx.x) * N * P;
-  for (int i = tid; i < N * P; i += THREADS) ho[i] = hs[i];
+  load(0);
+  // C^T of the chunk, the strict upper triangle of W^T
+  for (int e = tid; e < L * N; e += THREADS) ct[(e % N) * LW + e / N] = cm[t0 * N + e];
+  for (int e = tid; e < L * L; e += THREADS) {
+    const int j = e / L, i = e % L;
+    if (j > i) wt[j * LW + i] = 0.0f;
+  }
+  group_cum(dt, a, t0, h_n, h0, hg, dts, cum);
+  for (int e = tid; e < hg * L; e += THREADS) ecum[e] = expf(static_cast<float>(cum[e]));
+
+  const int r = 2 * warp + (lane >> 4), p0 = 4 * (lane & 15);
+  const int ra = 4 * r, rb = 124 - 4 * r;            // the two row quads
+  const int j1 = 8 * warp + 8, j2 = 128 - 8 * warp;  // warp-uniform phase ends
+  for (int k = 0; k < hg; ++k) {
+    const double* ck = cum + k * L;
+    const float* dk = dts + k * L;
+    if (k > 0) load(k);               // head k - 1's product is done
+    if (k == 0)
+      wmma::cp_async_wait<1>();       // the C.B^T tile (x and state may fly)
+    __syncthreads();
+    // W^T for head k, while its x and state arrive: lanes over i, warps
+    // over j (rows j > i stay 0)
+    for (int j = warp; j < L; j += THREADS / 32) {
+      const double cj = ck[j];
+      const float dj = dk[j];
+      for (int i = j + lane; i < L; i += 32)
+        wt[j * LW + i] = cbs[j * LW + i] * expf(static_cast<float>(ck[i] - cj)) * dj;
+    }
+    wmma::cp_async_wait<0>();
+    __syncthreads();                  // W^T, x and the state of head k
+    float acc[8][4];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.0f;
+    auto fma8 = [&](const float4& wa, const float4& wb, const float4& v) {
+      const float w[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        acc[q][0] = fmaf(w[q], v.x, acc[q][0]);
+        acc[q][1] = fmaf(w[q], v.y, acc[q][1]);
+        acc[q][2] = fmaf(w[q], v.z, acc[q][2]);
+        acc[q][3] = fmaf(w[q], v.w, acc[q][3]);
+      }
+    };
+    if (inter) {                      // exp(cum_i) C_i . H_{c-1}
+#pragma unroll 4
+      for (int n = 0; n < N; ++n)
+        fma8(*reinterpret_cast<const float4*>(ct + n * LW + ra),
+             *reinterpret_cast<const float4*>(ct + n * LW + rb),
+             *reinterpret_cast<const float4*>(hs + n * P + p0));
+      const float* ek = ecum + k * L;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float ea = ek[ra + q], eb = ek[rb + q];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[q][u] *= ea, acc[4 + q][u] *= eb;
+      }
+    }
+    // W x: both quads while j can reach the first, then the second alone
+#pragma unroll 4
+    for (int j = 0; j < j1; ++j)
+      fma8(*reinterpret_cast<const float4*>(wt + j * LW + ra),
+           *reinterpret_cast<const float4*>(wt + j * LW + rb),
+           *reinterpret_cast<const float4*>(xs + j * P + p0));
+#pragma unroll 4
+    for (int j = j1; j < j2; ++j) {
+      const float4 wb = *reinterpret_cast<const float4*>(wt + j * LW + rb);
+      const float4 v = *reinterpret_cast<const float4*>(xs + j * P + p0);
+      const float w[4] = {wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc[4 + q][0] = fmaf(w[q], v.x, acc[4 + q][0]);
+        acc[4 + q][1] = fmaf(w[q], v.y, acc[4 + q][1]);
+        acc[4 + q][2] = fmaf(w[q], v.z, acc[4 + q][2]);
+        acc[4 + q][3] = fmaf(w[q], v.w, acc[4 + q][3]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int i = q < 4 ? ra + q : rb + q - 4;
+      *reinterpret_cast<float4*>(y + ((t0 + i) * h_n + h0 + k) * P + p0) =
+          make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+    }
+    __syncthreads();                  // W^T, x and the state are free
+  }
 }
 
 template <int P, int N>
 int launch(const float* x, const float* dt, const float* a, const float* bm, const float* cm,
-           float* y, float* h_out, int b, int t_len, int h_n, cudaStream_t st) {
-  const int smem = static_cast<int>(sizeof(float)) * Layout<P, N>::TOTAL;
-  auto kern = ssd_scan_kernel<P, N>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+           float* y, float* h_out, float* scratch, int b, int t_len, int h_n, cudaStream_t st) {
+  const int nc = t_len / L;
+  float* cbt = scratch;                                          // [B*NC][L][L]
+  float* states = cbt + static_cast<size_t>(b) * nc * L * L;     // [B*NC][H][N][P]
+  float* dec = states + static_cast<size_t>(b) * nc * h_n * N * P;   // [B*NC][H]
+  const int s_smem = static_cast<int>(sizeof(float)) * (3 * HG_STATE * L + L * N + 2 * L * P + L);
+  const int y_smem = static_cast<int>(sizeof(float)) * YLay<P, N>::TOTAL;
+  cudaError_t err = cudaFuncSetAttribute(ssd_scan_state<P, N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, s_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<b * h_n, THREADS, smem, st>>>(x, dt, a, bm, cm, y, h_out, t_len, h_n);
+  err = cudaFuncSetAttribute(ssd_scan_y<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             y_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_scan_cb<N><<<dim3(b * nc, L / 16), THREADS, 0, st>>>(bm, cm, cbt);
+  ssd_scan_state<P, N><<<dim3(b * nc, (h_n + HG_STATE - 1) / HG_STATE), THREADS, s_smem, st>>>(
+      x, dt, a, bm, states, dec, h_n);
+  const int np4 = N * P / 4, total = b * h_n * np4;
+  ssd_scan_pass<<<(total + THREADS - 1) / THREADS, THREADS, 0, st>>>(states, dec, h_out, nc, h_n,
+                                                                    np4, total);
+  ssd_scan_y<P, N><<<dim3(b * nc, (h_n + HG_Y - 1) / HG_Y), THREADS, y_smem, st>>>(
+      x, dt, a, cm, cbt, states, y, nc, h_n);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* a, const void* bm,
-                              const void* cm, void* y, void* h_out, int b, int t_len, int h_n,
-                              int p, int n, void* stream) {
+                              const void* cm, void* y, void* h_out, void* scratch, int b,
+                              int t_len, int h_n, int p, int n, void* stream) {
   if (b == 0 || h_n == 0) return static_cast<int>(cudaGetLastError());
-  if (t_len % L != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (t_len % L != 0 || t_len == 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto* xp = static_cast<const float*>(x);
   const auto* dp = static_cast<const float*>(dt);
   const auto* ap = static_cast<const float*>(a);
@@ -243,10 +431,13 @@ extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* a, cons
   const auto* cp = static_cast<const float*>(cm);
   auto* yp = static_cast<float*>(y);
   auto* hp = static_cast<float*>(h_out);
+  auto* sp = static_cast<float*>(scratch);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   // the model's head width (``_mamba_dims``: 64) and state sizes (64;
   // 16 in the reduced configs)
-  if (p == 64 && n == 64) return launch<64, 64>(xp, dp, ap, bp, cp, yp, hp, b, t_len, h_n, st);
-  if (p == 64 && n == 16) return launch<64, 16>(xp, dp, ap, bp, cp, yp, hp, b, t_len, h_n, st);
+  if (p == 64 && n == 64)
+    return launch<64, 64>(xp, dp, ap, bp, cp, yp, hp, sp, b, t_len, h_n, st);
+  if (p == 64 && n == 16)
+    return launch<64, 16>(xp, dp, ap, bp, cp, yp, hp, sp, b, t_len, h_n, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

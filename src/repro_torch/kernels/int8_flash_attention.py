@@ -5,21 +5,27 @@ and the f32 attention output returned; without it the int32 accumulator.
 
 Port of the Pallas kernel ``repro/kernels/int8_flash_attention.py:155``
 ``int8_flash_attention`` (three streaming passes) to the CUDA kernel
-``csrc/int8_flash_attention.cu`` (source note there: bound by operations).
-The kernel has two forms with the same bits: the block form keeps a block's
-scores in shared memory and computes QK^T once (up to 3328 keys at head
-dim 128); the streaming form, taken whenever that score block does not fit
-(``streams``), runs the TPU kernel's three passes over K and takes any
-number of keys.  ``LAUNCHES["int8_flash_attention.streaming"]`` counts the
-launches of the streaming form among the kernel's.
+``csrc/int8_flash_attention.cu`` (source note there: bound by operations,
+the v_scale form's f32 PV).  The kernel has one form, for any number of
+keys: blocks of 64 query rows stream K three times, as the TPU kernel does
+— a first CUDA kernel each row's max and exp-sum (into ``stats``, scratch
+from ``torch.empty``), a second the probabilities and PV — QK^T on the int8
+tensor cores, K and V through a ``cp.async`` ring, the softmax's two
+divisions as multiply-highs by exact reciprocals (``rcp``), PV on int8
+tensor cores (int32 form) or a register-blocked f32 product over the keys
+with a nonzero probability (v_scale form).  One call counts as one launch.
+Every launch streams (``streams``);
+``LAUNCHES["int8_flash_attention.streaming"]`` counts them as it counted
+the streaming form's before the block form was retired.
 ``int8_flash_attention_ref`` is its plain version, ``repro.kernels.ref``'s
 oracle: the integer probabilities and the int32 form are bit-exact; the f32
 PV sum runs in another order, so the ``v_scale`` form agrees within
 ``RTOL``/``ATOL``, the reference's own (``tests/test_kernels.py``).
 
 The kernel's constants — ``rshift`` (Python's round-half-even: D = 32 gives
-2 where C's ``lround`` gives 3) and the exp's q_ln2, q_b, q_c, es — are
-computed here and passed as ints.
+2 where C's ``lround`` gives 3), the exp's q_ln2, q_b, q_c, es and q_ln2's
+reciprocal — are computed here and passed as ints; the wrapper checks the
+ranges in which the reciprocals are exact (``sums_fit``).
 """
 from __future__ import annotations
 
@@ -34,8 +40,9 @@ from .flash_attention import head_dim_ok
 from .int_softmax import NEG_INF, _exp_consts
 
 I32 = torch.int32
-BK = 128              # keys per tile of the CUDA kernel
-ROWS = 16             # query rows per block of the CUDA kernel
+BK = 64               # keys per tile of the CUDA kernel
+ROWS = 64             # query rows per block of the CUDA kernel (4 warps x 16)
+STAGES = 3            # stages of its cp.async ring
 SMEM_LIMIT = 232448   # opt-in shared memory per block on the H100
 # the v_scale form against its plain version (the reference's tolerance)
 RTOL, ATOL = 1e-5, 1e-6
@@ -86,19 +93,59 @@ def int8_flash_attention_ref(q, k, v, scale: float, causal: bool = True,
     return torch.einsum("bhst,bhtd->bhsd", p.double(), v.double()).to(I32)
 
 
-def block_smem(skv: int, d: int) -> int:
-    """Shared memory of one block of the CUDA kernel's block form: ROWS x
-    Skv int32 scores (Skv padded to whole tiles), the Q rows and the K or V
-    tile.  The streaming form holds one tile of scores: ``block_smem(BK, d)``."""
-    skp = cdiv(skv, BK) * BK
-    return ROWS * skp * 4 + ROWS * d + max(BK * (d // 4 + 1) * 4,
-                                           BK * d + BK * 4)
+def block_smem(skv: int, d: int, v_scale: bool = True) -> int:
+    """Shared memory of one block of the CUDA kernel (``Lay`` in the
+    source), the same at any number of keys ``skv``: a ring of STAGES
+    stages, each a K tile (rows zero-padded to whole 32-byte k steps) and a
+    V tile of BK keys (every row padded to an odd count of 16-byte chunks)
+    and BK V scales; with ``v_scale`` also the dequantized f32 V tile and
+    the f32 probabilities [BK][20] of each 16 rows and, per 8 rows, two
+    32-bit masks of the keys with a nonzero probability."""
+    del skv
+    dp = cdiv(d, 32) * 32
+    ldk, ldv = dp + 16, d + (16 if (d // 16) % 2 == 0 else 0)
+    ring = STAGES * (BK * ldk + BK * ldv + BK * 4)
+    return ring + ((BK * d * 4 + 4 * BK * 20 * 4 + 8 * 2 * 4) if v_scale
+                   else 0)
 
 
 def streams(skv: int, d: int) -> bool:
-    """True if the kernel takes its streaming form: the block form's
-    scores for ``skv`` keys do not fit a block's shared memory."""
-    return block_smem(skv, d) > SMEM_LIMIT
+    """True if the kernel streams K for ``skv`` keys at head dim ``d``: its
+    one form streams K three times at every key count it takes (any
+    ``skv`` >= 1 whose block fits shared memory, which does not depend on
+    ``skv``)."""
+    return skv >= 1 and block_smem(skv, d) <= SMEM_LIMIT
+
+
+def rcp(d: int) -> tuple[int, int]:
+    """The exact reciprocal (m, sh) of a divisor 1 <= d < 2^31 for
+    numerators 0 <= n < 2^31: floor(n / d) == (n * m) >> sh, with
+    sh = 31 + ceil(log2 d) and m = ceil(2^sh / d) < 2^32 (m * d - 2^sh < d,
+    so n * (m * d - 2^sh) < 2^sh).  The kernel's ``rcp`` computes the same
+    per row for the exp-sum l; the wrapper passes q_ln2's."""
+    if not 1 <= d < 2 ** 31:
+        raise ValueError(f"rcp: divisor {d} outside [1, 2^31)")
+    sh = 31 + (d - 1).bit_length()
+    return -(-(1 << sh) // d), sh
+
+
+def exp_max(scale: float) -> int:
+    """The largest value the kernel's integer exp (after its ``es`` shift)
+    takes at ``scale``: (t^2 + q_c) >> es at either end of t's range
+    (q_b - q_ln2, q_b]."""
+    q_ln2, q_b, q_c, es = _exp_consts(scale)
+    t = max(abs(q_b), abs(q_b - q_ln2 + 1))
+    return (t * t + q_c) >> es
+
+
+def sums_fit(skv: int, scale: float) -> bool:
+    """True if the kernel's softmax arithmetic is exact for ``skv`` keys:
+    every exp is non-negative (q_c >= 0), the row sum l of at most ``skv``
+    exps stays in int32, and so does the probability's numerator
+    e * 127 + l // 2 (< 2^31, the range of l's and q_ln2's reciprocals;
+    q_ln2's numerator -score is at most 2^24)."""
+    e, q_c = exp_max(scale), _exp_consts(scale)[2]
+    return q_c >= 0 and skv * e < 2 ** 31 and 127 * e + (skv * e) // 2 < 2 ** 31
 
 
 def masked_exp_is_zero(scale: float, d: int) -> bool:
@@ -128,6 +175,8 @@ def _launch(q, k, v, scale, causal, v_scale, p_out):
     check(q_b * q_b + q_c < 2 ** 31, f"scale {scale} too fine for int32 exp")
     check(not causal or masked_exp_is_zero(scale, d),
           f"scale {scale}: a masked score's exp is not 0")
+    check(sums_fit(skv, scale), f"scale {scale}, {skv} keys: the softmax's "
+          f"sums leave the range of its exact reciprocals")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if v_scale is not None:
         check(tuple(v_scale.shape) == (b, hkv, skv, 1)
@@ -142,19 +191,22 @@ def _launch(q, k, v, scale, causal, v_scale, p_out):
         check(tuple(p_out.shape) == (b, h, s, skv) and p_out.dtype == torch.int8
               and p_out.is_contiguous(), "p_out must be contiguous int8 "
               f"{(b, h, s, skv)}")
-    streaming = streams(skv, d)
+    ln2_m, ln2_sh = rcp(q_ln2)
+    # each row's max and exp-sum, from the first kernel to the second
+    stats = torch.empty((b, h, s, 2), dtype=I32, device=q.device)
     fn = build.entry("int8_flash_attention", "repro_int8_flash_attention",
-                     [build.VP] * 6 + [build.I] * 12 + [build.F, build.I,
+                     [build.VP] * 6 + [build.I] * 12 + [build.U, build.I,
+                                                        build.F, build.VP,
                                                         build.VP])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             0 if v_scale is None else v_scale.data_ptr(), out.data_ptr(),
             0 if p_out is None else p_out.data_ptr(), b, h, hkv, s, skv, d,
-            int(causal), head_shift(d), q_ln2, q_b, q_c, es,
-            float(rcp32(127.0)), int(streaming),
+            int(causal), head_shift(d), q_ln2, q_b, q_c, es, ln2_m, ln2_sh,
+            float(rcp32(127.0)), stats.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check_rc(rc, "int8_flash_attention")
     LAUNCHES["int8_flash_attention"] += 1
-    LAUNCHES["int8_flash_attention.streaming"] += streaming
+    LAUNCHES["int8_flash_attention.streaming"] += 1
     return out
 
 

@@ -4,11 +4,18 @@ y (B, T, H, P) and the final state (B, H, N, P), from a zero state.  No
 D-skip and no gating (``models/ssm.py``'s glue adds them).
 
 Port of the Pallas kernel ``repro/kernels/ssd_scan.py:70`` ``ssd_scan`` to the
-CUDA kernel ``csrc/ssd_scan.cu`` (source note there: bound by operations, one
-block per (lane, head) carrying the state through the chunks).  The kernel
-takes the model's own layout — B and C indexed by lane, not broadcast over
-the heads as the Pallas kernel's test does — and returns the final state as
-well, which the forward with states hands to its t == 1 steps.
+CUDA kernels ``csrc/ssd_scan.cu`` (source note there: bound by operations).
+One launch runs the chunk-parallel decomposition the plain version writes
+out: C.B^T once per (lane, chunk) over the causal triangle, each chunk's own
+state and decay in parallel over (lane, chunk, head), the sequential pass
+over the chunk states, then y = intra-chunk + inter-chunk terms in parallel
+over (lane, chunk, head) — four CUDA kernels, ``ssd_scan_*``, counted as one
+launch.  The wrapper allocates their scratch (``scratch_floats``: the
+C.B^T tiles, every chunk's state, the chunk decays) with ``torch.empty``.
+The kernels take the model's own layout — B and C indexed by lane, not
+broadcast over the heads as the Pallas kernel's test does — and return the
+final state as well, which the forward with states hands to its t == 1
+steps.
 ``ssd_scan_ref`` is its plain version: the chunked form of the reference's
 ``repro.models.ssm._ssd_chunked``, einsum for einsum.  The two sum in other
 orders and use their own ``exp``: they agree within ``RTOL``/``ATOL``, the
@@ -64,10 +71,21 @@ def ssd_scan_ref(xh, dt, A, Bm, Cm, chunk: int = CHUNK):
     return (y_intra + y_inter).reshape(b, t, h, p), state
 
 
+def scratch_floats(b: int, t: int, h: int, p: int, n: int) -> dict[str, int]:
+    """The f32 scratch of one launch, in the order the kernels lay it out in
+    one buffer: the C.B^T tiles [B*NC, CHUNK, CHUNK], every chunk's state
+    [B*NC, H, N, P] (replaced in place by the state before the chunk) and
+    the chunk decays exp(cum_L) [B*NC, H]; NC = T / CHUNK."""
+    nc = t // CHUNK
+    return {"cbt": b * nc * CHUNK * CHUNK, "states": b * nc * h * n * p,
+            "decay": b * nc * h}
+
+
 def _launch(xh, dt, A, Bm, Cm):
     b, t, h, p = xh.shape
     n = Bm.shape[-1]
-    check(t % CHUNK == 0, f"T={t} is not a multiple of the chunk {CHUNK}")
+    check(t % CHUNK == 0 and t > 0,
+          f"T={t} is not a positive multiple of the chunk {CHUNK}")
     check((p, n) in SHAPES, f"(P, N) = {(p, n)}: the kernel takes {SHAPES}")
     for x, shape in ((xh, (b, t, h, p)), (dt, (b, t, h)), (A, (h,)),
                      (Bm, (b, t, n)), (Cm, (b, t, n))):
@@ -77,11 +95,13 @@ def _launch(xh, dt, A, Bm, Cm):
     xh, dt, A, Bm, Cm = (x.contiguous() for x in (xh, dt, A, Bm, Cm))
     y = torch.empty_like(xh)
     state = torch.empty((b, h, n, p), dtype=torch.float32, device=xh.device)
+    scratch = torch.empty(sum(scratch_floats(b, t, h, p, n).values()),
+                          dtype=torch.float32, device=xh.device)
     fn = build.entry("ssd_scan", "repro_ssd_scan",
-                     [build.VP] * 7 + [build.I] * 5 + [build.VP])
+                     [build.VP] * 8 + [build.I] * 5 + [build.VP])
     rc = fn(xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(), state.data_ptr(), b, t, h, p, n,
-            torch.cuda.current_stream(xh.device).cuda_stream)
+            Cm.data_ptr(), y.data_ptr(), state.data_ptr(), scratch.data_ptr(),
+            b, t, h, p, n, torch.cuda.current_stream(xh.device).cuda_stream)
     build.check_rc(rc, "ssd_scan")
     LAUNCHES["ssd_scan"] += 1
     return y, state

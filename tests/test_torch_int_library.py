@@ -298,13 +298,13 @@ class TestConv2d:
 # int8_flash_attention past 3328 keys: the streaming form
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("skv,want", [(1024, 0), (3328, 0), (3329, 1),
+@pytest.mark.parametrize("skv,want", [(1024, 1), (3328, 1), (3329, 1),
                                       (8192, 1)])
 def test_attention_takes_the_streaming_form_past_the_score_block(
         monkeypatch, skv, want):
-    """For a CUDA tensor the wrapper launches the kernel at any key count
-    (it raised past 3328 before), in the streaming form exactly when the
-    block form's score block does not fit."""
+    """For a CUDA tensor the wrapper launches the kernel at any key count,
+    in its one form, which streams K three times (the block form that
+    served up to 3328 keys is retired): every launch counts as streaming."""
     import types
     from repro_torch.kernels import build
     from repro_torch.kernels import int8_flash_attention as ifa
@@ -314,7 +314,7 @@ def test_attention_takes_the_streaming_form_past_the_score_block(
 
     def entry(name, symbol, argtypes):
         def fn(*args):
-            seen["streaming"] = args[-2]
+            seen["args"] = args
             return 0
         return fn
     monkeypatch.setattr(ifa, "on_cuda", lambda *a: True)
@@ -324,7 +324,7 @@ def test_attention_takes_the_streaming_form_past_the_score_block(
     q = torch.zeros((1, 1, skv, 128), dtype=torch.int8)
     ops.reset_launch_counts()
     ops.attention_i8(q, q, q, int_score_scale(128))
-    assert ifa.streams(skv, 128) == bool(want) and seen["streaming"] == want
+    assert ifa.streams(skv, 128) == bool(want) and seen["args"][9] == skv
     assert LAUNCHES["int8_flash_attention"] == 1
     assert LAUNCHES["int8_flash_attention.streaming"] == want
 

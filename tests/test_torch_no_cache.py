@@ -269,12 +269,19 @@ class TestInt8FlashAttention:
     @pytest.mark.parametrize("skv,d,fits", [(1024, 128, True),
                                             (1024, 16, True),
                                             (3328, 128, True),
-                                            (3329, 128, False)])
+                                            (3329, 128, True)])
     def test_score_block_fits_shared_memory(self, skv, d, fits):
-        # 16 rows x Skv int32 scores (Skv in whole 128-key tiles), the Q
-        # rows and a K tile of 128 keys with padded rows
-        want = 16 * -(-skv // 128) * 128 * 4 + 16 * d + 128 * (d // 4 + 1) * 4
-        assert block_smem(skv, d) == want
+        # the kernel keeps no score block: a ring of 3 stages of a K and a
+        # V tile of 64 keys (rows padded to an odd count of 16-byte chunks,
+        # K's to whole 32-byte k steps) and 64 V scales, then the
+        # dequantized f32 V tile, the f32 probabilities [64][20] of each 16
+        # rows and two 32-bit key masks per 8 rows — the same at any key
+        # count, past the old form's 3328 too
+        dp = -(-d // 32) * 32
+        ldv = d + (16 if (d // 16) % 2 == 0 else 0)
+        want = 3 * (64 * (dp + 16) + 64 * ldv + 64 * 4) + 64 * d * 4 \
+            + 4 * 64 * 20 * 4 + 8 * 2 * 4
+        assert block_smem(skv, d) == want == block_smem(64, d)
         assert (block_smem(skv, d) <= SMEM_LIMIT) == fits
 
     def test_debug_probs_only_on_the_card(self, rng):
@@ -414,12 +421,14 @@ class TestHeadDims:
         assert masked_exp_is_zero(int_score_scale(d), d)
 
     def test_block_form_at_80(self):
-        """zamba2's forward (T = 1024) takes the block form; the streaming
-        form past its shared memory, as at 128."""
-        assert block_smem(1024, 80) <= SMEM_LIMIT
-        assert block_smem(4096, 80) > SMEM_LIMIT
+        """zamba2's forward (T = 1024) and a 4096-key sequence take the
+        kernel's one form, whose block at head dim 80 pads K rows to three
+        32-byte k steps (96 + 16 bytes) and keeps V rows at 80 bytes (an
+        odd count of 16-byte chunks)."""
+        assert block_smem(1024, 80) == block_smem(4096, 80) <= SMEM_LIMIT
         assert (block_smem(1024, 80)
-                == 16 * 1024 * 4 + 16 * 80 + 128 * (80 // 4 + 1) * 4)
+                == 3 * (64 * 112 + 64 * 80 + 64 * 4) + 64 * 80 * 4
+                + 4 * 64 * 20 * 4 + 8 * 2 * 4)
 
     @pytest.mark.parametrize("d,ok", [(16, True), (64, True), (80, True),
                                       (128, True), (8, False), (72, False),
