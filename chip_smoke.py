@@ -47,14 +47,17 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    atol 1e-6; the int32 form bit-exact), then at 4096 and 8192 causal keys
    (``check_streaming_attention``, the same checks, every launch counted as
    streaming); flash_attention (bf16, against SDPA's time too) and
-   int_softmax on [4096, 1024] rows (``check_no_cache``; bit-exact; masked,
-   and spread far past 30*q_ln2); and the rest of the
-   integer library (``check_int_library``, bit-exact): int_gelu
+   int_softmax (``check_int_softmax``, bit-exact, through ``ops.softmax_i8``)
+   on [4096, 1024] int32 rows unmasked, with a causal mask, spread far past
+   30*q_ln2, with the [T, T] mask broadcast over [4, T, T] (uncopied), as an
+   int8 payload, and on [64, 2^17] rows (the long-row form); and the rest of
+   the integer library (``check_int_library``, bit-exact): int_gelu
    [4096, 12288], int_silu [4096, 13440], requantize_i32 [4096, 4096],
-   and int8_conv2d
+   and int8_conv2d (``check_int8_conv2d``)
    at Table II's [1, 128, 128, 3] x [3, 3, 3, 8] (int32 and requantized), a
-   3x3 conv [8, 56, 56, 64] x [3, 3, 64, 64] and the ViT-B/16 patch embed
-   [32, 14, 14, 768] x [1, 1, 768, 768]; ssd_scan at zamba2-2.7b's forward
+   3x3 conv [8, 56, 56, 64] x [3, 3, 64, 64], a first layer over RGB
+   [8, 224, 224, 3] x [3, 3, 3, 64] (byte-loaded) and the ViT-B/16 patch
+   embed [32, 14, 14, 768] x [1, 1, 768, 768]; ssd_scan at zamba2-2.7b's forward
    shape (``check_ssd_scan``: B = 4, T = 1024, 80 heads, P = N = 64; and
    the reduced model's P = 64, N = 16; y and the final state within
    rtol = atol = 3e-4 of the plain version evaluated in f64); the two
@@ -155,7 +158,8 @@ runs only codeqwen1.5-7b's, starcoder2-3b's and zamba2-2.7b's W8A8
 ``--kernels flash_attention,int4_gemm`` (or ``dual_gemm_gated``,
 ``dual_int4_gemm_gated``, ``int8_gemm``, ``int8_kv_decode_attention``,
 ``paged_decode_attention``, ``quantize_rows``, ``int_layernorm``,
-``int8_flash_attention``, ``ssd_scan``; a tree
+``int8_flash_attention``, ``ssd_scan``, ``int8_conv2d``, ``int_softmax``;
+a tree
 without the fused norm times only its chain) builds only those kernels (of
 the tree
 ``--src`` names) and runs only their phase 3 cases, held against the
@@ -842,16 +846,27 @@ def check_int8_attention(dev, gen, timer, record, randn) -> None:
 def check_no_cache(dev, gen, timer, record, randn) -> None:
     """Phase 3 for the no-cache forward's other kernels at B = 4, T = 1024:
     flash_attention (``check_flash_attention``) at codeqwen1.5-7b's,
-    starcoder2-3b's and zamba2-2.7b's heads, and int_softmax on [4096, 1024]
-    int32 rows without and with a mask and with rows spread far past
-    30*q_ln2 (bit-exact; about 15 integer operations per element at the f32
-    rate against the bytes)."""
+    starcoder2-3b's and zamba2-2.7b's heads, and int_softmax
+    (``check_int_softmax``)."""
+    check_flash_attention(dev, gen, timer, record, randn)
+    check_int_softmax(dev, gen, timer, record, randn)
+
+
+LONG_ROWS = (64, 2 ** 17)   # int_softmax's long-row form at its longest rows
+
+
+def check_int_softmax(dev, gen, timer, record, randn) -> None:
+    """int_softmax's phase 3 cases, each bit-exact against its plain
+    version and timed through ``ops.softmax_i8`` as a user calls it: [4096,
+    1024] int32 rows (B = 4 sequences of T = 1024 scores) without a mask,
+    with a materialized causal mask, with rows spread far past 30*q_ln2, with
+    the [T, T] keep mask broadcast over [4, T, T] as ``softmax_entry`` passes
+    it, and as an int8 payload; then the long-row form at [64, 2^17].
+    Bound: bytes (the payload, the mask once, the int8 out; about 15
+    integer operations a value at the f32 rate)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.int_softmax import int_softmax_ref
     from repro_torch.models.attention import int_score_scale
-    check_flash_attention(dev, gen, timer, record, randn)
-
-    # -- 13. int_softmax --------------------------------------------------------
     sc = int_score_scale(128)
     m, n = NC_B * NC_T, NC_T
     x = torch.randint(-3000, 3000, (m, n), generator=gen, device=dev,
@@ -859,24 +874,39 @@ def check_no_cache(dev, gen, timer, record, randn) -> None:
     wide = torch.randint(-2 ** 20, 2 ** 20, (m, n), generator=gen, device=dev,
                          dtype=torch.int32)
     wide[::7, 9] = 129032                     # a saturated score in each row
-    keep = torch.ones((n, n), dtype=torch.bool, device=dev).tril().repeat(
-        NC_B, 1)                              # causal rows of 4 sequences
-    for name, xs, mask in (("int32", x, None), ("int32 causal mask", x, keep),
-                           ("int32 wide spread", wide, None)):
+    x8 = torch.randint(-128, 128, (m, n), generator=gen, device=dev,
+                       dtype=torch.int8)
+    tri = torch.ones((n, n), dtype=torch.bool, device=dev).tril()
+    keep = tri.repeat(NC_B, 1)                # causal rows of 4 sequences
+    lr, ln = LONG_ROWS
+    long = torch.randint(-3000, 3000, (lr, ln), generator=gen, device=dev,
+                         dtype=torch.int32)
+    # (name, x as the caller shapes it, its mask, the materialized [M, N]
+    # mask of the plain version, scale, mask bytes the kernel must read)
+    for name, xs, mask, full, scale, mask_bytes in (
+            ("int32", x, None, None, sc, 0),
+            ("int32 causal mask", x, keep, keep, sc, m * n),
+            ("int32 wide spread", wide, None, None, sc, 0),
+            ("int32 broadcast mask", x.view(NC_B, n, n), tri, keep, sc, n * n),
+            ("int8", x8, None, None, 0.05, 0),
+            ("int32 long rows", long, None, None, sc, 0)):
+        rows, cols = xs.numel() // xs.shape[-1], xs.shape[-1]
+
         def run():
-            return ops.softmax_i8(xs, sc, mask)
+            return ops.softmax_i8(xs, scale, mask)
 
         def plain():
-            return int_softmax_ref(xs, sc, mask)
+            return int_softmax_ref(xs.reshape(rows, cols), scale, full)
         out, ref = run(), plain()
         torch.cuda.synchronize()
-        if not torch.equal(out, ref):
-            raise AssertionError(f"int_softmax {name}: {int((out != ref).sum())}"
+        if not torch.equal(out.reshape(rows, cols), ref):
+            raise AssertionError(f"int_softmax {name}: {int((out.reshape(rows, cols) != ref).sum())}"
                                  f" of {out.numel()} differ from the plain "
                                  f"version")
-        record("int_softmax", f"[{m},{n}] {name}", 0.0, True, timer(run),
+        record("int_softmax", f"[{rows},{cols}] {name}", 0.0, True, timer(run),
                timer(plain), None,
-               bound(m * n * (5 + (mask is not None)), 15 * m * n, F32_OPS))
+               bound(rows * cols * (xs.element_size() + 1) + mask_bytes,
+                     15 * rows * cols, F32_OPS), out=out)
 
 
 def check_flash_attention(dev, gen, timer, record, randn) -> None:
@@ -1161,27 +1191,15 @@ def check_int_library(dev, gen, timer, record, randn) -> None:
     """Phase 3 for the rest of the integer library, each bit-exact against
     its plain version: int_gelu at starcoder2-3b's d_ff and int_silu at
     codeqwen1.5-7b's (4096 rows of the int8-range payload
-    ``layers.activation`` makes), requantize_i32 on int32 accumulators,
-    int8_gemm's requant, requant_gelu and requant_add epilogues at Table
-    II's shape and at starcoder's MLP up-projection over 4096 rows, and
-    int8_conv2d at Table II's shape (int32 and requantized), a 3x3 conv at
-    vision-model widths and the ViT-B/16 patch embed (the operands
-    ``frontend.conv_patch_embed_int8`` makes).  Library yardstick:
-    ``torch._int_mm`` for the GEMMs and the 1x1 conv as a matrix product
-    (not the same function: no requant, bias or GELU); none for the
-    elementwise kernels and the 3x3 conv (no PyTorch call computes them:
-    the integer GELU/SiLU and the requant are the port's own functions, and
-    PyTorch has no int8 convolution on CUDA)."""
+    ``layers.activation`` makes), requantize_i32 on int32 accumulators, and
+    int8_conv2d (``check_int8_conv2d``).  No library yardstick for the
+    elementwise kernels (no PyTorch call computes them: the integer
+    GELU/SiLU and the requant are the port's own functions)."""
     from repro_torch.core.inumerics import compute_requant_params
     from repro_torch.kernels import ops
-    from repro_torch.kernels.conv2d import int8_conv2d_ref
-    from repro_torch.kernels.int8_gemm import (int8_gemm_add_ref,
-                                               int8_gemm_gelu_ref,
-                                               int8_gemm_ref)
     from repro_torch.kernels.int_gelu import int_gelu_ref
     from repro_torch.kernels.int_silu import int_silu_ref
     from repro_torch.kernels.quantize import requantize_i32_ref
-    from repro_torch.models.frontend import patch_embed_operands
     from repro_torch.models.layers import GELU_INT_SCALE, SILU_INT_SCALE
     no_lib = "no PyTorch call computes it"
 
@@ -1224,17 +1242,41 @@ def check_int_library(dev, gen, timer, record, randn) -> None:
            bound(4096 * 4096 * 5, 8 * 4096 * 4096, F32_OPS), no_lib)
     del x
 
-    # -- 15. int8_conv2d ----------------------------------------------------------
+    check_int8_conv2d(dev, gen, timer, record, randn)
+
+
+FIRST_LAYER_CONV = (8, 224, 224, 3, 3, 3, 64)  # a vision model's first conv
+
+
+def check_int8_conv2d(dev, gen, timer, record, randn) -> None:
+    """int8_conv2d's phase 3 cases, each bit-exact against its plain
+    version: Table II's shape (int32 and requantized), a 3x3 conv at
+    vision-model widths ([8,56,56,64]x[3,3,64,64]), a first layer over RGB
+    at full resolution ([8,224,224,3]x[3,3,3,64], byte-loaded: C = 3;
+    101 MB of int32 out) and the ViT-B/16 patch embed (the operands
+    ``frontend.conv_patch_embed_int8`` makes).  Library yardstick:
+    ``torch._int_mm`` of the 1x1 conv as a matrix product (no bias: not the
+    same function); none for the others (PyTorch has no int8 convolution on
+    CUDA)."""
+    from repro_torch.core.inumerics import compute_requant_params
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.conv2d import int8_conv2d_ref
+    from repro_torch.models.frontend import patch_embed_operands
+
+    def ints(lo, hi, *shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
     rq = compute_requant_params(0.01, acc_bound=27 * 127 * 127)
     img = randn(VIT_IMAGES, VIT_SIDE, VIT_SIDE, 3).clamp(-1, 1)
     xv, wv, _ = patch_embed_operands(gen, img, VIT_D, VIT_PATCH)
     del img
     convs = []
-    for n_, h, wd, c, kh, kw, o in (TABLE2_CONV, (8, 56, 56, 64, 3, 3, 64)):
+    for n_, h, wd, c, kh, kw, o in (TABLE2_CONV, (8, 56, 56, 64, 3, 3, 64),
+                                    FIRST_LAYER_CONV):
         convs.append((ints(-128, 128, n_, h, wd, c, dtype=torch.int8),
                       ints(-128, 128, kh, kw, c, o, dtype=torch.int8),
-                      ints(-2 ** 20, 2 ** 20, o), (rq, None) if c == 3
-                      else (None,)))
+                      ints(-2 ** 20, 2 ** 20, o), (rq, None)
+                      if (n_, h, wd, c, kh, kw, o) == TABLE2_CONV else (None,)))
     convs.append((xv, wv, ints(-2 ** 20, 2 ** 20, VIT_D), (None,)))
     for x, w, b, params in convs:
         n_, h, wd, c = x.shape
@@ -1252,12 +1294,18 @@ def check_int_library(dev, gen, timer, record, randn) -> None:
                 return int8_conv2d_ref(x, w, b, pp)
             shape = (f"[{n_},{h},{wd},{c}]x[{kh},{kw},{c},{o}] "
                      + ("requant" if pp is not None else "int32"))
-            exact("int8_conv2d", shape, run, plain)
+            out, ref = run(), plain()
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                raise AssertionError(
+                    f"int8_conv2d {shape}: {int((out != ref).sum())} of "
+                    f"{out.numel()} differ from the plain version")
             record("int8_conv2d", shape, 0.0, True, timer(run),
                    timer(plain, iters=3, warmup=1), lib,
                    bound(x.numel() + w.numel() + 4 * o
                          + m * o * (1 if pp is not None else 4),
-                         2 * m * o * kh * kw * c, INT8_OPS), note)
+                         2 * m * o * kh * kw * c, INT8_OPS), note, out=out)
+            del out, ref
 
 
 # the paged arena of the serving paths: 8 lanes, max_seq 1024 in 16-slot
@@ -1479,7 +1527,7 @@ def check_int4_gemm(dev, gen, timer, record, randn) -> None:
                        int_mm_ms(timer, x_q, w_unpacked),
                        bound(nbytes, 2 * m * n * k, INT8_OPS),
                        lib_note="_int_mm, unpacked weight, no group scales: "
-                       "not the same function")
+                       "not the same function", out=out)
             if m <= 8 and w4.numel() % 4 == 0:
                 # what this timer lets a plain read of the same nibbles
                 # take (a reduction over them): the decode cases' ceiling
@@ -1545,7 +1593,8 @@ def check_dual_int4_gemm_gated(dev, gen, timer, record, randn) -> None:
         def plain():
             return by_rows(lambda r0, r1: gated_mlp_w4a8_ref(
                 x_q[r0:r1], x_s[r0:r1], *w_args, act=act, act_scale=sc), m)
-        same("dual_int4_gemm_gated", shape, run(), plain())
+        out = run()
+        same("dual_int4_gemm_gated", shape, out, plain())
         nbytes = (m * k + 4 * m + 2 * m * n
                   + 2 * (k * n // 2 + (k // group) * n + 4 * n))
         record("dual_int4_gemm_gated", shape, 0.0, True, timer(run),
@@ -1553,7 +1602,7 @@ def check_dual_int4_gemm_gated(dev, gen, timer, record, randn) -> None:
                else timer(plain), int_mm_ms(timer, x_q, wu8, wg8),
                bound(nbytes, 4 * m * n * k, INT8_OPS),
                lib_note="two _int_mm, unpacked weights, no group scales or "
-               "activation: not the same function")
+               "activation: not the same function", out=out)
 
 
 def check_dual_gemm_gated(dev, gen, timer, record, randn) -> None:
@@ -1594,7 +1643,8 @@ def check_dual_gemm_gated(dev, gen, timer, record, randn) -> None:
         def plain8():
             return by_rows(lambda r0, r1: gated_mlp_w8a8_ref(
                 x_q[r0:r1], x_s[r0:r1], *w8_args, act=act, act_scale=sc), m)
-        same("dual_gemm_gated", f"int8 {shape}", run8(), plain8())
+        out = run8()
+        same("dual_gemm_gated", f"int8 {shape}", out, plain8())
         io = m * k + 4 * m + 2 * m * n
         record("dual_gemm_gated", f"int8 {shape}", 0.0, True, timer(run8),
                timer(plain8, iters=3, warmup=1) if m > PLAIN_ROWS
@@ -1602,7 +1652,7 @@ def check_dual_gemm_gated(dev, gen, timer, record, randn) -> None:
                int_mm_ms(timer, x_q, w8_args[0], w8_args[2]),
                bound(io + 2 * (k * n + 4 * n), 4 * m * n * k, INT8_OPS),
                lib_note="two _int_mm, int32 out, no scales or activation: "
-               "not the same function")
+               "not the same function", out=out)
 
         x_f = randn(m, k).to(torch.bfloat16)
 
@@ -1631,7 +1681,7 @@ def check_dual_gemm_gated(dev, gen, timer, record, randn) -> None:
                bound(2 * m * k + 4 * k * n + 2 * m * n, 4 * m * n * k,
                      BF16_OPS),
                lib_note="two torch.matmul, no activation: not the same "
-               "function")
+               "function", out=out)
 
 
 def check_dense_decode(dev, gen, timer, record, randn) -> None:
@@ -1668,7 +1718,9 @@ KERNEL_CASES = {"quantize_rows": (check_quantize_rows, ("quantize",)),
                                             "int8_kv_decode_attention")),
                 "int8_flash_attention": (check_int8_attention,
                                          ("int8_flash_attention",)),
-                "ssd_scan": (check_ssd_scan, ("ssd_scan",))}
+                "ssd_scan": (check_ssd_scan, ("ssd_scan",)),
+                "int8_conv2d": (check_int8_conv2d, ("int8_conv2d",)),
+                "int_softmax": (check_int_softmax, ("int_softmax",))}
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,8 @@
     python3 scripts/chip_probe.py decode   # variants of the decode body
     python3 scripts/chip_probe.py ablate   # where int8_flash_attention's
                                            # and ssd_scan's time goes
+    python3 scripts/chip_probe.py conv     # int8_conv2d's tilings and
+                                           # int_softmax's forms
 
 ``tiles`` times int8_gemm (the ``scaled`` epilogue, GELU on starcoder2-3b's
 up-projection) at starcoder2-3b's and codeqwen1.5-7b's W8A8 projections and
@@ -20,14 +22,29 @@ at codeqwen1.5-7b's (G = 1) and starcoder2-3b's (G = 12) heads over 8 lanes
 of 1024 slots, at T = 1 and in the T = 256 multi-row form; every variant's
 output must equal the committed source's.
 
-``ablate`` rebuilds ``csrc/int8_flash_attention.cu`` and ``csrc/ssd_scan.cu``
-with one part of the work taken out (``ABLATIONS``: a textual edit of the
-source each) into ``build/probe_ablate/`` and times every CUDA kernel of a
-call under torch.profiler (ten calls): int8_flash_attention at
+``ablate`` rebuilds ``csrc/int8_flash_attention.cu``, ``csrc/ssd_scan.cu``,
+``csrc/int_softmax.cu`` and ``csrc/int8_conv2d.cu`` with one part of the
+work taken out (``ABLATIONS``: a textual edit of the source each) into
+``build/probe_ablate/`` and times every CUDA kernel of a call under
+torch.profiler (ten calls, no timer floor): int8_flash_attention at
 codeqwen1.5-7b's [4, 32, 1024, 128] with v_scale and in its int32 form,
-ssd_scan at zamba2-2.7b's [4, 1024, 80] x (64, 64).  An ablated variant's
+ssd_scan at zamba2-2.7b's [4, 1024, 80] x (64, 64), int_softmax on
+[4096, 1024] int32 rows without and with the broadcast causal mask,
+int8_conv2d at the ViT-B/16 patch embed and the 3x3 conv over 64 channels.  An ablated variant's
 output is wrong by design; ``full`` (no edit) must equal the committed
 build's output.
+
+``conv`` times int8_conv2d with each block shape of ``conv2d.CONFIGS``
+forced, at chip_smoke's phase 3 shapes (Table II, the 3x3 conv over 64
+channels, the first layer over RGB, the ViT-B/16 patch embed), and
+int_softmax with each form that holds a row of 1024 forced (1, 2, 4 or 8
+warps a row) at [4096, 1024] int32, with and without the causal mask.
+Every tiling's and form's output must equal the first one's.  It also
+times the timer's floor (two events with nothing between them, and an
+empty kernel) and the committed rules with the L2 flushed by a read, whose
+clean lines cost nothing to evict, beside ``chip_smoke.Timer``'s written
+flush.
+``conv2d.tiling`` and ``int_softmax.form`` keep what it decided.
 
 Times: CUDA events over ten launches with a cold L2 (``chip_smoke.Timer``).
 Prints one line a shape or variant; needs nvcc and one card.
@@ -36,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import shutil
+import types
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -203,6 +221,24 @@ ABLATIONS = (
         ("    for (int j = 0; j < j1; ++j)\n", "    for (int j = 0; j < 0; ++j)\n"),
         ("    for (int j = j1; j < j2; ++j) {", "    for (int j = j1; j < j1; ++j) {"),
         ("      for (int n = 0; n < N; ++n)\n        fma8", "      for (int n = 0; n < 0; ++n)\n        fma8")]),
+    ("int_softmax", "full", []),
+    ("int_softmax", "no exp", [
+        ("      v[k] = int_exp(v[k], mx, p);", "      v[k] = (v[k] - mx) & 1023;")]),
+    ("int_softmax", "no probability", [
+        ("  return min(div_rcp(static_cast<unsigned>(max(num, 0)), lm, lsh), 127);",
+         "  return num & 127;")]),
+    ("int_softmax", "no exp, no probability", [
+        ("      v[k] = int_exp(v[k], mx, p);", "      v[k] = (v[k] - mx) & 1023;"),
+        ("  return min(div_rcp(static_cast<unsigned>(max(num, 0)), lm, lsh), 127);",
+         "  return num & 127;")]),
+    ("int_softmax", "no store", [
+        ("      *reinterpret_cast<uint4*>(orow + e0) = make_uint4(",
+         "      if (w[0] == 0x12345678u) *reinterpret_cast<uint4*>(orow + e0) = make_uint4(")]),
+    ("int8_conv2d", "full", []),
+    ("int8_conv2d", "no epilogue", [
+        ("        if (m >= p.M) continue;", "        if (m >= 0) continue;")]),
+    ("int8_conv2d", "no main loop", [
+        ("  mma_gemm::mainloop<C, W8, 1>(p.x,", "  if (p.K < 0) mma_gemm::mainloop<C, W8, 1>(p.x,")]),
 )
 
 
@@ -251,10 +287,23 @@ def ablate() -> None:
     dt = torch.nn.functional.softplus(randn(cs.Z_B, cs.Z_T, cs.Z_H) - 1.0)
     a = -torch.linspace(1.0, 16.0, cs.Z_H, device=dev)
     bm, cm = randn(cs.Z_B, cs.Z_T, cs.Z_N), randn(cs.Z_B, cs.Z_T, cs.Z_N)
+    xs = torch.randint(-3000, 3000, (4, 1024, 1024), generator=gen, device=dev,
+                       dtype=torch.int32)
+    keep = torch.ones((1024, 1024), dtype=torch.bool, device=dev).tril()
+
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+    pe = (i8(cs.VIT_IMAGES, 14, 14, 768), i8(1, 1, 768, cs.VIT_D),
+          torch.zeros(cs.VIT_D, dtype=torch.int32, device=dev))
+    c3 = (i8(8, 56, 56, 64), i8(3, 3, 64, 64), torch.zeros(64, dtype=torch.int32, device=dev))
     calls = {"int8_flash_attention": (
                 ("v_scale", lambda: ops.attention_i8(q, k, v, sc, v_scale=v_s)),
                 ("int32", lambda: ops.attention_i8(q, k, v, sc))),
-             "ssd_scan": (("N=64", lambda: ops.ssd_scan(x, dt, a, bm, cm)),)}
+             "ssd_scan": (("N=64", lambda: ops.ssd_scan(x, dt, a, bm, cm)),),
+             "int_softmax": (("[4096,1024] int32", lambda: ops.softmax_i8(xs, sc)),
+                             ("causal mask", lambda: ops.softmax_i8(xs, sc, keep))),
+             "int8_conv2d": (("patch embed", lambda: ops.conv2d_i8(*pe)),
+                             ("3x3", lambda: ops.conv2d_i8(*c3)))}
     ref = {}
     for source, name, lib in libs:
         current.update(lib=lib, source=source)
@@ -275,23 +324,106 @@ def ablate() -> None:
                    or getattr(e, "self_cuda_time_total", 0)) / 1e4
                   for e in prof.key_averages()
                   if e.key.split("<")[0].split("::")[-1].startswith(
-                      ("int8_attention", "ssd_scan"))}
+                      ("int8_attention", "ssd_scan", "int_softmax", "int8_conv2d"))}
             line.append(f"{label} {sum(ms.values()):.4f} ms ("
                         + ", ".join(f"{kn} {t:.4f}" for kn, t in ms.items()) + ")")
         print(f"{source} {name:20s} " + " | ".join(line), flush=True)
     # the committed build's output against the unedited copy's
     build._ENTRIES.clear()
     build.entry = committed
-    for label, fn in (*calls["int8_flash_attention"], *calls["ssd_scan"]):
+    for label, fn in (fn for source_calls in calls.values() for fn in source_calls):
         got = fn()
         got, want = (got[0], ref[label][0]) if isinstance(got, tuple) else (got, ref[label])
         if not torch.equal(got, want):
             raise AssertionError(f"ablate: the unedited copy's {label} output differs")
 
 
+def conv() -> None:
+    import chip_smoke as cs
+    from repro_torch.kernels import conv2d, ops
+    from repro_torch.kernels import int_softmax as sm
+    from repro_torch.models.attention import int_score_scale
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    timer = cs.Timer(dev)
+    committed_tiling, committed_form = conv2d.tiling, sm.form
+    forced = {}
+    conv2d.tiling = lambda m, o: forced["tile"]
+    sm.form = lambda n: forced["form"]
+
+    def ints(lo, hi, *shape, dtype=torch.int8):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=dtype)
+    for n_, h, wd, c, kh, kw, o in (cs.TABLE2_CONV, (8, 56, 56, 64, 3, 3, 64),
+                                    cs.FIRST_LAYER_CONV,
+                                    (cs.VIT_IMAGES, 14, 14, 768, 1, 1, cs.VIT_D)):
+        x, w = ints(-128, 128, n_, h, wd, c), ints(-128, 128, kh, kw, c, o)
+        b = ints(-2 ** 20, 2 ** 20, o, dtype=torch.int32)
+        m = n_ * (h - kh + 1) * (wd - kw + 1)
+        line, ref = [], None
+        for tile in conv2d.CONFIGS:
+            forced["tile"] = tile
+            out = ops.conv2d_i8(x, w, b)
+            if ref is not None and not torch.equal(out, ref):
+                raise AssertionError(f"conv {tile}: differs from {next(iter(conv2d.CONFIGS))}")
+            ref = out if ref is None else ref
+            ms = timer(lambda: ops.conv2d_i8(x, w, b))
+            line.append(f"{tile[0]}x{tile[1]} {ms:.5f}")
+        print(f"conv [{n_},{h},{wd},{c}]x[{kh},{kw},{c},{o}] (rule "
+              f"{committed_tiling(m, o)}): " + " | ".join(line), flush=True)
+        del x, w, b, out, ref
+    # the timer's floor: two events alone, and a kernel that does nothing
+    print(f"timer floor: events {timer(lambda: None):.5f} | empty kernel "
+          f"{timer(lambda: torch.cuda._sleep(0)):.5f}", flush=True)
+    # the committed rules with L2 flushed by a read (clean lines) instead of
+    # chip_smoke.Timer's write, whose dirty lines the kernel must evict
+    conv2d.tiling, sm.form = committed_tiling, committed_form
+    clean = cs.Timer(dev)
+    src = clean.flush
+    clean.flush = types.SimpleNamespace(zero_=lambda: src.max())
+    clean.flush.zero_()
+    torch.cuda.synchronize()
+    for n_, h, wd, c, kh, kw, o in ((8, 56, 56, 64, 3, 3, 64), cs.FIRST_LAYER_CONV,
+                                    (cs.VIT_IMAGES, 14, 14, 768, 1, 1, cs.VIT_D)):
+        x, w = ints(-128, 128, n_, h, wd, c), ints(-128, 128, kh, kw, c, o)
+        b = ints(-2 ** 20, 2 ** 20, o, dtype=torch.int32)
+        print(f"conv [{n_},{h},{wd},{c}]x[{kh},{kw},{c},{o}] rule: written flush "
+              f"{timer(lambda: ops.conv2d_i8(x, w, b)):.5f} | read flush "
+              f"{clean(lambda: ops.conv2d_i8(x, w, b)):.5f}", flush=True)
+    sc = int_score_scale(128)
+    xs = torch.randint(-3000, 3000, (4096, 1024), generator=gen, device=dev,
+                       dtype=torch.int32)
+    x8 = xs.clamp(-128, 127).to(torch.int8)
+    keep = torch.ones((1024, 1024), dtype=torch.bool, device=dev).tril()
+    for name, xx, mask in (("int32", xs, None), ("int32 broadcast mask", xs.view(4, 1024, 1024), keep),
+                           ("int8", x8, None)):
+        print(f"softmax [4096,1024] {name} rule: written flush "
+              f"{timer(lambda: ops.softmax_i8(xx, sc, mask)):.5f} | read flush "
+              f"{clean(lambda: ops.softmax_i8(xx, sc, mask)):.5f}", flush=True)
+    print(f"empty kernel, read flush {clean(lambda: torch.cuda._sleep(0)):.5f}", flush=True)
+    conv2d.tiling = lambda m, o: forced["tile"]
+    sm.form = lambda n: forced["form"]
+    sc = int_score_scale(128)
+    x = torch.randint(-3000, 3000, (4096, 1024), generator=gen, device=dev,
+                      dtype=torch.int32)
+    keep = torch.ones((1024, 1024), dtype=torch.bool, device=dev).tril()
+    for name, mask in (("int32", None), ("int32 broadcast mask", keep)):
+        xs = x if mask is None else x.view(4, 1024, 1024)
+        line, ref = [], None
+        for f in (1, 2, 4, 8):
+            forced["form"] = f
+            out = ops.softmax_i8(xs, sc, mask)
+            if ref is not None and not torch.equal(out, ref):
+                raise AssertionError(f"softmax form {f}: differs from form 1")
+            ref = out if ref is None else ref
+            ms = timer(lambda: ops.softmax_i8(xs, sc, mask))
+            line.append(f"form {f} {ms:.5f}")
+        print(f"softmax [4096,1024] {name} (rule {committed_form(1024)}): "
+              + " | ".join(line), flush=True)
+
+
 if __name__ == "__main__":
-    if len(sys.argv) != 2 or sys.argv[1] not in ("tiles", "decode", "ablate"):
+    if len(sys.argv) != 2 or sys.argv[1] not in ("tiles", "decode", "ablate", "conv"):
         sys.exit(__doc__)
     if not torch.cuda.is_available():
         sys.exit("chip_probe: no CUDA device")
-    {"tiles": tiles, "decode": decode, "ablate": ablate}[sys.argv[1]]()
+    {"tiles": tiles, "decode": decode, "ablate": ablate, "conv": conv}[sys.argv[1]]()

@@ -73,6 +73,19 @@ def rcp32(c: float) -> np.float32:
     return np.float32(1.0) / np.float32(c)
 
 
+def rcp(d: int) -> tuple[int, int]:
+    """The exact reciprocal (m, sh) of a divisor 1 <= d < 2^31 for
+    numerators 0 <= n < 2^31: floor(n / d) == (n * m) >> sh, with
+    sh = 31 + ceil(log2 d) and m = ceil(2^sh / d) < 2^32 (m * d - 2^sh < d,
+    so n * (m * d - 2^sh) < 2^sh).  ``csrc/int_exp.cuh`` ``rcp`` computes
+    the same on the card: int_softmax and int8_flash_attention take
+    q_ln2's from their wrappers and compute the exp-sum l's once per row."""
+    if not 1 <= d < 2 ** 31:
+        raise ValueError(f"rcp: divisor {d} outside [1, 2^31)")
+    sh = 31 + (d - 1).bit_length()
+    return -(-(1 << sh) // d), sh
+
+
 _CONSTS: dict = {}
 
 

@@ -8,6 +8,12 @@
 //         dual_gemm_gated's int8 form);
 //   BF16  bf16 activations x bf16 weights [K, N], f32 sums
 //         (dual_gemm_gated, bf16).
+// The A operand comes from a source type (``mainloop``'s last template
+// argument): ``RowMajorA``, the default, copies a row-major [M, K] tile
+// (every GEMM: the same code as before the source existed);
+// int8_conv2d's ``ConvA`` gathers an implicit GEMM's rows, the output
+// pixels, from an NHWC image, one window chunk per ``cp.async`` (or byte
+// loads for ragged channels).
 //
 // Bound on the H100: at decode rows (M <= 64) bytes — the weight streams
 // must run near HBM's rate (half a byte, one byte or two bytes of weight per
@@ -211,16 +217,33 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, int dst_ld, const uint8_
   }
 }
 
-// one stage: A [BM, BK] at k0, each stream's weight rows for k0 .. k0 + BK
-// and (W4) the qmul rows of the groups starting in [k0, k0 + BK)
-template <class C, class B, int NS>
+// The A operand's sources.  ``load_stage`` asks its source for the
+// block's A tile [BM, BK] at depth k0 (bytes at or past kend, and rows at or
+// past M, zero) once a stage, k0 rising from the block's first depth by BK
+// each call, so a source may keep per-thread state from one stage to the
+// next.  ``RowMajorA``, the default: x is a row-major [M, K] matrix (the
+// GEMMs).  int8_conv2d's gathered source (``ConvA``, in int8_conv2d.cu)
+// maps output pixel m and window depth k to the NHWC image.
+struct RowMajorA {
+  template <class C, class B>
+  __device__ __forceinline__ void load(uint8_t* dst, int lda, const uint8_t* __restrict__ x,
+                                       int M, int K, int k0, int kend, int vec) {
+    constexpr int AE = B::A_ELEM;
+    load_tile<C, C::BM, B::BK * AE>(dst, lda, x, K * AE, blockIdx.y * C::BM, M, k0 * AE,
+                                    kend * AE, vec);
+  }
+};
+
+// one stage: A [BM, BK] at k0 from the A source, each stream's weight rows
+// for k0 .. k0 + BK and (W4) the qmul rows of the groups starting in
+// [k0, k0 + BK)
+template <class C, class B, int NS, class A>
 __device__ __forceinline__ void load_stage(uint8_t* stage, const uint8_t* __restrict__ x,
                                            const Streams<NS>& s, int M, int N, int K, int G,
-                                           int k0, int kend, int vec) {
+                                           int k0, int kend, int vec, A& a) {
   using S = Stage<C, B, NS>;
-  constexpr int AE = B::A_ELEM, WE = B::W_ELEM;
-  load_tile<C, C::BM, B::BK * AE>(stage, S::LDA, x, K * AE, blockIdx.y * C::BM, M, k0 * AE,
-                                  kend * AE, vec);
+  constexpr int WE = B::W_ELEM;
+  a.template load<C, B>(stage, S::LDA, x, M, K, k0, kend, vec);
   const int n0 = blockIdx.x * C::BN;
   // weight rows: packed (two k a row) for W4, one k a row otherwise
   const int r0 = B::GROUPED ? k0 / 2 : k0, r_end = B::GROUPED ? kend / 2 : kend;
@@ -368,12 +391,14 @@ __device__ __forceinline__ void compute_stage(const uint8_t* stage, int G, int k
 
 // Run this block's K range and (integer kinds) the split-K combine.
 // Returns true in the block that holds the tile's totals in ``acc`` and
-// must run the epilogue.  G: the W4 scale group (unused otherwise).
-template <class C, class B, int NS>
+// must run the epilogue.  G: the W4 scale group (unused otherwise).  ``a``:
+// the A operand's source (``RowMajorA``: x is [M, K]).
+template <class C, class B, int NS, class A = RowMajorA>
 __device__ __forceinline__ bool mainloop(const void* __restrict__ x, const Streams<NS>& s,
                                          int M, int N, int K, int G, int k_len, int vec,
                                          int32_t* __restrict__ partial,
-                                         int* __restrict__ counters, Acc<C, B, NS>& acc) {
+                                         int* __restrict__ counters, Acc<C, B, NS>& acc,
+                                         A a = A()) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int is_last;
   using T = typename B::T;
@@ -397,7 +422,7 @@ __device__ __forceinline__ bool mainloop(const void* __restrict__ x, const Strea
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
     if (st < nk)
-      load_stage<C, B, NS>(smem + st * SB, xb, s, M, N, K, G, kbeg + st * BK, kend, vec);
+      load_stage<C, B, NS>(smem + st * SB, xb, s, M, N, K, G, kbeg + st * BK, kend, vec, a);
     wmma::cp_async_commit();
   }
   for (int it = 0; it < nk; ++it) {
@@ -406,7 +431,7 @@ __device__ __forceinline__ bool mainloop(const void* __restrict__ x, const Strea
     const int nxt = it + STAGES - 1;    // refill the stage step it - 1 used
     if (nxt < nk)
       load_stage<C, B, NS>(smem + (nxt % STAGES) * SB, xb, s, M, N, K, G, kbeg + nxt * BK,
-                           kend, vec);
+                           kend, vec, a);
     wmma::cp_async_commit();
     compute_stage<C, B, NS>(smem + (it % STAGES) * SB, G, kbeg + it * BK, kend, part, acc);
   }

@@ -41,8 +41,9 @@
 //   wrapper checks that the exp of a masked score, -(2^24) - max, is 0), and
 //   tiles with no masked key take a path without the per-key test.
 // * No integer division: ``/ q_ln2`` and ``/ l`` are multiply-highs by exact
-//   reciprocals (``rcp``: floor(n / d) = (n * m) >> sh for every
-//   0 <= n < 2^31), q_ln2's from the wrapper, l's once per row.
+//   reciprocals (``rcp``, ``div_rcp`` of ``int_exp.cuh``, shared with
+//   int_softmax.cu: floor(n / d) = (n * m) >> sh for every 0 <= n < 2^31),
+//   q_ln2's from the wrapper (``common.rcp``), l's once per row.
 // * Pass 3, int32 form: warp w scores rows 16w .. 16w + 15 against a whole
 //   tile; its probabilities are the A fragments of two int8 ``mma.sync`` k
 //   steps in place (k order 2t, 2t+1, 8+2t, 9+2t within 16 keys); V's B
@@ -73,6 +74,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int_exp.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -120,19 +122,6 @@ struct Lay {
   static constexpr int bytes(bool vs) { return RING + (vs ? VD + PS + MASKS : 0); }
   static_assert(K_BYTES >= BQ * LDK, "the Q rows are staged in one K tile");
 };
-
-// floor(n / d) for 0 <= n < 2^31 from d's (m, sh) = rcp(d)
-__device__ __forceinline__ int div_rcp(unsigned n, unsigned m, int sh) {
-  return static_cast<int>((static_cast<unsigned long long>(n) * m) >> sh);
-}
-
-// the exact reciprocal of d >= 1: sh = 31 + ceil(log2 d), m = ceil(2^sh / d)
-// (< 2^32); n * (m * d - 2^sh) < 2^sh for n < 2^31 makes the product exact.
-// ``int8_flash_attention.rcp`` is the same function.
-__device__ __forceinline__ void rcp(unsigned d, unsigned& m, int& sh) {
-  sh = 31 + (d > 1 ? 32 - __clz(d - 1) : 0);
-  m = static_cast<unsigned>(((1ull << sh) + d - 1) / d);
-}
 
 // i_exp(max(s - m, NEG_INF)) >> es in the oracle's order; s - m <= 0
 __device__ __forceinline__ int int_exp(int s, int m, const Params& p) {

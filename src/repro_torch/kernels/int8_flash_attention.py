@@ -11,7 +11,7 @@ keys: blocks of 64 query rows stream K three times, as the TPU kernel does
 — a first CUDA kernel each row's max and exp-sum (into ``stats``, scratch
 from ``torch.empty``), a second the probabilities and PV — QK^T on the int8
 tensor cores, K and V through a ``cp.async`` ring, the softmax's two
-divisions as multiply-highs by exact reciprocals (``rcp``), PV on int8
+divisions as multiply-highs by exact reciprocals (``common.rcp``), PV on int8
 tensor cores (int32 form) or a register-blocked f32 product over the keys
 with a nonzero probability (v_scale form).  One call counts as one launch.
 Every launch streams (``streams``);
@@ -35,9 +35,9 @@ import torch
 
 from ..core import inumerics as inum
 from . import build
-from .common import LAUNCHES, cdiv, check, f32, on_cuda, rcp32
+from .common import LAUNCHES, cdiv, check, f32, on_cuda, rcp, rcp32
 from .flash_attention import head_dim_ok
-from .int_softmax import NEG_INF, _exp_consts
+from .int_softmax import NEG_INF, _exp_consts, exp_max, sums_fit
 
 I32 = torch.int32
 BK = 64               # keys per tile of the CUDA kernel
@@ -115,37 +115,6 @@ def streams(skv: int, d: int) -> bool:
     ``skv`` >= 1 whose block fits shared memory, which does not depend on
     ``skv``)."""
     return skv >= 1 and block_smem(skv, d) <= SMEM_LIMIT
-
-
-def rcp(d: int) -> tuple[int, int]:
-    """The exact reciprocal (m, sh) of a divisor 1 <= d < 2^31 for
-    numerators 0 <= n < 2^31: floor(n / d) == (n * m) >> sh, with
-    sh = 31 + ceil(log2 d) and m = ceil(2^sh / d) < 2^32 (m * d - 2^sh < d,
-    so n * (m * d - 2^sh) < 2^sh).  The kernel's ``rcp`` computes the same
-    per row for the exp-sum l; the wrapper passes q_ln2's."""
-    if not 1 <= d < 2 ** 31:
-        raise ValueError(f"rcp: divisor {d} outside [1, 2^31)")
-    sh = 31 + (d - 1).bit_length()
-    return -(-(1 << sh) // d), sh
-
-
-def exp_max(scale: float) -> int:
-    """The largest value the kernel's integer exp (after its ``es`` shift)
-    takes at ``scale``: (t^2 + q_c) >> es at either end of t's range
-    (q_b - q_ln2, q_b]."""
-    q_ln2, q_b, q_c, es = _exp_consts(scale)
-    t = max(abs(q_b), abs(q_b - q_ln2 + 1))
-    return (t * t + q_c) >> es
-
-
-def sums_fit(skv: int, scale: float) -> bool:
-    """True if the kernel's softmax arithmetic is exact for ``skv`` keys:
-    every exp is non-negative (q_c >= 0), the row sum l of at most ``skv``
-    exps stays in int32, and so does the probability's numerator
-    e * 127 + l // 2 (< 2^31, the range of l's and q_ln2's reciprocals;
-    q_ln2's numerator -score is at most 2^24)."""
-    e, q_c = exp_max(scale), _exp_consts(scale)[2]
-    return q_c >= 0 and skv * e < 2 ** 31 and 127 * e + (skv * e) // 2 < 2 ** 31
 
 
 def masked_exp_is_zero(scale: float, d: int) -> bool:

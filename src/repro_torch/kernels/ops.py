@@ -209,12 +209,30 @@ def conv2d_i8(x, w, bias, requant_params=None):
     return int8_conv2d(x, w, bias, requant_params)
 
 
+def softmax_mask_rows(x_shape, mask_shape) -> bool:
+    """True if a mask of ``mask_shape`` has x's shape or broadcasts over
+    ``x_shape``'s leading dimensions only (its last two dimensions equal
+    x's, the rest are 1): its [R, N] rows then serve x's flattened row r as
+    mask row r % R, uncopied.  Any other broadcast is materialized."""
+    return tuple(mask_shape) == tuple(x_shape) or (
+        len(x_shape) >= 2 and len(mask_shape) >= 2
+        and tuple(mask_shape[-2:]) == tuple(x_shape[-2:])
+        and all(d == 1 for d in mask_shape[:-2]))
+
+
 def softmax_i8(x, scale: float, mask=None):
     """Integer softmax over the last axis of an int8/int32 payload [..., N]
     -> int8 probabilities (dequantize with 1/127); ``mask`` (bool, True =
-    keep) gives masked positions probability 0."""
+    keep) gives masked positions probability 0.  A mask broadcast over
+    leading dimensions only reaches the kernel uncopied
+    (``softmax_mask_rows``)."""
     lead, n = x.shape[:-1], x.shape[-1]
-    m2 = None if mask is None else mask.expand(x.shape).reshape(-1, n)
+    if mask is None:
+        m2 = None
+    elif softmax_mask_rows(x.shape, mask.shape):
+        m2 = mask.reshape(-1, n)
+    else:
+        m2 = mask.expand(x.shape).reshape(-1, n)
     out = int_softmax(x.reshape(-1, n), scale, mask=m2)
     return out.reshape(*lead, n)
 

@@ -2,9 +2,10 @@
 (B16) kernels, on the CPU:
 
 * the exact reciprocals that replace the softmax's two integer divisions
-  (``int8_flash_attention.rcp``: q_ln2's from the wrapper, the exp-sum's
-  per row in the kernel) against Python's floor division, over the edges and
-  a seeded sample of the ranges the wrapper admits, and the kernel's softmax
+  (``common.rcp``, shared with int_softmax: q_ln2's from the wrapper, the
+  exp-sum's per row in the kernel) against Python's floor division, over
+  the edges and a seeded sample of the ranges the wrapper admits, and the
+  kernel's softmax
   arithmetic in that form against the JAX reference's ``i_softmax``;
 * the wrappers' choices: one streaming form at every key count, a block's
   shared memory independent of the keys, the range checks, the constants
@@ -28,7 +29,7 @@ from repro.models.ssm import _ssd_chunked as j_ssd_chunked
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import int8_flash_attention as ifa
 from repro_torch.kernels import ssd_scan as ssd
-from repro_torch.kernels.common import LAUNCHES
+from repro_torch.kernels.common import LAUNCHES, rcp
 from repro_torch.kernels.int_softmax import NEG_INF, _exp_consts
 from repro_torch.models.attention import int_score_scale
 
@@ -72,7 +73,7 @@ def _divisors():
 
 
 def _check_rcp(d, n):
-    m, sh = ifa.rcp(d)
+    m, sh = rcp(d)
     assert 0 < m < 2 ** 32 and 31 <= sh <= 62
     n = np.asarray(n, dtype=np.uint64)
     got = (n * np.uint64(m)) >> np.uint64(sh)
@@ -88,7 +89,7 @@ def test_rcp_matches_floor_division_at_the_edges(d):
          top - top % d, top - top % d - 1, 2 ** 24, 2 ** 24 - 1]
     n += [k * d + e for k in (3, 1000, top // d) for e in (-1, 0, 1)]
     _check_rcp(d, [v for v in n if 0 <= v <= top])
-    m, sh = ifa.rcp(d)
+    m, sh = rcp(d)
     for v in (0, d - 1, d, top):                 # in Python's integers too
         assert (v * m) >> sh == v // d
 
@@ -103,7 +104,7 @@ def test_rcp_matches_floor_division_on_a_seeded_sample(seed):
 def test_rcp_refuses_divisors_out_of_range():
     for d in (0, -3, 2 ** 31):
         with pytest.raises(ValueError, match="rcp"):
-            ifa.rcp(d)
+            rcp(d)
 
 
 def _kernel_softmax(scores: np.ndarray, valid: np.ndarray, scale: float):
@@ -111,7 +112,7 @@ def _kernel_softmax(scores: np.ndarray, valid: np.ndarray, scale: float):
     over unmasked keys, exps from the multiply-high halving count, the
     int32 row sum, then probabilities by the row's reciprocal."""
     q_ln2, q_b, q_c, es = _exp_consts(scale)
-    ln2_m, ln2_sh = ifa.rcp(q_ln2)
+    ln2_m, ln2_sh = rcp(q_ln2)
     out = np.zeros(scores.shape, dtype=np.int64)
     for r in range(scores.shape[0]):
         keys = np.nonzero(valid[r])[0]
@@ -124,7 +125,7 @@ def _kernel_softmax(scores: np.ndarray, valid: np.ndarray, scale: float):
         e = ((t * t + q_c) >> np.minimum(z, 30)) >> es
         l_ = max(int(e.sum()), 1)
         assert l_ < 2 ** 31
-        lm, lsh = ifa.rcp(l_)
+        lm, lsh = rcp(l_)
         out[r, keys] = np.minimum(((e * 127 + (l_ >> 1)) * lm) >> lsh, 127)
     return out
 
@@ -204,7 +205,7 @@ def test_entry_receives_q_ln2s_reciprocal(monkeypatch, d, v_scale):
     args = seen["args"]
     assert len(args) == len(seen["argtypes"]) == 23
     assert args[6:12] == (2, 4, 2, 40, 40, d)
-    assert args[14:20] == (q_ln2, q_b, q_c, es, *ifa.rcp(q_ln2))
+    assert args[14:20] == (q_ln2, q_b, q_c, es, *rcp(q_ln2))
     assert seen["argtypes"][18] is build.U
     assert (args[3] != 0) == v_scale
     assert LAUNCHES["int8_flash_attention"] == 1
