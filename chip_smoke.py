@@ -102,8 +102,22 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    and down and for the k and v writes, int_layernorm's fused form twice a
    layer and once more) and its synchronizing calls (under
    ``torch.cuda.set_sync_debug_mode("warn")``); every profile counts all
-   device kernels and the host's synchronizing runtime calls.  Each model
-   is freed before the next;
+   device kernels and the host's synchronizing runtime calls.  Then the
+   rest of the engine, 0 token differences required in each: the
+   codeqwen w4a8 parameters serve the first 8 requests (prompts cut to 128
+   tokens, 16 new) packed, chunked and tokenwise, greedy (equal to each
+   other and to phase 5's packed drain) and sampled (temperature 0.7, bit
+   for bit across the schedules and after ``warmup()``), the sampled
+   packed drain once more through ``run_stream`` with arrivals 0-2 s apart,
+   and the 16 requests paged with ``spec_k`` 4; the starcoder w8a8
+   parameters serve the 16 requests with ``spec_k`` 4, n-gram drafts and
+   random ones (equal to the vanilla drain); the sampler is timed at
+   8 x 92416 logits (``sampler_cost``); zamba2-2.7b w8a8 serves 8 requests
+   of 16-64 tokens x 16 tokenwise (9 one-row int8_kv_decode_attention
+   launches a step at head dim 80, no ssd_scan), 3 of them again alone
+   (lane isolation), one step profiled; and zamba2-2.7b-reduced w8a8 is
+   served on the card and on the CPU in the card's order (``STATES_TOL``).
+   Each model is freed before the next;
 6. the no-cache forward at full width and depth: codeqwen1.5-7b float
    parameters from ``--seed``, ``calibrate_ptq`` with the reference's grid
    (W4_GROUPS x W4_CLIPS for attn and mlp, 19 forwards of 2 x 128 tokens),
@@ -2077,19 +2091,35 @@ def dense_requests(cfg, seed, n_req, max_new) -> list:
     return out
 
 
+MULTI_ROW = ("int8_kv_decode_attention.rows", "paged_decode_attention.rows")
+
+
 def timed_drain(engine, waves, dev, cfg, must_launch=(),
-                reset_peak: bool = True) -> tuple[dict, dict]:
-    """Submit each wave of (prompt, max_new) and drain it before the next.
-    Launch counts are zeroed just before the first submit and read just
-    after the last drain.  Returns (result, tokens by request id)."""
+                reset_peak: bool = True, offsets=None) -> tuple[dict, dict]:
+    """Submit each wave of (prompt, max_new) and drain it before the next;
+    with ``offsets`` (seconds, one per request of a single wave) the wave
+    goes through ``run_stream`` at those arrival times instead.  Launch
+    counts are zeroed just before the first submit and read just after the
+    last drain (``multi_row``: the decode kernels' launches with more than
+    one row).  Returns (result, tokens by request id)."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.common import LAUNCHES
     if reset_peak:
         torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
+    rows0 = {k: LAUNCHES[k] for k in MULTI_ROW}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rid = 0
-    for wave in waves:
+    if offsets is not None:
+        (wave,) = waves
+        _, rejected = engine.run_stream([
+            (float(off), dict(prompt=prompt, max_new=max_new, request_id=i))
+            for i, (off, (prompt, max_new)) in enumerate(zip(offsets, wave))])
+        if rejected:
+            raise AssertionError(f"run_stream rejected {rejected}")
+        rid = len(wave)
+    for wave in waves if offsets is None else ():
         for prompt, max_new in wave:
             engine.submit(prompt, max_new=max_new, request_id=rid)
             rid += 1
@@ -2097,6 +2127,7 @@ def timed_drain(engine, waves, dev, cfg, must_launch=(),
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    multi_row = {k: LAUNCHES[k] - rows0[k] for k in MULTI_ROW}
     done = engine.finished
     if len(done) != rid:
         raise AssertionError(f"{len(done)} of {rid} requests finished")
@@ -2117,7 +2148,8 @@ def timed_drain(engine, waves, dev, cfg, must_launch=(),
                                   sorted(st["forwards"].items())},
            "wall_s": wall, "generated_tok_per_s": gen / wall,
            "processed_tok_per_s": (gen + st["prompt_tokens"]) / wall,
-           "launches": counts, "metrics": engine.serving_metrics(),
+           "launches": counts, "multi_row": multi_row,
+           "metrics": engine.serving_metrics(),
            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
            "summary": engine.stats_summary()}
     return res, {r["id"]: r["tokens"] for r in done}
@@ -2174,7 +2206,8 @@ def decode_step_launches(params, cfg, dev, paged: bool) -> tuple[dict, dict]:
 
 
 def serve_full(dev, seed, arch, precision, n_req, max_new, profiled,
-               must_launch, paged: bool = False, buckets=(1, 64)) -> dict:
+               must_launch, paged: bool = False, buckets=(1, 64),
+               extras: bool = False) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.quant import quantize_for
     from repro_torch.models import init_params
@@ -2201,6 +2234,10 @@ def serve_full(dev, seed, arch, precision, n_req, max_new, profiled,
     if paged:
         res["paged"] = serve_paged(dev, seed, cfg, params, requests, tokens,
                                    must_launch)
+    if extras and (arch, precision) in EXTRA_DRAINS:
+        res["extra"], info = EXTRA_DRAINS[(arch, precision)](
+            dev, seed, cfg, params, requests, tokens, must_launch)
+        res.update(info)
     return res
 
 
@@ -2380,6 +2417,367 @@ def serve_paged(dev, seed, cfg, params, requests, dense_tokens,
                              f"differ from the same requests on the default "
                              f"pool")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5, the rest of the engine: schedules, sampling, warmup, run_stream,
+# self-speculation and zamba2-2.7b served tokenwise
+# ---------------------------------------------------------------------------
+
+# the schedule drains: phase 5's first SCHED_REQ requests, prompts cut to
+# SCHED_CUT tokens, SCHED_NEW new tokens each
+SCHED_REQ, SCHED_CUT, SCHED_NEW = 8, 128, 16
+SCHEDULES = (("packed", {}),
+             ("chunked", dict(token_budget=0, prefill_chunk=32)),
+             ("tokenwise", dict(token_budget=0, prefill_chunk=0)))
+TEMPERATURE = 0.7
+SPEC_K = 4
+STREAM_SPAN_S = 2.0    # run_stream's arrivals: offsets 0 .. 2 s
+# the kernels whose launches per forward the chunked and tokenwise drains
+# report (B1, B9, B3, B5, B6)
+PER_FORWARD = ("quantize_rows", "int_layernorm", "int8_gemm", "int4_gemm",
+               "dual_int4_gemm_gated")
+
+
+def per_forward(res: dict) -> dict:
+    """Launches of ``PER_FORWARD``'s kernels per forward of a drain."""
+    n = sum(res["forwards_by_bucket"].values())
+    return {k: res["launches"][k] / n for k in PER_FORWARD
+            if res["launches"][k]}
+
+
+def sampler_cost(dev, seed, vocab: int, lanes: int = 8) -> dict:
+    """The sampler at ``lanes`` x ``vocab`` logits (codeqwen1.5-7b's
+    padded vocabulary): device ms of ``_sample`` at temperature
+    ``TEMPERATURE`` and greedy (CUDA events, cold L2), its device kernels
+    per call (torch.profiler), the host ms of the key fold of a step
+    (``_keys_at``: threefry on the CPU, then one copy to the card); its
+    uniforms bit-equal to the CPU's, and its draws equal to the CPU's where
+    the perturbed top-2 margin is clear."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import prng
+    from repro_torch.serve.engine import _sample
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lg = torch.randn((lanes, vocab), generator=gen, device=dev) * 4
+    keys_cpu = prng.fold_in(prng.prng_key(seed).expand(lanes, 2),
+                            torch.arange(lanes))
+    keys = keys_cpu.to(dev)
+    u_dev = prng.uniform(keys, (vocab,), prng.F32_TINY, 1.0).cpu()
+    u_cpu = prng.uniform(keys_cpu, (vocab,), prng.F32_TINY, 1.0)
+    if not torch.equal(u_dev.view(torch.int32), u_cpu.view(torch.int32)):
+        raise AssertionError("the card's threefry uniforms differ from the "
+                             "CPU's")
+    lg_cpu = lg.cpu()
+    tok_dev, tok_cpu = _sample(lg, TEMPERATURE, keys).cpu(), _sample(
+        lg_cpu, TEMPERATURE, keys_cpu)
+    pert = lg_cpu / torch.tensor(TEMPERATURE) + prng.gumbel(keys_cpu,
+                                                            (vocab,))
+    top2 = pert.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-5
+    if not torch.equal(tok_dev[clear], tok_cpu[clear]):
+        raise AssertionError(f"sampled tokens: card {tok_dev.tolist()}, CPU "
+                             f"{tok_cpu.tolist()}")
+    timer = Timer(dev)
+    ms = timer(lambda: _sample(lg, TEMPERATURE, keys))
+    greedy_ms = timer(lambda: _sample(lg, 0.0, None))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _sample(lg, TEMPERATURE, keys)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof_s = profile_summary(prof, wall_ms)
+    pos = np.arange(lanes) + 100
+    t0 = time.perf_counter()
+    for _ in range(20):
+        prng.fold_in(keys_cpu, torch.from_numpy(pos)).to(dev)
+    torch.cuda.synchronize()
+    keys_ms = (time.perf_counter() - t0) * 1e3 / 20
+    return {"shape": [lanes, vocab], "ms": ms, "greedy_ms": greedy_ms,
+            "device_kernels": prof_s["device_kernels"],
+            "device_busy_ms": prof_s["device_busy_ms"],
+            "wall_ms": wall_ms, "keys_host_ms": keys_ms,
+            "draws_compared": int(clear.sum())}
+
+
+def serve_schedules(dev, seed, cfg, params, requests, dense_tokens,
+                    must_launch) -> tuple[dict, dict]:
+    """The rest of the engine on the full-width codeqwen1.5-7b w4a8
+    parameters (dense int8 cache unless stated), phase 5's first
+    ``SCHED_REQ`` requests with prompts cut to ``SCHED_CUT`` tokens and
+    ``SCHED_NEW`` new tokens:
+
+    1. greedy under packed, chunked (``prefill_chunk`` 32) and tokenwise:
+       each request's tokens equal across the three, and equal to the
+       first ``SCHED_NEW`` tokens of phase 5's packed drain wherever the
+       prompt was not cut — 0 differences;
+    2. sampled (temperature ``TEMPERATURE``, ``seed``) under the three
+       schedules, and packed once more after ``warmup()``: all four bit
+       for bit;
+    3. ``run_stream``: the sampled packed drain replayed with arrivals 0 to
+       ``STREAM_SPAN_S`` s apart, equal to the offline drain;
+    4. self-speculation on the paged arena (``spec_k`` ``SPEC_K``, phase
+       5's 16 requests): equal to the vanilla drain.
+
+    Returns (drains, {"sampler": ``sampler_cost``})."""
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cut = [(p[:SCHED_CUT], SCHED_NEW) for p, _ in requests[:SCHED_REQ]]
+    out = {}
+
+    def engine(**kw):
+        return ServingEngine(params, cfg, ServeConfig(**{**SCFG, **kw}),
+                             device=dev)
+
+    def drain(label, eng, mode, **kw):
+        res, tok = timed_drain(eng, [cut], dev, cfg, must_launch, **kw)
+        if eng.mode != mode:
+            raise AssertionError(f"{label}: mode {eng.mode}, not {mode}")
+        res["mode"], res["per_forward"] = mode, per_forward(res)
+        out[label] = res
+        return res, tok
+
+    greedy = {m: drain(f"greedy {m}", engine(**kw), m)[1]
+              for m, kw in SCHEDULES}
+    for m in ("chunked", "tokenwise"):
+        out[f"greedy {m}"].update(
+            tokens_differ=count_diff(greedy[m], greedy["packed"]),
+            compared_with="the packed greedy drain", equal_required=True)
+    uncut = [i for i, (p, _) in enumerate(requests[:SCHED_REQ])
+             if len(p) <= SCHED_CUT]
+    out["greedy packed"].update(
+        tokens_differ=count_diff({i: greedy["packed"][i] for i in uncut},
+                                 {i: dense_tokens[i][:SCHED_NEW]
+                                  for i in uncut}),
+        compared_with=f"the first {SCHED_NEW} tokens of phase 5's packed "
+                      f"drain, requests {uncut} (prompts not cut)",
+        equal_required=True)
+
+    sampled = {}
+    for m, kw in SCHEDULES:
+        sampled[m] = drain(f"sampled {m}", engine(
+            temperature=TEMPERATURE, seed=seed, **kw), m)[1]
+    eng = engine(temperature=TEMPERATURE, seed=seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    if eng.stats["requests"] or eng.finished or eng._submitted:
+        raise AssertionError("warmup left requests behind")
+    res, sampled["warm"] = drain("sampled packed after warmup", eng,
+                                 "packed")
+    res["warmup_s"] = warm_s
+    for m in ("chunked", "tokenwise", "warm"):
+        label = ("sampled packed after warmup" if m == "warm"
+                 else f"sampled {m}")
+        out[label].update(
+            tokens_differ=count_diff(sampled[m], sampled["packed"]),
+            compared_with="the packed sampled drain", equal_required=True)
+
+    offsets = np.sort(np.random.default_rng([seed, 4]).uniform(
+        0.0, STREAM_SPAN_S, size=len(cut)))
+    offsets[0] = 0.0
+    res, tok = drain("sampled packed run_stream",
+                     engine(temperature=TEMPERATURE, seed=seed), "packed",
+                     offsets=offsets)
+    res.update(offsets_s=offsets.tolist(),
+               tokens_differ=count_diff(tok, sampled["packed"]),
+               compared_with="the offline packed sampled drain",
+               equal_required=True)
+
+    eng = engine(paged=True, page_size=PAGED_PS, spec_k=SPEC_K)
+    res, tok = timed_drain(eng, [requests], dev, cfg, tuple(
+        k for k in must_launch if k != "int8_kv_decode_attention") + (
+            "paged_decode_attention",))
+    eng.pool.check()
+    res.update(tokens_differ=count_diff(tok, dense_tokens),
+               compared_with="phase 5's vanilla drain (dense, which the "
+                             "same-schedule paged drain equals)",
+               equal_required=True)
+    out[f"paged spec_k={SPEC_K}"] = res
+    for label, r in out.items():
+        if r.get("tokens_differ"):
+            raise AssertionError(f"{label}: {r['tokens_differ']} tokens "
+                                 f"differ from {r['compared_with']}")
+    return out, {"sampler": sampler_cost(dev, seed, cfg.padded_vocab)}
+
+
+def serve_spec_dense(dev, seed, cfg, params, requests, dense_tokens,
+                     must_launch) -> tuple[dict, dict]:
+    """Self-speculation on the dense int8 cache (``spec_k`` ``SPEC_K``,
+    phase 5's requests): with the n-gram proposer, and adversarial, with
+    random tokens for drafts.  Both must give the vanilla drain's tokens —
+    0 differences."""
+    from repro_torch.serve import ServeConfig, ServingEngine
+    out = {}
+    for label, adversarial in ((f"spec_k={SPEC_K}", False),
+                               (f"spec_k={SPEC_K} random drafts", True)):
+        eng = ServingEngine(params, cfg, ServeConfig(**{**SCFG,
+                                                        "spec_k": SPEC_K}),
+                            device=dev)
+        if adversarial:
+            rng = np.random.default_rng([seed, 5])
+            eng._draft_fn = lambda ctx, k: rng.integers(
+                2, cfg.vocab_size, size=k).tolist()
+        res, tok = timed_drain(eng, [requests], dev, cfg, must_launch)
+        res.update(tokens_differ=count_diff(tok, dense_tokens),
+                   compared_with="phase 5's vanilla drain",
+                   equal_required=True)
+        if res["tokens_differ"]:
+            raise AssertionError(f"{label}: {res['tokens_differ']} tokens "
+                                 f"differ from the vanilla drain")
+        if not res["metrics"]["spec_drafted"]:
+            raise AssertionError(f"{label}: nothing was drafted")
+        out[label] = res
+    return out, {}
+
+
+EXTRA_DRAINS = {("codeqwen1.5-7b", "w4a8"): serve_schedules,
+                ("starcoder2-3b", "w8a8"): serve_spec_dense}
+
+# zamba2-2.7b w8a8 served tokenwise at full width
+ZAMBA_REQ, ZAMBA_NEW, ZAMBA_PROMPT = 8, 16, (16, 64)
+ZAMBA_ALONE = 3        # requests also drained alone (cut from 8 for time)
+ZAMBA_HEAD_DIM = 80
+ZAMBA_MUST = ("quantize_rows", "int_layernorm", "int8_gemm",
+              "int8_kv_decode_attention")
+
+
+def serve_zamba2(dev, seed) -> dict:
+    """zamba2-2.7b w8a8 (random weights from ``seed``, the port's PTQ),
+    int8 KV, 8 lanes, max_seq 1024: ``ZAMBA_REQ`` requests of
+    ``ZAMBA_PROMPT`` prompt tokens x ``ZAMBA_NEW`` new, served tokenwise
+    (the recurrent arch forces it).  Every step launches
+    int8_kv_decode_attention once per attention layer (9, head dim 80) at
+    one row, and no ssd_scan (the Mamba-2 blocks take the one-step update);
+    the norm, quantize and GEMM kernels launch.  Lane isolation: the first
+    ``ZAMBA_ALONE`` requests drained one at a time on the same engine give
+    the tokens they got together — 0 differences."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.quant import quantize_for
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = get_config("zamba2-2.7b", precision="w8a8")
+    t0 = time.perf_counter()
+    params = quantize_for(init_params(cfg, seed=seed, device=dev), "w8a8")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    rng = np.random.default_rng([seed, 6])
+    reqs = [(rng.integers(2, cfg.vocab_size, size=int(rng.integers(
+        ZAMBA_PROMPT[0], ZAMBA_PROMPT[1] + 1))).tolist(), ZAMBA_NEW)
+            for _ in range(ZAMBA_REQ)]
+    n_attn, n_mamba = layer_counts(cfg)
+    out = {}
+    for label, waves in (("tokenwise", [reqs]),
+                         ("tokenwise alone", [[r] for r in
+                                              reqs[:ZAMBA_ALONE]])):
+        eng = ServingEngine(params, cfg, ServeConfig(**SCFG), device=dev)
+        res, tok = timed_drain(eng, waves, dev, cfg, ZAMBA_MUST)
+        fwd = sum(res["forwards_by_bucket"].values())
+        launches = res["launches"]
+        if not (eng.mode == "tokenwise" and cfg.head_dim == ZAMBA_HEAD_DIM
+                and set(res["forwards_by_bucket"]) == {"1"}
+                and launches["int8_kv_decode_attention"] == n_attn * fwd
+                and launches["ssd_scan"] == 0
+                and res["multi_row"]["int8_kv_decode_attention.rows"] == 0):
+            raise AssertionError(
+                f"zamba2 {label}: mode {eng.mode}, {fwd} forwards "
+                f"{res['forwards_by_bucket']}, launches {launches}, multi-row "
+                f"{res['multi_row']}; want tokenwise, {n_attn} one-row "
+                f"decode launches a step at head dim 80, no ssd_scan")
+        res["decode_attention_per_step"] = launches[
+            "int8_kv_decode_attention"] / fwd
+        res["per_forward"] = {k: launches[k] / fwd for k in ZAMBA_MUST}
+        out[label] = res
+        if label == "tokenwise":
+            together = tok
+        else:
+            res.update(tokens_differ=count_diff(tok, {
+                i: together[i] for i in tok}),
+                       compared_with="the same requests served together "
+                                     "on 8 lanes", equal_required=True)
+            if res["tokens_differ"]:
+                raise AssertionError(f"zamba2 lane isolation: "
+                                     f"{res['tokens_differ']} tokens differ")
+    out["tokenwise"]["init_ptq_s"] = t_init
+    # one tokenwise step (8 lanes, one token each) under the profiler: the
+    # device's busy share of a step of 54 layers of glue
+    out["tokenwise"]["profile"] = {"bucket1": profile_step(params, cfg, dev,
+                                                           1)}
+    return out
+
+
+def serve_zamba2_reduced(dev, seed) -> dict:
+    """zamba2-2.7b-reduced w8a8 served tokenwise (int8 KV, 4 lanes, max_seq
+    64, 6 requests of 8-24 prompt tokens x 8 new) on the card and on the CPU
+    in the card's order (``forward(card_order=True)``): every step's logits
+    of the lanes in the plan within ``STATES_TOL`` of the range, and the
+    same greedy token wherever the CPU's top-2 margin is clear (past a
+    near-tie the two drains' contexts part, and the rest is not
+    compared)."""
+    import functools
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.quant import quantize_for
+    from repro_torch.serve import ServeConfig, ServingEngine
+    from repro_torch.serve import engine as engine_mod
+    cfg = get_config("zamba2-2.7b", precision="w8a8", reduced=True)
+    cpu = quantize_for(init_params(cfg, seed=seed, device="cpu"), "w8a8")
+    gpu = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng([seed, 7])
+    reqs = [rng.integers(2, cfg.vocab_size, size=int(rng.integers(8, 25)))
+            .tolist() for _ in range(6)]
+    scfg = ServeConfig(batch_lanes=4, max_seq=64, int8_kv=True)
+    runs = {}
+    for where, params in (("cpu", cpu), ("gpu", gpu)):
+        eng = ServingEngine(params, cfg, scfg, device=params.device)
+        steps = []
+        inner = eng._forward
+
+        def record(*a, inner=inner, steps=steps):
+            lg = inner(*a)
+            steps.append((a[3].copy(), lg[:, -1].float().cpu()))
+            return lg
+        eng._forward = record
+        for i, p in enumerate(reqs):
+            eng.submit(p, max_new=8, request_id=i)
+        forward = engine_mod.forward
+        if where == "cpu":
+            engine_mod.forward = functools.partial(forward, card_order=True)
+        try:
+            done = eng.run_until_drained()
+        finally:
+            engine_mod.forward = forward
+        runs[where] = (steps, {r["id"]: r["tokens"] for r in done})
+    worst, compared, near_tie = 0.0, 0, None
+    for (mask, lc), (_, lg) in zip(runs["cpu"][0], runs["gpu"][0]):
+        lc, lg = lc[torch.from_numpy(mask)], lg[torch.from_numpy(mask)]
+        err = float((lc - lg).abs().max())
+        rel = err / float(lc.abs().max())
+        worst = max(worst, rel)
+        if not (torch.isfinite(lg).all() and rel <= STATES_TOL):
+            raise AssertionError(f"reduced zamba2 served: step {compared}, "
+                                 f"card logits differ from the card-order "
+                                 f"CPU by {rel:.3g} of the range")
+        compared += 1
+        top2 = lc.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * err
+        same = lc.argmax(-1) == lg.argmax(-1)
+        if not same[clear].all():
+            raise AssertionError("reduced zamba2 served: greedy tokens "
+                                 "differ where the CPU margin is clear")
+        if not same.all():
+            near_tie = compared
+            break
+    differ = count_diff(runs["gpu"][1], runs["cpu"][1])
+    if near_tie is None and differ:
+        raise AssertionError(f"reduced zamba2 served: {differ} tokens "
+                             f"differ from the CPU's")
+    return {"steps_compared": compared, "worst_rel": worst,
+            "near_tie_at_step": near_tie, "tokens_differ": differ}
 
 
 def profile_step(params, cfg, dev, t: int, paged: bool = False) -> dict:
@@ -2885,6 +3283,21 @@ def log_drain(d: dict) -> None:
     log(f"  {d['summary']}")
 
 
+def log_extra(d: dict) -> None:
+    """The lines the engine's newer drains add to ``log_drain``'s."""
+    if "tokens_differ" in d:
+        log(f"    {d['tokens_differ']} generated tokens differ from "
+            f"{d['compared_with']} (required 0)")
+    m = d["metrics"]
+    if m["spec_drafted"]:
+        log(f"    speculation: {m['spec_accepted']} of {m['spec_drafted']} "
+            f"drafts accepted ({m['spec_accept_rate']:.1%}), verify buckets "
+            f"{d['forwards_by_bucket']}, multi-row launches {d['multi_row']}")
+    for key in ("per_forward", "warmup_s", "offsets_s", "init_ptq_s"):
+        if key in d:
+            log(f"    {key}: {d[key]}")
+
+
 def log_profile(d: dict) -> None:
     for name, p in d.get("profile", {}).items():
         log(f"  profile {name}: wall {p['wall_ms']:.2f} ms, "
@@ -3068,7 +3481,8 @@ def main() -> int:
             f"{max_new} new tokens" + (", then three paged drains" if paged
                                        else ""))
         srv = served[label] = serve_full(dev, args.seed, arch, precision, n_req,
-                                         max_new, profiled, must, paged)
+                                         max_new, profiled, must, paged,
+                                         extras=True)
         gc.collect()                  # free this model before the next
         torch.cuda.empty_cache()
         log_drain(srv)
@@ -3108,6 +3522,38 @@ def main() -> int:
             if "reference" in drain:
                 log("    reference run:")
                 log_drain(drain["reference"])
+        for name, drain in srv.pop("extra", {}).items():
+            served[f"{label} {name}"] = drain
+            log(f"  {name} drain:")
+            log_drain(drain)
+            log_extra(drain)
+        if "sampler" in srv:
+            sm = srv["sampler"]
+            log(f"  sampler at {sm['shape']} (temperature {TEMPERATURE}): "
+                f"{sm['ms']:.4f} ms device (greedy argmax {sm['greedy_ms']:.4f}"
+                f"), {sm['device_kernels']} device kernels a step "
+                f"({sm['device_busy_ms']:.4f} ms busy of {sm['wall_ms']:.2f} "
+                f"ms wall), key fold {sm['keys_host_ms']:.3f} ms host; "
+                f"{sm['draws_compared']} draws equal to the CPU's")
+
+    log(f"[5/6] serve full-width zamba2-2.7b w8a8 int8-KV tokenwise: "
+        f"{ZAMBA_REQ} requests x {ZAMBA_NEW} new tokens together, "
+        f"{ZAMBA_ALONE} of them one at a time")
+    for name, drain in serve_zamba2(dev, args.seed).items():
+        served[f"zamba2-2.7b w8a8 {name}"] = drain
+        log(f"  {name} drain:")
+        log_drain(drain)
+        log_extra(drain)
+        log_profile(drain)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[5/6] zamba2-2.7b-reduced w8a8 served tokenwise: card vs the CPU "
+        "in the card's order")
+    zred = serve_zamba2_reduced(dev, args.seed)
+    log(f"  {zred['steps_compared']} steps compared, worst "
+        f"{zred['worst_rel']:.3g} of the range (limit {STATES_TOL:g}); "
+        f"near-tie at step {zred['near_tie_at_step']}; "
+        f"{zred['tokens_differ']} tokens differ")
 
     no_cache = {}
     for arch, precisions, calibrated, long_w8a8 in NO_CACHE_PATHS:
@@ -3264,7 +3710,7 @@ def main() -> int:
             "cuda": torch.version.cuda,
             "build": {k: v["seconds"] for k, v in built.items()},
             "cases": cases, "reduced_worst_rel": worst, "serve": served,
-            "no_cache": no_cache,
+            "no_cache": no_cache, "zamba2_reduced_served": zred,
             "kernels": kernels, "total_s": time.perf_counter() - t_start},
             indent=1))
     log(f"done in {time.perf_counter() - t_start:.1f}s")

@@ -1,9 +1,9 @@
 """Config registry: --arch <id> -> ArchConfig.
 
 Mirrors ``repro.configs.get_config``.  The port serves starcoder2-3b and
-codeqwen1.5-7b, and runs zamba2-2.7b's forward (no cache, or with states;
-its serving waits for the tokenwise schedule, ROADMAP.md §A1); every other
-architecture raises until its slice lands (ROADMAP.md §A).
+codeqwen1.5-7b, and zamba2-2.7b (tokenwise, as a recurrent arch: ROADMAP.md
+§A1), whose forward also runs without a cache; every other architecture
+raises until its slice lands (ROADMAP.md §A).
 """
 from __future__ import annotations
 

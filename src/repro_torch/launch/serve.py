@@ -1,5 +1,6 @@
-"""Serving launcher of the port: packed token-budget forward with the
-continuous-batching engine, on the card unless ``--device cpu``.
+"""Serving launcher of the port: the continuous-batching engine (packed
+token-budget forward; chunked and tokenwise schedules as fallbacks), on the
+card unless ``--device cpu``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \\
@@ -8,13 +9,16 @@ Usage:
 
 ``--w8a8`` quantizes every GEMM weight to int8; ``--w4a8`` applies the
 reference's default W4 policy (attention and MLP projections packed int4 at
-group 64, the lm head int8).  ``--paged`` serves from the paged KV pool
-(prefix sharing, copy-on-write, preempt/swap under pressure) and prints its
-pool line.  Flags mirror ``repro.launch.serve``; those whose feature is not
-ported yet (``--spec-k``, ``--tp``, ``--temperature``, ``--token-budget 0``,
-``--stream-gap-ms``) raise ``NotImplementedError``, and the flags that only
-tune those features (``--prefill-chunk``, ``--tp-overlap``) are accepted and
-unused.
+group 64, the lm head int8).  ``--token-budget 0 --prefill-chunk N`` serves
+chunked (both 0: tokenwise; recurrent archs such as ``--arch zamba2-2.7b``
+always serve tokenwise).  ``--temperature T`` samples on the reference's
+threefry streams from ``--seed``; ``--spec-k K`` turns on self-speculation
+(greedy engines only).  ``--stream-gap-ms G`` replays the requests through
+``run_stream`` with exponential arrival gaps of mean G ms drawn from
+``--seed`` and prints the serving metrics.  ``--paged`` serves from the
+paged KV pool (prefix sharing, copy-on-write, preempt/swap under pressure)
+and prints its pool line.  Flags mirror ``repro.launch.serve``; only
+``--tp`` > 1 is not ported (it raises ``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -61,9 +65,6 @@ def main(argv=None) -> None:
 
     if args.w8a8 and args.w4a8:
         raise SystemExit("--w8a8 and --w4a8 are exclusive")
-    if args.stream_gap_ms > 0:
-        raise NotImplementedError("--stream-gap-ms (run_stream) is not ported "
-                                  "yet (ROADMAP.md §A1)")
     precision = "w4a8" if args.w4a8 else "w8a8" if args.w8a8 else "bf16"
     cfg = get_config(args.arch, precision=precision, reduced=args.reduced)
     params = quantize_for(init_params(cfg, seed=args.seed, device=args.device),
@@ -72,19 +73,33 @@ def main(argv=None) -> None:
         params, cfg,
         ServeConfig(batch_lanes=args.lanes, max_seq=args.max_seq,
                     int8_kv=args.int8_kv, temperature=args.temperature,
-                    token_budget=args.token_budget, paged=args.paged,
-                    page_size=args.page_size, pool_pages=args.pool_pages,
-                    queue_limit=args.queue_limit, spec_k=args.spec_k,
-                    tp=args.tp),
+                    token_budget=args.token_budget,
+                    prefill_chunk=args.prefill_chunk, seed=args.seed,
+                    paged=args.paged, page_size=args.page_size,
+                    pool_pages=args.pool_pages, queue_limit=args.queue_limit,
+                    spec_k=args.spec_k, tp=args.tp,
+                    tp_overlap=args.tp_overlap),
         device=args.device)
 
     rng = np.random.default_rng(args.seed)
+    reqs = []
     for i in range(args.requests):
         prompt = rng.integers(2, cfg.vocab_size, size=rng.integers(4, 12)).tolist()
-        engine.submit(prompt, max_new=args.max_new, request_id=i)
+        reqs.append(dict(prompt=prompt, max_new=args.max_new, request_id=i))
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    done = engine.run_until_drained()
+    if args.stream_gap_ms > 0:
+        offs = np.cumsum(rng.exponential(args.stream_gap_ms / 1e3,
+                                         size=args.requests))
+        done, rejected = engine.run_stream(
+            [(float(t), kw) for t, kw in zip(offs, reqs)])
+        if rejected:
+            print(f"rejected at admission (queue_limit="
+                  f"{args.queue_limit}): {rejected}")
+    else:
+        for kw in reqs:
+            engine.submit(**kw)
+        done = engine.run_until_drained()
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
     dt = time.perf_counter() - t0
@@ -96,6 +111,13 @@ def main(argv=None) -> None:
           f"int8_kv={args.int8_kv}, precision={precision}, "
           f"mode={engine.mode}, buckets={engine.chunk_buckets})")
     print(engine.stats_summary())
+    if args.stream_gap_ms > 0:
+        m = engine.serving_metrics()
+        print(f"ttft p50/p99 = {m['ttft_p50_ms']}/{m['ttft_p99_ms']} ms, "
+              f"tpot p50/p99 = {m['tpot_p50_ms']}/{m['tpot_p99_ms']} ms, "
+              f"queue_peak={m['queue_peak']} preempt={m['preemptions']} "
+              f"swap_pages={m['swap_out_pages']}/{m['swap_in_pages']} "
+              f"rejected={m['rejected']}")
     if engine.paged:
         m = engine.serving_metrics()
         print(f"paged pool: {engine.pool.n} pages of {engine.pool.ps} slots, "

@@ -170,6 +170,18 @@ def _write_cache(cache: dict, k, v, positions, writes=None) -> dict:
     return cache
 
 
+def rollback_cache(cache: dict, keep: torch.Tensor) -> dict:
+    """Speculative-decode KV rewind of the DENSE layout, in place: every
+    slot holding a position >= its lane's ``keep`` bound ((B,) int; lanes
+    with nothing to withdraw pass a bound above ``max_seq``) is marked
+    empty again.  Masking derives from ``pos_ids`` everywhere, so the stale
+    payload is unreadable and the next write at that slot reclaims it, as
+    if the rejected tokens had never been fed."""
+    pos = cache["pos_ids"]
+    pos.masked_fill_(pos >= keep.to(pos.device, pos.dtype)[:, None], -1)
+    return cache
+
+
 def _read_cache(cache: dict, dtype):
     if "k_s" in cache:
         k = cache["k"].float() * cache["k_s"]

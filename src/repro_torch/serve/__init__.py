@@ -1,4 +1,6 @@
-"""Serving engine of the port (packed mode, dense cache, greedy)."""
+"""Serving engine of the port: packed, chunked and tokenwise schedules,
+greedy or sampled on the reference's threefry streams, self-speculation,
+dense or paged KV caches."""
 from .engine import ServeConfig, ServingEngine, packed_step
 from .queue import AdmissionQueue, QueueFullError, percentile
 

@@ -1,13 +1,42 @@
 """Serving engine: ONE packed token-budget forward + continuous batching.
 
-Port of ``repro.serve.engine`` for packed mode with a dense KV cache or the
-paged KV pool, and greedy decoding.  Every iteration builds one ``(B, T_bucket)`` batch in
-which each active lane contributes a contiguous span of tokens — generating
-lanes 1 token, prefilling lanes their share of ``token_budget`` — right-
-padded with position -1 tokens whose cache writes are dropped.  Each lane's
-next token is the argmax of its logits at its own last VALID row.  Bucket 1
-is the all-decode steady state; with an int8 cache on the card it runs the
-int8-KV decode kernel (dense) or the paged decode kernel (paged).
+Port of ``repro.serve.engine`` (all of it but tensor parallel, ROADMAP.md
+§A10).  Every iteration builds one ``(B, T_bucket)`` batch in which each
+active lane contributes a contiguous span of tokens — generating lanes 1
+token, prefilling lanes their share of ``token_budget`` — right-padded with
+position -1 tokens whose cache writes are dropped.  Each lane's next token
+comes from its logits at its own last VALID row.  Bucket 1 is the
+all-decode steady state; with an int8 cache on the card every cache row runs
+the int8-KV decode kernel (dense) or the paged decode kernel (paged), at
+t = 1 or in their multi-row form, so a lane's tokens do not depend on how
+its steps were batched.
+
+Fallback schedules over the same forward:
+
+* ``token_budget=0, prefill_chunk>1`` — chunked: prefill chunks and decode
+  tokens run as two calls per iteration;
+* both 0 — tokenwise: every lane feeds one token per call, prompts
+  token-at-a-time.  Forced for recurrent-state archs (zamba2's Mamba-2
+  blocks), whose recurrence would consume pad tokens, and when no bucket
+  fits below ``max_seq``.
+
+Greedy tokens are the same under the three schedules.  Sampling
+(``temperature > 0``) uses PER-LANE streams of the reference's threefry
+generator (``serve/prng.py``): ``fold_in(PRNGKey(seed), submission id)`` at
+admission, folded again at each lane's last fed position, so a request's
+tokens are a function of (seed, submission id, position) only — not of the
+schedule, lane count or co-resident traffic.  ``warmup()`` requests live in
+a reserved key space (``2^32 - 1 - bucket``) and do not advance the
+submission counter.
+
+SELF-SPECULATION (``spec_k``, ``serve/draft.py``): a greedy decode lane may
+carry its last token plus up to k prompt-lookup draft tokens as one span;
+the verifier reads the greedy argmax at every span row (causal masking
+derives from positions, so row j sees none of the drafts after it), commits
+the longest draft-matching run plus one corrective token, and withdraws the
+rejected positions' KV writes (``kv_pool.truncate`` on paged,
+``attention.rollback_cache`` on dense).  The output equals vanilla greedy
+decode for ANY draft.  Sampled engines and tokenwise mode never speculate.
 
 ``paged=True`` replaces the dense per-lane caches with the PAGED KV pool:
 one physical arena of fixed-size pages per attention layer, one page table
@@ -16,22 +45,19 @@ shared by every layer, and the refcounted allocator + radix prefix index of
 shared pages and skips prefill for that span; divergence inside a page
 copies on write.  Under memory pressure the maybe-preempt stage swaps a
 victim lane's pages to host memory and resumes it later into fresh pages, a
-bit-exact round trip.  Paging is a memory-layout change only: the tokens
-equal the dense engine's.
+bit-exact round trip.  Paging is a memory-layout change only.  Recurrent
+archs keep the dense layout.
 
-Unlike the reference, which returns new states and commits them with a
-lane mask, the port writes the caches in place: a lane outside the plan
-feeds only pads (position -1), whose writes are dropped, so its cache is
-left exactly as the lane-masked commit would leave it.  The pool's clear,
-copy, swap-out and swap-in actions are in-place updates of the arena too.
-
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md):
-self-speculation (``spec_k``), tensor parallel (``tp``), sampling
-(``temperature > 0``, the reference's threefry streams), the chunked /
-tokenwise schedules (``token_budget=0``) and ``run_stream``.
+Unlike the reference, which returns new states, the port writes the KV
+caches in place: a lane outside the plan feeds only pads (position -1),
+whose writes are dropped, so its cache is left exactly as the lane-masked
+commit would leave it.  Mamba-2 states come back as new tensors and are
+committed under the lane mask (``_masked_commit``).  The pool's clear, copy,
+swap-out and swap-in actions are in-place updates of the arena too.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from typing import Any
@@ -39,51 +65,38 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..kernels.common import resolve_device
+from ..kernels.common import f32, resolve_device
 from ..models import ArchConfig, forward, init_states
-from ..models.attention import gather_pages, scatter_pages
+from ..models.attention import gather_pages, rollback_cache, scatter_pages
 from ..models.lm import LM
+from . import prng
+from .draft import ngram_propose
 from .kv_pool import PagedKVPool, PoolExhaustedError
 from .queue import AdmissionQueue, QueueFullError, percentile
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """The reference's ServeConfig fields that the port reads, with its
-    defaults and meaning; values whose feature is not ported raise."""
+    """The reference's ServeConfig, with its defaults and meaning."""
 
     batch_lanes: int = 8
     max_seq: int = 2048
     int8_kv: bool = False
-    temperature: float = 0.0     # 0 = greedy (the only mode ported)
+    temperature: float = 0.0     # 0 = greedy
     eos_token: int = 1
-    token_budget: int = 32       # packed-step tokens per iteration
-    queue_limit: int = 0         # admission-queue bound; 0 = unbounded
+    token_budget: int = 32       # packed-step tokens per iteration; 0 = off
+    prefill_chunk: int = 32      # chunked-mode cap (used when budget = 0)
+    seed: int = 0                # base of the per-lane PRNG tree
     paged: bool = False          # paged KV pool + shared-prefix reuse
     page_size: int = 16          # KV page slots (demoted to divide max_seq)
     pool_pages: int = 0          # physical pages; 0 = auto-size
-    spec_k: int = 0
-    tp: int = 1
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                               f"{item})")
-
-
-def _check_supported(cfg: ArchConfig, scfg: ServeConfig) -> None:
-    if scfg.spec_k > 0:
-        raise _not_ported("self-speculative decoding (spec_k > 0)", "§A2")
-    if scfg.tp > 1:
-        raise _not_ported("tensor-parallel serving (tp > 1)", "§A10")
-    if scfg.temperature > 0.0:
-        raise _not_ported("sampled decoding (temperature > 0)", "§A1")
-    if scfg.token_budget <= 0:
-        raise _not_ported("the chunked / tokenwise schedules (token_budget=0)",
-                          "§A1")
-    if cfg.has_recurrent_state:
-        raise _not_ported(f"serving {cfg.name} (recurrent state: the "
-                          f"tokenwise schedule)", "§A1")
+    queue_limit: int = 0         # admission-queue bound; 0 = unbounded
+    swap: bool = True            # preempt + swap KV pages under pressure
+    spec_k: int = 0              # self-speculative draft tokens per decode
+    #                              step (0 = off; greedy engines only —
+    #                              sampled engines silently serve vanilla)
+    tp: int = 1                  # serving tensor parallel (not ported)
+    tp_overlap: str = "auto"     # validated only, as the reference at tp=1
 
 
 def packed_step(params: LM, cfg: ArchConfig, tokens, positions, states,
@@ -99,6 +112,31 @@ def packed_step(params: LM, cfg: ArchConfig, tokens, positions, states,
     return logits[rows, last_idx], states
 
 
+def _masked_commit(old_states: list, new_states: list, lane_mask) -> list:
+    """Keep ``new_states`` only for the lanes in ``lane_mask`` (B,) bool.
+    KV caches were written in place (pads dropped) and pass through; a
+    recurrent state's leaves (B, ...) are selected per lane."""
+    out = []
+    for old, new in zip(old_states, new_states):
+        if "kv" in new:
+            out.append(new)
+            continue
+        out.append({k: torch.where(
+            lane_mask.view((-1,) + (1,) * (v.dim() - 1)), v, old[k])
+            for k, v in new.items()})
+    return out
+
+
+def _sample(logits, temperature: float, keys):
+    """Per-lane sampling: ``keys`` (B, 2), one PRNG stream per lane.  The
+    reference runs this eagerly, so ``logits / temperature`` is a true
+    division: by a 0-dim tensor on the logits' device (a Python float
+    divisor on the card is a reciprocal product)."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    return prng.categorical(keys, logits / f32(temperature, logits.device))
+
+
 def _pow2_bucket(n: int) -> int:
     b = 1
     while b < n:
@@ -107,14 +145,21 @@ def _pow2_bucket(n: int) -> int:
 
 
 class ServingEngine:
-    """Slot-based continuous batching over the packed-step program family.
+    """Slot-based continuous batching over the packed-step forward.
 
     ``params`` must live on ``device`` — the card unless the caller passes
     device='cpu'."""
 
     def __init__(self, params: LM, cfg: ArchConfig, serve_cfg: ServeConfig,
                  device=None):
-        _check_supported(cfg, serve_cfg)
+        if serve_cfg.tp > 1:
+            raise NotImplementedError("tensor-parallel serving (tp > 1) is "
+                                      "not ported yet (ROADMAP.md §A10)")
+        if serve_cfg.tp_overlap not in ("auto", "overlap", "barrier"):
+            # validated even at tp=1, as the reference does
+            raise ValueError(
+                f"tp_overlap must be 'auto', 'overlap', or 'barrier', "
+                f"got {serve_cfg.tp_overlap!r}")
         self.device = resolve_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"params live on {params.device}, the engine "
@@ -123,10 +168,12 @@ class ServingEngine:
         self.cfg = cfg
         self.scfg = serve_cfg
         b = serve_cfg.batch_lanes
+        self._mode = self._resolve_mode()
         self._buckets = self._token_buckets()
-        if not self._buckets:
-            raise _not_ported("tokenwise serving (no bucket below max_seq)",
-                              "§A1")
+        if self._mode != "tokenwise" and not self._buckets:
+            # no bucket fits below max_seq (e.g. max_seq=2): serve
+            # token-at-a-time instead of failing on an empty bucket table
+            self._mode = "tokenwise"
         self._paged = self._resolve_paged()
         self.pool: PagedKVPool | None = None
         if self._paged:
@@ -160,9 +207,24 @@ class ServingEngine:
             self.states = init_states(cfg, b, serve_cfg.max_seq,
                                       int8_kv=serve_cfg.int8_kv,
                                       device=self.device)
+        # self-speculation: greedy engines only (a sampled stream does not
+        # follow the argmax the drafts are checked against), never
+        # tokenwise (a recurrence cannot rewind); a speculating lane is a
+        # (1 + k)-token span, so k stays one below the largest bucket
+        self._spec_k = 0
+        if (serve_cfg.spec_k > 0 and serve_cfg.temperature <= 0.0
+                and self._mode != "tokenwise"):
+            self._spec_k = min(serve_cfg.spec_k, self._buckets[-1] - 1)
+        # pluggable proposer (tests swap in adversarial drafts — the output
+        # holds for ANY proposer, only speed varies)
+        self._draft_fn = ngram_propose
+        self._no_rollback = 1 << 30   # per-lane sentinel: nothing to rewind
+        # lane bookkeeping (host side); PRNG keys are (B, 2) 32-bit words
         self.lane_pos = np.zeros(b, np.int32)
         self.lane_active = np.zeros(b, bool)
         self.lane_request: list[Any] = [None] * b
+        self.lane_keys = torch.zeros((b, 2), dtype=torch.int64)
+        self.base_key = prng.prng_key(serve_cfg.seed)
         self.queue = AdmissionQueue(serve_cfg.queue_limit)
         self.preempted: list[dict] = []   # swapped-out, waiting to resume
         self.finished: list[dict] = []
@@ -173,34 +235,35 @@ class ServingEngine:
         self.stats: dict[str, Any] = {}
         self.reset_stats()
 
-    @property
-    def mode(self) -> str:
-        return "packed"
-
-    @property
-    def chunk_buckets(self) -> tuple[int, ...]:
-        return self._buckets
-
-    @property
-    def paged(self) -> bool:
-        """True when the paged KV pool backs this engine's caches."""
-        return self._paged
+    def _resolve_mode(self) -> str:
+        """'packed' | 'chunked' | 'tokenwise' (recurrent archs: tokenwise —
+        their recurrence would consume pad tokens)."""
+        if self.cfg.has_recurrent_state:
+            return "tokenwise"
+        if self.scfg.token_budget > 0:
+            return "packed"
+        if self.scfg.prefill_chunk > 1:
+            return "chunked"
+        return "tokenwise"
 
     def _resolve_paged(self) -> bool:
         """Paged KV needs every per-forward state mutation to flow through
         the position-masked page scatter; recurrent-state and
-        cross-attention archs keep the dense layout, as in the reference
-        (the port serves neither yet)."""
+        cross-attention archs keep the dense layout, as in the reference."""
         if not self.scfg.paged or self.cfg.has_recurrent_state:
             return False
         return not any(k in ("xattn", "dec") for k in self.cfg.block_pattern)
 
     def _token_buckets(self) -> tuple[int, ...]:
-        """Power-of-two row lengths up to ``token_budget``, strictly below
-        ``max_seq`` (a span of cache length would take the full-assign
-        write); bucket 1 is always present."""
-        cap = self.scfg.token_budget
-        out, b = [1], 2
+        """Power-of-two row lengths up to the mode's cap (``token_budget``
+        packed, ``prefill_chunk`` chunked), strictly below ``max_seq`` (a
+        span of cache length would take the full-assign write).  Bucket 1
+        is always present in packed mode; empty = tokenwise."""
+        if self._mode == "tokenwise":
+            return ()
+        cap = (self.scfg.token_budget if self._mode == "packed"
+               else self.scfg.prefill_chunk)
+        out, b = [1] if self._mode == "packed" else [], 2
         while b <= cap:
             if b < self.scfg.max_seq:
                 out.append(b)
@@ -208,6 +271,55 @@ class ServingEngine:
         if cap not in out and cap < self.scfg.max_seq:
             out.append(cap)
         return tuple(sorted(out))
+
+    @property
+    def mode(self) -> str:
+        """Active schedule: 'packed', 'chunked', or 'tokenwise'."""
+        return self._mode
+
+    @property
+    def chunk_buckets(self) -> tuple[int, ...]:
+        """Static packed-row lengths in use (empty = tokenwise)."""
+        return self._buckets
+
+    @property
+    def paged(self) -> bool:
+        """True when the paged KV pool backs this engine's caches."""
+        return self._paged
+
+    def warmup(self) -> None:
+        """Run every bucket outside any measured window: the kernels are
+        built, cuBLAS and the caching allocator set up.  One LONE request of
+        exactly each bucket's length (drained alone), one of bucket 1, then
+        an all-pad batch per bucket (every position -1: no cache write
+        lands, and no lane's recurrent state is committed).  Warmup requests
+        use the RESERVED key space and do not advance the submission
+        counter, so later requests' tokens are unchanged.  Clears the
+        finished list and stats, and flushes the radix index when paged."""
+        for bl in [b for b in self._buckets if b > 1]:
+            self._submit_warmup([2 + (i % 5) for i in range(bl)], bl)
+            self.run_until_drained()
+        self._submit_warmup([2], 1)
+        self.run_until_drained()
+        b = self.scfg.batch_lanes
+        for t in sorted({1, *self._buckets}):
+            self._forward(np.zeros((b, t), np.int32),
+                          np.full((b, t), -1, np.int32), np.zeros(b, np.int64),
+                          np.zeros(b, bool), False, min(self._spec_k + 1, t))
+        if self._paged:
+            # warmup prompts must not linger as shareable prefixes
+            self._apply_pool_actions(self.pool.flush_tree())
+        self.finished.clear()
+        self.reset_stats()
+
+    def _submit_warmup(self, prompt: list[int], bucket: int) -> None:
+        """Queue a warmup request keyed at the TOP of the uint32 fold range
+        (real submission ids count up from 0 and never reach it); never
+        touches ``_submitted``."""
+        self.queue.push({"prompt": list(prompt), "max_new": 2,
+                         "id": f"_warmup{bucket}", "generated": [],
+                         "_seq": 2 ** 32 - 1 - bucket, "priority": 0,
+                         "t_submit": self._clock()})
 
     def reset_stats(self) -> None:
         self.stats = {
@@ -219,6 +331,10 @@ class ServingEngine:
             "swap_out_pages": 0, "swap_in_pages": 0,
             "ttft_ms": [], "tpot_ms": [],
             "slo_ttft_miss": 0, "slo_tpot_miss": 0,
+            # self-speculation; spec_throttled counts proposals halved
+            # under pool pressure
+            "spec_drafted": 0, "spec_accepted": 0, "spec_steps": 0,
+            "spec_throttled": 0,
         }
         if self._paged:
             # prefix-hit / COW / eviction counters live in pool.stats, reset
@@ -226,8 +342,14 @@ class ServingEngine:
             self.pool.reset_stats()
 
     def _reset_lane(self, lane: int) -> None:
-        """Clear one lane's caches back to their init values (in place)."""
+        """Clear one lane's states back to their init values (in place): a
+        KV cache's positions, payload and scales, a Mamba-2 layer's conv
+        and SSD state."""
         for st in self.states:
+            if "kv" not in st:
+                st["conv"][lane] = 0
+                st["ssd"][lane] = 0
+                continue
             kv = st["kv"]
             kv["pos_ids"][lane] = -1
             kv["k"][lane] = 0
@@ -240,7 +362,8 @@ class ServingEngine:
     def submit(self, prompt: list[int], max_new: int = 32, request_id=None,
                *, priority: int = 0, ttft_slo_ms: float | None = None,
                tpot_slo_ms: float | None = None, on_token=None):
-        """Queue one request (validated here, as in the reference)."""
+        """Queue one request (validated here, as in the reference).
+        ``on_token(request_id, token)`` streams tokens as they commit."""
         n = len(prompt)
         if n == 0:
             raise ValueError("empty prompt: nothing to prefill (submit at "
@@ -272,7 +395,7 @@ class ServingEngine:
 
     # -- the paged arena's device side -------------------------------------
     def _arenas(self) -> list[dict]:
-        return [st["kv"] for st in self.states]
+        return [st["kv"] for st in self.states if "kv" in st]
 
     def _apply_pool_actions(self, actions) -> None:
         """Replay the allocator's device actions on the arena IN ORDER (an
@@ -360,12 +483,15 @@ class ServingEngine:
                 req["_pending_prompt"] = req["prompt"][:]
             self.lane_request[lane] = req
             self.lane_active[lane] = True
+            # per-lane PRNG stream, keyed by SUBMISSION id: a request's
+            # samples never depend on lane count or co-resident traffic
+            self.lane_keys[lane] = prng.fold_in(self.base_key, req["_seq"])
 
     def _preempt_lane(self, lane: int) -> None:
         """Victim selected: swap the lane's KV pages to host memory and free
         the lane.  The request keeps its position, pending prompt and
-        generated tokens, so its resume produces the tokens of an
-        uninterrupted run."""
+        generated tokens, and its PRNG stream is keyed by submission id, so
+        its resume produces the tokens of an uninterrupted run."""
         req = self.lane_request[lane]
         mapped, actions = self.pool.swap_out(lane)
         js = [j for j, _ in mapped]
@@ -384,8 +510,9 @@ class ServingEngine:
 
     def _try_resume(self, lane: int, req: dict) -> bool:
         """Swap a preempted request back in: rebind its logical pages to
-        fresh physical pages, scatter the saved payload, restore the lane.
-        False (and no state change) when the pool cannot host it yet."""
+        fresh physical pages, scatter the saved payload, restore the lane's
+        counters and PRNG stream.  False (and no state change) when the
+        pool cannot host it yet."""
         js, payloads = req["_swap"]
         try:
             pids, actions = self.pool.swap_in(lane, js)
@@ -400,6 +527,7 @@ class ServingEngine:
         self.lane_pos[lane] = req.pop("_lane_pos")
         self.lane_request[lane] = req
         self.lane_active[lane] = True
+        self.lane_keys[lane] = prng.fold_in(self.base_key, req["_seq"])
         self.stats["resumes"] += 1
         self.stats["swap_in_pages"] += len(js)
         return True
@@ -410,7 +538,8 @@ class ServingEngine:
         priority, then shortest progress, then lane index — drop it from
         the plan and retry.  A lone lane always fits (pool >= mp + 2), so
         this terminates.  Mutates ``plan``; False when nothing is left to
-        run.  With one lane left, ``PoolExhaustedError`` surfaces."""
+        run.  With one lane left, or ``swap`` off, ``PoolExhaustedError``
+        surfaces."""
         while True:
             try:
                 for lane in sorted(plan):
@@ -425,7 +554,7 @@ class ServingEngine:
                 self._apply_pool_actions(e.actions)
                 victims = [l for l in range(self.scfg.batch_lanes)
                            if self.lane_active[l]]
-                if len(victims) <= 1:
+                if len(victims) <= 1 or not self.scfg.swap:
                     raise
                 victim = min(victims, key=lambda l: (
                     self.lane_request[l]["priority"],
@@ -434,6 +563,8 @@ class ServingEngine:
                 plan.pop(victim, None)
 
     def _emit(self, req: dict, tok: int) -> None:
+        """Commit one generated token: record first-token latency, stream
+        it to the request's callback if any."""
         req["generated"].append(tok)
         if "t_first" not in req:
             req["t_first"] = self._clock()
@@ -445,6 +576,9 @@ class ServingEngine:
         req = self.lane_request[lane]
         rec = {"id": req["id"], "prompt": req["prompt"],
                "tokens": req["generated"]}
+        if "_spec_drafted" in req:
+            rec["spec_drafted"] = req["_spec_drafted"]
+            rec["spec_accepted"] = req["_spec_accepted"]
         if "t_first" in req:
             st = self.stats
             ttft = (req["t_first"] - req["t_submit"]) * 1e3
@@ -478,14 +612,49 @@ class ServingEngine:
         if done:
             self._finish_lane(lane)
 
+    def _keys_at(self, key_pos) -> torch.Tensor:
+        """(B, 2) sampling keys on the card: each lane's stream folded at
+        its own fed position — per (request, position), never per engine
+        iteration or schedule."""
+        keys = prng.fold_in(self.lane_keys, torch.from_numpy(
+            np.asarray(key_pos, np.int64)))
+        return keys.to(self.device)
+
+    # -- packed forward over a per-lane token plan ------------------------
+    def _propose(self, lane: int) -> list[int]:
+        """Draft tokens for a generating lane, stored on the request (read
+        by ``_run_lanes``).  Capped at the remaining ``max_new`` budget and
+        the lane's sequence room.  SWAP-AWARE THROTTLE: while any request
+        sits preempted, drafts are halved (rejected rows are pure pad under
+        pressure, and shorter spans shrink each step's page reservation);
+        draft content never changes the output, so this changes speed
+        only."""
+        req = self.lane_request[lane]
+        k = self._spec_k
+        if k and self.preempted:
+            k //= 2
+            self.stats["spec_throttled"] += 1
+        if k:
+            k = min(k, req["max_new"] - len(req["generated"]) - 1,
+                    self.scfg.max_seq - 1 - int(self.lane_pos[lane]))
+        if k <= 0:
+            req["_draft"] = []
+        else:
+            ctx = req["prompt"] + req["generated"]
+            req["_draft"] = [int(t) for t in self._draft_fn(ctx, k)][:k]
+        return req["_draft"]
+
     def _plan_tokens(self, lanes: list[int], budget: int) -> dict[int, int]:
-        """Generating lanes take 1 token; prefilling lanes waterfill the
-        remaining budget, shortest pending prompt first (each at least 1,
-        capped at the largest bucket, its pending prompt and its room)."""
-        cap = self._buckets[-1]
+        """Generating lanes take 1 token (plus their draft, when one
+        exists); prefilling lanes waterfill the remaining budget, shortest
+        pending prompt first (each at least 1, capped at the largest
+        bucket, its pending prompt and its room).  Lanes whose prompt
+        exhausted the sequence budget are finished here."""
+        cap = self._buckets[-1] if self._buckets else 1
         prefilling = [l for l in lanes
                       if self.lane_request[l]["_pending_prompt"]]
-        plan = {l: 1 for l in lanes if l not in prefilling}
+        plan = {l: 1 + len(self._propose(l))
+                for l in lanes if l not in prefilling}
         if not prefilling:
             return plan
         left = budget - sum(plan.values())
@@ -502,13 +671,38 @@ class ServingEngine:
             left -= plan[lane]
         return plan
 
+    def _forward(self, tok, pos, last_idx, mask, commit_all: bool,
+                 verify_rows: int) -> torch.Tensor:
+        """One forward over (B, T) host arrays; commits the new states (all
+        lanes, or those in ``mask``) and returns each lane's logits at its
+        last ``verify_rows`` valid rows (B, R, V), clipped at row 0."""
+        dev = self.device
+        logits, new_states = forward(
+            self.params, self.cfg, torch.from_numpy(tok).to(dev, torch.long),
+            torch.from_numpy(pos).to(dev), self.states)
+        self.states = (new_states if commit_all else _masked_commit(
+            self.states, new_states, torch.from_numpy(mask).to(dev)))
+        last = torch.from_numpy(last_idx).to(dev)
+        idx = (last[:, None] - torch.arange(verify_rows - 1, -1, -1,
+                                            device=dev)).clamp(min=0)
+        rows = torch.arange(logits.shape[0], device=dev)[:, None]
+        return logits[rows, idx]
+
     def _run_lanes(self, plan: dict[int, int]) -> None:
-        """ONE packed forward over the plan; rows right-padded with
-        position -1 up to the smallest bucket that fits."""
+        """ONE packed forward: each lane in ``plan`` contributes its token
+        count (prompt tokens while it consumes its prompt, else its last
+        sampled token plus any draft), rows right-padded with position -1
+        up to the smallest bucket that fits.  Logits gather at per-lane last
+        valid indices; sampling keys fold at per-lane last fed positions.
+
+        Speculating lanes (span 1 + m) run draft-then-verify: the span's
+        greedy rows ARE sequential decode's outputs, so the verifier accepts
+        drafts while they match the argmax of the PREVIOUS row, commits that
+        run plus one corrective token under vanilla's stop rules, and
+        withdraws the KV writes of every rejected position."""
         if not plan:
             return
         b = self.scfg.batch_lanes
-        dev = self.device
         if self._paged:
             # back every logical page this step writes with a lane-owned
             # page (alloc / copy-on-write), preempting victims under
@@ -519,35 +713,55 @@ class ServingEngine:
         need = max(plan.values())
         t = need if need == 1 else next(
             bk for bk in self._buckets if bk >= need)
+        vr = min(self._spec_k + 1, t)         # verify rows
         tok = np.zeros((b, t), np.int32)
-        pos = np.full((b, t), -1, np.int32)
+        pos = np.full((b, t), -1, np.int32)   # -1 = pad: cache write dropped
         last_idx = np.zeros(b, np.int64)
+        mask = np.zeros(b, bool)
+        key_pos = self.lane_pos.copy()
         n_prompt = 0
+        speculating = False
         for lane, c in plan.items():
             req = self.lane_request[lane]
             p0 = int(self.lane_pos[lane])
             if req["_pending_prompt"]:
                 tok[lane, :c] = req["_pending_prompt"][:c]
                 n_prompt += c
-            elif req["generated"]:
-                tok[lane, 0] = req["generated"][-1]
+            else:
+                if req["generated"]:
+                    tok[lane, 0] = req["generated"][-1]
+                if c > 1:                     # speculative draft rows
+                    tok[lane, 1:c] = req["_draft"][:c - 1]
+                    speculating = True
             pos[lane, :c] = np.arange(p0, p0 + c)
             last_idx[lane] = c - 1
-        lg, _ = packed_step(self.params, self.cfg,
-                            torch.from_numpy(tok).to(dev, torch.long),
-                            torch.from_numpy(pos).to(dev),
-                            self.states, torch.from_numpy(last_idx).to(dev))
-        nxt = torch.argmax(lg, dim=-1).cpu().numpy()
+            key_pos[lane] = p0 + c - 1        # last fed position
+            mask[lane] = True
+        # paged mode always commits the whole tree: the arena has no lane
+        # dimension to mask (pad writes are position-dropped)
+        lg = self._forward(tok, pos, last_idx, mask,
+                           self._paged or bool(mask.all()), vr)
+        if speculating:                      # greedy engines only
+            greedy = torch.argmax(lg, dim=-1).cpu().numpy()
+            nxt = greedy[:, -1]
+        else:
+            keys = (self._keys_at(key_pos) if self.scfg.temperature > 0.0
+                    else None)
+            nxt = _sample(lg[:, -1], self.scfg.temperature, keys
+                          ).cpu().numpy()
         st = self.stats
         st["forwards"][t] = st["forwards"].get(t, 0) + 1
         n_decode = 0
+        rollback_keep = None                  # dense rewind bounds (B,)
         for lane, c in plan.items():
             req = self.lane_request[lane]
+            p0 = int(self.lane_pos[lane])
             if req["_pending_prompt"]:
                 self.lane_pos[lane] += c
                 del req["_pending_prompt"][:c]
                 if not req["_pending_prompt"]:
-                    # boundary token: argmax of the last prompt logit
+                    # boundary token: sampled from the last prompt logit,
+                    # key folded at the last prompt position (= decode rule)
                     self._emit(req, int(nxt[lane]))
                     if self._paged:
                         # prompt fully in cache: register its pages in the
@@ -555,26 +769,91 @@ class ServingEngine:
                         self.pool.register_prompt(lane, req["prompt"])
                 self._check_done(lane)
                 continue
-            self.lane_pos[lane] += 1
-            n_decode += 1
-            self._emit(req, int(nxt[lane]))
+            draft = req.pop("_draft", [])
+            if c == 1:                        # vanilla decode row
+                self.lane_pos[lane] += 1
+                n_decode += 1
+                self._emit(req, int(nxt[lane]))
+                self._check_done(lane)
+                continue
+            # draft-then-verify: v[j] = the greedy token after feeding span
+            # row j (position p0 + j), the span's last c verify rows
+            m = c - 1
+            v = greedy[lane, vr - c:]
+            a = 0
+            while a < m and draft[a] == v[a]:
+                a += 1
+            st["spec_drafted"] += m
+            st["spec_accepted"] += a
+            st["spec_steps"] += 1
+            req["_spec_drafted"] = req.get("_spec_drafted", 0) + m
+            req["_spec_accepted"] = req.get("_spec_accepted", 0) + a
+            # commit one token at a time under vanilla's stop rules
+            e = 0
+            for i in range(a + 1):
+                e += 1
+                self._emit(req, int(v[i]))
+                if (len(req["generated"]) >= req["max_new"]
+                        or int(v[i]) == self.scfg.eos_token
+                        or p0 + e >= self.scfg.max_seq - 1):
+                    break
+            self.lane_pos[lane] = p0 + e
+            n_decode += e
+            if e < c:
+                # rejected tail [p0+e, p0+c): withdraw its KV writes so the
+                # cache is exactly what sequential decode would hold
+                if self._paged:
+                    self._apply_pool_actions(
+                        self.pool.truncate(lane, p0 + e, p0 + c))
+                else:
+                    if rollback_keep is None:
+                        rollback_keep = np.full(b, self._no_rollback,
+                                                np.int64)
+                    rollback_keep[lane] = p0 + e
             self._check_done(lane)
+        if rollback_keep is not None:
+            keep = torch.from_numpy(rollback_keep)
+            for kv in self._arenas():
+                rollback_cache(kv, keep)
         st["prompt_tokens"] += n_prompt
         st["decode_tokens"] += n_decode
+        # rejected speculative rows count as pads: they bought no output
         st["pad_tokens"] += t * len(plan) - n_prompt - n_decode
 
     # -- scheduler --------------------------------------------------------
     def step(self) -> None:
         """One iteration: admit (resumes first) → maybe-preempt (inside
-        ``_reserve_pages``) → pack → forward → commit → complete."""
+        ``_reserve_pages``) → pack → forward → commit → complete.  Packed:
+        ONE forward mixing prefill chunk tokens and decode tokens under
+        ``token_budget``.  Chunked: a prefill call, then a decode call over
+        the lanes that were not prefilling.  Tokenwise: single-token rows
+        for every lane."""
         self._admit()
         if not self.lane_active.any():
             return
         self.stats["steps"] += 1
         lanes = [l for l in range(self.scfg.batch_lanes)
                  if self.lane_active[l]]
-        self.stats["budget_tokens"] += self.scfg.token_budget
-        self._run_lanes(self._plan_tokens(lanes, self.scfg.token_budget))
+        if self._mode == "packed":
+            self.stats["budget_tokens"] += self.scfg.token_budget
+            self._run_lanes(self._plan_tokens(lanes, self.scfg.token_budget))
+            return
+        if self._mode == "chunked":
+            prefilling = [l for l in lanes
+                          if self.lane_request[l]["_pending_prompt"]]
+            if prefilling:
+                # budget = lanes x cap: every lane gets a full chunk share
+                self._run_lanes(self._plan_tokens(
+                    prefilling, len(prefilling) * self._buckets[-1]))
+            decoding = [l for l in lanes if self.lane_active[l]
+                        and l not in prefilling]
+            if decoding:
+                # decode call: 1 token per lane + any speculative draft
+                self._run_lanes({l: 1 + len(self._propose(l))
+                                 for l in decoding})
+            return
+        # tokenwise: prompts feed one token per call (recurrent-arch safe)
+        self._run_lanes({l: 1 for l in lanes})
 
     def run_until_drained(self, max_iters: int = 10_000) -> list[dict]:
         it = 0
@@ -585,7 +864,33 @@ class ServingEngine:
         return self.finished
 
     def run_stream(self, schedule, max_iters: int = 1_000_000):
-        raise _not_ported("run_stream (timed arrivals)", "§A1")
+        """Continuous serving against a TIMED arrival schedule
+        ``[(offset_s, submit_kwargs), ...]``: each request is submitted, in
+        schedule order, once the wall clock passes its offset, with engine
+        iterations in between.  Submission ORDER alone keys the PRNG
+        streams, so a streamed drain equals an offline drain of the same
+        schedule.  Bounded-queue rejections are collected (as request ids),
+        not raised.  Returns ``(finished, rejected_ids)``."""
+        pending = collections.deque(schedule)
+        t0 = self._clock()
+        rejected = []
+        it = 0
+        while (pending or self.queue or self.preempted
+               or self.lane_active.any()) and it < max_iters:
+            while pending and self._clock() - t0 >= pending[0][0]:
+                _, kw = pending.popleft()
+                try:
+                    self.submit(**kw)
+                except QueueFullError:
+                    rejected.append(kw.get("request_id"))
+            if (pending and not self.queue and not self.preempted
+                    and not self.lane_active.any()):
+                # idle gap before the next arrival: don't spin flat out
+                time.sleep(min(max(
+                    pending[0][0] - (self._clock() - t0), 0.0), 0.001))
+            self.step()
+            it += 1
+        return self.finished, rejected
 
     def serving_metrics(self) -> dict:
         st = self.stats
@@ -603,6 +908,12 @@ class ServingEngine:
             "swap_in_pages": st["swap_in_pages"],
             "slo_ttft_miss": st["slo_ttft_miss"],
             "slo_tpot_miss": st["slo_tpot_miss"],
+            "spec_drafted": st["spec_drafted"],
+            "spec_accepted": st["spec_accepted"],
+            "spec_throttled": st["spec_throttled"],
+            "spec_accept_rate": round(
+                st["spec_accepted"] / st["spec_drafted"], 4)
+            if st["spec_drafted"] else 0.0,
         }
 
     def stats_summary(self) -> str:
@@ -616,11 +927,17 @@ class ServingEngine:
         fill = (100.0 * valid / st["budget_tokens"]
                 if st["budget_tokens"] else 0.0)
         share = 100.0 * st["decode_tokens"] / valid if valid else 0.0
-        out = (f"mode=packed requests={st['requests']} "
+        out = (f"mode={self._mode} requests={st['requests']} "
                f"steps={st['steps']} prompt_tokens={st['prompt_tokens']} "
                f"decode_tokens={st['decode_tokens']} (share={share:.0f}%) "
-               f"row_eff={eff:.0f}% forwards[{fwd}] prefix_hist[{hist}]"
-               f" budget_fill={fill:.0f}%")
+               f"row_eff={eff:.0f}% forwards[{fwd}] prefix_hist[{hist}]")
+        if st["budget_tokens"]:
+            out += f" budget_fill={fill:.0f}%"
+        if self._spec_k:
+            rate = (100.0 * st["spec_accepted"] / st["spec_drafted"]
+                    if st["spec_drafted"] else 0.0)
+            out += (f" spec[k={self._spec_k} drafted={st['spec_drafted']}"
+                    f" accepted={st['spec_accepted']} rate={rate:.0f}%]")
         if self._paged:
             ps = self.pool.stats
             out += (f" paged[page={self.pool.ps} hits={ps['prefix_hits']}"

@@ -58,7 +58,8 @@ def test_scan_sees_the_whole_port():
                  "kernels/flash_attention.py", "kernels/int_gelu.py",
                  "kernels/int_silu.py", "kernels/conv2d.py",
                  "models/frontend.py", "models/ssm.py", "models/blocks.py",
-                 "kernels/ssd_scan.py", "configs/zamba2_2_7b.py"):
+                 "kernels/ssd_scan.py", "configs/zamba2_2_7b.py",
+                 "serve/prng.py", "serve/draft.py"):
         assert need in files
 
 
@@ -332,12 +333,22 @@ def test_zamba2_entry_points_default_to_the_card(no_cuda):
 
 
 def test_serving_zamba2_names_the_tokenwise_schedule():
-    """Recurrent archs serve tokenwise, which is not ported yet (§A1)."""
+    """Recurrent archs serve tokenwise (§A1): zamba2 on the CPU, with a
+    token budget asked for, names the tokenwise schedule, serves one token
+    per lane a step and launches nothing."""
+    from repro_torch.quant import quantize_for
     cfg = get_config("zamba2-2.7b", precision="w8a8", reduced=True)
-    params = init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="§A1"):
-        ServingEngine(params, cfg, ServeConfig(max_seq=16, token_budget=4,
-                                               int8_kv=True), device="cpu")
+    params = quantize_for(init_params(cfg, seed=1, device="cpu"), "w8a8")
+    eng = ServingEngine(params, cfg, ServeConfig(max_seq=16, token_budget=4,
+                                                 int8_kv=True, batch_lanes=2),
+                        device="cpu")
+    assert eng.mode == "tokenwise" and eng.chunk_buckets == ()
+    ops.reset_launch_counts()
+    eng.submit([5, 6, 7], max_new=3)
+    (rec,) = eng.run_until_drained()
+    assert len(rec["tokens"]) == 3 and set(eng.stats["forwards"]) == {1}
+    assert "mode=tokenwise" in eng.stats_summary()
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
 
 
 @pytest.mark.parametrize("precision", ["bf16", "w8a8", "w4a8"])

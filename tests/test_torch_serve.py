@@ -1,6 +1,8 @@
 """The port's serving engine against ``repro.serve.ServingEngine`` on the CPU
 (starcoder2-3b-reduced at w8a8 and codeqwen1.5-7b-reduced at w4a8, both
-with the int8 KV cache and the packed schedule).
+with the int8 KV cache and the packed schedule; the other schedules,
+sampling and warmup are ``test_torch_schedules.py``'s, self-speculation
+``test_torch_speculative.py``'s).
 
 Greedy tokens must match the reference's on fixed-seed prompts.  A
 divergence is allowed only at a step where the reference's own top-2 logit
@@ -127,19 +129,11 @@ def test_stats_and_buckets(setup):
         eng.submit([], max_new=2)
 
 
-@pytest.mark.parametrize("kw", [dict(spec_k=2), dict(tp=2),
-                                dict(temperature=0.7), dict(token_budget=0)])
+@pytest.mark.parametrize("kw", [dict(tp=2)])
 def test_unported_features_raise(setup, kw):
     _, _, cfg, tp, _ = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(tp, cfg, ServeConfig(**{**SCFG, **kw}), device="cpu")
-
-
-def test_run_stream_raises(setup):
-    _, _, cfg, tp, _ = setup
-    eng = ServingEngine(tp, cfg, ServeConfig(**SCFG), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.run_stream([])
 
 
 def test_queue_copy_behaves_like_reference():

@@ -236,3 +236,117 @@ def test_card_order_forward_on_the_cpu(zamba):
         assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
         outs.append(torch.cat([lg, lg2], 1))
     assert float((outs[0] - outs[1]).abs().max()) <= LOGIT_TOL
+
+
+# ---------------------------------------------------------------------------
+# serving: tokenwise (recurrent archs), the lane-masked state commit
+# ---------------------------------------------------------------------------
+
+SERVE = dict(batch_lanes=3, max_seq=48, int8_kv=True, token_budget=8)
+
+
+def _serve_prompts(cfg):
+    rng = np.random.default_rng(3)
+    return [rng.integers(2, cfg.vocab_size, n).tolist() for n in (5, 11, 3, 8)]
+
+
+def _drain(eng, prompts, max_new=8):
+    for i, p in enumerate(prompts):
+        eng.submit(p, max_new=max_new, request_id=i)
+    return {r["id"]: r["tokens"] for r in eng.run_until_drained()}
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+def test_serving_tokenwise_matches_reference(zamba, temperature):
+    """zamba2-2.7b-reduced w8a8 served by both engines (a token budget is
+    asked for; the recurrent arch forces tokenwise in both): the same
+    tokens, greedy and sampled.  The reference's step is compiled with
+    ``EXACT`` (module note); the integer forward then agrees exactly."""
+    p, tp, jcfg, cfg = zamba["w8a8"]
+    from repro.serve import ServeConfig as JServeConfig
+    from repro.serve import ServingEngine as JServingEngine
+    from repro_torch.serve import ServeConfig, ServingEngine
+    kw = dict(SERVE, temperature=temperature, seed=2)
+    jeng = JServingEngine(p, jcfg, JServeConfig(**kw))
+    jeng._step_fn = jax.jit(jeng._step_fn.__wrapped__, static_argnums=(6, 7),
+                            compiler_options=EXACT)
+    eng = ServingEngine(tp, cfg, ServeConfig(**kw), device="cpu")
+    assert eng.mode == jeng.mode == "tokenwise" and eng.chunk_buckets == ()
+    prompts = _serve_prompts(cfg)
+    ops.reset_launch_counts()
+    assert _drain(eng, prompts) == _drain(jeng, prompts)
+    assert set(eng.stats["forwards"]) == {1}
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+
+
+def test_serving_lane_isolation(zamba):
+    """A request's tokens do not depend on its neighbours: each request
+    drained alone equals the same request served beside the others."""
+    _, tp, _, cfg = zamba["w8a8"]
+    from repro_torch.serve import ServeConfig, ServingEngine
+    prompts = _serve_prompts(cfg)
+    together = _drain(ServingEngine(tp, cfg, ServeConfig(**SERVE),
+                                    device="cpu"), prompts)
+    eng = ServingEngine(tp, cfg, ServeConfig(**SERVE), device="cpu")
+    for i, p in enumerate(prompts):
+        eng.submit(p, max_new=8, request_id=i)
+        eng.run_until_drained()
+    alone = {r["id"]: r["tokens"] for r in eng.finished}
+    assert alone == together
+
+
+def test_lane_reset_clears_the_mamba_state(zamba):
+    """``_reset_lane`` returns a lane's conv and SSD state (and its caches)
+    to ``init_mamba2_state``'s zeros, and leaves the other lanes alone."""
+    _, tp, _, cfg = zamba["w8a8"]
+    from repro_torch.serve import ServeConfig, ServingEngine
+    eng = ServingEngine(tp, cfg, ServeConfig(**SERVE), device="cpu")
+    for i, p in enumerate(_serve_prompts(cfg)[:3]):
+        eng.submit(p, max_new=30, request_id=i)
+    for _ in range(6):
+        eng.step()
+    mamba = [st for st in eng.states if "ssd" in st]
+    assert len(mamba) == 5
+    before = [{k: v.clone() for k, v in st.items()} for st in mamba]
+    assert all(st["ssd"][1].abs().sum() > 0 and st["conv"][1].abs().sum() > 0
+               for st in mamba)
+    eng._reset_lane(1)
+    for st, old in zip(mamba, before):
+        for k in ("conv", "ssd"):
+            assert not st[k][1].any()
+            assert torch.equal(st[k][0], old[k][0])
+            assert torch.equal(st[k][2], old[k][2])
+    kv = next(st["kv"] for st in eng.states if "kv" in st)
+    assert (kv["pos_ids"][1] == -1).all() and (kv["pos_ids"][0] >= 0).any()
+
+
+def test_masked_commit_keeps_lanes_outside_the_plan():
+    """Recurrent leaves are selected per lane; KV caches (written in place)
+    pass through."""
+    from repro_torch.serve.engine import _masked_commit
+    old = [{"conv": torch.zeros(3, 2, 4), "ssd": torch.zeros(3, 2, 2, 2)},
+           {"kv": {"pos_ids": torch.zeros(3, 5, dtype=torch.int32)}}]
+    new = [{"conv": torch.ones(3, 2, 4), "ssd": torch.ones(3, 2, 2, 2)},
+           {"kv": old[1]["kv"]}]
+    out = _masked_commit(old, new, torch.tensor([True, False, True]))
+    for k in ("conv", "ssd"):
+        assert out[0][k][[0, 2]].eq(1).all() and out[0][k][1].eq(0).all()
+    assert out[1]["kv"] is old[1]["kv"]
+
+
+def test_recurrent_serving_falls_back_to_dense_vanilla(zamba):
+    """Paged and speculation are requested: the recurrent arch keeps the
+    dense cache and never speculates (it cannot rewind its recurrence),
+    and warmup does not shift its sampled streams."""
+    _, tp, _, cfg = zamba["w8a8"]
+    from repro_torch.serve import ServeConfig, ServingEngine
+    prompts = _serve_prompts(cfg)[:2]
+    kw = dict(SERVE, temperature=0.7, seed=1)
+    want = _drain(ServingEngine(tp, cfg, ServeConfig(**kw), device="cpu"),
+                  prompts)
+    eng = ServingEngine(tp, cfg, ServeConfig(**kw, paged=True, spec_k=4),
+                        device="cpu")
+    assert not eng.paged and eng._spec_k == 0 and eng.mode == "tokenwise"
+    eng.warmup()
+    assert _drain(eng, prompts) == want
+    assert eng.stats["spec_drafted"] == 0
