@@ -1,9 +1,11 @@
 """Config registry: --arch <id> -> ArchConfig.
 
-Mirrors ``repro.configs.get_config``.  The port serves starcoder2-3b and
-codeqwen1.5-7b, and zamba2-2.7b (tokenwise, as a recurrent arch: ROADMAP.md
-§A1), whose forward also runs without a cache; every other architecture
-raises until its slice lands (ROADMAP.md §A).
+Mirrors ``repro.configs.get_config``.  The port serves the dense decoders
+starcoder2-3b and codeqwen1.5-7b, zamba2-2.7b (tokenwise, as a recurrent
+arch), and the mixture-of-experts decoders mixtral-8x7b (sliding-window
+attention over a ring cache) and qwen2-moe-a2.7b (a sigmoid-gated shared
+expert); every forward also runs without a cache.  Every other
+architecture raises until its slice lands (ROADMAP.md §A).
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ import importlib
 
 from ..models.config import ArchConfig
 
-ARCH_IDS = ["starcoder2-3b", "codeqwen1.5-7b", "zamba2-2.7b"]
+ARCH_IDS = ["starcoder2-3b", "codeqwen1.5-7b", "zamba2-2.7b", "mixtral-8x7b",
+            "qwen2-moe-a2.7b"]
 
 
 def _module_name(arch_id: str) -> str:

@@ -10,7 +10,11 @@ block, unstacked) and ``unembed`` (absent with tied embeddings).  It
 unstacks them into one block per layer — the shared block built once and
 placed at each of its positions — and carries float leaves, the ``{w_q,
 scale}`` and ``{w4, qmul, scale}`` PTQ dicts, the gated MLP's ``w_gate``,
-the Mamba-2 vectors and the f32 embed/unembed over unchanged.
+the Mamba-2 vectors and the f32 embed/unembed over unchanged.  A MoE block
+(``moe``, ``moe_swa``) keeps the reference's layout under ``moe``:
+``router/w`` [d, E], ``experts/{w_in, w_gate, w_out}`` stacked over E (each
+a float array or a PTQ dict of stacked leaves), and Qwen2-MoE's ``shared``
+MLP and ``shared_gate`` [d, 1].
 ``to_reference`` is its inverse (the same numpy tree layout), so a round
 trip reproduces the tree exactly.
 
@@ -24,15 +28,16 @@ import torch
 
 from .kernels.common import resolve_device
 from .models.attention import Attention
-from .models.blocks import Block, MambaBlock
+from .models.blocks import Block, MambaBlock, MoEBlock
 from .models.config import ArchConfig
 from .models.layers import Linear, Norm
 from .models.lm import LM
 from .models.mlp import MLP
+from .models.moe import MoE
 from .models.ssm import Mamba2
 
 _MAMBA_VECTORS = ("conv_w", "conv_b", "A_log", "D", "dt_bias", "norm_scale")
-_KINDS = ("attn", "shared_attn", "mamba2")
+_KINDS = ("attn", "attn_swa", "moe", "moe_swa", "shared_attn", "mamba2")
 
 
 def _t(a, dev) -> torch.Tensor:
@@ -60,8 +65,13 @@ def _norm(leaf, i, d, norm_type, dev) -> Norm:
     return n
 
 
-def _attn_block(per: dict, i, cfg: ArchConfig, dev) -> Block:
-    a, m = per["attn"], per["mlp"]
+def _mlp(m: dict, i, dev) -> MLP:
+    return MLP(_linear(m["w_in"], i, dev), _linear(m["w_out"], i, dev),
+               _linear(m["w_gate"], i, dev) if "w_gate" in m else None)
+
+
+def _attn_block(per: dict, i, cfg: ArchConfig, dev) -> Block | MoEBlock:
+    a = per["attn"]
     d, nt = cfg.d_model, cfg.norm_type
     pick = _pick(i)
     bias = {k: (_t(pick(a[k]), dev) if k in a else None)
@@ -69,10 +79,16 @@ def _attn_block(per: dict, i, cfg: ArchConfig, dev) -> Block:
     attn = Attention(_linear(a["wq"], i, dev), _linear(a["wk"], i, dev),
                      _linear(a["wv"], i, dev), _linear(a["wo"], i, dev),
                      **bias)
-    return Block(_norm(per["norm1"], i, d, nt, dev), attn,
-                 _norm(per["norm2"], i, d, nt, dev),
-                 MLP(_linear(m["w_in"], i, dev), _linear(m["w_out"], i, dev),
-                     _linear(m["w_gate"], i, dev) if "w_gate" in m else None))
+    norm1 = _norm(per["norm1"], i, d, nt, dev)
+    norm2 = _norm(per["norm2"], i, d, nt, dev)
+    if "moe" not in per:
+        return Block(norm1, attn, norm2, _mlp(per["mlp"], i, dev))
+    m = per["moe"]
+    shared = (_mlp(m["shared"], i, dev), _linear(m["shared_gate"], i, dev)
+              ) if "shared" in m else (None, None)
+    return MoEBlock(norm1, attn, norm2,
+                    MoE(_linear(m["router"]["w"], i, dev),
+                        _mlp(m["experts"], i, dev), *shared))
 
 
 def _mamba_block(per: dict, i, cfg: ArchConfig, dev) -> MambaBlock:
@@ -129,7 +145,13 @@ def _norm_leaf(n: Norm) -> dict:
     return out
 
 
-def _attn_tree(blocks: list[Block], stack) -> dict:
+def _mlp_tree(mlps: list[MLP], stack) -> dict:
+    return {k: stack([_leaf(getattr(m, k)) for m in mlps])
+            for k in ("w_in", "w_out", "w_gate")
+            if getattr(mlps[0], k) is not None}
+
+
+def _attn_tree(blocks: list[Block | MoEBlock], stack) -> dict:
     attn = {k: stack([_leaf(getattr(b.attn, k)) for b in blocks])
             for k in ("wq", "wk", "wv", "wo")}
     for k in ("bq", "bk", "bv"):
@@ -137,10 +159,18 @@ def _attn_tree(blocks: list[Block], stack) -> dict:
             attn[k] = stack([getattr(b.attn, k).cpu().numpy() for b in blocks])
     norms = {k: stack([_norm_leaf(getattr(b, k)) for b in blocks])
              for k in ("norm1", "norm2")}
-    return {"norm1": norms["norm1"], "attn": attn, "norm2": norms["norm2"],
-            "mlp": {k: stack([_leaf(getattr(b.mlp, k)) for b in blocks])
-                    for k in ("w_in", "w_out", "w_gate")
-                    if getattr(blocks[0].mlp, k) is not None}}
+    tree = {"norm1": norms["norm1"], "attn": attn, "norm2": norms["norm2"]}
+    if not isinstance(blocks[0], MoEBlock):
+        tree["mlp"] = _mlp_tree([b.mlp for b in blocks], stack)
+        return tree
+    moes = [b.moe for b in blocks]
+    tree["moe"] = {"router": {"w": stack([_leaf(m.router) for m in moes])},
+                   "experts": _mlp_tree([m.experts for m in moes], stack)}
+    if moes[0].shared is not None:
+        tree["moe"]["shared"] = _mlp_tree([m.shared for m in moes], stack)
+        tree["moe"]["shared_gate"] = stack([_leaf(m.shared_gate)
+                                            for m in moes])
+    return tree
 
 
 def _mamba_tree(blocks: list[MambaBlock]) -> dict:

@@ -49,11 +49,18 @@ template <class C>
 __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 dual_gemm_gated_kernel_i8(const int8_t* __restrict__ x, mma_gemm::Streams<2> s,
                           const float* __restrict__ xs, const float* __restrict__ us,
-                          const float* __restrict__ gs, int M, int N, int K, int k_len,
-                          int vec, Act act, __nv_bfloat16* __restrict__ out,
+                          const float* __restrict__ gs, int M, int N, int K, int split,
+                          int k_len, int vec, Act act, __nv_bfloat16* __restrict__ out,
                           int32_t* __restrict__ partial, int* __restrict__ counters) {
+  const mma_gemm::Slice sl(split);  // expert sl.expert of [E, M, K] x 2 [E, K, N]
+  const size_t ex = sl.expert, mn = static_cast<size_t>(M) * N;
+#pragma unroll
+  for (int st = 0; st < 2; ++st) s.w[st] = static_cast<const int8_t*>(s.w[st]) + ex * K * N;
+  xs += ex * M, us += ex * N, gs += ex * N, out += ex * mn;
   mma_gemm::Acc<C, W8, 2> acc;
-  if (!mma_gemm::mainloop<C, W8, 2>(x, s, M, N, K, 0, k_len, vec, partial, counters, acc))
+  if (!mma_gemm::mainloop<C, W8, 2>(x + ex * M * K, s, M, N, K, 0, sl, k_len, vec,
+                                    partial + 2 * ex * mn,
+                                    counters + ex * gridDim.x * gridDim.y, acc))
     return;
 #pragma unroll
   for (int i = 0; i < C::MT; ++i)
@@ -81,8 +88,15 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 dual_gemm_gated_kernel_bf16(const __nv_bfloat16* __restrict__ x, mma_gemm::Streams<2> s,
                             int M, int N, int K, int vec, int act,
                             __nv_bfloat16* __restrict__ out) {
+  const mma_gemm::Slice sl(1);  // expert blockIdx.z of [E, M, K] x 2 [E, K, N]; no split
+  const size_t ex = sl.expert, mn = static_cast<size_t>(M) * N;
+#pragma unroll
+  for (int st = 0; st < 2; ++st)
+    s.w[st] = static_cast<const __nv_bfloat16*>(s.w[st]) + ex * K * N;
+  out += ex * mn;
   mma_gemm::Acc<C, BF16, 2> acc;
-  mma_gemm::mainloop<C, BF16, 2>(x, s, M, N, K, 0, K, vec, nullptr, nullptr, acc);
+  mma_gemm::mainloop<C, BF16, 2>(x + ex * M * K, s, M, N, K, 0, sl, K, vec, nullptr, nullptr,
+                                 acc);
 #pragma unroll
   for (int i = 0; i < C::MT; ++i)
 #pragma unroll
@@ -99,30 +113,31 @@ dual_gemm_gated_kernel_bf16(const __nv_bfloat16* __restrict__ x, mma_gemm::Strea
 }
 
 template <class C>
-int launch_i8(cudaStream_t stream, const void* x, const mma_gemm::Streams<2>& s, const void* xs,
-              const void* us, const void* gs, int m, int n, int k, int split, int k_len,
-              int vec, const Act& act, void* out, void* partial, void* counters) {
+int launch_i8(cudaStream_t stream, int experts, const void* x, const mma_gemm::Streams<2>& s,
+              const void* xs, const void* us, const void* gs, int m, int n, int k, int split,
+              int k_len, int vec, const Act& act, void* out, void* partial, void* counters) {
   const int smem = mma_gemm::Stage<C, W8, 2>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(dual_gemm_gated_kernel_i8<C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + C::BN - 1) / C::BN, (m + C::BM - 1) / C::BM, split);
+  const dim3 grid((n + C::BN - 1) / C::BN, (m + C::BM - 1) / C::BM, experts * split);
   dual_gemm_gated_kernel_i8<C><<<grid, C::THREADS, smem, stream>>>(
       static_cast<const int8_t*>(x), s, static_cast<const float*>(xs),
-      static_cast<const float*>(us), static_cast<const float*>(gs), m, n, k, k_len, vec, act,
+      static_cast<const float*>(us), static_cast<const float*>(gs), m, n, k, split, k_len, vec,
+      act,
       static_cast<__nv_bfloat16*>(out), static_cast<int32_t*>(partial),
       static_cast<int*>(counters));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class C>
-int launch_bf16(cudaStream_t stream, const void* x, const mma_gemm::Streams<2>& s, int m, int n,
-                int k, int vec, int act, void* out) {
+int launch_bf16(cudaStream_t stream, int experts, const void* x, const mma_gemm::Streams<2>& s,
+                int m, int n, int k, int vec, int act, void* out) {
   const int smem = mma_gemm::Stage<C, BF16, 2>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(dual_gemm_gated_kernel_bf16<C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + C::BN - 1) / C::BN, (m + C::BM - 1) / C::BM);
+  const dim3 grid((n + C::BN - 1) / C::BN, (m + C::BM - 1) / C::BM, experts);
   dual_gemm_gated_kernel_bf16<C><<<grid, C::THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), s, m, n, k, vec, act,
       static_cast<__nv_bfloat16*>(out));
@@ -134,8 +149,10 @@ int launch_bf16(cudaStream_t stream, const void* x, const mma_gemm::Streams<2>& 
 // act: 0 SiLU (silu consts used), 1 GELU (gelu consts used); bm 16: the
 // decode shape, 64: the prefill shape (anything else returns
 // cudaErrorInvalidValue); vec: K and N multiples of 16, operands 16-byte
-// aligned
-extern "C" int repro_dual_gemm_gated_i8(const void* x, const void* w_up, const void* up_scale,
+// aligned.  experts > 1: the expert-batched form, x [E, M, K], both weights
+// [E, K, N] with scales [E, N], xs [E, M], out [E, M, N], the split-K
+// scratch E times one expert's
+extern "C" int repro_dual_gemm_gated_i8(int experts, const void* x, const void* w_up, const void* up_scale,
                                         const void* w_gate, const void* gate_scale,
                                         const void* xs, int m, int n, int k, int act,
                                         float inv_act_scale, float act_out_scale, int s_ln2,
@@ -147,30 +164,33 @@ extern "C" int repro_dual_gemm_gated_i8(const void* x, const void* w_up, const v
               GeluConsts{g_b, g_c, g_one, g_s1, g_mult, g_s2}};
   const mma_gemm::Streams<2> s{{w_up, w_gate}, {nullptr, nullptr}};
   if (m <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
+  if (experts < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bm == mma_gemm::Prefill::BM)
-    return launch_i8<mma_gemm::Prefill>(st, x, s, xs, up_scale, gate_scale, m, n, k, split,
-                                        k_len, vec, a, out, partial, counters);
+    return launch_i8<mma_gemm::Prefill>(st, experts, x, s, xs, up_scale, gate_scale, m, n, k,
+                                        split, k_len, vec, a, out, partial, counters);
   if (bm == mma_gemm::Decode::BM)
-    return launch_i8<mma_gemm::Decode>(st, x, s, xs, up_scale, gate_scale, m, n, k, split,
-                                       k_len, vec, a, out, partial, counters);
+    return launch_i8<mma_gemm::Decode>(st, experts, x, s, xs, up_scale, gate_scale, m, n, k,
+                                       split, k_len, vec, a, out, partial, counters);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // act: 0 SiLU, 1 GELU; bm 16: the decode shape (16 x 64 blocks), 64 or 128:
 // the prefill shapes (64 x 128, 128 x 128); vec: K and N multiples of 8,
-// operands 16-byte aligned
-extern "C" int repro_dual_gemm_gated_bf16(const void* x, const void* w_up, const void* w_gate,
-                                          int m, int n, int k, int act, int bm, int vec,
-                                          void* out, void* stream) {
+// operands 16-byte aligned.  experts > 1: the expert-batched form, x
+// [E, M, K], both weights [E, K, N], out [E, M, N]
+extern "C" int repro_dual_gemm_gated_bf16(int experts, const void* x, const void* w_up,
+                                          const void* w_gate, int m, int n, int k, int act,
+                                          int bm, int vec, void* out, void* stream) {
   const mma_gemm::Streams<2> s{{w_up, w_gate}, {nullptr, nullptr}};
   if (m <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
+  if (experts < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bm == mma_gemm::WidePrefill::BM)
-    return launch_bf16<mma_gemm::WidePrefill>(st, x, s, m, n, k, vec, act, out);
+    return launch_bf16<mma_gemm::WidePrefill>(st, experts, x, s, m, n, k, vec, act, out);
   if (bm == mma_gemm::MidPrefill::BM)
-    return launch_bf16<mma_gemm::MidPrefill>(st, x, s, m, n, k, vec, act, out);
+    return launch_bf16<mma_gemm::MidPrefill>(st, experts, x, s, m, n, k, vec, act, out);
   if (bm == mma_gemm::NarrowDecode::BM)
-    return launch_bf16<mma_gemm::NarrowDecode>(st, x, s, m, n, k, vec, act, out);
+    return launch_bf16<mma_gemm::NarrowDecode>(st, experts, x, s, m, n, k, vec, act, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }

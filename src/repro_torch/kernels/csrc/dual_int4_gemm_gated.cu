@@ -39,10 +39,22 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 dual_int4_gemm_gated_kernel(const int8_t* __restrict__ x, mma_gemm::Streams<2> s,
                             const float* __restrict__ xs, const float* __restrict__ us,
                             const float* __restrict__ gs, int M, int N, int K, int G,
-                            int k_len, int vec, Act act, __nv_bfloat16* __restrict__ out,
-                            int32_t* __restrict__ partial, int* __restrict__ counters) {
+                            int split, int k_len, int vec, Act act,
+                            __nv_bfloat16* __restrict__ out, int32_t* __restrict__ partial,
+                            int* __restrict__ counters) {
+  // expert sl.expert of x [E, M, K], both streams [E, K/2, N] and [E, K/G, N]
+  const mma_gemm::Slice sl(split);
+  const size_t ex = sl.expert, mn = static_cast<size_t>(M) * N;
+#pragma unroll
+  for (int st = 0; st < 2; ++st) {
+    s.w[st] = static_cast<const int8_t*>(s.w[st]) + ex * (K / 2) * N;
+    s.qmul[st] += ex * (K / G) * N;
+  }
+  xs += ex * M, us += ex * N, gs += ex * N, out += ex * mn;
   mma_gemm::Acc<C, W4, 2> acc;
-  if (!mma_gemm::mainloop<C, W4, 2>(x, s, M, N, K, G, k_len, vec, partial, counters, acc))
+  if (!mma_gemm::mainloop<C, W4, 2>(x + ex * M * K, s, M, N, K, G, sl, k_len, vec,
+                                    partial + 2 * ex * mn,
+                                    counters + ex * gridDim.x * gridDim.y, acc))
     return;
 #pragma unroll
   for (int i = 0; i < C::MT; ++i)
@@ -61,18 +73,19 @@ dual_int4_gemm_gated_kernel(const int8_t* __restrict__ x, mma_gemm::Streams<2> s
 }
 
 template <class C>
-int launch(cudaStream_t stream, const void* x, const mma_gemm::Streams<2>& s, const void* xs,
-           const void* us, const void* gs, int m, int n, int k, int group, int split,
-           int k_len, int vec, const Act& act, void* out, void* partial, void* counters) {
+int launch(cudaStream_t stream, int experts, const void* x, const mma_gemm::Streams<2>& s,
+           const void* xs, const void* us, const void* gs, int m, int n, int k, int group,
+           int split, int k_len, int vec, const Act& act, void* out, void* partial,
+           void* counters) {
   const int smem = mma_gemm::Stage<C, W4, 2>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(dual_int4_gemm_gated_kernel<C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + C::BN - 1) / C::BN, (m + C::BM - 1) / C::BM, split);
+  const dim3 grid((n + C::BN - 1) / C::BN, (m + C::BM - 1) / C::BM, experts * split);
   dual_int4_gemm_gated_kernel<C><<<grid, C::THREADS, smem, stream>>>(
       static_cast<const int8_t*>(x), s, static_cast<const float*>(xs),
-      static_cast<const float*>(us), static_cast<const float*>(gs), m, n, k, group, k_len,
-      vec, act, static_cast<__nv_bfloat16*>(out), static_cast<int32_t*>(partial),
+      static_cast<const float*>(us), static_cast<const float*>(gs), m, n, k, group, split,
+      k_len, vec, act, static_cast<__nv_bfloat16*>(out), static_cast<int32_t*>(partial),
       static_cast<int*>(counters));
   return static_cast<int>(cudaGetLastError());
 }
@@ -81,9 +94,11 @@ int launch(cudaStream_t stream, const void* x, const mma_gemm::Streams<2>& s, co
 
 // act: 0 SiLU (silu consts used), 1 GELU (gelu consts used); group: 32, 64
 // or 128; bm 16: the decode shape, 32: the prefill shape (anything else
-// returns cudaErrorInvalidValue)
+// returns cudaErrorInvalidValue).  experts > 1: the expert-batched form, x
+// [E, M, K], each stream [E, K/2, N] with multipliers [E, K/G, N] and scales
+// [E, N], xs [E, M], out [E, M, N], the split-K scratch E times one expert's
 extern "C" int repro_dual_int4_gemm_gated(
-    const void* x, const void* up4, const void* up_mul, const void* up_scale,
+    int experts, const void* x, const void* up4, const void* up_mul, const void* up_scale,
     const void* gate4, const void* gate_mul, const void* gate_scale, const void* xs, int m,
     int n, int k, int group, int act, float inv_act_scale, float act_out_scale, int s_ln2,
     int s_b, int s_c, int s_one, int g_b, int g_c, int g_one, int g_s1, int g_mult, int g_s2,
@@ -96,12 +111,13 @@ extern "C" int repro_dual_int4_gemm_gated(
                                 static_cast<const int8_t*>(gate_mul)}};
   if (m <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
   if (group != 32 && group != 64 && group != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (experts < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bm == mma_gemm::DualPrefill::BM)
-    return launch<mma_gemm::DualPrefill>(st, x, s, xs, up_scale, gate_scale, m, n, k, group,
-                                         split, k_len, vec, a, out, partial, counters);
+    return launch<mma_gemm::DualPrefill>(st, experts, x, s, xs, up_scale, gate_scale, m, n, k,
+                                         group, split, k_len, vec, a, out, partial, counters);
   if (bm == mma_gemm::Decode::BM)
-    return launch<mma_gemm::Decode>(st, x, s, xs, up_scale, gate_scale, m, n, k, group, split,
-                                    k_len, vec, a, out, partial, counters);
+    return launch<mma_gemm::Decode>(st, experts, x, s, xs, up_scale, gate_scale, m, n, k,
+                                    group, split, k_len, vec, a, out, partial, counters);
   return static_cast<int>(cudaErrorInvalidValue);
 }

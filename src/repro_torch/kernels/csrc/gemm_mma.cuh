@@ -64,6 +64,12 @@
 //   the wrapper keeps every block's K range on group boundaries.  BF16
 //   never splits K (float sums would depend on the arrival order): its
 //   decode tile is narrower instead;
+// * expert batching (a MoE layer's experts, the reference's ``jax.vmap``
+//   over ``pallas_call``): one launch over E experts, grid z = expert x
+//   split (``Slice``); each kernel moves its operands, scales, output and
+//   split-K scratch to the block's expert before ``mainloop``, so an
+//   expert's blocks compute what an unbatched launch (E = 1) on its rows
+//   computes, bit for bit;
 // * tile shapes (``int8_gemm.w4_tiling``, ``w8_tiling``, ``bf16_tiling``
 //   pick): decode, blocks of 16 rows x 128 columns (4 warps of 16 x 32; rows
 //   past M are computed only up to the next multiple of 16), K split until
@@ -389,14 +395,29 @@ __device__ __forceinline__ void compute_stage(const uint8_t* stage, int G, int k
   }
 }
 
-// Run this block's K range and (integer kinds) the split-K combine.
-// Returns true in the block that holds the tile's totals in ``acc`` and
-// must run the epilogue.  G: the W4 scale group (unused otherwise).  ``a``:
-// the A operand's source (``RowMajorA``: x is [M, K]).
+// This block's place in a launch over E experts (the expert-batched forms;
+// an unbatched launch is E = 1), each expert's output tiles split ``split``
+// ways along K: blockIdx.z = expert * split + kz.  The kernels move every
+// operand, scale, output and split-K scratch pointer to the block's expert
+// before ``mainloop``, so one expert's blocks compute exactly what an
+// unbatched launch on that expert's rows computes.
+struct Slice {
+  int expert, kz, split;
+  __device__ __forceinline__ explicit Slice(int split_)
+      : expert(static_cast<int>(blockIdx.z) / split_),
+        kz(static_cast<int>(blockIdx.z) - expert * split_),
+        split(split_) {}
+};
+
+// Run this block's K range (``sl.kz`` of ``sl.split``) and (integer kinds)
+// the split-K combine.  Returns true in the block that holds the tile's
+// totals in ``acc`` and must run the epilogue.  G: the W4 scale group
+// (unused otherwise).  ``a``: the A operand's source (``RowMajorA``: x is
+// [M, K]).  ``partial`` and ``counters`` are the block's expert's.
 template <class C, class B, int NS, class A = RowMajorA>
 __device__ __forceinline__ bool mainloop(const void* __restrict__ x, const Streams<NS>& s,
-                                         int M, int N, int K, int G, int k_len, int vec,
-                                         int32_t* __restrict__ partial,
+                                         int M, int N, int K, int G, const Slice& sl,
+                                         int k_len, int vec, int32_t* __restrict__ partial,
                                          int* __restrict__ counters, Acc<C, B, NS>& acc,
                                          A a = A()) {
   extern __shared__ __align__(16) uint8_t smem[];
@@ -404,7 +425,7 @@ __device__ __forceinline__ bool mainloop(const void* __restrict__ x, const Strea
   using T = typename B::T;
   constexpr int SB = Stage<C, B, NS>::BYTES, BK = B::BK;
   const uint8_t* xb = static_cast<const uint8_t*>(x);
-  const int kbeg = blockIdx.z * k_len;
+  const int kbeg = sl.kz * k_len;
   const int kend = min(K, kbeg + k_len);
   const int nk = (kend - kbeg + BK - 1) / BK;
   Acc<C, B, NS> part;  // W4 only (dead otherwise)
@@ -438,7 +459,7 @@ __device__ __forceinline__ bool mainloop(const void* __restrict__ x, const Strea
   wmma::cp_async_wait<0>();
 
   if constexpr (!B::FLOAT) {
-    if (gridDim.z > 1) {  // split K: combine the int32 sums
+    if (sl.split > 1) {  // split K: combine the int32 sums
       const int tile = blockIdx.y * gridDim.x + blockIdx.x;
       const size_t mn = static_cast<size_t>(M) * N;
 #pragma unroll
@@ -459,7 +480,7 @@ __device__ __forceinline__ bool mainloop(const void* __restrict__ x, const Strea
       __threadfence();
       __syncthreads();
       if (threadIdx.x == 0)
-        is_last = atomicAdd(&counters[tile], 1) == static_cast<int>(gridDim.z) - 1;
+        is_last = atomicAdd(&counters[tile], 1) == sl.split - 1;
       __syncthreads();
       if (!is_last) return false;
       __threadfence();

@@ -36,11 +36,17 @@ using mma_gemm::W4;
 template <class C>
 __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 int4_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w4,
-                 const int8_t* __restrict__ qmul, int M, int N, int K, int G, int k_len,
-                 int vec, Epi e, int32_t* __restrict__ partial, int* __restrict__ counters) {
-  const mma_gemm::Streams<1> s{{w4}, {qmul}};
+                 const int8_t* __restrict__ qmul, int M, int N, int K, int G, int split,
+                 int k_len, int vec, Epi e0, int32_t* __restrict__ partial,
+                 int* __restrict__ counters) {
+  const mma_gemm::Slice sl(split);  // expert sl.expert of [E, M, K] x [E, K/2, N]
+  const size_t ex = sl.expert, mn = static_cast<size_t>(M) * N;
+  const mma_gemm::Streams<1> s{{w4 + ex * (K / 2) * N}, {qmul + ex * (K / G) * N}};
+  const Epi e = epi_at(e0, sl.expert, M, N);
   mma_gemm::Acc<C, W4, 1> acc;
-  if (!mma_gemm::mainloop<C, W4, 1>(x, s, M, N, K, G, k_len, vec, partial, counters, acc))
+  if (!mma_gemm::mainloop<C, W4, 1>(x + ex * M * K, s, M, N, K, G, sl, k_len, vec,
+                                    partial + ex * mn, counters + ex * gridDim.x * gridDim.y,
+                                    acc))
     return;
 #pragma unroll
   for (int i = 0; i < C::MT; ++i)
@@ -56,17 +62,17 @@ int4_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w4,
 }
 
 template <class C>
-int launch(cudaStream_t stream, const void* x, const void* w4, const void* qmul, int m, int n,
-           int k, int group, int split, int k_len, int vec, const Epi& e, void* partial,
-           void* counters) {
+int launch(cudaStream_t stream, int experts, const void* x, const void* w4, const void* qmul,
+           int m, int n, int k, int group, int split, int k_len, int vec, const Epi& e,
+           void* partial, void* counters) {
   const int smem = mma_gemm::Stage<C, W4, 1>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(int4_gemm_kernel<C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + C::BN - 1) / C::BN, (m + C::BM - 1) / C::BM, split);
+  const dim3 grid((n + C::BN - 1) / C::BN, (m + C::BM - 1) / C::BM, experts * split);
   int4_gemm_kernel<C><<<grid, C::THREADS, smem, stream>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w4),
-      static_cast<const int8_t*>(qmul), m, n, k, group, k_len, vec, e,
+      static_cast<const int8_t*>(qmul), m, n, k, group, split, k_len, vec, e,
       static_cast<int32_t*>(partial), static_cast<int*>(counters));
   return static_cast<int>(cudaGetLastError());
 }
@@ -74,8 +80,11 @@ int launch(cudaStream_t stream, const void* x, const void* w4, const void* qmul,
 }  // namespace
 
 // group: 32, 64 or 128; bm 16: the decode shape, 64: the prefill shape;
-// anything else returns cudaErrorInvalidValue
-extern "C" int repro_int4_gemm(const void* x, const void* w4, const void* qmul, int m, int n,
+// anything else returns cudaErrorInvalidValue.  experts > 1: the
+// expert-batched form, x [E, M, K], w4 [E, K/2, N], qmul [E, K/G, N], xs
+// [E, M], ws [E, N], out [E, M, N] (no bias or residual), the split-K scratch
+// E times one expert's
+extern "C" int repro_int4_gemm(int experts, const void* x, const void* w4, const void* qmul, int m, int n,
                                int k, int group, int epilogue, int stream_f32,
                                const void* xs, const void* ws, const void* bias,
                                const void* res, void* out, float inv_gelu_scale, int q_b,
@@ -97,12 +106,13 @@ extern "C" int repro_int4_gemm(const void* x, const void* w4, const void* qmul, 
   e.rq = RequantConsts{rq_s1, rq_mult, rq_s2};  // unused: no requant* epilogue at W4A8
   if (m <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
   if (group != 32 && group != 64 && group != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (experts < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bm == mma_gemm::Prefill::BM)
-    return launch<mma_gemm::Prefill>(st, x, w4, qmul, m, n, k, group, split, k_len, vec, e,
-                                     partial, counters);
+    return launch<mma_gemm::Prefill>(st, experts, x, w4, qmul, m, n, k, group, split, k_len,
+                                     vec, e, partial, counters);
   if (bm == mma_gemm::Decode::BM)
-    return launch<mma_gemm::Decode>(st, x, w4, qmul, m, n, k, group, split, k_len, vec, e,
-                                    partial, counters);
+    return launch<mma_gemm::Decode>(st, experts, x, w4, qmul, m, n, k, group, split, k_len,
+                                    vec, e, partial, counters);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -132,8 +132,8 @@ template <class C, bool RQ>
 __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS) int8_conv2d_kernel(Conv p) {
   const mma_gemm::Streams<1> s{{p.w}, {nullptr}};
   mma_gemm::Acc<C, W8, 1> acc;
-  mma_gemm::mainloop<C, W8, 1>(p.x, s, p.M, p.O, p.K, 0, p.K, p.vec_w, nullptr, nullptr, acc,
-                               ConvA<C>(p));
+  mma_gemm::mainloop<C, W8, 1>(p.x, s, p.M, p.O, p.K, 0, mma_gemm::Slice(1), p.K, p.vec_w,
+                               nullptr, nullptr, acc, ConvA<C>(p));
 #pragma unroll
   for (int j = 0; j < C::NP; ++j) {
     // lane (g, t) holds columns n .. n + 3 of rows g and g + 8 of each m tile

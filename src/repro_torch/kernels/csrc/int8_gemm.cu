@@ -45,11 +45,16 @@ using mma_gemm::W8;
 template <class C, bool RQ>
 __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 int8_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, int M, int N,
-                 int K, int k_len, int vec, Epi e, int32_t* __restrict__ partial,
+                 int K, int split, int k_len, int vec, Epi e0, int32_t* __restrict__ partial,
                  int* __restrict__ counters) {
-  const mma_gemm::Streams<1> s{{w}, {nullptr}};
+  const mma_gemm::Slice sl(split);  // expert sl.expert of [E, M, K] x [E, K, N]
+  const size_t mn = static_cast<size_t>(M) * N;
+  const mma_gemm::Streams<1> s{{w + static_cast<size_t>(sl.expert) * K * N}, {nullptr}};
+  const Epi e = epi_at(e0, sl.expert, M, N);
   mma_gemm::Acc<C, W8, 1> acc;
-  if (!mma_gemm::mainloop<C, W8, 1>(x, s, M, N, K, 0, k_len, vec, partial, counters, acc))
+  if (!mma_gemm::mainloop<C, W8, 1>(x + static_cast<size_t>(sl.expert) * M * K, s, M, N, K, 0,
+                                    sl, k_len, vec, partial + sl.expert * mn,
+                                    counters + sl.expert * gridDim.x * gridDim.y, acc))
     return;
 #pragma unroll
   for (int i = 0; i < C::MT; ++i)
@@ -65,31 +70,33 @@ int8_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, int
 }
 
 template <class C, bool RQ>
-int launch(cudaStream_t stream, const void* x, const void* w, int m, int n, int k, int split,
-           int k_len, int vec, const Epi& e, void* partial, void* counters) {
+int launch(cudaStream_t stream, int experts, const void* x, const void* w, int m, int n, int k,
+           int split, int k_len, int vec, const Epi& e, void* partial, void* counters) {
   const int smem = mma_gemm::Stage<C, W8, 1>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(int8_gemm_kernel<C, RQ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + C::BN - 1) / C::BN, (m + C::BM - 1) / C::BM, split);
+  const dim3 grid((n + C::BN - 1) / C::BN, (m + C::BM - 1) / C::BM, experts * split);
   int8_gemm_kernel<C, RQ><<<grid, C::THREADS, smem, stream>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), m, n, k, k_len, vec, e,
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), m, n, k, split, k_len, vec,
+      e,
       static_cast<int32_t*>(partial), static_cast<int*>(counters));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool RQ>
-int launch_bm(cudaStream_t stream, int bm, const void* x, const void* w, int m, int n, int k,
-              int split, int k_len, int vec, const Epi& e, void* partial, void* counters) {
+int launch_bm(cudaStream_t stream, int bm, int experts, const void* x, const void* w, int m,
+              int n, int k, int split, int k_len, int vec, const Epi& e, void* partial,
+              void* counters) {
   if (bm == mma_gemm::WidePrefill::BM)
-    return launch<mma_gemm::WidePrefill, RQ>(stream, x, w, m, n, k, split, k_len, vec, e,
-                                             partial, counters);
+    return launch<mma_gemm::WidePrefill, RQ>(stream, experts, x, w, m, n, k, split, k_len, vec,
+                                             e, partial, counters);
   if (bm == mma_gemm::Prefill::BM)
-    return launch<mma_gemm::Prefill, RQ>(stream, x, w, m, n, k, split, k_len, vec, e, partial,
-                                         counters);
+    return launch<mma_gemm::Prefill, RQ>(stream, experts, x, w, m, n, k, split, k_len, vec, e,
+                                         partial, counters);
   if (bm == mma_gemm::Decode::BM)
-    return launch<mma_gemm::Decode, RQ>(stream, x, w, m, n, k, split, k_len, vec, e, partial,
-                                        counters);
+    return launch<mma_gemm::Decode, RQ>(stream, experts, x, w, m, n, k, split, k_len, vec, e,
+                                        partial, counters);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -97,8 +104,10 @@ int launch_bm(cudaStream_t stream, int bm, const void* x, const void* w, int m, 
 
 // bm 16: the decode shape, 64 or 128: the prefill shapes (anything else
 // returns cudaErrorInvalidValue); vec: K and N multiples of 16, operands 16-byte
-// aligned
-extern "C" int repro_int8_gemm(const void* x, const void* w, int m, int n, int k,
+// aligned.  experts > 1: the expert-batched form, x [E, M, K], w [E, K, N],
+// xs [E, M], ws [E, N], out [E, M, N] (no bias or residual), the split-K
+// scratch E times one expert's
+extern "C" int repro_int8_gemm(int experts, const void* x, const void* w, int m, int n, int k,
                                int epilogue, int stream_f32, const void* xs,
                                const void* ws, const void* bias, const void* res,
                                void* out, float inv_gelu_scale, int q_b, int q_c,
@@ -119,7 +128,10 @@ extern "C" int repro_int8_gemm(const void* x, const void* w, int m, int n, int k
   e.rq = RequantConsts{rq_s1, rq_mult, rq_s2};
   if (m <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (experts < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (epilogue >= EPI_REQUANT && epilogue <= EPI_REQUANT_ADD)
-    return launch_bm<true>(st, bm, x, w, m, n, k, split, k_len, vec, e, partial, counters);
-  return launch_bm<false>(st, bm, x, w, m, n, k, split, k_len, vec, e, partial, counters);
+    return launch_bm<true>(st, bm, experts, x, w, m, n, k, split, k_len, vec, e, partial,
+                           counters);
+  return launch_bm<false>(st, bm, experts, x, w, m, n, k, split, k_len, vec, e, partial,
+                          counters);
 }

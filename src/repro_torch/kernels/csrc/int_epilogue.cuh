@@ -124,6 +124,20 @@ struct Epi {
   RequantConsts rq;  // requant, requant_add
 };
 
+// Epilogue ``e`` of an expert-batched launch moved to expert ``ex``: row
+// scales [E, M], column scales [E, N] and outputs [E, M, N] (the batched
+// forms take no bias and no residual).
+__device__ __forceinline__ Epi epi_at(Epi e, int ex, int M, int N) {
+  const size_t mn = static_cast<size_t>(M) * N;
+  const int out_bytes = e.kind == EPI_NONE ? 4
+                        : (e.kind <= EPI_REQUANT_ADD || e.kind == EPI_SCALED_GELU) ? 1
+                        : e.stream_f32 ? 4 : 2;
+  if (e.xs) e.xs += static_cast<size_t>(ex) * M;
+  if (e.ws) e.ws += static_cast<size_t>(ex) * N;
+  e.out = static_cast<char*>(e.out) + mn * ex * out_bytes;
+  return e;
+}
+
 // ``RQ``: the requant family (int8_gemm only; int8 out), compiled as a
 // kernel of its own so that the scaled family's code stays as it was (one
 // function holding both, inlined into a thread's 16 outputs, made ptxas take

@@ -42,6 +42,21 @@ version:
 * the gate's integer activation is dequantized by one f32 multiply and
   rounded to bf16, and ``act * up`` is one bf16 multiply.
 
+Expert-batched forms (the port's counterpart of the reference's ``jax.vmap``
+of these kernels over a MoE layer's experts, ``repro/models/moe.py:114``):
+``int8_gemm_experts`` and ``int4_gemm_experts`` (the ``scaled`` epilogue),
+``dual_gemm_gated_experts`` (int8 and bf16) and
+``dual_int4_gemm_gated_experts`` take a leading expert dimension — x [E, M,
+K], weights, multipliers, scales and outputs stacked over E — in ONE launch:
+the same kernel, its grid's z = expert * split + the K split, every pointer
+moved to the block's expert (``Slice`` in ``csrc/gemm_mma.cuh``).  The
+unbatched wrappers launch it with E = 1, so each expert's output is the
+unbatched kernel's on that expert's rows bit for bit (the bf16 form never
+splits K and takes the same tile at the same M).  Their tiles follow the
+unbatched rules at M rows, with the SMs shared among the experts' tiles
+(``n_sm / E`` in the split rule).  The plain versions apply the unbatched
+plain version to each expert.
+
 The plain int32 sums are exact float matmuls: f64 for int8 weights (K*128*128
 < 2^53), f32 per W4 scale group (g*128*8 < 2^24), combined in int32.  The
 bf16 ``dual_gemm_gated`` sums in f32 and applies the float activation in
@@ -394,8 +409,12 @@ def bf16_tiling(m: int, n: int, k: int) -> MmaTiling:
     return MmaTiling(bm, bn, 1, k, cdiv(m, bm) * cdiv(n, bn), 0)
 
 
-def _n_sm(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
+def _n_sm(dev, experts: int = 1) -> int:
+    """The SMs one expert's tiles may count on: all of them, or an E-th of
+    them in an expert-batched launch (its E experts' tiles share the card,
+    so the split rule counts every expert's blocks)."""
+    return cdiv(torch.cuda.get_device_properties(dev).multi_processor_count,
+                experts)
 
 
 def _aligned(*tensors) -> bool:
@@ -419,15 +438,20 @@ def _check_f32(t, numel, what):
 
 
 def _epilogue_args(epilogue, m, n, x_scale, w_scale, bias, residual,
-                   gelu_scale, out_dtype, dev, requant=None):
-    """(output tensor, C arguments from ``epilogue`` to the requant consts)
-    of the single-stream epilogues (``Epi`` in ``csrc/int_epilogue.cuh``)."""
+                   gelu_scale, out_dtype, dev, requant=None, experts: int = 1):
+    """(output tensor [E, M, N], C arguments from ``epilogue`` to the
+    requant consts) of the single-stream epilogues (``Epi`` in
+    ``csrc/int_epilogue.cuh``); an expert-batched launch (E > 1) takes row
+    scales [E, M] and column scales [E, N], and no bias or residual."""
     xs = ws = b = r = 0                  # NULL unless the epilogue reads it
     rq = (0, 0, 0)
+    e = experts
+    check(e == 1 or (bias is None and residual is None),
+          "the expert-batched GEMMs take no bias or residual")
     if epilogue == "none":
-        out = torch.empty((m, n), dtype=I32, device=dev)
+        out = torch.empty((e, m, n), dtype=I32, device=dev)
     elif epilogue.startswith("requant"):
-        out = torch.empty((m, n), dtype=torch.int8, device=dev)
+        out = torch.empty((e, m, n), dtype=torch.int8, device=dev)
         if epilogue != "requant_gelu":
             check_requant(requant)
             rq = (requant.s1, requant.mult, requant.s2)
@@ -437,8 +461,8 @@ def _epilogue_args(epilogue, m, n, x_scale, w_scale, bias, residual,
     else:
         check(out_dtype in (torch.bfloat16, torch.float32),
               f"stream dtype must be bf16 or f32, got {out_dtype}")
-        _check_f32(x_scale, m, "x_scale [M, 1]")
-        _check_f32(w_scale, n, "w_scale [N]")
+        _check_f32(x_scale, e * m, "x_scale [M, 1]")
+        _check_f32(w_scale, e * n, "w_scale [N]")
         xs, ws = x_scale.data_ptr(), w_scale.data_ptr()
         if bias is not None:
             _check_f32(bias, n, "bias [N]")
@@ -448,7 +472,7 @@ def _epilogue_args(epilogue, m, n, x_scale, w_scale, bias, residual,
                   and residual.is_contiguous(),
                   f"residual must be contiguous {out_dtype} [M, N]")
             r = residual.data_ptr()
-        out = torch.empty((m, n), device=dev, dtype=torch.int8
+        out = torch.empty((e, m, n), device=dev, dtype=torch.int8
                           if epilogue == "scaled_gelu" else out_dtype)
     consts, inv = (0,) * 6, 0.0
     if epilogue.endswith("gelu"):
@@ -470,28 +494,39 @@ def _check_epilogue(epilogue, epilogues, gelu_scale, residual, requant=None):
           "requant params go with the requant and requant_add epilogues")
 
 
+def _count(kernel: str, experts: int) -> None:
+    """One launch of ``kernel``; an expert-batched one also counts as
+    ``<kernel>.experts``."""
+    LAUNCHES[kernel] += 1
+    if experts > 1:
+        LAUNCHES[f"{kernel}.experts"] += 1
+
+
 def _launch(x, w, epilogue, x_scale, w_scale, bias, residual, gelu_scale,
             out_dtype, requant):
-    check(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[0],
+    """x [E, M, K] @ w [E, K, N] in one launch (E = 1: the unbatched GEMM);
+    returns [E, M, N]."""
+    check(x.dim() == 3 and w.dim() == 3 and x.shape[2] == w.shape[1]
+          and x.shape[0] == w.shape[0],
           f"int8 GEMM operands: x {tuple(x.shape)}, w {tuple(w.shape)}")
-    m, k = x.shape
-    n = w.shape[1]
-    _check_i8(x, (m, k), "x")
-    _check_i8(w, (k, n), "w")
+    e, m, k = x.shape
+    n = w.shape[2]
+    _check_i8(x, (e, m, k), "x")
+    _check_i8(w, (e, k, n), "w")
     out, epi = _epilogue_args(epilogue, m, n, x_scale, w_scale, bias,
                               residual, gelu_scale, out_dtype, x.device,
-                              requant)
+                              requant, experts=e)
     dev = x.device
-    tl = w8_tiling(m, n, k, _n_sm(dev))
-    part, cnt = _WORKSPACE.get(dev, tl.workspace, tl.tiles)
+    tl = w8_tiling(m, n, k, _n_sm(dev, e))
+    part, cnt = _WORKSPACE.get(dev, e * tl.workspace, e * tl.tiles)
     vec = int(k % 16 == 0 and n % 16 == 0 and _aligned(x, w))
     fn = build.entry("int8_gemm", "repro_int8_gemm",
-                     [build.VP] * 2 + [build.I] * 3 + _EPI_ARGTYPES
+                     [build.I] + [build.VP] * 2 + [build.I] * 3 + _EPI_ARGTYPES
                      + [build.I] * 4 + [build.VP] * 3)
-    rc = fn(x.data_ptr(), w.data_ptr(), m, n, k, *epi, tl.bm, tl.split,
+    rc = fn(e, x.data_ptr(), w.data_ptr(), m, n, k, *epi, tl.bm, tl.split,
             tl.k_len, vec, part.data_ptr(), cnt.data_ptr(), _stream(dev))
     build.check_rc(rc, "int8_gemm")
-    LAUNCHES["int8_gemm"] += 1
+    _count("int8_gemm", e)
     return out
 
 
@@ -503,8 +538,10 @@ def int8_gemm(x, w, epilogue: str = "none", *, x_scale=None, w_scale=None,
     kernel for CUDA tensors, the plain version for CPU tensors."""
     _check_epilogue(epilogue, EPILOGUES, gelu_scale, residual, requant)
     if on_cuda(x, w, x_scale, w_scale, bias, residual):
-        return _launch(x, w, epilogue, x_scale, w_scale, bias, residual,
-                       gelu_scale, out_dtype, requant)
+        check(x.dim() == 2 and w.dim() == 2,
+              f"int8 GEMM operands: x {tuple(x.shape)}, w {tuple(w.shape)}")
+        return _launch(x[None], w[None], epilogue, x_scale, w_scale, bias,
+                       residual, gelu_scale, out_dtype, requant)[0]
     if epilogue in ("none", "requant"):
         return int8_gemm_ref(x, w, requant)
     if epilogue == "requant_gelu":
@@ -517,28 +554,32 @@ def int8_gemm(x, w, epilogue: str = "none", *, x_scale=None, w_scale=None,
 
 def _launch_int4(x, w4, qmul, w_scale, x_scale, epilogue, gelu_scale, bias,
                  residual, out_dtype):
-    check(x.dim() == 2, f"x must be [M, K], got {tuple(x.shape)}")
-    m, k = x.shape
+    """x [E, M, K] @ unpack(w4) [E, K, N] in one launch (E = 1: the
+    unbatched GEMM); returns [E, M, N]."""
+    check(x.dim() == 3 and w4.dim() == 3 and qmul.dim() == 3,
+          f"W4 GEMM operands: x {tuple(x.shape)}, w4 {tuple(w4.shape)}")
+    e, m, k = x.shape
     n = w4.shape[-1]
     g = w4_group(k, qmul)
     check(g in (32, 64, 128), f"W4 group {g} is not 32, 64 or 128")
-    _check_i8(x, (m, k), "x")
-    _check_i8(w4, (k // 2, n), "w4 [K/2, N]")
-    _check_i8(qmul, (k // g, n), "qmul [K/g, N]")
+    _check_i8(x, (e, m, k), "x")
+    _check_i8(w4, (e, k // 2, n), "w4 [K/2, N]")
+    _check_i8(qmul, (e, k // g, n), "qmul [K/g, N]")
     out, epi = _epilogue_args(epilogue, m, n, x_scale, w_scale, bias,
-                              residual, gelu_scale, out_dtype, x.device)
+                              residual, gelu_scale, out_dtype, x.device,
+                              experts=e)
     dev = x.device
-    tl = w4_tiling(m, n, k, g, _n_sm(dev))
-    part, cnt = _WORKSPACE.get(dev, tl.workspace, tl.tiles)
+    tl = w4_tiling(m, n, k, g, _n_sm(dev, e))
+    part, cnt = _WORKSPACE.get(dev, e * tl.workspace, e * tl.tiles)
     vec = int(k % 16 == 0 and n % 16 == 0 and _aligned(x, w4, qmul))
     fn = build.entry("int4_gemm", "repro_int4_gemm",
-                     [build.VP] * 3 + [build.I] * 4 + _EPI_ARGTYPES
+                     [build.I] + [build.VP] * 3 + [build.I] * 4 + _EPI_ARGTYPES
                      + [build.I] * 4 + [build.VP] * 3)
-    rc = fn(x.data_ptr(), w4.data_ptr(), qmul.data_ptr(), m, n, k, g, *epi,
+    rc = fn(e, x.data_ptr(), w4.data_ptr(), qmul.data_ptr(), m, n, k, g, *epi,
             tl.bm, tl.split, tl.k_len, vec, part.data_ptr(),
             cnt.data_ptr(), _stream(dev))
     build.check_rc(rc, "int4_gemm")
-    LAUNCHES["int4_gemm"] += 1
+    _count("int4_gemm", e)
     return out
 
 
@@ -551,8 +592,10 @@ def int4_gemm(x, w4, qmul, w_scale, x_scale, epilogue: str = "scaled", *,
     tensors."""
     _check_epilogue(epilogue, W4A8_EPILOGUES, gelu_scale, residual)
     if on_cuda(x, w4, qmul, w_scale, x_scale, bias, residual):
-        return _launch_int4(x, w4, qmul, w_scale, x_scale, epilogue,
-                            gelu_scale, bias, residual, out_dtype)
+        check(x.dim() == 2, f"x must be [M, K], got {tuple(x.shape)}")
+        return _launch_int4(x[None], w4[None], qmul[None], w_scale, x_scale,
+                            epilogue, gelu_scale, bias, residual,
+                            out_dtype)[0]
     return gemm_w4a8_ref(x, x_scale, w4, qmul, w_scale, bias=bias,
                          residual=residual, gelu_scale=gelu_scale,
                          out_dtype=out_dtype)
@@ -581,25 +624,29 @@ def _check_gated(x, act, act_scale, out_dtype, scales):
 
 def _launch_dual(x, w_up, w_gate, x_scale, up_scale, gate_scale, act,
                  act_scale):
-    check(x.dim() == 2 and w_up.dim() == 2 and x.shape[1] == w_up.shape[0],
+    """x [E, M, K] against w_up, w_gate [E, K, N] in one launch (E = 1: the
+    unbatched kernel); returns [E, M, N]."""
+    check(x.dim() == 3 and w_up.dim() == 3 and x.shape[2] == w_up.shape[1]
+          and x.shape[0] == w_up.shape[0],
           f"dual GEMM operands: x {tuple(x.shape)}, w {tuple(w_up.shape)}")
-    m, k = x.shape
-    n = w_up.shape[1]
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    e, m, k = x.shape
+    n = w_up.shape[2]
+    out = torch.empty((e, m, n), dtype=torch.bfloat16, device=x.device)
     if x.dtype == torch.int8:
-        _check_i8(x, (m, k), "x")
-        _check_i8(w_up, (k, n), "w_up")
-        _check_i8(w_gate, (k, n), "w_gate")
-        _check_f32(x_scale, m, "x_scale [M, 1]")
-        _check_f32(up_scale, n, "up_scale [N]")
-        _check_f32(gate_scale, n, "gate_scale [N]")
-        tl = w8_tiling(m, n, k, _n_sm(x.device), streams=2)
-        part, cnt = _WORKSPACE.get(x.device, tl.workspace, tl.tiles)
+        _check_i8(x, (e, m, k), "x")
+        _check_i8(w_up, (e, k, n), "w_up")
+        _check_i8(w_gate, (e, k, n), "w_gate")
+        _check_f32(x_scale, e * m, "x_scale [M, 1]")
+        _check_f32(up_scale, e * n, "up_scale [N]")
+        _check_f32(gate_scale, e * n, "gate_scale [N]")
+        tl = w8_tiling(m, n, k, _n_sm(x.device, e), streams=2)
+        part, cnt = _WORKSPACE.get(x.device, e * tl.workspace, e * tl.tiles)
         vec = int(k % 16 == 0 and n % 16 == 0 and _aligned(x, w_up, w_gate))
         fn = build.entry("dual_gemm_gated", "repro_dual_gemm_gated_i8",
-                         [build.VP] * 6 + [build.I] * 3 + _ACT_ARGTYPES
-                         + [build.VP] + [build.I] * 4 + [build.VP] * 3)
-        rc = fn(x.data_ptr(), w_up.data_ptr(), up_scale.data_ptr(),
+                         [build.I] + [build.VP] * 6 + [build.I] * 3
+                         + _ACT_ARGTYPES + [build.VP] + [build.I] * 4
+                         + [build.VP] * 3)
+        rc = fn(e, x.data_ptr(), w_up.data_ptr(), up_scale.data_ptr(),
                 w_gate.data_ptr(), gate_scale.data_ptr(), x_scale.data_ptr(),
                 m, n, k, *_act_args(act, act_scale), out.data_ptr(), tl.bm,
                 tl.split, tl.k_len, vec, part.data_ptr(), cnt.data_ptr(),
@@ -609,15 +656,16 @@ def _launch_dual(x, w_up, w_gate, x_scale, up_scale, gate_scale, act,
             check(t.dtype == torch.bfloat16 and t.is_contiguous(),
                   f"{what} of the float gated MLP must be contiguous bf16, "
                   f"got {t.dtype}")
-        check(tuple(w_gate.shape) == (k, n), "w_gate must match w_up")
+        check(tuple(w_gate.shape) == (e, k, n), "w_gate must match w_up")
         vec = int(k % 8 == 0 and n % 8 == 0 and _aligned(x, w_up, w_gate))
         fn = build.entry("dual_gemm_gated", "repro_dual_gemm_gated_bf16",
-                         [build.VP] * 3 + [build.I] * 6 + [build.VP] * 2)
-        rc = fn(x.data_ptr(), w_up.data_ptr(), w_gate.data_ptr(), m, n, k,
+                         [build.I] + [build.VP] * 3 + [build.I] * 6
+                         + [build.VP] * 2)
+        rc = fn(e, x.data_ptr(), w_up.data_ptr(), w_gate.data_ptr(), m, n, k,
                 GATED_ACTS.index(act), bf16_tiling(m, n, k).bm, vec,
                 out.data_ptr(), _stream(x.device))
     build.check_rc(rc, "dual_gemm_gated")
-    LAUNCHES["dual_gemm_gated"] += 1
+    _count("dual_gemm_gated", e)
     return out
 
 
@@ -630,8 +678,10 @@ def dual_gemm_gated(x, w_up, w_gate, x_scale=None, up_scale=None,
     CPU tensors."""
     _check_gated(x, act, act_scale, out_dtype, (x_scale, up_scale, gate_scale))
     if on_cuda(x, w_up, w_gate, x_scale, up_scale, gate_scale):
-        return _launch_dual(x, w_up, w_gate, x_scale, up_scale, gate_scale,
-                            act, act_scale)
+        check(x.dim() == 2 and w_up.dim() == 2,
+              f"dual GEMM operands: x {tuple(x.shape)}, w {tuple(w_up.shape)}")
+        return _launch_dual(x[None], w_up[None], w_gate[None], x_scale,
+                            up_scale, gate_scale, act, act_scale)[0]
     if x.dtype == torch.int8:
         return gated_mlp_w8a8_ref(x, x_scale, w_up, up_scale, w_gate,
                                   gate_scale, act=act, act_scale=act_scale,
@@ -641,35 +691,38 @@ def dual_gemm_gated(x, w_up, w_gate, x_scale=None, up_scale=None,
 
 def _launch_dual_int4(x, up4, up_mul, up_scale, gate4, gate_mul, gate_scale,
                       x_scale, act, act_scale):
-    check(x.dim() == 2, f"x must be [M, K], got {tuple(x.shape)}")
-    m, k = x.shape
+    """x [E, M, K] against two W4 streams [E, K/2, N] in one launch (E = 1:
+    the unbatched kernel); returns [E, M, N]."""
+    check(x.dim() == 3 and up4.dim() == 3 and up_mul.dim() == 3,
+          f"x must be [E, M, K], got {tuple(x.shape)}")
+    e, m, k = x.shape
     n = up4.shape[-1]
     g = w4_group(k, up_mul)
     check(g in (32, 64, 128), f"W4 group {g} is not 32, 64 or 128")
-    _check_i8(x, (m, k), "x")
+    _check_i8(x, (e, m, k), "x")
     for t, what in ((up4, "up4"), (gate4, "gate4")):
-        _check_i8(t, (k // 2, n), f"{what} [K/2, N]")
+        _check_i8(t, (e, k // 2, n), f"{what} [K/2, N]")
     for t, what in ((up_mul, "up_mul"), (gate_mul, "gate_mul")):
-        _check_i8(t, (k // g, n), f"{what} [K/g, N]")
-    _check_f32(x_scale, m, "x_scale [M, 1]")
-    _check_f32(up_scale, n, "up_scale [N]")
-    _check_f32(gate_scale, n, "gate_scale [N]")
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+        _check_i8(t, (e, k // g, n), f"{what} [K/g, N]")
+    _check_f32(x_scale, e * m, "x_scale [M, 1]")
+    _check_f32(up_scale, e * n, "up_scale [N]")
+    _check_f32(gate_scale, e * n, "gate_scale [N]")
+    out = torch.empty((e, m, n), dtype=torch.bfloat16, device=x.device)
     dev = x.device
-    tl = w4_tiling(m, n, k, g, _n_sm(dev), streams=2)
-    part, cnt = _WORKSPACE.get(dev, tl.workspace, tl.tiles)
+    tl = w4_tiling(m, n, k, g, _n_sm(dev, e), streams=2)
+    part, cnt = _WORKSPACE.get(dev, e * tl.workspace, e * tl.tiles)
     vec = int(k % 16 == 0 and n % 16 == 0
               and _aligned(x, up4, gate4, up_mul, gate_mul))
     fn = build.entry("dual_int4_gemm_gated", "repro_dual_int4_gemm_gated",
-                     [build.VP] * 8 + [build.I] * 4 + _ACT_ARGTYPES
+                     [build.I] + [build.VP] * 8 + [build.I] * 4 + _ACT_ARGTYPES
                      + [build.VP] + [build.I] * 4 + [build.VP] * 3)
-    rc = fn(x.data_ptr(), up4.data_ptr(), up_mul.data_ptr(),
+    rc = fn(e, x.data_ptr(), up4.data_ptr(), up_mul.data_ptr(),
             up_scale.data_ptr(), gate4.data_ptr(), gate_mul.data_ptr(),
             gate_scale.data_ptr(), x_scale.data_ptr(), m, n, k, g,
             *_act_args(act, act_scale), out.data_ptr(), tl.bm, tl.split,
             tl.k_len, vec, part.data_ptr(), cnt.data_ptr(), _stream(dev))
     build.check_rc(rc, "dual_int4_gemm_gated")
-    LAUNCHES["dual_int4_gemm_gated"] += 1
+    _count("dual_int4_gemm_gated", e)
     return out
 
 
@@ -680,8 +733,96 @@ def dual_int4_gemm_gated(x, up4, up_mul, up_scale, gate4, gate_mul,
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
     _check_gated(x, act, act_scale, out_dtype, (x_scale, up_scale, gate_scale))
     if on_cuda(x, up4, up_mul, up_scale, gate4, gate_mul, gate_scale, x_scale):
-        return _launch_dual_int4(x, up4, up_mul, up_scale, gate4, gate_mul,
-                                 gate_scale, x_scale, act, act_scale)
+        check(x.dim() == 2, f"x must be [M, K], got {tuple(x.shape)}")
+        return _launch_dual_int4(x[None], up4[None], up_mul[None], up_scale,
+                                 gate4[None], gate_mul[None], gate_scale,
+                                 x_scale, act, act_scale)[0]
     return gated_mlp_w4a8_ref(x, x_scale, up4, up_mul, up_scale, gate4,
                               gate_mul, gate_scale, act=act,
                               act_scale=act_scale, out_dtype=out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# the expert-batched forms: one launch over a MoE layer's E experts
+# ---------------------------------------------------------------------------
+
+def per_expert(fn, *args):
+    """The plain version of an expert-batched form: ``fn`` (an unbatched
+    plain version) on each expert's slice of every tensor argument (None
+    passes through), stacked over E."""
+    e = args[0].shape[0]
+    return torch.stack([fn(*(None if a is None else a[i] for a in args))
+                        for i in range(e)])
+
+
+def _check_experts(x, *stacked):
+    check(x.dim() == 3 and all(t is None or t.shape[0] == x.shape[0]
+                               for t in stacked),
+          f"expert-batched operands must share a leading E: x "
+          f"{tuple(x.shape)}, " + ", ".join(str(tuple(t.shape))
+                                            for t in stacked if t is not None))
+
+
+def int8_gemm_experts(x, w, x_scale, w_scale, out_dtype=torch.bfloat16):
+    """The W8A8 ``scaled`` GEMM of every expert in one launch: x [E, M, K]
+    int8 with row scales [E, M, 1], w [E, K, N] int8 with column scales
+    [E, N] -> [E, M, N] in ``out_dtype``.  CPU tensors: the unbatched plain
+    version per expert."""
+    _check_experts(x, w, x_scale, w_scale)
+    if on_cuda(x, w, x_scale, w_scale):
+        return _launch(x, w, "scaled", x_scale, w_scale, None, None, None,
+                       out_dtype, None)
+    return per_expert(lambda *a: gemm_w8a8_ref(*a, out_dtype=out_dtype),
+                      x, x_scale, w, w_scale)
+
+
+def int4_gemm_experts(x, w4, qmul, w_scale, x_scale, out_dtype=torch.bfloat16):
+    """The W4A8 ``scaled`` GEMM of every expert in one launch: x [E, M, K]
+    int8, w4 [E, K/2, N] packed int4, qmul [E, K/g, N], w_scale [E, N],
+    x_scale [E, M, 1] -> [E, M, N].  CPU tensors: the unbatched plain version
+    per expert."""
+    _check_experts(x, w4, qmul, w_scale, x_scale)
+    if on_cuda(x, w4, qmul, w_scale, x_scale):
+        return _launch_int4(x, w4, qmul, w_scale, x_scale, "scaled", None,
+                            None, None, out_dtype)
+    return per_expert(lambda *a: gemm_w4a8_ref(*a, out_dtype=out_dtype),
+                      x, x_scale, w4, qmul, w_scale)
+
+
+def dual_gemm_gated_experts(x, w_up, w_gate, x_scale=None, up_scale=None,
+                            gate_scale=None, act: str = "silu",
+                            act_scale=None):
+    """act(x @ w_gate) * (x @ w_up) of every expert in one launch: x [E, M,
+    K] int8 (with the scales [E, M, 1], [E, N], [E, N] and ``act_scale``) or
+    bf16, weights [E, K, N] -> bf16 [E, M, N].  CPU tensors: the unbatched
+    plain version per expert."""
+    _check_gated(x, act, act_scale, torch.bfloat16,
+                 (x_scale, up_scale, gate_scale))
+    _check_experts(x, w_up, w_gate, x_scale, up_scale, gate_scale)
+    if on_cuda(x, w_up, w_gate, x_scale, up_scale, gate_scale):
+        return _launch_dual(x, w_up, w_gate, x_scale, up_scale, gate_scale,
+                            act, act_scale)
+    if x.dtype == torch.int8:
+        return per_expert(lambda *a: gated_mlp_w8a8_ref(
+            *a, act=act, act_scale=act_scale), x, x_scale, w_up, up_scale,
+            w_gate, gate_scale)
+    return per_expert(lambda *a: gated_mlp_ref(*a, act), x, w_up, w_gate)
+
+
+def dual_int4_gemm_gated_experts(x, up4, up_mul, up_scale, gate4, gate_mul,
+                                 gate_scale, x_scale, act: str = "silu",
+                                 act_scale=None):
+    """The W4A8 gated MLP hidden of every expert in one launch: x [E, M, K]
+    int8, each stream [E, K/2, N] with multipliers [E, K/g, N] and scales
+    [E, N], x_scale [E, M, 1] -> bf16 [E, M, N].  CPU tensors: the unbatched
+    plain version per expert."""
+    _check_gated(x, act, act_scale, torch.bfloat16,
+                 (x_scale, up_scale, gate_scale))
+    _check_experts(x, up4, up_mul, up_scale, gate4, gate_mul, gate_scale,
+                   x_scale)
+    if on_cuda(x, up4, up_mul, up_scale, gate4, gate_mul, gate_scale, x_scale):
+        return _launch_dual_int4(x, up4, up_mul, up_scale, gate4, gate_mul,
+                                 gate_scale, x_scale, act, act_scale)
+    return per_expert(lambda *a: gated_mlp_w4a8_ref(
+        *a, act=act, act_scale=act_scale), x, x_scale, up4, up_mul, up_scale,
+        gate4, gate_mul, gate_scale)

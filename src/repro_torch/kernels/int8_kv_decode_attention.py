@@ -165,6 +165,8 @@ def _launch(q, k_q, k_s, v_q, v_s, pos_ids, qpos, scale, window):
     out, rc = launch_rows(entry, q, qpos, b, hkv, s, (k_q, v_q))
     build.check_rc(rc, "int8_kv_decode_attention")
     LAUNCHES["int8_kv_decode_attention"] += 1
+    if window > 0:
+        LAUNCHES["int8_kv_decode_attention.window"] += 1
     return out
 
 

@@ -15,8 +15,10 @@ from .common import LAUNCHES
 from .conv2d import int8_conv2d
 from .flash_attention import flash_attention
 from .int8_flash_attention import int8_flash_attention
-from .int8_gemm import (dual_gemm_gated, dual_int4_gemm_gated, int4_gemm,
-                        int8_gemm)
+from .int8_gemm import (dual_gemm_gated, dual_gemm_gated_experts,
+                        dual_int4_gemm_gated, dual_int4_gemm_gated_experts,
+                        int4_gemm, int4_gemm_experts, int8_gemm,
+                        int8_gemm_experts)
 from .int8_kv_decode_attention import (int8_kv_decode_attention,
                                        int8_kv_decode_attention_rows)
 from .int_gelu import int_gelu
@@ -35,8 +37,19 @@ KERNELS = ("quantize_rows", "int8_gemm", "int_layernorm",
            "requantize_i32", "int8_conv2d", "ssd_scan")
 
 
-def launch_counts() -> dict[str, int]:
-    return {k: LAUNCHES[k] for k in KERNELS}
+# launches counted a second time by form: the GEMMs' expert-batched
+# launches, the decode kernels' launches with a sliding window, their
+# multi-row launches, and int8_flash_attention's streaming form
+FORMS = ("int8_gemm.experts", "int4_gemm.experts", "dual_gemm_gated.experts",
+         "dual_int4_gemm_gated.experts", "int8_kv_decode_attention.window",
+         "paged_decode_attention.window", "int8_kv_decode_attention.rows",
+         "paged_decode_attention.rows", "int8_flash_attention.streaming")
+
+
+def launch_counts(forms: bool = False) -> dict[str, int]:
+    """Launches of each kernel since the last reset; with ``forms`` also
+    the counts by form (``FORMS``)."""
+    return {k: LAUNCHES[k] for k in KERNELS + (FORMS if forms else ())}
 
 
 def reset_launch_counts() -> None:
@@ -119,6 +132,53 @@ def _epilogue(gelu_scale, residual) -> str:
     if gelu_scale is not None:
         return "scaled_gelu"
     return "scaled" if residual is None else "scaled_add"
+
+
+def gemm_w8a8_experts(x_q, x_scale, w_q, w_scale, out_dtype=torch.bfloat16):
+    """The W8A8 linear of every expert of a MoE layer in one launch: x_q
+    [E, M, K] int8 with row scales [E, M, 1], w_q [E, K, N] int8 with column
+    scales [E, N] -> [E, M, N]."""
+    return int8_gemm_experts(x_q.contiguous(), w_q, x_scale.contiguous(),
+                             w_scale, out_dtype=out_dtype)
+
+
+def gemm_w4a8_experts(x_q, x_scale, w4, qmul, w_scale,
+                      out_dtype=torch.bfloat16):
+    """The W4A8 linear of every expert in one launch: x_q [E, M, K], w4
+    [E, K/2, N], qmul [E, K/g, N], w_scale [E, N] -> [E, M, N]."""
+    return int4_gemm_experts(x_q.contiguous(), w4, qmul, w_scale,
+                             x_scale.contiguous(), out_dtype=out_dtype)
+
+
+def gated_mlp_experts(x, w_up, w_gate, act: str = "silu",
+                      compute_dtype=torch.bfloat16):
+    """The float gated MLP hidden of every expert in one launch: x [E, M,
+    K], w_up/w_gate [E, K, N] -> [E, M, N]."""
+    return dual_gemm_gated_experts(
+        x.to(compute_dtype).contiguous(), w_up.to(compute_dtype),
+        w_gate.to(compute_dtype), act=act)
+
+
+def gated_mlp_w8a8_experts(x_q, x_scale, w_up_q, up_scale, w_gate_q,
+                           gate_scale, act: str = "silu",
+                           act_scale: float | None = None):
+    """The W8A8 gated MLP hidden of every expert in one launch: x_q [E, M,
+    K] int8 with row scales [E, M, 1], both weights [E, K, N] int8 with
+    column scales [E, N] -> bf16 [E, M, N]."""
+    return dual_gemm_gated_experts(x_q.contiguous(), w_up_q, w_gate_q,
+                                   x_scale.contiguous(), up_scale, gate_scale,
+                                   act=act, act_scale=act_scale)
+
+
+def gated_mlp_w4a8_experts(x_q, x_scale, up4, up_mul, up_scale, gate4,
+                           gate_mul, gate_scale, act: str = "silu",
+                           act_scale: float | None = None):
+    """The W4A8 gated MLP hidden of every expert in one launch: two
+    packed-int4 streams [E, K/2, N] with multipliers [E, K/g, N] and scales
+    [E, N] -> bf16 [E, M, N]."""
+    return dual_int4_gemm_gated_experts(
+        x_q.contiguous(), up4, up_mul, up_scale, gate4, gate_mul, gate_scale,
+        x_scale.contiguous(), act=act, act_scale=act_scale)
 
 
 def gated_mlp(x, w_up, w_gate, act: str = "silu",

@@ -91,6 +91,8 @@ def _launch(q, pk, pks, pv, pvs, ppos, pt, qpos, scale, window):
                           1 if int8 else 2)
     build.check_rc(rc, "paged_decode_attention")
     LAUNCHES["paged_decode_attention"] += 1
+    if window > 0:
+        LAUNCHES["paged_decode_attention.window"] += 1
     return out
 
 

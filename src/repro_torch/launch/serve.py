@@ -7,9 +7,12 @@ Usage:
       --w4a8 --int8-kv --requests 16 --max-new 32 --lanes 8 --max-seq 1024 \\
       --token-budget 256 [--paged --page-size 16 --pool-pages 0]
 
-``--w8a8`` quantizes every GEMM weight to int8; ``--w4a8`` applies the
-reference's default W4 policy (attention and MLP projections packed int4 at
-group 64, the lm head int8).  ``--token-budget 0 --prefill-chunk N`` serves
+``--arch`` takes every ported arch (``repro_torch.configs.ARCH_IDS``:
+starcoder2-3b, codeqwen1.5-7b, zamba2-2.7b, mixtral-8x7b, qwen2-moe-a2.7b;
+``--reduced`` for the small same-family config).  ``--w8a8`` quantizes every
+GEMM weight to int8; ``--w4a8`` applies the reference's default W4 policy
+(attention and MLP projections — a MoE layer's experts too — packed int4
+at group 64, the lm head int8), each block as it is built.  ``--token-budget 0 --prefill-chunk N`` serves
 chunked (both 0: tokenwise; recurrent archs such as ``--arch zamba2-2.7b``
 always serve tokenwise).  ``--temperature T`` samples on the reference's
 threefry streams from ``--seed``; ``--spec-k K`` turns on self-speculation
@@ -31,7 +34,6 @@ import torch
 from ..configs import get_config
 from ..kernels import ops
 from ..models import init_params
-from ..quant import quantize_for
 from ..serve import ServeConfig, ServingEngine
 
 
@@ -67,8 +69,9 @@ def main(argv=None) -> None:
         raise SystemExit("--w8a8 and --w4a8 are exclusive")
     precision = "w4a8" if args.w4a8 else "w8a8" if args.w8a8 else "bf16"
     cfg = get_config(args.arch, precision=precision, reduced=args.reduced)
-    params = quantize_for(init_params(cfg, seed=args.seed, device=args.device),
-                          precision)
+    # quantized a block at a time: the float model never exists whole
+    params = init_params(cfg, seed=args.seed, device=args.device,
+                         precision=precision)
     engine = ServingEngine(
         params, cfg,
         ServeConfig(batch_lanes=args.lanes, max_seq=args.max_seq,

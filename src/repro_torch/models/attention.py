@@ -9,7 +9,10 @@ Port of ``repro.models.attention`` for self-attention.  The dense cache:
 The paged arena (``init_paged_cache``) keeps the same payload per page and a
 page table per lane.  ``pos_ids``/``ppos`` hold the absolute position stored
 in each slot (-1 = empty); masking always derives from them.  RoPE is
-applied at write time.
+applied at write time.  A sliding-window layer's dense cache is a ring of
+window + slack slots, written at ``position % S`` across the seam; its
+queries mask keys at or below ``position - window`` (``_sdpa`` and the
+decode kernels take the window).
 
 Unlike the reference, which returns a new cache, the port writes the cache
 IN PLACE: pad tokens (position -1) are dropped before the write, so a lane
@@ -86,13 +89,15 @@ def init_attn_params(gen: torch.Generator, cfg: ArchConfig, device) -> Attention
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, int8: bool,
-               dtype=torch.bfloat16, device=None) -> dict:
-    """Dense ring cache of ``max_seq`` slots per lane (sliding-window ring
-    caches are a later slice)."""
+               window: int = 0, dtype=torch.bfloat16, device=None) -> dict:
+    """Dense ring cache per lane: ``max_seq`` slots, or with a ``window``
+    (a sliding-window layer's window plus its slack) min(window, max_seq)
+    slots that positions overwrite modulo their count."""
+    s = min(window, max_seq) if window else max_seq
     hkv, hd = cfg.n_kv_heads, cfg.head_dim
-    shape = (batch, max_seq, hkv, hd)
+    shape = (batch, s, hkv, hd)
     cache: dict[str, Any] = {
-        "pos_ids": torch.full((batch, max_seq), -1, dtype=torch.int32,
+        "pos_ids": torch.full((batch, s), -1, dtype=torch.int32,
                               device=device)}
     if int8:
         cache["k"] = torch.zeros(shape, dtype=torch.int8, device=device)
@@ -176,7 +181,11 @@ def rollback_cache(cache: dict, keep: torch.Tensor) -> dict:
     with nothing to withdraw pass a bound above ``max_seq``) is marked
     empty again.  Masking derives from ``pos_ids`` everywhere, so the stale
     payload is unreadable and the next write at that slot reclaims it, as
-    if the rejected tokens had never been fed."""
+    if the rejected tokens had never been fed.  On a window layer's ring of
+    S = window + slack slots a rejected write overwrote the key S positions
+    before it, which is outside the window of every later query (the slack
+    is at least the span), so the rewind is exact there too, as in the
+    reference (``attention.py:210-228``)."""
     pos = cache["pos_ids"]
     pos.masked_fill_(pos >= keep.to(pos.device, pos.dtype)[:, None], -1)
     return cache

@@ -1,10 +1,13 @@
-"""Block composition: the ``attn``, ``shared_attn`` and ``mamba2`` kinds of
-``repro.models.blocks``.  ``attn`` and ``shared_attn`` are pre-norm
-self-attention with the skip folded into the out-projection, then pre-norm
-MLP; a ``shared_attn`` block's weights are one ``Block`` that every period
+"""Block composition: the ``attn``, ``attn_swa``, ``moe``, ``moe_swa``,
+``shared_attn`` and ``mamba2`` kinds of ``repro.models.blocks``.  The
+attention kinds are pre-norm self-attention with the skip folded into the
+out-projection, then a pre-norm MLP (``attn``, ``attn_swa``,
+``shared_attn``) or MoE FFN (``moe``, ``moe_swa``); the ``*_swa`` kinds
+attend within ``cfg.sliding_window`` over a ring cache of window + slack
+slots.  A ``shared_attn`` block's weights are one ``Block`` that every period
 reuses (zamba2), with a KV cache per layer.  ``mamba2`` is a pre-norm
-Mamba-2 block with its residual add.  The other block kinds are later
-slices (ROADMAP.md §A)."""
+Mamba-2 block with its residual add.  The cross-attention, encoder and
+xLSTM kinds are later slices (ROADMAP.md §A)."""
 from __future__ import annotations
 
 import torch
@@ -15,9 +18,12 @@ from .attention import (Attention, attention, init_attn_params, init_cache,
 from .config import ArchConfig
 from .layers import ExecMode, Norm, apply_norm
 from .mlp import MLP, init_mlp_params, mlp
+from .moe import MoE, init_moe_params, moe
 from .ssm import Mamba2, init_mamba2_params, init_mamba2_state, mamba2
 
-ATTN_KINDS = ("attn", "shared_attn")
+ATTN_KINDS = ("attn", "attn_swa", "moe", "moe_swa", "shared_attn")
+SWA_KINDS = ("attn_swa", "moe_swa")
+MOE_KINDS = ("moe", "moe_swa")
 KINDS = ATTN_KINDS + ("mamba2",)
 
 
@@ -33,6 +39,12 @@ class Block(nn.Module):
         self.norm1, self.attn, self.norm2, self.mlp = norm1, attn, norm2, mlp_
 
 
+class MoEBlock(nn.Module):
+    def __init__(self, norm1: Norm, attn: Attention, norm2: Norm, moe_: MoE):
+        super().__init__()
+        self.norm1, self.attn, self.norm2, self.moe = norm1, attn, norm2, moe_
+
+
 class MambaBlock(nn.Module):
     def __init__(self, norm1: Norm, mamba: Mamba2):
         super().__init__()
@@ -46,17 +58,25 @@ def init_block_params(gen: torch.Generator, kind: str, cfg: ArchConfig,
     if kind == "mamba2":
         return MambaBlock(Norm(d, nt, device),
                           init_mamba2_params(gen, cfg, device))
+    if kind in MOE_KINDS:
+        return MoEBlock(Norm(d, nt, device), init_attn_params(gen, cfg, device),
+                        Norm(d, nt, device), init_moe_params(gen, cfg, device))
     return Block(Norm(d, nt, device), init_attn_params(gen, cfg, device),
                  Norm(d, nt, device), init_mlp_params(gen, cfg, device))
 
 
 def init_block_state(kind: str, cfg: ArchConfig, batch: int, max_seq: int,
                      int8_kv: bool, dtype, device, paged_pages: int = 0,
-                     page_size: int = 0, pt=None) -> dict:
+                     page_size: int = 0, pt=None,
+                     window_slack: int = 0) -> dict:
     """A mamba2 layer's recurrent state, or an attention layer's KV cache:
-    dense, or with ``paged_pages`` > 0 a paged arena of that many
-    ``page_size``-slot pages (``serve/kv_pool.py`` owns the page
-    bookkeeping) whose page table is ``pt`` when given."""
+    dense — a ``*_swa`` layer's a ring of ``sliding_window +
+    window_slack`` slots (at most ``max_seq``), so that a span's writes
+    never evict keys inside the window of its earliest query — or with
+    ``paged_pages`` > 0 a paged arena of that many ``page_size``-slot pages
+    (``serve/kv_pool.py`` owns the page bookkeeping; window layers use the
+    same arena, the engine caps their live pages at the window) whose page
+    table is ``pt`` when given."""
     _check_kind(kind)
     if kind == "mamba2":
         return init_mamba2_state(cfg, batch, device)
@@ -64,8 +84,9 @@ def init_block_state(kind: str, cfg: ArchConfig, batch: int, max_seq: int,
         return {"kv": init_paged_cache(cfg, batch, paged_pages, page_size,
                                        -(-max_seq // page_size), int8=int8_kv,
                                        dtype=dtype, device=device, pt=pt)}
-    return {"kv": init_cache(cfg, batch, max_seq, int8=int8_kv, dtype=dtype,
-                             device=device)}
+    window = cfg.sliding_window + window_slack if kind in SWA_KINDS else 0
+    return {"kv": init_cache(cfg, batch, max_seq, int8=int8_kv, window=window,
+                             dtype=dtype, device=device)}
 
 
 def block_forward(kind: str, params: nn.Module, x, cfg: ArchConfig,
@@ -81,8 +102,11 @@ def block_forward(kind: str, params: nn.Module, x, cfg: ArchConfig,
     h, hq = apply_norm(x, params.norm1, cfg, mode)
     x, kv = attention(params.attn, h, cfg, mode, positions,
                       cache=None if state is None else state["kv"],
+                      window=cfg.sliding_window if kind in SWA_KINDS else 0,
                       residual=x, writes=writes, card_order=card_order, xq=hq)
     new_state = state if state is None else dict(state, kv=kv)
     h, hq = apply_norm(x, params.norm2, cfg, mode)
+    if kind in MOE_KINDS:
+        return x + moe(params.moe, h, cfg, mode, xq=hq), new_state
     x = x + mlp(params.mlp, h, cfg, mode, xq=hq)
     return x, new_state

@@ -5,8 +5,11 @@ that hold the weights: a float ``Linear`` keeps its weight in the
 reference's [in, out] layout; after PTQ it holds, as buffers, an int8
 ``w_q`` [in, out] and a per-output-channel f32 ``scale`` [out] (W8A8), or
 packed int4 ``w4`` [in/2, out], int8 group multipliers ``qmul``
-[in/group, out] and ``scale`` [out] (W4A8, two-level group scales).  The
-functions mirror the reference one for one.  Where the reference divides by a
+[in/group, out] and ``scale`` [out] (W4A8, two-level group scales).  A MoE
+layer's experts hold one ``Linear`` per projection with every tensor
+stacked over a leading expert dimension E ([E, in, out]; ``scale`` [E,
+out]), as the reference stacks them.  The functions mirror the reference one
+for one.  Where the reference divides by a
 Python-float constant under ``jax.jit`` (``/ 127.0``), the port multiplies
 by the f32 reciprocal, as XLA does (``kernels/common.py``).
 """
@@ -41,10 +44,11 @@ _RCP127 = rcp32(127.0)
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
-               device) -> torch.Tensor:
+               device, experts: int = 0) -> torch.Tensor:
+    """[in, out], or [experts, in, out] stacked for a MoE layer."""
     std = 1.0 / math.sqrt(in_dim)
-    return torch.randn((in_dim, out_dim), generator=gen, device=device,
-                       dtype=F32) * std
+    shape = (experts, in_dim, out_dim) if experts else (in_dim, out_dim)
+    return torch.randn(shape, generator=gen, device=device, dtype=F32) * std
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int,
@@ -62,7 +66,7 @@ class Linear(nn.Module):
     """One GEMM weight in one of three forms: float ``weight`` [in, out];
     after int8 PTQ ``w_q`` [in, out] + f32 ``scale`` [out]; after int4 PTQ
     ``w4`` [in/2, out] + ``qmul`` [in/group, out] + f32 ``scale`` [out]
-    (buffers)."""
+    (buffers).  A MoE layer's stacked experts: each with a leading [E]."""
 
     def __init__(self, weight: torch.Tensor | None = None, *,
                  w_q: torch.Tensor | None = None,
@@ -185,12 +189,15 @@ def linear_gated_w8a8(x, up_q, up_scale, gate_q, gate_scale, act: str,
 
 
 def quantize_weight(w: torch.Tensor) -> dict:
-    """PTQ a float [in, out] weight: per-output-channel symmetric int8
-    (eager in the reference: a true division by 127)."""
+    """PTQ a float [..., in, out] weight: per-output-channel symmetric int8,
+    the reduction over the input dimension only, so stacked experts keep
+    their own channel scales (eager in the reference: a true division by
+    127)."""
     wf = w.float()
-    amax = torch.clamp(wf.abs().amax(0), min=1e-8)
+    amax = torch.clamp(wf.abs().amax(-2), min=1e-8)
     scale = amax / 127.0
-    w_q = torch.clamp(torch.round(wf / scale), -128, 127).to(torch.int8)
+    w_q = torch.clamp(torch.round(wf / scale.unsqueeze(-2)), -128,
+                      127).to(torch.int8)
     return {"w_q": w_q, "scale": scale.float()}
 
 

@@ -49,32 +49,45 @@ class LM(nn.Module):
         return self.embed.device
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> LM:
+def init_params(cfg: ArchConfig, seed: int = 0, device=None,
+                precision: str | None = None) -> LM:
     """Random weights from ``seed`` on ``device`` — the card unless the
-    caller passes device='cpu'."""
+    caller passes device='cpu'.  With ``precision`` each block is built in
+    f32 and quantized for that precision (``quant.ptq.quantize_for``'s
+    policy) before the next is built, so the float model never exists
+    whole (mixtral-8x7b's is 187 GB in f32); the generator is consumed in
+    the same order, so the result equals ``quantize_for`` of the float
+    model bit for bit."""
+    from ..quant.ptq import quantize_for
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def build(kind):
+        block = init_block_params(gen, kind, cfg, dev)
+        return block if precision is None else quantize_for(block, precision)
     shared = None
     layers = []
     for kind in cfg.block_kinds:
         if kind == "shared_attn":
             if shared is None:
-                shared = init_block_params(gen, kind, cfg, dev)
+                shared = build(kind)
             layers.append(shared)
         else:
-            layers.append(init_block_params(gen, kind, cfg, dev))
+            layers.append(build(kind))
     embed = embed_init(gen, cfg.padded_vocab, cfg.d_model, dev)
     unembed = (None if cfg.tie_embeddings else Linear(embed_init(
         gen, cfg.padded_vocab, cfg.d_model, dev).T.contiguous()))
-    return LM(embed, layers, Norm(cfg.d_model, cfg.norm_type, dev), unembed)
+    lm = LM(embed, layers, Norm(cfg.d_model, cfg.norm_type, dev), unembed)
+    return lm if precision is None else quantize_for(lm, precision)
 
 
 def init_states(cfg: ArchConfig, batch: int, max_seq: int, int8_kv: bool = False,
                 dtype=DEFAULT_DTYPE, device=None, paged_pages: int = 0,
-                page_size: int = 0) -> list:
+                page_size: int = 0, window_slack: int = 0) -> list:
     """One state per layer (the reference stacks them per period): a
-    ``{"kv": cache}`` per attention layer — a shared block's too — and a
-    ``{"conv", "ssd"}`` recurrent state per mamba2 layer.  With
+    ``{"kv": cache}`` per attention layer — a shared block's too; a
+    sliding-window layer's a ring of window + ``window_slack`` slots — and
+    a ``{"conv", "ssd"}`` recurrent state per mamba2 layer.  With
     ``paged_pages`` > 0 each cache is a paged arena of that many
     ``page_size``-slot pages (``attention.init_paged_cache``), and every
     layer shares ONE page table tensor."""
@@ -83,7 +96,7 @@ def init_states(cfg: ArchConfig, batch: int, max_seq: int, int8_kv: bool = False
     for kind in cfg.block_kinds:
         st = init_block_state(kind, cfg, batch, max_seq, int8_kv, dtype, dev,
                               paged_pages=paged_pages, page_size=page_size,
-                              pt=pt)
+                              pt=pt, window_slack=window_slack)
         if paged_pages and kind in ATTN_KINDS:
             pt = st["kv"]["pt"]
         states.append(st)

@@ -3,12 +3,15 @@
 Port of ``repro.quant.ptq`` (``ptq_quantize_params``, the W4 policy,
 ``calibrate_ptq``'s group/clip search and ``quantized_param_fraction``), and
 ``quantize_for``, the launcher's choice of policy by precision.  Every GEMM
-weight (attention wq/wk/wv/wo, MLP w_in/w_gate/w_out, Mamba-2 in_proj/
-out_proj — class ``attn``, as the reference's ``_CLASS_PATTERNS`` have it —
-and the ``unembed`` head) becomes per-output-channel symmetric int8 ``{w_q,
-scale}`` or, where the policy says so, packed int4 ``{w4, qmul, scale}``
-with two-level group scales; embeddings (a tied head with them), norms and
-the Mamba-2 conv and vectors stay float.  A shared block is one module, so
+weight (attention wq/wk/wv/wo, MLP w_in/w_gate/w_out — a MoE layer's
+stacked experts and shared expert too, each expert with its own channel
+scales and W4 groups fitted to the weight — Mamba-2 in_proj/out_proj — class
+``attn``, as the reference's ``_CLASS_PATTERNS`` have it — and the
+``unembed`` head) becomes per-output-channel symmetric int8 ``{w_q, scale}``
+or, where the policy says so, packed int4 ``{w4, qmul, scale}`` with
+two-level group scales; embeddings (a tied head with them), norms, the MoE
+``router`` and ``shared_gate`` (the reference's ``_EXCLUDE``), and the
+Mamba-2 conv and vectors stay float.  A shared block is one module, so
 it is quantized once.  The reference runs PTQ eagerly, so
 its divisions are true divisions here.  Bit-exact against the reference
 (``tests/test_torch_models.py``; ``calibrate_ptq`` in
@@ -137,7 +140,9 @@ def calibrate_ptq(params: LM, forward_logits, groups=W4_GROUPS,
 def quantize_for(params: LM, precision: str) -> LM:
     """PTQ for a serving precision, as ``repro.launch.serve`` applies it:
     w4a8 by ``DEFAULT_W4_POLICY``, w8a8 every GEMM weight int8, bf16
-    untouched."""
+    untouched.  ``params`` may be any module of the model (one block:
+    ``models.lm.init_params`` quantizes the model a block at a time), since
+    each weight's class comes from its own name."""
     if precision == "w4a8":
         return ptq_quantize_params(params, policy=DEFAULT_W4_POLICY)
     if precision == "w8a8":

@@ -48,6 +48,16 @@ victim lane's pages to host memory and resumes it later into fresh pages, a
 bit-exact round trip.  Paging is a memory-layout change only.  Recurrent
 archs keep the dense layout.
 
+Sliding-window archs (mixtral-8x7b): each dense cache is a ring of window +
+the largest bucket slots (``_window_slack``), so a span's writes never evict
+keys inside the window of its earliest query; paged, every attention layer
+being windowed, each lane's live pages are capped at the window
+(``kv_pool.cap_window``).  MoE archs' capacity drops depend on every row of
+a step, pads included, so a step's (B, T) rows are exactly the
+reference's; a pad row's attention output depends on the cache layout (it
+has no valid key), so for MoE archs paged and dense drains differ, as the
+reference's do.
+
 Unlike the reference, which returns new states, the port writes the KV
 caches in place: a lane outside the plan feeds only pads (position -1),
 whose writes are dropped, so its cache is left exactly as the lane-masked
@@ -174,6 +184,10 @@ class ServingEngine:
             # no bucket fits below max_seq (e.g. max_seq=2): serve
             # token-at-a-time instead of failing on an empty bucket table
             self._mode = "tokenwise"
+        # sliding-window ring caches get max-bucket slack slots: a C-token
+        # span write must not evict keys still inside the window of the
+        # span's earliest query (a ring of W slots serves only C == 1)
+        self._window_slack = self._buckets[-1] if self._buckets else 0
         self._paged = self._resolve_paged()
         self.pool: PagedKVPool | None = None
         if self._paged:
@@ -190,8 +204,10 @@ class ServingEngine:
             n_pages = serve_cfg.pool_pages or (b + 2) * mp + 1
             n_pages = max(n_pages, mp + 2)
             self.pool = PagedKVPool(n_pages, ps, b, mp)
-            # all attention layers windowed -> the scheduler caps each lane's
-            # LIVE pages at the window (no ported arch has such a pattern)
+            # all attention layers windowed (mixtral-8x7b) -> the scheduler
+            # caps each lane's LIVE pages at the window (full-attention
+            # layers would still need the old keys, so mixed patterns keep
+            # everything)
             kinds = set(cfg.block_pattern) & {
                 "attn", "moe", "shared_attn", "attn_swa", "moe_swa"}
             self._cap_window = (cfg.sliding_window if kinds and
@@ -199,14 +215,16 @@ class ServingEngine:
             self.states = init_states(cfg, b, serve_cfg.max_seq,
                                       int8_kv=serve_cfg.int8_kv,
                                       device=self.device, paged_pages=n_pages,
-                                      page_size=ps)
+                                      page_size=ps,
+                                      window_slack=self._window_slack)
             # the page table every layer's arena shares (updated in place
             # before each forward)
             self._pt = self.states[0]["kv"]["pt"]
         else:
             self.states = init_states(cfg, b, serve_cfg.max_seq,
                                       int8_kv=serve_cfg.int8_kv,
-                                      device=self.device)
+                                      device=self.device,
+                                      window_slack=self._window_slack)
         # self-speculation: greedy engines only (a sampled stream does not
         # follow the argmax the drafts are checked against), never
         # tokenwise (a recurrence cannot rewind); a speculating lane is a

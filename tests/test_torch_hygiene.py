@@ -59,7 +59,9 @@ def test_scan_sees_the_whole_port():
                  "kernels/int_silu.py", "kernels/conv2d.py",
                  "models/frontend.py", "models/ssm.py", "models/blocks.py",
                  "kernels/ssd_scan.py", "configs/zamba2_2_7b.py",
-                 "serve/prng.py", "serve/draft.py"):
+                 "serve/prng.py", "serve/draft.py", "models/moe.py",
+                 "core/costmodel.py", "kernels/autotune.py",
+                 "configs/mixtral_8x7b.py", "configs/qwen2_moe_a2_7b.py"):
         assert need in files
 
 
@@ -448,3 +450,45 @@ def test_chip_smoke_fails_alone(tmp_path):
     shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
     r = _run_smoke(tmp_path)
     assert r.returncode != 0 and '"ok": true' not in r.stdout
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen2-moe-a2.7b"])
+def test_moe_archs_are_ported_and_default_to_the_card(arch, no_cuda):
+    from repro_torch.configs import ARCH_IDS
+    assert arch in ARCH_IDS
+    cfg = get_config(arch, precision="w4a8", reduced=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg, precision="w4a8")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_states(cfg, 1, 16, window_slack=4)
+
+
+@pytest.mark.parametrize("arch,flag", [("mixtral-8x7b", "--w4a8"),
+                                       ("qwen2-moe-a2.7b", "--w8a8")])
+@pytest.mark.parametrize("paged", [False, True])
+def test_launcher_cpu_moe(capsys, arch, flag, paged):
+    from repro_torch.launch.serve import main
+    ops.reset_launch_counts()
+    main(["--arch", arch, "--reduced", flag, "--int8-kv", "--requests", "2",
+          "--max-new", "3", "--device", "cpu"] + (["--paged"] if paged else []))
+    out = capsys.readouterr().out
+    assert "served 2 requests" in out and ("paged pool:" in out) == paged
+    assert ops.launch_counts(forms=True) == {
+        k: 0 for k in ops.KERNELS + ops.FORMS}
+
+
+def test_expert_batched_entries():
+    """The four GEMM sources take the expert count first: one launch over
+    every expert of a MoE layer (``Slice`` in ``gemm_mma.cuh``)."""
+    assert "struct Slice" in (build.CSRC / "gemm_mma.cuh").read_text()
+    for name, entries in (("int8_gemm", ["repro_int8_gemm"]),
+                          ("int4_gemm", ["repro_int4_gemm"]),
+                          ("dual_gemm_gated", ["repro_dual_gemm_gated_i8",
+                                               "repro_dual_gemm_gated_bf16"]),
+                          ("dual_int4_gemm_gated",
+                           ["repro_dual_int4_gemm_gated"])):
+        text = " ".join((build.CSRC / f"{name}.cu").read_text().split())
+        text = text.replace("( ", "(")
+        for entry in entries:
+            assert f"{entry}(int experts," in text
+        assert f"{name}.experts" in ops.FORMS
