@@ -74,7 +74,16 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    timed beside the loop of unbatched launches and two ``torch.bmm`` for
    bf16); and the decode kernels with mixtral's window (``check_window_
    decode``: G = 4, D = 128, window 4096, a wrapped 4352-slot ring and an
-   arena capped at the window; the multi-row form row by row);
+   arena capped at the window; the multi-row form row by row); and this
+   slice's shapes (``check_gqa_xlstm``): both decode kernels at G = 6 and
+   7 (internlm2-20b's 48 and yi-34b's 56 query heads over 8 KV heads of
+   128; T = 1 and the T = 256 rows), int8_flash_attention at 48/8 and
+   56/8 heads, int8_gemm at internlm2-20b's W8A8 projections and head
+   (N = 92544), yi-34b's int8 head and down projection and xlstm-350m's
+   N = 8 gate projection, the int8 dual_gemm_gated at [M, 6144] x 2
+   [6144, 16384], int4_gemm at yi's W4A8 projections and the W4 gate
+   projection, dual_int4_gemm_gated at [M, 7168] x 2 [7168, 20480], for
+   M in {8, 256, 4096}, each ``torch.equal`` to its plain version;
 4. reduced: starcoder2-3b-reduced at w8a8 and codeqwen1.5-7b-reduced at
    w4a8, w8a8 and bf16, each with an int8 KV cache, the same packed steps on
    the CPU (plain versions) and on the card (kernels): the logits agree
@@ -88,7 +97,14 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    paged int8 arena the same, and its card logits equal the dense card
    logits bit for bit; mixtral-8x7b-reduced and qwen2-moe-a2.7b-reduced at
    W4A8 and W8A8 the same (mixtral past its ring's wrap), against the card
-   order within ``MOE_ORDER_TOL`` (routing); then the reduced no-cache
+   order within ``MOE_ORDER_TOL`` (routing); internlm2-20b (W8A8) and
+   yi-34b (W4A8) at G-preserving reduced configs (``reduced_config``: 12
+   and 14 query heads over 2 KV heads) the same way, exact against the
+   card order; xlstm-350m-reduced W8A8 (``check_xlstm_reduced``): its
+   no-cache forward within ``XLSTM_NO_CACHE_TOL`` and its forward with
+   states (t = 1 steps) within ``STATES_TOL`` of the CPU, at three seeds,
+   with the launches of each forward counted (``xlstm_counts``); then the
+   reduced no-cache
    forward (starcoder at bf16 and w8a8, codeqwen and zamba2 at bf16, w8a8
    and w4a8) the same way, its
    attention kernel launched once per attention layer and ssd_scan once per
@@ -139,8 +155,19 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    requests dense; a bucket-1 step of each launches one batched up/gate
    and one batched down a layer (and mixtral 32 windowed decode launches),
    and its ``lm_loss`` on 4 x 1024 tokens runs each batched form once a
-   layer (phase 6's numbers, taken with the parameters at hand).  Each
-   model is freed before the next;
+   layer (phase 6's numbers, taken with the parameters at hand).
+   internlm2-20b W8A8 and yi-34b W4A8 (``serve_gqa``), built and quantized
+   a block at a time, serve 8 requests x 16 new tokens dense (internlm2
+   then paged, 0 token differences required); a bucket-1 step launches
+   the decode kernel once a layer (48, 60), and each ``lm_loss`` on
+   4 x 1024 tokens runs int8_flash_attention once a layer, profiled.
+   xlstm-350m W8A8 (``serve_xlstm``) serves 8 requests x 16 tokenwise,
+   then 3 of them one at a time in lane 0 (isolation and reuse, 0
+   differences), lane 0's reset held to ``init_block_state``; every
+   forward launches int8_gemm once per quantized linear and no attention
+   kernel; its ``lm_loss`` at bf16, W8A8 and W4A8 (``xlstm_loss``, the
+   integer ones profiled on the device only).  Each model is freed before
+   the next;
 6. the no-cache forward at full width and depth: codeqwen1.5-7b float
    parameters from ``--seed``, ``calibrate_ptq`` with the reference's grid
    (W4_GROUPS x W4_CLIPS for attn and mlp, 19 forwards of 2 x 128 tokens),
@@ -192,7 +219,8 @@ runs only codeqwen1.5-7b's, starcoder2-3b's and zamba2-2.7b's W8A8
 ``lm_loss`` on 4 x 1024 tokens, timed and then under the profiler
 (``lm_only``), likewise.
 
-``--kernels flash_attention,int4_gemm`` (or ``dual_gemm_gated``,
+``--kernels flash_attention,int4_gemm`` (or ``experts``, ``window_decode``,
+``gqa_xlstm`` for the cases of PRs 24 and 25, ``dual_gemm_gated``,
 ``dual_int4_gemm_gated``, ``int8_gemm``, ``int8_kv_decode_attention``,
 ``paged_decode_attention``, ``quantize_rows``, ``int_layernorm``,
 ``int8_flash_attention``, ``ssd_scan``, ``int8_conv2d``, ``int_softmax``;
@@ -389,6 +417,7 @@ def check_kernels(dev, gen, timer) -> list[dict]:
     check_decode_rows(dev, gen, timer, record, randn)
     check_experts(dev, gen, timer, record, randn)
     check_window_decode(dev, gen, timer, record, randn)
+    check_gqa_xlstm(dev, gen, timer, record, randn)
     return cases
 
 
@@ -621,7 +650,8 @@ TABLE2_CONV = (1, 128, 128, 3, 3, 3, 8)
 TABLE2_GEMM = (32, 64, 32)
 
 
-def check_int8_gemm(dev, gen, timer, record, randn) -> None:
+def check_int8_gemm(dev, gen, timer, record, randn, shapes=I8_SHAPES,
+                    extras: bool = True) -> None:
     """Phase 3's int8_gemm cases, every one ``torch.equal`` to its plain
     version: the serving and scoring paths' projections (``I8_SHAPES``),
     each beside the ``none`` epilogue (the int32 sums) at the same shape,
@@ -629,7 +659,9 @@ def check_int8_gemm(dev, gen, timer, record, randn) -> None:
     function as ``none``, not as the fused epilogues); then the requant
     family (requant, requant_gelu, requant_add: the integer-in,
     integer-out GEMM of Table II) at Table II's [32, 64] x [64, 32] and at
-    starcoder2-3b's MLP up-projection over 4096 rows."""
+    starcoder2-3b's MLP up-projection over 4096 rows.  With ``extras``
+    False only ``shapes``' fused cases run (no ``none`` twin, no requant
+    family)."""
     from repro_torch.core.inumerics import compute_requant_params
     from repro_torch.kernels import ops
     from repro_torch.kernels.int8_gemm import (
@@ -646,7 +678,7 @@ def check_int8_gemm(dev, gen, timer, record, randn) -> None:
                 f"{out.numel()} differ from the plain version (max |d| "
                 f"{max_err(out, ref)})")
 
-    for name, k, n, epi, has_bias, out_dtype, rows in I8_SHAPES:
+    for name, k, n, epi, has_bias, out_dtype, rows in shapes:
         wd = quantize_weight(randn(k, n, scale=k ** -0.5))
         w_q, w_s = wd["w_q"], wd["scale"]
         bias = randn(n, scale=0.1) if has_bias else None
@@ -678,6 +710,8 @@ def check_int8_gemm(dev, gen, timer, record, randn) -> None:
                    bound(nbytes, 2 * m * n * k, INT8_OPS),
                    "torch._int_mm, int32 out: not the same function", out)
             del out
+            if not extras:
+                continue
             # the int32 sums alone, the function torch._int_mm computes
             acc = int8_gemm(x_q, w_q)
             exact(f"{name} none M={m}", acc,
@@ -692,6 +726,8 @@ def check_int8_gemm(dev, gen, timer, record, randn) -> None:
             del acc
         del w_q, w_s
         torch.cuda.empty_cache()
+    if not extras:
+        return
 
     def ints(lo, hi, *shape):
         return torch.randint(lo, hi, shape, generator=gen, device=dev,
@@ -719,7 +755,11 @@ def check_int8_gemm(dev, gen, timer, record, randn) -> None:
         del x, w, r
 
 
-def check_decode_attention(dev, gen, timer, record, randn) -> None:
+DECODE_SHAPES = ((8, 1024, 24, 2, 128, (0, 100)), (8, 1024, 32, 32, 128, (0,)))
+
+
+def check_decode_attention(dev, gen, timer, record, randn,
+                           shapes=DECODE_SHAPES) -> None:
     """Phase 3's int8_kv_decode_attention cases at T = 1: starcoder2-3b's
     GQA (G = 12, without and with a window) and codeqwen1.5-7b's MHA
     (G = 1) over 8 lanes of 1024 slots, each lane filled to a random
@@ -730,8 +770,7 @@ def check_decode_attention(dev, gen, timer, record, randn) -> None:
     from repro_torch.kernels.int8_kv_decode_attention import (
         ATOL, RTOL, int8_kv_decode_attention_ref)
     from repro_torch.models.attention import _quant_kv
-    for bsz, s, hq, hkv, d, windows in ((8, 1024, 24, 2, 128, (0, 100)),
-                                        (8, 1024, 32, 32, 128, (0,))):
+    for bsz, s, hq, hkv, d, windows in shapes:
         k_q, k_s = _quant_kv(randn(bsz, s, hkv, d))
         v_q, v_s = _quant_kv(randn(bsz, s, hkv, d))
         fill = torch.randint(1, s + 1, (bsz,), generator=gen, device=dev)
@@ -804,7 +843,8 @@ def int_attention_inputs(randn, h, hkv, b=NC_B, t=NC_T, d=128):
     return q, k, v.transpose(1, 2).contiguous(), v_s.transpose(1, 2).contiguous()
 
 
-def check_int8_attention(dev, gen, timer, record, randn) -> None:
+def check_int8_attention(dev, gen, timer, record, randn, heads=NC_HEADS,
+                         streaming: bool = True) -> None:
     """Phase 3 for int8_flash_attention at B = 4, T = 1024 (codeqwen1.5-7b's
     and starcoder2-3b's heads and zamba2-2.7b's head dim 80, ROADMAP C7),
     then at 4096 and 8192 keys (``check_streaming_attention``): the integer
@@ -822,7 +862,7 @@ def check_int8_attention(dev, gen, timer, record, randn) -> None:
     from repro_torch.models.attention import int_score_scale
     b, t = NC_B, NC_T
     pairs = t * (t + 1) // 2                        # causal (query, key) pairs
-    for label, h, hkv, d in NC_HEADS:
+    for label, h, hkv, d in heads:
         sc = int_score_scale(d)
         q, k, v, v_s = int_attention_inputs(randn, h, hkv, d=d)
         p_out = torch.empty((b, h, t, t), dtype=torch.int8, device=dev)
@@ -879,7 +919,8 @@ def check_int8_attention(dev, gen, timer, record, randn) -> None:
                bound(q.numel() + k.numel() + v.numel() + 4 * out.numel(),
                      2 * qk_ops, INT8_OPS), None, out)
         del out, ref
-    check_streaming_attention(dev, gen, timer, record, randn)
+    if streaming:
+        check_streaming_attention(dev, gen, timer, record, randn)
 
 
 def check_no_cache(dev, gen, timer, record, randn) -> None:
@@ -1056,7 +1097,8 @@ ROWS_T = 256
 
 
 def check_decode_rows(dev, gen, timer, record, randn,
-                      forms=(False, True)) -> None:
+                      forms=(False, True),
+                      heads=((32, 32, 128), (24, 2, 128))) -> None:
     """Phase 3 for the decode kernels' multi-row form, dense and paged
     (``forms``: False dense, True paged), at codeqwen1.5-7b's heads (G = 1) and starcoder2-3b's (G = 12): every row
     of a T = 256 launch bit-equal to a T = 1 launch of the same kernel at
@@ -1072,7 +1114,7 @@ def check_decode_rows(dev, gen, timer, record, randn,
     from repro_torch.models.attention import _quant_kv
     tr = ROWS_T
     for paged in forms:
-        for hq, hkv, d in ((32, 32, 128), (24, 2, 128)):
+        for hq, hkv, d in heads:
             if paged:
                 arena, ppos, pt, last = paged_arena(dev, gen, randn, hkv, d,
                                                     True)
@@ -1395,7 +1437,9 @@ def paged_arena(dev, gen, randn, hkv, d, int8):
     return arena, ppos, pt, qpos
 
 
-def check_paged(dev, gen, timer, record, randn) -> None:
+def check_paged(dev, gen, timer, record, randn,
+                heads=((32, 32, 128, True), (24, 2, 128, True),
+                       (32, 32, 128, False))) -> None:
     """Phase 3 for paged_decode_attention: codeqwen's serving shape (G = 1,
     int8 and bf16 pages) and starcoder's (G = 12), each on a scrambled arena
     (``paged_arena``) without and with a window, against the plain version
@@ -1406,8 +1450,7 @@ def check_paged(dev, gen, timer, record, randn) -> None:
     from repro_torch.kernels.int8_kv_decode_attention import ATOL, RTOL
     from repro_torch.kernels.paged_attention import paged_decode_attention_ref
     b, ps, mp = PAGED_B, PAGED_PS, PAGED_MP
-    for hq, hkv, d, int8 in ((32, 32, 128, True), (24, 2, 128, True),
-                             (32, 32, 128, False)):
+    for hq, hkv, d, int8 in heads:
         arena, ppos, pt, qpos = paged_arena(dev, gen, randn, hkv, d, int8)
         pk, pks, pv, pvs = (arena[k] for k in ("pk", "pks", "pv", "pvs"))
         q = randn(b, hq, d).to(torch.bfloat16)
@@ -1517,7 +1560,8 @@ def by_rows(fn, m: int):
                       for r in range(0, m, PLAIN_ROWS)])
 
 
-def check_int4_gemm(dev, gen, timer, record, randn) -> None:
+def check_int4_gemm(dev, gen, timer, record, randn,
+                    shapes=W4_SHAPES) -> None:
     """Phase 3's int4_gemm cases (``W4_SHAPES``): bit-exact against the
     plain version (run by blocks of PLAIN_ROWS rows, which are independent,
     where M is larger: its [groups, M, N] partials would not fit), timed
@@ -1527,7 +1571,7 @@ def check_int4_gemm(dev, gen, timer, record, randn) -> None:
     from repro_torch.kernels.int8_gemm import gemm_w4a8_ref, unpack_int4_ref
     from repro_torch.kernels.quantize import quantize_rows_ref
     from repro_torch.models.layers import GELU_INT_SCALE, quantize_weight_w4
-    for name, k, n, epi, has_bias, group, rows in W4_SHAPES:
+    for name, k, n, epi, has_bias, group, rows in shapes:
         wd = quantize_weight_w4(randn(k, n, scale=k ** -0.5), group=group)
         w4, qmul, w_s = wd["w4"], wd["qmul"], wd["scale"]
         w_unpacked = unpack_int4_ref(w4, k)     # the yardstick's int8 weight
@@ -1594,7 +1638,8 @@ def same(kernel, what, out, ref):
             f"differ from the plain version (max |d| {max_err(out, ref)})")
 
 
-def check_dual_int4_gemm_gated(dev, gen, timer, record, randn) -> None:
+def check_dual_int4_gemm_gated(dev, gen, timer, record, randn,
+                               cases=None) -> None:
     """Phase 3's dual_int4_gemm_gated cases: bit-exact against
     ``gated_mlp_w4a8_ref`` (by row blocks past PLAIN_ROWS), timed beside two
     ``torch._int_mm`` on the unpacked weights (no group scales, no
@@ -1606,11 +1651,12 @@ def check_dual_int4_gemm_gated(dev, gen, timer, record, randn) -> None:
     from repro_torch.kernels.quantize import quantize_rows_ref
     from repro_torch.models.layers import (GELU_INT_SCALE, SILU_INT_SCALE,
                                            quantize_weight_w4)
-    cases = [(GATED_K, GATED_N, 64, m, act) for m in GATED_ROWS
-             for act in ("silu", "gelu")]
-    cases += [(GATED_K, GATED_N, g, m, "silu") for g in (32, 128)
-              for m in (8, 256)]
-    cases += [(k, n, 32, m, "gelu") for m, k, n in GATED_RAGGED]
+    if cases is None:
+        cases = [(GATED_K, GATED_N, 64, m, act) for m in GATED_ROWS
+                 for act in ("silu", "gelu")]
+        cases += [(GATED_K, GATED_N, g, m, "silu") for g in (32, 128)
+                  for m in (8, 256)]
+        cases += [(k, n, 32, m, "gelu") for m, k, n in GATED_RAGGED]
     weights = {}
     for k, n, group, m, act in cases:
         if (k, n, group) not in weights:
@@ -1644,22 +1690,25 @@ def check_dual_int4_gemm_gated(dev, gen, timer, record, randn) -> None:
                "activation: not the same function", out=out)
 
 
-def check_dual_gemm_gated(dev, gen, timer, record, randn) -> None:
+def check_dual_gemm_gated(dev, gen, timer, record, randn, cases=None,
+                          bf16_form: bool = True) -> None:
     """Phase 3's dual_gemm_gated cases, both forms: the int8 form bit-exact
     against ``gated_mlp_w8a8_ref`` and timed beside two ``torch._int_mm``
     (int32 out, no scales or activation: not the same function); the bf16
     form within ``DUAL_BF16_RTOL``/``ATOL`` of ``gated_mlp_ref``, the same
     bits in two runs, timed beside two bf16 ``torch.matmul`` (no
-    activation: not the same function)."""
+    activation: not the same function).  ``cases`` (K, N, M, act) replace
+    the default shapes; ``bf16_form`` False runs only the int8 form."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.int8_gemm import (
         DUAL_BF16_ATOL, DUAL_BF16_RTOL, gated_mlp_ref, gated_mlp_w8a8_ref)
     from repro_torch.kernels.quantize import quantize_rows_ref
     from repro_torch.models.layers import (GELU_INT_SCALE, SILU_INT_SCALE,
                                            quantize_weight)
-    cases = [(GATED_K, GATED_N, m, act) for m in GATED_ROWS
-             for act in ("silu", "gelu")]
-    cases += [(k, n, m, "gelu") for m, k, n in GATED_RAGGED]
+    if cases is None:
+        cases = [(GATED_K, GATED_N, m, act) for m in GATED_ROWS
+                 for act in ("silu", "gelu")]
+        cases += [(k, n, m, "gelu") for m, k, n in GATED_RAGGED]
     weights = {}
     for k, n, m, act in cases:
         if (k, n) not in weights:
@@ -1668,8 +1717,8 @@ def check_dual_gemm_gated(dev, gen, timer, record, randn) -> None:
                         for _ in range(2))
             weights[(k, n)] = (
                 (up["w_q"], up["scale"], gate["w_q"], gate["scale"]),
-                *(randn(k, n, scale=k ** -0.5).to(torch.bfloat16)
-                  for _ in range(2)))
+                *((randn(k, n, scale=k ** -0.5).to(torch.bfloat16)
+                   for _ in range(2)) if bf16_form else (None, None)))
         w8_args, wu_f, wg_f = weights[(k, n)]
         sc = SILU_INT_SCALE if act == "silu" else GELU_INT_SCALE
         x_q, x_s = quantize_rows_ref(randn(m, k))
@@ -1692,7 +1741,8 @@ def check_dual_gemm_gated(dev, gen, timer, record, randn) -> None:
                bound(io + 2 * (k * n + 4 * n), 4 * m * n * k, INT8_OPS),
                lib_note="two _int_mm, int32 out, no scales or activation: "
                "not the same function", out=out)
-
+        if not bf16_form:
+            continue
         x_f = randn(m, k).to(torch.bfloat16)
 
         def runf():
@@ -2039,6 +2089,77 @@ def check_window_decode(dev, gen, timer, record, randn) -> None:
 
 # the kernels ``--kernels`` can time alone: each one's phase 3 cases and the
 # sources they build (the paged cases hold the dense kernel beside it)
+# ---------------------------------------------------------------------------
+# phase 3: internlm2-20b's and yi-34b's GQA (G = 6 and 7) and projection
+# widths, and xlstm-350m's N = 8 gate projection
+# ---------------------------------------------------------------------------
+
+# (label, query heads) of the two dense GQA models, each over 8 KV heads of
+# 128: internlm2-20b G = 6, yi-34b G = 7 (the first odd G above 1)
+GQA_HEADS = (("internlm2", 48), ("yi", 56))
+GQA_HKV, GQA_D = 8, 128
+GQA_ROWS = (8, 256, 4096)      # a bucket-1 step, a bucket-256 step, 4 x 1024
+# internlm2-20b's W8A8 projections through int8_gemm (no qkv bias): q, kv
+# (8 x 128 columns), o with the residual, down, the f32 head; yi-34b's int8
+# head (the W4 policy keeps the head int8) and down projection (K = 20480 is
+# past the W4 combine's headroom, so its PTQ keeps it int8: ROADMAP C14);
+# xlstm-350m's mLSTM gate projection w_if [2048, 2 x 4 heads] at W8
+I8_GQA = tuple((name, k, n, epi, False, dt, GQA_ROWS)
+               for name, k, n, epi, dt in (
+                   ("internlm2 q_proj", 6144, 6144, "scaled", torch.bfloat16),
+                   ("internlm2 kv_proj", 6144, 1024, "scaled", torch.bfloat16),
+                   ("internlm2 o_proj+residual", 6144, 6144, "scaled_add",
+                    torch.bfloat16),
+                   ("internlm2 mlp_down", 16384, 6144, "scaled",
+                    torch.bfloat16),
+                   ("internlm2 head_f32", 6144, 92544, "scaled",
+                    torch.float32),
+                   ("yi head_f32", 7168, 64000, "scaled", torch.float32),
+                   ("yi mlp_down", 20480, 7168, "scaled", torch.bfloat16),
+                   ("xlstm w_if", 2048, 8, "scaled", torch.bfloat16)))
+# yi-34b's W4A8 projections at group 64, and xlstm's w_if at W4
+W4_GQA = tuple((name, k, n, epi, False, 64, GQA_ROWS)
+               for name, k, n, epi in (
+                   ("yi q_proj", 7168, 7168, "scaled"),
+                   ("yi kv_proj", 7168, 1024, "scaled"),
+                   ("yi o_proj+residual", 7168, 7168, "scaled_add"),
+                   ("xlstm w_if", 2048, 8, "scaled")))
+
+
+def check_gqa_xlstm(dev, gen, timer, record, randn) -> None:
+    """Phase 3 at the shapes of this slice's paths, each case against its
+    plain version as the earlier cases are: the decode kernels at G = 6 and
+    7 (8 lanes of 1024 slots, 8 KV heads of 128; T = 1 dense and on a
+    scrambled paged arena, then the T = 256 multi-row form of both with
+    every row bit-equal to a T = 1 launch); int8_flash_attention at
+    B = 4, T = 1024 over 48/8 and 56/8 heads (integer probabilities and the
+    int32 form bit-exact, the f32 output within rtol 1e-5); and
+    ``torch.equal`` for the GEMMs at M in {8, 256, 4096}: int8_gemm at
+    internlm2-20b's W8A8 projections and head (N = 92544), yi-34b's int8
+    head (N = 64000) and int8 down projection (K = 20480, C14) and
+    xlstm-350m's w_if (N = 8, narrower than any tile), the int8
+    dual_gemm_gated at internlm2's [M, 6144] x 2 [6144, 16384], int4_gemm
+    at yi's W4A8 q, kv and o projections (K = 7168, group 64) and w_if at
+    W4, and dual_int4_gemm_gated at yi's [M, 7168] x 2 [7168, 20480]."""
+    heads = [(h, GQA_HKV, GQA_D) for _, h in GQA_HEADS]
+    check_decode_attention(dev, gen, timer, record, randn, shapes=[
+        (8, 1024, h, hkv, d, (0,)) for h, hkv, d in heads])
+    check_paged(dev, gen, timer, record, randn,
+                heads=[(*x, True) for x in heads])
+    check_decode_rows(dev, gen, timer, record, randn, heads=heads)
+    check_int8_attention(dev, gen, timer, record, randn, heads=[
+        (label, h, GQA_HKV, GQA_D) for label, h in GQA_HEADS],
+        streaming=False)
+    check_int8_gemm(dev, gen, timer, record, randn, shapes=I8_GQA,
+                    extras=False)
+    check_dual_gemm_gated(dev, gen, timer, record, randn, cases=[
+        (6144, 16384, m, "silu") for m in GQA_ROWS], bf16_form=False)
+    check_int4_gemm(dev, gen, timer, record, randn, shapes=W4_GQA)
+    check_dual_int4_gemm_gated(dev, gen, timer, record, randn, cases=[
+        (7168, 20480, 64, m, "silu") for m in GQA_ROWS])
+    torch.cuda.empty_cache()
+
+
 KERNEL_CASES = {"quantize_rows": (check_quantize_rows, ("quantize",)),
                 "int_layernorm": (check_int_layernorm,
                                   ("int_layernorm", "quantize")),
@@ -2065,7 +2186,13 @@ KERNEL_CASES = {"quantize_rows": (check_quantize_rows, ("quantize",)),
                                             "dual_int4_gemm_gated")),
                 "window_decode": (check_window_decode,
                                   ("int8_kv_decode_attention",
-                                   "paged_decode_attention"))}
+                                   "paged_decode_attention")),
+                "gqa_xlstm": (check_gqa_xlstm,
+                              ("quantize", "int8_gemm", "int4_gemm",
+                               "dual_gemm_gated", "dual_int4_gemm_gated",
+                               "int8_kv_decode_attention",
+                               "paged_decode_attention",
+                               "int8_flash_attention"))}
 
 
 # ---------------------------------------------------------------------------
@@ -2103,7 +2230,29 @@ REDUCED_PATHS = (
                                  "dual_int4_gemm_gated",
                                  "int8_kv_decode_attention", "int_layernorm",
                                  "quantize_rows")),
+    # the dense GQA paths at their own G (``reduced_config``)
+    ("internlm2-20b", "w8a8", ("int8_gemm", "dual_gemm_gated",
+                               "int8_kv_decode_attention", "int_layernorm",
+                               "quantize_rows")),
+    ("yi-34b", "w4a8", ("int4_gemm", "dual_int4_gemm_gated",
+                        "int8_kv_decode_attention", "int_layernorm",
+                        "quantize_rows")),
 )
+# query heads of the G-preserving reduced configs: ``reduced()`` gives every
+# arch 4 heads over at most 2 KV heads, so internlm2-20b (G = 6) and yi-34b
+# (G = 7) keep their G over 2 KV heads of 16
+REDUCED_GQA = {"internlm2-20b": 12, "yi-34b": 14}
+
+
+def reduced_config(arch: str, precision: str):
+    """The reduced config of ``arch`` at ``precision``; G-preserving for the
+    archs of ``REDUCED_GQA``."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch, precision=precision, reduced=True)
+    if arch in REDUCED_GQA:
+        cfg = dataclasses.replace(cfg, n_heads=REDUCED_GQA[arch],
+                                  n_kv_heads=2)
+    return cfg
 # The MoE paths against the card-order CPU at W8A8/W4A8: every integer
 # kernel is bit-exact, but the decode kernels agree with their plain
 # versions only to a tolerance (C8's card order runs those plain versions),
@@ -2148,7 +2297,7 @@ def check_reduced(dev, seed, arch: str, precision: str, must_launch,
     from repro_torch.quant import quantize_for
     from repro_torch.serve import packed_step
 
-    cfg = get_config(arch, precision=precision, reduced=True)
+    cfg = reduced_config(arch, precision)
     cpu = quantize_for(init_params(cfg, seed=seed, device="cpu"), precision)
     gpu = copy.deepcopy(cpu).to(dev)
     lanes, t = 4, 16
@@ -3368,6 +3517,309 @@ def serve_moe(dev, seed, arch: str, precision: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 4-6 of internlm2-20b, yi-34b and xlstm-350m
+# ---------------------------------------------------------------------------
+
+# xlstm-350m-reduced W8A8 against the port's CPU run: the no-cache forward
+# (the chunked mLSTM and the sLSTM loop) within XLSTM_NO_CACHE_TOL of the
+# range, the forward with states (a prefill, then t = 1 steps: the one-step
+# updates) within STATES_TOL.  The integer kernels are bit-exact; only the
+# f32 recurrences (exp, log1p, tanh, the chunk's products) round otherwise
+# on the card, and one such rounding can move an int8 level of wo's
+# activation.  Measured on an H100 (80GB HBM3, 700 W), seeds 0-2: no-cache
+# 0, 0.685% (a level moved) and 0; with states at most 3.8e-7.
+XLSTM_NO_CACHE_TOL = CARD_ORDER_TOL
+
+
+def xlstm_counts(cfg) -> dict:
+    """The launches of one forward of an integer xlstm config: int8_gemm
+    (int4_gemm at W4A8) once per quantized linear (w_gate, wq, wk, wv, w_if,
+    wo of each mLSTM; w_in, wo of each sLSTM; the tied head is float),
+    quantize_rows for u and wo's input of each mLSTM and wo's of each sLSTM
+    (the norm hands its rows to w_gate and w_in), the fused norm once a
+    block and once at the end, and no attention kernel."""
+    n_m = cfg.block_kinds.count("mlstm")
+    n_s = cfg.block_kinds.count("slstm")
+    w4 = cfg.precision == "w4a8"
+    return {"int4_gemm": (6 * n_m + 2 * n_s) * w4,
+            "int8_gemm": (6 * n_m + 2 * n_s) * (not w4),
+            "quantize_rows": 2 * n_m + n_s,
+            "int_layernorm": cfg.n_layers + 1,
+            "int8_kv_decode_attention": 0, "paged_decode_attention": 0,
+            "int8_flash_attention": 0, "flash_attention": 0, "ssd_scan": 0}
+
+
+def check_counts(what: str, got: dict, want: dict, per: int = 1) -> None:
+    bad = {k: got[k] for k, v in want.items() if got[k] != v * per}
+    if bad:
+        raise AssertionError(f"{what}: launched {bad}, want "
+                             f"{ {k: v * per for k, v in want.items()} }")
+
+
+def check_xlstm_reduced(dev, seed) -> dict:
+    """xlstm-350m-reduced at W8A8 on the CPU (plain versions) and on the
+    card (kernels): the no-cache forward of 4 sequences x 32 tokens (the
+    mLSTM padded to a chunk of 64) within ``XLSTM_NO_CACHE_TOL`` of the
+    range, then a prefill of 16 tokens per lane and 4 single-token steps,
+    each feeding the CPU's greedy token, within ``STATES_TOL``; the
+    launches of each forward (``xlstm_counts``).  Returns the worst
+    relative differences."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import forward, init_params, init_states
+    from repro_torch.quant import quantize_for
+
+    cfg = reduced_config("xlstm-350m", "w8a8")
+    cpu = quantize_for(init_params(cfg, seed=seed, device="cpu"), "w8a8")
+    gpu = copy.deepcopy(cpu).to(dev)
+    tok = torch.from_numpy(np.random.default_rng(seed).integers(
+        2, cfg.vocab_size, size=(4, 32)))
+
+    def rel(a, b):
+        return float((a - b.cpu()).abs().max()) / float(a.abs().max())
+    lc, _ = forward(cpu, cfg, tok)
+    ops.reset_launch_counts()
+    lg, _ = forward(gpu, cfg, tok.to(dev))
+    torch.cuda.synchronize()
+    check_counts("xlstm-reduced no-cache forward", ops.launch_counts(),
+                 xlstm_counts(cfg))
+    worst = {"no_cache": rel(lc, lg), "states": 0.0}
+    log(f"  no-cache forward (4 x 32): {worst['no_cache']:.3g} of the range "
+        f"(limit {XLSTM_NO_CACHE_TOL:g})")
+    if not (torch.isfinite(lg).all()
+            and worst["no_cache"] <= XLSTM_NO_CACHE_TOL):
+        raise AssertionError(f"reduced xlstm w8a8 no-cache seed {seed}: "
+                             f"card logits differ from the CPU's by "
+                             f"{worst['no_cache']:.3g} of the range")
+    sts = {k: init_states(cfg, 4, 64, device=dev if k == "gpu" else "cpu")
+           for k in ("cpu", "gpu")}
+    tok = tok[:, :16]
+    pos = torch.arange(16, dtype=torch.int32).expand(4, 16)
+    ops.reset_launch_counts()
+    for step in range(5):
+        lc, sts["cpu"] = forward(cpu, cfg, tok, pos, sts["cpu"])
+        lg, sts["gpu"] = forward(gpu, cfg, tok.to(dev), pos.to(dev),
+                                 sts["gpu"])
+        r = rel(lc[:, -1], lg[:, -1])
+        worst["states"] = max(worst["states"], r)
+        log(f"  step {step} (T={tok.shape[1]}): {r:.3g} of the range")
+        if not (torch.isfinite(lg).all() and r <= STATES_TOL):
+            raise AssertionError(f"reduced xlstm w8a8 with states seed "
+                                 f"{seed}: step {step} differs by {r:.3g} of "
+                                 f"the range (> {STATES_TOL:g})")
+        tok = lc[:, -1].argmax(-1)[:, None]
+        pos = pos[:, -1:] + 1
+    check_counts("xlstm-reduced forward with states", ops.launch_counts(),
+                 xlstm_counts(cfg), per=5)
+    return worst
+
+
+# the dense GQA paths: (arch, precision, a paged drain after the dense one)
+GQA_PATHS = (("internlm2-20b", "w8a8", True), ("yi-34b", "w4a8", False))
+GQA_REQ, GQA_NEW = 8, 16
+SCORE_B, SCORE_T = 4, 1024
+
+
+def gqa_must(cfg, paged: bool = False) -> tuple:
+    """The kernels a dense GQA drain must launch."""
+    attn = "paged_decode_attention" if paged else "int8_kv_decode_attention"
+    gemm = (("int4_gemm", "dual_int4_gemm_gated") if cfg.precision == "w4a8"
+            else ("dual_gemm_gated",))
+    return ("quantize_rows", "int_layernorm", "int8_gemm", attn, *gemm)
+
+
+def dense_step_launches(cfg, per: dict, attn: str) -> None:
+    """A bucket-1 step of a dense arch: the decode kernel once a layer (48
+    for internlm2-20b, 60 for yi-34b), quantize_rows 4 times a layer and the
+    fused norm twice a layer and once more."""
+    check_counts(f"{cfg.name} bucket-1 step", per, {
+        attn: cfg.n_layers, "quantize_rows": 4 * cfg.n_layers,
+        "int_layernorm": 2 * cfg.n_layers + 1})
+
+
+def score_tokens(cfg, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(2, cfg.vocab_size, (SCORE_B, SCORE_T),
+                         generator=gen, device=dev)
+
+
+def serve_gqa(dev, seed, arch: str, precision: str, paged: bool) -> dict:
+    """Full-width ``arch`` at ``precision``, built and quantized a block at a
+    time: GQA_REQ requests of 16-256 tokens x GQA_NEW new (8 lanes, int8 KV,
+    token budget 256, max_seq 1024), a bucket-1 step's launches and a
+    profile of it; with ``paged`` the same drain paged (0 token differences
+    from the dense drain required) with its own step; then ``lm_loss`` on
+    SCORE_B x SCORE_T tokens (int8_flash_attention once a layer), profiled.
+    Returns {"dense", "paged", "lm_loss": result}."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeConfig, ServingEngine
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config(arch, precision=precision)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=dev, precision=precision)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    after_init = torch.cuda.memory_allocated(dev) / 2 ** 30
+    init_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    requests = dense_requests(cfg, seed, GQA_REQ, GQA_NEW)
+    engine = ServingEngine(params, cfg, ServeConfig(**SCFG), device=dev)
+    res, tokens = timed_drain(engine, [requests], dev, cfg, gqa_must(cfg))
+    del engine
+    per_step, syncs = decode_step_launches(params, cfg, dev, False)
+    dense_step_launches(cfg, per_step, "int8_kv_decode_attention")
+    res.update(init_ptq_s=t_init, after_ptq_gib=after_init,
+               init_peak_gib=init_peak, launches_per_decode_step=per_step,
+               syncs_per_decode_step=syncs,
+               profile={"bucket1": profile_step(params, cfg, dev, 1)})
+    out = {"dense": res}
+    if paged:
+        eng = ServingEngine(params, cfg, ServeConfig(**SCFG, paged=True),
+                            device=dev)
+        pres, ptok = timed_drain(eng, [requests], dev, cfg,
+                                 gqa_must(cfg, paged=True))
+        del eng
+        pres.update(tokens_differ=count_diff(ptok, tokens),
+                    compared_with="the dense drain", equal_required=True)
+        if pres["tokens_differ"]:
+            raise AssertionError(f"{arch} paged: {pres['tokens_differ']} "
+                                 f"tokens differ from the dense drain")
+        per_p, syncs_p = decode_step_launches(params, cfg, dev, True)
+        dense_step_launches(cfg, per_p, "paged_decode_attention")
+        pres.update(launches_per_decode_step=per_p,
+                    syncs_per_decode_step=syncs_p,
+                    profile={"bucket1": profile_step(params, cfg, dev, 1,
+                                                     paged=True)})
+        out["paged"] = pres
+    out["lm_loss"] = no_cache_loss(params, cfg, dev,
+                                   score_tokens(cfg, dev, seed), True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# xlstm-350m w8a8 served tokenwise at full width
+XLSTM_REQ, XLSTM_NEW, XLSTM_PROMPT, XLSTM_ALONE = 8, 16, (16, 64), 3
+
+
+def serve_xlstm(dev, seed) -> dict:
+    """xlstm-350m w8a8 (random weights from ``seed``, built and quantized a
+    block at a time), 8 lanes, max_seq 1024: XLSTM_REQ requests of
+    XLSTM_PROMPT prompt tokens x XLSTM_NEW new, served tokenwise (the
+    recurrent arch forces it); then the first XLSTM_ALONE of them one at a
+    time on one engine, each admitted into lane 0 after the one before has
+    finished there (lane isolation and reuse: 0 differences required), and
+    lane 0 reset once more and held equal to ``init_block_state``'s values
+    (mLSTM m = -1e30, sLSTM n = 1).  Every forward launches
+    ``xlstm_counts`` (no attention kernel); one step profiled."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.blocks import init_block_state
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = get_config("xlstm-350m", precision="w8a8")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=dev, precision="w8a8")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    rng = np.random.default_rng([seed, 8])
+    reqs = [(rng.integers(2, cfg.vocab_size, size=int(rng.integers(
+        XLSTM_PROMPT[0], XLSTM_PROMPT[1] + 1))).tolist(), XLSTM_NEW)
+            for _ in range(XLSTM_REQ)]
+    per_fwd = xlstm_counts(cfg)
+    out = {}
+    for label, waves in (("tokenwise", [reqs]),
+                         ("tokenwise alone", [[r] for r in
+                                              reqs[:XLSTM_ALONE]])):
+        eng = ServingEngine(params, cfg, ServeConfig(**SCFG), device=dev)
+        lanes = []
+        admit = eng._reset_lane
+
+        def record(lane, admit=admit, lanes=lanes):
+            lanes.append(lane)
+            admit(lane)
+        eng._reset_lane = record
+        res, tok = timed_drain(eng, waves, dev, cfg,
+                               ("quantize_rows", "int_layernorm",
+                                "int8_gemm"))
+        fwd = sum(res["forwards_by_bucket"].values())
+        if not (eng.mode == "tokenwise"
+                and set(res["forwards_by_bucket"]) == {"1"}):
+            raise AssertionError(f"xlstm {label}: mode {eng.mode}, forwards "
+                                 f"{res['forwards_by_bucket']}")
+        check_counts(f"xlstm {label}", res["launches"], per_fwd, per=fwd)
+        res["per_forward"] = {k: res["launches"][k] / fwd for k in per_fwd}
+        out[label] = res
+        if label == "tokenwise":
+            together = tok
+            continue
+        if lanes != [0] * XLSTM_ALONE:
+            raise AssertionError(f"xlstm alone: admitted into lanes {lanes}")
+        res.update(tokens_differ=count_diff(tok, {i: together[i]
+                                                  for i in tok}),
+                   compared_with="the same requests served together on 8 "
+                   "lanes (each alone in lane 0, reused)",
+                   equal_required=True)
+        if res["tokens_differ"]:
+            raise AssertionError(f"xlstm lane isolation: "
+                                 f"{res['tokens_differ']} tokens differ")
+        admit(0)
+        for kind, st in zip(cfg.block_kinds, eng.states):
+            init = init_block_state(kind, cfg, 1, 1, True, torch.bfloat16,
+                                    dev)
+            if not all(torch.equal(st[k][0], v[0]) for k, v in init.items()):
+                raise AssertionError(f"xlstm: lane 0's {kind} state is not "
+                                     f"its init value after a reset")
+        res["lane_reset"] = "lane 0 equal to init_block_state after a reset"
+    per_step, syncs = decode_step_launches(params, cfg, dev, False)
+    check_counts("xlstm bucket-1 step", per_step, per_fwd)
+    out["tokenwise"].update(init_ptq_s=t_init,
+                            launches_per_decode_step=per_step,
+                            syncs_per_decode_step=syncs,
+                            profile={"bucket1": profile_step(params, cfg,
+                                                             dev, 1)})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_loss(dev, seed) -> dict:
+    """xlstm-350m's ``lm_loss`` on SCORE_B x SCORE_T tokens at bf16 (float
+    parameters from ``seed``), W8A8 and W4A8 (each quantized from the float
+    model and freed); the integer forwards launch ``xlstm_counts`` and run
+    once more under the profiler, tracing the device only: a forward
+    launches ~123k kernels (the sLSTM loop), and the host's trace doubles
+    the profile's cost (25 s against 53 s on an H100)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.quant import DEFAULT_W4_POLICY, quantized_copy
+    base = get_config("xlstm-350m")
+    params = init_params(base, seed=seed, device=dev)
+    tokens = score_tokens(base, dev, seed)
+    out = {}
+    for prec in ("bf16", "w8a8", "w4a8"):
+        cfg = dataclasses.replace(base, precision=prec)
+        model = params if prec == "bf16" else quantized_copy(
+            params, DEFAULT_W4_POLICY if prec == "w4a8" else None)
+        res = no_cache_loss(model, cfg, dev, tokens, prec != "bf16",
+                            host=False)
+        if prec != "bf16":
+            check_counts(f"xlstm {prec} lm_loss forward", res["launches"],
+                         xlstm_counts(cfg))
+        else:
+            check_counts("xlstm bf16 lm_loss forward", res["launches"],
+                         dict.fromkeys(ops.KERNELS, 0))
+        out[f"xlstm-350m {prec} lm_loss"] = res
+        del model
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def profile_step(params, cfg, dev, t: int, paged: bool = False) -> dict:
     """Wall time and device kernel time of one packed forward of 8 lanes x
     ``t`` rows on fresh int8 caches, dense or paged (torch.profiler,
@@ -3489,7 +3941,7 @@ LONG_T = 4096          # one codeqwen w8a8 sequence past the block form's keys
 
 
 def no_cache_loss(params, cfg, dev, tokens, profiled: bool,
-                  act_kernel: str | None = None) -> dict:
+                  act_kernel: str | None = None, host: bool = True) -> dict:
     """``lm_loss`` of one forward over ``tokens`` with next-token labels
     (the last position masked): the loss, wall time, tokens/s, peak memory
     and the launches of the forward (zeroed just before, read just after);
@@ -3499,7 +3951,7 @@ def no_cache_loss(params, cfg, dev, tokens, profiled: bool,
     PRs 15-20 exactly when the sequence is past the block form's keys),
     ssd_scan once per Mamba-2 layer, and ``act_kernel`` once per layer where
     given.  With ``profiled``, a second forward under
-    torch.profiler."""
+    torch.profiler (``host`` False: the device only)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.common import LAUNCHES
     from repro_torch.kernels.int8_flash_attention import streams
@@ -3543,22 +3995,27 @@ def no_cache_loss(params, cfg, dev, tokens, profiled: bool,
            "launches": counts, "streaming_launches": streamed}
     if profiled:
         res["profile"] = {f"forward {tokens.shape[0]} x {tokens.shape[1]}":
-                          profile_no_cache(params, cfg, tokens)}
+                          profile_no_cache(params, cfg, tokens, host)}
     return res
 
 
-def profile_no_cache(params, cfg, tokens) -> dict:
+def profile_no_cache(params, cfg, tokens, host: bool = True) -> dict:
     """Wall time, device busy time and the kernels by device time of one
-    no-cache forward under torch.profiler."""
+    no-cache forward under torch.profiler; ``host`` False traces the device
+    only (no synchronizing calls counted)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import forward
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         forward(params, cfg, tokens)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return profile_summary(prof, wall_ms)
+    res = profile_summary(prof, wall_ms)
+    if not host:
+        res["sync_calls"] = None                   # not traced
+    return res
 
 
 def calibrate(params, cfg, dev, seed) -> dict:
@@ -4047,6 +4504,11 @@ def main() -> int:
     for k in range(SEEDS):
         worst[f"zamba2-2.7b w8a8 states seed {args.seed + k}"] = (
             check_reduced_states(dev, args.seed + k, main=k == 0))
+    log("[4/6] xlstm-350m-reduced w8a8: no-cache forward, then forward with "
+        "states (t = 1 steps): CPU plain vs CUDA kernels")
+    for k in range(SEEDS):
+        for key, v in check_xlstm_reduced(dev, args.seed + k).items():
+            worst[f"xlstm-350m w8a8 {key} seed {args.seed + k}"] = v
     log("[4/6] codeqwen1.5-7b-reduced w4a8 paged int8 arena: CPU plain vs "
         "CUDA kernels, paged vs dense on the card")
     worst["codeqwen1.5-7b w4a8 paged"] = check_reduced_paged(dev, args.seed)
@@ -4181,6 +4643,52 @@ def main() -> int:
             f"GiB, {lm['rows_per_expert']} rows per expert; launches "
             f"{lm['launches']}")
         log_profile(lm)
+    for arch, precision, paged in GQA_PATHS:
+        log(f"[5/6] serve full-width {arch} {precision} int8-KV (built and "
+            f"quantized a block at a time): {GQA_REQ} requests x {GQA_NEW} "
+            f"new tokens" + (", then paged" if paged else ""))
+        res = serve_gqa(dev, args.seed, arch, precision, paged)
+        dense = res["dense"]
+        log(f"  init+PTQ {dense['init_ptq_s']:.1f}s, "
+            f"{dense['after_ptq_gib']:.1f} GiB after, peak "
+            f"{dense['init_peak_gib']:.1f} GiB while building")
+        for name in ("dense", "paged"):
+            if name not in res:
+                continue
+            drain = served[f"{arch} {precision}" + (
+                "" if name == "dense" else " paged")] = res[name]
+            log(f"  {name} drain:")
+            log_drain(drain)
+            log_extra(drain)
+            per = drain["launches_per_decode_step"]
+            log(f"  launches per bucket-1 step: "
+                f"{sum(per[k] for k in ops.KERNELS)} {per}; "
+                f"{sum(drain['syncs_per_decode_step'].values())} "
+                f"synchronizing calls")
+            log_profile(drain)
+        lm = no_cache[f"{arch} {precision} lm_loss"] = res["lm_loss"]
+        log(f"[6/6] full-width {arch} {precision} lm_loss on {SCORE_B} x "
+            f"{SCORE_T} tokens: {lm['loss']:.4f} in {lm['wall_s']:.2f}s "
+            f"({lm['tok_per_s']:.0f} tok/s), peak {lm['peak_mem_gib']:.1f} "
+            f"GiB; launches {lm['launches']}")
+        log_profile(lm)
+    log(f"[5/6] serve full-width xlstm-350m w8a8 tokenwise: {XLSTM_REQ} "
+        f"requests x {XLSTM_NEW} new tokens together, {XLSTM_ALONE} of them "
+        f"one at a time in lane 0")
+    for name, drain in serve_xlstm(dev, args.seed).items():
+        served[f"xlstm-350m w8a8 {name}"] = drain
+        log(f"  {name} drain:")
+        log_drain(drain)
+        log_extra(drain)
+        log_profile(drain)
+    log(f"[6/6] full-width xlstm-350m lm_loss on {SCORE_B} x {SCORE_T} "
+        f"tokens at bf16, w8a8 and w4a8")
+    for label, lm in xlstm_loss(dev, args.seed).items():
+        no_cache[label] = lm
+        log(f"  {label}: {lm['loss']:.4f} in {lm['wall_s']:.2f}s "
+            f"({lm['tok_per_s']:.0f} tok/s), peak {lm['peak_mem_gib']:.1f} "
+            f"GiB; launches {lm['launches']}")
+        log_profile(lm)
     for arch, precisions, calibrated, long_w8a8 in NO_CACHE_PATHS:
         log(f"[6/6] full-width {arch} no-cache forward: lm_loss on {NC_B} x "
             f"{NC_T} tokens at {', '.join(precisions)}"
@@ -4298,6 +4806,32 @@ def main() -> int:
                          "scaled",
             "dual_gemm_gated":
                 "int8 experts qwen2-moe E=60 [4,2048]x2[2048,1408] silu"},
+        # the dense GQA paths (G = 6 and 7) and xlstm's N = 8 gate
+        "internlm2-20b w8a8": {
+            "int8_kv_decode_attention":
+                f"B=8 S=1024 Hq=48 Hkv={GQA_HKV} D={GQA_D} window=0",
+            "int8_gemm":
+                "internlm2 head_f32 [8,6144]x[6144,92544] scaled",
+            "dual_gemm_gated": "int8 [8,6144]x2[6144,16384] silu"},
+        "internlm2-20b w8a8 paged": {
+            "paged_decode_attention":
+                f"B=8 ps=16 MP=64 Hq=48 Hkv={GQA_HKV} D={GQA_D} int8 "
+                f"window=0"},
+        "yi-34b w4a8": {
+            "int8_kv_decode_attention":
+                f"B=8 S=1024 Hq=56 Hkv={GQA_HKV} D={GQA_D} window=0",
+            "int8_gemm": "yi head_f32 [8,7168]x[7168,64000] scaled",
+            "int4_gemm": "yi o_proj+residual [8,7168]x[7168,7168] "
+                         "scaled_add g64",
+            "dual_int4_gemm_gated": "[8,7168]x2[7168,20480] silu g64"},
+        "internlm2-20b w8a8 lm_loss": {"int8_flash_attention":
+            f"v_scale internlm2 B=4 T=1024 H=48 Hkv={GQA_HKV} D={GQA_D}"},
+        "yi-34b w4a8 lm_loss": {"int8_flash_attention":
+            f"v_scale yi B=4 T=1024 H=56 Hkv={GQA_HKV} D={GQA_D}"},
+        "xlstm-350m w8a8 lm_loss": {
+            "int8_gemm": "xlstm w_if [4096,2048]x[2048,8] scaled"},
+        "xlstm-350m w4a8 lm_loss": {
+            "int4_gemm": "xlstm w_if [4096,2048]x[2048,8] scaled g64"},
         # the Table II entry points and the patch embed
         "integer library": {
             "int8_conv2d": "[32,14,14,768]x[1,1,768,768] int32",

@@ -1,10 +1,12 @@
 """Config registry: --arch <id> -> ArchConfig.
 
 Mirrors ``repro.configs.get_config``.  The port serves the dense decoders
-starcoder2-3b and codeqwen1.5-7b, zamba2-2.7b (tokenwise, as a recurrent
-arch), and the mixture-of-experts decoders mixtral-8x7b (sliding-window
-attention over a ring cache) and qwen2-moe-a2.7b (a sigmoid-gated shared
-expert); every forward also runs without a cache.  Every other
+starcoder2-3b, codeqwen1.5-7b, internlm2-20b (GQA, 6 query heads a KV head)
+and yi-34b (GQA, 7 a KV head), the recurrent archs zamba2-2.7b (Mamba-2 and
+shared attention) and xlstm-350m (mLSTM and sLSTM blocks), both tokenwise,
+and the mixture-of-experts decoders mixtral-8x7b (sliding-window attention
+over a ring cache) and qwen2-moe-a2.7b (a sigmoid-gated shared expert);
+every forward also runs without a cache.  Every other
 architecture raises until its slice lands (ROADMAP.md §A).
 """
 from __future__ import annotations
@@ -15,7 +17,7 @@ import importlib
 from ..models.config import ArchConfig
 
 ARCH_IDS = ["starcoder2-3b", "codeqwen1.5-7b", "zamba2-2.7b", "mixtral-8x7b",
-            "qwen2-moe-a2.7b"]
+            "qwen2-moe-a2.7b", "internlm2-20b", "yi-34b", "xlstm-350m"]
 
 
 def _module_name(arch_id: str) -> str:

@@ -14,7 +14,10 @@ the Mamba-2 vectors and the f32 embed/unembed over unchanged.  A MoE block
 (``moe``, ``moe_swa``) keeps the reference's layout under ``moe``:
 ``router/w`` [d, E], ``experts/{w_in, w_gate, w_out}`` stacked over E (each
 a float array or a PTQ dict of stacked leaves), and Qwen2-MoE's ``shared``
-MLP and ``shared_gate`` [d, 1].
+MLP and ``shared_gate`` [d, 1].  An xLSTM block keeps the reference's
+``mlstm/{w_up, w_gate, wq, wk, wv, w_if, norm_scale, wo}`` or
+``slstm/{w_in, r_w, norm_scale, wo}`` (``w_up``, ``r_w`` and the norm
+scales float at every precision).
 ``to_reference`` is its inverse (the same numpy tree layout), so a round
 trip reproduces the tree exactly.
 
@@ -28,16 +31,23 @@ import torch
 
 from .kernels.common import resolve_device
 from .models.attention import Attention
-from .models.blocks import Block, MambaBlock, MoEBlock
+from .models.blocks import Block, MambaBlock, MLSTMBlock, MoEBlock, SLSTMBlock
 from .models.config import ArchConfig
 from .models.layers import Linear, Norm
 from .models.lm import LM
 from .models.mlp import MLP
 from .models.moe import MoE
-from .models.ssm import Mamba2
+from .models.ssm import MLSTM, SLSTM, Mamba2
 
 _MAMBA_VECTORS = ("conv_w", "conv_b", "A_log", "D", "dt_bias", "norm_scale")
-_KINDS = ("attn", "attn_swa", "moe", "moe_swa", "shared_attn", "mamba2")
+# an xLSTM layer's leaves in the reference's order: (linears, float tensors)
+_XLSTM = {"mlstm": (MLSTMBlock, MLSTM, ("w_up", "w_gate", "wq", "wk", "wv",
+                                        "w_if", "norm_scale", "wo"),
+                    ("norm_scale",)),
+          "slstm": (SLSTMBlock, SLSTM, ("w_in", "r_w", "norm_scale", "wo"),
+                    ("r_w", "norm_scale"))}
+_KINDS = ("attn", "attn_swa", "moe", "moe_swa", "shared_attn", "mamba2",
+          "mlstm", "slstm")
 
 
 def _t(a, dev) -> torch.Tensor:
@@ -100,6 +110,15 @@ def _mamba_block(per: dict, i, cfg: ArchConfig, dev) -> MambaBlock:
                *(_t(pick(m[k]), dev) for k in _MAMBA_VECTORS)))
 
 
+def _xlstm_block(kind: str, per: dict, i, cfg: ArchConfig,
+                 dev) -> MLSTMBlock | SLSTMBlock:
+    block, layer, leaves, floats = _XLSTM[kind]
+    x, pick = per[kind], _pick(i)
+    return block(_norm(per["norm1"], i, cfg.d_model, cfg.norm_type, dev),
+                 layer(*(_t(pick(x[k]), dev) if k in floats
+                         else _linear(x[k], i, dev) for k in leaves)))
+
+
 def from_reference(tree: dict, cfg: ArchConfig, device=None) -> LM:
     """numpy parameter tree of the reference -> ``LM`` on ``device`` (the
     card unless device='cpu')."""
@@ -116,6 +135,9 @@ def from_reference(tree: dict, cfg: ArchConfig, device=None) -> LM:
             layers.append(shared)
         elif kind == "mamba2":
             layers.append(_mamba_block(tree["periods"][pos], rep, cfg, dev))
+        elif kind in _XLSTM:
+            layers.append(_xlstm_block(kind, tree["periods"][pos], rep, cfg,
+                                       dev))
         else:
             layers.append(_attn_block(tree["periods"][pos], rep, cfg, dev))
     return LM(_t(tree["embed"], dev), layers,
@@ -183,6 +205,16 @@ def _mamba_tree(blocks: list[MambaBlock]) -> dict:
             "mamba": mamba}
 
 
+def _xlstm_tree(kind: str, blocks: list) -> dict:
+    _, _, leaves, floats = _XLSTM[kind]
+    layers = [getattr(b, kind) for b in blocks]
+    return {"norm1": _stack([_norm_leaf(b.norm1) for b in blocks]),
+            kind: {k: (np.stack([getattr(x, k).detach().cpu().numpy()
+                                 for x in layers]) if k in floats
+                       else _stack([_leaf(getattr(x, k)) for x in layers]))
+                   for k in leaves}}
+
+
 def to_reference(params: LM, cfg: ArchConfig | None = None) -> dict:
     """``LM`` -> the reference's numpy tree layout (inverse of
     ``from_reference``); ``cfg`` gives the block pattern (default: the
@@ -197,6 +229,8 @@ def to_reference(params: LM, cfg: ArchConfig | None = None) -> dict:
             tree["shared"] = _attn_tree(blocks[:1], lambda xs: xs[0])
         elif kind == "mamba2":
             periods.append(_mamba_tree(blocks))
+        elif kind in _XLSTM:
+            periods.append(_xlstm_tree(kind, blocks))
         else:
             periods.append(_attn_tree(blocks, _stack))
     tree.update(embed=params.embed.detach().cpu().numpy(),

@@ -202,6 +202,12 @@ def unpack_int4_ref(packed, k):
     return w[..., :k, :].to(torch.int8)
 
 
+# the deepest contraction whose int32 group combine keeps the reference's
+# headroom, |sum_g part_g * qmul_g| <= K * 128 * 8 * 127 < 2^31 (asserted by
+# the reference's W4A8 GEMMs); the port's PTQ keeps deeper weights int8
+W4_MAX_K = (2 ** 31 - 1) // (128 * 8 * 127)
+
+
 def w4_group(k: int, qmul: torch.Tensor) -> int:
     """The scale group size of a W4 weight with contraction depth ``k``;
     checks the reference's headroom bounds."""
@@ -209,7 +215,7 @@ def w4_group(k: int, qmul: torch.Tensor) -> int:
     g = k // groups
     check(g * groups == k and g * 128 * 8 < 2 ** 24,
           f"K={k} is not {groups} groups of an f32-exact size")
-    check(k * 128 * 8 * 127 < 2 ** 31, f"K={k} overflows the int32 combine")
+    check(k <= W4_MAX_K, f"K={k} overflows the int32 combine")
     return g
 
 

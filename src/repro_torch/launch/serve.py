@@ -8,14 +8,15 @@ Usage:
       --token-budget 256 [--paged --page-size 16 --pool-pages 0]
 
 ``--arch`` takes every ported arch (``repro_torch.configs.ARCH_IDS``:
-starcoder2-3b, codeqwen1.5-7b, zamba2-2.7b, mixtral-8x7b, qwen2-moe-a2.7b;
+starcoder2-3b, codeqwen1.5-7b, internlm2-20b, yi-34b, zamba2-2.7b,
+xlstm-350m, mixtral-8x7b, qwen2-moe-a2.7b;
 ``--reduced`` for the small same-family config).  ``--w8a8`` quantizes every
 GEMM weight to int8; ``--w4a8`` applies the reference's default W4 policy
 (attention and MLP projections — a MoE layer's experts too — packed int4
 at group 64, the lm head int8), each block as it is built.  ``--token-budget 0 --prefill-chunk N`` serves
-chunked (both 0: tokenwise; recurrent archs such as ``--arch zamba2-2.7b``
-always serve tokenwise).  ``--temperature T`` samples on the reference's
-threefry streams from ``--seed``; ``--spec-k K`` turns on self-speculation
+chunked (both 0: tokenwise; the recurrent archs, ``--arch zamba2-2.7b``
+and ``--arch xlstm-350m``, always serve tokenwise).  ``--temperature T``
+samples on the reference's threefry streams from ``--seed``; ``--spec-k K`` turns on self-speculation
 (greedy engines only).  ``--stream-gap-ms G`` replays the requests through
 ``run_stream`` with exponential arrival gaps of mean G ms drawn from
 ``--seed`` and prints the serving metrics.  ``--paged`` serves from the

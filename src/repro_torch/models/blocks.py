@@ -5,9 +5,10 @@ out-projection, then a pre-norm MLP (``attn``, ``attn_swa``,
 ``shared_attn``) or MoE FFN (``moe``, ``moe_swa``); the ``*_swa`` kinds
 attend within ``cfg.sliding_window`` over a ring cache of window + slack
 slots.  A ``shared_attn`` block's weights are one ``Block`` that every period
-reuses (zamba2), with a KV cache per layer.  ``mamba2`` is a pre-norm
-Mamba-2 block with its residual add.  The cross-attention, encoder and
-xLSTM kinds are later slices (ROADMAP.md §A)."""
+reuses (zamba2), with a KV cache per layer.  ``mamba2``, ``mlstm`` and
+``slstm`` are a pre-norm recurrent block with its residual add and no MLP
+(xlstm's ``d_ff`` is 0).  The cross-attention and encoder kinds are later
+slices (ROADMAP.md §A)."""
 from __future__ import annotations
 
 import torch
@@ -19,12 +20,13 @@ from .config import ArchConfig
 from .layers import ExecMode, Norm, apply_norm
 from .mlp import MLP, init_mlp_params, mlp
 from .moe import MoE, init_moe_params, moe
-from .ssm import Mamba2, init_mamba2_params, init_mamba2_state, mamba2
+from .ssm import (MLSTM, SLSTM, Mamba2, init_mamba2_params,
+                  init_mamba2_state, init_mlstm_params, init_mlstm_state,
+                  init_slstm_params, init_slstm_state, mamba2, mlstm, slstm)
 
 ATTN_KINDS = ("attn", "attn_swa", "moe", "moe_swa", "shared_attn")
 SWA_KINDS = ("attn_swa", "moe_swa")
 MOE_KINDS = ("moe", "moe_swa")
-KINDS = ATTN_KINDS + ("mamba2",)
 
 
 def _check_kind(kind: str) -> None:
@@ -51,13 +53,36 @@ class MambaBlock(nn.Module):
         self.norm1, self.mamba = norm1, mamba
 
 
+class MLSTMBlock(nn.Module):
+    def __init__(self, norm1: Norm, mlstm_: MLSTM):
+        super().__init__()
+        self.norm1, self.mlstm = norm1, mlstm_
+
+
+class SLSTMBlock(nn.Module):
+    def __init__(self, norm1: Norm, slstm_: SLSTM):
+        super().__init__()
+        self.norm1, self.slstm = norm1, slstm_
+
+
+# the recurrent kinds: (block class, the block's name for its layer, the
+# layer's init, its forward, the init of its state)
+_RECURRENT = {"mamba2": (MambaBlock, "mamba", init_mamba2_params, mamba2,
+                         init_mamba2_state),
+              "mlstm": (MLSTMBlock, "mlstm", init_mlstm_params, mlstm,
+                        init_mlstm_state),
+              "slstm": (SLSTMBlock, "slstm", init_slstm_params, slstm,
+                        init_slstm_state)}
+KINDS = ATTN_KINDS + tuple(_RECURRENT)
+
+
 def init_block_params(gen: torch.Generator, kind: str, cfg: ArchConfig,
                       device) -> nn.Module:
     _check_kind(kind)
     d, nt = cfg.d_model, cfg.norm_type
-    if kind == "mamba2":
-        return MambaBlock(Norm(d, nt, device),
-                          init_mamba2_params(gen, cfg, device))
+    if kind in _RECURRENT:
+        block, _, init, _, _ = _RECURRENT[kind]
+        return block(Norm(d, nt, device), init(gen, cfg, device))
     if kind in MOE_KINDS:
         return MoEBlock(Norm(d, nt, device), init_attn_params(gen, cfg, device),
                         Norm(d, nt, device), init_moe_params(gen, cfg, device))
@@ -69,7 +94,9 @@ def init_block_state(kind: str, cfg: ArchConfig, batch: int, max_seq: int,
                      int8_kv: bool, dtype, device, paged_pages: int = 0,
                      page_size: int = 0, pt=None,
                      window_slack: int = 0) -> dict:
-    """A mamba2 layer's recurrent state, or an attention layer's KV cache:
+    """A recurrent layer's state (mamba2: conv and SSD; mlstm: C, n, m;
+    slstm: h, c, n, m — at their init values), or an attention layer's KV
+    cache:
     dense — a ``*_swa`` layer's a ring of ``sliding_window +
     window_slack`` slots (at most ``max_seq``), so that a span's writes
     never evict keys inside the window of its earliest query — or with
@@ -78,8 +105,8 @@ def init_block_state(kind: str, cfg: ArchConfig, batch: int, max_seq: int,
     same arena, the engine caps their live pages at the window) whose page
     table is ``pt`` when given."""
     _check_kind(kind)
-    if kind == "mamba2":
-        return init_mamba2_state(cfg, batch, device)
+    if kind in _RECURRENT:
+        return _RECURRENT[kind][4](cfg, batch, device)
     if paged_pages:
         return {"kv": init_paged_cache(cfg, batch, paged_pages, page_size,
                                        -(-max_seq // page_size), int8=int8_kv,
@@ -94,10 +121,12 @@ def block_forward(kind: str, params: nn.Module, x, cfg: ArchConfig,
                   writes=None, card_order: bool = False):
     _check_kind(kind)
     # each pre-norm hands its output's quantized rows (integer modes) to the
-    # integer projections that read it: in_proj; q, k and v; up and gate
-    if kind == "mamba2":
+    # integer projections that read it: in_proj; w_gate; w_in; q, k and v;
+    # up and gate
+    if kind in _RECURRENT:
         h, hq = apply_norm(x, params.norm1, cfg, mode)
-        y, st = mamba2(params.mamba, h, cfg, mode, state=state, xq=hq)
+        _, name, _, fwd, _ = _RECURRENT[kind]
+        y, st = fwd(getattr(params, name), h, cfg, mode, state=state, xq=hq)
         return x + y, st
     h, hq = apply_norm(x, params.norm1, cfg, mode)
     x, kv = attention(params.attn, h, cfg, mode, positions,

@@ -5,7 +5,8 @@ period; the port holds one block per layer in an ``nn.ModuleList`` and runs
 a Python loop.  A ``shared_attn`` block (zamba2) is one ``Block`` that the
 list holds at every position of its kind — the reference's
 ``params["shared"]``, held once.  ``states`` is a list with one state per
-layer: ``{"kv": cache}`` for attention, ``{"conv", "ssd"}`` for mamba2.
+layer: ``{"kv": cache}`` for attention, ``{"conv", "ssd"}`` for mamba2,
+``{"C", "n", "m"}`` for mlstm and ``{"h", "c", "n", "m"}`` for slstm.
 With tied embeddings (``unembed`` None) the head is the f32 product with
 ``embed.T``, as in the reference.  Weights come from an explicit
 ``torch.Generator`` seeded by the caller (not jax.random: the numbers differ
@@ -87,7 +88,8 @@ def init_states(cfg: ArchConfig, batch: int, max_seq: int, int8_kv: bool = False
     """One state per layer (the reference stacks them per period): a
     ``{"kv": cache}`` per attention layer — a shared block's too; a
     sliding-window layer's a ring of window + ``window_slack`` slots — and
-    a ``{"conv", "ssd"}`` recurrent state per mamba2 layer.  With
+    a recurrent state at its init values per mamba2, mlstm or slstm layer
+    (``blocks.init_block_state``).  With
     ``paged_pages`` > 0 each cache is a paged arena of that many
     ``page_size``-slot pages (``attention.init_paged_cache``), and every
     layer shares ONE page table tensor."""

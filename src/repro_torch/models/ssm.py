@@ -1,4 +1,5 @@
-"""Recurrent blocks: Mamba-2 (SSD), the Mamba-2 half of ``repro.models.ssm``.
+"""Recurrent blocks of ``repro.models.ssm``: Mamba-2 (SSD), and xLSTM's
+mLSTM (matrix memory, chunkwise) and sLSTM (scalar memory, sequential).
 
 ``mamba2`` has the reference's two branches: with a state and one token per
 lane, the one-step state update; otherwise the chunked scan over the
@@ -7,14 +8,29 @@ sequence, zero-padded to a multiple of the chunk, through ``ops.ssd_scan``
 ``_ssd_chunked`` — on the CPU).  As in the reference the scan starts from a
 zero state whatever state is given; only the conv state carries over.  The
 recurrence runs in f32 at every precision; the in/out projections take the
-integer path at W8A8/W4A8.  mLSTM and sLSTM are a later slice (ROADMAP.md
-§A).
+integer path at W8A8/W4A8.
+
+``mlstm`` also has two branches: with a state and one token per lane, the
+one-step update of (C, n, m); otherwise the stabilized chunkwise form
+(``_mlstm_chunked``) from a zero state, q/k/v and the input gate padded
+with 0 and the forget gate with 30.0 to a multiple of the chunk, so that
+the final state includes the pad steps, as in the reference.  ``slstm`` is
+a loop over t of the block-diagonal recurrence, from the given state or
+(h, c, n, m) = (0, 0, 1, 0).  Neither has a Pallas kernel in the reference:
+the recurrences are torch ops in f32 at every precision, and only their
+projections take the GEMM kernels.  At W8A8/W4A8 ``w_up`` stays a bf16
+linear (no quantization pattern of the reference matches it), its output
+``u`` is quantized once for wq, wk, wv and ``w_if`` (bit-equal to the
+reference quantizing it four times), the gate branch's SiLU and the inner
+``rmsnorm`` stay float, and ``r_w`` and the norm scales stay f32.
 
 The arithmetic is the reference's: ``jax.nn.softplus`` is
-``logaddexp(x, 0)`` (``torch.nn.functional.softplus`` would return x above
+``logaddexp(x, 0)`` (and ``jax.nn.log_sigmoid`` its negation at -x) (``torch.nn.functional.softplus`` would return x above
 its threshold), ``silu`` is ``x * sigmoid(x)``, the conv sums its taps in
 order from ``0 +`` as Python's ``sum`` does, then adds the bias, and the
-gated norm runs in f32.
+gated norm runs in f32; the xLSTM blocks keep the -1e30 stabilizer floor,
+``max(|den|, exp(-m))`` and k / sqrt(hd) before the products (a product
+with the f32 reciprocal, as XLA computes a division by a Python float).
 """
 from __future__ import annotations
 
@@ -25,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
+from ..kernels.common import f32, rcp32
 from ..kernels.ssd_scan import CHUNK
 from .config import ArchConfig
 from .layers import ExecMode, Linear, QRows, apply_linear, dense_init, rmsnorm
@@ -148,3 +165,250 @@ def mamba2(params: Mamba2, x, cfg: ArchConfig, mode: ExecMode,
     y = rmsnorm(y * _silu(z), params.norm_scale, cfg.norm_eps)
     out = apply_linear(y.to(x.dtype), params.out_proj, mode)
     return out, new_state
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: mLSTM (matrix memory, chunkwise) and sLSTM (scalar memory, loop)
+# ---------------------------------------------------------------------------
+
+def _mlstm_dims(cfg: ArchConfig):
+    """xLSTM mLSTM block: 2x pre-up-projection (arXiv:2405.04517 Fig. 10)."""
+    d_up = 2 * cfg.d_model
+    nh = cfg.n_heads
+    return d_up, nh, d_up // nh
+
+
+class MLSTM(nn.Module):
+    """w_up and w_gate [d, 2d] (the mLSTM and swish-gate branches), wq, wk
+    and wv [2d, 2d], w_if [2d, 2H] (input and forget gate pre-activations,
+    interleaved per head), the inner norm's scale [2d] (f32, stays float)
+    and wo [2d, d]."""
+
+    def __init__(self, w_up: Linear, w_gate: Linear, wq: Linear, wk: Linear,
+                 wv: Linear, w_if: Linear, norm_scale, wo: Linear):
+        super().__init__()
+        self.w_up, self.w_gate, self.wq, self.wk = w_up, w_gate, wq, wk
+        self.wv, self.w_if, self.wo = wv, w_if, wo
+        self.norm_scale = nn.Parameter(norm_scale, requires_grad=False)
+
+
+class SLSTM(nn.Module):
+    """w_in [d, 4d] (the i, f, z, o gates' input projections), r_w [H, hd,
+    4 hd] (block-diagonal recurrent weights, f32, stays float), the norm's
+    scale [d] and wo [d, d]."""
+
+    def __init__(self, w_in: Linear, r_w, norm_scale, wo: Linear):
+        super().__init__()
+        self.w_in, self.wo = w_in, wo
+        self.r_w = nn.Parameter(r_w, requires_grad=False)
+        self.norm_scale = nn.Parameter(norm_scale, requires_grad=False)
+
+
+def init_mlstm_params(gen: torch.Generator, cfg: ArchConfig, device) -> MLSTM:
+    d = cfg.d_model
+    d_up, nh, hd = _mlstm_dims(cfg)
+    return MLSTM(Linear(dense_init(gen, d, d_up, device)),
+                 Linear(dense_init(gen, d, d_up, device)),
+                 *(Linear(dense_init(gen, d_up, nh * hd, device))
+                   for _ in range(3)),
+                 Linear(dense_init(gen, d_up, 2 * nh, device)),
+                 torch.ones(nh * hd, dtype=F32, device=device),
+                 Linear(dense_init(gen, d_up, d, device)))
+
+
+def init_slstm_params(gen: torch.Generator, cfg: ArchConfig, device) -> SLSTM:
+    d, nh = cfg.d_model, cfg.n_heads
+    hd = d // nh
+    w_in = Linear(dense_init(gen, d, 4 * d, device))
+    r_w = torch.randn((nh, hd, 4 * hd), generator=gen, device=device,
+                      dtype=F32) / math.sqrt(hd)
+    return SLSTM(w_in, r_w, torch.ones(d, dtype=F32, device=device),
+                 Linear(dense_init(gen, d, d, device)))
+
+
+def init_mlstm_state(cfg: ArchConfig, batch: int, device) -> dict:
+    """{"C": (B, H, hd, hd) 0, "n": (B, H, hd) 0, "m": (B, H) -1e30}, f32."""
+    _, nh, hd = _mlstm_dims(cfg)
+    return {"C": torch.zeros((batch, nh, hd, hd), dtype=F32, device=device),
+            "n": torch.zeros((batch, nh, hd), dtype=F32, device=device),
+            "m": torch.full((batch, nh), -1e30, dtype=F32, device=device)}
+
+
+def init_slstm_state(cfg: ArchConfig, batch: int, device) -> dict:
+    """{"h": 0, "c": 0, "n": 1, "m": 0}, each (B, H, hd) f32."""
+    nh = cfg.n_heads
+    shape = (batch, nh, cfg.d_model // nh)
+    return {"h": torch.zeros(shape, dtype=F32, device=device),
+            "c": torch.zeros(shape, dtype=F32, device=device),
+            "n": torch.ones(shape, dtype=F32, device=device),
+            "m": torch.zeros(shape, dtype=F32, device=device)}
+
+
+def _log_sigmoid(x):
+    """``jax.nn.log_sigmoid``: -softplus(-x)."""
+    return -torch.logaddexp(-x, torch.zeros_like(x))
+
+
+def _seq_cumsum(x):
+    """Inclusive cumsum over the last dim, one f32 add at a time."""
+    out = [x[..., 0]]
+    for i in range(1, x.shape[-1]):
+        out.append(out[-1] + x[..., i])
+    return torch.stack(out, -1)
+
+
+def _cumsum(x, dim: int, base: int = 16):
+    """``jnp.cumsum`` in the order XLA computes it: past ``base`` values,
+    blocks of ``base`` summed in order, then each block offset by the
+    (recursive) cumsum of the blocks before it (XLA's reduce-window
+    rewrite).  torch's CPU cumsum accumulates in f64, its CUDA cumsum in a
+    parallel scan; this order is the same on both and equal to the
+    reference's bit for bit."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    if n <= base:
+        return _seq_cumsum(x).movedim(-1, dim)
+    xp = F.pad(x, (0, (-n) % base))
+    inner = _seq_cumsum(xp.reshape(*xp.shape[:-1], -1, base))
+    before = F.pad(_cumsum(inner[..., -1], -1, base)[..., :-1], (1, 0))
+    out = (inner + before[..., None]).reshape(xp.shape)[..., :n]
+    return out.movedim(-1, dim)
+
+
+def _mlstm_chunked(q, k, v, ig, fg, chunk: int):
+    """Stabilized chunkwise mLSTM from a zero state.  q/k/v (B,T,H,D) f32,
+    ig/fg raw gate pre-activations (B,T,H); T a multiple of ``chunk``.
+    Returns y (B,T,H,D) and the final (C (B,H,D,D), n (B,H,D), m (B,H))."""
+    b, t, h, dh = q.shape
+    nc = t // chunk
+    lf = _log_sigmoid(fg)                                   # log f_t <= 0
+    qc = q.reshape(b, nc, chunk, h, dh)
+    kc = k.reshape(b, nc, chunk, h, dh) * f32(rcp32(math.sqrt(dh)), q.device)
+    vc = v.reshape(b, nc, chunk, h, dh)
+    igc = ig.reshape(b, nc, chunk, h)
+    bcum = _cumsum(lf.reshape(b, nc, chunk, h), dim=2)      # (B,NC,L,H)
+    bsum = bcum[:, :, -1, :]                                 # (B,NC,H)
+
+    # intra-chunk log weights: D[t,s] = bcum_t - bcum_s + ig_s  (s <= t)
+    dmat = (bcum[:, :, :, None, :] - bcum[:, :, None, :, :]
+            + igc[:, :, None, :, :])                         # (B,NC,L,S,H)
+    mask = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=q.device).tril()
+    dmat = dmat.masked_fill(~mask[None, None, :, :, None], float("-inf"))
+    m_intra = dmat.amax(dim=3)                               # (B,NC,L,H)
+
+    # inter-chunk scan of (C, n, m); each chunk reads the state before it
+    g_in = bsum[:, :, None, :] - bcum + igc                  # (B,NC,L,H)
+    C = torch.zeros((b, h, dh, dh), dtype=F32, device=q.device)
+    n = torch.zeros((b, h, dh), dtype=F32, device=q.device)
+    m = torch.full((b, h), -1e30, dtype=F32, device=q.device)
+    prev = []
+    for c in range(nc):
+        prev.append((C, n, m))
+        g, bs = g_in[:, c], bsum[:, c]
+        m_new = torch.maximum(m + bs, g.amax(dim=1))         # (B,H)
+        scale_old = torch.exp(m + bs - m_new)
+        w = torch.exp(g - m_new[:, None, :])                 # (B,L,H)
+        wk = w[..., None] * kc[:, c]                         # (B,L,H,D)
+        C = (C * scale_old[..., None, None]
+             + torch.einsum("blhd,blhe->bhde", wk, vc[:, c]))
+        n = n * scale_old[..., None] + wk.sum(dim=1)
+        m = m_new
+    Cp = torch.stack([p[0] for p in prev], 1)                # (B,NC,H,D,D)
+    np_ = torch.stack([p[1] for p in prev], 1)
+    mp = torch.stack([p[2] for p in prev], 1)
+
+    # combine intra + inter with a joint stabilizer
+    m_inter = bcum + mp[:, :, None, :]                       # (B,NC,L,H)
+    m_tot = torch.clamp(torch.maximum(m_intra, m_inter), min=-1e30)
+    w_intra = torch.exp(dmat - m_tot[:, :, :, None, :])      # (B,NC,L,S,H)
+    qkw = torch.einsum("bclhd,bcshd->bclsh", qc, kc) * w_intra
+    num_intra = torch.einsum("bclsh,bcshe->bclhe", qkw, vc)
+    den_intra = qkw.sum(dim=3)                               # (B,NC,L,H)
+    w_inter = torch.exp(m_inter - m_tot)
+    qC = torch.einsum("bclhd,bchde->bclhe", qc, Cp)
+    qn = torch.einsum("bclhd,bchd->bclh", qc, np_)
+    num = num_intra + w_inter[..., None] * qC
+    den = den_intra + w_inter * qn
+    den = torch.maximum(den.abs(), torch.exp(-m_tot))        # xLSTM denominator
+    y = (num / den[..., None]).reshape(b, t, h, dh)
+    return y, (C, n, m)
+
+
+def mlstm(params: MLSTM, x, cfg: ArchConfig, mode: ExecMode,
+          state: dict | None = None, chunk: int = 64,
+          xq: QRows | None = None):
+    """mLSTM block of x (B, T, d).  Returns (out, new_state).  ``xq``: x's
+    rows already quantized (the block norm's) for the integer w_gate."""
+    b, t, _ = x.shape
+    _, nh, hd = _mlstm_dims(cfg)
+    u = apply_linear(x, params.w_up, mode, xq=xq)           # (B,T,2d)
+    # one quantization of u for the four integer linears that read it
+    uq = QRows(*ops.quant_rows(u)) if params.wq.quantized else None
+
+    def proj(p, width):
+        return apply_linear(u, p, mode, xq=uq).float().reshape(b, t, nh, width)
+    q, k, v = (proj(p, hd) for p in (params.wq, params.wk, params.wv))
+    gates = proj(params.w_if, 2)
+    ig, fg = gates[..., 0], gates[..., 1]
+
+    if state is not None and t == 1:
+        C, n, m = state["C"], state["n"], state["m"]
+        lfm = _log_sigmoid(fg[:, 0]) + m                    # (B,H)
+        m_new = torch.maximum(lfm, ig[:, 0])
+        i_w = torch.exp(ig[:, 0] - m_new)
+        f_w = torch.exp(lfm - m_new)
+        kd = k[:, 0] * f32(rcp32(math.sqrt(hd)), x.device)
+        C1 = C * f_w[..., None, None] + (
+            (i_w[..., None] * kd)[..., :, None] * v[:, 0, :, None, :])
+        n1 = n * f_w[..., None] + i_w[..., None] * kd
+        num = torch.einsum("bhd,bhde->bhe", q[:, 0], C1)
+        den = torch.maximum((q[:, 0] * n1).sum(-1).abs(), torch.exp(-m_new))
+        y = (num / den[..., None])[:, None]                 # (B,1,H,D)
+        new_state = {"C": C1, "n": n1, "m": m_new}
+    else:
+        pad = (-t) % chunk
+        if pad:
+            q, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (q, k, v))
+            ig = F.pad(ig, (0, 0, 0, pad))
+            fg = F.pad(fg, (0, 0, 0, pad), value=30.0)
+        y, (C, n, m) = _mlstm_chunked(q, k, v, ig, fg, min(chunk, q.shape[1]))
+        y = y[:, :t]
+        new_state = {"C": C, "n": n, "m": m}
+
+    g = _silu(apply_linear(x, params.w_gate, mode, xq=xq).float())
+    y = rmsnorm(y.reshape(b, t, nh * hd), params.norm_scale, cfg.norm_eps) * g
+    out = apply_linear(y.to(x.dtype), params.wo, mode)
+    return out, new_state
+
+
+def slstm(params: SLSTM, x, cfg: ArchConfig, mode: ExecMode,
+          state: dict | None = None, xq: QRows | None = None):
+    """Scalar-memory xLSTM with recurrent gating: a loop over T.  Returns
+    (out, new_state).  ``xq``: x's rows already quantized for w_in."""
+    b, t, d = x.shape
+    nh = cfg.n_heads
+    hd = d // nh
+    zi = apply_linear(x, params.w_in, mode, xq=xq).float()  # (B,T,4d)
+    zi = zi.reshape(b, t, nh, 4 * hd)
+    if state is None:
+        state = init_slstm_state(cfg, b, x.device)
+    h, c, n, m = state["h"], state["c"], state["n"], state["m"]
+    r_w = params.r_w
+    ys = []
+    for s in range(t):
+        rec = torch.bmm(h.transpose(0, 1), r_w).transpose(0, 1)  # (B,H,4hd)
+        i_r, f_r, z_r, o_r = torch.split(zi[:, s] + rec, hd, dim=-1)
+        fm = f_r + m
+        m_new = torch.maximum(fm, i_r)
+        i_w = torch.exp(i_r - m_new)
+        f_w = torch.exp(fm - m_new)
+        c = f_w * c + i_w * torch.tanh(z_r)
+        n = f_w * n + i_w
+        h = torch.sigmoid(o_r) * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        ys.append(h)
+    y = torch.stack(ys, 1).reshape(b, t, d)
+    y = rmsnorm(y.to(x.dtype), params.norm_scale, cfg.norm_eps)
+    out = apply_linear(y, params.wo, mode)
+    return out, {"h": h, "c": c, "n": n, "m": m}

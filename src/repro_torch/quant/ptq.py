@@ -6,12 +6,18 @@ Port of ``repro.quant.ptq`` (``ptq_quantize_params``, the W4 policy,
 weight (attention wq/wk/wv/wo, MLP w_in/w_gate/w_out — a MoE layer's
 stacked experts and shared expert too, each expert with its own channel
 scales and W4 groups fitted to the weight — Mamba-2 in_proj/out_proj — class
-``attn``, as the reference's ``_CLASS_PATTERNS`` have it — and the
-``unembed`` head) becomes per-output-channel symmetric int8 ``{w_q, scale}``
+``attn``, as the reference's ``_CLASS_PATTERNS`` have it — the mLSTM's
+wq/wk/wv/wo (class ``attn``) and w_gate/w_if (class ``mlp``), the sLSTM's
+w_in (``mlp``) and wo (``attn``), and the ``unembed`` head) becomes
+per-output-channel symmetric int8 ``{w_q, scale}``
 or, where the policy says so, packed int4 ``{w4, qmul, scale}`` with
-two-level group scales; embeddings (a tied head with them), norms, the MoE
-``router`` and ``shared_gate`` (the reference's ``_EXCLUDE``), and the
-Mamba-2 conv and vectors stay float.  A shared block is one module, so
+two-level group scales (int8 where no group fits K, or past ``W4_MAX_K``);
+embeddings (a tied head with them), norms, the MoE
+``router`` and ``shared_gate`` (the reference's ``_EXCLUDE``), the
+Mamba-2 conv and vectors, the sLSTM's ``r_w`` and the xLSTM norm scales stay
+float, and so does the mLSTM's ``w_up``: no pattern of the reference's
+``_QUANT_PATTERNS`` matches it, so it stays a bf16 linear inside an integer
+model.  A shared block is one module, so
 it is quantized once.  The reference runs PTQ eagerly, so
 its divisions are true divisions here.  Bit-exact against the reference
 (``tests/test_torch_models.py``; ``calibrate_ptq`` in
@@ -24,13 +30,15 @@ import itertools
 
 import torch
 
+from ..kernels.int8_gemm import W4_MAX_K
 from ..models.layers import Linear, quantize_weight, quantize_weight_w4
 from ..models.lm import LM
 
 # policy class of each quantizable weight, by module name
 _CLASSES = {"wq": "attn", "wk": "attn", "wv": "attn", "wo": "attn",
             "in_proj": "attn", "out_proj": "attn",
-            "w_in": "mlp", "w_gate": "mlp", "w_out": "mlp", "unembed": "head"}
+            "w_in": "mlp", "w_gate": "mlp", "w_out": "mlp", "w_if": "mlp",
+            "unembed": "head"}
 
 # the reference's default W4A8 policy: projections in int4 at group 64, the
 # lm head in int8 (it feeds the sampler; its bytes are small next to the MLP)
@@ -52,8 +60,12 @@ def weight_class(name: str) -> str:
 
 def _fit_group(k: int, group: int) -> int | None:
     """Largest usable scale group <= the requested one that divides K (the
-    packed container needs an even K as well); None demotes to int8."""
-    if k % 2:
+    packed container needs an even K as well); None demotes to int8.  Past
+    ``W4_MAX_K`` too (yi-34b's down projection, K = 20480), where the
+    reference's own PTQ packs the weight and its W4A8 GEMMs then refuse it
+    (the int32 combine's headroom assert): the port keeps it int8
+    (ROADMAP.md C14)."""
+    if k % 2 or k > W4_MAX_K:
         return None
     for cand in [group] + [g for g in sorted(W4_GROUPS, reverse=True)
                            if g < group]:

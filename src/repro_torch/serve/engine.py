@@ -17,8 +17,8 @@ Fallback schedules over the same forward:
   tokens run as two calls per iteration;
 * both 0 — tokenwise: every lane feeds one token per call, prompts
   token-at-a-time.  Forced for recurrent-state archs (zamba2's Mamba-2
-  blocks), whose recurrence would consume pad tokens, and when no bucket
-  fits below ``max_seq``.
+  blocks, xlstm's mLSTM and sLSTM blocks), whose recurrence would consume
+  pad tokens, and when no bucket fits below ``max_seq``.
 
 Greedy tokens are the same under the three schedules.  Sampling
 (``temperature > 0``) uses PER-LANE streams of the reference's threefry
@@ -61,9 +61,11 @@ reference's do.
 Unlike the reference, which returns new states, the port writes the KV
 caches in place: a lane outside the plan feeds only pads (position -1),
 whose writes are dropped, so its cache is left exactly as the lane-masked
-commit would leave it.  Mamba-2 states come back as new tensors and are
-committed under the lane mask (``_masked_commit``).  The pool's clear, copy,
-swap-out and swap-in actions are in-place updates of the arena too.
+commit would leave it.  Recurrent states (Mamba-2, mLSTM, sLSTM) come back
+as new tensors and are committed under the lane mask (``_masked_commit``);
+a lane admitted anew has every recurrent leaf reset to its init value.
+The pool's clear, copy, swap-out and swap-in actions are in-place updates
+of the arena too.
 """
 from __future__ import annotations
 
@@ -78,6 +80,8 @@ import torch
 from ..kernels.common import f32, resolve_device
 from ..models import ArchConfig, forward, init_states
 from ..models.attention import gather_pages, rollback_cache, scatter_pages
+from ..models.blocks import init_block_state
+from ..models.layers import DEFAULT_DTYPE
 from ..models.lm import LM
 from . import prng
 from .draft import ngram_propose
@@ -225,6 +229,13 @@ class ServingEngine:
                                       int8_kv=serve_cfg.int8_kv,
                                       device=self.device,
                                       window_slack=self._window_slack)
+        # each recurrent layer's state at its init values for one lane (what
+        # _reset_lane restores); None for a KV cache
+        self._lane_init = [
+            None if "kv" in st else init_block_state(
+                kind, cfg, 1, serve_cfg.max_seq, serve_cfg.int8_kv,
+                DEFAULT_DTYPE, self.device)
+            for kind, st in zip(cfg.block_kinds, self.states)]
         # self-speculation: greedy engines only (a sampled stream does not
         # follow the argmax the drafts are checked against), never
         # tokenwise (a recurrence cannot rewind); a speculating lane is a
@@ -361,12 +372,14 @@ class ServingEngine:
 
     def _reset_lane(self, lane: int) -> None:
         """Clear one lane's states back to their init values (in place): a
-        KV cache's positions, payload and scales, a Mamba-2 layer's conv
-        and SSD state."""
-        for st in self.states:
-            if "kv" not in st:
-                st["conv"][lane] = 0
-                st["ssd"][lane] = 0
+        KV cache's positions, payload and scales; every leaf of a recurrent
+        layer's state (Mamba-2's conv and SSD, mLSTM's C, n and m = -1e30,
+        sLSTM's h, c, n = 1 and m) to ``init_block_state``'s one-lane
+        value."""
+        for st, init in zip(self.states, self._lane_init):
+            if init is not None:
+                for k, v in init.items():
+                    st[k][lane] = v[0]
                 continue
             kv = st["kv"]
             kv["pos_ids"][lane] = -1
