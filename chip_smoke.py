@@ -83,7 +83,17 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    N = 8 gate projection, the int8 dual_gemm_gated at [M, 6144] x 2
    [6144, 16384], int4_gemm at yi's W4A8 projections and the W4 gate
    projection, dual_int4_gemm_gated at [M, 7168] x 2 [7168, 20480], for
-   M in {8, 256, 4096}, each ``torch.equal`` to its plain version;
+   M in {8, 256, 4096}, each ``torch.equal`` to its plain version; and the
+   encoder-decoder and cross-attention shapes (``check_encdec_xattn``):
+   quantize_rows on f32 rows (vision's stub features [12808, 8192],
+   whisper's f32 encoder stream), the fused norm on f32 and bf16 rows,
+   int8_flash_attention over whisper's encoder (T = 1500, head dim 64,
+   causal) and vision's 64/8 heads, flash_attention at T = 448, head dim
+   64, the dense decode kernel at G = 1, D = 64 and G = 8, D = 128 (T = 1
+   and the T = 256 rows), int8_gemm at whisper's projections and vision's
+   int8 down projection and head, int4_gemm at vision's projections and
+   its cross K/V (M = 12808), dual_int4_gemm_gated at [M, 8192] x 2
+   [8192, 28672];
 4. reduced: starcoder2-3b-reduced at w8a8 and codeqwen1.5-7b-reduced at
    w4a8, w8a8 and bf16, each with an int8 KV cache, the same packed steps on
    the CPU (plain versions) and on the card (kernels): the logits agree
@@ -103,8 +113,13 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    card order; xlstm-350m-reduced W8A8 (``check_xlstm_reduced``): its
    no-cache forward within ``XLSTM_NO_CACHE_TOL`` and its forward with
    states (t = 1 steps) within ``STATES_TOL`` of the CPU, at three seeds,
-   with the launches of each forward counted (``xlstm_counts``); then the
-   reduced no-cache
+   with the launches of each forward counted (``xlstm_counts``);
+   whisper-small-reduced W8A8 (``check_whisper_reduced``: ``encode`` and the
+   cross K/V equal bit for bit, the decoder's steps and ``encdec_forward``
+   within ``CROSS_ORDER_TOL``) and llama-3.2-vision-90b-reduced at W4A8
+   and W8A8, gates nonzero (``check_vision_reduced``: the cross K/V exact,
+   steps and the no-cache forward with ``kv_source`` within
+   ``CROSS_ORDER_TOL``), three seeds each; then the reduced no-cache
    forward (starcoder at bf16 and w8a8, codeqwen and zamba2 at bf16, w8a8
    and w4a8) the same way, its
    attention kernel launched once per attention layer and ssd_scan once per
@@ -166,8 +181,17 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    differences), lane 0's reset held to ``init_block_state``; every
    forward launches int8_gemm once per quantized linear and no attention
    kernel; its ``lm_loss`` at bf16, W8A8 and W4A8 (``xlstm_loss``, the
-   integer ones profiled on the device only).  Each model is freed before
-   the next;
+   integer ones profiled on the device only).  whisper-small W8A8
+   (``serve_whisper``): ``encode`` of 8 stub clips, 8 x 16 served with
+   ``kv_source`` = that encoding (a ``paged=True`` engine falls back to
+   dense), the same requests again on the reused lanes (0 differences), 12
+   decode launches a bucket-1 step; its ``encdec_loss`` on 4 x (1500 frames,
+   448 tokens) at bf16 and W8A8 (``whisper_loss``: 12 flash_attention or
+   24 int8_flash_attention launches a forward); llama-3.2-vision-90b W4A8
+   (``serve_vision``), built a block at a time: the engine projects 8 lanes'
+   stub vision tokens once, 8 x 16, 80 decode launches a bucket-1 step,
+   ``lm_loss`` on 4 x 1024 with ``kv_source``, profiled.  Each model is
+   freed before the next;
 6. the no-cache forward at full width and depth: codeqwen1.5-7b float
    parameters from ``--seed``, ``calibrate_ptq`` with the reference's grid
    (W4_GROUPS x W4_CLIPS for attn and mlp, 19 forwards of 2 x 128 tokens),
@@ -219,8 +243,12 @@ runs only codeqwen1.5-7b's, starcoder2-3b's and zamba2-2.7b's W8A8
 ``lm_loss`` on 4 x 1024 tokens, timed and then under the profiler
 (``lm_only``), likewise.
 
+``--xlstm-only`` builds and then runs only xlstm-350m's tokenwise drains and
+its ``lm_loss`` at bf16, W8A8 and W4A8 without the profiler
+(``xlstm_only``), likewise with ``--src DIR``.
+
 ``--kernels flash_attention,int4_gemm`` (or ``experts``, ``window_decode``,
-``gqa_xlstm`` for the cases of PRs 24 and 25, ``dual_gemm_gated``,
+``gqa_xlstm``, ``encdec_xattn`` for the later slices' cases, ``dual_gemm_gated``,
 ``dual_int4_gemm_gated``, ``int8_gemm``, ``int8_kv_decode_attention``,
 ``paged_decode_attention``, ``quantize_rows``, ``int_layernorm``,
 ``int8_flash_attention``, ``ssd_scan``, ``int8_conv2d``, ``int_softmax``;
@@ -418,6 +446,7 @@ def check_kernels(dev, gen, timer) -> list[dict]:
     check_experts(dev, gen, timer, record, randn)
     check_window_decode(dev, gen, timer, record, randn)
     check_gqa_xlstm(dev, gen, timer, record, randn)
+    check_encdec_xattn(dev, gen, timer, record, randn)
     return cases
 
 
@@ -844,7 +873,7 @@ def int_attention_inputs(randn, h, hkv, b=NC_B, t=NC_T, d=128):
 
 
 def check_int8_attention(dev, gen, timer, record, randn, heads=NC_HEADS,
-                         streaming: bool = True) -> None:
+                         streaming: bool = True, t: int = NC_T) -> None:
     """Phase 3 for int8_flash_attention at B = 4, T = 1024 (codeqwen1.5-7b's
     and starcoder2-3b's heads and zamba2-2.7b's head dim 80, ROADMAP C7),
     then at 4096 and 8192 keys (``check_streaming_attention``): the integer
@@ -860,11 +889,11 @@ def check_int8_attention(dev, gen, timer, record, randn, heads=NC_HEADS,
         ATOL, RTOL, int8_attention_probs_ref, int8_flash_attention,
         int8_flash_attention_ref)
     from repro_torch.models.attention import int_score_scale
-    b, t = NC_B, NC_T
+    b = NC_B
     pairs = t * (t + 1) // 2                        # causal (query, key) pairs
     for label, h, hkv, d in heads:
         sc = int_score_scale(d)
-        q, k, v, v_s = int_attention_inputs(randn, h, hkv, d=d)
+        q, k, v, v_s = int_attention_inputs(randn, h, hkv, t=t, d=d)
         p_out = torch.empty((b, h, t, t), dtype=torch.int8, device=dev)
         out = int8_flash_attention(q, k, v, sc, v_scale=v_s, p_out=p_out)
         probs = int8_attention_probs_ref(q, k, sc)
@@ -989,7 +1018,8 @@ def check_int_softmax(dev, gen, timer, record, randn) -> None:
                      15 * rows * cols, F32_OPS), out=out)
 
 
-def check_flash_attention(dev, gen, timer, record, randn) -> None:
+def check_flash_attention(dev, gen, timer, record, randn, heads=NC_HEADS,
+                          t: int = NC_T) -> None:
     """Phase 3's flash_attention cases (bf16, causal, B = 4, T = 1024) at
     codeqwen1.5-7b's, starcoder2-3b's and zamba2-2.7b's heads: within
     RTOL/ATOL of the plain version, timed beside SDPA over K/V repeated to
@@ -998,9 +1028,9 @@ def check_flash_attention(dev, gen, timer, record, randn) -> None:
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (
         ATOL as FA_ATOL, RTOL as FA_RTOL, flash_attention_ref)
-    b, t = NC_B, NC_T
+    b = NC_B
     pairs = t * (t + 1) // 2                        # causal (query, key) pairs
-    for label, h, hkv, d in NC_HEADS:
+    for label, h, hkv, d in heads:
         q = randn(b, h, t, d).to(torch.bfloat16)
         k = randn(b, hkv, t, d).to(torch.bfloat16)
         v = randn(b, hkv, t, d).to(torch.bfloat16)
@@ -2160,6 +2190,126 @@ def check_gqa_xlstm(dev, gen, timer, record, randn) -> None:
     torch.cuda.empty_cache()
 
 
+# whisper-small and llama-3.2-vision-90b (encoder-decoder and
+# cross-attention): the encoder's no-cache attention over 4 x 1500 frames at
+# head dim 64 (12 heads, causal: ROADMAP C16), the decoder's over 448 tokens
+WH_T, WH_DEC_T, WH_H, WH_D = 1500, 448, 12, 64
+WH_ENC_ROWS = NC_B * WH_T               # 4 clips of 1500 frames
+WH_CROSS_ROWS = 8 * WH_T                # 8 lanes' cross K/V rows
+VIS_TOKENS, VIS_D, VIS_FF = 1601, 8192, 28672
+VIS_CROSS_ROWS = 8 * VIS_TOKENS         # 12808
+# whisper-small's W8A8 projections (q, k, v and o are [768, 768]; the
+# encoder's out-projection adds its f32 skip after the scaled epilogue);
+# vision-90b's int8 down projection (K = 28672, past the W4 combine's
+# headroom: C14) and int8 head
+I8_XATTN = tuple((name, k, n, epi, False, dt, rows)
+                 for name, k, n, epi, dt, rows in (
+                     ("whisper q/k/v/o", 768, 768, "scaled", torch.bfloat16,
+                      (8, WH_ENC_ROWS)),
+                     ("whisper cross kv", 768, 768, "scaled", torch.bfloat16,
+                      (WH_CROSS_ROWS,)),
+                     ("whisper mlp_up+gelu", 768, 3072, "scaled_gelu",
+                      torch.bfloat16, (8, WH_ENC_ROWS)),
+                     ("whisper mlp_down", 3072, 768, "scaled", torch.bfloat16,
+                      (8, WH_ENC_ROWS)),
+                     ("vision mlp_down", VIS_FF, VIS_D, "scaled",
+                      torch.bfloat16, (8, 256)),
+                     ("vision head_f32", VIS_D, 128256, "scaled",
+                      torch.float32, (8, 256))))
+# vision-90b's W4A8 attention projections (group 64): q and o at decode and
+# a bucket-256 step, k/v there and over the 8 lanes' 1601 vision tokens
+W4_XATTN = tuple((name, k, n, epi, False, 64, rows)
+                 for name, k, n, epi, rows in (
+                     ("vision q_proj", VIS_D, VIS_D, "scaled", (8, 256)),
+                     ("vision kv_proj", VIS_D, 1024, "scaled", (8, 256)),
+                     ("vision cross kv", VIS_D, 1024, "scaled",
+                      (VIS_CROSS_ROWS,)),
+                     ("vision o_proj+residual", VIS_D, VIS_D, "scaled_add",
+                      (8, 256))))
+# the fused norm at whisper's LayerNorm (f32 encoder rows, bf16 decoder
+# rows) and vision's RMSNorm: (label, D, rms_only, rows, dtype)
+NORMS_XATTN = (("whisper enc", 768, False, WH_ENC_ROWS, torch.float32),
+               ("whisper dec", 768, False, 8, torch.bfloat16),
+               ("vision", VIS_D, True, 8, torch.bfloat16),
+               ("vision", VIS_D, True, 256, torch.bfloat16))
+# quantize_rows' new rows: vision's f32 stub features (the cross K/V
+# projections' input) and whisper's f32 encoder stream
+B1_XATTN = ((VIS_CROSS_ROWS, VIS_D, torch.float32),
+            (WH_ENC_ROWS, 768, torch.float32), (8, 768, torch.bfloat16))
+
+
+def check_encdec_xattn(dev, gen, timer, record, randn) -> None:
+    """Phase 3 at the shapes of this slice's paths, each case against its
+    plain version as the earlier cases are: int8_flash_attention over
+    whisper's encoder (B = 4, T = 1500 — not a whole number of 64-row
+    blocks — 12 heads of 64, causal; the integer probabilities and the int32
+    form bit-exact, the f32 output within rtol 1e-5) and vision's 64/8
+    heads; flash_attention over whisper's bf16 decoder (T = 448, head dim
+    64, beside SDPA); the dense decode kernel at whisper's G = 1, D = 64 and
+    vision's G = 8, D = 128 (T = 1 and the T = 256 rows); and
+    ``torch.equal`` for quantize_rows on f32 rows (vision's stub features
+    [12808, 8192], whisper's f32 encoder stream), the fused norm on f32
+    and bf16 rows (``NORMS_XATTN``), int8_gemm at whisper's projections
+    (``I8_XATTN``; the cross K/V over 8 x 1500 rows), vision's int8 down
+    projection and head, int4_gemm at vision's projections and cross K/V
+    (M = 12808, ``W4_XATTN``) and dual_int4_gemm_gated at vision's
+    [M, 8192] x 2 [8192, 28672]."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.int_layernorm import int_layernorm_rows_ref
+    from repro_torch.kernels.quantize import quantize_rows_ref
+    from repro_torch.models.layers import quantize_norm
+    no_lib = "no PyTorch call computes it"
+    for m, d, dtype in B1_XATTN:
+        x = randn(m, d, scale=0.02 if dtype == torch.float32 else 3.0
+                  ).to(dtype)
+        got, want = ops.quant_rows(x), quantize_rows_ref(x)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"quantize_rows [{m},{d}] {dtype} differs")
+        name = "f32" if dtype == torch.float32 else "bf16"
+        record("quantize_rows", f"[{m},{d}] {name}", 0.0, True,
+               timer(lambda: ops.quant_rows(x)),
+               timer(lambda: quantize_rows_ref(x)), None,
+               bound(m * d * (x.element_size() + 1) + m * 4, 3 * m * d,
+                     F32_OPS), no_lib, out=bytes_of(got))
+        del x, got, want
+    for label, d, rms, m, dtype in NORMS_XATTN:
+        x = randn(m, d, scale=3.0).to(dtype)
+        g_q, b_q, gb_s = quantize_norm(randn(d, scale=0.5) + 1.0,
+                                       None if rms else randn(d, scale=0.2))
+        got = ops.norm_quant_rows(x, g_q, b_q, gb_s, rms)
+        plain = int_layernorm_rows_ref(x, g_q, b_q, gb_s, rms)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, w) for a, w in zip(got, plain)):
+            raise AssertionError(f"int_layernorm fused {label} [{m},{d}] "
+                                 f"{dtype} differs from its plain version")
+        kind, es = "rms" if rms else "ln", x.element_size()
+        record("int_layernorm", f"fused {label} [{m},{d}] {kind} "
+               f"{'f32' if dtype == torch.float32 else 'bf16'}", 0.0, True,
+               timer(lambda: ops.norm_quant_rows(x, g_q, b_q, gb_s, rms)),
+               timer(lambda: int_layernorm_rows_ref(x, g_q, b_q, gb_s, rms)),
+               None, bound(m * d * (2 * es + 1) + m * 4
+                           + (4 if rms else 8) * d + 4, 40 * m * d, F32_OPS),
+               no_lib, out=bytes_of(got))
+    check_int8_attention(dev, gen, timer, record, randn, heads=[
+        ("whisper", WH_H, WH_H, WH_D)], streaming=False, t=WH_T)
+    check_int8_attention(dev, gen, timer, record, randn, heads=[
+        ("vision", 64, 8, 128)], streaming=False)
+    check_flash_attention(dev, gen, timer, record, randn, heads=[
+        ("whisper", WH_H, WH_H, WH_D)], t=WH_DEC_T)
+    heads = ((WH_H, WH_H, WH_D), (64, 8, 128))
+    check_decode_attention(dev, gen, timer, record, randn, shapes=[
+        (8, 1024, h, hkv, d, (0,)) for h, hkv, d in heads])
+    check_decode_rows(dev, gen, timer, record, randn, forms=(False,),
+                      heads=heads)
+    check_int8_gemm(dev, gen, timer, record, randn, shapes=I8_XATTN,
+                    extras=False)
+    check_int4_gemm(dev, gen, timer, record, randn, shapes=W4_XATTN)
+    check_dual_int4_gemm_gated(dev, gen, timer, record, randn, cases=[
+        (VIS_D, VIS_FF, 64, m, "silu") for m in (8, 256)])
+    torch.cuda.empty_cache()
+
+
 KERNEL_CASES = {"quantize_rows": (check_quantize_rows, ("quantize",)),
                 "int_layernorm": (check_int_layernorm,
                                   ("int_layernorm", "quantize")),
@@ -2192,7 +2342,13 @@ KERNEL_CASES = {"quantize_rows": (check_quantize_rows, ("quantize",)),
                                "dual_gemm_gated", "dual_int4_gemm_gated",
                                "int8_kv_decode_attention",
                                "paged_decode_attention",
-                               "int8_flash_attention"))}
+                               "int8_flash_attention")),
+                "encdec_xattn": (check_encdec_xattn,
+                                 ("quantize", "int_layernorm", "int8_gemm",
+                                  "int4_gemm", "dual_int4_gemm_gated",
+                                  "int8_kv_decode_attention",
+                                  "int8_flash_attention",
+                                  "flash_attention"))}
 
 
 # ---------------------------------------------------------------------------
@@ -2238,10 +2394,12 @@ REDUCED_PATHS = (
                         "int8_kv_decode_attention", "int_layernorm",
                         "quantize_rows")),
 )
-# query heads of the G-preserving reduced configs: ``reduced()`` gives every
-# arch 4 heads over at most 2 KV heads, so internlm2-20b (G = 6) and yi-34b
-# (G = 7) keep their G over 2 KV heads of 16
-REDUCED_GQA = {"internlm2-20b": 12, "yi-34b": 14}
+# (query heads, KV heads) of the G-preserving reduced configs: ``reduced()``
+# gives every arch 4 heads over at most 2 KV heads, so internlm2-20b (G = 6),
+# yi-34b (G = 7) and llama-3.2-vision-90b (G = 8) keep their G over 2 KV
+# heads of 16, and whisper-small stays multi-head (G = 1)
+REDUCED_GQA = {"internlm2-20b": (12, 2), "yi-34b": (14, 2),
+               "llama-3.2-vision-90b": (16, 2), "whisper-small": (4, 4)}
 
 
 def reduced_config(arch: str, precision: str):
@@ -2250,8 +2408,8 @@ def reduced_config(arch: str, precision: str):
     from repro_torch.configs import get_config
     cfg = get_config(arch, precision=precision, reduced=True)
     if arch in REDUCED_GQA:
-        cfg = dataclasses.replace(cfg, n_heads=REDUCED_GQA[arch],
-                                  n_kv_heads=2)
+        h, hkv = REDUCED_GQA[arch]
+        cfg = dataclasses.replace(cfg, n_heads=h, n_kv_heads=hkv)
     return cfg
 # The MoE paths against the card-order CPU at W8A8/W4A8: every integer
 # kernel is bit-exact, but the decode kernels agree with their plain
@@ -3522,14 +3680,14 @@ def serve_moe(dev, seed, arch: str, precision: str) -> dict:
 # ---------------------------------------------------------------------------
 
 # xlstm-350m-reduced W8A8 against the port's CPU run: the no-cache forward
-# (the chunked mLSTM and the sLSTM loop) within XLSTM_NO_CACHE_TOL of the
-# range, the forward with states (a prefill, then t = 1 steps: the one-step
-# updates) within STATES_TOL.  The integer kernels are bit-exact; only the
-# f32 recurrences (exp, log1p, tanh, the chunk's products) round otherwise
-# on the card, and one such rounding can move an int8 level of wo's
-# activation.  Measured on an H100 (80GB HBM3, 700 W), seeds 0-2: no-cache
-# 0, 0.685% (a level moved) and 0; with states at most 3.8e-7.
-XLSTM_NO_CACHE_TOL = CARD_ORDER_TOL
+# (the chunked mLSTM and the sLSTM loop) equal bit for bit
+# (XLSTM_NO_CACHE_TOL = 0), the forward with states (a prefill, then t = 1
+# steps: the one-step updates) within STATES_TOL.  The integer kernels are
+# bit-exact, and the f32 recurrences round each transcendental, reduction
+# and product from f64 (``models/ssm.py``), so the card and the CPU agree
+# (ROADMAP C15); before that, one device-dependent rounding moved an int8
+# level of wo's activation (0.685% of the range at seed 1 on an H100).
+XLSTM_NO_CACHE_TOL = 0.0
 
 
 def xlstm_counts(cfg) -> dict:
@@ -3784,7 +3942,7 @@ def serve_xlstm(dev, seed) -> dict:
     return out
 
 
-def xlstm_loss(dev, seed) -> dict:
+def xlstm_loss(dev, seed, profiled: bool = True) -> dict:
     """xlstm-350m's ``lm_loss`` on SCORE_B x SCORE_T tokens at bf16 (float
     parameters from ``seed``), W8A8 and W4A8 (each quantized from the float
     model and freed); the integer forwards launch ``xlstm_counts`` and run
@@ -3803,8 +3961,8 @@ def xlstm_loss(dev, seed) -> dict:
         cfg = dataclasses.replace(base, precision=prec)
         model = params if prec == "bf16" else quantized_copy(
             params, DEFAULT_W4_POLICY if prec == "w4a8" else None)
-        res = no_cache_loss(model, cfg, dev, tokens, prec != "bf16",
-                            host=False)
+        res = no_cache_loss(model, cfg, dev, tokens,
+                            profiled and prec != "bf16", host=False)
         if prec != "bf16":
             check_counts(f"xlstm {prec} lm_loss forward", res["launches"],
                          xlstm_counts(cfg))
@@ -3812,6 +3970,395 @@ def xlstm_loss(dev, seed) -> dict:
             check_counts("xlstm bf16 lm_loss forward", res["launches"],
                          dict.fromkeys(ops.KERNELS, 0))
         out[f"xlstm-350m {prec} lm_loss"] = res
+        del model
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 4-6 of whisper-small and llama-3.2-vision-90b
+# ---------------------------------------------------------------------------
+
+WHISPER, VISION = "whisper-small", "llama-3.2-vision-90b"
+# Phase 4's limit for the cross-attention archs against the card-order CPU:
+# every integer kernel is bit-exact and the self-attention cache rows take
+# the decode kernels' order on both sides, but cross-attention is f32 float
+# glue (``_sdpa``, as the reference's XLA: no kernel), whose products the
+# card's BLAS and the CPU's sum in other orders; its bf16 output can then
+# move one int8 level of the next GEMM's input.
+CROSS_ORDER_TOL = CARD_ORDER_TOL
+# whisper's encoder is integer end to end (fused norm, int8_gemm,
+# int8_flash_attention), so its output must equal the CPU's bit for bit
+ENC_TOL = 0.0
+# the cross layer's gates: zero at init makes the block the identity, so the
+# reduced checks run with these
+XATTN_GATES = (0.5, -0.7)
+
+
+def gate_xattn(params):
+    """Set every ``xattn`` block's gates to ``XATTN_GATES`` (in place)."""
+    for blk in params.layers:
+        if hasattr(blk, "gate_attn"):
+            blk.gate_attn.fill_(XATTN_GATES[0])
+            blk.gate_mlp.fill_(XATTN_GATES[1])
+    return params
+
+
+def rel_range(want, got) -> float:
+    """max |want - got| over max |want| (``got`` may lie on the card)."""
+    want = want.float().cpu()
+    return (float((want - got.float().cpu()).abs().max())
+            / max(float(want.abs().max()), 1e-30))
+
+
+def same_cross_states(st_c, st_g, what: str) -> None:
+    """The cross K/V the card precomputed equal the CPU's bit for bit."""
+    for i, (a, b) in enumerate(zip(st_c, st_g)):
+        for k in ("xk", "xv"):
+            if a is not None and k in a and not torch.equal(a[k], b[k].cpu()):
+                raise AssertionError(f"{what}: layer {i}'s {k} differs from "
+                                     f"the CPU's")
+
+
+def cross_steps(cpu, gpu, cfg, dev, seed, st_c, st_g, what: str) -> float:
+    """``check_reduced``'s packed steps (a t = 16 step of mixed lengths, then
+    5 t = 1 steps feeding the CPU's greedy tokens) on the CPU in the card's
+    order and on the card, over states whose cross K/V are precomputed:
+    within ``CROSS_ORDER_TOL`` of the range at every step; the dense decode
+    kernel (and its multi-row form) launched.  Returns the worst."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.serve import packed_step
+    rng = np.random.default_rng(seed)
+    lens = np.array([16, 9, 3, 12])
+    t = 16
+    tok = rng.integers(2, cfg.vocab_size, size=(4, t))
+    pos = np.where(np.arange(t)[None] < lens[:, None], np.arange(t)[None], -1)
+    last = lens - 1
+    worst = 0.0
+    before = ops.launch_counts(forms=True)["int8_kv_decode_attention"]
+    rows_before = LAUNCHES["int8_kv_decode_attention.rows"]
+    for step in range(6):
+        args = [torch.from_numpy(a) for a in (tok.astype(np.int64),
+                                              pos.astype(np.int32),
+                                              last.astype(np.int64))]
+        lo, _ = card_order_step(cpu, cfg, args[0], args[1], st_c, args[2])
+        lg, _ = packed_step(gpu, cfg, *(a.to(dev) for a in args[:2]), st_g,
+                            args[2].to(dev))
+        rel = rel_range(lo, lg)
+        worst = max(worst, rel)
+        log(f"  {what} step {step} (T={tok.shape[1]}): {rel:.3%} of the "
+            f"range against the card order")
+        if not (torch.isfinite(lg).all() and rel <= CROSS_ORDER_TOL):
+            raise AssertionError(f"{what} step {step}: card logits differ "
+                                 f"from the card-order CPU by {rel:.3%} (> "
+                                 f"{CROSS_ORDER_TOL:.0%})")
+        tok = lo.argmax(-1).numpy()[:, None]
+        pos = (pos.max(1) + 1)[:, None]
+        last = np.zeros(4, np.int64)
+    if (ops.launch_counts(forms=True)["int8_kv_decode_attention"] <= before
+            or LAUNCHES["int8_kv_decode_attention.rows"] <= rows_before):
+        raise AssertionError(f"{what}: the decode kernel (and its multi-row "
+                             f"form) did not launch")
+    return worst
+
+
+def check_whisper_reduced(dev, seed) -> dict:
+    """whisper-small-reduced (multi-head, ``reduced_config``) at W8A8 on the
+    CPU (plain versions) and on the card (kernels): ``encode`` of 4 stub
+    clips equal bit for bit (``ENC_TOL``), int8_flash_attention once per
+    encoder layer; the cross K/V precomputed from the CPU's encoder output
+    equal on both; the decoder's packed steps over them (``cross_steps``);
+    the no-cache ``encdec_forward`` within ``CROSS_ORDER_TOL``, the integer
+    attention once per encoder and per decoder layer."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import (encdec_forward, encode,
+                                    init_encdec_params, init_states,
+                                    precompute_cross_states)
+    cfg = reduced_config(WHISPER, "w8a8")
+    cpu = init_encdec_params(cfg, seed=seed, device="cpu", precision="w8a8")
+    gpu = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy((rng.normal(size=(
+        4, cfg.n_audio_frames, cfg.d_model)) * 0.02).astype(np.float32))
+    ec = encode(cpu, cfg, frames)
+    ops.reset_launch_counts()
+    eg = encode(gpu, cfg, frames.to(dev))
+    torch.cuda.synchronize()
+    check_counts("whisper-reduced encode", ops.launch_counts(),
+                 {"int8_flash_attention": cfg.n_encoder_layers,
+                  "flash_attention": 0})
+    worst = {"encode": rel_range(ec, eg)}
+    log(f"  seed {seed} encode (4 x {cfg.n_audio_frames}): "
+        f"{worst['encode']:.3g} of the range (limit {ENC_TOL:g})")
+    if not (torch.isfinite(eg).all() and worst["encode"] <= ENC_TOL):
+        raise AssertionError(f"whisper-reduced encode seed {seed}: the card "
+                             f"differs from the CPU by {worst['encode']:.3g}")
+    st_c = precompute_cross_states(cpu.decoder, cfg, ec, init_states(
+        cfg, 4, 64, int8_kv=True, device="cpu"))
+    st_g = precompute_cross_states(gpu.decoder, cfg, ec.to(dev), init_states(
+        cfg, 4, 64, int8_kv=True, device=dev))
+    same_cross_states(st_c, st_g, "whisper-reduced cross states")
+    worst["steps"] = cross_steps(cpu.decoder, gpu.decoder, cfg, dev, seed,
+                                 st_c, st_g, f"whisper-reduced seed {seed}")
+    tok = torch.from_numpy(rng.integers(2, cfg.vocab_size, size=(4, 32)))
+    lc, _, _ = encdec_forward(cpu, cfg, frames, tok)
+    ops.reset_launch_counts()
+    lg, _, _ = encdec_forward(gpu, cfg, frames.to(dev), tok.to(dev))
+    torch.cuda.synchronize()
+    check_counts("whisper-reduced encdec_forward", ops.launch_counts(),
+                 {"int8_flash_attention": cfg.n_encoder_layers + cfg.n_layers})
+    worst["no_cache"] = rel_range(lc, lg)
+    log(f"  seed {seed} encdec_forward (4 x 32): {worst['no_cache']:.3%} of "
+        f"the range")
+    if not (torch.isfinite(lg).all() and worst["no_cache"] <= CROSS_ORDER_TOL):
+        raise AssertionError(f"whisper-reduced encdec_forward seed {seed}: "
+                             f"{worst['no_cache']:.3%} of the range")
+    return worst
+
+
+def check_vision_reduced(dev, seed, precision: str) -> dict:
+    """llama-3.2-vision-90b-reduced (G = 8, ``reduced_config``; the cross
+    layer's gates at ``XATTN_GATES``) at ``precision`` on the CPU and on the
+    card: the cross K/V of 4 lanes' stub features equal bit for bit; the
+    packed steps over them (``cross_steps``); the no-cache forward with
+    ``kv_source`` within ``CROSS_ORDER_TOL`` (int8_flash_attention once per
+    ``attn`` layer, none for the cross layer)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import (forward, init_params, init_states,
+                                    precompute_cross_states)
+    from repro_torch.quant import quantize_for
+    cfg = reduced_config(VISION, precision)
+    cpu = gate_xattn(quantize_for(init_params(cfg, seed=seed, device="cpu"),
+                                  precision))
+    gpu = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng(seed)
+    src = torch.from_numpy((rng.normal(size=(
+        4, cfg.n_vision_tokens, cfg.d_model)) * 0.02).astype(np.float32))
+    st_c = precompute_cross_states(cpu, cfg, src, init_states(
+        cfg, 4, 64, int8_kv=True, device="cpu"))
+    st_g = precompute_cross_states(gpu, cfg, src.to(dev), init_states(
+        cfg, 4, 64, int8_kv=True, device=dev))
+    same_cross_states(st_c, st_g, f"vision-reduced {precision} cross states")
+    what = f"vision-reduced {precision} seed {seed}"
+    worst = {"steps": cross_steps(cpu, gpu, cfg, dev, seed, st_c, st_g, what)}
+    tok = torch.from_numpy(rng.integers(2, cfg.vocab_size, size=(4, 32)))
+    lc, _ = forward(cpu, cfg, tok, kv_source=src)
+    ops.reset_launch_counts()
+    lg, _ = forward(gpu, cfg, tok.to(dev), kv_source=src.to(dev))
+    torch.cuda.synchronize()
+    check_counts(f"{what} forward", ops.launch_counts(),
+                 {"int8_flash_attention": layer_counts(cfg)[0]})
+    worst["no_cache"] = rel_range(lc, lg)
+    log(f"  {what} no-cache forward with kv_source (4 x 32): "
+        f"{worst['no_cache']:.3%} of the range")
+    if not (torch.isfinite(lg).all() and worst["no_cache"] <= CROSS_ORDER_TOL):
+        raise AssertionError(f"{what} no-cache forward: "
+                             f"{worst['no_cache']:.3%} of the range")
+    return worst
+
+
+# the cross archs' drains: 8 lanes (each its own clip or image) x 16 new
+XATTN_REQ, XATTN_NEW = 8, 16
+XATTN_MUST = ("quantize_rows", "int_layernorm", "int8_kv_decode_attention")
+
+
+def xattn_step_launches(cfg, per: dict, norms_per_layer: int) -> None:
+    """A bucket-1 step of a cross arch: the dense decode kernel once per
+    self-attention layer (12 for whisper's ``dec`` layers, 80 for vision's
+    ``attn`` layers), never the paged one, and the fused norm
+    ``norms_per_layer`` times a layer and once more."""
+    n_self = sum(k in ("attn", "dec") for k in cfg.block_kinds)
+    check_counts(f"{cfg.name} bucket-1 step", per, {
+        "int8_kv_decode_attention": n_self, "paged_decode_attention": 0,
+        "int_layernorm": norms_per_layer * cfg.n_layers + 1})
+
+
+def serve_whisper(dev, seed) -> dict:
+    """whisper-small W8A8 at full width (random weights from ``seed``, built
+    and quantized a block at a time): ``encode`` of 8 stub clips of 1500
+    frames (int8_flash_attention once per encoder layer), then the decoder
+    served with ``kv_source`` = that encoding, XATTN_REQ requests of 16-256
+    tokens x XATTN_NEW new (8 lanes, int8 KV, token budget 256, max_seq
+    1024; a ``paged=True`` engine would fall back to dense); then the same
+    requests again on the same engine, every lane reused (its self-attention
+    cache reset, its cross K/V kept): 0 token differences from the fresh
+    engine's drain required; a bucket-1 step's launches (12 decode
+    launches, no paged one, the fused norm 3 a layer + 1) and its profile."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import encode, init_encdec_params
+    from repro_torch.models.frontend import audio_frames_stub
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = get_config(WHISPER, precision="w8a8")
+    t0 = time.perf_counter()
+    params = init_encdec_params(cfg, seed=seed, device=dev, precision="w8a8")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    frames = audio_frames_stub(gen, 8, cfg.n_audio_frames, cfg.d_model, dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    enc = encode(params, cfg, frames)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    enc_launches = ops.launch_counts()
+    check_counts("whisper encode", enc_launches,
+                 {"int8_flash_attention": cfg.n_encoder_layers,
+                  "flash_attention": 0})
+    if not (torch.isfinite(enc).all() and enc.dtype == torch.float32):
+        raise AssertionError(f"whisper encode: {enc.dtype}, finite="
+                             f"{bool(torch.isfinite(enc).all())}")
+    requests = dense_requests(cfg, seed, XATTN_REQ, XATTN_NEW)
+    eng = ServingEngine(params.decoder, cfg, ServeConfig(**SCFG, paged=True),
+                        device=dev, kv_source=enc)
+    if eng.paged:
+        raise AssertionError("whisper: a paged engine did not fall back")
+    res, tokens = timed_drain(eng, [requests], dev, cfg,
+                              XATTN_MUST + ("int8_gemm",))
+    eng.finished.clear()
+    eng.reset_stats()
+    reuse, tok2 = timed_drain(eng, [requests], dev, cfg, XATTN_MUST)
+    del eng
+    reuse.update(tokens_differ=count_diff(tok2, tokens),
+                 compared_with="the same requests on a fresh engine (every "
+                 "lane reused)", equal_required=True)
+    if reuse["tokens_differ"]:
+        raise AssertionError(f"whisper lane reuse: {reuse['tokens_differ']} "
+                             f"tokens differ from the fresh engine's")
+    per_step, syncs = decode_step_launches(params.decoder, cfg, dev, False)
+    xattn_step_launches(cfg, per_step, 3)
+    res.update(init_ptq_s=t_init, encode_s=t_enc,
+               encode_launches=enc_launches,
+               launches_per_decode_step=per_step, syncs_per_decode_step=syncs,
+               profile={"bucket1": profile_step(params.decoder, cfg, dev, 1)})
+    del params, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"dense": res, "reused lanes": reuse}
+
+
+def serve_vision(dev, seed) -> dict:
+    """llama-3.2-vision-90b W4A8 at full width and depth (random weights
+    from ``seed``, built and quantized a block at a time; the down
+    projection int8, C14): 8 lanes' stub vision tokens (8 x 1601 x 8192
+    f32), whose cross K/V the engine projects once (int4_gemm twice and
+    quantize_rows once per cross layer); XATTN_REQ requests x XATTN_NEW new;
+    a bucket-1 step's launches (80 decode launches, no paged one, the fused
+    norm 2 a layer + 1) and its profile; then ``lm_loss`` on SCORE_B x
+    SCORE_T tokens with ``kv_source`` (int8_flash_attention once per
+    ``attn`` layer), profiled.  Memory after the build and at each peak is
+    recorded."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.models.frontend import vision_tokens_stub
+    from repro_torch.serve import ServeConfig, ServingEngine
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config(VISION, precision="w4a8")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=dev, precision="w4a8")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    after_init = torch.cuda.memory_allocated(dev) / 2 ** 30
+    init_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    src = vision_tokens_stub(gen, 8, cfg.n_vision_tokens, cfg.d_model, dev)
+    n_cross = cfg.block_kinds.count("xattn")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng = ServingEngine(params, cfg, ServeConfig(**SCFG), device=dev,
+                        kv_source=src)
+    torch.cuda.synchronize()
+    t_cross = time.perf_counter() - t0
+    cross_launches = ops.launch_counts()
+    check_counts("vision cross K/V", cross_launches,
+                 {"int4_gemm": 2 * n_cross, "quantize_rows": n_cross})
+    requests = dense_requests(cfg, seed, XATTN_REQ, XATTN_NEW)
+    res, _ = timed_drain(eng, [requests], dev, cfg,
+                         XATTN_MUST + ("int8_gemm", "int4_gemm",
+                                       "dual_int4_gemm_gated"),
+                         reset_peak=False)
+    del eng
+    per_step, syncs = decode_step_launches(params, cfg, dev, False)
+    xattn_step_launches(cfg, per_step, 2)
+    res.update(init_ptq_s=t_init, after_ptq_gib=after_init,
+               init_peak_gib=init_peak, cross_kv_s=t_cross,
+               cross_kv_launches=cross_launches,
+               launches_per_decode_step=per_step, syncs_per_decode_step=syncs,
+               profile={"bucket1": profile_step(params, cfg, dev, 1)})
+    torch.cuda.empty_cache()
+    lm = no_cache_loss(params, cfg, dev, score_tokens(cfg, dev, seed), True,
+                       kv_source=src[:SCORE_B])
+    del params, src
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"dense": res, "lm_loss": lm}
+
+
+WH_SCORE_T = 448                         # whisper's decoder context
+
+
+def whisper_loss(dev, seed) -> dict:
+    """whisper-small's ``encdec_loss`` on 4 clips of 1500 stub frames and
+    4 x WH_SCORE_T tokens, at bf16 (float parameters from ``seed``) and
+    W8A8 (quantized from them): the W8A8 forward launches
+    int8_flash_attention 24 times (12 encoder, 12 decoder layers), the bf16
+    one flash_attention 12 times (the decoder; 1500 frames are not a
+    multiple of 8, so the encoder takes ``_sdpa``, as the reference); each
+    forward once more under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec_forward, encdec_loss, init_encdec_params
+    from repro_torch.models.frontend import audio_frames_stub
+    from repro_torch.quant import quantized_copy
+    base = get_config(WHISPER)
+    params = init_encdec_params(base, seed=seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    frames = audio_frames_stub(gen, SCORE_B, base.n_audio_frames,
+                               base.d_model, dev)
+    tokens = torch.randint(2, base.vocab_size, (SCORE_B, WH_SCORE_T),
+                           generator=gen, device=dev)
+    labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)], 1)
+    n = base.n_layers
+    out = {}
+    for prec, want in (("bf16", {"flash_attention": n,
+                                 "int8_flash_attention": 0}),
+                       ("w8a8", {"flash_attention": 0,
+                                 "int8_flash_attention":
+                                     base.n_encoder_layers + n})):
+        cfg = dataclasses.replace(base, precision=prec)
+        model = params if prec == "bf16" else quantized_copy(params)
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = float(encdec_loss(model, cfg, frames, tokens, labels))
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        check_counts(f"whisper {prec} encdec_loss forward", counts, want)
+        if not (np.isfinite(loss) and loss > 0):
+            raise AssertionError(f"whisper {prec} encdec_loss = {loss}")
+        with profile(activities=[ProfilerActivity.CUDA,
+                                 ProfilerActivity.CPU]) as prof:
+            t0 = time.perf_counter()
+            encdec_forward(model, cfg, frames, tokens)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        out[f"{WHISPER} {prec} encdec_loss"] = {
+            "loss": loss, "wall_s": wall, "tokens": tokens.numel(),
+            "frames": SCORE_B * base.n_audio_frames,
+            "tok_per_s": tokens.numel() / wall,
+            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "launches": counts,
+            "profile": {f"forward {SCORE_B} x ({base.n_audio_frames} frames, "
+                        f"{WH_SCORE_T} tokens)": profile_summary(prof,
+                                                                 wall_ms)}}
         del model
         torch.cuda.empty_cache()
     del params
@@ -3941,7 +4488,8 @@ LONG_T = 4096          # one codeqwen w8a8 sequence past the block form's keys
 
 
 def no_cache_loss(params, cfg, dev, tokens, profiled: bool,
-                  act_kernel: str | None = None, host: bool = True) -> dict:
+                  act_kernel: str | None = None, host: bool = True,
+                  kv_source=None) -> dict:
     """``lm_loss`` of one forward over ``tokens`` with next-token labels
     (the last position masked): the loss, wall time, tokens/s, peak memory
     and the launches of the forward (zeroed just before, read just after);
@@ -3951,7 +4499,9 @@ def no_cache_loss(params, cfg, dev, tokens, profiled: bool,
     PRs 15-20 exactly when the sequence is past the block form's keys),
     ssd_scan once per Mamba-2 layer, and ``act_kernel`` once per layer where
     given.  With ``profiled``, a second forward under
-    torch.profiler (``host`` False: the device only)."""
+    torch.profiler (``host`` False: the device only).  ``kv_source``: the
+    features the cross layers attend to (their attention is ``_sdpa``, no
+    kernel)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.common import LAUNCHES
     from repro_torch.kernels.int8_flash_attention import streams
@@ -3961,7 +4511,9 @@ def no_cache_loss(params, cfg, dev, tokens, profiled: bool,
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    loss = float(lm_loss(params, cfg, tokens, labels))
+    # (the keyword only where given: a parent tree's lm_loss may lack it)
+    cross = {} if kv_source is None else {"kv_source": kv_source}
+    loss = float(lm_loss(params, cfg, tokens, labels, **cross))
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     streamed = LAUNCHES["int8_flash_attention.streaming"]
@@ -3995,11 +4547,13 @@ def no_cache_loss(params, cfg, dev, tokens, profiled: bool,
            "launches": counts, "streaming_launches": streamed}
     if profiled:
         res["profile"] = {f"forward {tokens.shape[0]} x {tokens.shape[1]}":
-                          profile_no_cache(params, cfg, tokens, host)}
+                          profile_no_cache(params, cfg, tokens, host,
+                                           kv_source)}
     return res
 
 
-def profile_no_cache(params, cfg, tokens, host: bool = True) -> dict:
+def profile_no_cache(params, cfg, tokens, host: bool = True,
+                     kv_source=None) -> dict:
     """Wall time, device busy time and the kernels by device time of one
     no-cache forward under torch.profiler; ``host`` False traces the device
     only (no synchronizing calls counted)."""
@@ -4009,7 +4563,8 @@ def profile_no_cache(params, cfg, tokens, host: bool = True) -> dict:
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        forward(params, cfg, tokens)
+        forward(params, cfg, tokens,
+                **({} if kv_source is None else {"kv_source": kv_source}))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     res = profile_summary(prof, wall_ms)
@@ -4086,6 +4641,15 @@ def cal_only(dev, seed) -> dict:
         del params
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_only(dev, seed) -> dict:
+    """xlstm-350m's tokenwise W8A8 drains (``serve_xlstm``) and its
+    ``lm_loss`` at bf16, W8A8 and W4A8 without the profiler: the host walls
+    (TPOT, tokens/s, loss wall) two trees are compared on."""
+    out = {f"xlstm-350m w8a8 {k}": v for k, v in serve_xlstm(dev, seed).items()}
+    out.update(xlstm_loss(dev, seed, profiled=False))
     return out
 
 
@@ -4376,6 +4940,10 @@ def main() -> int:
                     help="build, then only codeqwen1.5-7b's and "
                     "starcoder2-3b's W8A8 lm_loss, timed and profiled "
                     "(lm_only); prints their summary and no ok line")
+    ap.add_argument("--xlstm-only", action="store_true",
+                    help="build, then only xlstm-350m's tokenwise W8A8 drains "
+                    "and its lm_loss at bf16/w8a8/w4a8 (xlstm_only); prints "
+                    "their walls and no ok line")
     ap.add_argument("--kernels", default=None,
                     help="comma-separated kernels among "
                     f"{', '.join(KERNEL_CASES)}: build only these from --src "
@@ -4471,6 +5039,21 @@ def main() -> int:
         print(smi)
         return 0
 
+    if args.xlstm_only:
+        res = xlstm_only(dev, args.seed)
+        if args.out is not None:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(json.dumps({"card": smi, "src": str(
+                args.src), "xlstm": res}, indent=1))
+        print(json.dumps({"xlstm_only": {
+            label: ({"tpot_p50_ms": r["metrics"]["tpot_p50_ms"],
+                     "tok_s": r["generated_tok_per_s"], "wall_s": r["wall_s"]}
+                    if "metrics" in r else {"wall_s": r["wall_s"],
+                                            "loss": r["loss"]})
+            for label, r in res.items()}}))
+        print(smi)
+        return 0
+
     if args.cal_only:
         res = cal_only(dev, args.seed)
         if args.out is not None:
@@ -4509,6 +5092,19 @@ def main() -> int:
     for k in range(SEEDS):
         for key, v in check_xlstm_reduced(dev, args.seed + k).items():
             worst[f"xlstm-350m w8a8 {key} seed {args.seed + k}"] = v
+    log("[4/6] whisper-small-reduced w8a8: encode, cross states, decoder "
+        "steps and encdec_forward: CPU plain (card order) vs CUDA kernels")
+    for k in range(SEEDS):
+        for key, v in check_whisper_reduced(dev, args.seed + k).items():
+            worst[f"whisper-small w8a8 {key} seed {args.seed + k}"] = v
+    for precision in ("w4a8", "w8a8"):
+        log(f"[4/6] llama-3.2-vision-90b-reduced {precision} (gates "
+            f"{XATTN_GATES}): cross states, steps and the no-cache forward "
+            f"with kv_source: CPU plain (card order) vs CUDA kernels")
+        for k in range(SEEDS):
+            for key, v in check_vision_reduced(dev, args.seed + k,
+                                               precision).items():
+                worst[f"{VISION} {precision} {key} seed {args.seed + k}"] = v
     log("[4/6] codeqwen1.5-7b-reduced w4a8 paged int8 arena: CPU plain vs "
         "CUDA kernels, paged vs dense on the card")
     worst["codeqwen1.5-7b w4a8 paged"] = check_reduced_paged(dev, args.seed)
@@ -4689,6 +5285,50 @@ def main() -> int:
             f"({lm['tok_per_s']:.0f} tok/s), peak {lm['peak_mem_gib']:.1f} "
             f"GiB; launches {lm['launches']}")
         log_profile(lm)
+    log(f"[5/6] serve full-width {WHISPER} w8a8 int8-KV: encode 8 clips, "
+        f"then {XATTN_REQ} requests x {XATTN_NEW} new tokens with kv_source, "
+        f"then again on the reused lanes")
+    for name, drain in serve_whisper(dev, args.seed).items():
+        served[f"{WHISPER} w8a8" + ("" if name == "dense" else f" {name}")] = (
+            drain)
+        log(f"  {name} drain:")
+        log_drain(drain)
+        log_extra(drain)
+        if "launches_per_decode_step" in drain:
+            per = drain["launches_per_decode_step"]
+            log(f"  encode {drain['encode_s']:.3f}s; launches per bucket-1 "
+                f"step: {sum(per[k] for k in ops.KERNELS)} {per}")
+        log_profile(drain)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[6/6] full-width {WHISPER} encdec_loss on {SCORE_B} x (1500 frames, "
+        f"{WH_SCORE_T} tokens) at bf16 and w8a8")
+    for label, lm in whisper_loss(dev, args.seed).items():
+        no_cache[label] = lm
+        log(f"  {label}: {lm['loss']:.4f} in {lm['wall_s']:.2f}s, peak "
+            f"{lm['peak_mem_gib']:.1f} GiB; launches {lm['launches']}")
+        log_profile(lm)
+    log(f"[5/6] serve full-width {VISION} w4a8 int8-KV (built and quantized "
+        f"a block at a time): cross K/V of 8 lanes' vision tokens, "
+        f"{XATTN_REQ} requests x {XATTN_NEW} new tokens")
+    res = serve_vision(dev, args.seed)
+    drain = served[f"{VISION} w4a8"] = res["dense"]
+    log(f"  init+PTQ {drain['init_ptq_s']:.1f}s, {drain['after_ptq_gib']:.1f} "
+        f"GiB after, peak {drain['init_peak_gib']:.1f} GiB while building; "
+        f"cross K/V {drain['cross_kv_s']:.3f}s")
+    log_drain(drain)
+    log_extra(drain)
+    per = drain["launches_per_decode_step"]
+    log(f"  launches per bucket-1 step: {sum(per[k] for k in ops.KERNELS)} "
+        f"{per}; {sum(drain['syncs_per_decode_step'].values())} "
+        f"synchronizing calls")
+    log_profile(drain)
+    lm = no_cache[f"{VISION} w4a8 lm_loss"] = res["lm_loss"]
+    log(f"[6/6] full-width {VISION} w4a8 lm_loss with kv_source on {SCORE_B} "
+        f"x {SCORE_T} tokens: {lm['loss']:.4f} in {lm['wall_s']:.2f}s "
+        f"({lm['tok_per_s']:.0f} tok/s), peak {lm['peak_mem_gib']:.1f} GiB; "
+        f"launches {lm['launches']}")
+    log_profile(lm)
     for arch, precisions, calibrated, long_w8a8 in NO_CACHE_PATHS:
         log(f"[6/6] full-width {arch} no-cache forward: lm_loss on {NC_B} x "
             f"{NC_T} tokens at {', '.join(precisions)}"
@@ -4832,6 +5472,37 @@ def main() -> int:
             "int8_gemm": "xlstm w_if [4096,2048]x[2048,8] scaled"},
         "xlstm-350m w4a8 lm_loss": {
             "int4_gemm": "xlstm w_if [4096,2048]x[2048,8] scaled g64"},
+        # whisper-small (G = 1, D = 64) and llama-3.2-vision-90b (G = 8)
+        f"{WHISPER} w8a8": {
+            "int8_kv_decode_attention":
+                f"B=8 S=1024 Hq={WH_H} Hkv={WH_H} D={WH_D} window=0",
+            "int8_gemm": "whisper q/k/v/o [8,768]x[768,768] scaled",
+            "int_layernorm": "fused whisper dec [8,768] ln bf16",
+            "quantize_rows": "[8,768] bf16"},
+        f"{WHISPER} w8a8 encdec_loss": {
+            "int8_flash_attention":
+                f"v_scale whisper B=4 T={WH_T} H={WH_H} Hkv={WH_H} D={WH_D}",
+            "int8_gemm": f"whisper mlp_up+gelu [{WH_ENC_ROWS},768]x[768,3072]"
+                         f" scaled_gelu",
+            "int_layernorm": f"fused whisper enc [{WH_ENC_ROWS},768] ln f32",
+            "quantize_rows": f"[{WH_ENC_ROWS},768] f32"},
+        f"{WHISPER} bf16 encdec_loss": {
+            "flash_attention":
+                f"bf16 whisper B=4 T={WH_DEC_T} H={WH_H} Hkv={WH_H} D={WH_D}"},
+        f"{VISION} w4a8": {
+            "int8_kv_decode_attention":
+                "B=8 S=1024 Hq=64 Hkv=8 D=128 window=0",
+            "int4_gemm": f"vision cross kv [{VIS_CROSS_ROWS},{VIS_D}]x"
+                         f"[{VIS_D},1024] scaled g64",
+            "dual_int4_gemm_gated": f"[8,{VIS_D}]x2[{VIS_D},{VIS_FF}] silu "
+                                    f"g64",
+            "int8_gemm": f"vision mlp_down [8,{VIS_FF}]x[{VIS_FF},{VIS_D}] "
+                         f"scaled",
+            "int_layernorm": f"fused vision [8,{VIS_D}] rms bf16",
+            "quantize_rows": f"[{VIS_CROSS_ROWS},{VIS_D}] f32"},
+        f"{VISION} w4a8 lm_loss": {
+            "int8_flash_attention": "v_scale vision B=4 T=1024 H=64 Hkv=8 "
+                                    "D=128"},
         # the Table II entry points and the patch embed
         "integer library": {
             "int8_conv2d": "[32,14,14,768]x[1,1,768,768] int32",

@@ -4,10 +4,11 @@ Mirrors ``repro.configs.get_config``.  The port serves the dense decoders
 starcoder2-3b, codeqwen1.5-7b, internlm2-20b (GQA, 6 query heads a KV head)
 and yi-34b (GQA, 7 a KV head), the recurrent archs zamba2-2.7b (Mamba-2 and
 shared attention) and xlstm-350m (mLSTM and sLSTM blocks), both tokenwise,
-and the mixture-of-experts decoders mixtral-8x7b (sliding-window attention
-over a ring cache) and qwen2-moe-a2.7b (a sigmoid-gated shared expert);
-every forward also runs without a cache.  Every other
-architecture raises until its slice lands (ROADMAP.md §A).
+the mixture-of-experts decoders mixtral-8x7b (sliding-window attention
+over a ring cache) and qwen2-moe-a2.7b (a sigmoid-gated shared expert), the
+encoder-decoder whisper-small and llama-3.2-vision-90b (cross-attention to
+stub vision tokens every fifth layer): the reference's ten archs.  Every
+forward also runs without a cache.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import importlib
 from ..models.config import ArchConfig
 
 ARCH_IDS = ["starcoder2-3b", "codeqwen1.5-7b", "zamba2-2.7b", "mixtral-8x7b",
-            "qwen2-moe-a2.7b", "internlm2-20b", "yi-34b", "xlstm-350m"]
+            "qwen2-moe-a2.7b", "internlm2-20b", "yi-34b", "xlstm-350m",
+            "whisper-small", "llama-3.2-vision-90b"]
 
 
 def _module_name(arch_id: str) -> str:
@@ -30,8 +32,7 @@ def get_config(arch_id: str, precision: str = "bf16",
         arch_id, reduced = arch_id[: -len("-reduced")], True
     if arch_id not in ARCH_IDS:
         raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet (ported: {ARCH_IDS}); see "
-            f"ROADMAP.md §A for the order of the remaining slices")
+            f"unknown arch {arch_id!r} (ported: {ARCH_IDS})")
     mod = importlib.import_module(f".{_module_name(arch_id)}", __package__)
     cfg: ArchConfig = mod.CONFIG
     if reduced:

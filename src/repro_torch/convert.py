@@ -17,7 +17,13 @@ a float array or a PTQ dict of stacked leaves), and Qwen2-MoE's ``shared``
 MLP and ``shared_gate`` [d, 1].  An xLSTM block keeps the reference's
 ``mlstm/{w_up, w_gate, wq, wk, wv, w_if, norm_scale, wo}`` or
 ``slstm/{w_in, r_w, norm_scale, wo}`` (``w_up``, ``r_w`` and the norm
-scales float at every precision).
+scales float at every precision).  A cross-attention block keeps
+``xattn/{wq, wk, wv, wo}`` beside its norms and MLP: ``xattn`` with the f32
+gates ``gate_attn`` and ``gate_mlp`` (1,), ``dec`` with ``attn`` and
+``norm3`` too.  An encoder-decoder tree (``repro.models.init_encdec_params``)
+is ``{"encoder": {"pos_embed", "layers" (the ``enc`` blocks stacked over
+``n_encoder_layers``), "final_norm"}, "decoder": <the decoder LM's tree>}``
+and converts to an ``EncDec``.
 ``to_reference`` is its inverse (the same numpy tree layout), so a round
 trip reproduces the tree exactly.
 
@@ -31,8 +37,10 @@ import torch
 
 from .kernels.common import resolve_device
 from .models.attention import Attention
-from .models.blocks import Block, MambaBlock, MLSTMBlock, MoEBlock, SLSTMBlock
+from .models.blocks import (Block, DecBlock, MambaBlock, MLSTMBlock, MoEBlock,
+                            SLSTMBlock, XAttnBlock)
 from .models.config import ArchConfig
+from .models.encdec import EncDec, Encoder
 from .models.layers import Linear, Norm
 from .models.lm import LM
 from .models.mlp import MLP
@@ -47,7 +55,7 @@ _XLSTM = {"mlstm": (MLSTMBlock, MLSTM, ("w_up", "w_gate", "wq", "wk", "wv",
           "slstm": (SLSTMBlock, SLSTM, ("w_in", "r_w", "norm_scale", "wo"),
                     ("r_w", "norm_scale"))}
 _KINDS = ("attn", "attn_swa", "moe", "moe_swa", "shared_attn", "mamba2",
-          "mlstm", "slstm")
+          "mlstm", "slstm", "xattn", "dec")
 
 
 def _t(a, dev) -> torch.Tensor:
@@ -80,15 +88,34 @@ def _mlp(m: dict, i, dev) -> MLP:
                _linear(m["w_gate"], i, dev) if "w_gate" in m else None)
 
 
-def _attn_block(per: dict, i, cfg: ArchConfig, dev) -> Block | MoEBlock:
-    a = per["attn"]
-    d, nt = cfg.d_model, cfg.norm_type
+def _attn(a: dict, i, dev) -> Attention:
     pick = _pick(i)
     bias = {k: (_t(pick(a[k]), dev) if k in a else None)
             for k in ("bq", "bk", "bv")}
-    attn = Attention(_linear(a["wq"], i, dev), _linear(a["wk"], i, dev),
+    return Attention(_linear(a["wq"], i, dev), _linear(a["wk"], i, dev),
                      _linear(a["wv"], i, dev), _linear(a["wo"], i, dev),
                      **bias)
+
+
+def _cross_block(kind: str, per: dict, i, cfg: ArchConfig,
+                 dev) -> XAttnBlock | DecBlock:
+    d, nt = cfg.d_model, cfg.norm_type
+    norms = [_norm(per[k], i, d, nt, dev)
+             for k in ("norm1", "norm2", "norm3") if k in per]
+    if kind == "xattn":
+        pick = _pick(i)
+        return XAttnBlock(norms[0], _attn(per["xattn"], i, dev), norms[1],
+                          _mlp(per["mlp"], i, dev),
+                          *(_t(pick(per[k]), dev)
+                            for k in ("gate_attn", "gate_mlp")))
+    return DecBlock(norms[0], _attn(per["attn"], i, dev), norms[1],
+                    _attn(per["xattn"], i, dev), norms[2],
+                    _mlp(per["mlp"], i, dev))
+
+
+def _attn_block(per: dict, i, cfg: ArchConfig, dev) -> Block | MoEBlock:
+    d, nt = cfg.d_model, cfg.norm_type
+    attn = _attn(per["attn"], i, dev)
     norm1 = _norm(per["norm1"], i, d, nt, dev)
     norm2 = _norm(per["norm2"], i, d, nt, dev)
     if "moe" not in per:
@@ -119,10 +146,19 @@ def _xlstm_block(kind: str, per: dict, i, cfg: ArchConfig,
                          else _linear(x[k], i, dev) for k in leaves)))
 
 
-def from_reference(tree: dict, cfg: ArchConfig, device=None) -> LM:
-    """numpy parameter tree of the reference -> ``LM`` on ``device`` (the
-    card unless device='cpu')."""
+def from_reference(tree: dict, cfg: ArchConfig, device=None) -> LM | EncDec:
+    """numpy parameter tree of the reference -> ``LM`` (an ``EncDec`` for
+    an encoder-decoder tree) on ``device`` (the card unless
+    device='cpu')."""
     dev = resolve_device(device)
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        layers = [_attn_block(enc["layers"], i, cfg, dev)
+                  for i in range(cfg.n_encoder_layers)]
+        return EncDec(Encoder(_t(enc["pos_embed"], dev), layers,
+                              _norm(enc["final_norm"], None, cfg.d_model,
+                                    cfg.norm_type, dev)),
+                      from_reference(tree["decoder"], cfg, dev))
     if not set(cfg.block_pattern) <= set(_KINDS):
         raise NotImplementedError(f"block pattern {cfg.block_pattern}: the "
                                   f"port converts {_KINDS}")
@@ -137,6 +173,9 @@ def from_reference(tree: dict, cfg: ArchConfig, device=None) -> LM:
             layers.append(_mamba_block(tree["periods"][pos], rep, cfg, dev))
         elif kind in _XLSTM:
             layers.append(_xlstm_block(kind, tree["periods"][pos], rep, cfg,
+                                       dev))
+        elif kind in ("xattn", "dec"):
+            layers.append(_cross_block(kind, tree["periods"][pos], rep, cfg,
                                        dev))
         else:
             layers.append(_attn_block(tree["periods"][pos], rep, cfg, dev))
@@ -173,12 +212,31 @@ def _mlp_tree(mlps: list[MLP], stack) -> dict:
             if getattr(mlps[0], k) is not None}
 
 
-def _attn_tree(blocks: list[Block | MoEBlock], stack) -> dict:
-    attn = {k: stack([_leaf(getattr(b.attn, k)) for b in blocks])
+def _attn_leaves(attns: list[Attention], stack) -> dict:
+    attn = {k: stack([_leaf(getattr(a, k)) for a in attns])
             for k in ("wq", "wk", "wv", "wo")}
     for k in ("bq", "bk", "bv"):
-        if getattr(blocks[0].attn, k) is not None:
-            attn[k] = stack([getattr(b.attn, k).cpu().numpy() for b in blocks])
+        if getattr(attns[0], k) is not None:
+            attn[k] = stack([getattr(a, k).cpu().numpy() for a in attns])
+    return attn
+
+
+def _cross_tree(blocks: list[XAttnBlock | DecBlock]) -> dict:
+    tree = {k: _stack([_norm_leaf(getattr(b, k)) for b in blocks])
+            for k in ("norm1", "norm2", "norm3") if hasattr(blocks[0], k)}
+    tree["xattn"] = _attn_leaves([b.xattn for b in blocks], _stack)
+    tree["mlp"] = _mlp_tree([b.mlp for b in blocks], _stack)
+    if isinstance(blocks[0], DecBlock):
+        tree["attn"] = _attn_leaves([b.attn for b in blocks], _stack)
+    else:
+        for k in ("gate_attn", "gate_mlp"):
+            tree[k] = np.stack([getattr(b, k).detach().cpu().numpy()
+                                for b in blocks])
+    return tree
+
+
+def _attn_tree(blocks: list[Block | MoEBlock], stack) -> dict:
+    attn = _attn_leaves([b.attn for b in blocks], stack)
     norms = {k: stack([_norm_leaf(getattr(b, k)) for b in blocks])
              for k in ("norm1", "norm2")}
     tree = {"norm1": norms["norm1"], "attn": attn, "norm2": norms["norm2"]}
@@ -215,10 +273,17 @@ def _xlstm_tree(kind: str, blocks: list) -> dict:
                    for k in leaves}}
 
 
-def to_reference(params: LM, cfg: ArchConfig | None = None) -> dict:
-    """``LM`` -> the reference's numpy tree layout (inverse of
-    ``from_reference``); ``cfg`` gives the block pattern (default: the
+def to_reference(params: LM | EncDec, cfg: ArchConfig | None = None) -> dict:
+    """``LM`` or ``EncDec`` -> the reference's numpy tree layout (inverse
+    of ``from_reference``); ``cfg`` gives the block pattern (default: the
     dense ``attn`` pattern)."""
+    if isinstance(params, EncDec):
+        enc = params.encoder
+        return {"encoder": {
+                    "pos_embed": enc.pos_embed.detach().cpu().numpy(),
+                    "layers": _attn_tree(list(enc.layers), _stack),
+                    "final_norm": _norm_leaf(enc.final_norm)},
+                "decoder": to_reference(params.decoder, cfg)}
     pattern = ("attn",) if cfg is None else cfg.block_pattern
     per_pos = [list(params.layers)[pos::len(pattern)]
                for pos in range(len(pattern))]
@@ -231,6 +296,8 @@ def to_reference(params: LM, cfg: ArchConfig | None = None) -> dict:
             periods.append(_mamba_tree(blocks))
         elif kind in _XLSTM:
             periods.append(_xlstm_tree(kind, blocks))
+        elif kind in ("xattn", "dec"):
+            periods.append(_cross_tree(blocks))
         else:
             periods.append(_attn_tree(blocks, _stack))
     tree.update(embed=params.embed.detach().cpu().numpy(),

@@ -7,10 +7,16 @@ Usage:
       --w4a8 --int8-kv --requests 16 --max-new 32 --lanes 8 --max-seq 1024 \\
       --token-budget 256 [--paged --page-size 16 --pool-pages 0]
 
-``--arch`` takes every ported arch (``repro_torch.configs.ARCH_IDS``:
-starcoder2-3b, codeqwen1.5-7b, internlm2-20b, yi-34b, zamba2-2.7b,
-xlstm-350m, mixtral-8x7b, qwen2-moe-a2.7b;
-``--reduced`` for the small same-family config).  ``--w8a8`` quantizes every
+``--arch`` takes every arch of ``repro_torch.configs.ARCH_IDS``
+(starcoder2-3b, codeqwen1.5-7b, internlm2-20b, yi-34b, zamba2-2.7b,
+xlstm-350m, mixtral-8x7b, qwen2-moe-a2.7b, whisper-small,
+llama-3.2-vision-90b; ``--reduced`` for the small same-family config).
+llama-3.2-vision-90b's lanes cross-attend to stub vision tokens drawn from
+``--seed`` (``frontend.vision_tokens_stub``).  As in the reference, the
+launcher builds whisper-small's decoder alone and feeds it no encoder
+output, so its cross-attention reads the zero cross K/V of
+``init_states`` (ROADMAP C17); ``encode`` and the engine's ``kv_source``
+serve it meaningfully.  ``--w8a8`` quantizes every
 GEMM weight to int8; ``--w4a8`` applies the reference's default W4 policy
 (attention and MLP projections — a MoE layer's experts too — packed int4
 at group 64, the lm head int8), each block as it is built.  ``--token-budget 0 --prefill-chunk N`` serves
@@ -35,6 +41,7 @@ import torch
 from ..configs import get_config
 from ..kernels import ops
 from ..models import init_params
+from ..models.frontend import vision_tokens_stub
 from ..serve import ServeConfig, ServingEngine
 
 
@@ -73,6 +80,11 @@ def main(argv=None) -> None:
     # quantized a block at a time: the float model never exists whole
     params = init_params(cfg, seed=args.seed, device=args.device,
                          precision=precision)
+    kv_source = None
+    if cfg.family == "vlm":
+        gen = torch.Generator(device=args.device).manual_seed(args.seed)
+        kv_source = vision_tokens_stub(gen, args.lanes, cfg.n_vision_tokens,
+                                       cfg.d_model, device=args.device)
     engine = ServingEngine(
         params, cfg,
         ServeConfig(batch_lanes=args.lanes, max_seq=args.max_seq,
@@ -83,7 +95,7 @@ def main(argv=None) -> None:
                     pool_pages=args.pool_pages, queue_limit=args.queue_limit,
                     spec_k=args.spec_k, tp=args.tp,
                     tp_overlap=args.tp_overlap),
-        device=args.device)
+        device=args.device, kv_source=kv_source)
 
     rng = np.random.default_rng(args.seed)
     reqs = []

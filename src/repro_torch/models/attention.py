@@ -1,7 +1,7 @@
 """Attention: GQA/MQA over a dense ring KV cache or a paged KV arena
-(bf16 or int8), and the no-cache causal forward.
+(bf16 or int8), the no-cache causal forward, and cross-attention.
 
-Port of ``repro.models.attention`` for self-attention.  The dense cache:
+Port of ``repro.models.attention``.  The dense cache:
 
     cache = {"k": (B,S,Hkv,D), "v": (B,S,Hkv,D), "pos_ids": (B,S) int32}
     (+ "k_s"/"v_s": (B,S,Hkv,1) f32 per-(token, head) scales when int8)
@@ -38,7 +38,14 @@ holds: an integer mode with no window runs ``_int_attention``
 (``ops.attention_i8``: the int8_flash_attention kernel on the card, its plain
 version on the CPU); otherwise a CUDA tensor with no window and T % 8 == 0
 runs ``ops.attention`` (the flash_attention kernel), and everything else
-``_sdpa``.  Cross-attention is a later slice (ROADMAP.md §A).
+``_sdpa``.
+
+Cross-attention (``kv_source`` features, or their K/V precomputed once per
+request by ``cross_kv_proj`` and passed as ``cross_kv``) projects no K/V from
+x, applies no RoPE and attends without a mask (every key at position 0)
+through ``_sdpa`` in plain PyTorch, as the reference runs XLA's ``_sdpa``
+there (no Pallas kernel).  Without either, a cross layer is the reference's
+causal self-attention with RoPE on its own weights.
 """
 from __future__ import annotations
 
@@ -74,7 +81,10 @@ class Attention(nn.Module):
         self.register_buffer("bv", bv)
 
 
-def init_attn_params(gen: torch.Generator, cfg: ArchConfig, device) -> Attention:
+def init_attn_params(gen: torch.Generator, cfg: ArchConfig, device,
+                     cross: bool = False) -> Attention:
+    """q/k/v/o (and qkv biases); a cross-attention layer (``cross``) has
+    the same weights, as in the reference."""
     d, hd = cfg.d_model, cfg.head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
     p = Attention(Linear(dense_init(gen, d, nq * hd, device)),
@@ -310,33 +320,52 @@ def scatter_pages(cache: dict, page_ids, payload: dict) -> dict:
     return cache
 
 
+# query-chunked softmax (the reference's 1024 rows), each chunk also cut so
+# that its f32 scores stay under SDPA_CHUNK_ELEMS (scoring cross-attention:
+# 4 x 1024 queries x 64 heads x 1601 keys)
+ATTN_Q_CHUNK = 1024
+SDPA_CHUNK_ELEMS = 1 << 28
+
+
 def _sdpa(q, k, v, qpos, kpos, scale, dtype, *, causal=True, window=0,
           valid=None):
     """Grouped-GQA attention, masks built from positions.
 
     q (B,Tq,Hq,D), k/v (B,Tk,Hkv,D); qpos (B,Tq), kpos (B,Tk); valid (B,Tk)
     bool or None.  bf16 operands, f32 scores and accumulation, as the
-    reference's einsums with ``preferred_element_type=f32``.  The reference
-    chunks queries at 1024 rows; serving spans are at most the token budget,
-    so the port runs one chunk."""
+    reference's einsums with ``preferred_element_type=f32``.  Queries run in
+    chunks of at most ``ATTN_Q_CHUNK`` rows (fewer where the chunk's scores
+    would pass ``SDPA_CHUNK_ELEMS``); each row's result does not depend on
+    the chunking."""
     b, tq, hq, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     kt = k.transpose(1, 2).float()                          # (B,Hkv,Tk,D)
     vt = v.transpose(1, 2).float()
-    qg = q.reshape(b, tq, hkv, g, d).float()
-    s = torch.einsum("bthgd,bhkd->bthgk", qg, kt) * scale   # (B,Tq,Hkv,G,Tk)
-    m = torch.ones((b, tq, tk), dtype=torch.bool, device=q.device)
-    if causal:
-        m &= kpos[:, None, :] <= qpos[:, :, None]
-    if window:
-        m &= kpos[:, None, :] > (qpos[:, :, None] - window)
-    if valid is not None:
-        m &= valid[:, None, :]
-    s = torch.where(m[:, :, None, None, :], s, torch.full_like(s, NEG))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bthgk,bhkd->bthgd", p.to(dtype).float(), vt)
-    return o.reshape(b, tq, hq, d).to(dtype)
+    chunk = max(1, min(ATTN_Q_CHUNK, SDPA_CHUNK_ELEMS // (b * hq * tk)))
+
+    def attend(qc, qp):
+        tc = qc.shape[1]
+        qg = qc.reshape(b, tc, hkv, g, d).float()
+        s = torch.einsum("bthgd,bhkd->bthgk", qg, kt) * scale  # (B,Tc,Hkv,G,Tk)
+        if causal or window or valid is not None:
+            m = torch.ones((b, tc, tk), dtype=torch.bool, device=q.device)
+            if causal:
+                m &= kpos[:, None, :] <= qp[:, :, None]
+            if window:
+                m &= kpos[:, None, :] > (qp[:, :, None] - window)
+            if valid is not None:
+                m &= valid[:, None, :]
+            s = s.masked_fill_(~m[:, :, None, None, :], NEG)
+        p = torch.softmax(s, dim=-1)
+        del s
+        o = torch.einsum("bthgk,bhkd->bthgd", p.to(dtype).float(), vt)
+        return o.reshape(b, tc, hq, d).to(dtype)
+
+    if tq <= chunk:
+        return attend(q, qpos)
+    return torch.cat([attend(q[:, i:i + chunk], qpos[:, i:i + chunk])
+                      for i in range(0, tq, chunk)], dim=1)
 
 
 def _int_attention(q, k, v, causal: bool = True):
@@ -369,30 +398,55 @@ def _card_route(cache_leaf, card_order: bool) -> bool:
     return cache_leaf.is_cuda or card_order
 
 
+def cross_kv_proj(params: Attention, kv_source, cfg: ArchConfig,
+                  mode: ExecMode):
+    """Cross-attention K/V of source features (B, Sv, d), each (B, Sv, Hkv,
+    D) in the compute dtype: projected once per request."""
+    b, sv = kv_source.shape[:2]
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    xq = QRows(*ops.quant_rows(kv_source)) if params.wk.quantized else None
+    k = apply_linear(kv_source, params.wk, mode, params.bk, xq=xq)
+    v = apply_linear(kv_source, params.wv, mode, params.bv, xq=xq)
+    return k.reshape(b, sv, hkv, hd), v.reshape(b, sv, hkv, hd)
+
+
 def attention(params: Attention, x, cfg: ArchConfig, mode: ExecMode,
               positions, cache: dict | None = None, window: int = 0,
               residual=None, writes=None, card_order: bool = False,
-              xq: QRows | None = None):
-    """Self-attention of x (B, T, D) at absolute ``positions`` (B, T), with
-    the skip connection ``residual`` folded into the out-projection.
-    Returns (out, cache); the cache is updated in place.  ``card_order``:
-    int8-cache rows take the decode kernels on any device (module note).
-    ``xq``: x's rows already quantized (the fused norm's), which q, k and v
-    share."""
+              xq: QRows | None = None, kv_source=None, cross_kv=None):
+    """Attention of x (B, T, D) at absolute ``positions`` (B, T), with the
+    skip connection ``residual`` (when given) folded into the
+    out-projection.  Returns (out, cache); the cache is updated in place.
+    ``card_order``: int8-cache rows take the decode kernels on any device
+    (module note).  ``xq``: x's rows already quantized (the fused norm's),
+    which q, k and v share.  ``kv_source`` (B, Sv, d) features or
+    ``cross_kv`` (their precomputed (xk, xv)) make it cross-attention."""
     b, t, _ = x.shape
     hd = cfg.head_dim
+    cross = kv_source is not None or cross_kv is not None
     q = apply_linear(x, params.wq, mode, params.bq, xq=xq)
     q = q.reshape(b, t, q.shape[-1] // hd, hd)
-    k = apply_linear(x, params.wk, mode, params.bk, xq=xq)
-    v = apply_linear(x, params.wv, mode, params.bv, xq=xq)
-    k = k.reshape(b, t, k.shape[-1] // hd, hd)
-    v = v.reshape(b, t, v.shape[-1] // hd, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cross_kv is not None:
+        # static cross KV, computed once per request (the state's dtype)
+        k, v = cross_kv[0].to(x.dtype), cross_kv[1].to(x.dtype)
+    elif cross:
+        k, v = cross_kv_proj(params, kv_source, cfg, mode)
+    else:
+        k = apply_linear(x, params.wk, mode, params.bk, xq=xq)
+        v = apply_linear(x, params.wv, mode, params.bv, xq=xq)
+        k = k.reshape(b, t, k.shape[-1] // hd, hd)
+        v = v.reshape(b, t, v.shape[-1] // hd, hd)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     scale = 1.0 / math.sqrt(hd)
     dtype = x.dtype
 
-    if cache is not None and "pt" in cache:
+    if cross:
+        # static KV, no mask: every source position is valid
+        kpos = torch.zeros((b, k.shape[1]), dtype=torch.int32,
+                           device=x.device)
+        out = _sdpa(q, k, v, positions, kpos, scale, dtype, causal=False)
+    elif cache is not None and "pt" in cache:
         # paged serving path: scatter through the page table, then the
         # paged decode kernel (on the card, int8 pages) or
         # the gathered view — element-identical to the dense cache — into

@@ -279,7 +279,13 @@ def apply_linear(x, p: Linear, mode: ExecMode, bias=None, residual=None,
     """Dispatch on the weight the module holds: packed int4 (W4A8 GEMM),
     int8 ``w_q`` (W8A8 GEMM; both with the residual add in the epilogue and
     x's rows quantized once, or taken from ``xq``) or a float weight (plain
-    matmul of x, then the residual add)."""
+    matmul of x, then the residual add).  A residual in another dtype than
+    the compute dtype (whisper's f32 encoder stream) is added after the
+    projection's rounding to the compute dtype, as the reference's
+    epilogue promotes it."""
+    if (p.quantized and residual is not None
+            and residual.dtype != mode.compute_dtype):
+        return apply_linear(x, p, mode, bias, xq=xq) + residual
     if p.int4:
         return linear_w4a8(x, p.w4, p.qmul, p.scale, bias, mode.compute_dtype,
                            residual=residual, xq=xq)

@@ -6,7 +6,9 @@ a Python loop.  A ``shared_attn`` block (zamba2) is one ``Block`` that the
 list holds at every position of its kind — the reference's
 ``params["shared"]``, held once.  ``states`` is a list with one state per
 layer: ``{"kv": cache}`` for attention, ``{"conv", "ssd"}`` for mamba2,
-``{"C", "n", "m"}`` for mlstm and ``{"h", "c", "n", "m"}`` for slstm.
+``{"C", "n", "m"}`` for mlstm, ``{"h", "c", "n", "m"}`` for slstm, and
+``{"xk", "xv"}`` for a cross-attention layer (``xattn``; ``dec`` adds its
+``"kv"``), filled once per request by ``precompute_cross_states``.
 With tied embeddings (``unembed`` None) the head is the f32 product with
 ``embed.T``, as in the reference.  Weights come from an explicit
 ``torch.Generator`` seeded by the caller (not jax.random: the numbers differ
@@ -19,8 +21,9 @@ import torch
 from torch import nn
 
 from ..kernels.common import resolve_device
-from .attention import cache_writes
-from .blocks import ATTN_KINDS, block_forward, init_block_params, init_block_state
+from .attention import cache_writes, cross_kv_proj
+from .blocks import (ATTN_KINDS, CROSS_KINDS, block_forward, init_block_params,
+                     init_block_state)
 from .config import ArchConfig
 from .layers import (DEFAULT_DTYPE, ExecMode, Linear, Norm, apply_linear,
                      apply_norm, embed_init, embed_lookup, linear)
@@ -105,11 +108,27 @@ def init_states(cfg: ArchConfig, batch: int, max_seq: int, int8_kv: bool = False
     return states
 
 
+def precompute_cross_states(params: LM, cfg: ArchConfig, kv_source,
+                            states: list) -> list:
+    """Fill each cross layer's static ``xk``/``xv`` (once per request) with
+    the K/V projections of ``kv_source`` (B, Sv, d), in the state's dtype:
+    decode steps then read them instead of re-projecting the features.
+    Returns a new list; the other layers' states pass through."""
+    mode = exec_mode(cfg)
+    out = []
+    for kind, block, st in zip(cfg.block_kinds, params.layers, states):
+        if kind in CROSS_KINDS and st is not None:
+            xk, xv = cross_kv_proj(block.xattn, kv_source, cfg, mode)
+            st = dict(st, xk=xk.to(st["xk"].dtype), xv=xv.to(st["xv"].dtype))
+        out.append(st)
+    return out
+
+
 def _first_cache(cfg: ArchConfig, states: list):
-    """The KV cache of the first attention layer (every layer's cache takes
-    the same write indices), or None for a model without one."""
-    for kind, st in zip(cfg.block_kinds, states):
-        if kind in ATTN_KINDS:
+    """The KV cache of the first layer that has one (every layer's cache
+    takes the same write indices), or None for a model without one."""
+    for st in states:
+        if st is not None and "kv" in st:
             return st["kv"]
     return None
 
@@ -117,12 +136,14 @@ def _first_cache(cfg: ArchConfig, states: list):
 @torch.no_grad()
 def forward(params: LM, cfg: ArchConfig, tokens, positions=None,
             states: list | None = None, logits: bool = True,
-            card_order: bool = False):
+            card_order: bool = False, kv_source=None):
     """tokens (B, T) int -> (logits (B, T, padded_vocab) f32, states).
     Caches in ``states`` are updated in place; recurrent states come back
     new in the returned list.  ``card_order`` (checks only): int8-cache
     attention takes the decode kernels on any device, the card's order
-    (``attention.attention``)."""
+    (``attention.attention``).  ``kv_source`` (B, Sv, d): the vision or
+    encoder features the cross layers attend to where ``states`` holds no
+    precomputed cross K/V."""
     mode = exec_mode(cfg)
     x = embed_lookup(tokens, params.embed, mode.compute_dtype)
     b, t = x.shape[:2]
@@ -135,7 +156,8 @@ def forward(params: LM, cfg: ArchConfig, tokens, positions=None,
     for i, (kind, block) in enumerate(zip(cfg.block_kinds, params.layers)):
         st = None if states is None else states[i]
         x, st = block_forward(kind, block, x, cfg, mode, positions, state=st,
-                              writes=writes, card_order=card_order)
+                              writes=writes, card_order=card_order,
+                              kv_source=kv_source)
         if new_states is not None:
             new_states.append(st)
     x, xq = apply_norm(x, params.final_norm, cfg, mode)
@@ -160,10 +182,11 @@ def forward(params: LM, cfg: ArchConfig, tokens, positions=None,
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def lm_loss(params: LM, cfg: ArchConfig, tokens, labels):
-    """Mean next-token cross entropy of the no-cache forward over the
-    positions whose label is >= 0 (a 0-dim f32 tensor)."""
-    lg, _ = forward(params, cfg, tokens)
+def lm_loss(params: LM, cfg: ArchConfig, tokens, labels, kv_source=None):
+    """Mean next-token cross entropy of the no-cache forward (cross layers
+    attending to ``kv_source``) over the positions whose label is >= 0 (a
+    0-dim f32 tensor)."""
+    lg, _ = forward(params, cfg, tokens, kv_source=kv_source)
     return xent_loss(lg, labels)
 
 

@@ -17,8 +17,10 @@ with 0 and the forget gate with 30.0 to a multiple of the chunk, so that
 the final state includes the pad steps, as in the reference.  ``slstm`` is
 a loop over t of the block-diagonal recurrence, from the given state or
 (h, c, n, m) = (0, 0, 1, 0).  Neither has a Pallas kernel in the reference:
-the recurrences are torch ops in f32 at every precision, and only their
-projections take the GEMM kernels.  At W8A8/W4A8 ``w_up`` stays a bf16
+the recurrences are torch ops in f32 at every precision (each
+transcendental, reduction and product rounded from f64, so that the card
+and the CPU agree bit for bit), and only their projections take the GEMM
+kernels.  At W8A8/W4A8 ``w_up`` stays a bf16
 linear (no quantization pattern of the reference matches it), its output
 ``u`` is quantized once for wq, wk, wv and ``w_if`` (bit-equal to the
 reference quantizing it four times), the gate branch's SiLU and the inner
@@ -244,9 +246,92 @@ def init_slstm_state(cfg: ArchConfig, batch: int, device) -> dict:
             "m": torch.zeros(shape, dtype=F32, device=device)}
 
 
+# The xLSTM recurrences evaluate each op whose f32 result depends on the
+# device (the transcendentals, the reductions and products) in f64 and round
+# it to f32 once: a product of f32 values is exact in f64, so the CPU and the
+# card then disagree only where an f64 result falls within ~2^-29 of an f32
+# rounding boundary, and the card's forward equals the CPU's bit for bit
+# (ROADMAP C15).  Elementwise f32 adds, products and divisions are IEEE on
+# both devices and stay f32, as does ``_cumsum`` (XLA's order).  Where the
+# reference composes a function of several f32 ops (``logaddexp``, the
+# logistic as 1 / (1 + exp(-x)), XLA's rational tanh), the port keeps the
+# composition and rounds each of its transcendentals or fused multiply-adds
+# from f64: a correctly rounded whole drifts further from the reference's
+# f32 rounding than the tests' state tolerances allow.
+
+def _f64(fn, *xs):
+    """``fn`` of the f64 widening of ``xs``, rounded to f32 once."""
+    return fn(*(x.double() for x in xs)).float()
+
+
+def _exp(x):
+    return _f64(torch.exp, x)
+
+
+# XLA's f32 tanh (Eigen's rational approximation, ``EmitFastTanh``): x
+# clamped to +-7.998811..., p(x^2) x / q(x^2) by Horner's rule in fused
+# multiply-adds, x itself below |x| = 0.0004.  The rows of _TANH_PQ are the
+# Horner steps of p and of q (q's led by zeros: fma(x^2, 0, 0) = 0, so its
+# chain starts at its first coefficient exactly), f32 values held in f64.
+_TANH_CLAMP = torch.tensor(7.99881172180175781, dtype=F32).item()
+_TANH_PQ = torch.tensor(
+    [(-2.76076847742355e-16, 2.00018790482477e-13, -8.60467152213735e-11,
+      5.12229709037114e-08, 1.48572235717979e-05, 6.37261928875436e-04,
+      4.89352455891786e-03),
+     (0.0, 0.0, 0.0, 1.19825839466702e-06, 1.18534705686654e-04,
+      2.26843463243900e-03, 4.89352518554385e-03)],
+    dtype=F32).double().T.contiguous()                  # (7 steps, p|q)
+_TANH_PQ_ON: dict = {}          # _TANH_PQ per device, copied there once
+
+
+def xla_tanh(x):
+    """XLA's f32 tanh op for op (bit-equal to ``jnp.tanh`` on the CPU over
+    1.1M sampled inputs): p and q's Horner chains side by side, each fused
+    multiply-add one f64 ``addcmul`` (the product of f32 values is exact,
+    so it rounds once, fused or not) rounded to f32."""
+    xc = x.clamp(-_TANH_CLAMP, _TANH_CLAMP)
+    x2 = (xc * xc).double()
+    coef = _TANH_PQ_ON.get(x.device)
+    if coef is None:
+        coef = _TANH_PQ_ON[x.device] = _TANH_PQ.to(x.device)
+    coef = coef.view(7, 2, *(1,) * x.dim())
+    pq = coef[0].expand(2, *x.shape).float()
+    for c in coef[1:]:
+        pq = torch.addcmul(c, x2, pq.double()).float()
+    return torch.where(x.abs() < 0.0004, x, (xc * pq[0]) / pq[1])
+
+
+def _sigmoid(x):
+    """1 / (1 + exp(-x)), XLA's expansion of the logistic function, the exp
+    rounded from f64."""
+    return 1.0 / (1.0 + _exp(-x))
+
+
+def _einsum(eq: str, *xs):
+    return _f64(lambda *a: torch.einsum(eq, *a), *xs)
+
+
+def _sum(x, dim: int):
+    return _f64(lambda a: a.sum(dim=dim), x)
+
+
+def _silu64(x):
+    """x * sigmoid(x), the sigmoid rounded from f64."""
+    return x * _sigmoid(x)
+
+
+def _rmsnorm64(x, scale, eps: float):
+    """``layers.rmsnorm`` with the mean of squares and the rsqrt rounded
+    from f64; x f32 -> f32."""
+    var = _f64(lambda a: (a * a).mean(-1, keepdim=True), x)
+    return x * _f64(torch.rsqrt, var + eps) * scale
+
+
 def _log_sigmoid(x):
-    """``jax.nn.log_sigmoid``: -softplus(-x)."""
-    return -torch.logaddexp(-x, torch.zeros_like(x))
+    """``jax.nn.log_sigmoid``: -softplus(-x), where softplus(a) is
+    ``jnp.logaddexp(a, 0)`` = max(a, 0) + log1p(exp(-|a|)), op for op, the
+    exp and the log1p rounded from f64."""
+    return -(torch.clamp(-x, min=0) + _f64(torch.log1p, _exp(-x.abs())))
 
 
 def _seq_cumsum(x):
@@ -307,12 +392,12 @@ def _mlstm_chunked(q, k, v, ig, fg, chunk: int):
         prev.append((C, n, m))
         g, bs = g_in[:, c], bsum[:, c]
         m_new = torch.maximum(m + bs, g.amax(dim=1))         # (B,H)
-        scale_old = torch.exp(m + bs - m_new)
-        w = torch.exp(g - m_new[:, None, :])                 # (B,L,H)
+        scale_old = _exp(m + bs - m_new)
+        w = _exp(g - m_new[:, None, :])                      # (B,L,H)
         wk = w[..., None] * kc[:, c]                         # (B,L,H,D)
         C = (C * scale_old[..., None, None]
-             + torch.einsum("blhd,blhe->bhde", wk, vc[:, c]))
-        n = n * scale_old[..., None] + wk.sum(dim=1)
+             + _einsum("blhd,blhe->bhde", wk, vc[:, c]))
+        n = n * scale_old[..., None] + _sum(wk, 1)
         m = m_new
     Cp = torch.stack([p[0] for p in prev], 1)                # (B,NC,H,D,D)
     np_ = torch.stack([p[1] for p in prev], 1)
@@ -321,16 +406,16 @@ def _mlstm_chunked(q, k, v, ig, fg, chunk: int):
     # combine intra + inter with a joint stabilizer
     m_inter = bcum + mp[:, :, None, :]                       # (B,NC,L,H)
     m_tot = torch.clamp(torch.maximum(m_intra, m_inter), min=-1e30)
-    w_intra = torch.exp(dmat - m_tot[:, :, :, None, :])      # (B,NC,L,S,H)
-    qkw = torch.einsum("bclhd,bcshd->bclsh", qc, kc) * w_intra
-    num_intra = torch.einsum("bclsh,bcshe->bclhe", qkw, vc)
-    den_intra = qkw.sum(dim=3)                               # (B,NC,L,H)
-    w_inter = torch.exp(m_inter - m_tot)
-    qC = torch.einsum("bclhd,bchde->bclhe", qc, Cp)
-    qn = torch.einsum("bclhd,bchd->bclh", qc, np_)
+    w_intra = _exp(dmat - m_tot[:, :, :, None, :])           # (B,NC,L,S,H)
+    qkw = _einsum("bclhd,bcshd->bclsh", qc, kc) * w_intra
+    num_intra = _einsum("bclsh,bcshe->bclhe", qkw, vc)
+    den_intra = _sum(qkw, 3)                                 # (B,NC,L,H)
+    w_inter = _exp(m_inter - m_tot)
+    qC = _einsum("bclhd,bchde->bclhe", qc, Cp)
+    qn = _einsum("bclhd,bchd->bclh", qc, np_)
     num = num_intra + w_inter[..., None] * qC
     den = den_intra + w_inter * qn
-    den = torch.maximum(den.abs(), torch.exp(-m_tot))        # xLSTM denominator
+    den = torch.maximum(den.abs(), _exp(-m_tot))             # xLSTM denominator
     y = (num / den[..., None]).reshape(b, t, h, dh)
     return y, (C, n, m)
 
@@ -342,7 +427,13 @@ def mlstm(params: MLSTM, x, cfg: ArchConfig, mode: ExecMode,
     rows already quantized (the block norm's) for the integer w_gate."""
     b, t, _ = x.shape
     _, nh, hd = _mlstm_dims(cfg)
-    u = apply_linear(x, params.w_up, mode, xq=xq)           # (B,T,2d)
+    if params.w_up.quantized:
+        u = apply_linear(x, params.w_up, mode, xq=xq)       # (B,T,2d)
+    else:
+        # the float w_up (every precision): the bf16 product's f32 sum
+        # rounded from f64, so that u does not depend on the device's order
+        cd = mode.compute_dtype
+        u = _f64(torch.matmul, x.to(cd), params.w_up.weight.to(cd)).to(cd)
     # one quantization of u for the four integer linears that read it
     uq = QRows(*ops.quant_rows(u)) if params.wq.quantized else None
 
@@ -356,14 +447,14 @@ def mlstm(params: MLSTM, x, cfg: ArchConfig, mode: ExecMode,
         C, n, m = state["C"], state["n"], state["m"]
         lfm = _log_sigmoid(fg[:, 0]) + m                    # (B,H)
         m_new = torch.maximum(lfm, ig[:, 0])
-        i_w = torch.exp(ig[:, 0] - m_new)
-        f_w = torch.exp(lfm - m_new)
+        i_w = _exp(ig[:, 0] - m_new)
+        f_w = _exp(lfm - m_new)
         kd = k[:, 0] * f32(rcp32(math.sqrt(hd)), x.device)
         C1 = C * f_w[..., None, None] + (
             (i_w[..., None] * kd)[..., :, None] * v[:, 0, :, None, :])
         n1 = n * f_w[..., None] + i_w[..., None] * kd
-        num = torch.einsum("bhd,bhde->bhe", q[:, 0], C1)
-        den = torch.maximum((q[:, 0] * n1).sum(-1).abs(), torch.exp(-m_new))
+        num = _einsum("bhd,bhde->bhe", q[:, 0], C1)
+        den = torch.maximum(_sum(q[:, 0] * n1, -1).abs(), _exp(-m_new))
         y = (num / den[..., None])[:, None]                 # (B,1,H,D)
         new_state = {"C": C1, "n": n1, "m": m_new}
     else:
@@ -376,8 +467,9 @@ def mlstm(params: MLSTM, x, cfg: ArchConfig, mode: ExecMode,
         y = y[:, :t]
         new_state = {"C": C, "n": n, "m": m}
 
-    g = _silu(apply_linear(x, params.w_gate, mode, xq=xq).float())
-    y = rmsnorm(y.reshape(b, t, nh * hd), params.norm_scale, cfg.norm_eps) * g
+    g = _silu64(apply_linear(x, params.w_gate, mode, xq=xq).float())
+    y = _rmsnorm64(y.reshape(b, t, nh * hd), params.norm_scale,
+                   cfg.norm_eps) * g
     out = apply_linear(y.to(x.dtype), params.wo, mode)
     return out, new_state
 
@@ -394,21 +486,21 @@ def slstm(params: SLSTM, x, cfg: ArchConfig, mode: ExecMode,
     if state is None:
         state = init_slstm_state(cfg, b, x.device)
     h, c, n, m = state["h"], state["c"], state["n"], state["m"]
-    r_w = params.r_w
+    r_w = params.r_w.double()
     ys = []
     for s in range(t):
-        rec = torch.bmm(h.transpose(0, 1), r_w).transpose(0, 1)  # (B,H,4hd)
+        rec = torch.einsum("bhd,hde->bhe", h.double(), r_w).float()
         i_r, f_r, z_r, o_r = torch.split(zi[:, s] + rec, hd, dim=-1)
         fm = f_r + m
         m_new = torch.maximum(fm, i_r)
-        i_w = torch.exp(i_r - m_new)
-        f_w = torch.exp(fm - m_new)
-        c = f_w * c + i_w * torch.tanh(z_r)
+        i_w, f_w = _exp(torch.stack([i_r - m_new, fm - m_new]))
+        c = f_w * c + i_w * xla_tanh(z_r)
         n = f_w * n + i_w
-        h = torch.sigmoid(o_r) * c / torch.clamp(n, min=1e-6)
+        h = _sigmoid(o_r) * c / torch.clamp(n, min=1e-6)
         m = m_new
         ys.append(h)
     y = torch.stack(ys, 1).reshape(b, t, d)
-    y = rmsnorm(y.to(x.dtype), params.norm_scale, cfg.norm_eps)
+    y = _rmsnorm64(y.to(x.dtype).float(), params.norm_scale,
+                   cfg.norm_eps).to(x.dtype)
     out = apply_linear(y, params.wo, mode)
     return out, {"h": h, "c": c, "n": n, "m": m}

@@ -3,7 +3,8 @@
 Port of ``repro.quant.ptq`` (``ptq_quantize_params``, the W4 policy,
 ``calibrate_ptq``'s group/clip search and ``quantized_param_fraction``), and
 ``quantize_for``, the launcher's choice of policy by precision.  Every GEMM
-weight (attention wq/wk/wv/wo, MLP w_in/w_gate/w_out — a MoE layer's
+weight (attention wq/wk/wv/wo — cross-attention's and the whisper
+encoder's too —, MLP w_in/w_gate/w_out — a MoE layer's
 stacked experts and shared expert too, each expert with its own channel
 scales and W4 groups fitted to the weight — Mamba-2 in_proj/out_proj — class
 ``attn``, as the reference's ``_CLASS_PATTERNS`` have it — the mLSTM's
@@ -13,7 +14,8 @@ per-output-channel symmetric int8 ``{w_q, scale}``
 or, where the policy says so, packed int4 ``{w4, qmul, scale}`` with
 two-level group scales (int8 where no group fits K, or past ``W4_MAX_K``);
 embeddings (a tied head with them), norms, the MoE
-``router`` and ``shared_gate`` (the reference's ``_EXCLUDE``), the
+``router`` and ``shared_gate`` (the reference's ``_EXCLUDE``), the cross
+layer's ``gate_attn``/``gate_mlp``, the encoder's ``pos_embed``, the
 Mamba-2 conv and vectors, the sLSTM's ``r_w`` and the xLSTM norm scales stay
 float, and so does the mLSTM's ``w_up``: no pattern of the reference's
 ``_QUANT_PATTERNS`` matches it, so it stays a bf16 linear inside an integer

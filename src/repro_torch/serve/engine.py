@@ -48,6 +48,14 @@ victim lane's pages to host memory and resumes it later into fresh pages, a
 bit-exact round trip.  Paging is a memory-layout change only.  Recurrent
 archs keep the dense layout.
 
+Cross-attention archs (llama-3.2-vision-90b, whisper-small's decoder) take
+``kv_source``, the (lanes, Sv, d) vision or encoder features of each lane:
+the engine projects every cross layer's K/V once at init
+(``precompute_cross_states``) and the steps read them; those states stay
+dense (a ``paged=True`` request falls back silently, as in the reference).
+``kv_source`` is fixed per lane, so a lane admitted anew keeps the cross K/V
+that init wrote (the reference recomputes the same bits at every reset).
+
 Sliding-window archs (mixtral-8x7b): each dense cache is a ring of window +
 the largest bucket slots (``_window_slack``), so a span's writes never evict
 keys inside the window of its earliest query; paged, every attention layer
@@ -78,7 +86,7 @@ import numpy as np
 import torch
 
 from ..kernels.common import f32, resolve_device
-from ..models import ArchConfig, forward, init_states
+from ..models import ArchConfig, forward, init_states, precompute_cross_states
 from ..models.attention import gather_pages, rollback_cache, scatter_pages
 from ..models.blocks import init_block_state
 from ..models.layers import DEFAULT_DTYPE
@@ -114,25 +122,40 @@ class ServeConfig:
 
 
 def packed_step(params: LM, cfg: ArchConfig, tokens, positions, states,
-                last_idx=None):
+                last_idx=None, kv_source=None):
     """The unified forward: (B, T) rows where each lane carries 1..T valid
     tokens (pads at position -1).  Returns each lane's logits at its last
     valid row (``last_idx`` (B,); default: the final row) + states."""
     logits, states = forward(params, cfg, tokens, positions=positions,
-                             states=states)
+                             states=states, kv_source=kv_source)
     if last_idx is None:
         return logits[:, -1], states
     rows = torch.arange(logits.shape[0], device=logits.device)
     return logits[rows, last_idx], states
 
 
+def prefill_step(params: LM, cfg: ArchConfig, tokens, positions, states,
+                 kv_source=None):
+    """Full-row prompt processing: ``packed_step`` with every row valid."""
+    return packed_step(params, cfg, tokens, positions, states,
+                       kv_source=kv_source)
+
+
+def decode_step(params: LM, cfg: ArchConfig, token, position, states,
+                kv_source=None):
+    """One token for every lane: ``packed_step`` at bucket 1."""
+    return packed_step(params, cfg, token, position, states,
+                       kv_source=kv_source)
+
+
 def _masked_commit(old_states: list, new_states: list, lane_mask) -> list:
     """Keep ``new_states`` only for the lanes in ``lane_mask`` (B,) bool.
-    KV caches were written in place (pads dropped) and pass through; a
-    recurrent state's leaves (B, ...) are selected per lane."""
+    KV caches were written in place (pads dropped) and cross K/V are never
+    written: both pass through; a recurrent state's leaves (B, ...) are
+    selected per lane."""
     out = []
     for old, new in zip(old_states, new_states):
-        if "kv" in new:
+        if "kv" in new or "xk" in new:
             out.append(new)
             continue
         out.append({k: torch.where(
@@ -162,10 +185,11 @@ class ServingEngine:
     """Slot-based continuous batching over the packed-step forward.
 
     ``params`` must live on ``device`` — the card unless the caller passes
-    device='cpu'."""
+    device='cpu'.  ``kv_source`` (lanes, Sv, d): the cross-attention
+    features of each lane (module note)."""
 
     def __init__(self, params: LM, cfg: ArchConfig, serve_cfg: ServeConfig,
-                 device=None):
+                 device=None, kv_source=None):
         if serve_cfg.tp > 1:
             raise NotImplementedError("tensor-parallel serving (tp > 1) is "
                                       "not ported yet (ROADMAP.md §A10)")
@@ -181,6 +205,7 @@ class ServingEngine:
         self.params = params
         self.cfg = cfg
         self.scfg = serve_cfg
+        self.kv_source = kv_source
         b = serve_cfg.batch_lanes
         self._mode = self._resolve_mode()
         self._buckets = self._token_buckets()
@@ -229,10 +254,14 @@ class ServingEngine:
                                       int8_kv=serve_cfg.int8_kv,
                                       device=self.device,
                                       window_slack=self._window_slack)
+        if kv_source is not None:
+            # static cross-attention KV: projected once, not per token
+            self.states = precompute_cross_states(params, cfg, kv_source,
+                                                  self.states)
         # each recurrent layer's state at its init values for one lane (what
-        # _reset_lane restores); None for a KV cache
+        # _reset_lane restores); None for a KV cache or cross K/V
         self._lane_init = [
-            None if "kv" in st else init_block_state(
+            None if "kv" in st or "xk" in st else init_block_state(
                 kind, cfg, 1, serve_cfg.max_seq, serve_cfg.int8_kv,
                 DEFAULT_DTYPE, self.device)
             for kind, st in zip(cfg.block_kinds, self.states)]
@@ -279,7 +308,8 @@ class ServingEngine:
         """Paged KV needs every per-forward state mutation to flow through
         the position-masked page scatter; recurrent-state and
         cross-attention archs keep the dense layout, as in the reference."""
-        if not self.scfg.paged or self.cfg.has_recurrent_state:
+        if (not self.scfg.paged or self.kv_source is not None
+                or self.cfg.has_recurrent_state):
             return False
         return not any(k in ("xattn", "dec") for k in self.cfg.block_pattern)
 
@@ -375,11 +405,15 @@ class ServingEngine:
         KV cache's positions, payload and scales; every leaf of a recurrent
         layer's state (Mamba-2's conv and SSD, mLSTM's C, n and m = -1e30,
         sLSTM's h, c, n = 1 and m) to ``init_block_state``'s one-lane
-        value."""
+        value.  A cross layer's ``xk``/``xv`` keep what init wrote: the
+        lane's ``kv_source`` does not change, so the reference's
+        re-projection at every reset gives the same bits."""
         for st, init in zip(self.states, self._lane_init):
             if init is not None:
                 for k, v in init.items():
                     st[k][lane] = v[0]
+                continue
+            if "kv" not in st:
                 continue
             kv = st["kv"]
             kv["pos_ids"][lane] = -1
@@ -710,7 +744,8 @@ class ServingEngine:
         dev = self.device
         logits, new_states = forward(
             self.params, self.cfg, torch.from_numpy(tok).to(dev, torch.long),
-            torch.from_numpy(pos).to(dev), self.states)
+            torch.from_numpy(pos).to(dev), self.states,
+            kv_source=self.kv_source)
         self.states = (new_states if commit_all else _masked_commit(
             self.states, new_states, torch.from_numpy(mask).to(dev)))
         last = torch.from_numpy(last_idx).to(dev)

@@ -61,8 +61,27 @@ def test_scan_sees_the_whole_port():
                  "kernels/ssd_scan.py", "configs/zamba2_2_7b.py",
                  "serve/prng.py", "serve/draft.py", "models/moe.py",
                  "core/costmodel.py", "kernels/autotune.py",
-                 "configs/mixtral_8x7b.py", "configs/qwen2_moe_a2_7b.py"):
+                 "configs/mixtral_8x7b.py", "configs/qwen2_moe_a2_7b.py",
+                 "models/encdec.py", "configs/whisper_small.py",
+                 "configs/llama_3_2_vision_90b.py"):
         assert need in files
+
+
+def _exported(init: Path) -> set[str]:
+    """The names a package's ``__init__.py`` imports (AST only: the
+    reference's package is not imported)."""
+    return {a.asname or a.name
+            for node in ast.walk(ast.parse(init.read_text()))
+            if isinstance(node, ast.ImportFrom) for a in node.names}
+
+
+@pytest.mark.parametrize("pkg", ["models", "serve"])
+def test_packages_export_what_the_references_export(pkg):
+    import importlib
+    mod = importlib.import_module(f"repro_torch.{pkg}")
+    want = _exported(ROOT / "src" / "repro" / pkg / "__init__.py")
+    assert want and not {n for n in want if not hasattr(mod, n)}
+    assert want <= set(mod.__all__)
 
 
 @pytest.fixture
