@@ -213,6 +213,23 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    torch.profiler; each profile reports the device ms of the tensor-core
    GEMMs, flash_attention, both decode attentions, the norm and quantize
    kernels, int8_flash_attention and ssd_scan (``PROFILED_KERNELS``).
+7. train (``train_phase``): B12 and the bf16 B4 under their
+   ``torch.autograd.Function``s at the training shapes (B12 at
+   starcoder2-3b's and codeqwen1.5-7b's heads, B 4, T 1024; B4 at [4096,
+   4096] x 2 [4096, 13440], SiLU): the forward within each kernel's
+   tolerance, the input gradients ``torch.equal`` to autograd of the plain
+   version, forward + backward timed beside the plain version's and, as
+   yardsticks only, SDPA's and two ``matmul``s'; one backward of the
+   reduced starcoder2-3b and codeqwen1.5-7b on the card against the CPU in
+   the card's order (``GRAD_REL_L2``, the CPU tests' bound) and the CPU's
+   own ``_sdpa`` order (``REDUCED_TOL``); ``Trainer.run`` of full-width
+   starcoder2-3b (30 layers) and codeqwen1.5-7b cut to 8 layers, remat on,
+   8 steps of 4 x 1024 ``TokenPipeline`` tokens each: step ms, trained
+   tok/s, peak GiB, every loss and gradient norm finite and the last loss
+   below the first, 2 x n_layers B12 (and B4) launches a step and nothing
+   else, one more step under the profiler (forward, backward and optimizer
+   spans, the kernels' and the idle shares); a reduced checkpoint saved and
+   restored on the card bit for bit.
 
 The last three lines of standard output are the kernels JSON (each kernel
 timed at the M = 8 shape the main path, codeqwen1.5-7b w4a8, gives it, or
@@ -242,6 +259,9 @@ codeqwen1.5-7b and zamba2-2.7b, timed and then under the profiler
 runs only codeqwen1.5-7b's, starcoder2-3b's and zamba2-2.7b's W8A8
 ``lm_loss`` on 4 x 1024 tokens, timed and then under the profiler
 (``lm_only``), likewise.
+
+``--train-only`` builds only flash_attention and dual_gemm_gated and runs
+only phase 7 (``train_phase``), printing its summary and no ok line.
 
 ``--xlstm-only`` builds and then runs only xlstm-350m's tokenwise drains and
 its ``lm_loss`` at bf16, W8A8 and W4A8 without the profiler
@@ -4441,7 +4461,7 @@ def serve_only(dev, seed) -> dict:
     out = {}
     for (label, arch, precision, n_req, max_new, _, must,
          _) in SERVE_PATHS[:2]:
-        log(f"[5/6] serve full-width {label} int8-KV: {n_req} requests x "
+        log(f"[5/7] serve full-width {label} int8-KV: {n_req} requests x "
             f"{max_new} new tokens")
         srv = out[label] = serve_full(dev, seed, arch, precision, n_req,
                                       max_new, True, must,
@@ -4835,6 +4855,379 @@ def int_library_entry(dev, seed) -> dict:
 # ``int8_attention_stream_kernel`` of trees before PR 21: never
 # flash_attention's) and ssd_scan (its four ``ssd_scan_*`` kernels, and the
 # ``ssd_scan_kernel`` of trees before PR 21)
+# ---------------------------------------------------------------------------
+# phase 7: training (the bf16 path under autograd)
+# ---------------------------------------------------------------------------
+
+# B12 under its Function at the full-width training shapes (B = 4, T = 1024)
+TRAIN_ATTN = (("starcoder", 24, 2, 128), ("codeqwen", 32, 32, 128))
+# the per-leaf bound of the CPU tests (tests/test_torch_train.py GRAD_REL_L2)
+GRAD_REL_L2 = 0.03
+TRAIN_REDUCED = ("starcoder2-3b", "codeqwen1.5-7b")
+# (arch, layers kept): starcoder2-3b whole; codeqwen1.5-7b at full width
+# cut to 8 layers (2.6 B parameters: f32 weights, gradients and two moments
+# fit on one 80 GB card)
+TRAIN_PATHS = (("starcoder2-3b", None), ("codeqwen1.5-7b", 8))
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 4, 1024, 8
+# the peak learning rate of the 8-step runs (warmup 2, cosine to 0.1x): at
+# 3e-4 Adam's first sign-like steps throw a random full-width model's loss
+# from ~11-12.5 to 21-28 and codeqwen-8L ended above its first loss (12.70
+# against 12.52); at 3e-5 both still spike at step 1 and end 2.6-2.8 below
+# it (scripts/train_lr_sweep.py; PERF.md §6)
+TRAIN_LR = 3e-5
+TRAIN_KERNELS = ("flash_attention", "dual_gemm_gated")
+
+
+def grads_equal(kernel: str, what: str, got, want) -> None:
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"{kernel} {what}: input {i}'s gradient differs from "
+                f"autograd of the plain version by {max_err(a, b)}")
+
+
+def check_train_kernels(dev, gen, timer, record, randn) -> dict:
+    """B12 and the bf16 B4 under their ``torch.autograd.Function``s at the
+    training shapes: the forward within each kernel's tolerance of its plain
+    version, the input gradients (one upstream gradient) ``torch.equal`` to
+    autograd of the plain version; forward + backward timed beside the plain
+    version's and, as yardsticks only (never on the path), SDPA's and two
+    ``torch.matmul``'s forward + backward.  Bound: each input, output and
+    gradient byte once; operations: the forward's two products and the
+    backward's four (12 x pairs x D per head for attention, 12 M N K for the
+    gated MLP) at the bf16 rate.  Returns each case's forward, backward
+    (forward + backward less forward) and plain backward ms."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (
+        ATOL as FA_ATOL, RTOL as FA_RTOL, flash_attention_ref)
+    from repro_torch.kernels.int8_gemm import (
+        DUAL_BF16_ATOL, DUAL_BF16_RTOL, gated_mlp_ref)
+    out_ms = {}
+    b, t = TRAIN_B, TRAIN_T
+    pairs = t * (t + 1) // 2
+
+    def fwd_bwd(fn, ins, dout):
+        leaves = [x.detach().requires_grad_() for x in ins]
+        return torch.autograd.grad(fn(*leaves), leaves, dout)
+
+    def case(kernel, label, run, plain, lib, ins, dout, tol, nbytes, nops,
+             note):
+        out, ref = run(*ins), plain(*ins)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        if not (torch.isfinite(out).all() and bool(
+                (err <= tol[1] + tol[0] * ref.float().abs()).all())):
+            raise AssertionError(f"{kernel} {label}: forward beyond rtol="
+                                 f"{tol[0]} atol={tol[1]}")
+        del out, ref
+        grads_equal(kernel, label, fwd_bwd(run, ins, dout),
+                    fwd_bwd(plain, ins, dout))
+        fwd = timer(lambda: run(*ins))
+        ms = timer(lambda: fwd_bwd(run, ins, dout), iters=5, warmup=1)
+        plain_ms = timer(lambda: fwd_bwd(plain, ins, dout), iters=3,
+                         warmup=1)
+        plain_fwd = timer(lambda: plain(*ins), iters=3, warmup=1)
+        record(kernel, f"train fwd+bwd {label}", float(err.max()), False,
+               ms, plain_ms, timer(lambda: fwd_bwd(lib, ins, dout), iters=5,
+                                   warmup=1),
+               bound(nbytes, nops, BF16_OPS), lib_note=note)
+        out_ms[f"{kernel} {label}"] = {
+            "forward_ms": fwd, "backward_ms": ms - fwd,
+            "plain_backward_ms": plain_ms - plain_fwd}
+        log(f"    forward {fwd:.4f} ms, backward (plain version's autograd) "
+            f"{ms - fwd:.4f} ms; the plain forward + backward's backward "
+            f"{plain_ms - plain_fwd:.4f} ms")
+
+    for label, h, hkv, d in TRAIN_ATTN:
+        ins = [randn(b, n, t, d).to(torch.bfloat16) for n in (h, hkv, hkv)]
+        dout = randn(b, h, t, d).to(torch.bfloat16)
+
+        def sdpa(q, k, v, g=h // hkv):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
+                is_causal=True)
+        size = sum(x.numel() for x in ins) + dout.numel()
+        case("flash_attention", f"{label} B={b} T={t} H={h} Hkv={hkv} D={d}",
+             lambda q, k, v: ops.attention(q, k, v),
+             lambda q, k, v: flash_attention_ref(q, k, v), sdpa, ins, dout,
+             (FA_RTOL, FA_ATOL), 2 * 2 * (size + dout.numel()),
+             12 * b * h * pairs * d, "SDPA forward + backward over K/V "
+             "repeated to every head (the plain version's gradients, not the "
+             "port's)")
+        del ins, dout
+    m, k, n = TRAIN_B * TRAIN_T, GATED_K, GATED_N
+    ins = [randn(m, k).to(torch.bfloat16)] + [
+        randn(k, n, scale=k ** -0.5).to(torch.bfloat16) for _ in range(2)]
+    dout = randn(m, n).to(torch.bfloat16)
+    case("dual_gemm_gated", f"bf16 [{m},{k}]x2[{k},{n}] silu",
+         lambda x, u, g: ops.gated_mlp(x, u, g, "silu"),
+         lambda x, u, g: gated_mlp_ref(x, u, g, "silu"),
+         lambda x, u, g: x @ u + x @ g, ins, dout,
+         (DUAL_BF16_RTOL, DUAL_BF16_ATOL),
+         2 * 2 * (2 * m * k + 4 * k * n + 2 * m * n), 12 * m * n * k,
+         "two torch.matmul forward + backward, no activation: not the same "
+         "function")
+    return out_ms
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / a.norm().clamp(min=1e-30))
+
+
+def check_train_reduced(dev, seed) -> dict:
+    """One backward of starcoder2-3b- and codeqwen1.5-7b-reduced's loss
+    (2 x 32 tokens) from one weight set (made on the CPU, converted to the
+    reference's layout and back onto each device): on the card (B12 and the
+    bf16 B4 under their Functions, one launch a layer: reduced configs have
+    remat off) against the CPU in the card's order (``card_order``: the
+    no-cache attention through flash_attention's plain version) — the loss
+    within ``CARD_ORDER_TOL`` (relative), every leaf's gradient within the
+    CPU tests' ``GRAD_REL_L2`` (relative L2) — and against the CPU's own
+    path (``_sdpa``, probabilities rounded to bf16 before P@V: C3) within
+    phase 4's ``REDUCED_TOL``, as phase 4 holds logits (both reported)."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import from_reference, to_reference
+    from repro_torch.kernels import ops
+    from repro_torch.models import forward, init_params, xent_loss
+    res = {}
+    for arch in TRAIN_REDUCED:
+        cfg = get_config(arch, reduced=True)
+        tree = to_reference(init_params(cfg, seed=seed, device="cpu"), cfg)
+        rng = np.random.default_rng(seed)
+        tok, lab = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)))
+                    for _ in range(2))
+        out = {}
+        for name, where, order in (("cpu", "cpu", False),
+                                   ("order", "cpu", True),
+                                   ("card", dev, False)):
+            m = from_reference(tree, cfg, where)
+            for p in m.parameters():
+                p.requires_grad_(True)
+            named = dict(m.named_parameters())
+            ops.reset_launch_counts()
+            lg, _ = forward(m, cfg, tok.to(where), card_order=order)
+            loss = xent_loss(lg, lab.to(where))
+            grads = torch.autograd.grad(loss, list(named.values()))
+            out[name] = (float(loss.detach()), dict(zip(named, grads)),
+                         ops.launch_counts())
+        counts = out["card"][2]
+        want = {"flash_attention": cfg.n_layers,
+                "dual_gemm_gated": cfg.n_layers if cfg.activation == "silu"
+                else 0}
+        if any(counts[k2] != v for k2, v in want.items()) or sum(
+                counts.values()) != sum(want.values()):
+            raise AssertionError(f"{arch}-reduced backward: launches "
+                                 f"{counts}, want {want} and nothing else")
+        lg_ = out["card"][0]
+        r = res[arch] = {"loss_card": lg_, "launches": want}
+        for name, limit in (("order", GRAD_REL_L2), ("cpu", REDUCED_TOL)):
+            lc, gc_, _ = out[name]
+            worst = max((rel_l2(gc_[k2], out["card"][1][k2]), k2)
+                        for k2 in gc_)
+            log(f"  {arch}-reduced vs the CPU"
+                f"{' in the card order' if name == 'order' else ''}: loss "
+                f"{lc:.6f} / card {lg_:.6f}; worst leaf gradient {worst[1]} "
+                f"at {worst[0]:.4f} relative L2 (limit {limit})")
+            if not (np.isfinite(lg_)
+                    and abs(lg_ - lc) <= CARD_ORDER_TOL * abs(lc)):
+                raise AssertionError(f"{arch}-reduced loss: card {lg_} vs "
+                                     f"{name} {lc}")
+            if not worst[0] <= limit:
+                raise AssertionError(f"{arch}-reduced gradient of {worst[1]}:"
+                                     f" {worst[0]:.4f} relative L2 from the "
+                                     f"{name} CPU run's")
+            r.update({f"loss_{name}": lc, f"worst_leaf_{name}": worst[1],
+                      f"worst_rel_l2_{name}": worst[0]})
+        log(f"  launches {want}")
+    return res
+
+
+def profile_train_step(tr, batch) -> dict:
+    """One more step of ``tr`` written out as the trainer runs it (the
+    loss, ``torch.autograd.grad``, the in-place AdamW) under torch.profiler,
+    CUDA events between the three: each phase's device span, B12's and
+    B4's kernel time (half of it the remat recompute in the backward), the
+    device's busy and idle shares of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.convert import reference_ndims
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.trainer import make_loss_fn, trained_params
+    named = trained_params(tr.params)
+    loss_fn = make_loss_fn(tr.cfg, tr.train_cfg)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ev[0].record()
+        loss = loss_fn(tr.params, batch)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, list(named.values()))
+        ev[2].record()
+        _, tr.opt_state, _ = adamw_update(
+            tr.train_cfg.optimizer, named, dict(zip(named, grads)),
+            tr.opt_state, reference_ndims(tr.params, tr.cfg))
+        ev[3].record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    del grads
+    res = profile_summary(prof, wall)
+    fwd, bwd, opt = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+    kern = sum(res["kernel_ms"][k] for k in TRAIN_KERNELS)
+    res.update(forward_ms=fwd, backward_ms=bwd, optimizer_ms=opt,
+               shares={"kernels_forward": kern / 2 / wall,
+                       "kernels_recompute": kern / 2 / wall,
+                       "backward_less_kernels": (bwd - kern / 2) / wall,
+                       "optimizer": opt / wall,
+                       "idle": 1 - res["device_busy_ms"] / wall})
+    return res
+
+
+def train_full(dev, seed, arch: str, n_layers) -> dict:
+    """``Trainer.run`` of ``arch`` at full width (``n_layers`` cut where
+    given), remat on, on ``TokenPipeline`` batches of TRAIN_B x TRAIN_T,
+    AdamW(lr TRAIN_LR, warmup 2, 8 total steps), TRAIN_STEPS steps one
+    ``run`` call each (the launch counts zeroed before and read after
+    each): every loss and gradient norm finite, the last loss below the
+    first, B12 (and B4 where the MLP is gated) launched 2 x n_layers a step
+    — the forward and the remat recompute; the backward launches none —
+    and nothing else; then one step under the profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline, batch_for_step
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, TrainConfig, Trainer
+    from repro_torch.train.trainer import to_device
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if not cfg.remat:
+        raise AssertionError(f"{arch}: remat is off")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    tr = Trainer(cfg, TrainConfig(
+        optimizer=AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                              total_steps=TRAIN_STEPS),
+        log_every=1, checkpoint_every=10 ** 9), params, device=dev)
+    init_s = time.perf_counter() - t0
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_T,
+                      global_batch=TRAIN_B, seed=seed)
+    data = TokenPipeline(dcfg)
+    steps = []
+    try:
+        for _ in range(TRAIN_STEPS):
+            ops.reset_launch_counts()
+            h = tr.run(data, 1, log_fn=lambda s: log("    " + s))[-1]
+            steps.append(dict(h, launches=ops.launch_counts()))
+    finally:
+        data.close()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "dual_gemm_gated": 2 * cfg.n_layers if cfg.activation == "silu"
+            else 0}
+    for s in steps:
+        if any(s["launches"][k] != v for k, v in want.items()) or sum(
+                s["launches"].values()) != sum(want.values()):
+            raise AssertionError(f"{arch} train step {s['step']}: launches "
+                                 f"{s['launches']}, want {want} and nothing "
+                                 f"else")
+    losses = [s["loss"] for s in steps]
+    if not (all(np.isfinite(losses)) and all(
+            np.isfinite(s["grad_norm"]) for s in steps)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"{arch} training: losses {losses}, grad norms "
+                             f"{[s['grad_norm'] for s in steps]}")
+    step_ms = float(np.median([s["dt"] for s in steps[2:]])) * 1e3
+    profile = profile_train_step(tr, to_device(
+        batch_for_step(dcfg, TRAIN_STEPS), dev))
+    res = {"n_layers": cfg.n_layers, "params": n_params, "init_s": init_s,
+           "losses": losses, "grad_norms": [s["grad_norm"] for s in steps],
+           "step_ms_all": [s["dt"] * 1e3 for s in steps],
+           "step_ms": step_ms,
+           "tok_per_s": TRAIN_B * TRAIN_T / step_ms * 1e3,
+           "peak_mem_gib": peak, "launches_per_step": want,
+           "launches": {k: sum(s["launches"][k] for s in steps)
+                        for k in steps[0]["launches"]},
+           "profile": {"train step": profile}}
+    del tr, params
+    return res
+
+
+def check_train_ckpt(dev, seed) -> dict:
+    """A reduced codeqwen trained 2 steps on the card, saved, restored onto
+    the card: parameters and both moments bit-equal."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import init_params
+    from repro_torch.train import (AdamWConfig, CheckpointManager,
+                                   TrainConfig, Trainer)
+    cfg = get_config("codeqwen1.5-7b", reduced=True)
+    with tempfile.TemporaryDirectory() as d:
+        ck = CheckpointManager(d)
+        tr = Trainer(cfg, TrainConfig(optimizer=AdamWConfig(
+            lr=1e-3, warmup_steps=1, total_steps=4), log_every=1000),
+            init_params(cfg, seed=seed, device=dev), ckpt_manager=ck,
+            device=dev)
+        data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                        global_batch=4, seed=seed))
+        tr.run(data, 2, log_fn=lambda s: None)
+        data.close()
+        named, opt, meta = ck.restore(ck.latest_step(), tr.named,
+                                      tr.opt_state, device=dev)
+    for k, p in tr.named.items():
+        if not (named[k].device == p.device and torch.equal(named[k], p)
+                and torch.equal(opt.mu[k], tr.opt_state.mu[k])
+                and torch.equal(opt.nu[k], tr.opt_state.nu[k])):
+            raise AssertionError(f"checkpoint restore on the card: {k} "
+                                 f"differs")
+    if int(opt.step) != 2 or meta["step"] != 2:
+        raise AssertionError(f"checkpoint restore: step {int(opt.step)}")
+    return {"arrays": 3 * len(named), "step": meta["step"]}
+
+
+def train_phase(dev, gen, timer, seed, cases: list) -> dict:
+    """Phase 7: the kernels under autograd (their cases appended to
+    ``cases``), the reduced card-vs-CPU backward, the full-width training
+    runs and the checkpoint on the card."""
+    log("[7/7] B12 and the bf16 B4 under autograd at the training shapes")
+    kern = check_train_kernels(dev, gen, timer, case_recorder(cases),
+                               randn_on(dev, gen))
+    torch.cuda.empty_cache()
+    log("[7/7] reduced loss.backward: card (kernels) vs CPU (plain)")
+    reduced = check_train_reduced(dev, seed)
+    paths = {}
+    for arch, n_layers in TRAIN_PATHS:
+        label = f"{arch}{'' if n_layers is None else f' {n_layers}L'} train"
+        log(f"[7/7] {label}: full width, {TRAIN_STEPS} steps of "
+            f"{TRAIN_B} x {TRAIN_T} tokens, remat on")
+        r = paths[label] = train_full(dev, seed, arch, n_layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        p = r["profile"]["train step"]
+        log(f"  {r['params'] / 1e9:.2f} B parameters, init {r['init_s']:.1f}s;"
+            f" step {r['step_ms']:.1f} ms (median of steps 3-{TRAIN_STEPS}), "
+            f"{r['tok_per_s']:.0f} trained tok/s, peak {r['peak_mem_gib']:.1f}"
+            f" GiB; losses {[round(x, 4) for x in r['losses']]}; launches a "
+            f"step {r['launches_per_step']}")
+        log(f"  profiled step: forward {p['forward_ms']:.1f} ms, backward "
+            f"{p['backward_ms']:.1f} ms, optimizer {p['optimizer_ms']:.1f} ms;"
+            f" shares " + ", ".join(f"{k} {v:.1%}" for k, v in
+                                    p["shares"].items()))
+        log_profile(r)
+    log("[7/7] checkpoint save + restore on the card (reduced codeqwen)")
+    ckpt = check_train_ckpt(dev, seed)
+    log(f"  {ckpt['arrays']} arrays bit-equal after restore at step "
+        f"{ckpt['step']}")
+    return {"kernels": kern, "reduced": reduced, "paths": paths,
+            "checkpoint": ckpt}
+
+
 PROFILED_KERNELS = ("int4_gemm", "flash_attention", "dual_gemm_gated",
                     "dual_int4_gemm_gated", "int8_gemm",
                     "int8_kv_decode_attention", "paged_decode_attention",
@@ -4944,6 +5337,10 @@ def main() -> int:
                     help="build, then only xlstm-350m's tokenwise W8A8 drains "
                     "and its lm_loss at bf16/w8a8/w4a8 (xlstm_only); prints "
                     "their walls and no ok line")
+    ap.add_argument("--train-only", action="store_true",
+                    help="build only flash_attention and dual_gemm_gated, "
+                    "then run only phase 7 (training; train_phase); prints "
+                    "its summary and no ok line")
     ap.add_argument("--kernels", default=None,
                     help="comma-separated kernels among "
                     f"{', '.join(KERNEL_CASES)}: build only these from --src "
@@ -4969,22 +5366,39 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    log(f"[1/6] card: {smi} | torch {torch.__version__} cuda "
+    log(f"[1/7] card: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
     built = build.build_all(*([sorted({src for name in only
                                        for src in KERNEL_CASES[name][1]})]
-                               if only else []))
-    log(f"[2/6] built {len(built)} kernels in {time.perf_counter() - t0:.1f}s")
+                               if only else [TRAIN_KERNELS] if args.train_only
+                               else []))
+    log(f"[2/7] built {len(built)} kernels in {time.perf_counter() - t0:.1f}s")
     for name, info in sorted(built.items()):
         regs = [ln.strip() for ln in info["ptxas"].splitlines()
                 if "registers" in ln or "Compiling entry" in ln
                 or "spill" in ln]
         log(f"  {name}: {info['seconds']:.1f}s; " + " | ".join(regs))
 
+    if args.train_only:
+        cases = []
+        res = train_phase(dev, torch.Generator(device=dev).manual_seed(
+            args.seed), Timer(dev), args.seed, cases)
+        if args.out is not None:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(json.dumps({"card": smi, "cases": cases,
+                                            "train": res}, indent=1))
+        print(json.dumps({"train_only": {
+            label: {k: r[k] for k in ("step_ms", "tok_per_s", "peak_mem_gib",
+                                      "losses")}
+            for label, r in res["paths"].items()},
+            "kernels": res["kernels"]}))
+        print(smi)
+        return 0
+
     if only:
-        log(f"[3/6] {', '.join(only)} vs plain versions on the card "
+        log(f"[3/7] {', '.join(only)} vs plain versions on the card "
             f"({args.src})")
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         cases, timer = [], Timer(dev)
@@ -5068,53 +5482,53 @@ def main() -> int:
         print(smi)
         return 0
 
-    log("[3/6] kernels vs plain versions on the card")
+    log("[3/7] kernels vs plain versions on the card")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     cases = check_kernels(dev, gen, Timer(dev))
     torch.cuda.empty_cache()
 
     worst = {}
     for arch, precision, must in REDUCED_PATHS:
-        log(f"[4/6] {arch}-reduced {precision} int8-KV: CPU plain (and in "
+        log(f"[4/7] {arch}-reduced {precision} int8-KV: CPU plain (and in "
             f"the card's order, seeds {args.seed}..{args.seed + SEEDS - 1}) "
             f"vs CUDA kernels")
         for k in range(SEEDS):
             worst[f"{arch} {precision} seed {args.seed + k}"] = check_reduced(
                 dev, args.seed + k, arch, precision, must, main=k == 0)
-    log("[4/6] zamba2-2.7b-reduced w8a8 int8-KV forward with states "
+    log("[4/7] zamba2-2.7b-reduced w8a8 int8-KV forward with states "
         "(prefill through ssd_scan and the multi-row decode form, then "
         "t = 1 steps): CPU plain vs CUDA kernels")
     for k in range(SEEDS):
         worst[f"zamba2-2.7b w8a8 states seed {args.seed + k}"] = (
             check_reduced_states(dev, args.seed + k, main=k == 0))
-    log("[4/6] xlstm-350m-reduced w8a8: no-cache forward, then forward with "
+    log("[4/7] xlstm-350m-reduced w8a8: no-cache forward, then forward with "
         "states (t = 1 steps): CPU plain vs CUDA kernels")
     for k in range(SEEDS):
         for key, v in check_xlstm_reduced(dev, args.seed + k).items():
             worst[f"xlstm-350m w8a8 {key} seed {args.seed + k}"] = v
-    log("[4/6] whisper-small-reduced w8a8: encode, cross states, decoder "
+    log("[4/7] whisper-small-reduced w8a8: encode, cross states, decoder "
         "steps and encdec_forward: CPU plain (card order) vs CUDA kernels")
     for k in range(SEEDS):
         for key, v in check_whisper_reduced(dev, args.seed + k).items():
             worst[f"whisper-small w8a8 {key} seed {args.seed + k}"] = v
     for precision in ("w4a8", "w8a8"):
-        log(f"[4/6] llama-3.2-vision-90b-reduced {precision} (gates "
+        log(f"[4/7] llama-3.2-vision-90b-reduced {precision} (gates "
             f"{XATTN_GATES}): cross states, steps and the no-cache forward "
             f"with kv_source: CPU plain (card order) vs CUDA kernels")
         for k in range(SEEDS):
             for key, v in check_vision_reduced(dev, args.seed + k,
                                                precision).items():
                 worst[f"{VISION} {precision} {key} seed {args.seed + k}"] = v
-    log("[4/6] codeqwen1.5-7b-reduced w4a8 paged int8 arena: CPU plain vs "
+    log("[4/7] codeqwen1.5-7b-reduced w4a8 paged int8 arena: CPU plain vs "
         "CUDA kernels, paged vs dense on the card")
     worst["codeqwen1.5-7b w4a8 paged"] = check_reduced_paged(dev, args.seed)
     for arch, precision in REDUCED_NO_CACHE:
-        log(f"[4/6] {arch}-reduced {precision} no-cache forward: CPU plain vs "
+        log(f"[4/7] {arch}-reduced {precision} no-cache forward: CPU plain vs "
             f"CUDA kernels")
         worst[f"{arch} {precision} no-cache"] = check_reduced_no_cache(
             dev, args.seed, arch, precision)
     for arch, act in REDUCED_MIXED:
-        log(f"[4/6] {arch}-reduced w8a8 over float weights (integer norms, "
+        log(f"[4/7] {arch}-reduced w8a8 over float weights (integer norms, "
             f"attention and {act}) no-cache forward: CPU plain vs CUDA "
             f"kernels")
         worst[f"{arch} w8a8-float no-cache"] = check_reduced_no_cache(
@@ -5123,7 +5537,7 @@ def main() -> int:
     served = {}
     for (label, arch, precision, n_req, max_new, profiled, must,
          paged) in SERVE_PATHS:
-        log(f"[5/6] serve full-width {label} int8-KV: {n_req} requests x "
+        log(f"[5/7] serve full-width {label} int8-KV: {n_req} requests x "
             f"{max_new} new tokens" + (", then three paged drains" if paged
                                        else ""))
         srv = served[label] = serve_full(dev, args.seed, arch, precision, n_req,
@@ -5182,7 +5596,7 @@ def main() -> int:
                 f"ms wall), key fold {sm['keys_host_ms']:.3f} ms host; "
                 f"{sm['draws_compared']} draws equal to the CPU's")
 
-    log(f"[5/6] serve full-width zamba2-2.7b w8a8 int8-KV tokenwise: "
+    log(f"[5/7] serve full-width zamba2-2.7b w8a8 int8-KV tokenwise: "
         f"{ZAMBA_REQ} requests x {ZAMBA_NEW} new tokens together, "
         f"{ZAMBA_ALONE} of them one at a time")
     for name, drain in serve_zamba2(dev, args.seed).items():
@@ -5193,7 +5607,7 @@ def main() -> int:
         log_profile(drain)
     gc.collect()
     torch.cuda.empty_cache()
-    log("[5/6] zamba2-2.7b-reduced w8a8 served tokenwise: card vs the CPU "
+    log("[5/7] zamba2-2.7b-reduced w8a8 served tokenwise: card vs the CPU "
         "in the card's order")
     zred = serve_zamba2_reduced(dev, args.seed)
     log(f"  {zred['steps_compared']} steps compared, worst "
@@ -5203,7 +5617,7 @@ def main() -> int:
 
     no_cache = {}
     for arch, precision in MOE_PATHS:
-        log(f"[5/6] serve full-width {arch} {precision} int8-KV (built and "
+        log(f"[5/7] serve full-width {arch} {precision} int8-KV (built and "
             f"quantized a block at a time): {MOE_REQ} requests x {MOE_NEW} "
             f"new tokens" + (", then paged, then one request of "
                              f"{LONG_PROMPT} tokens on the ring, unwrapped "
@@ -5233,14 +5647,14 @@ def main() -> int:
             f"{sum(dense['syncs_per_decode_step'].values())} synchronizing "
             f"calls")
         lm = no_cache[f"{arch} {precision} lm_loss"] = res["lm_loss"]
-        log(f"[6/6] full-width {arch} {precision} lm_loss on {MOE_SCORE_B} x "
+        log(f"[6/7] full-width {arch} {precision} lm_loss on {MOE_SCORE_B} x "
             f"{MOE_SCORE_T} tokens: {lm['loss']:.4f} in {lm['wall_s']:.2f}s "
             f"({lm['tok_per_s']:.0f} tok/s), peak {lm['peak_mem_gib']:.1f} "
             f"GiB, {lm['rows_per_expert']} rows per expert; launches "
             f"{lm['launches']}")
         log_profile(lm)
     for arch, precision, paged in GQA_PATHS:
-        log(f"[5/6] serve full-width {arch} {precision} int8-KV (built and "
+        log(f"[5/7] serve full-width {arch} {precision} int8-KV (built and "
             f"quantized a block at a time): {GQA_REQ} requests x {GQA_NEW} "
             f"new tokens" + (", then paged" if paged else ""))
         res = serve_gqa(dev, args.seed, arch, precision, paged)
@@ -5263,12 +5677,12 @@ def main() -> int:
                 f"synchronizing calls")
             log_profile(drain)
         lm = no_cache[f"{arch} {precision} lm_loss"] = res["lm_loss"]
-        log(f"[6/6] full-width {arch} {precision} lm_loss on {SCORE_B} x "
+        log(f"[6/7] full-width {arch} {precision} lm_loss on {SCORE_B} x "
             f"{SCORE_T} tokens: {lm['loss']:.4f} in {lm['wall_s']:.2f}s "
             f"({lm['tok_per_s']:.0f} tok/s), peak {lm['peak_mem_gib']:.1f} "
             f"GiB; launches {lm['launches']}")
         log_profile(lm)
-    log(f"[5/6] serve full-width xlstm-350m w8a8 tokenwise: {XLSTM_REQ} "
+    log(f"[5/7] serve full-width xlstm-350m w8a8 tokenwise: {XLSTM_REQ} "
         f"requests x {XLSTM_NEW} new tokens together, {XLSTM_ALONE} of them "
         f"one at a time in lane 0")
     for name, drain in serve_xlstm(dev, args.seed).items():
@@ -5277,7 +5691,7 @@ def main() -> int:
         log_drain(drain)
         log_extra(drain)
         log_profile(drain)
-    log(f"[6/6] full-width xlstm-350m lm_loss on {SCORE_B} x {SCORE_T} "
+    log(f"[6/7] full-width xlstm-350m lm_loss on {SCORE_B} x {SCORE_T} "
         f"tokens at bf16, w8a8 and w4a8")
     for label, lm in xlstm_loss(dev, args.seed).items():
         no_cache[label] = lm
@@ -5285,7 +5699,7 @@ def main() -> int:
             f"({lm['tok_per_s']:.0f} tok/s), peak {lm['peak_mem_gib']:.1f} "
             f"GiB; launches {lm['launches']}")
         log_profile(lm)
-    log(f"[5/6] serve full-width {WHISPER} w8a8 int8-KV: encode 8 clips, "
+    log(f"[5/7] serve full-width {WHISPER} w8a8 int8-KV: encode 8 clips, "
         f"then {XATTN_REQ} requests x {XATTN_NEW} new tokens with kv_source, "
         f"then again on the reused lanes")
     for name, drain in serve_whisper(dev, args.seed).items():
@@ -5301,14 +5715,14 @@ def main() -> int:
         log_profile(drain)
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"[6/6] full-width {WHISPER} encdec_loss on {SCORE_B} x (1500 frames, "
+    log(f"[6/7] full-width {WHISPER} encdec_loss on {SCORE_B} x (1500 frames, "
         f"{WH_SCORE_T} tokens) at bf16 and w8a8")
     for label, lm in whisper_loss(dev, args.seed).items():
         no_cache[label] = lm
         log(f"  {label}: {lm['loss']:.4f} in {lm['wall_s']:.2f}s, peak "
             f"{lm['peak_mem_gib']:.1f} GiB; launches {lm['launches']}")
         log_profile(lm)
-    log(f"[5/6] serve full-width {VISION} w4a8 int8-KV (built and quantized "
+    log(f"[5/7] serve full-width {VISION} w4a8 int8-KV (built and quantized "
         f"a block at a time): cross K/V of 8 lanes' vision tokens, "
         f"{XATTN_REQ} requests x {XATTN_NEW} new tokens")
     res = serve_vision(dev, args.seed)
@@ -5324,27 +5738,30 @@ def main() -> int:
         f"synchronizing calls")
     log_profile(drain)
     lm = no_cache[f"{VISION} w4a8 lm_loss"] = res["lm_loss"]
-    log(f"[6/6] full-width {VISION} w4a8 lm_loss with kv_source on {SCORE_B} "
+    log(f"[6/7] full-width {VISION} w4a8 lm_loss with kv_source on {SCORE_B} "
         f"x {SCORE_T} tokens: {lm['loss']:.4f} in {lm['wall_s']:.2f}s "
         f"({lm['tok_per_s']:.0f} tok/s), peak {lm['peak_mem_gib']:.1f} GiB; "
         f"launches {lm['launches']}")
     log_profile(lm)
     for arch, precisions, calibrated, long_w8a8 in NO_CACHE_PATHS:
-        log(f"[6/6] full-width {arch} no-cache forward: lm_loss on {NC_B} x "
+        log(f"[6/7] full-width {arch} no-cache forward: lm_loss on {NC_B} x "
             f"{NC_T} tokens at {', '.join(precisions)}"
             + (", after calibrate_ptq" if calibrated else ""))
         no_cache.update(no_cache_full(dev, args.seed, arch, precisions,
                                       calibrated, long_w8a8))
-    log("[6/6] the integer library's entry points (Table II shapes) and "
+    log("[6/7] the integer library's entry points (Table II shapes) and "
         "the ViT-B/16 patch embed")
     no_cache["integer library"] = int_library_entry(dev, args.seed)
     log(f"  launches {no_cache['integer library']['launches']}; patch embed "
         f"{no_cache['integer library']['patch_embed_shape']} equal to the "
         f"CPU's")
-    log("[6/6] ops.softmax_i8 on causal score rows")
+    log("[6/7] ops.softmax_i8 on causal score rows")
     no_cache["ops.softmax_i8"] = softmax_entry(dev, args.seed)
     log(f"  launches {no_cache['ops.softmax_i8']['launches']}, row sums "
         f"{no_cache['ops.softmax_i8']['row_sum_range']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_phase(dev, gen, Timer(dev), args.seed, cases)
 
     # the M = 8 (decode) case of each kernel at the shape each path gives it;
     # a kernel's headline is the slice's main path (codeqwen1.5-7b w4a8) where
@@ -5537,7 +5954,7 @@ def main() -> int:
         return next(c for c in cases if c["kernel"] == name
                     and c["shape"] == shape)
     kernels = []
-    paths = {**served, **no_cache}
+    paths = {**served, **no_cache, **train["paths"]}
     for name in ops.KERNELS:
         by_path = {label: res["launches"][name]
                    for label, res in paths.items()}
@@ -5562,6 +5979,7 @@ def main() -> int:
             "build": {k: v["seconds"] for k, v in built.items()},
             "cases": cases, "reduced_worst_rel": worst, "serve": served,
             "no_cache": no_cache, "zamba2_reduced_served": zred,
+            "train": train,
             "kernels": kernels, "total_s": time.perf_counter() - t_start},
             indent=1))
     log(f"done in {time.perf_counter() - t_start:.1f}s")

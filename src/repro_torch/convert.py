@@ -25,12 +25,16 @@ is ``{"encoder": {"pos_embed", "layers" (the ``enc`` blocks stacked over
 ``n_encoder_layers``), "final_norm"}, "decoder": <the decoder LM's tree>}``
 and converts to an ``EncDec``.
 ``to_reference`` is its inverse (the same numpy tree layout), so a round
-trip reproduces the tree exactly.
+trip reproduces the tree exactly.  ``tree_to_reference`` carries any
+per-parameter tensors (gradients, AdamW moments), keyed by
+``named_parameters`` names, into the same layout.
 
 This module speaks numpy and torch only; the tests hand it the reference's
 arrays.
 """
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -217,7 +221,8 @@ def _attn_leaves(attns: list[Attention], stack) -> dict:
             for k in ("wq", "wk", "wv", "wo")}
     for k in ("bq", "bk", "bv"):
         if getattr(attns[0], k) is not None:
-            attn[k] = stack([getattr(a, k).cpu().numpy() for a in attns])
+            attn[k] = stack([getattr(a, k).detach().cpu().numpy()
+                             for a in attns])
     return attn
 
 
@@ -305,3 +310,34 @@ def to_reference(params: LM | EncDec, cfg: ArchConfig | None = None) -> dict:
     if params.unembed is not None:
         tree["unembed"] = _leaf(params.unembed)
     return tree
+
+
+def tree_to_reference(params: LM | EncDec, named: dict,
+                      cfg: ArchConfig | None = None) -> dict:
+    """``to_reference`` of ``params`` with each float parameter that
+    ``named`` keys by its ``named_parameters`` name replaced by that tensor
+    (a gradient, an optimizer moment): such tensors in the reference's tree
+    layout, leaf for leaf.  ``params`` itself is left unchanged."""
+    clone = copy.deepcopy(params)
+    with torch.no_grad():
+        for name, p in clone.named_parameters():
+            if name in named:
+                p.data = named[name].detach().to(p.device, p.dtype)
+    return to_reference(clone, cfg)
+
+
+def reference_ndims(params: LM, cfg: ArchConfig | None = None) -> dict[str, int]:
+    """The rank each ``named_parameters`` entry of a decoder has as a leaf
+    of the reference's tree: a layer's leaves are stacked over the periods
+    there (one dimension more); the shared block's and the top-level
+    leaves (embed, final norm, head) are not.  The reference's AdamW decays
+    every leaf of rank >= 2 (``_is_matrix``), so a layer's norm scales and
+    biases are decayed and the final norm's are not (ROADMAP.md C19);
+    ``train.optimizer`` takes these ranks to match it."""
+    kinds = ("attn",) * len(params.layers) if cfg is None else cfg.block_kinds
+    out = {}
+    for name, p in params.named_parameters():
+        parts = name.split(".")
+        stacked = parts[0] == "layers" and kinds[int(parts[1])] != "shared_attn"
+        out[name] = p.dim() + stacked
+    return out

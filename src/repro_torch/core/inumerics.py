@@ -1,7 +1,8 @@
 """Integer-only transformer numerics on int32 tensors.
 
-The subset of ``repro.core.inumerics`` that the ported kernels rest on: the
-shift / 16-bit-multiply / shift requantization, the I-BERT integer exp,
+The subset of ``repro.core.inumerics`` that the ported kernels and the
+gradient compression rest on: symmetric quantization and its absmax scale,
+the shift / 16-bit-multiply / shift requantization, the I-BERT integer exp,
 softmax, sigmoid, SiLU and GELU, the Newton integer square root and the integer
 LayerNorm / RMSNorm.  Every
 function is bit-exact against its JAX counterpart (``tests/test_torch_
@@ -17,9 +18,26 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 I32 = torch.int32
+
+
+def quantize(x: torch.Tensor, scale: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """Symmetric quantization: q = clip(round(x / scale)), int32 payload
+    (round half to even, as ``jnp.round``)."""
+    qmax = 2 ** (bits - 1) - 1
+    return torch.clamp(torch.round(x / scale), -qmax - 1, qmax).to(I32)
+
+
+def absmax_scale(x: torch.Tensor, bits: int = 8, dim=None) -> torch.Tensor:
+    """Calibration: scale = absmax / qmax (per-tensor, or per ``dim`` kept)
+    — the constant divisor as its f32 reciprocal product, as jitted."""
+    qmax = 2 ** (bits - 1) - 1
+    amax = x.abs().amax() if dim is None else x.abs().amax(dim, keepdim=True)
+    return torch.clamp(amax, min=1e-8) * float(np.float32(1) / np.float32(qmax))
+
 
 # ---------------------------------------------------------------------------
 # Requantization: int32 accumulator -> int8 via shift + 16-bit multiply

@@ -4,6 +4,12 @@ helpers, and the in-register integer requant (``requant_block``).
 Dispatch rule for every kernel wrapper: a tensor on the CPU takes the
 kernel's plain PyTorch version; a tensor on a CUDA device launches the CUDA
 kernel or raises.  Nothing falls back from the card to the plain version.
+A launch is outside autograd, so on the card a wrapper raises rather than
+launch on an input that requires grad while grad mode is on — except the
+two whose kernels run inside a ``torch.autograd.Function``
+(``GRAD_KERNELS``: flash_attention and the bf16 dual_gemm_gated, whose
+backward is autograd of the plain version).  On the CPU autograd
+differentiates the plain versions directly.
 
 Two behaviours of the JAX reference under ``jax.jit`` on XLA:CPU decide
 bit-exactness, and every plain version and kernel here keeps them:
@@ -18,6 +24,7 @@ bit-exactness, and every plain version and kernel here keeps them:
 from __future__ import annotations
 
 import collections
+import sys
 
 import numpy as np
 import torch
@@ -53,18 +60,51 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def on_cuda(*tensors: torch.Tensor) -> bool:
-    """True if the kernel should launch: every tensor on one CUDA device.
-    CPU tensors take the plain version; anything else raises."""
+# the wrappers whose kernels launch inside a torch.autograd.Function
+GRAD_KERNELS = ("flash_attention", "dual_gemm_gated")
+
+
+def tensor_device(tensors) -> torch.device:
+    """The one device of a kernel's inputs (None entries skipped)."""
     devs = {t.device for t in tensors if t is not None}
     if len(devs) != 1:
         raise ValueError(f"kernel inputs span devices {sorted(map(str, devs))}")
-    (dev,) = devs
+    return next(iter(devs))
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True if the kernel should launch: every tensor on one CUDA device.
+    CPU tensors take the plain version; anything else raises.  On the card,
+    an input that requires grad while grad mode is on raises, naming the
+    kernel (the calling wrapper): the launch would lose its gradient.  The
+    wrappers of ``GRAD_KERNELS`` carry it through their Function."""
+    dev = tensor_device(tensors)
     if dev.type == "cuda":
+        kernel = sys._getframe(1).f_code.co_name
+        if (kernel not in GRAD_KERNELS and torch.is_grad_enabled()
+                and any(t is not None and t.requires_grad for t in tensors)):
+            raise RuntimeError(
+                f"{kernel}: an input requires grad, and the CUDA kernel "
+                f"runs outside autograd — it would drop the gradient (its "
+                f"backward is not ported; run under torch.no_grad, or train "
+                f"this path on the CPU)")
         return True
     if dev.type == "cpu":
         return False
     raise ValueError(f"unsupported device {dev}")
+
+
+def plain_grads(plain, inputs, needs, dout, *args):
+    """autograd's gradients of ``plain(*inputs, *args)`` against ``dout``
+    for the inputs whose ``needs`` is set (None for the others), the plain
+    version recomputed from detached copies of ``inputs``: the backward of
+    a kernel whose TPU original has no backward kernel."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        out = plain(*leaves, *args)
+        want = [t for t in leaves if t.requires_grad]
+        got = iter(torch.autograd.grad(out, want, dout) if want else ())
+    return tuple(next(got) if n else None for n in needs)
 
 
 def rcp32(c: float) -> np.float32:

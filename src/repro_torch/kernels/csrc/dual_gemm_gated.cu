@@ -13,7 +13,10 @@
 // form is ``_dual_kernel``'s float branch: f32 sums, act in f32
 // (g * 1/(1 + exp(-g)), or the erf GELU), one bf16 rounding of act * up; it
 // differs from the unfused plain version (``gated_mlp_ref``, which rounds
-// each GEMM and the activation to bf16) by a few bf16 ulps.
+// each GEMM and the activation to bf16) by a few bf16 ulps.  Gradients (bf16
+// form only): no backward kernel, as the reference has none; the wrapper
+// runs this forward inside a torch.autograd.Function whose backward is
+// autograd of ``gated_mlp_ref`` (``kernels/int8_gemm.py``).
 //
 // Bound on the H100: at decode (M = 8) bytes — [8,4096] x 2 x [4096,13440]
 // reads 110 MB of int8 weights (33 us at 3.35 TB/s) or 220 MB of bf16

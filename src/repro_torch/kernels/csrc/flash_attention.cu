@@ -38,6 +38,11 @@
 //   Q rows and written with 16-byte stores.
 // D is a template argument: any multiple of 16 up to 128 (the QK^T depth
 // steps by 16, the output width by 8).
+// Gradients: no backward kernel.  The reference has none (it trains
+// through ``ref.flash_attention_ref`` and XLA's autodiff); the wrapper runs
+// this forward inside a torch.autograd.Function whose backward is autograd
+// of the plain version recomputed from the saved q/k/v
+// (``kernels/flash_attention.py``).
 //
 // Numerics: the bf16 products are exact in f32 and only their summation
 // order differs from the plain version; exp(x) is ``exp2f(x * log2 e)``.

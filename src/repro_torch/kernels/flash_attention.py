@@ -12,6 +12,16 @@ the kernel carries P into P@V as two bf16 terms, so they agree within
 ``|kernel - plain| <= ATOL + RTOL * |plain|``: one bf16 rounding of the
 output (2^-7 relative at most), ATOL for outputs near 0.
 ``flash_attention_tiled_ref`` is the kernel's order in plain PyTorch.
+
+Gradients: on the card the kernel launches inside ``_FlashAttention``, a
+``torch.autograd.Function`` whose forward is the kernel and whose backward
+recomputes the plain version from the saved q/k/v and returns autograd's
+gradients of it (GQA's ``repeat_interleave`` folds dk/dv back over the
+shared heads).  No backward kernel exists: the reference has none — it
+trains through ``ref.flash_attention_ref`` and XLA's autodiff of it — so the
+port's backward is the counterpart of that autodiff, and the input
+gradients equal autograd of the plain version bit for bit.  On the CPU
+autograd differentiates the plain version directly.
 """
 from __future__ import annotations
 
@@ -20,7 +30,7 @@ import math
 import torch
 
 from . import build
-from .common import LAUNCHES, check, on_cuda
+from .common import LAUNCHES, check, on_cuda, plain_grads
 
 NEG = -1e30
 RTOL = 2.0 ** -7
@@ -119,11 +129,28 @@ def _launch(q, k, v, causal: bool, scale: float):
     return out
 
 
+class _FlashAttention(torch.autograd.Function):
+    """forward: the CUDA kernel; backward: autograd of the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return _launch(q, k, v, causal, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return plain_grads(flash_attention_ref, ctx.saved_tensors,
+                           ctx.needs_input_grad[:3], dout, ctx.causal,
+                           ctx.scale) + (None, None)
+
+
 def flash_attention(q, k, v, causal: bool = True, scale=None):
     """bf16 attention of q [B,H,S,D] against k/v [B,Hkv,Skv,D] -> [B,H,S,D]:
-    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    the CUDA kernel for CUDA tensors (under ``_FlashAttention``), the plain
+    version for CPU tensors."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if on_cuda(q, k, v):
-        return _launch(q, k, v, causal, scale)
+        return _FlashAttention.apply(q, k, v, causal, scale)
     return flash_attention_ref(q, k, v, causal, scale)

@@ -61,7 +61,12 @@ The plain int32 sums are exact float matmuls: f64 for int8 weights (K*128*128
 < 2^53), f32 per W4 scale group (g*128*8 < 2^24), combined in int32.  The
 bf16 ``dual_gemm_gated`` sums in f32 and applies the float activation in
 f32, so it agrees with its unfused plain version ``gated_mlp_ref`` to a
-tolerance (``DUAL_BF16_RTOL``/``DUAL_BF16_ATOL``), not bit for bit.
+tolerance (``DUAL_BF16_RTOL``/``DUAL_BF16_ATOL``), not bit for bit.  It is
+the one form with a gradient: on the card it launches inside
+``_DualGemmGated``, whose backward is autograd of ``gated_mlp_ref`` (no
+backward kernel: the reference has none).  Every other form, the
+expert-batched bf16 one included, raises on an input that requires grad
+under grad mode (``common.on_cuda``).
 """
 from __future__ import annotations
 
@@ -72,7 +77,7 @@ import torch
 from ..core import inumerics as inum
 from . import build
 from .common import (LAUNCHES, cdiv, check, check_requant, f32, fma_f32,
-                     on_cuda, rcp32)
+                     on_cuda, plain_grads, rcp32)
 from .int_gelu import gelu_consts, gelu_out_scale, int_gelu_ref
 from .int_silu import int_silu_ref, silu_consts, silu_out_scale
 
@@ -675,17 +680,39 @@ def _launch_dual(x, w_up, w_gate, x_scale, up_scale, gate_scale, act,
     return out
 
 
+class _DualGemmGated(torch.autograd.Function):
+    """The bf16 gated MLP hidden: forward the CUDA kernel, backward autograd
+    of ``gated_mlp_ref`` recomputed from the saved inputs.  The reference
+    has no backward kernel (it trains through ``ref.gated_mlp_ref`` and
+    XLA's autodiff), so none is written here; the input gradients equal
+    autograd of the plain version bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x, w_up, w_gate, act):
+        ctx.save_for_backward(x, w_up, w_gate)
+        ctx.act = act
+        return _launch_dual(x[None], w_up[None], w_gate[None], None, None,
+                            None, act, None)[0]
+
+    @staticmethod
+    def backward(ctx, dout):
+        return plain_grads(gated_mlp_ref, ctx.saved_tensors,
+                           ctx.needs_input_grad[:3], dout, ctx.act) + (None,)
+
+
 def dual_gemm_gated(x, w_up, w_gate, x_scale=None, up_scale=None,
                     gate_scale=None, act: str = "silu", act_scale=None,
                     out_dtype=torch.bfloat16):
     """act(x @ w_gate) * (x @ w_up) with both GEMMs fused.  int8 x (W8A8):
     needs the three scales and the static ``act_scale``; bf16 x: float
-    activation.  The CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+    activation, differentiable (``_DualGemmGated`` on the card).  The CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
     _check_gated(x, act, act_scale, out_dtype, (x_scale, up_scale, gate_scale))
     if on_cuda(x, w_up, w_gate, x_scale, up_scale, gate_scale):
         check(x.dim() == 2 and w_up.dim() == 2,
               f"dual GEMM operands: x {tuple(x.shape)}, w {tuple(w_up.shape)}")
+        if x.dtype != torch.int8:
+            return _DualGemmGated.apply(x, w_up, w_gate, act)
         return _launch_dual(x[None], w_up[None], w_gate[None], x_scale,
                             up_scale, gate_scale, act, act_scale)[0]
     if x.dtype == torch.int8:

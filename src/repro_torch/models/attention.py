@@ -30,8 +30,9 @@ reference's TPU path sends such rows to ``_sdpa``, whose probabilities are
 rounded to bf16 before P@V).  Everywhere else (CPU, bf16 cache) the port
 takes the reference's ``jnp``-backend branch: ``_read_cache``/``_read_paged``
 -> ``_sdpa`` in plain PyTorch.  ``card_order=True`` sends int8-cache rows on
-the CPU through the decode kernels' plain versions instead, the card's order
-(a check of the card against the CPU, not the reference's path).
+the CPU through the decode kernels' plain versions instead, and the bf16
+no-cache rows through flash_attention's, the card's order (a check of the
+card against the CPU, not the reference's path).
 
 Without a cache (scoring, ``lm_loss``, calibration) the reference's rule
 holds: an integer mode with no window runs ``_int_attention``
@@ -76,9 +77,10 @@ class Attention(nn.Module):
                  bq=None, bk=None, bv=None):
         super().__init__()
         self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
-        self.register_buffer("bq", bq)
-        self.register_buffer("bk", bk)
-        self.register_buffer("bv", bv)
+        # parameters like every float weight: the reference trains them
+        self.bq, self.bk, self.bv = (
+            None if b is None else nn.Parameter(b, requires_grad=False)
+            for b in (bq, bk, bv))
 
 
 def init_attn_params(gen: torch.Generator, cfg: ArchConfig, device,
@@ -87,15 +89,12 @@ def init_attn_params(gen: torch.Generator, cfg: ArchConfig, device,
     the same weights, as in the reference."""
     d, hd = cfg.d_model, cfg.head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
-    p = Attention(Linear(dense_init(gen, d, nq * hd, device)),
-                  Linear(dense_init(gen, d, nkv * hd, device)),
-                  Linear(dense_init(gen, d, nkv * hd, device)),
-                  Linear(dense_init(gen, nq * hd, d, device)))
-    if cfg.qkv_bias:
-        p.bq = torch.zeros(nq * hd, dtype=F32, device=device)
-        p.bk = torch.zeros(nkv * hd, dtype=F32, device=device)
-        p.bv = torch.zeros(nkv * hd, dtype=F32, device=device)
-    return p
+    bias = ([torch.zeros(n * hd, dtype=F32, device=device)
+             for n in (nq, nkv, nkv)] if cfg.qkv_bias else [None] * 3)
+    return Attention(Linear(dense_init(gen, d, nq * hd, device)),
+                     Linear(dense_init(gen, d, nkv * hd, device)),
+                     Linear(dense_init(gen, d, nkv * hd, device)),
+                     Linear(dense_init(gen, nq * hd, d, device)), *bias)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, int8: bool,
@@ -417,8 +416,8 @@ def attention(params: Attention, x, cfg: ArchConfig, mode: ExecMode,
     """Attention of x (B, T, D) at absolute ``positions`` (B, T), with the
     skip connection ``residual`` (when given) folded into the
     out-projection.  Returns (out, cache); the cache is updated in place.
-    ``card_order``: int8-cache rows take the decode kernels on any device
-    (module note).  ``xq``: x's rows already quantized (the fused norm's),
+    ``card_order``: int8-cache rows take the decode kernels, and bf16
+    no-cache rows flash_attention, on any device (module note).  ``xq``: x's rows already quantized (the fused norm's),
     which q, k and v share.  ``kv_source`` (B, Sv, d) features or
     ``cross_kv`` (their precomputed (xk, xv)) make it cross-attention."""
     b, t, _ = x.shape
@@ -480,7 +479,7 @@ def attention(params: Attention, x, cfg: ArchConfig, mode: ExecMode,
     elif mode.integer and window == 0:
         # no-cache forward (scoring, lm_loss, calibration), integer path
         out = _int_attention(q, k, v)
-    elif q.is_cuda and window == 0 and t % 8 == 0:
+    elif (q.is_cuda or card_order) and window == 0 and t % 8 == 0:
         out = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=True,
                             scale=scale).transpose(1, 2)

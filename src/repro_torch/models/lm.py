@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.common import resolve_device
 from .attention import cache_writes, cross_kv_proj
@@ -133,7 +134,10 @@ def _first_cache(cfg: ArchConfig, states: list):
     return None
 
 
-@torch.no_grad()
+def _tracks_grad(block: nn.Module, x: torch.Tensor) -> bool:
+    return x.requires_grad or any(p.requires_grad for p in block.parameters())
+
+
 def forward(params: LM, cfg: ArchConfig, tokens, positions=None,
             states: list | None = None, logits: bool = True,
             card_order: bool = False, kv_source=None):
@@ -143,7 +147,14 @@ def forward(params: LM, cfg: ArchConfig, tokens, positions=None,
     attention takes the decode kernels on any device, the card's order
     (``attention.attention``).  ``kv_source`` (B, Sv, d): the vision or
     encoder features the cross layers attend to where ``states`` holds no
-    precomputed cross K/V."""
+    precomputed cross K/V.
+
+    Differentiable: with grad enabled and weights that require grad, the
+    no-cache forward builds autograd's graph, and with ``cfg.remat`` each
+    layer runs under ``torch.utils.checkpoint`` (non-reentrant): only its
+    input is kept, and the backward runs the layer again — the reference's
+    ``jax.checkpoint`` over its period body (``nothing_saveable``).  Under
+    ``torch.no_grad`` (serving, calibration) nothing changes."""
     mode = exec_mode(cfg)
     x = embed_lookup(tokens, params.embed, mode.compute_dtype)
     b, t = x.shape[:2]
@@ -153,11 +164,17 @@ def forward(params: LM, cfg: ArchConfig, tokens, positions=None,
     cache = None if states is None else _first_cache(cfg, states)
     writes = None if cache is None else cache_writes(positions, cache)
     new_states = [] if states is not None else None
+    remat = cfg.remat and states is None and torch.is_grad_enabled()
     for i, (kind, block) in enumerate(zip(cfg.block_kinds, params.layers)):
         st = None if states is None else states[i]
-        x, st = block_forward(kind, block, x, cfg, mode, positions, state=st,
-                              writes=writes, card_order=card_order,
-                              kv_source=kv_source)
+        if remat and _tracks_grad(block, x):
+            x, st = checkpoint(block_forward, kind, block, x, cfg, mode,
+                               positions, card_order=card_order,
+                               kv_source=kv_source, use_reentrant=False)
+        else:
+            x, st = block_forward(kind, block, x, cfg, mode, positions,
+                                  state=st, writes=writes,
+                                  card_order=card_order, kv_source=kv_source)
         if new_states is not None:
             new_states.append(st)
     x, xq = apply_norm(x, params.final_norm, cfg, mode)
@@ -181,7 +198,6 @@ def forward(params: LM, cfg: ArchConfig, tokens, positions=None,
 # loss
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
 def lm_loss(params: LM, cfg: ArchConfig, tokens, labels, kv_source=None):
     """Mean next-token cross entropy of the no-cache forward (cross layers
     attending to ``kv_source``) over the positions whose label is >= 0 (a

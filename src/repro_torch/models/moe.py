@@ -21,7 +21,9 @@ once to bf16 (an f32 sum of bf16 products, as XLA:CPU computes the bf16
 einsum; with k = 2 the order cannot matter).  ``_dispatch_combine`` builds
 the reference's dense tensors from the same routing, for the checks.  The
 router and the shared gate are f32 products (``torch.matmul``, TF32 off on
-the card).  ``moe_aux_loss`` is training (ROADMAP.md §A).
+the card).  ``moe_aux_loss`` is the reference's Switch load-balancing loss,
+held against it by the tests; like the reference's trainer, the port's
+trainer adds no aux loss (``repro/train/trainer.py:38-46`` leaves it out).
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from torch import nn
 
 from ..core import costmodel
 from ..kernels import autotune
-from ..kernels.common import f32
+from ..kernels.common import f32, rcp32
 from .config import ArchConfig
 from .layers import ExecMode, Linear, QRows, dense_init
 from .mlp import MLP, expert_ffn, init_mlp_params, mlp
@@ -154,3 +156,22 @@ def moe(params: MoE, x, cfg: ArchConfig, mode: ExecMode,
         out = out + gate.to(x.dtype) * mlp(params.shared, xg, cfg, mode,
                                            xq=sq)
     return out.reshape(b, s_len, d)
+
+
+def moe_aux_loss(params: MoE, x, cfg: ArchConfig) -> torch.Tensor:
+    """Switch-style load-balancing loss of x (B, S, d) under the layer's
+    router (``repro/models/moe.py:126``): E * sum over experts of (the
+    fraction of top-k choices it gets) * (its mean router probability).
+    The top k break ties to the lower expert index (C10); the means divide
+    by a constant, a product with its f32 reciprocal as jitted (C1)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.n_experts_per_tok
+    xf = x.reshape(b * s, d).to(F32)
+    probs = torch.softmax(xf @ params.router.weight.to(F32), dim=-1)
+    idx = torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :k]
+    counts = torch.zeros(e, dtype=F32, device=x.device).index_add_(
+        0, idx.reshape(-1), torch.ones(idx.numel(), dtype=F32,
+                                       device=x.device))
+    frac = counts * f32(rcp32(b * s * k), x.device)
+    imp = probs.sum(0) * f32(rcp32(b * s), x.device)
+    return e * torch.sum(frac * imp)

@@ -181,8 +181,5 @@ def quantized_param_fraction(params: LM) -> float:
             tot += n
     for name, p in params.named_parameters():
         if not name.endswith(".weight") or weight_class(name[:-7]) == "other":
-            tot += p.numel()                  # embed, norms: float
-    for name, b in params.named_buffers():
-        if name.rsplit(".", 1)[-1] in ("bq", "bk", "bv"):
-            tot += b.numel()                  # qkv biases: float
+            tot += p.numel()                  # embed, norms, qkv biases: float
     return q / max(tot, 1)

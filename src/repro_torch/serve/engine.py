@@ -73,7 +73,8 @@ commit would leave it.  Recurrent states (Mamba-2, mLSTM, sLSTM) come back
 as new tensors and are committed under the lane mask (``_masked_commit``);
 a lane admitted anew has every recurrent leaf reset to its init value.
 The pool's clear, copy, swap-out and swap-in actions are in-place updates
-of the arena too.
+of the arena too.  Every forward runs under ``torch.no_grad``, so a model
+whose weights require grad (one that was trained) builds no graph here.
 """
 from __future__ import annotations
 
@@ -121,6 +122,7 @@ class ServeConfig:
     tp_overlap: str = "auto"     # validated only, as the reference at tp=1
 
 
+@torch.no_grad()
 def packed_step(params: LM, cfg: ArchConfig, tokens, positions, states,
                 last_idx=None, kv_source=None):
     """The unified forward: (B, T) rows where each lane carries 1..T valid
@@ -256,8 +258,9 @@ class ServingEngine:
                                       window_slack=self._window_slack)
         if kv_source is not None:
             # static cross-attention KV: projected once, not per token
-            self.states = precompute_cross_states(params, cfg, kv_source,
-                                                  self.states)
+            with torch.no_grad():
+                self.states = precompute_cross_states(params, cfg, kv_source,
+                                                      self.states)
         # each recurrent layer's state at its init values for one lane (what
         # _reset_lane restores); None for a KV cache or cross K/V
         self._lane_init = [
@@ -736,6 +739,7 @@ class ServingEngine:
             left -= plan[lane]
         return plan
 
+    @torch.no_grad()
     def _forward(self, tok, pos, last_idx, mask, commit_all: bool,
                  verify_rows: int) -> torch.Tensor:
         """One forward over (B, T) host arrays; commits the new states (all

@@ -63,7 +63,10 @@ def test_scan_sees_the_whole_port():
                  "core/costmodel.py", "kernels/autotune.py",
                  "configs/mixtral_8x7b.py", "configs/qwen2_moe_a2_7b.py",
                  "models/encdec.py", "configs/whisper_small.py",
-                 "configs/llama_3_2_vision_90b.py"):
+                 "configs/llama_3_2_vision_90b.py", "train/trainer.py",
+                 "train/optimizer.py", "train/checkpoint.py",
+                 "data/pipeline.py", "dist/compression.py",
+                 "launch/train.py"):
         assert need in files
 
 
@@ -75,7 +78,7 @@ def _exported(init: Path) -> set[str]:
             if isinstance(node, ast.ImportFrom) for a in node.names}
 
 
-@pytest.mark.parametrize("pkg", ["models", "serve"])
+@pytest.mark.parametrize("pkg", ["models", "serve", "train", "data"])
 def test_packages_export_what_the_references_export(pkg):
     import importlib
     mod = importlib.import_module(f"repro_torch.{pkg}")
@@ -511,3 +514,138 @@ def test_expert_batched_entries():
         for entry in entries:
             assert f"{entry}(int experts," in text
         assert f"{name}.experts" in ops.FORMS
+
+
+# ---------------------------------------------------------------------------
+# gradients: the two kernels under autograd, and no silent detach elsewhere
+# ---------------------------------------------------------------------------
+
+def _grad_kernel(which):
+    """(module, the name its launch goes by, a fake launch computing the
+    plain version and counting, inputs, the plain version of the call)."""
+    from repro_torch.kernels import common
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int8_gemm as ig
+    gen = torch.Generator().manual_seed(which)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen).to(torch.bfloat16)
+    if which == 0:
+        def launch(q, k, v, causal, scale):
+            common.LAUNCHES["flash_attention"] += 1
+            return fa.flash_attention_ref(q, k, v, causal, scale)
+        ins = [rand(2, 4, 16, 16), rand(2, 2, 16, 16), rand(2, 2, 16, 16)]
+        return (fa, "_launch", launch, ins, lambda *a: ops.attention(*a),
+                lambda *a: fa.flash_attention_ref(*a), "flash_attention")
+
+    def launch_dual(x, w_up, w_gate, xs, us, gs, act, act_scale):
+        common.LAUNCHES["dual_gemm_gated"] += 1
+        return ig.gated_mlp_ref(x[0], w_up[0], w_gate[0], act)[None]
+    ins = [rand(24, 32), rand(32, 48), rand(32, 48)]
+    return (ig, "_launch_dual", launch_dual, ins,
+            lambda *a: ops.gated_mlp(*a, "silu"),
+            lambda *a: ig.gated_mlp_ref(*a, "silu"), "dual_gemm_gated")
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["flash_attention",
+                                             "dual_gemm_gated_bf16"])
+def test_grad_kernels_launch_once_and_backward_is_plain(monkeypatch, which):
+    """With the tensors taken for CUDA ones and the launch replaced by the
+    plain version, the Function launches once in the forward and never in
+    the backward, and its input gradients equal autograd of the plain
+    version bit for bit."""
+    mod, name, launch, ins, call, plain, kernel = _grad_kernel(which)
+    monkeypatch.setattr(mod, "on_cuda", lambda *a: True)
+    monkeypatch.setattr(mod, name, launch)
+    leaves = [t.clone().requires_grad_() for t in ins]
+    ops.reset_launch_counts()
+    out = call(*leaves)
+    assert ops.launch_counts()[kernel] == 1
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(9)
+                       ).to(out.dtype)
+    got = torch.autograd.grad(out, leaves, dout)
+    assert ops.launch_counts()[kernel] == 1
+    ref_leaves = [t.clone().requires_grad_() for t in ins]
+    want = torch.autograd.grad(plain(*ref_leaves), ref_leaves, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # a leaf that needs no gradient gets none
+    leaves[1].requires_grad_(False)
+    assert torch.autograd.grad(call(*leaves), leaves[0], dout)[0] is not None
+
+
+def _grad_refusals():
+    """kernel -> a call of its wrapper whose float inputs pass through
+    ``g`` (requantize_i32 takes int32 payloads only: nothing of it can
+    require grad)."""
+    from repro_torch.core.inumerics import RequantParams
+    i8 = torch.zeros((4, 8), dtype=torch.int8)
+    bf = torch.zeros((2, 4, 8), dtype=torch.bfloat16)
+    x, dt, a = torch.zeros(1, 128, 2, 64), torch.ones(1, 128, 2), -torch.ones(2)
+    bm = torch.zeros(1, 128, 16)
+    return {"ssd_scan": lambda g: ops.ssd_scan(g(x), dt, a, bm, bm),
+            "dual_gemm_gated_experts": lambda g: ops.gated_mlp_experts(
+                g(bf), bf.transpose(1, 2).contiguous(),
+                bf.transpose(1, 2).contiguous()),
+            "quantize_rows": lambda g: ops.quant_rows(g(bf[0])),
+            "int8_gemm": lambda g: ops.gemm_w8a8(
+                i8, g(torch.ones(4, 1)), i8.T.contiguous(), torch.ones(4)),
+            "int_layernorm_rows": lambda g: ops.norm_quant_rows(
+                g(bf[0]), torch.ones(8, dtype=torch.int32),
+                torch.zeros(8, dtype=torch.int32), torch.tensor(1.0)),
+            "requantize_i32": lambda g: ops.requant(
+                torch.zeros(4, 8, dtype=torch.int32),
+                RequantParams(s1=2, mult=9000, s2=14))}
+
+
+@pytest.mark.parametrize("kernel", list(_grad_refusals()))
+def test_other_kernels_refuse_inputs_that_require_grad(monkeypatch, kernel):
+    """On the card (the inputs' device taken for CUDA) every wrapper but the
+    two Functions' raises, naming the kernel, on an input that requires
+    grad while grad mode is on — the launch would drop the gradient; under
+    ``torch.no_grad``, or with no input that requires grad, it goes to its
+    kernel (the build, which raises)."""
+    from repro_torch.kernels import common
+    call = _grad_refusals()[kernel]
+    monkeypatch.setattr(common, "tensor_device",
+                        lambda t: torch.device("cuda", 0))
+    _no_build(monkeypatch)
+
+    def req(t):
+        return t.clone().requires_grad_()
+    if kernel != "requantize_i32":
+        with pytest.raises(RuntimeError, match=f"^{kernel}: an input "
+                           f"requires grad"):
+            call(req)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="no nvcc here"):
+        call(req)
+    with pytest.raises(RuntimeError, match="no nvcc here"):
+        call(lambda t: t)
+
+
+def test_grad_kernels_pass_the_check(monkeypatch):
+    """The flash_attention and bf16 dual_gemm_gated wrappers reach their
+    kernels with inputs that require grad (inside their Functions)."""
+    from repro_torch.kernels import common
+    monkeypatch.setattr(common, "tensor_device",
+                        lambda t: torch.device("cuda", 0))
+    _no_build(monkeypatch)
+    for which in (0, 1):
+        *_, ins, call, _, _ = _grad_kernel(which)
+        with pytest.raises(RuntimeError, match="no nvcc here"):
+            call(*[t.requires_grad_() for t in ins])
+
+
+def test_training_entry_points_default_to_the_card(no_cuda, tmp_path):
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import CheckpointManager, TrainConfig, Trainer
+    cfg = get_config("codeqwen1.5-7b", reduced=True)
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, TrainConfig(), params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(["--arch", "codeqwen1.5-7b", "--reduced",
+                           "--steps", "1"])
+    ck = CheckpointManager(str(tmp_path))
+    ck.save(1, {"w": torch.ones(2)}, blocking=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ck.restore(1, {"w": torch.ones(2)})
