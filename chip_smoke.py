@@ -229,7 +229,22 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    below the first, 2 x n_layers B12 (and B4) launches a step and nothing
    else, one more step under the profiler (forward, backward and optimizer
    spans, the kernels' and the idle shares); a reduced checkpoint saved and
-   restored on the card bit for bit.
+   restored on the card bit for bit;
+8. train the other archs (``train_archs_phase``): ssd_scan and the
+   expert-batched bf16 B4 under their Functions (the scan at zamba2-2.7b's
+   B 4, T 1024; the experts at mixtral's and qwen2-moe's widths with the
+   rows a 4 x 1024 forward dispatches), checked and timed as phase 7's; one
+   backward of reduced zamba2-2.7b, mixtral-8x7b, qwen2-moe-a2.7b (seeds
+   without a router near-tie), xlstm-350m, llama-3.2-vision-90b (with
+   ``kv_source``) and whisper-small (its ``encdec_loss``) against the CPU
+   as phase 7's; full-width training, bf16, remat, AdamW at ``TRAIN_LR``:
+   zamba2-2.7b whole, mixtral-8x7b at 2 layers and qwen2-moe-a2.7b at 4
+   (memory), 8 steps of 4 x 1024 tokens, whisper-small whole over 4 x
+   (1500 stub frames, 448 tokens) through ``EncDecTrainer``, xlstm-350m
+   whole over 4 x 256 tokens for 4 steps (time): every loss and gradient
+   norm finite, the last loss below the first (xlstm's reported), every
+   kernel of ``train_counts`` twice a step and nothing else, one step
+   profiled.
 
 The last three lines of standard output are the kernels JSON (each kernel
 timed at the M = 8 shape the main path, codeqwen1.5-7b w4a8, gives it, or
@@ -260,8 +275,9 @@ runs only codeqwen1.5-7b's, starcoder2-3b's and zamba2-2.7b's W8A8
 ``lm_loss`` on 4 x 1024 tokens, timed and then under the profiler
 (``lm_only``), likewise.
 
-``--train-only`` builds only flash_attention and dual_gemm_gated and runs
-only phase 7 (``train_phase``), printing its summary and no ok line.
+``--train-only`` builds only flash_attention, dual_gemm_gated and ssd_scan
+and runs only phases 7 and 8 (``train_phase``, ``train_archs_phase``),
+printing their summary and no ok line.
 
 ``--xlstm-only`` builds and then runs only xlstm-350m's tokenwise drains and
 its ``lm_loss`` at bf16, W8A8 and W4A8 without the profiler
@@ -4086,6 +4102,7 @@ def cross_steps(cpu, gpu, cfg, dev, seed, st_c, st_g, what: str) -> float:
     return worst
 
 
+@torch.no_grad()
 def check_whisper_reduced(dev, seed) -> dict:
     """whisper-small-reduced (multi-head, ``reduced_config``) at W8A8 on the
     CPU (plain versions) and on the card (kernels): ``encode`` of 4 stub
@@ -4197,6 +4214,7 @@ def xattn_step_launches(cfg, per: dict, norms_per_layer: int) -> None:
         "int_layernorm": norms_per_layer * cfg.n_layers + 1})
 
 
+@torch.no_grad()
 def serve_whisper(dev, seed) -> dict:
     """whisper-small W8A8 at full width (random weights from ``seed``, built
     and quantized a block at a time): ``encode`` of 8 stub clips of 1500
@@ -4322,6 +4340,7 @@ def serve_vision(dev, seed) -> dict:
 WH_SCORE_T = 448                         # whisper's decoder context
 
 
+@torch.no_grad()
 def whisper_loss(dev, seed) -> dict:
     """whisper-small's ``encdec_loss`` on 4 clips of 1500 stub frames and
     4 x WH_SCORE_T tokens, at bf16 (float parameters from ``seed``) and
@@ -4405,7 +4424,9 @@ def profile_step(params, cfg, dev, t: int, paged: bool = False) -> dict:
         forward(params, cfg, tok, pos, st)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return profile_summary(prof, wall_ms)
+    res = profile_summary(prof, wall_ms)
+    res["key_averages"] = parsers_agree(prof, res)
+    return res
 
 
 def prefill_attention(dev, seed) -> dict:
@@ -4461,7 +4482,7 @@ def serve_only(dev, seed) -> dict:
     out = {}
     for (label, arch, precision, n_req, max_new, _, must,
          _) in SERVE_PATHS[:2]:
-        log(f"[5/7] serve full-width {label} int8-KV: {n_req} requests x "
+        log(f"[5/8] serve full-width {label} int8-KV: {n_req} requests x "
             f"{max_new} new tokens")
         srv = out[label] = serve_full(dev, seed, arch, precision, n_req,
                                       max_new, True, must,
@@ -4864,18 +4885,27 @@ TRAIN_ATTN = (("starcoder", 24, 2, 128), ("codeqwen", 32, 32, 128))
 # the per-leaf bound of the CPU tests (tests/test_torch_train.py GRAD_REL_L2)
 GRAD_REL_L2 = 0.03
 TRAIN_REDUCED = ("starcoder2-3b", "codeqwen1.5-7b")
-# (arch, layers kept): starcoder2-3b whole; codeqwen1.5-7b at full width
-# cut to 8 layers (2.6 B parameters: f32 weights, gradients and two moments
-# fit on one 80 GB card)
-TRAIN_PATHS = (("starcoder2-3b", None), ("codeqwen1.5-7b", 8))
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 4, 1024, 8
+# (arch, layers kept, batch, tokens, steps, the last loss below the first):
+# starcoder2-3b whole; codeqwen1.5-7b at full width cut to 8 layers (2.6 B
+# parameters: f32 weights, gradients and two moments fit on one 80 GB card)
+TRAIN_PATHS = (("starcoder2-3b", None, TRAIN_B, TRAIN_T, TRAIN_STEPS, True),
+               ("codeqwen1.5-7b", 8, TRAIN_B, TRAIN_T, TRAIN_STEPS, True))
 # the peak learning rate of the 8-step runs (warmup 2, cosine to 0.1x): at
 # 3e-4 Adam's first sign-like steps throw a random full-width model's loss
 # from ~11-12.5 to 21-28 and codeqwen-8L ended above its first loss (12.70
 # against 12.52); at 3e-5 both still spike at step 1 and end 2.6-2.8 below
 # it (scripts/train_lr_sweep.py; PERF.md §6)
 TRAIN_LR = 3e-5
-TRAIN_KERNELS = ("flash_attention", "dual_gemm_gated")
+
+
+def train_kernels() -> tuple[str, ...]:
+    """The kernels that launch inside an autograd Function
+    (``common.GRAD_KERNELS``) by source and profiled name: the
+    expert-batched bf16 B4 is dual_gemm_gated's source and kernel."""
+    from repro_torch.kernels import common
+    return tuple(dict.fromkeys(k.removesuffix("_experts")
+                               for k in common.GRAD_KERNELS))
 
 
 def grads_equal(kernel: str, what: str, got, want) -> None:
@@ -4886,17 +4916,56 @@ def grads_equal(kernel: str, what: str, got, want) -> None:
                 f"autograd of the plain version by {max_err(a, b)}")
 
 
+def fwd_bwd(fn, ins, dout):
+    leaves = [x.detach().requires_grad_() for x in ins]
+    return torch.autograd.grad(fn(*leaves), leaves, dout)
+
+
+def train_case(timer, record, out_ms, kernel, label, run, plain, lib, ins,
+               dout, tol, nbytes, nops, peak, note, want=None):
+    """One kernel under its Function at a training shape: the forward
+    within ``tol`` (rtol, atol) of ``want`` (default: the plain version's
+    output), the input gradients (one upstream gradient ``dout``)
+    ``torch.equal`` to autograd of the plain version; forward + backward
+    timed beside the plain version's and the library's (``lib``, a
+    yardstick only, never on the path; None: no PyTorch call computes it).
+    Adds the case's forward, backward (forward + backward less forward)
+    and plain backward ms to ``out_ms``."""
+    out = run(*ins)
+    ref = plain(*ins) if want is None else want
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    if not (torch.isfinite(out).all() and bool(
+            (err <= tol[1] + tol[0] * ref.float().abs()).all())):
+        raise AssertionError(f"{kernel} {label}: forward beyond rtol="
+                             f"{tol[0]} atol={tol[1]}")
+    del out, ref
+    grads_equal(kernel, label, fwd_bwd(run, ins, dout),
+                fwd_bwd(plain, ins, dout))
+    fwd = timer(lambda: run(*ins))
+    ms = timer(lambda: fwd_bwd(run, ins, dout), iters=5, warmup=1)
+    plain_ms = timer(lambda: fwd_bwd(plain, ins, dout), iters=3, warmup=1)
+    plain_fwd = timer(lambda: plain(*ins), iters=3, warmup=1)
+    lib_ms = (None if lib is None else
+              timer(lambda: fwd_bwd(lib, ins, dout), iters=5, warmup=1))
+    record(kernel, f"train fwd+bwd {label}", float(err.max()), False, ms,
+           plain_ms, lib_ms, bound(nbytes, nops, peak), lib_note=note)
+    out_ms[f"{kernel} {label}"] = {
+        "forward_ms": fwd, "backward_ms": ms - fwd,
+        "plain_backward_ms": plain_ms - plain_fwd}
+    log(f"    forward {fwd:.4f} ms, backward (plain version's autograd) "
+        f"{ms - fwd:.4f} ms; the plain forward + backward's backward "
+        f"{plain_ms - plain_fwd:.4f} ms")
+
+
 def check_train_kernels(dev, gen, timer, record, randn) -> dict:
     """B12 and the bf16 B4 under their ``torch.autograd.Function``s at the
-    training shapes: the forward within each kernel's tolerance of its plain
-    version, the input gradients (one upstream gradient) ``torch.equal`` to
-    autograd of the plain version; forward + backward timed beside the plain
-    version's and, as yardsticks only (never on the path), SDPA's and two
-    ``torch.matmul``'s forward + backward.  Bound: each input, output and
-    gradient byte once; operations: the forward's two products and the
-    backward's four (12 x pairs x D per head for attention, 12 M N K for the
-    gated MLP) at the bf16 rate.  Returns each case's forward, backward
-    (forward + backward less forward) and plain backward ms."""
+    training shapes (``train_case``), with SDPA's and two
+    ``torch.matmul``'s forward + backward as yardsticks.  Bound: each
+    input, output and gradient byte once; operations: the forward's two
+    products and the backward's four (12 x pairs x D per head for
+    attention, 12 M N K for the gated MLP) at the bf16 rate.  Returns each
+    case's forward, backward and plain backward ms."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (
         ATOL as FA_ATOL, RTOL as FA_RTOL, flash_attention_ref)
@@ -4905,39 +4974,6 @@ def check_train_kernels(dev, gen, timer, record, randn) -> dict:
     out_ms = {}
     b, t = TRAIN_B, TRAIN_T
     pairs = t * (t + 1) // 2
-
-    def fwd_bwd(fn, ins, dout):
-        leaves = [x.detach().requires_grad_() for x in ins]
-        return torch.autograd.grad(fn(*leaves), leaves, dout)
-
-    def case(kernel, label, run, plain, lib, ins, dout, tol, nbytes, nops,
-             note):
-        out, ref = run(*ins), plain(*ins)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs()
-        if not (torch.isfinite(out).all() and bool(
-                (err <= tol[1] + tol[0] * ref.float().abs()).all())):
-            raise AssertionError(f"{kernel} {label}: forward beyond rtol="
-                                 f"{tol[0]} atol={tol[1]}")
-        del out, ref
-        grads_equal(kernel, label, fwd_bwd(run, ins, dout),
-                    fwd_bwd(plain, ins, dout))
-        fwd = timer(lambda: run(*ins))
-        ms = timer(lambda: fwd_bwd(run, ins, dout), iters=5, warmup=1)
-        plain_ms = timer(lambda: fwd_bwd(plain, ins, dout), iters=3,
-                         warmup=1)
-        plain_fwd = timer(lambda: plain(*ins), iters=3, warmup=1)
-        record(kernel, f"train fwd+bwd {label}", float(err.max()), False,
-               ms, plain_ms, timer(lambda: fwd_bwd(lib, ins, dout), iters=5,
-                                   warmup=1),
-               bound(nbytes, nops, BF16_OPS), lib_note=note)
-        out_ms[f"{kernel} {label}"] = {
-            "forward_ms": fwd, "backward_ms": ms - fwd,
-            "plain_backward_ms": plain_ms - plain_fwd}
-        log(f"    forward {fwd:.4f} ms, backward (plain version's autograd) "
-            f"{ms - fwd:.4f} ms; the plain forward + backward's backward "
-            f"{plain_ms - plain_fwd:.4f} ms")
-
     for label, h, hkv, d in TRAIN_ATTN:
         ins = [randn(b, n, t, d).to(torch.bfloat16) for n in (h, hkv, hkv)]
         dout = randn(b, h, t, d).to(torch.bfloat16)
@@ -4947,26 +4983,28 @@ def check_train_kernels(dev, gen, timer, record, randn) -> dict:
                 q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
                 is_causal=True)
         size = sum(x.numel() for x in ins) + dout.numel()
-        case("flash_attention", f"{label} B={b} T={t} H={h} Hkv={hkv} D={d}",
-             lambda q, k, v: ops.attention(q, k, v),
-             lambda q, k, v: flash_attention_ref(q, k, v), sdpa, ins, dout,
-             (FA_RTOL, FA_ATOL), 2 * 2 * (size + dout.numel()),
-             12 * b * h * pairs * d, "SDPA forward + backward over K/V "
-             "repeated to every head (the plain version's gradients, not the "
-             "port's)")
+        train_case(timer, record, out_ms, "flash_attention",
+                   f"{label} B={b} T={t} H={h} Hkv={hkv} D={d}",
+                   lambda q, k, v: ops.attention(q, k, v),
+                   lambda q, k, v: flash_attention_ref(q, k, v), sdpa, ins,
+                   dout, (FA_RTOL, FA_ATOL), 2 * 2 * size,
+                   12 * b * h * pairs * d, BF16_OPS,
+                   "SDPA forward + backward over K/V repeated to every "
+                   "head (the plain version's gradients, not the port's)")
         del ins, dout
     m, k, n = TRAIN_B * TRAIN_T, GATED_K, GATED_N
     ins = [randn(m, k).to(torch.bfloat16)] + [
         randn(k, n, scale=k ** -0.5).to(torch.bfloat16) for _ in range(2)]
     dout = randn(m, n).to(torch.bfloat16)
-    case("dual_gemm_gated", f"bf16 [{m},{k}]x2[{k},{n}] silu",
-         lambda x, u, g: ops.gated_mlp(x, u, g, "silu"),
-         lambda x, u, g: gated_mlp_ref(x, u, g, "silu"),
-         lambda x, u, g: x @ u + x @ g, ins, dout,
-         (DUAL_BF16_RTOL, DUAL_BF16_ATOL),
-         2 * 2 * (2 * m * k + 4 * k * n + 2 * m * n), 12 * m * n * k,
-         "two torch.matmul forward + backward, no activation: not the same "
-         "function")
+    train_case(timer, record, out_ms, "dual_gemm_gated",
+               f"bf16 [{m},{k}]x2[{k},{n}] silu",
+               lambda x, u, g: ops.gated_mlp(x, u, g, "silu"),
+               lambda x, u, g: gated_mlp_ref(x, u, g, "silu"),
+               lambda x, u, g: x @ u + x @ g, ins, dout,
+               (DUAL_BF16_RTOL, DUAL_BF16_ATOL),
+               2 * (2 * m * k + 4 * k * n + 2 * m * n), 12 * m * n * k,
+               BF16_OPS, "two torch.matmul forward + backward, no "
+               "activation: not the same function")
     return out_ms
 
 
@@ -4975,57 +5013,191 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / a.norm().clamp(min=1e-30))
 
 
-def check_train_reduced(dev, seed) -> dict:
-    """One backward of starcoder2-3b- and codeqwen1.5-7b-reduced's loss
-    (2 x 32 tokens) from one weight set (made on the CPU, converted to the
-    reference's layout and back onto each device): on the card (B12 and the
-    bf16 B4 under their Functions, one launch a layer: reduced configs have
-    remat off) against the CPU in the card's order (``card_order``: the
-    no-cache attention through flash_attention's plain version) — the loss
-    within ``CARD_ORDER_TOL`` (relative), every leaf's gradient within the
-    CPU tests' ``GRAD_REL_L2`` (relative L2) — and against the CPU's own
-    path (``_sdpa``, probabilities rounded to bf16 before P@V: C3) within
-    phase 4's ``REDUCED_TOL``, as phase 4 holds logits (both reported)."""
+def train_counts(cfg, t: int, enc_t: int = 0) -> dict:
+    """The launches of one bf16 no-cache forward of ``cfg`` over ``t``
+    tokens (an encoder over ``enc_t`` frames): flash_attention once per
+    causal self-attention layer without a window whose rows are a multiple
+    of 8 (attention's rule; cross-attention and windows take ``_sdpa``),
+    ssd_scan once per Mamba-2 layer, the bf16 dual_gemm_gated once per
+    gated MLP (the SwiGLU lineage) and once per MoE layer's experts (the
+    expert-batched form, ``.experts`` too); nothing else."""
+    gated = cfg.activation == "silu"
+    want = collections.Counter()
+    for kind in cfg.block_kinds + ("enc",) * cfg.n_encoder_layers:
+        rows = enc_t if kind == "enc" else t
+        want["flash_attention"] += (kind in ("attn", "moe", "shared_attn",
+                                             "dec", "enc") and rows % 8 == 0)
+        want["ssd_scan"] += kind == "mamba2"
+        if kind in ("moe", "moe_swa"):
+            want["dual_gemm_gated.experts"] += 1
+            want["dual_gemm_gated"] += 1 + (gated and cfg.n_shared_experts > 0)
+        elif kind not in ("mamba2", "mlstm", "slstm"):
+            want["dual_gemm_gated"] += gated
+    return {k: int(v) for k, v in want.items() if v}
+
+
+def check_launches(what: str, got: dict, want: dict, per: int = 1) -> None:
+    """``got`` (``ops.launch_counts(forms=True)``) holds ``want`` x
+    ``per`` and no other launch."""
+    want = {k: v * per for k, v in want.items()}
+    if any(got[k] != want.get(k, 0) for k in got):
+        raise AssertionError(f"{what}: launches "
+                             f"{ {k: v for k, v in got.items() if v} }, "
+                             f"want {want} and nothing else")
+
+
+def routing(run):
+    """``run()`` under a recorder of the MoE routing: (the smallest gap
+    between any token's k-th and (k+1)-th router probabilities over every
+    MoE layer, inf without one; every layer's choices and kept flags, on
+    the host)."""
+    from repro_torch.models import moe as tmoe
+    gaps, choices, route = [], [], tmoe._route
+
+    def recording(probs, k, capacity):
+        top = torch.sort(probs.detach(), dim=-1, descending=True).values
+        gaps.append(float((top[..., k - 1] - top[..., k]).min()))
+        out = route(probs, k, capacity)
+        choices.extend(t.cpu() for t in out[:3])
+        return out
+    tmoe._route = recording
+    try:
+        run()
+    finally:
+        tmoe._route = route
+    return min(gaps, default=float("inf")), choices
+
+
+# a bf16 router near-tie (ROADMAP C12): a gap below this between a token's
+# k-th and (k+1)-th router probabilities flips its top-k on a rounding
+NEAR_TIE = 1e-3
+MOE_SEEDS = 8          # seeds tried for a reduced MoE model without one
+RED_B, RED_T, RED_FRAMES, RED_VIS = 2, 32, 60, 16
+
+
+def reduced_train_loss(m, cfg, tok, lab, feats, order: bool):
+    """The loss a training step differentiates: ``lm_loss`` (with
+    ``kv_source`` for a VLM), or whisper's ``encdec_loss`` written out as
+    ``encode`` then the decoder's ``forward`` (the same ops), so that
+    ``card_order`` reaches the decoder."""
+    from repro_torch.models import encode, forward, xent_loss
+    kv = feats
+    if cfg.is_encoder_decoder:
+        kv, m = encode(m, cfg, feats), m.decoder
+    lg, _ = forward(m, cfg, tok, card_order=order, kv_source=kv)
+    return xent_loss(lg, lab)
+
+
+def reduced_tree(cfg, seed: int):
+    """The reference-layout tree of a reduced model from ``seed`` (made
+    on the CPU; a VLM's gates at ``XATTN_GATES``, one value per element of
+    the stream, RED_B x RED_T x d: the same loss, whose gate gradients are
+    the terms that a scalar gate's gradient sums — a sum that bf16 rounding
+    decides at these inputs, as tests/test_torch_train_archs.py finds) and
+    its inputs: tokens, labels and the stub features (whisper's frames,
+    ``RED_FRAMES``: not a multiple of 8, so the encoder takes ``_sdpa`` on
+    both devices, as 1500 frames do; vision's ``RED_VIS`` tokens) at the
+    stubs' scale."""
+    from repro_torch.convert import to_reference
+    from repro_torch.models import init_encdec_params, init_params
+    if cfg.is_encoder_decoder:
+        m = init_encdec_params(cfg, seed=seed, device="cpu")
+    else:
+        m = init_params(cfg, seed=seed, device="cpu")
+        if cfg.family == "vlm":
+            with torch.no_grad():
+                gate_xattn(m)
+    rng = np.random.default_rng(seed)
+    tok, lab = (torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                              (RED_B, RED_T)))
+                for _ in range(2))
+    n = (RED_FRAMES if cfg.is_encoder_decoder else
+         RED_VIS if cfg.family == "vlm" else 0)
+    feats = (torch.from_numpy((rng.normal(size=(RED_B, n, cfg.d_model))
+                               * 0.02).astype(np.float32)) if n else None)
+    tree = to_reference(m, cfg)
+    for per in tree["periods"] if cfg.family == "vlm" else ():
+        for k in ("gate_attn", "gate_mlp"):
+            if k in per:
+                g = per[k].reshape(-1, 1, 1, 1)
+                per[k] = np.broadcast_to(
+                    g, (len(g), RED_B, RED_T, cfg.d_model)).copy()
+    return tree, (tok, lab, feats)
+
+
+def check_train_reduced(dev, seed, archs=TRAIN_REDUCED) -> dict:
+    """One backward of each reduced arch's training loss
+    (``reduced_train_loss``, 2 x 32 tokens) from one weight set (made on
+    the CPU, converted to the reference's layout and back onto each
+    device): on the card (the kernels under their Functions, one launch a
+    layer: reduced configs have remat off; ``train_counts``) against the
+    CPU in the card's order (``card_order``: the no-cache attention through
+    flash_attention's plain version) — the loss within ``CARD_ORDER_TOL``
+    (relative), every leaf's gradient within the CPU tests'
+    ``GRAD_REL_L2`` (relative L2) — and against the CPU's own path
+    (``_sdpa``, probabilities rounded to bf16 before P@V: C3) within phase
+    4's ``REDUCED_TOL``, as phase 4 holds logits (both reported).  A MoE
+    arch takes the first seed from ``seed`` whose routing has no near-tie
+    (``NEAR_TIE``, C12) on the card or the CPU, and says which and the
+    gaps of each seed it tried; there the card must make the CPU's choices
+    (a flip moves the capacity order of every later token): a flip without
+    a near-tie fails."""
     from repro_torch.configs import get_config
-    from repro_torch.convert import from_reference, to_reference
+    from repro_torch.convert import from_reference
     from repro_torch.kernels import ops
-    from repro_torch.models import forward, init_params, xent_loss
     res = {}
-    for arch in TRAIN_REDUCED:
+    for arch in archs:
         cfg = get_config(arch, reduced=True)
-        tree = to_reference(init_params(cfg, seed=seed, device="cpu"), cfg)
-        rng = np.random.default_rng(seed)
-        tok, lab = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)))
-                    for _ in range(2))
+        gaps = {}                  # seed: the least gaps, card and CPU
+        for s in range(seed, seed + (MOE_SEEDS if cfg.n_experts else 1)):
+            tree, (tok, lab, feats) = reduced_tree(cfg, s)
+            if not cfg.n_experts:
+                break
+            (gap_c, cpu), (gap_g, card) = (routing(
+                lambda: reduced_train_loss(
+                    from_reference(tree, cfg, where), cfg, tok.to(where),
+                    lab.to(where), feats, order))
+                for where, order in (("cpu", True), (dev, False)))
+            gaps[s] = [gap_g, gap_c]
+            log(f"  {arch}-reduced seed {s}: the least top-k gap "
+                f"{gap_g:.6f} on the card, {gap_c:.6f} on the CPU")
+            if min(gap_c, gap_g) < NEAR_TIE:
+                continue
+            if not all(torch.equal(a, b) for a, b in zip(cpu, card)):
+                raise AssertionError(
+                    f"{arch}-reduced seed {s}: the card's routing differs "
+                    f"from the CPU's with no near-tie (least gaps {gap_g} "
+                    f"and {gap_c}, NEAR_TIE {NEAR_TIE})")
+            break
+        else:
+            raise AssertionError(f"{arch}-reduced: a router near-tie at "
+                                 f"every seed {seed}..{s}")
         out = {}
         for name, where, order in (("cpu", "cpu", False),
                                    ("order", "cpu", True),
                                    ("card", dev, False)):
             m = from_reference(tree, cfg, where)
             for p in m.parameters():
-                p.requires_grad_(True)
-            named = dict(m.named_parameters())
+                p.requires_grad_(p.is_floating_point())
+            named = {k: p for k, p in m.named_parameters()
+                     if p.requires_grad}
             ops.reset_launch_counts()
-            lg, _ = forward(m, cfg, tok.to(where), card_order=order)
-            loss = xent_loss(lg, lab.to(where))
+            loss = reduced_train_loss(
+                m, cfg, tok.to(where), lab.to(where),
+                None if feats is None else feats.to(where), order)
             grads = torch.autograd.grad(loss, list(named.values()))
             out[name] = (float(loss.detach()), dict(zip(named, grads)),
-                         ops.launch_counts())
-        counts = out["card"][2]
-        want = {"flash_attention": cfg.n_layers,
-                "dual_gemm_gated": cfg.n_layers if cfg.activation == "silu"
-                else 0}
-        if any(counts[k2] != v for k2, v in want.items()) or sum(
-                counts.values()) != sum(want.values()):
-            raise AssertionError(f"{arch}-reduced backward: launches "
-                                 f"{counts}, want {want} and nothing else")
+                         ops.launch_counts(forms=True))
+        want = train_counts(cfg, RED_T, RED_FRAMES)
+        check_launches(f"{arch}-reduced backward", out["card"][2], want)
         lg_ = out["card"][0]
-        r = res[arch] = {"loss_card": lg_, "launches": want}
+        r = res[arch] = {"seed": s, "router_gaps": gaps, "loss_card": lg_,
+                         "launches": want}
+        card = out["card"][1]
         for name, limit in (("order", GRAD_REL_L2), ("cpu", REDUCED_TOL)):
             lc, gc_, _ = out[name]
-            worst = max((rel_l2(gc_[k2], out["card"][1][k2]), k2)
-                        for k2 in gc_)
-            log(f"  {arch}-reduced vs the CPU"
+            worst = max((rel_l2(g, card[k2]), k2) for k2, g in gc_.items())
+            log(f"  {arch}-reduced (seed {s}) vs the CPU"
                 f"{' in the card order' if name == 'order' else ''}: loss "
                 f"{lc:.6f} / card {lg_:.6f}; worst leaf gradient {worst[1]} "
                 f"at {worst[0]:.4f} relative L2 (limit {limit})")
@@ -5043,23 +5215,22 @@ def check_train_reduced(dev, seed) -> dict:
     return res
 
 
-def profile_train_step(tr, batch) -> dict:
+def profile_train_step(tr, batch, loss_fn) -> dict:
     """One more step of ``tr`` written out as the trainer runs it (the
-    loss, ``torch.autograd.grad``, the in-place AdamW) under torch.profiler,
-    CUDA events between the three: each phase's device span, B12's and
-    B4's kernel time (half of it the remat recompute in the backward), the
-    device's busy and idle shares of the wall time."""
+    loss ``loss_fn(tr.params, batch)``, ``torch.autograd.grad``, the
+    in-place AdamW) under torch.profiler, the device's events only (the
+    host's would multiply an xlstm step's ~400k kernels' events; no
+    synchronizing calls counted), CUDA events between the three: each phase's device span, the
+    Functions' kernel time (half of it the remat recompute in the
+    backward), the device's busy and idle shares of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.convert import reference_ndims
     from repro_torch.train.optimizer import adamw_update
-    from repro_torch.train.trainer import make_loss_fn, trained_params
-    named = trained_params(tr.params)
-    loss_fn = make_loss_fn(tr.cfg, tr.train_cfg)
+    named = tr.named
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         ev[0].record()
         loss = loss_fn(tr.params, batch)
@@ -5073,9 +5244,12 @@ def profile_train_step(tr, batch) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     del grads
+    t0 = time.perf_counter()
     res = profile_summary(prof, wall)
+    res["summary_s"] = time.perf_counter() - t0
+    res["sync_calls"] = None                       # not traced
     fwd, bwd, opt = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
-    kern = sum(res["kernel_ms"][k] for k in TRAIN_KERNELS)
+    kern = sum(res["kernel_ms"][k] for k in train_kernels())
     res.update(forward_ms=fwd, backward_ms=bwd, optimizer_ms=opt,
                shares={"kernels_forward": kern / 2 / wall,
                        "kernels_recompute": kern / 2 / wall,
@@ -5085,21 +5259,83 @@ def profile_train_step(tr, batch) -> dict:
     return res
 
 
-def train_full(dev, seed, arch: str, n_layers) -> dict:
+class EncDecTrainer:
+    """The trainer's step over ``encdec_loss``, written out for whisper
+    (the reference's trainer takes ``lm_loss`` only): a ``TokenPipeline``
+    batch on the card with stub frames from ``seed``, ``value_and_grad``,
+    then the in-place AdamW; ``Trainer``'s attributes and ``run``'s
+    history, so that ``train_full`` and ``profile_train_step`` drive
+    both."""
+
+    def __init__(self, cfg, train_cfg, params, dev, seed: int):
+        from repro_torch.convert import reference_ndims
+        from repro_torch.train.optimizer import init_opt_state
+        from repro_torch.train.trainer import trained_params
+        for p in params.parameters():
+            if p.is_floating_point():
+                p.requires_grad_(True)
+        self.cfg, self.train_cfg, self.params, self.dev = (cfg, train_cfg,
+                                                           params, dev)
+        self.named = trained_params(params)
+        self.opt_state = init_opt_state(self.named)
+        self.ndims = reference_ndims(params, cfg)
+        self.gen = torch.Generator(device=dev).manual_seed(seed)
+        self.step = 0
+
+    def loss_fn(self, params, batch):
+        from repro_torch.models import encdec_loss
+        return encdec_loss(params, self.cfg, batch["frames"],
+                           batch["tokens"], batch["labels"])
+
+    def batch(self, host: dict) -> dict:
+        from repro_torch.models.frontend import audio_frames_stub
+        from repro_torch.train.trainer import to_device
+        b = to_device(host, self.dev)
+        b["frames"] = audio_frames_stub(
+            self.gen, b["tokens"].shape[0], self.cfg.n_audio_frames,
+            self.cfg.d_model, self.dev)
+        return b
+
+    def run(self, data, n_steps: int, log_fn=print) -> list[dict]:
+        from repro_torch.train.optimizer import adamw_update
+        from repro_torch.train.trainer import value_and_grad
+        hist = []
+        for _ in range(n_steps):
+            batch = self.batch(next(data))
+            t0 = time.time()
+            loss, grads = value_and_grad(self.loss_fn, self.params,
+                                         self.named, batch)
+            _, self.opt_state, met = adamw_update(
+                self.train_cfg.optimizer, self.named, grads, self.opt_state,
+                self.ndims)
+            met = {k: float(v) for k, v in dict(met, loss=loss).items()}
+            met.update(step=self.step, dt=time.time() - t0)
+            log_fn(f"step {self.step:5d} loss {met['loss']:.4f} gnorm "
+                   f"{met['grad_norm']:.3f} {met['dt'] * 1e3:.0f} ms")
+            hist.append(met)
+            self.step += 1
+        return hist
+
+
+def train_full(dev, seed, arch: str, n_layers, b: int = TRAIN_B,
+               t: int = TRAIN_T, steps: int = TRAIN_STEPS,
+               falls: bool = True) -> dict:
     """``Trainer.run`` of ``arch`` at full width (``n_layers`` cut where
-    given), remat on, on ``TokenPipeline`` batches of TRAIN_B x TRAIN_T,
-    AdamW(lr TRAIN_LR, warmup 2, 8 total steps), TRAIN_STEPS steps one
+    given; whisper: ``EncDecTrainer`` over ``encdec_loss``, its frames
+    ``n_audio_frames``), remat on, on ``TokenPipeline`` batches of b x t,
+    AdamW(lr TRAIN_LR, warmup 2, ``steps`` total), ``steps`` steps one
     ``run`` call each (the launch counts zeroed before and read after
     each): every loss and gradient norm finite, the last loss below the
-    first, B12 (and B4 where the MLP is gated) launched 2 x n_layers a step
-    — the forward and the remat recompute; the backward launches none —
-    and nothing else; then one step under the profiler."""
+    first (where ``falls``), every kernel of ``train_counts`` launched
+    twice a step — the forward and the remat recompute; the backward
+    launches none — and nothing else; then one step under the profiler
+    (``profile_train_step``)."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, TokenPipeline, batch_for_step
     from repro_torch.kernels import ops
-    from repro_torch.models import init_params
+    from repro_torch.models import init_encdec_params, init_params
     from repro_torch.train import AdamWConfig, TrainConfig, Trainer
-    from repro_torch.train.trainer import to_device
+    from repro_torch.train.trainer import make_loss_fn, to_device
     cfg = get_config(arch)
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
@@ -5107,51 +5343,54 @@ def train_full(dev, seed, arch: str, n_layers) -> dict:
         raise AssertionError(f"{arch}: remat is off")
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    params = init_params(cfg, seed=seed, device=dev)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                                             total_steps=steps),
+                       log_every=1, checkpoint_every=10 ** 9)
+    if cfg.is_encoder_decoder:
+        params = init_encdec_params(cfg, seed=seed, device=dev)
+        tr = EncDecTrainer(cfg, tcfg, params, dev, seed)
+        loss_fn, host_batch = tr.loss_fn, tr.batch
+    else:
+        params = init_params(cfg, seed=seed, device=dev)
+        tr = Trainer(cfg, tcfg, params, device=dev)
+        loss_fn = make_loss_fn(cfg, tcfg)
+        host_batch = lambda h: to_device(h, dev)         # noqa: E731
     n_params = sum(p.numel() for p in params.parameters())
-    tr = Trainer(cfg, TrainConfig(
-        optimizer=AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
-                              total_steps=TRAIN_STEPS),
-        log_every=1, checkpoint_every=10 ** 9), params, device=dev)
     init_s = time.perf_counter() - t0
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_T,
-                      global_batch=TRAIN_B, seed=seed)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=t, global_batch=b,
+                      seed=seed)
     data = TokenPipeline(dcfg)
-    steps = []
+    hist = []
     try:
-        for _ in range(TRAIN_STEPS):
+        for _ in range(steps):
             ops.reset_launch_counts()
             h = tr.run(data, 1, log_fn=lambda s: log("    " + s))[-1]
-            steps.append(dict(h, launches=ops.launch_counts()))
+            hist.append(dict(h, launches=ops.launch_counts(forms=True)))
     finally:
         data.close()
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    want = {"flash_attention": 2 * cfg.n_layers,
-            "dual_gemm_gated": 2 * cfg.n_layers if cfg.activation == "silu"
-            else 0}
-    for s in steps:
-        if any(s["launches"][k] != v for k, v in want.items()) or sum(
-                s["launches"].values()) != sum(want.values()):
-            raise AssertionError(f"{arch} train step {s['step']}: launches "
-                                 f"{s['launches']}, want {want} and nothing "
-                                 f"else")
-    losses = [s["loss"] for s in steps]
+    want = train_counts(cfg, t, cfg.n_audio_frames)
+    for s in hist:
+        check_launches(f"{arch} train step {s['step']}", s["launches"], want,
+                       per=2)
+    losses = [s["loss"] for s in hist]
     if not (all(np.isfinite(losses)) and all(
-            np.isfinite(s["grad_norm"]) for s in steps)
-            and losses[-1] < losses[0]):
+            np.isfinite(s["grad_norm"]) for s in hist)
+            and (losses[-1] < losses[0] or not falls)):
         raise AssertionError(f"{arch} training: losses {losses}, grad norms "
-                             f"{[s['grad_norm'] for s in steps]}")
-    step_ms = float(np.median([s["dt"] for s in steps[2:]])) * 1e3
-    profile = profile_train_step(tr, to_device(
-        batch_for_step(dcfg, TRAIN_STEPS), dev))
+                             f"{[s['grad_norm'] for s in hist]}")
+    step_ms = float(np.median([s["dt"] for s in hist[2:]])) * 1e3
+    profile = profile_train_step(
+        tr, host_batch(batch_for_step(dcfg, steps)), loss_fn)
     res = {"n_layers": cfg.n_layers, "params": n_params, "init_s": init_s,
-           "losses": losses, "grad_norms": [s["grad_norm"] for s in steps],
-           "step_ms_all": [s["dt"] * 1e3 for s in steps],
-           "step_ms": step_ms,
-           "tok_per_s": TRAIN_B * TRAIN_T / step_ms * 1e3,
-           "peak_mem_gib": peak, "launches_per_step": want,
-           "launches": {k: sum(s["launches"][k] for s in steps)
-                        for k in steps[0]["launches"]},
+           "batch": [b, t], "losses": losses,
+           "grad_norms": [s["grad_norm"] for s in hist],
+           "step_ms_all": [s["dt"] * 1e3 for s in hist],
+           "step_ms": step_ms, "tok_per_s": b * t / step_ms * 1e3,
+           "peak_mem_gib": peak, "launches_per_step": {
+               k: 2 * v for k, v in want.items()},
+           "launches": {k: sum(s["launches"][k] for s in hist)
+                        for k in hist[0]["launches"]},
            "profile": {"train step": profile}}
     del tr, params
     return res
@@ -5191,41 +5430,151 @@ def check_train_ckpt(dev, seed) -> dict:
     return {"arrays": 3 * len(named), "step": meta["step"]}
 
 
-def train_phase(dev, gen, timer, seed, cases: list) -> dict:
-    """Phase 7: the kernels under autograd (their cases appended to
-    ``cases``), the reduced card-vs-CPU backward, the full-width training
-    runs and the checkpoint on the card."""
-    log("[7/7] B12 and the bf16 B4 under autograd at the training shapes")
-    kern = check_train_kernels(dev, gen, timer, case_recorder(cases),
-                               randn_on(dev, gen))
-    torch.cuda.empty_cache()
-    log("[7/7] reduced loss.backward: card (kernels) vs CPU (plain)")
-    reduced = check_train_reduced(dev, seed)
-    paths = {}
-    for arch, n_layers in TRAIN_PATHS:
+def train_paths(dev, seed, paths, phase: str) -> dict:
+    """``train_full`` of each (arch, layers kept, batch, tokens, steps,
+    the loss must fall) in ``paths``, logged; each model freed before the
+    next."""
+    out = {}
+    for arch, n_layers, b, t, steps, falls in paths:
         label = f"{arch}{'' if n_layers is None else f' {n_layers}L'} train"
-        log(f"[7/7] {label}: full width, {TRAIN_STEPS} steps of "
-            f"{TRAIN_B} x {TRAIN_T} tokens, remat on")
-        r = paths[label] = train_full(dev, seed, arch, n_layers)
+        log(f"[{phase}] {label}: full width, {steps} steps of {b} x {t} "
+            f"tokens, remat on")
+        t0 = time.perf_counter()
+        r = out[label] = train_full(dev, seed, arch, n_layers, b, t, steps,
+                                    falls)
         gc.collect()
         torch.cuda.empty_cache()
+        r["wall_s"] = time.perf_counter() - t0
         p = r["profile"]["train step"]
-        log(f"  {r['params'] / 1e9:.2f} B parameters, init {r['init_s']:.1f}s;"
-            f" step {r['step_ms']:.1f} ms (median of steps 3-{TRAIN_STEPS}), "
+        log(f"  {r['wall_s']:.1f}s in all; {r['params'] / 1e9:.2f} B "
+            f"parameters, init {r['init_s']:.1f}s;"
+            f" step {r['step_ms']:.1f} ms (median of steps 3-{steps}), "
             f"{r['tok_per_s']:.0f} trained tok/s, peak {r['peak_mem_gib']:.1f}"
             f" GiB; losses {[round(x, 4) for x in r['losses']]}; launches a "
             f"step {r['launches_per_step']}")
         log(f"  profiled step: forward {p['forward_ms']:.1f} ms, backward "
-            f"{p['backward_ms']:.1f} ms, optimizer {p['optimizer_ms']:.1f} ms;"
-            f" shares " + ", ".join(f"{k} {v:.1%}" for k, v in
-                                    p["shares"].items()))
+            f"{p['backward_ms']:.1f} ms, optimizer {p['optimizer_ms']:.1f} ms"
+            f" (the trace summarised in {p['summary_s']:.1f}s); shares "
+            + ", ".join(f"{k} {v:.1%}" for k, v in p["shares"].items()))
         log_profile(r)
-    log("[7/7] checkpoint save + restore on the card (reduced codeqwen)")
+    return out
+
+
+def train_phase(dev, gen, timer, seed, cases: list) -> dict:
+    """Phase 7: the kernels under autograd (their cases appended to
+    ``cases``), the reduced card-vs-CPU backward, the full-width training
+    runs and the checkpoint on the card."""
+    log("[7/8] B12 and the bf16 B4 under autograd at the training shapes")
+    kern = check_train_kernels(dev, gen, timer, case_recorder(cases),
+                               randn_on(dev, gen))
+    torch.cuda.empty_cache()
+    log("[7/8] reduced loss.backward: card (kernels) vs CPU (plain)")
+    reduced = check_train_reduced(dev, seed)
+    paths = train_paths(dev, seed, TRAIN_PATHS, "7/8")
+    log("[7/8] checkpoint save + restore on the card (reduced codeqwen)")
     ckpt = check_train_ckpt(dev, seed)
     log(f"  {ckpt['arrays']} arrays bit-equal after restore at step "
         f"{ckpt['step']}")
     return {"kernels": kern, "reduced": reduced, "paths": paths,
             "checkpoint": ckpt}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: training the other archs (ssd_scan and the expert-batched bf16
+# dual_gemm_gated under autograd too)
+# ---------------------------------------------------------------------------
+
+TRAIN_REDUCED_ARCHS = ("zamba2-2.7b", "mixtral-8x7b", "qwen2-moe-a2.7b",
+                       "xlstm-350m", "llama-3.2-vision-90b", "whisper-small")
+# (arch, layers kept, batch, tokens, steps, the last loss below the first):
+# zamba2-2.7b, whisper-small (4 x 1500 stub frames) and xlstm-350m whole;
+# mixtral-8x7b at 2 of 32 layers and qwen2-moe-a2.7b at 4 of 24 (memory: f32
+# weights, gradients and two moments, 16 B a parameter, of ~3.17 B and
+# ~2.59 B parameters take ~51 and ~41 GB of the card); xlstm at 4 x 256
+# tokens and 4 steps, its losses reported (time: its sLSTM loop, ~7 s a
+# bf16 4 x 1024 forward)
+TRAIN_ARCH_PATHS = (
+    ("zamba2-2.7b", None, TRAIN_B, TRAIN_T, TRAIN_STEPS, True),
+    ("mixtral-8x7b", 2, TRAIN_B, TRAIN_T, TRAIN_STEPS, True),
+    ("qwen2-moe-a2.7b", 4, TRAIN_B, TRAIN_T, TRAIN_STEPS, True),
+    ("whisper-small", None, TRAIN_B, 448, TRAIN_STEPS, True),
+    ("xlstm-350m", None, TRAIN_B, 256, 4, False))
+
+
+def check_train_kernels_archs(dev, gen, timer, record, randn) -> dict:
+    """ssd_scan and the expert-batched bf16 B4 under their Functions
+    (``train_case``): the scan at zamba2-2.7b's training shape (its y, the
+    final state unused as in training; forward within the kernel's
+    tolerance of the plain version evaluated in f64, as phase 3), the
+    experts at mixtral's and qwen2-moe's widths with the rows per expert a
+    4 x 1024 training forward dispatches (``expert_rows``).  Bound: each
+    input, output and gradient byte once; operations: the forward's and
+    the backward's (twice the forward's: the scan's ``ssd_scan_work`` at
+    the f32 rate; 12 E M N K at the bf16 rate).  Yardsticks: none for the
+    scan (no PyTorch call computes it), two ``torch.bmm`` forward +
+    backward for the experts."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.int8_gemm import (
+        DUAL_BF16_ATOL, DUAL_BF16_RTOL, gated_mlp_ref, per_expert)
+    from repro_torch.kernels.ssd_scan import ATOL, RTOL, ssd_scan_ref
+    out_ms = {}
+    b, t, h, p, n = Z_B, Z_T, Z_H, Z_P, Z_N
+    ins = [randn(b, t, h, p), torch.nn.functional.softplus(randn(b, t, h)
+                                                           - 1.0),
+           -torch.linspace(1.0, 16.0, h, device=dev), randn(b, t, n),
+           randn(b, t, n)]
+    dout = randn(b, t, h, p)
+    want = ssd_scan_ref(*(v.double() for v in ins))[0].float()
+    _, nops = ssd_scan_work(b, t, h, p, n, Z_L)
+    size = sum(v.numel() for v in ins)
+    train_case(timer, record, out_ms, "ssd_scan",
+               f"y B={b} T={t} H={h} P={p} N={n} L={Z_L}",
+               lambda *a: ops.ssd_scan(*a)[0],
+               lambda *a: ssd_scan_ref(*a)[0], None, ins, dout, (RTOL, ATOL),
+               4 * 2 * (size + dout.numel()), 3 * nops, F32_OPS,
+               "no PyTorch call computes the SSD scan", want=want)
+    del ins, dout, want
+    for label, arch, e, k, nn in EXPERT_SHAPES:
+        m = expert_rows(arch, TRAIN_B * TRAIN_T)
+        ins = [randn(e, m, k).to(torch.bfloat16)] + [
+            randn(e, k, nn, scale=k ** -0.5).to(torch.bfloat16)
+            for _ in range(2)]
+        dout = randn(e, m, nn).to(torch.bfloat16)
+        train_case(timer, record, out_ms, "dual_gemm_gated",
+                   f"bf16 experts {label} E={e} [{m},{k}]x2[{k},{nn}] silu",
+                   lambda x, u, g: ops.gated_mlp_experts(x, u, g, "silu"),
+                   lambda x, u, g: per_expert(
+                       lambda *a: gated_mlp_ref(*a, "silu"), x, u, g),
+                   lambda x, u, g: torch.bmm(x, u) + torch.bmm(x, g), ins,
+                   dout, (DUAL_BF16_RTOL, DUAL_BF16_ATOL),
+                   2 * e * (2 * m * k + 4 * k * nn + 2 * m * nn),
+                   12 * e * m * nn * k, BF16_OPS,
+                   "two torch.bmm forward + backward, no activation: not "
+                   "the same function")
+        del ins, dout
+    return out_ms
+
+
+def train_archs_phase(dev, gen, timer, seed, cases: list) -> dict:
+    """Phase 8: ssd_scan and the expert-batched bf16 B4 under autograd
+    (their cases appended to ``cases``), the other archs' reduced
+    card-vs-CPU backward and their full-width training runs."""
+    t0 = time.perf_counter()
+    log("[8/8] ssd_scan and the expert-batched bf16 B4 under autograd at "
+        "the training shapes")
+    kern = check_train_kernels_archs(dev, gen, timer, case_recorder(cases),
+                                     randn_on(dev, gen))
+    torch.cuda.empty_cache()
+    log(f"[8/8] reduced backward of zamba2, mixtral, qwen2-moe, xlstm, "
+        f"vision (kv_source) and whisper (encdec_loss): card (kernels) vs "
+        f"CPU (plain); {time.perf_counter() - t0:.1f}s so far")
+    reduced = check_train_reduced(dev, seed, TRAIN_REDUCED_ARCHS)
+    log(f"  {time.perf_counter() - t0:.1f}s so far")
+    paths = train_paths(dev, seed, TRAIN_ARCH_PATHS, "8/8")
+    seconds = time.perf_counter() - t0
+    log(f"[8/8] phase 8 in {seconds:.1f}s")
+    return {"kernels": kern, "reduced": reduced, "paths": paths,
+            "seconds": seconds}
 
 
 PROFILED_KERNELS = ("int4_gemm", "flash_attention", "dual_gemm_gated",
@@ -5245,20 +5594,29 @@ def profile_summary(prof, wall_ms: float) -> dict:
     """Device ms by kernel name, the device's busy share of ``wall_ms``, the
     device ms of each of ``PROFILED_KERNELS``, the count of device kernels
     (every kernel, PyTorch's own too; copies and fills not counted) and the
-    host's synchronizing runtime calls (``SYNC_CALLS``)."""
-    by_name = {}
+    host's synchronizing runtime calls (``SYNC_CALLS``).  Read from the
+    trace's raw events (``kineto_results``, an attribute torch does not
+    document: its absence raises): ``key_averages`` first builds a Python
+    event tree, ~0.2 ms an event on the card's host (77 s for an xlstm
+    training step's 404k kernels), and sums the same durations by name
+    (``profile_step`` holds the two parsers equal on each trace it
+    takes)."""
+    raw = getattr(prof.profiler, "kineto_results", None)
+    if raw is None:
+        raise RuntimeError(f"torch {torch.__version__}'s profiler has no "
+                           f"kineto_results: profile_summary cannot read "
+                           f"the trace's raw events")
+    by_name = collections.defaultdict(float)
     kernels = syncs = 0
-    for e in prof.key_averages():
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            syncs += e.count if e.key in SYNC_CALLS else 0
+    for e in raw.events():
+        name = e.name()
+        if "CUDA" not in str(e.device_type()):
+            syncs += name in SYNC_CALLS
             continue                     # host ops: their kernels are listed
-        if not e.key.startswith(("Memcpy", "Memset")):
-            kernels += e.count
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            by_name[e.key] = us / 1e3
+        if not name.startswith(("Memcpy", "Memset")):
+            kernels += 1
+        by_name[name] += e.duration_ns() / 1e6
+    by_name = {k: v for k, v in by_name.items() if v > 0}
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
@@ -5269,6 +5627,45 @@ def profile_summary(prof, wall_ms: float) -> dict:
                                  if PROFILED_NAMES.get(k, f"{k}_kernel")
                                  in name)
                           for k in PROFILED_KERNELS}}
+
+
+def key_averages_summary(prof) -> dict:
+    """``profile_summary``'s counts read through ``key_averages`` (torch's
+    public parser): device kernels, synchronizing calls, busy ms and the
+    device ms of each of ``PROFILED_KERNELS``."""
+    by_name = collections.defaultdict(float)
+    kernels = syncs = 0
+    for e in prof.key_averages():
+        if "CUDA" not in str(e.device_type):
+            syncs += e.count if e.key in SYNC_CALLS else 0
+            continue
+        if not e.key.startswith(("Memcpy", "Memset")):
+            kernels += e.count
+        by_name[e.key] += e.self_device_time_total / 1e3
+    return {"device_kernels": kernels, "sync_calls": syncs,
+            "device_busy_ms": sum(by_name.values()),
+            "kernel_ms": {k: sum(v for name, v in by_name.items()
+                                 if PROFILED_NAMES.get(k, f"{k}_kernel")
+                                 in name)
+                          for k in PROFILED_KERNELS}}
+
+
+def parsers_agree(prof, res: dict) -> dict:
+    """``key_averages_summary`` of the trace ``res`` was read from: the same
+    kernel and synchronizing-call counts, busy ms and kernel ms within
+    1e-6 relative (1e-6 ms absolute), else raises."""
+    ka = key_averages_summary(prof)
+    pairs = [(ka["device_busy_ms"], res["device_busy_ms"])] + [
+        (ka["kernel_ms"][k], res["kernel_ms"][k]) for k in PROFILED_KERNELS]
+    if not (ka["device_kernels"] == res["device_kernels"]
+            and ka["sync_calls"] == res["sync_calls"]
+            and all(abs(a - b) <= 1e-6 * abs(a) + 1e-6 for a, b in pairs)):
+        raise AssertionError(f"the trace's raw events ({res['device_kernels']}"
+                             f" kernels, {res['sync_calls']} syncs, "
+                             f"{res['device_busy_ms']} ms) differ from "
+                             f"key_averages ({ka['device_kernels']}, "
+                             f"{ka['sync_calls']}, {ka['device_busy_ms']})")
+    return ka
 
 
 def log_drain(d: dict) -> None:
@@ -5338,9 +5735,10 @@ def main() -> int:
                     "and its lm_loss at bf16/w8a8/w4a8 (xlstm_only); prints "
                     "their walls and no ok line")
     ap.add_argument("--train-only", action="store_true",
-                    help="build only flash_attention and dual_gemm_gated, "
-                    "then run only phase 7 (training; train_phase); prints "
-                    "its summary and no ok line")
+                    help="build only flash_attention, dual_gemm_gated and "
+                    "ssd_scan, then run only phases 7 and 8 (training; "
+                    "train_phase, train_archs_phase); prints their summary "
+                    "and no ok line")
     ap.add_argument("--kernels", default=None,
                     help="comma-separated kernels among "
                     f"{', '.join(KERNEL_CASES)}: build only these from --src "
@@ -5366,15 +5764,15 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    log(f"[1/7] card: {smi} | torch {torch.__version__} cuda "
+    log(f"[1/8] card: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
     built = build.build_all(*([sorted({src for name in only
                                        for src in KERNEL_CASES[name][1]})]
-                               if only else [TRAIN_KERNELS] if args.train_only
+                               if only else [train_kernels()] if args.train_only
                                else []))
-    log(f"[2/7] built {len(built)} kernels in {time.perf_counter() - t0:.1f}s")
+    log(f"[2/8] built {len(built)} kernels in {time.perf_counter() - t0:.1f}s")
     for name, info in sorted(built.items()):
         regs = [ln.strip() for ln in info["ptxas"].splitlines()
                 if "registers" in ln or "Compiling entry" in ln
@@ -5382,23 +5780,25 @@ def main() -> int:
         log(f"  {name}: {info['seconds']:.1f}s; " + " | ".join(regs))
 
     if args.train_only:
-        cases = []
-        res = train_phase(dev, torch.Generator(device=dev).manual_seed(
-            args.seed), Timer(dev), args.seed, cases)
+        cases, timer = [], Timer(dev)
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        res = train_phase(dev, gen, timer, args.seed, cases)
+        res8 = train_archs_phase(dev, gen, timer, args.seed, cases)
         if args.out is not None:
             args.out.parent.mkdir(parents=True, exist_ok=True)
             args.out.write_text(json.dumps({"card": smi, "cases": cases,
-                                            "train": res}, indent=1))
+                                            "train": res,
+                                            "train_archs": res8}, indent=1))
         print(json.dumps({"train_only": {
             label: {k: r[k] for k in ("step_ms", "tok_per_s", "peak_mem_gib",
                                       "losses")}
-            for label, r in res["paths"].items()},
-            "kernels": res["kernels"]}))
+            for label, r in {**res["paths"], **res8["paths"]}.items()},
+            "kernels": {**res["kernels"], **res8["kernels"]}}))
         print(smi)
         return 0
 
     if only:
-        log(f"[3/7] {', '.join(only)} vs plain versions on the card "
+        log(f"[3/8] {', '.join(only)} vs plain versions on the card "
             f"({args.src})")
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         cases, timer = [], Timer(dev)
@@ -5482,53 +5882,53 @@ def main() -> int:
         print(smi)
         return 0
 
-    log("[3/7] kernels vs plain versions on the card")
+    log("[3/8] kernels vs plain versions on the card")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     cases = check_kernels(dev, gen, Timer(dev))
     torch.cuda.empty_cache()
 
     worst = {}
     for arch, precision, must in REDUCED_PATHS:
-        log(f"[4/7] {arch}-reduced {precision} int8-KV: CPU plain (and in "
+        log(f"[4/8] {arch}-reduced {precision} int8-KV: CPU plain (and in "
             f"the card's order, seeds {args.seed}..{args.seed + SEEDS - 1}) "
             f"vs CUDA kernels")
         for k in range(SEEDS):
             worst[f"{arch} {precision} seed {args.seed + k}"] = check_reduced(
                 dev, args.seed + k, arch, precision, must, main=k == 0)
-    log("[4/7] zamba2-2.7b-reduced w8a8 int8-KV forward with states "
+    log("[4/8] zamba2-2.7b-reduced w8a8 int8-KV forward with states "
         "(prefill through ssd_scan and the multi-row decode form, then "
         "t = 1 steps): CPU plain vs CUDA kernels")
     for k in range(SEEDS):
         worst[f"zamba2-2.7b w8a8 states seed {args.seed + k}"] = (
             check_reduced_states(dev, args.seed + k, main=k == 0))
-    log("[4/7] xlstm-350m-reduced w8a8: no-cache forward, then forward with "
+    log("[4/8] xlstm-350m-reduced w8a8: no-cache forward, then forward with "
         "states (t = 1 steps): CPU plain vs CUDA kernels")
     for k in range(SEEDS):
         for key, v in check_xlstm_reduced(dev, args.seed + k).items():
             worst[f"xlstm-350m w8a8 {key} seed {args.seed + k}"] = v
-    log("[4/7] whisper-small-reduced w8a8: encode, cross states, decoder "
+    log("[4/8] whisper-small-reduced w8a8: encode, cross states, decoder "
         "steps and encdec_forward: CPU plain (card order) vs CUDA kernels")
     for k in range(SEEDS):
         for key, v in check_whisper_reduced(dev, args.seed + k).items():
             worst[f"whisper-small w8a8 {key} seed {args.seed + k}"] = v
     for precision in ("w4a8", "w8a8"):
-        log(f"[4/7] llama-3.2-vision-90b-reduced {precision} (gates "
+        log(f"[4/8] llama-3.2-vision-90b-reduced {precision} (gates "
             f"{XATTN_GATES}): cross states, steps and the no-cache forward "
             f"with kv_source: CPU plain (card order) vs CUDA kernels")
         for k in range(SEEDS):
             for key, v in check_vision_reduced(dev, args.seed + k,
                                                precision).items():
                 worst[f"{VISION} {precision} {key} seed {args.seed + k}"] = v
-    log("[4/7] codeqwen1.5-7b-reduced w4a8 paged int8 arena: CPU plain vs "
+    log("[4/8] codeqwen1.5-7b-reduced w4a8 paged int8 arena: CPU plain vs "
         "CUDA kernels, paged vs dense on the card")
     worst["codeqwen1.5-7b w4a8 paged"] = check_reduced_paged(dev, args.seed)
     for arch, precision in REDUCED_NO_CACHE:
-        log(f"[4/7] {arch}-reduced {precision} no-cache forward: CPU plain vs "
+        log(f"[4/8] {arch}-reduced {precision} no-cache forward: CPU plain vs "
             f"CUDA kernels")
         worst[f"{arch} {precision} no-cache"] = check_reduced_no_cache(
             dev, args.seed, arch, precision)
     for arch, act in REDUCED_MIXED:
-        log(f"[4/7] {arch}-reduced w8a8 over float weights (integer norms, "
+        log(f"[4/8] {arch}-reduced w8a8 over float weights (integer norms, "
             f"attention and {act}) no-cache forward: CPU plain vs CUDA "
             f"kernels")
         worst[f"{arch} w8a8-float no-cache"] = check_reduced_no_cache(
@@ -5537,7 +5937,7 @@ def main() -> int:
     served = {}
     for (label, arch, precision, n_req, max_new, profiled, must,
          paged) in SERVE_PATHS:
-        log(f"[5/7] serve full-width {label} int8-KV: {n_req} requests x "
+        log(f"[5/8] serve full-width {label} int8-KV: {n_req} requests x "
             f"{max_new} new tokens" + (", then three paged drains" if paged
                                        else ""))
         srv = served[label] = serve_full(dev, args.seed, arch, precision, n_req,
@@ -5596,7 +5996,7 @@ def main() -> int:
                 f"ms wall), key fold {sm['keys_host_ms']:.3f} ms host; "
                 f"{sm['draws_compared']} draws equal to the CPU's")
 
-    log(f"[5/7] serve full-width zamba2-2.7b w8a8 int8-KV tokenwise: "
+    log(f"[5/8] serve full-width zamba2-2.7b w8a8 int8-KV tokenwise: "
         f"{ZAMBA_REQ} requests x {ZAMBA_NEW} new tokens together, "
         f"{ZAMBA_ALONE} of them one at a time")
     for name, drain in serve_zamba2(dev, args.seed).items():
@@ -5607,7 +6007,7 @@ def main() -> int:
         log_profile(drain)
     gc.collect()
     torch.cuda.empty_cache()
-    log("[5/7] zamba2-2.7b-reduced w8a8 served tokenwise: card vs the CPU "
+    log("[5/8] zamba2-2.7b-reduced w8a8 served tokenwise: card vs the CPU "
         "in the card's order")
     zred = serve_zamba2_reduced(dev, args.seed)
     log(f"  {zred['steps_compared']} steps compared, worst "
@@ -5617,7 +6017,7 @@ def main() -> int:
 
     no_cache = {}
     for arch, precision in MOE_PATHS:
-        log(f"[5/7] serve full-width {arch} {precision} int8-KV (built and "
+        log(f"[5/8] serve full-width {arch} {precision} int8-KV (built and "
             f"quantized a block at a time): {MOE_REQ} requests x {MOE_NEW} "
             f"new tokens" + (", then paged, then one request of "
                              f"{LONG_PROMPT} tokens on the ring, unwrapped "
@@ -5647,14 +6047,14 @@ def main() -> int:
             f"{sum(dense['syncs_per_decode_step'].values())} synchronizing "
             f"calls")
         lm = no_cache[f"{arch} {precision} lm_loss"] = res["lm_loss"]
-        log(f"[6/7] full-width {arch} {precision} lm_loss on {MOE_SCORE_B} x "
+        log(f"[6/8] full-width {arch} {precision} lm_loss on {MOE_SCORE_B} x "
             f"{MOE_SCORE_T} tokens: {lm['loss']:.4f} in {lm['wall_s']:.2f}s "
             f"({lm['tok_per_s']:.0f} tok/s), peak {lm['peak_mem_gib']:.1f} "
             f"GiB, {lm['rows_per_expert']} rows per expert; launches "
             f"{lm['launches']}")
         log_profile(lm)
     for arch, precision, paged in GQA_PATHS:
-        log(f"[5/7] serve full-width {arch} {precision} int8-KV (built and "
+        log(f"[5/8] serve full-width {arch} {precision} int8-KV (built and "
             f"quantized a block at a time): {GQA_REQ} requests x {GQA_NEW} "
             f"new tokens" + (", then paged" if paged else ""))
         res = serve_gqa(dev, args.seed, arch, precision, paged)
@@ -5677,12 +6077,12 @@ def main() -> int:
                 f"synchronizing calls")
             log_profile(drain)
         lm = no_cache[f"{arch} {precision} lm_loss"] = res["lm_loss"]
-        log(f"[6/7] full-width {arch} {precision} lm_loss on {SCORE_B} x "
+        log(f"[6/8] full-width {arch} {precision} lm_loss on {SCORE_B} x "
             f"{SCORE_T} tokens: {lm['loss']:.4f} in {lm['wall_s']:.2f}s "
             f"({lm['tok_per_s']:.0f} tok/s), peak {lm['peak_mem_gib']:.1f} "
             f"GiB; launches {lm['launches']}")
         log_profile(lm)
-    log(f"[5/7] serve full-width xlstm-350m w8a8 tokenwise: {XLSTM_REQ} "
+    log(f"[5/8] serve full-width xlstm-350m w8a8 tokenwise: {XLSTM_REQ} "
         f"requests x {XLSTM_NEW} new tokens together, {XLSTM_ALONE} of them "
         f"one at a time in lane 0")
     for name, drain in serve_xlstm(dev, args.seed).items():
@@ -5691,7 +6091,7 @@ def main() -> int:
         log_drain(drain)
         log_extra(drain)
         log_profile(drain)
-    log(f"[6/7] full-width xlstm-350m lm_loss on {SCORE_B} x {SCORE_T} "
+    log(f"[6/8] full-width xlstm-350m lm_loss on {SCORE_B} x {SCORE_T} "
         f"tokens at bf16, w8a8 and w4a8")
     for label, lm in xlstm_loss(dev, args.seed).items():
         no_cache[label] = lm
@@ -5699,7 +6099,7 @@ def main() -> int:
             f"({lm['tok_per_s']:.0f} tok/s), peak {lm['peak_mem_gib']:.1f} "
             f"GiB; launches {lm['launches']}")
         log_profile(lm)
-    log(f"[5/7] serve full-width {WHISPER} w8a8 int8-KV: encode 8 clips, "
+    log(f"[5/8] serve full-width {WHISPER} w8a8 int8-KV: encode 8 clips, "
         f"then {XATTN_REQ} requests x {XATTN_NEW} new tokens with kv_source, "
         f"then again on the reused lanes")
     for name, drain in serve_whisper(dev, args.seed).items():
@@ -5715,14 +6115,14 @@ def main() -> int:
         log_profile(drain)
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"[6/7] full-width {WHISPER} encdec_loss on {SCORE_B} x (1500 frames, "
+    log(f"[6/8] full-width {WHISPER} encdec_loss on {SCORE_B} x (1500 frames, "
         f"{WH_SCORE_T} tokens) at bf16 and w8a8")
     for label, lm in whisper_loss(dev, args.seed).items():
         no_cache[label] = lm
         log(f"  {label}: {lm['loss']:.4f} in {lm['wall_s']:.2f}s, peak "
             f"{lm['peak_mem_gib']:.1f} GiB; launches {lm['launches']}")
         log_profile(lm)
-    log(f"[5/7] serve full-width {VISION} w4a8 int8-KV (built and quantized "
+    log(f"[5/8] serve full-width {VISION} w4a8 int8-KV (built and quantized "
         f"a block at a time): cross K/V of 8 lanes' vision tokens, "
         f"{XATTN_REQ} requests x {XATTN_NEW} new tokens")
     res = serve_vision(dev, args.seed)
@@ -5738,30 +6138,33 @@ def main() -> int:
         f"synchronizing calls")
     log_profile(drain)
     lm = no_cache[f"{VISION} w4a8 lm_loss"] = res["lm_loss"]
-    log(f"[6/7] full-width {VISION} w4a8 lm_loss with kv_source on {SCORE_B} "
+    log(f"[6/8] full-width {VISION} w4a8 lm_loss with kv_source on {SCORE_B} "
         f"x {SCORE_T} tokens: {lm['loss']:.4f} in {lm['wall_s']:.2f}s "
         f"({lm['tok_per_s']:.0f} tok/s), peak {lm['peak_mem_gib']:.1f} GiB; "
         f"launches {lm['launches']}")
     log_profile(lm)
     for arch, precisions, calibrated, long_w8a8 in NO_CACHE_PATHS:
-        log(f"[6/7] full-width {arch} no-cache forward: lm_loss on {NC_B} x "
+        log(f"[6/8] full-width {arch} no-cache forward: lm_loss on {NC_B} x "
             f"{NC_T} tokens at {', '.join(precisions)}"
             + (", after calibrate_ptq" if calibrated else ""))
         no_cache.update(no_cache_full(dev, args.seed, arch, precisions,
                                       calibrated, long_w8a8))
-    log("[6/7] the integer library's entry points (Table II shapes) and "
+    log("[6/8] the integer library's entry points (Table II shapes) and "
         "the ViT-B/16 patch embed")
     no_cache["integer library"] = int_library_entry(dev, args.seed)
     log(f"  launches {no_cache['integer library']['launches']}; patch embed "
         f"{no_cache['integer library']['patch_embed_shape']} equal to the "
         f"CPU's")
-    log("[6/7] ops.softmax_i8 on causal score rows")
+    log("[6/8] ops.softmax_i8 on causal score rows")
     no_cache["ops.softmax_i8"] = softmax_entry(dev, args.seed)
     log(f"  launches {no_cache['ops.softmax_i8']['launches']}, row sums "
         f"{no_cache['ops.softmax_i8']['row_sum_range']}")
     gc.collect()
     torch.cuda.empty_cache()
     train = train_phase(dev, gen, Timer(dev), args.seed, cases)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train8 = train_archs_phase(dev, gen, Timer(dev), args.seed, cases)
 
     # the M = 8 (decode) case of each kernel at the shape each path gives it;
     # a kernel's headline is the slice's main path (codeqwen1.5-7b w4a8) where
@@ -5954,7 +6357,7 @@ def main() -> int:
         return next(c for c in cases if c["kernel"] == name
                     and c["shape"] == shape)
     kernels = []
-    paths = {**served, **no_cache, **train["paths"]}
+    paths = {**served, **no_cache, **train["paths"], **train8["paths"]}
     for name in ops.KERNELS:
         by_path = {label: res["launches"][name]
                    for label, res in paths.items()}
@@ -5979,7 +6382,7 @@ def main() -> int:
             "build": {k: v["seconds"] for k, v in built.items()},
             "cases": cases, "reduced_worst_rel": worst, "serve": served,
             "no_cache": no_cache, "zamba2_reduced_served": zred,
-            "train": train,
+            "train": train, "train_archs": train8,
             "kernels": kernels, "total_s": time.perf_counter() - t_start},
             indent=1))
     log(f"done in {time.perf_counter() - t_start:.1f}s")

@@ -326,14 +326,23 @@ def tree_to_reference(params: LM | EncDec, named: dict,
     return to_reference(clone, cfg)
 
 
-def reference_ndims(params: LM, cfg: ArchConfig | None = None) -> dict[str, int]:
-    """The rank each ``named_parameters`` entry of a decoder has as a leaf
-    of the reference's tree: a layer's leaves are stacked over the periods
-    there (one dimension more); the shared block's and the top-level
-    leaves (embed, final norm, head) are not.  The reference's AdamW decays
-    every leaf of rank >= 2 (``_is_matrix``), so a layer's norm scales and
-    biases are decayed and the final norm's are not (ROADMAP.md C19);
-    ``train.optimizer`` takes these ranks to match it."""
+def reference_ndims(params: LM | EncDec,
+                    cfg: ArchConfig | None = None) -> dict[str, int]:
+    """The rank each ``named_parameters`` entry of a decoder (or an
+    encoder-decoder) has as a leaf of the reference's tree: a layer's
+    leaves are stacked over the periods there (one dimension more), an
+    encoder layer's over ``n_encoder_layers``; the shared block's and the
+    top-level leaves (embed, final norm, head, ``pos_embed``) are not.  The
+    reference's AdamW decays every leaf of rank >= 2 (``_is_matrix``), so
+    a layer's norm scales and biases are decayed and the final norm's are
+    not (ROADMAP.md C19); ``train.optimizer`` takes these ranks to match
+    it."""
+    if isinstance(params, EncDec):
+        out = {f"encoder.{name}": p.dim() + (name.split(".")[0] == "layers")
+               for name, p in params.encoder.named_parameters()}
+        out.update({f"decoder.{k}": v for k, v in
+                    reference_ndims(params.decoder, cfg).items()})
+        return out
     kinds = ("attn",) * len(params.layers) if cfg is None else cfg.block_kinds
     out = {}
     for name, p in params.named_parameters():

@@ -6,10 +6,11 @@ kernel's plain PyTorch version; a tensor on a CUDA device launches the CUDA
 kernel or raises.  Nothing falls back from the card to the plain version.
 A launch is outside autograd, so on the card a wrapper raises rather than
 launch on an input that requires grad while grad mode is on — except the
-two whose kernels run inside a ``torch.autograd.Function``
-(``GRAD_KERNELS``: flash_attention and the bf16 dual_gemm_gated, whose
-backward is autograd of the plain version).  On the CPU autograd
-differentiates the plain versions directly.
+wrappers whose kernels run inside a ``torch.autograd.Function``
+(``GRAD_KERNELS``: flash_attention, ssd_scan and the bf16 forms of
+dual_gemm_gated, unbatched and expert-batched), whose backward is autograd
+of the plain version.  On the CPU autograd differentiates the plain
+versions directly.
 
 Two behaviours of the JAX reference under ``jax.jit`` on XLA:CPU decide
 bit-exactness, and every plain version and kernel here keeps them:
@@ -55,13 +56,16 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is not "
                            f"available")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device!r} (cpu or cuda)")
     return dev
 
 
 # the wrappers whose kernels launch inside a torch.autograd.Function
-GRAD_KERNELS = ("flash_attention", "dual_gemm_gated")
+GRAD_KERNELS = ("flash_attention", "ssd_scan", "dual_gemm_gated",
+                "dual_gemm_gated_experts")
 
 
 def tensor_device(tensors) -> torch.device:
@@ -98,12 +102,20 @@ def plain_grads(plain, inputs, needs, dout, *args):
     """autograd's gradients of ``plain(*inputs, *args)`` against ``dout``
     for the inputs whose ``needs`` is set (None for the others), the plain
     version recomputed from detached copies of ``inputs``: the backward of
-    a kernel whose TPU original has no backward kernel."""
+    a kernel whose TPU original has no backward kernel.  A plain version
+    with several outputs takes a tuple ``dout``; an output whose entry is
+    None (unused: its gradient is zero) is left out of the backward."""
+    douts = dout if isinstance(dout, tuple) else (dout,)
+    used = [i for i, d in enumerate(douts) if d is not None]
+    if not (any(needs) and used):
+        return (None,) * len(needs)
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
         out = plain(*leaves, *args)
-        want = [t for t in leaves if t.requires_grad]
-        got = iter(torch.autograd.grad(out, want, dout) if want else ())
+        outs = out if isinstance(dout, tuple) else (out,)
+        got = iter(torch.autograd.grad(
+            [outs[i] for i in used], [t for t in leaves if t.requires_grad],
+            [douts[i] for i in used]))
     return tuple(next(got) if n else None for n in needs)
 
 

@@ -62,11 +62,14 @@ The plain int32 sums are exact float matmuls: f64 for int8 weights (K*128*128
 bf16 ``dual_gemm_gated`` sums in f32 and applies the float activation in
 f32, so it agrees with its unfused plain version ``gated_mlp_ref`` to a
 tolerance (``DUAL_BF16_RTOL``/``DUAL_BF16_ATOL``), not bit for bit.  It is
-the one form with a gradient: on the card it launches inside
-``_DualGemmGated``, whose backward is autograd of ``gated_mlp_ref`` (no
-backward kernel: the reference has none).  Every other form, the
-expert-batched bf16 one included, raises on an input that requires grad
-under grad mode (``common.on_cuda``).
+the one form with a gradient, unbatched and expert-batched: on the card
+both launch inside ``_DualGemmGated`` (over [E, M, K], E = 1 for the
+unbatched wrapper), which saves x and the two weights and whose backward
+recomputes ``gated_mlp_ref`` per expert under autograd (no backward
+kernel: the reference has none).  The integer forms launch outside
+autograd: the wrappers outside ``common.GRAD_KERNELS`` raise on an input
+that requires grad under grad mode (``common.on_cuda``), and the int8
+operands of the dual GEMMs' integer form carry no gradient.
 """
 from __future__ import annotations
 
@@ -681,23 +684,29 @@ def _launch_dual(x, w_up, w_gate, x_scale, up_scale, gate_scale, act,
 
 
 class _DualGemmGated(torch.autograd.Function):
-    """The bf16 gated MLP hidden: forward the CUDA kernel, backward autograd
-    of ``gated_mlp_ref`` recomputed from the saved inputs.  The reference
-    has no backward kernel (it trains through ``ref.gated_mlp_ref`` and
-    XLA's autodiff), so none is written here; the input gradients equal
-    autograd of the plain version bit for bit."""
+    """The bf16 gated MLP hidden of E experts, x [E, M, K] against w_up,
+    w_gate [E, K, N] (E = 1: the unbatched form): forward one CUDA launch,
+    backward autograd of the plain version — ``gated_mlp_ref`` on each
+    expert's slice (``per_expert``) — recomputed from the three saved
+    inputs, no intermediate of the kernel kept.  The reference has no
+    backward kernel (it trains through ``ref.gated_mlp_ref``, vmapped over
+    the experts, and XLA's autodiff), so none is written here; the input
+    gradients equal autograd of the plain version bit for bit."""
 
     @staticmethod
     def forward(ctx, x, w_up, w_gate, act):
         ctx.save_for_backward(x, w_up, w_gate)
         ctx.act = act
-        return _launch_dual(x[None], w_up[None], w_gate[None], None, None,
-                            None, act, None)[0]
+        return _launch_dual(x, w_up, w_gate, None, None, None, act, None)
 
     @staticmethod
     def backward(ctx, dout):
-        return plain_grads(gated_mlp_ref, ctx.saved_tensors,
+        return plain_grads(_gated_experts_ref, ctx.saved_tensors,
                            ctx.needs_input_grad[:3], dout, ctx.act) + (None,)
+
+
+def _gated_experts_ref(x, w_up, w_gate, act):
+    return per_expert(lambda *a: gated_mlp_ref(*a, act), x, w_up, w_gate)
 
 
 def dual_gemm_gated(x, w_up, w_gate, x_scale=None, up_scale=None,
@@ -712,7 +721,8 @@ def dual_gemm_gated(x, w_up, w_gate, x_scale=None, up_scale=None,
         check(x.dim() == 2 and w_up.dim() == 2,
               f"dual GEMM operands: x {tuple(x.shape)}, w {tuple(w_up.shape)}")
         if x.dtype != torch.int8:
-            return _DualGemmGated.apply(x, w_up, w_gate, act)
+            return _DualGemmGated.apply(x[None], w_up[None], w_gate[None],
+                                        act)[0]
         return _launch_dual(x[None], w_up[None], w_gate[None], x_scale,
                             up_scale, gate_scale, act, act_scale)[0]
     if x.dtype == torch.int8:
@@ -827,19 +837,22 @@ def dual_gemm_gated_experts(x, w_up, w_gate, x_scale=None, up_scale=None,
                             act_scale=None):
     """act(x @ w_gate) * (x @ w_up) of every expert in one launch: x [E, M,
     K] int8 (with the scales [E, M, 1], [E, N], [E, N] and ``act_scale``) or
-    bf16, weights [E, K, N] -> bf16 [E, M, N].  CPU tensors: the unbatched
-    plain version per expert."""
+    bf16 (differentiable: ``_DualGemmGated`` on the card), weights [E, K,
+    N] -> bf16 [E, M, N].  CPU tensors: the unbatched plain version per
+    expert."""
     _check_gated(x, act, act_scale, torch.bfloat16,
                  (x_scale, up_scale, gate_scale))
     _check_experts(x, w_up, w_gate, x_scale, up_scale, gate_scale)
     if on_cuda(x, w_up, w_gate, x_scale, up_scale, gate_scale):
+        if x.dtype != torch.int8:
+            return _DualGemmGated.apply(x, w_up, w_gate, act)
         return _launch_dual(x, w_up, w_gate, x_scale, up_scale, gate_scale,
                             act, act_scale)
     if x.dtype == torch.int8:
         return per_expert(lambda *a: gated_mlp_w8a8_ref(
             *a, act=act, act_scale=act_scale), x, x_scale, w_up, up_scale,
             w_gate, gate_scale)
-    return per_expert(lambda *a: gated_mlp_ref(*a, act), x, w_up, w_gate)
+    return _gated_experts_ref(x, w_up, w_gate, act)
 
 
 def dual_int4_gemm_gated_experts(x, up4, up_mul, up_scale, gate4, gate_mul,

@@ -20,13 +20,23 @@ steps.
 ``repro.models.ssm._ssd_chunked``, einsum for einsum.  The two sum in other
 orders and use their own ``exp``: they agree within ``RTOL``/``ATOL``, the
 reference's own tolerance for its kernel (``tests/test_kernels.py``).
+
+On the card the launch runs inside ``_SsdScan``, a
+``torch.autograd.Function``: it saves its five inputs (no intermediate of
+the kernel), and its backward recomputes ``ssd_scan_ref`` from them under
+autograd and returns autograd's input gradients (``common.plain_grads``),
+so they equal the plain version's bit for bit.  The reference has no
+backward kernel either: XLA differentiates ``_ssd_chunked``.  A no-cache
+training forward drops the final state, whose incoming gradient is then
+None and is left out of the backward.  The recompute holds the plain
+version's (B, NC, L, L, H) f32 intermediates of one layer at a time.
 """
 from __future__ import annotations
 
 import torch
 
 from . import build
-from .common import LAUNCHES, check, on_cuda
+from .common import LAUNCHES, check, on_cuda, plain_grads
 
 CHUNK = 128            # steps per chunk (the CUDA kernel's L)
 SHAPES = ((64, 64), (64, 16))   # (P, N) the kernel takes: the model's, reduced
@@ -107,11 +117,27 @@ def _launch(xh, dt, A, Bm, Cm):
     return y, state
 
 
+class _SsdScan(torch.autograd.Function):
+    """The scan: forward the CUDA launch, backward autograd of
+    ``ssd_scan_ref`` recomputed from the saved inputs (module note)."""
+
+    @staticmethod
+    def forward(ctx, xh, dt, A, Bm, Cm):
+        ctx.save_for_backward(xh, dt, A, Bm, Cm)
+        ctx.set_materialize_grads(False)
+        return _launch(xh, dt, A, Bm, Cm)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        return plain_grads(ssd_scan_ref, ctx.saved_tensors,
+                           ctx.needs_input_grad, (dy, dstate))
+
+
 def ssd_scan(xh, dt, A, Bm, Cm, chunk: int = CHUNK):
     """-> (y (B, T, H, P), final state (B, H, N, P)), f32: the CUDA kernel
-    for CUDA tensors (chunk ``CHUNK`` only), the plain version for CPU
-    tensors."""
+    for CUDA tensors (chunk ``CHUNK`` only; differentiable through
+    ``_SsdScan``), the plain version for CPU tensors."""
     if on_cuda(xh, dt, A, Bm, Cm):
         check(chunk == CHUNK, f"the kernel's chunk is {CHUNK}, not {chunk}")
-        return _launch(xh, dt, A, Bm, Cm)
+        return _SsdScan.apply(xh, dt, A, Bm, Cm)
     return ssd_scan_ref(xh, dt, A, Bm, Cm, chunk)

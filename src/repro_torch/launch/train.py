@@ -5,11 +5,17 @@ pipeline -> Trainer loop -> checkpoints, with restore; on the card unless
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch codeqwen1.5-7b \\
       --reduced --steps 200 --batch 8 --seq 128 --ckpt-dir CKPT [--resume]
+  python -m repro_torch.launch.train --arch zamba2-2.7b --steps 8 \\
+      --batch 4 --seq 1024          # full width on the card
 
 Flags mirror ``repro.launch.train`` (``--device`` added, as in
-``launch/serve.py``).  Training is the bf16 path; the archs whose forward
-reaches a kernel without a gradient (zamba2-2.7b's ssd_scan, the MoE archs'
-expert-batched GEMM) train on the CPU only for now (ROADMAP.md item 9b).
+``launch/serve.py``).  Training is the bf16 path, on the card for every
+arch whose full-width training state fits it (zamba2-2.7b's ssd_scan and
+the MoE archs' expert-batched gated GEMM launch inside their autograd
+Functions, ``kernels.common.GRAD_KERNELS``); an integer precision raises.
+As the reference's launcher, it trains ``lm_loss`` alone: an
+encoder-decoder arch trains its decoder, a VLM its text path without
+vision features.
 """
 from __future__ import annotations
 

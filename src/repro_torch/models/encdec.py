@@ -10,18 +10,27 @@ runs on f32 rows (its projections still round to the compute dtype) and the
 encoder's output is f32.  Decoder: the decoder LM (``dec`` blocks: causal
 self-attention with its KV cache, cross-attention to the encoder's output,
 the MLP).
+
+``encode``, ``encdec_forward`` and ``encdec_loss`` are differentiable, as
+the reference's are: with grad enabled and weights that require grad they
+build autograd's graph, and under ``cfg.remat`` each encoder block runs
+under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+scan body), as the decoder's do (``lm.forward``).  Serving and scoring
+callers run them under ``torch.no_grad``: on the card an integer kernel
+refuses an input that requires grad (``kernels.common.on_cuda``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.common import resolve_device
 from .blocks import block_forward, init_block_params
 from .config import ArchConfig
 from .layers import Norm, apply_norm, embed_init
-from .lm import (LM, exec_mode, init_params, precompute_cross_states,
-                 xent_loss)
+from .lm import (LM, _tracks_grad, exec_mode, init_params,
+                 precompute_cross_states, xent_loss)
 from .lm import forward as lm_forward
 
 
@@ -70,7 +79,6 @@ def init_encdec_params(cfg: ArchConfig, seed: int = 0, device=None,
     return EncDec(enc, dec)
 
 
-@torch.no_grad()
 def encode(params: EncDec, cfg: ArchConfig, frames):
     """frames (B, S_audio, d) stub frontend output -> the encoder's output
     (B, S_audio, d), f32 (module note)."""
@@ -80,12 +88,16 @@ def encode(params: EncDec, cfg: ArchConfig, frames):
     x = frames.to(mode.compute_dtype) + enc.pos_embed[None, :s]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
+    remat = cfg.remat and torch.is_grad_enabled()
     for block in enc.layers:
-        x, _ = block_forward("enc", block, x, cfg, mode, positions)
+        if remat and _tracks_grad(block, x):
+            x, _ = checkpoint(block_forward, "enc", block, x, cfg, mode,
+                              positions, use_reentrant=False)
+        else:
+            x, _ = block_forward("enc", block, x, cfg, mode, positions)
     return apply_norm(x, enc.final_norm, cfg, mode)[0]
 
 
-@torch.no_grad()
 def encdec_forward(params: EncDec, cfg: ArchConfig, frames, tokens,
                    states=None, positions=None, enc_out=None):
     """The whole encoder-decoder step: (logits, states, enc_out).  Pass
@@ -103,7 +115,6 @@ def encdec_forward(params: EncDec, cfg: ArchConfig, frames, tokens,
     return logits, states, enc_out
 
 
-@torch.no_grad()
 def encdec_loss(params: EncDec, cfg: ArchConfig, frames, tokens, labels):
     """Mean next-token cross entropy of the decoder over labels >= 0."""
     lg, _, _ = encdec_forward(params, cfg, frames, tokens)

@@ -14,13 +14,16 @@ Training is the bf16 path: a config whose ``precision`` is an integer one
 raises ``NotImplementedError`` — the reference's integer paths define
 gradients only through rounding (``round`` has a zero derivative), so there
 is nothing meaningful to port; ``"bf16"`` is every config's default and what
-the reference's own tests train.  On the card the bf16 forward launches the
-flash_attention and bf16 dual_gemm_gated kernels, each inside a
-``torch.autograd.Function`` whose backward is autograd of its plain
-version; every other kernel refuses an input that requires grad
-(``kernels.common.on_cuda``), so the archs whose forwards reach one
-(zamba2's ssd_scan, the MoE archs' expert-batched GEMM) train only on the
-CPU for now (ROADMAP.md item 9b).
+the reference's own tests train.  On the card the bf16 forward launches
+flash_attention, ssd_scan and the bf16 dual_gemm_gated (unbatched and
+expert-batched), each inside a ``torch.autograd.Function`` whose backward
+is autograd of its plain version (``kernels.common.GRAD_KERNELS``); every
+other kernel refuses an input that requires grad
+(``kernels.common.on_cuda``).  So every arch the port serves trains on
+the card at bf16: the dense, GQA, zamba2, MoE, xLSTM (no kernel) and
+cross-attention decoders through ``lm_loss``, whisper through
+``models.encdec_loss`` (the reference's trainer has no encoder-decoder
+batch, so the ``Trainer`` takes ``lm_loss`` only, as the reference's).
 
 The reference's ``make_loss_fn`` adds no MoE aux loss (its branch is
 ``pass``), and neither does the port's (``models.moe.moe_aux_loss`` exists,

@@ -517,19 +517,27 @@ def test_expert_batched_entries():
 
 
 # ---------------------------------------------------------------------------
-# gradients: the two kernels under autograd, and no silent detach elsewhere
+# gradients: the kernels under autograd, and no silent detach elsewhere
 # ---------------------------------------------------------------------------
+
+GRAD_CASES = ["flash_attention", "dual_gemm_gated_bf16", "ssd_scan",
+              "dual_gemm_gated_experts_bf16"]
+
 
 def _grad_kernel(which):
     """(module, the name its launch goes by, a fake launch computing the
-    plain version and counting, inputs, the plain version of the call)."""
+    plain version and counting, inputs, the call, the plain version of the
+    call, the kernel's count) of ``GRAD_CASES[which]``.  The scan's call
+    keeps y only: the final state is unused, so its Function's backward
+    gets None for it."""
     from repro_torch.kernels import common
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import int8_gemm as ig
+    from repro_torch.kernels import ssd_scan as ss
     gen = torch.Generator().manual_seed(which)
 
-    def rand(*shape):
-        return torch.randn(shape, generator=gen).to(torch.bfloat16)
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen).to(dtype)
     if which == 0:
         def launch(q, k, v, causal, scale):
             common.LAUNCHES["flash_attention"] += 1
@@ -537,23 +545,42 @@ def _grad_kernel(which):
         ins = [rand(2, 4, 16, 16), rand(2, 2, 16, 16), rand(2, 2, 16, 16)]
         return (fa, "_launch", launch, ins, lambda *a: ops.attention(*a),
                 lambda *a: fa.flash_attention_ref(*a), "flash_attention")
+    if which == 2:
+        def launch_scan(xh, dt, A, Bm, Cm):
+            common.LAUNCHES["ssd_scan"] += 1
+            return ss.ssd_scan_ref(xh, dt, A, Bm, Cm)
+        f32 = torch.float32
+        ins = [rand(2, 128, 2, 64, dtype=f32),
+               torch.nn.functional.softplus(rand(2, 128, 2, dtype=f32)),
+               -torch.exp(rand(2, dtype=f32)), rand(2, 128, 16, dtype=f32),
+               rand(2, 128, 16, dtype=f32)]
+        return (ss, "_launch", launch_scan, ins,
+                lambda *a: ops.ssd_scan(*a)[0],
+                lambda *a: ss.ssd_scan_ref(*a)[0], "ssd_scan")
 
     def launch_dual(x, w_up, w_gate, xs, us, gs, act, act_scale):
         common.LAUNCHES["dual_gemm_gated"] += 1
-        return ig.gated_mlp_ref(x[0], w_up[0], w_gate[0], act)[None]
+        return ig.per_expert(lambda *a: ig.gated_mlp_ref(*a, act), x, w_up,
+                             w_gate)
+    if which == 3:
+        ins = [rand(3, 8, 32), rand(3, 32, 48), rand(3, 32, 48)]
+        return (ig, "_launch_dual", launch_dual, ins,
+                lambda *a: ops.gated_mlp_experts(*a, "silu"),
+                lambda *a: ig.per_expert(
+                    lambda *b: ig.gated_mlp_ref(*b, "silu"), *a),
+                "dual_gemm_gated")
     ins = [rand(24, 32), rand(32, 48), rand(32, 48)]
     return (ig, "_launch_dual", launch_dual, ins,
             lambda *a: ops.gated_mlp(*a, "silu"),
             lambda *a: ig.gated_mlp_ref(*a, "silu"), "dual_gemm_gated")
 
 
-@pytest.mark.parametrize("which", [0, 1], ids=["flash_attention",
-                                             "dual_gemm_gated_bf16"])
+@pytest.mark.parametrize("which", range(len(GRAD_CASES)), ids=GRAD_CASES)
 def test_grad_kernels_launch_once_and_backward_is_plain(monkeypatch, which):
     """With the tensors taken for CUDA ones and the launch replaced by the
     plain version, the Function launches once in the forward and never in
     the backward, and its input gradients equal autograd of the plain
-    version bit for bit."""
+    version bit for bit (the scan's with its unused final state)."""
     mod, name, launch, ins, call, plain, kernel = _grad_kernel(which)
     monkeypatch.setattr(mod, "on_cuda", lambda *a: True)
     monkeypatch.setattr(mod, name, launch)
@@ -582,10 +609,21 @@ def _grad_refusals():
     bf = torch.zeros((2, 4, 8), dtype=torch.bfloat16)
     x, dt, a = torch.zeros(1, 128, 2, 64), torch.ones(1, 128, 2), -torch.ones(2)
     bm = torch.zeros(1, 128, 16)
+    e8 = torch.zeros((2, 4, 8), dtype=torch.int8)
+    x64 = torch.zeros((2, 4, 64), dtype=torch.int8)
+    w4 = torch.zeros((2, 32, 8), dtype=torch.int8)      # K = 64, group 32
+    mul = torch.ones((2, 2, 8), dtype=torch.int8)
     return {"ssd_scan": lambda g: ops.ssd_scan(g(x), dt, a, bm, bm),
             "dual_gemm_gated_experts": lambda g: ops.gated_mlp_experts(
                 g(bf), bf.transpose(1, 2).contiguous(),
                 bf.transpose(1, 2).contiguous()),
+            "int8_gemm_experts": lambda g: ops.gemm_w8a8_experts(
+                e8, g(torch.ones(2, 4, 1)), e8.transpose(1, 2).contiguous(),
+                torch.ones(2, 4)),
+            "dual_int4_gemm_gated_experts":
+                lambda g: ops.gated_mlp_w4a8_experts(
+                    x64, g(torch.ones(2, 4, 1)), w4, mul, torch.ones(2, 8),
+                    w4, mul, torch.ones(2, 8), act_scale=1.0),
             "quantize_rows": lambda g: ops.quant_rows(g(bf[0])),
             "int8_gemm": lambda g: ops.gemm_w8a8(
                 i8, g(torch.ones(4, 1)), i8.T.contiguous(), torch.ones(4)),
@@ -599,11 +637,13 @@ def _grad_refusals():
 
 @pytest.mark.parametrize("kernel", list(_grad_refusals()))
 def test_other_kernels_refuse_inputs_that_require_grad(monkeypatch, kernel):
-    """On the card (the inputs' device taken for CUDA) every wrapper but the
-    two Functions' raises, naming the kernel, on an input that requires
-    grad while grad mode is on — the launch would drop the gradient; under
-    ``torch.no_grad``, or with no input that requires grad, it goes to its
-    kernel (the build, which raises)."""
+    """On the card (the inputs' device taken for CUDA) every wrapper outside
+    ``GRAD_KERNELS`` raises, naming the kernel, on an input that requires
+    grad while grad mode is on — the launch would drop the gradient; one of
+    ``GRAD_KERNELS`` (ssd_scan, the expert-batched bf16 gated MLP) carries
+    it into its Function's launch (the build, which raises).  Under
+    ``torch.no_grad``, or with no input that requires grad, every wrapper
+    goes to its kernel."""
     from repro_torch.kernels import common
     call = _grad_refusals()[kernel]
     monkeypatch.setattr(common, "tensor_device",
@@ -612,7 +652,10 @@ def test_other_kernels_refuse_inputs_that_require_grad(monkeypatch, kernel):
 
     def req(t):
         return t.clone().requires_grad_()
-    if kernel != "requantize_i32":
+    if kernel in common.GRAD_KERNELS:
+        with pytest.raises(RuntimeError, match="no nvcc here"):
+            call(req)
+    elif kernel != "requantize_i32":
         with pytest.raises(RuntimeError, match=f"^{kernel}: an input "
                            f"requires grad"):
             call(req)
@@ -623,13 +666,14 @@ def test_other_kernels_refuse_inputs_that_require_grad(monkeypatch, kernel):
 
 
 def test_grad_kernels_pass_the_check(monkeypatch):
-    """The flash_attention and bf16 dual_gemm_gated wrappers reach their
-    kernels with inputs that require grad (inside their Functions)."""
+    """The flash_attention, ssd_scan and bf16 gated-MLP wrappers (unbatched
+    and expert-batched) reach their kernels with inputs that require grad
+    (inside their Functions)."""
     from repro_torch.kernels import common
     monkeypatch.setattr(common, "tensor_device",
                         lambda t: torch.device("cuda", 0))
     _no_build(monkeypatch)
-    for which in (0, 1):
+    for which in range(len(GRAD_CASES)):
         *_, ins, call, _, _ = _grad_kernel(which)
         with pytest.raises(RuntimeError, match="no nvcc here"):
             call(*[t.requires_grad_() for t in ins])
