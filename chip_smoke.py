@@ -93,7 +93,17 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    and the T = 256 rows), int8_gemm at whisper's projections and vision's
    int8 down projection and head, int4_gemm at vision's projections and
    its cross K/V (M = 12808), dual_int4_gemm_gated at [M, 8192] x 2
-   [8192, 28672];
+   [8192, 28672]; and the launches of tensor-parallel serving
+   (``check_tp_shapes``): codeqwen1.5-7b's W4A8 q projection and gated MLP
+   column-sharded at tp 2 and 4 (N = 4096 / tp; [M, 4096] x 2 [4096,
+   13440 / tp], 3360 columns at tp 4) and its o and down projections
+   row-sharded (M / tp rows), starcoder2-3b's W8A8 q, kv and up+GELU
+   projections at N / 2 and o and down at M / 2, for M in {8, 2048}; the
+   decode kernels (dense and paged, T = 1 and 64) at 16 and 8 of codeqwen's
+   32 heads and at one of starcoder's two KV heads (G = 12), their cache
+   split sized for the full head count: every rank's launch ``torch.equal``
+   to the matching slice of the unsharded launch and to (the decode
+   kernels: within RTOL/ATOL of) its plain version, rank 0's timed;
 4. reduced: starcoder2-3b-reduced at w8a8 and codeqwen1.5-7b-reduced at
    w4a8, w8a8 and bf16, each with an int8 KV cache, the same packed steps on
    the CPU (plain versions) and on the card (kernels): the logits agree
@@ -244,7 +254,30 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    whole over 4 x 256 tokens for 4 steps (time): every loss and gradient
    norm finite, the last loss below the first (xlstm's reported), every
    kernel of ``train_counts`` twice a step and nothing else, one step
-   profiled.
+   profiled;
+9. serve tensor-parallel (``serve_tp``, ``dist/tp.py``): the cells of
+   ``TP_CELLS``, each first served at tp 1 in this process, then by tp
+   ranks spawned on this one card (``launch.mesh.run_ranks``; NCCL refuses
+   two ranks on one card, so the group is gloo and every collective stages
+   through host buffers), each rank building its shard a block at a time
+   from ``--seed``.  codeqwen1.5-7b W4A8, 8 of its 32 layers (time), at tp
+   2 and 4 on phase 5's first 8 requests, whole prompts, 16 new tokens,
+   under the reference smoke's settings (``tp_settings``: greedy dense,
+   greedy paged, sampled paged, ``spec_k`` 4 paged on a pressured 64-page
+   pool at max_seq 512) at the barrier and the overlap boundary; the same
+   model at tp 2 and 4 on 3
+   lanes of 720-1000-token prompts at max_seq 1024, dense and paged at the
+   overlap boundary (contexts over several decode chunks; 3 rows padded
+   to 4); starcoder2-3b W8A8 at tp 2 on the 8 prompts cut to 32 tokens, 4
+   new, the four settings (pressure: a 12-page pool at max_seq 128); and
+   codeqwen1.5-7b bf16, all 32 layers, at tp 2, dense, on the W4A8
+   cell's requests.  Every
+   rank's tokens and every forward's logits equal rank 0's and — W4A8 and
+   W8A8 — tp 1's, 0 differences (bf16's counts reported: ROADMAP C20); the
+   pressure drains preempt, resume and swap; every kernel of the path
+   launches in every rank.  Each drain logs its tok/s and TPOT p50 beside
+   tp 1's (N ranks sharing one card: no speed meaning), peak GiB a rank,
+   and the boundary ``tp_overlap="auto"`` resolves to.
 
 The last three lines of standard output are the kernels JSON (each kernel
 timed at the M = 8 shape the main path, codeqwen1.5-7b w4a8, gives it, or
@@ -279,6 +312,9 @@ runs only codeqwen1.5-7b's, starcoder2-3b's and zamba2-2.7b's W8A8
 and runs only phases 7 and 8 (``train_phase``, ``train_archs_phase``),
 printing their summary and no ok line.
 
+``--tp-only`` builds and then runs only phase 3's ``check_tp_shapes`` and
+phase 9 (``serve_tp``), printing their summary and no ok line.
+
 ``--xlstm-only`` builds and then runs only xlstm-350m's tokenwise drains and
 its ``lm_loss`` at bf16, W8A8 and W4A8 without the profiler
 (``xlstm_only``), likewise with ``--src DIR``.
@@ -309,6 +345,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -483,6 +520,7 @@ def check_kernels(dev, gen, timer) -> list[dict]:
     check_window_decode(dev, gen, timer, record, randn)
     check_gqa_xlstm(dev, gen, timer, record, randn)
     check_encdec_xattn(dev, gen, timer, record, randn)
+    check_tp_shapes(dev, gen, timer, record, randn)
     return cases
 
 
@@ -2346,6 +2384,241 @@ def check_encdec_xattn(dev, gen, timer, record, randn) -> None:
     torch.cuda.empty_cache()
 
 
+# serving tensor parallelism's launches (``dist/tp.py``): a rank runs the
+# column-parallel projections on N / tp columns, the row GEMMs (overlap) on
+# M / tp rows and attention on its Hq / tp heads over Hkv / tp cache heads;
+# each must equal the matching slice of the unsharded launch.  Rows: a
+# bucket-1 step of 8 lanes and a bucket-256 step (2048 rows).
+TP_ROWS = (8, 2048)
+# (label, K, N, epilogue, bias, form, tps, sharded): codeqwen1.5-7b's W4A8
+# projections (int4_gemm, group 64; the gated MLP dual_int4_gemm_gated) and
+# starcoder2-3b's W8A8 (int8_gemm); "cols" split N, "rows" split M
+TP_GEMMS = (
+    ("codeqwen q_proj+bias", 4096, 4096, "scaled", True, "w4", (2, 4),
+     "cols"),
+    ("codeqwen gate+up", 4096, 13440, "silu", False, "dual_w4", (2, 4),
+     "cols"),
+    ("codeqwen o_proj+residual", 4096, 4096, "scaled_add", False, "w4",
+     (2, 4), "rows"),
+    ("codeqwen mlp_down", 13440, 4096, "scaled", False, "w4", (2, 4),
+     "rows"),
+    ("starcoder q_proj+bias", 3072, 3072, "scaled", True, "w8", (2,),
+     "cols"),
+    ("starcoder kv_proj+bias", 3072, 256, "scaled", True, "w8", (2,),
+     "cols"),
+    ("starcoder mlp_up+gelu", 3072, 12288, "scaled_gelu", False, "w8",
+     (2,), "cols"),
+    ("starcoder o_proj+residual", 3072, 3072, "scaled_add", False, "w8",
+     (2,), "rows"),
+    ("starcoder mlp_down", 12288, 3072, "scaled", False, "w8", (2,),
+     "rows"))
+# (label, Hq, Hkv, tps): the decode kernels at codeqwen's 32/32 heads
+# (16 and 8 a rank, G = 1) and starcoder's 24/2 (12 over one KV head a
+# rank, G = 12), T = 1 and a T = 64 rows launch, dense and paged
+TP_HEADS = (("codeqwen", 32, 32, (2, 4)), ("starcoder", 24, 2, (2,)))
+TP_DECODE_T = (1, 64)
+
+
+def check_tp_shapes(dev, gen, timer, record, randn) -> None:
+    """Phase 3 at the launches of tensor-parallel serving: every rank's
+    launch of ``TP_GEMMS`` and ``TP_HEADS`` ``torch.equal`` to the matching
+    column, row or head slice of the unsharded launch; the GEMMs also
+    ``torch.equal`` to their plain versions, the decode kernels within
+    RTOL/ATOL of theirs (with the cache split sized for the full head
+    count, ``split_hkv``: with the rank's own count the split — and the
+    bits — would change; that count of differing values is logged).  Rank
+    0's launch is timed beside its plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.int8_gemm import (gated_mlp_w4a8_ref,
+                                               gemm_w4a8_ref, gemm_w8a8_ref)
+    from repro_torch.kernels.int8_kv_decode_attention import (
+        ATOL, RTOL, int8_kv_decode_attention_rows_ref)
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention_rows_ref)
+    from repro_torch.kernels.quantize import quantize_rows_ref
+    from repro_torch.models.attention import _quant_kv
+    from repro_torch.models.layers import (GELU_INT_SCALE, SILU_INT_SCALE,
+                                           quantize_weight,
+                                           quantize_weight_w4)
+
+    def sliced(what, out, want):
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(
+                f"{what}: {int((out != want).sum())} of {out.numel()} differ "
+                f"from the matching slice of the unsharded launch")
+
+    def gemm(form, x_q, x_s, w, bias, res, epi):
+        if form == "dual_w4":
+            return ops.gated_mlp_w4a8(x_q, x_s, *w, act="silu",
+                                      act_scale=SILU_INT_SCALE)
+        gs = GELU_INT_SCALE if epi == "scaled_gelu" else None
+        if form == "w4":
+            return ops.gemm_w4a8(x_q, x_s, *w, bias=bias, residual=res,
+                                 gelu_scale=gs)
+        return ops.gemm_w8a8(x_q, x_s, *w, bias=bias, residual=res,
+                             gelu_scale=gs)
+
+    def plain(form, x_q, x_s, w, bias, res, epi):
+        m = x_q.shape[0]
+        if form == "dual_w4":
+            return by_rows(lambda r0, r1: gated_mlp_w4a8_ref(
+                x_q[r0:r1], x_s[r0:r1], *w, act="silu",
+                act_scale=SILU_INT_SCALE), m)
+        gs = GELU_INT_SCALE if epi == "scaled_gelu" else None
+        ref = gemm_w4a8_ref if form == "w4" else gemm_w8a8_ref
+        return by_rows(lambda r0, r1: ref(
+            x_q[r0:r1], x_s[r0:r1], *w, bias=bias, gelu_scale=gs,
+            residual=None if res is None else res[r0:r1]), m)
+
+    for label, k, n, epi, has_bias, form, tps, split in TP_GEMMS:
+        kernel = {"w4": "int4_gemm", "w8": "int8_gemm",
+                  "dual_w4": "dual_int4_gemm_gated"}[form]
+        if form == "w8":
+            wd = quantize_weight(randn(k, n, scale=k ** -0.5))
+            full_w = [(wd["w_q"], wd["scale"])]
+        else:
+            wds = [quantize_weight_w4(randn(k, n, scale=k ** -0.5))
+                   for _ in range(2 if form == "dual_w4" else 1)]
+            full_w = [(d["w4"], d["qmul"], d["scale"]) for d in wds]
+        full_w = [t for ws in full_w for t in ws]
+        bias = randn(n, scale=0.1) if has_bias else None
+        for m in TP_ROWS:
+            x_q, x_s = quantize_rows_ref(randn(m, k))
+            res = (randn(m, n).to(torch.bfloat16) if epi == "scaled_add"
+                   else None)
+            whole = gemm(form, x_q, x_s, full_w, bias, res, epi)
+            for tp in tps:
+                for rank in range(tp):
+                    if split == "cols":
+                        nl = n // tp
+                        cols = slice(rank * nl, (rank + 1) * nl)
+                        args = (x_q, x_s, [w[..., cols].contiguous()
+                                           for w in full_w],
+                                None if bias is None else bias[cols], res,
+                                epi)
+                        want, shape = whole[:, cols], (
+                            f"[{m},{k}]x{'2' if form == 'dual_w4' else ''}"
+                            f"[{k},{nl}]")
+                    else:
+                        ml = m // tp
+                        rows = slice(rank * ml, (rank + 1) * ml)
+                        args = (x_q[rows], x_s[rows], full_w, bias,
+                                None if res is None else res[rows], epi)
+                        want, shape = whole[rows], f"[{ml},{k}]x[{k},{n}]"
+                    out = gemm(form, *args)
+                    what = f"tp{tp} rank {rank} {label} {shape}"
+                    sliced(f"{kernel} {what}", out, want)
+                    same(kernel, what, out, plain(form, *args))
+                    if rank:
+                        continue
+                    ma, kb = args[0].shape[0], out.shape[1]
+                    wbytes = sum(w.numel() * w.element_size() for w in args[2])
+                    nbytes = (ma * k + 4 * ma + wbytes
+                              + (4 * kb if bias is not None else 0)
+                              + (2 * ma * kb if res is not None else 0)
+                              + ma * kb * out.element_size())
+                    n_ops = 2 * ma * kb * k * (2 if form == "dual_w4" else 1)
+                    slow = ma > PLAIN_ROWS
+                    record(kernel, f"tp{tp} {label} {shape} {epi}"
+                           + (" g64" if form != "w8" else ""), 0.0, True,
+                           timer(lambda: gemm(form, *args)),
+                           timer(lambda: plain(form, *args), iters=3,
+                                 warmup=1) if slow
+                           else timer(lambda: plain(form, *args)), None,
+                           bound(nbytes, n_ops, INT8_OPS),
+                           "equal to its slice of the unsharded launch", out)
+            del whole
+        torch.cuda.empty_cache()
+
+    d = 128
+    for label, hq, hkv, tps in TP_HEADS:
+        for paged in (False, True):
+            if paged:
+                arena, ppos, pt, last = paged_arena(dev, gen, randn, hkv, d,
+                                                    True)
+                kv = [arena["pk"], arena["pks"], arena["pv"], arena["pvs"]]
+                meta, b = (ppos, pt), PAGED_B
+                rows_fn = ops.paged_attention_decode_rows
+                plain_fn = paged_decode_attention_rows_ref
+                kernel = "paged_decode_attention"
+            else:
+                b, s = 8, 1024
+                k_q, k_s = _quant_kv(randn(b, s, hkv, d))
+                v_q, v_s = _quant_kv(randn(b, s, hkv, d))
+                fill = torch.randint(max(TP_DECODE_T), s + 1, (b,),
+                                     generator=gen, device=dev)
+                fill[IDLE_LANE] = 0
+                slot = torch.arange(s, device=dev)
+                pos = torch.where(slot[None] < fill[:, None], slot[None],
+                                  -1).to(torch.int32)
+                last = (fill - 1).to(torch.int32)
+                kv, meta = [k_q, k_s, v_q, v_s], (pos,)
+                rows_fn = ops.decode_attention_int8kv_rows
+                plain_fn = int8_kv_decode_attention_rows_ref
+                kernel = "int8_kv_decode_attention"
+            for t in TP_DECODE_T:
+                qp = (last[:, None] - torch.arange(t - 1, -1, -1, device=dev,
+                                                   dtype=torch.int32)[None])
+                qp = torch.where((last[:, None] >= 0) & (qp >= 0), qp,
+                                 -1).to(torch.int32).contiguous()
+                q = randn(b, t, hq, d).to(torch.bfloat16)
+                whole = rows_fn(q, *kv, *meta, qp)
+                for tp in tps:
+                    gq, gk = hq // tp, hkv // tp
+                    for rank in range(tp):
+                        qs = q[:, :, rank * gq:(rank + 1) * gq].contiguous()
+                        kvs = [x[:, :, rank * gk:(rank + 1) * gk].contiguous()
+                               for x in kv]
+                        out = rows_fn(qs, *kvs, *meta, qp, split_hkv=hkv)
+                        want = whole[:, :, rank * gq:(rank + 1) * gq]
+                        what = (f"tp{tp} rank {rank} {label} "
+                                f"{'paged' if paged else 'dense'} T={t} "
+                                f"Hq={gq} Hkv={gk}")
+                        sliced(f"{kernel} {what}", out, want)
+                        ref = plain_fn(qs, *kvs, *meta, qp)
+                        live = qp >= 0
+                        if not (torch.isfinite(out).all() and torch.allclose(
+                                out[live].float(), ref[live].float(),
+                                rtol=RTOL, atol=ATOL)):
+                            raise AssertionError(
+                                f"{kernel} {what}: max |d| "
+                                f"{max_err(out, ref)} beyond rtol={RTOL} "
+                                f"atol={ATOL}")
+                        if rank:
+                            continue
+                        own = rows_fn(qs, *kvs, *meta, qp)
+                        torch.cuda.synchronize()
+                        log(f"    {what}: split for Hkv={hkv} (as "
+                            f"unsharded); for its own Hkv={gk}, "
+                            f"{int((own != want).sum())} of {own.numel()} "
+                            f"values differ from the unsharded launch")
+                        if paged:
+                            ptc = pt.long()
+                            work = decode_work(
+                                ppos[ptc].reshape(b, -1), qp, gq, gk, d,
+                                slot_ids=(ptc[:, :, None] * PAGED_PS
+                                          + torch.arange(PAGED_PS, device=dev)
+                                          ).reshape(b, -1),
+                                pos_bytes=4 * PAGED_PS * torch.unique(
+                                    ptc[ptc > 0]).numel(), dense_rule=False)
+                        else:
+                            work = decode_work(meta[0], qp, gq, gk, d)
+                        record(kernel, f"tp{tp} {label} "
+                               f"{'paged' if paged else 'dense'} rows T={t} "
+                               f"B={b} Hq={gq} Hkv={gk} D={d} split_hkv={hkv}",
+                               max_err(out[live], ref[live]), False,
+                               timer(lambda: rows_fn(qs, *kvs, *meta, qp,
+                                                     split_hkv=hkv)),
+                               timer(lambda: plain_fn(qs, *kvs, *meta, qp),
+                                     iters=1, warmup=0), None,
+                               bound(*work, F32_OPS),
+                               "equal to its head slice of the unsharded "
+                               "launch", out)
+                del whole
+        torch.cuda.empty_cache()
+
+
 KERNEL_CASES = {"quantize_rows": (check_quantize_rows, ("quantize",)),
                 "int_layernorm": (check_int_layernorm,
                                   ("int_layernorm", "quantize")),
@@ -2384,7 +2657,12 @@ KERNEL_CASES = {"quantize_rows": (check_quantize_rows, ("quantize",)),
                                   "int4_gemm", "dual_int4_gemm_gated",
                                   "int8_kv_decode_attention",
                                   "int8_flash_attention",
-                                  "flash_attention"))}
+                                  "flash_attention")),
+                "tp_shapes": (check_tp_shapes,
+                              ("int8_gemm", "int4_gemm",
+                               "dual_int4_gemm_gated",
+                               "int8_kv_decode_attention",
+                               "paged_decode_attention"))}
 
 
 # ---------------------------------------------------------------------------
@@ -4482,7 +4760,7 @@ def serve_only(dev, seed) -> dict:
     out = {}
     for (label, arch, precision, n_req, max_new, _, must,
          _) in SERVE_PATHS[:2]:
-        log(f"[5/8] serve full-width {label} int8-KV: {n_req} requests x "
+        log(f"[5/9] serve full-width {label} int8-KV: {n_req} requests x "
             f"{max_new} new tokens")
         srv = out[label] = serve_full(dev, seed, arch, precision, n_req,
                                       max_new, True, must,
@@ -5464,14 +5742,14 @@ def train_phase(dev, gen, timer, seed, cases: list) -> dict:
     """Phase 7: the kernels under autograd (their cases appended to
     ``cases``), the reduced card-vs-CPU backward, the full-width training
     runs and the checkpoint on the card."""
-    log("[7/8] B12 and the bf16 B4 under autograd at the training shapes")
+    log("[7/9] B12 and the bf16 B4 under autograd at the training shapes")
     kern = check_train_kernels(dev, gen, timer, case_recorder(cases),
                                randn_on(dev, gen))
     torch.cuda.empty_cache()
-    log("[7/8] reduced loss.backward: card (kernels) vs CPU (plain)")
+    log("[7/9] reduced loss.backward: card (kernels) vs CPU (plain)")
     reduced = check_train_reduced(dev, seed)
     paths = train_paths(dev, seed, TRAIN_PATHS, "7/8")
-    log("[7/8] checkpoint save + restore on the card (reduced codeqwen)")
+    log("[7/9] checkpoint save + restore on the card (reduced codeqwen)")
     ckpt = check_train_ckpt(dev, seed)
     log(f"  {ckpt['arrays']} arrays bit-equal after restore at step "
         f"{ckpt['step']}")
@@ -5560,21 +5838,342 @@ def train_archs_phase(dev, gen, timer, seed, cases: list) -> dict:
     (their cases appended to ``cases``), the other archs' reduced
     card-vs-CPU backward and their full-width training runs."""
     t0 = time.perf_counter()
-    log("[8/8] ssd_scan and the expert-batched bf16 B4 under autograd at "
+    log("[8/9] ssd_scan and the expert-batched bf16 B4 under autograd at "
         "the training shapes")
     kern = check_train_kernels_archs(dev, gen, timer, case_recorder(cases),
                                      randn_on(dev, gen))
     torch.cuda.empty_cache()
-    log(f"[8/8] reduced backward of zamba2, mixtral, qwen2-moe, xlstm, "
+    log(f"[8/9] reduced backward of zamba2, mixtral, qwen2-moe, xlstm, "
         f"vision (kv_source) and whisper (encdec_loss): card (kernels) vs "
         f"CPU (plain); {time.perf_counter() - t0:.1f}s so far")
     reduced = check_train_reduced(dev, seed, TRAIN_REDUCED_ARCHS)
     log(f"  {time.perf_counter() - t0:.1f}s so far")
     paths = train_paths(dev, seed, TRAIN_ARCH_PATHS, "8/8")
     seconds = time.perf_counter() - t0
-    log(f"[8/8] phase 8 in {seconds:.1f}s")
+    log(f"[8/9] phase 8 in {seconds:.1f}s")
     return {"kernels": kern, "reduced": reduced, "paths": paths,
             "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: tensor-parallel serving (dist/tp.py), every rank on this card
+# ---------------------------------------------------------------------------
+
+def tp_settings(pressure: dict) -> tuple:
+    """scripts/tp_equiv_smoke.py's settings at full width: (label,
+    ServeConfig overrides, stats that must be > 0); ``pressure``: the
+    pressure drain's max_seq and pool."""
+    return (("dense", {}, ()),
+            ("paged", dict(paged=True, page_size=PAGED_PS), ()),
+            ("sampled paged", dict(paged=True, page_size=PAGED_PS,
+                                   temperature=TEMPERATURE), ()),
+            (f"spec_k={SPEC_K} paged pressure",
+             dict(paged=True, page_size=PAGED_PS, spec_k=SPEC_K, **pressure),
+             ("preemptions", "resumes", "swap_in_pages")))
+
+
+# phase 5's depth: its first TP_REQ requests, whole prompts (16-256 tokens),
+# TP_NEW new tokens each.  They hold 76 pages of 16 slots at once: the
+# pressure drain's 64-page pool preempts and swaps
+TP_REQ, TP_NEW = 8, 16
+TP_PRESSURE = dict(max_seq=512, pool_pages=64)
+# the long cell: TP_LONG_LANES lanes, a multiple of neither 2 nor 4, so the
+# overlap boundary's pad rows run on the card (decode rows 3 -> 4), with
+# prompts of TP_LONG_PROMPT tokens at max_seq 1024.  The full head count
+# (3 x 32 blocks) splits a lane's cache in chunks of 352 keys, a rank's own
+# (3 x 16, 3 x 8) would in 192 or 96: every context spans 3 chunks, and a
+# rank that split by its own count would sum in another order
+TP_LONG_LANES, TP_LONG_PROMPT = 3, (720, 1000)
+# starcoder2-3b's cell: prompts cut to TP_CUT tokens, TP_SHORT_NEW new (time:
+# N ranks sharing one card pay 2-5 ms a collective, 60-121 collectives a
+# step), the pressure drain on a 12-page pool for 8 lanes of up to 36
+TP_CUT, TP_SHORT_NEW = 32, 4
+TP_PRESSURE_SHORT = dict(max_seq=128, pool_pages=12)
+# one packed prefill step's logits, compared with tp 1's: 8 lanes x the
+# prompts' first TP_STEP_T tokens
+TP_STEP_T = 16
+# codeqwen1.5-7b W4A8's TP cells serve 8 of its 32 layers (time: whole, they
+# took ~435 s on an H100 host whose gloo all-gather of a decode row block
+# takes 2-6 ms, scripts/tp_transport_probe.py; every layer has the same
+# shapes, so 8 run every sharded launch the 32 do)
+TP_LAYERS = 8
+# the cells: the model (``layers``: a depth cut), the tp values, whether
+# tokens and logits must equal tp 1's (bf16's differences are reported:
+# ROADMAP C20), the requests ("deep", "long" or "short"), ServeConfig
+# overrides, the settings, the boundaries and whether a packed step's
+# logits are compared.  NCCL refuses two ranks on one card, so the ranks
+# share it over gloo (each collective staged through host buffers)
+TP_CELLS = (
+    dict(name=f"codeqwen1.5-7b-{TP_LAYERS}L w4a8", arch="codeqwen1.5-7b",
+         precision="w4a8", layers=TP_LAYERS, tps=(2, 4), exact=True,
+         requests="deep", settings=tp_settings(TP_PRESSURE)),
+    dict(name=f"codeqwen1.5-7b-{TP_LAYERS}L w4a8 long", arch="codeqwen1.5-7b",
+         precision="w4a8", layers=TP_LAYERS, tps=(2, 4), exact=True,
+         requests="long", scfg=dict(batch_lanes=TP_LONG_LANES),
+         settings=tp_settings(TP_PRESSURE)[:2], boundaries=("overlap",),
+         step=False),
+    dict(name="starcoder2-3b w8a8", arch="starcoder2-3b", precision="w8a8",
+         tps=(2,), exact=True, requests="short",
+         settings=tp_settings(TP_PRESSURE_SHORT)),
+    dict(name="codeqwen1.5-7b bf16", arch="codeqwen1.5-7b", precision="bf16",
+         tps=(2,), exact=False, requests="deep",
+         settings=tp_settings(TP_PRESSURE)[:1]))
+TP_KEEP = ("generated_tokens", "steps", "wall_s", "generated_tok_per_s",
+           "peak_mem_gib", "launches", "metrics", "forwards_by_bucket")
+
+
+def tp_config(cell: dict):
+    """A cell's model config, cut to its ``layers`` where it has them."""
+    from repro_torch.configs import get_config
+    cfg = get_config(cell["arch"], precision=cell["precision"])
+    if cell.get("layers"):
+        cfg = dataclasses.replace(cfg, n_layers=cell["layers"])
+    return cfg
+
+
+def tp_requests(cfg, seed, kind: str) -> list:
+    """A cell's (prompt, max_new) requests (``TP_CELLS``)."""
+    if kind == "deep":
+        return dense_requests(cfg, seed, TP_REQ, TP_NEW)
+    if kind == "short":
+        return [(p[:TP_CUT], TP_SHORT_NEW)
+                for p, _ in dense_requests(cfg, seed, TP_REQ, TP_NEW)]
+    rng = np.random.default_rng(seed + 1)
+    return [(rng.integers(2, cfg.vocab_size, size=int(rng.integers(
+        *TP_LONG_PROMPT))).tolist(), TP_NEW) for _ in range(TP_LONG_LANES)]
+
+
+def tp_must(precision: str, paged: bool) -> tuple:
+    """The kernels a TP drain must launch (in every rank)."""
+    must = {"w4a8": COMMON + ("int4_gemm", "dual_int4_gemm_gated"),
+            "w8a8": COMMON,
+            "bf16": ("quantize_rows", "int8_kv_decode_attention",
+                     "dual_gemm_gated")}[precision]
+    if paged:
+        must = tuple(k for k in must if k != "int8_kv_decode_attention") + (
+            "paged_decode_attention",)
+    return must
+
+
+def forward_digests(engine) -> list:
+    """Wrap ``engine._forward`` to keep, for every forward of a drain, a
+    digest of the logits it returns for the lanes it ran: tp N's are held
+    against tp 1's forward by forward."""
+    seen, fwd = [], engine._forward
+
+    def rec(tok, pos, last_idx, mask, *a):
+        lg = fwd(tok, pos, last_idx, mask, *a)
+        seen.append(digest(lg[torch.from_numpy(mask).to(lg.device)]))
+        return lg
+    engine._forward = rec
+    return seen
+
+
+def tp_drain(params, cfg, dev, cell: dict, kw: dict, mesh=None,
+             **tp) -> tuple[dict, dict, list]:
+    """One drain of a cell's requests under ``kw`` (``tp``: the TP fields
+    of the ServeConfig), as phase 5's are (launches zeroed just before,
+    read just after; every kernel of the path must launch).  Returns the
+    result, the tokens and the forwards' logit digests."""
+    from repro_torch.serve import ServeConfig, ServingEngine
+    eng = ServingEngine(params, cfg, ServeConfig(
+        **{**SCFG, **cell.get("scfg", {}), **kw}, seed=cell["seed"], **tp),
+        device=dev, mesh=mesh)
+    seen = forward_digests(eng)
+    res, tok = timed_drain(eng, [cell["reqs"]], dev, cfg, tp_must(
+        cfg.precision, kw.get("paged", False)))
+    return res, tok, seen
+
+
+def tp_step_logits(params, cfg, dev, requests, mesh=None, **tp) -> np.ndarray:
+    """Each lane's last-row logits (8, V) of one packed prefill step on a
+    fresh dense engine (``tp``: its TP fields): lane l feeds request l's
+    first ``TP_STEP_T`` tokens."""
+    from repro_torch.serve import ServeConfig, ServingEngine
+    engine = ServingEngine(params, cfg, ServeConfig(**SCFG, **tp),
+                           device=dev, mesh=mesh)
+    tok = np.array([p[:TP_STEP_T] for p, _ in
+                    requests[:engine.scfg.batch_lanes]], np.int32)
+    pos = np.tile(np.arange(TP_STEP_T, dtype=np.int32), (len(tok), 1))
+    lg = engine._forward(tok, pos, np.full(len(tok), TP_STEP_T - 1),
+                         np.ones(len(tok), bool), True, 1)
+    return lg[:, 0].float().cpu().numpy()
+
+
+def tp_cell(rank: int, tp: int, mesh, dev, seed: int, cell: dict) -> dict:
+    """One cell on one rank: its shard built and quantized a block at a
+    time, then every setting at each of the cell's boundaries
+    (``tp_drain``).  Returns the drains' numbers, tokens and logit digests,
+    what ``tp_overlap="auto"`` resolves to and a step's logits."""
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = tp_config(cell)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=dev,
+                         precision=cell["precision"], shard=(rank, tp))
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "after_init_gib": torch.cuda.memory_allocated(dev) / 2 ** 30}
+    for boundary in cell.get("boundaries", ("barrier", "overlap")):
+        for label, kw, _ in cell["settings"]:
+            res, tok, seen = tp_drain(params, cfg, dev, cell, kw, mesh=mesh,
+                                      tp=tp, tp_overlap=boundary)
+            out[f"{boundary} {label}"] = {
+                "tokens": tok, "digests": seen,
+                **{k: res[k] for k in TP_KEEP}}
+    out["auto"] = ServingEngine(params, cfg, ServeConfig(**SCFG, tp=tp),
+                                device=dev, mesh=mesh).tp_overlap_resolved
+    if cell.get("step", True):
+        out["logits"] = {b: tp_step_logits(params, cfg, dev, cell["reqs"],
+                                           mesh=mesh, tp=tp, tp_overlap=b)
+                         for b in ("barrier", "overlap")}
+    return out
+
+
+def tp_rank(rank: int, port: int, device: str, tp: int, seed: int,
+            cells: list) -> dict:
+    """One rank of a gloo TP group on ``device`` (a spawned process): every
+    cell of ``cells`` in turn (``tp_cell``), each model freed before the
+    next.  Returns the cells' results by name."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # a rank's host work is one thread's; the card's ranks share the cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // tp))
+    from repro_torch.launch.mesh import make_tp_mesh
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    mesh = make_tp_mesh(tp, "gloo", rank=rank, port=port, device=dev)
+    out = {}
+    for cell in cells:
+        out[cell["name"]] = tp_cell(rank, tp, mesh, dev, seed, cell)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def differ_at(got: list, want: list) -> tuple[int, int | None]:
+    """(forwards whose logit digests differ, the first of them) of two
+    drains' ``forward_digests``; a different count differs throughout."""
+    if len(got) != len(want):
+        return max(len(got), len(want)), 0
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    return len(bad), (bad[0] if bad else None)
+
+
+def tp_compare(tp: int, cell: dict, got: list, out: dict,
+               logits: dict) -> None:
+    """Hold the ranks' results ``got`` of one cell against tp 1's (in
+    ``cell``) and each other, log them, and record them in ``out`` (drains)
+    and ``logits``."""
+    name, exact = cell["name"], cell["exact"]
+    log(f"  {name} tp {tp}: each rank built its shard in "
+        f"{max(g['init_s'] for g in got):.1f}s, "
+        f"{max(g['after_init_gib'] for g in got):.1f} GiB; "
+        f"tp_overlap='auto' resolves to {got[0]['auto']}")
+    for boundary in cell.get("boundaries", ("barrier", "overlap")):
+        if "logits" in cell:
+            w = cell["logits"]
+            mine = [g["logits"][boundary] for g in got]
+            n = max(int((x != w).sum()) for x in mine)
+            d = max(float(np.abs(x - w).max()) for x in mine)
+            logits[f"{name} tp{tp} {boundary}"] = {
+                "differ": n, "max_abs": d, "of": w.size}
+            log(f"  tp {tp} {boundary} step logits: {n} of {w.size} differ "
+                f"from tp 1's (max |d| {d:.4g})")
+            if exact and n:
+                raise AssertionError(f"{name} tp {tp} {boundary}: a step's "
+                                     f"logits differ from tp 1's")
+        for label, _, require in cell["settings"]:
+            key = f"{boundary} {label}"
+            drains = [g[key] for g in got]
+            c = drains[0]
+            across = max(count_diff(x["tokens"], c["tokens"]) for x in drains)
+            across += max(differ_at(x["digests"], c["digests"])[0]
+                          for x in drains)
+            differ = count_diff(c["tokens"], cell["tp1"][label]["tokens"])
+            fwd, first = differ_at(c["digests"], cell["tp1"][label]["digests"])
+            low = [s for s in require if c["metrics"][s] <= 0]
+            rec = {k: v for k, v in c.items() if k not in ("tokens",
+                                                           "digests")}
+            rec.update(tokens_differ=differ, ranks_differ=across,
+                       forwards=len(c["digests"]), forwards_differ=fwd,
+                       first_forward_apart=first,
+                       compared_with=f"the tp 1 {label} drain",
+                       equal_required=exact, boundary=boundary,
+                       auto=got[0]["auto"],
+                       peak_gib_a_rank=max(x["peak_mem_gib"] for x in drains),
+                       rank_init_s=[g["init_s"] for g in got],
+                       tp1=out[f"{name} tp1 {label}"]["generated_tok_per_s"])
+            out[f"{name} tp{tp} {key}"] = rec
+            m = c["metrics"]
+            log(f"  tp {tp} {key}: {differ} of {c['generated_tokens']} "
+                f"generated tokens and {fwd} of {len(c['digests'])} "
+                f"forwards' logits differ from tp 1 ({across} across "
+                f"ranks); {c['generated_tok_per_s']:.1f} tok/s, TPOT p50 "
+                f"{m['tpot_p50_ms']:.2f} ms ({tp} ranks sharing one card), "
+                f"{c['steps']} steps in {c['wall_s']:.1f}s, peak "
+                f"{rec['peak_gib_a_rank']:.1f} GiB a rank"
+                + (f"; preempt {m['preemptions']} swap "
+                   f"{m['swap_out_pages']}/{m['swap_in_pages']} spec "
+                   f"{m['spec_accepted']}/{m['spec_drafted']}"
+                   if require else ""))
+            if across or low or (exact and (differ or fwd)):
+                raise AssertionError(
+                    f"{name} tp {tp} {key}: {differ} tokens and {fwd} "
+                    f"forwards differ from tp 1, {across} across ranks, "
+                    f"{low} = 0")
+
+
+def serve_tp(dev, seed) -> dict:
+    """Phase 9: each cell of ``TP_CELLS`` served at tp 1 in this process,
+    then, for each tp, one group of tp ranks spawned on this card
+    (``launch.mesh.run_ranks``, gloo) serving every cell of that tp in turn:
+    the cell's settings at its boundaries.  Every rank's tokens and
+    forwards' logits must equal rank 0's and, where the cell says so, tp
+    1's (0 differences; bf16's counts are reported); the pressure drains
+    must preempt, resume and swap at tp 1 and at tp N; one packed step's
+    logits must equal tp 1's in those cells.  Returns {"drains": every
+    drain by cell, "step_logits": the logits differences}."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import init_params
+    out, logits, cells = {}, {}, []
+    for spec in TP_CELLS:
+        cell = dict(spec)
+        name, precision = cell["name"], cell["precision"]
+        cfg = tp_config(cell)
+        cell["reqs"] = tp_requests(cfg, seed, cell["requests"])
+        cell["seed"] = seed
+        params = init_params(cfg, seed=seed, device=dev, precision=precision)
+        cell["tp1"] = {}
+        for label, kw, require in cell["settings"]:
+            res, tok, seen = tp_drain(params, cfg, dev, cell, kw)
+            low = [s for s in require if res["metrics"][s] <= 0]
+            if low:
+                raise AssertionError(f"{name} tp 1 {label}: {low} = 0")
+            cell["tp1"][label] = {"tokens": tok, "digests": seen}
+            out[f"{name} tp1 {label}"] = res
+            log(f"  {name} tp 1 {label}: {res['generated_tok_per_s']:.1f} "
+                f"tok/s, TPOT p50 {res['metrics']['tpot_p50_ms']:.2f} ms, "
+                f"{res['steps']} steps in {res['wall_s']:.1f}s, peak "
+                f"{res['peak_mem_gib']:.1f} GiB")
+        if cell.get("step", True):
+            cell["logits"] = tp_step_logits(params, cfg, dev, cell["reqs"])
+        cells.append(cell)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    for tp in sorted({tp for c in cells for tp in c["tps"]}):
+        mine = [c for c in cells if tp in c["tps"]]
+        t0 = time.perf_counter()
+        ranks = run_ranks(tp_rank, tp, str(dev), tp, seed, [
+            {k: v for k, v in c.items() if k not in ("tp1", "logits")}
+            for c in mine])
+        log(f"  tp {tp}: {tp} ranks served {len(mine)} cells in "
+            f"{time.perf_counter() - t0:.1f}s")
+        for cell in mine:
+            tp_compare(tp, cell, [r[cell["name"]] for r in ranks], out,
+                       logits)
+    return {"drains": out, "step_logits": logits}
 
 
 PROFILED_KERNELS = ("int4_gemm", "flash_attention", "dual_gemm_gated",
@@ -5739,6 +6338,11 @@ def main() -> int:
                     "ssd_scan, then run only phases 7 and 8 (training; "
                     "train_phase, train_archs_phase); prints their summary "
                     "and no ok line")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="build, then only phase 3's tensor-parallel "
+                    "launches (check_tp_shapes) and phase 9 (serve_tp: "
+                    "the TP drains, ranks spawned on this card); prints "
+                    "their summary and no ok line")
     ap.add_argument("--kernels", default=None,
                     help="comma-separated kernels among "
                     f"{', '.join(KERNEL_CASES)}: build only these from --src "
@@ -5764,7 +6368,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    log(f"[1/8] card: {smi} | torch {torch.__version__} cuda "
+    log(f"[1/9] card: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
@@ -5772,7 +6376,7 @@ def main() -> int:
                                        for src in KERNEL_CASES[name][1]})]
                                if only else [train_kernels()] if args.train_only
                                else []))
-    log(f"[2/8] built {len(built)} kernels in {time.perf_counter() - t0:.1f}s")
+    log(f"[2/9] built {len(built)} kernels in {time.perf_counter() - t0:.1f}s")
     for name, info in sorted(built.items()):
         regs = [ln.strip() for ln in info["ptxas"].splitlines()
                 if "registers" in ln or "Compiling entry" in ln
@@ -5798,7 +6402,7 @@ def main() -> int:
         return 0
 
     if only:
-        log(f"[3/8] {', '.join(only)} vs plain versions on the card "
+        log(f"[3/9] {', '.join(only)} vs plain versions on the card "
             f"({args.src})")
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         cases, timer = [], Timer(dev)
@@ -5814,6 +6418,31 @@ def main() -> int:
             f"{c['kernel']} {c['shape']}": c["ms"] for c in cases},
             "sha1": {f"{c['kernel']} {c['shape']}": c["sha1"]
                      for c in cases if "sha1" in c}}))
+        print(smi)
+        return 0
+
+    if args.tp_only:
+        log("[3/9] tensor-parallel launches vs the unsharded launch and the "
+            "plain versions")
+        cases, timer = [], Timer(dev)
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        check_tp_shapes(dev, gen, timer, case_recorder(cases),
+                        randn_on(dev, gen))
+        torch.cuda.empty_cache()
+        log("[9/9] tensor-parallel serving: ranks spawned on this card")
+        res = serve_tp(dev, args.seed)
+        if args.out is not None:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(json.dumps({"card": smi, "cases": cases,
+                                            "serve_tp": res}, indent=1))
+        print(json.dumps({"tp_only": {
+            label: {k: r[k] for k in ("tokens_differ", "ranks_differ",
+                                      "generated_tok_per_s", "tp1",
+                                      "peak_gib_a_rank")}
+            for label, r in res["drains"].items() if "ranks_differ" in r},
+            "step_logits": res["step_logits"],
+            "cases": {f"{c['kernel']} {c['shape']}": c["ms"]
+                      for c in cases}}))
         print(smi)
         return 0
 
@@ -5882,53 +6511,53 @@ def main() -> int:
         print(smi)
         return 0
 
-    log("[3/8] kernels vs plain versions on the card")
+    log("[3/9] kernels vs plain versions on the card")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     cases = check_kernels(dev, gen, Timer(dev))
     torch.cuda.empty_cache()
 
     worst = {}
     for arch, precision, must in REDUCED_PATHS:
-        log(f"[4/8] {arch}-reduced {precision} int8-KV: CPU plain (and in "
+        log(f"[4/9] {arch}-reduced {precision} int8-KV: CPU plain (and in "
             f"the card's order, seeds {args.seed}..{args.seed + SEEDS - 1}) "
             f"vs CUDA kernels")
         for k in range(SEEDS):
             worst[f"{arch} {precision} seed {args.seed + k}"] = check_reduced(
                 dev, args.seed + k, arch, precision, must, main=k == 0)
-    log("[4/8] zamba2-2.7b-reduced w8a8 int8-KV forward with states "
+    log("[4/9] zamba2-2.7b-reduced w8a8 int8-KV forward with states "
         "(prefill through ssd_scan and the multi-row decode form, then "
         "t = 1 steps): CPU plain vs CUDA kernels")
     for k in range(SEEDS):
         worst[f"zamba2-2.7b w8a8 states seed {args.seed + k}"] = (
             check_reduced_states(dev, args.seed + k, main=k == 0))
-    log("[4/8] xlstm-350m-reduced w8a8: no-cache forward, then forward with "
+    log("[4/9] xlstm-350m-reduced w8a8: no-cache forward, then forward with "
         "states (t = 1 steps): CPU plain vs CUDA kernels")
     for k in range(SEEDS):
         for key, v in check_xlstm_reduced(dev, args.seed + k).items():
             worst[f"xlstm-350m w8a8 {key} seed {args.seed + k}"] = v
-    log("[4/8] whisper-small-reduced w8a8: encode, cross states, decoder "
+    log("[4/9] whisper-small-reduced w8a8: encode, cross states, decoder "
         "steps and encdec_forward: CPU plain (card order) vs CUDA kernels")
     for k in range(SEEDS):
         for key, v in check_whisper_reduced(dev, args.seed + k).items():
             worst[f"whisper-small w8a8 {key} seed {args.seed + k}"] = v
     for precision in ("w4a8", "w8a8"):
-        log(f"[4/8] llama-3.2-vision-90b-reduced {precision} (gates "
+        log(f"[4/9] llama-3.2-vision-90b-reduced {precision} (gates "
             f"{XATTN_GATES}): cross states, steps and the no-cache forward "
             f"with kv_source: CPU plain (card order) vs CUDA kernels")
         for k in range(SEEDS):
             for key, v in check_vision_reduced(dev, args.seed + k,
                                                precision).items():
                 worst[f"{VISION} {precision} {key} seed {args.seed + k}"] = v
-    log("[4/8] codeqwen1.5-7b-reduced w4a8 paged int8 arena: CPU plain vs "
+    log("[4/9] codeqwen1.5-7b-reduced w4a8 paged int8 arena: CPU plain vs "
         "CUDA kernels, paged vs dense on the card")
     worst["codeqwen1.5-7b w4a8 paged"] = check_reduced_paged(dev, args.seed)
     for arch, precision in REDUCED_NO_CACHE:
-        log(f"[4/8] {arch}-reduced {precision} no-cache forward: CPU plain vs "
+        log(f"[4/9] {arch}-reduced {precision} no-cache forward: CPU plain vs "
             f"CUDA kernels")
         worst[f"{arch} {precision} no-cache"] = check_reduced_no_cache(
             dev, args.seed, arch, precision)
     for arch, act in REDUCED_MIXED:
-        log(f"[4/8] {arch}-reduced w8a8 over float weights (integer norms, "
+        log(f"[4/9] {arch}-reduced w8a8 over float weights (integer norms, "
             f"attention and {act}) no-cache forward: CPU plain vs CUDA "
             f"kernels")
         worst[f"{arch} w8a8-float no-cache"] = check_reduced_no_cache(
@@ -5937,7 +6566,7 @@ def main() -> int:
     served = {}
     for (label, arch, precision, n_req, max_new, profiled, must,
          paged) in SERVE_PATHS:
-        log(f"[5/8] serve full-width {label} int8-KV: {n_req} requests x "
+        log(f"[5/9] serve full-width {label} int8-KV: {n_req} requests x "
             f"{max_new} new tokens" + (", then three paged drains" if paged
                                        else ""))
         srv = served[label] = serve_full(dev, args.seed, arch, precision, n_req,
@@ -5996,7 +6625,7 @@ def main() -> int:
                 f"ms wall), key fold {sm['keys_host_ms']:.3f} ms host; "
                 f"{sm['draws_compared']} draws equal to the CPU's")
 
-    log(f"[5/8] serve full-width zamba2-2.7b w8a8 int8-KV tokenwise: "
+    log(f"[5/9] serve full-width zamba2-2.7b w8a8 int8-KV tokenwise: "
         f"{ZAMBA_REQ} requests x {ZAMBA_NEW} new tokens together, "
         f"{ZAMBA_ALONE} of them one at a time")
     for name, drain in serve_zamba2(dev, args.seed).items():
@@ -6007,7 +6636,7 @@ def main() -> int:
         log_profile(drain)
     gc.collect()
     torch.cuda.empty_cache()
-    log("[5/8] zamba2-2.7b-reduced w8a8 served tokenwise: card vs the CPU "
+    log("[5/9] zamba2-2.7b-reduced w8a8 served tokenwise: card vs the CPU "
         "in the card's order")
     zred = serve_zamba2_reduced(dev, args.seed)
     log(f"  {zred['steps_compared']} steps compared, worst "
@@ -6017,7 +6646,7 @@ def main() -> int:
 
     no_cache = {}
     for arch, precision in MOE_PATHS:
-        log(f"[5/8] serve full-width {arch} {precision} int8-KV (built and "
+        log(f"[5/9] serve full-width {arch} {precision} int8-KV (built and "
             f"quantized a block at a time): {MOE_REQ} requests x {MOE_NEW} "
             f"new tokens" + (", then paged, then one request of "
                              f"{LONG_PROMPT} tokens on the ring, unwrapped "
@@ -6047,14 +6676,14 @@ def main() -> int:
             f"{sum(dense['syncs_per_decode_step'].values())} synchronizing "
             f"calls")
         lm = no_cache[f"{arch} {precision} lm_loss"] = res["lm_loss"]
-        log(f"[6/8] full-width {arch} {precision} lm_loss on {MOE_SCORE_B} x "
+        log(f"[6/9] full-width {arch} {precision} lm_loss on {MOE_SCORE_B} x "
             f"{MOE_SCORE_T} tokens: {lm['loss']:.4f} in {lm['wall_s']:.2f}s "
             f"({lm['tok_per_s']:.0f} tok/s), peak {lm['peak_mem_gib']:.1f} "
             f"GiB, {lm['rows_per_expert']} rows per expert; launches "
             f"{lm['launches']}")
         log_profile(lm)
     for arch, precision, paged in GQA_PATHS:
-        log(f"[5/8] serve full-width {arch} {precision} int8-KV (built and "
+        log(f"[5/9] serve full-width {arch} {precision} int8-KV (built and "
             f"quantized a block at a time): {GQA_REQ} requests x {GQA_NEW} "
             f"new tokens" + (", then paged" if paged else ""))
         res = serve_gqa(dev, args.seed, arch, precision, paged)
@@ -6077,12 +6706,12 @@ def main() -> int:
                 f"synchronizing calls")
             log_profile(drain)
         lm = no_cache[f"{arch} {precision} lm_loss"] = res["lm_loss"]
-        log(f"[6/8] full-width {arch} {precision} lm_loss on {SCORE_B} x "
+        log(f"[6/9] full-width {arch} {precision} lm_loss on {SCORE_B} x "
             f"{SCORE_T} tokens: {lm['loss']:.4f} in {lm['wall_s']:.2f}s "
             f"({lm['tok_per_s']:.0f} tok/s), peak {lm['peak_mem_gib']:.1f} "
             f"GiB; launches {lm['launches']}")
         log_profile(lm)
-    log(f"[5/8] serve full-width xlstm-350m w8a8 tokenwise: {XLSTM_REQ} "
+    log(f"[5/9] serve full-width xlstm-350m w8a8 tokenwise: {XLSTM_REQ} "
         f"requests x {XLSTM_NEW} new tokens together, {XLSTM_ALONE} of them "
         f"one at a time in lane 0")
     for name, drain in serve_xlstm(dev, args.seed).items():
@@ -6091,7 +6720,7 @@ def main() -> int:
         log_drain(drain)
         log_extra(drain)
         log_profile(drain)
-    log(f"[6/8] full-width xlstm-350m lm_loss on {SCORE_B} x {SCORE_T} "
+    log(f"[6/9] full-width xlstm-350m lm_loss on {SCORE_B} x {SCORE_T} "
         f"tokens at bf16, w8a8 and w4a8")
     for label, lm in xlstm_loss(dev, args.seed).items():
         no_cache[label] = lm
@@ -6099,7 +6728,7 @@ def main() -> int:
             f"({lm['tok_per_s']:.0f} tok/s), peak {lm['peak_mem_gib']:.1f} "
             f"GiB; launches {lm['launches']}")
         log_profile(lm)
-    log(f"[5/8] serve full-width {WHISPER} w8a8 int8-KV: encode 8 clips, "
+    log(f"[5/9] serve full-width {WHISPER} w8a8 int8-KV: encode 8 clips, "
         f"then {XATTN_REQ} requests x {XATTN_NEW} new tokens with kv_source, "
         f"then again on the reused lanes")
     for name, drain in serve_whisper(dev, args.seed).items():
@@ -6115,14 +6744,14 @@ def main() -> int:
         log_profile(drain)
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"[6/8] full-width {WHISPER} encdec_loss on {SCORE_B} x (1500 frames, "
+    log(f"[6/9] full-width {WHISPER} encdec_loss on {SCORE_B} x (1500 frames, "
         f"{WH_SCORE_T} tokens) at bf16 and w8a8")
     for label, lm in whisper_loss(dev, args.seed).items():
         no_cache[label] = lm
         log(f"  {label}: {lm['loss']:.4f} in {lm['wall_s']:.2f}s, peak "
             f"{lm['peak_mem_gib']:.1f} GiB; launches {lm['launches']}")
         log_profile(lm)
-    log(f"[5/8] serve full-width {VISION} w4a8 int8-KV (built and quantized "
+    log(f"[5/9] serve full-width {VISION} w4a8 int8-KV (built and quantized "
         f"a block at a time): cross K/V of 8 lanes' vision tokens, "
         f"{XATTN_REQ} requests x {XATTN_NEW} new tokens")
     res = serve_vision(dev, args.seed)
@@ -6138,24 +6767,24 @@ def main() -> int:
         f"synchronizing calls")
     log_profile(drain)
     lm = no_cache[f"{VISION} w4a8 lm_loss"] = res["lm_loss"]
-    log(f"[6/8] full-width {VISION} w4a8 lm_loss with kv_source on {SCORE_B} "
+    log(f"[6/9] full-width {VISION} w4a8 lm_loss with kv_source on {SCORE_B} "
         f"x {SCORE_T} tokens: {lm['loss']:.4f} in {lm['wall_s']:.2f}s "
         f"({lm['tok_per_s']:.0f} tok/s), peak {lm['peak_mem_gib']:.1f} GiB; "
         f"launches {lm['launches']}")
     log_profile(lm)
     for arch, precisions, calibrated, long_w8a8 in NO_CACHE_PATHS:
-        log(f"[6/8] full-width {arch} no-cache forward: lm_loss on {NC_B} x "
+        log(f"[6/9] full-width {arch} no-cache forward: lm_loss on {NC_B} x "
             f"{NC_T} tokens at {', '.join(precisions)}"
             + (", after calibrate_ptq" if calibrated else ""))
         no_cache.update(no_cache_full(dev, args.seed, arch, precisions,
                                       calibrated, long_w8a8))
-    log("[6/8] the integer library's entry points (Table II shapes) and "
+    log("[6/9] the integer library's entry points (Table II shapes) and "
         "the ViT-B/16 patch embed")
     no_cache["integer library"] = int_library_entry(dev, args.seed)
     log(f"  launches {no_cache['integer library']['launches']}; patch embed "
         f"{no_cache['integer library']['patch_embed_shape']} equal to the "
         f"CPU's")
-    log("[6/8] ops.softmax_i8 on causal score rows")
+    log("[6/9] ops.softmax_i8 on causal score rows")
     no_cache["ops.softmax_i8"] = softmax_entry(dev, args.seed)
     log(f"  launches {no_cache['ops.softmax_i8']['launches']}, row sums "
         f"{no_cache['ops.softmax_i8']['row_sum_range']}")
@@ -6165,6 +6794,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train8 = train_archs_phase(dev, gen, Timer(dev), args.seed, cases)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[9/9] tensor-parallel serving (codeqwen1.5-7b-{TP_LAYERS}L w4a8 at "
+        f"tp 2 and 4, also on {TP_LONG_LANES} long lanes, starcoder2-3b w8a8 "
+        f"at tp 2, codeqwen1.5-7b bf16 at tp 2): ranks spawned on this card, "
+        f"gloo")
+    t_tp = time.perf_counter()
+    tp_served = serve_tp(dev, args.seed)
+    log(f"[9/9] phase 9 in {time.perf_counter() - t_tp:.1f}s")
 
     # the M = 8 (decode) case of each kernel at the shape each path gives it;
     # a kernel's headline is the slice's main path (codeqwen1.5-7b w4a8) where
@@ -6357,7 +6995,8 @@ def main() -> int:
         return next(c for c in cases if c["kernel"] == name
                     and c["shape"] == shape)
     kernels = []
-    paths = {**served, **no_cache, **train["paths"], **train8["paths"]}
+    paths = {**served, **no_cache, **train["paths"], **train8["paths"],
+             **tp_served["drains"]}
     for name in ops.KERNELS:
         by_path = {label: res["launches"][name]
                    for label, res in paths.items()}
@@ -6382,7 +7021,7 @@ def main() -> int:
             "build": {k: v["seconds"] for k, v in built.items()},
             "cases": cases, "reduced_worst_rel": worst, "serve": served,
             "no_cache": no_cache, "zamba2_reduced_served": zred,
-            "train": train, "train_archs": train8,
+            "train": train, "train_archs": train8, "serve_tp": tp_served,
             "kernels": kernels, "total_s": time.perf_counter() - t_start},
             indent=1))
     log(f"done in {time.perf_counter() - t_start:.1f}s")

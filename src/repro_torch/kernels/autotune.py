@@ -1,12 +1,14 @@
-"""The MoE group-size table of ``repro.kernels.autotune``
-(``moe_group_size`` and ``_MOE_GROUP_CANDIDATES``, ``autotune.py:214-241``),
-table path only.
+"""The MoE group-size table and the serving-TP boundary choice of
+``repro.kernels.autotune`` (``moe_group_size`` and
+``_MOE_GROUP_CANDIDATES``, ``autotune.py:214-241``; ``tp_serving_overlap``,
+``:381``), table path only.
 
 The reference first consults a cache of tile choices measured on its TPU
 (``REPRO_AUTOTUNE_CACHE``); the port has no measurements of its own yet
 (ROADMAP.md §A), so it takes the reference's table rule: the argmin of the
 dispatch cost model (``core.costmodel``) over the candidate group sizes
-that divide the token count.
+that divide the token count, and the cheaper TP boundary by the cost
+model.
 """
 from __future__ import annotations
 
@@ -32,3 +34,23 @@ def moe_group_size(t: int, d: int, ff: int, e: int, k: int,
         if c < best_cost:
             best, best_cost = sg, c
     return best
+
+
+@functools.lru_cache(maxsize=4096)
+def tp_serving_overlap(rows: int, d_model: int, d_ff: int, heads_dim: int,
+                       tp: int) -> str:
+    """``"overlap"`` or ``"barrier"`` for the serving-TP row-GEMM boundary
+    (``dist/tp.py``) of a step with ``rows`` packed tokens: the sum of the
+    two boundaries a block crosses (attention out: heads dim -> d_model;
+    MLP out: d_ff -> d_model) under each variant by
+    ``costmodel.tp_boundary_cost``, the cheaper one."""
+    if tp <= 1:
+        return "barrier"
+
+    def total(overlap: bool) -> float:
+        return (costmodel.tp_boundary_cost(rows, heads_dim, d_model, tp,
+                                           overlap)
+                + costmodel.tp_boundary_cost(rows, d_ff, d_model, tp,
+                                             overlap))
+
+    return "overlap" if total(True) < total(False) else "barrier"

@@ -106,11 +106,14 @@ def rows_per_block(t: int, g: int, d: int, kv_bytes: int = 1) -> int:
     return max(1, min(r, t))
 
 
-def launch_rows(entry, q, qpos, b, hkv, s, kv, kv_bytes=1):
+def launch_rows(entry, q, qpos, b, hkv, s, kv, kv_bytes=1, split_hkv=None):
     """Common part of the dense and paged launches: q (B, T, Hq, D) and
     qpos (B, T) over the payloads ``kv`` (K and V, ``kv_bytes`` a value,
     copied in 16-byte chunks); ``entry(q, qpos, out, n_split, chunk, t,
-    rows, part)`` calls the C entry and returns its rc."""
+    rows, part)`` calls the C entry and returns its rc.  ``split_hkv``: the
+    kv head count the cache split is sized for (default ``hkv``): a
+    tensor-parallel rank holding hkv / tp heads passes the full count, so
+    each of its heads is split, and summed, as in the unsharded launch."""
     _, t, hq, d = q.shape
     check(q.dtype in (torch.bfloat16, torch.float32),
           f"q must be bf16 or f32, got {q.dtype}")
@@ -125,7 +128,7 @@ def launch_rows(entry, q, qpos, b, hkv, s, kv, kv_bytes=1):
     q, qpos = q.contiguous(), qpos.contiguous()
     out = torch.empty_like(q)
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    n_split, chunk = kv_split(b * hkv, s, n_sm)
+    n_split, chunk = kv_split(b * (split_hkv or hkv), s, n_sm)
     g = hq // hkv
     rows = rows_per_block(t, g, d, kv_bytes)
     check(block_smem(g, d, rows, kv_bytes) <= 232448, f"G={g} D={d}: a "
@@ -137,7 +140,8 @@ def launch_rows(entry, q, qpos, b, hkv, s, kv, kv_bytes=1):
     return out, entry(q, qpos, out, n_split, chunk, t, rows, part)
 
 
-def _launch(q, k_q, k_s, v_q, v_s, pos_ids, qpos, scale, window):
+def _launch(q, k_q, k_s, v_q, v_s, pos_ids, qpos, scale, window,
+            split_hkv=None):
     b, t, hq, d = q.shape
     _, s, hkv, d2 = k_q.shape
     check(d2 == d and hq % hkv == 0, f"q {tuple(q.shape)} vs cache "
@@ -162,7 +166,8 @@ def _launch(q, k_q, k_s, v_q, v_s, pos_ids, qpos, scale, window):
                   hkv, s, d, float(scale), int(window), n_split, chunk, t,
                   rows, part.data_ptr(),
                   torch.cuda.current_stream(q.device).cuda_stream)
-    out, rc = launch_rows(entry, q, qpos, b, hkv, s, (k_q, v_q))
+    out, rc = launch_rows(entry, q, qpos, b, hkv, s, (k_q, v_q),
+                          split_hkv=split_hkv)
     build.check_rc(rc, "int8_kv_decode_attention")
     LAUNCHES["int8_kv_decode_attention"] += 1
     if window > 0:
@@ -196,15 +201,18 @@ def int8_kv_decode_attention_rows_ref(q, k_q, k_s, v_q, v_s, pos_ids, qpos,
 
 
 def int8_kv_decode_attention_rows(q, k_q, k_s, v_q, v_s, pos_ids, qpos,
-                                  scale=None, window: int = 0):
+                                  scale=None, window: int = 0,
+                                  split_hkv: int | None = None):
     """The multi-row form: q (B, T, Hq, D) at positions qpos (B, T) against
     the int8 cache -> (B, T, Hq, D); each row equals a T = 1 launch at its
     position on the card, and the plain version's row on the CPU.  At
-    T = 1 it is the single-token launch."""
+    T = 1 it is the single-token launch.  ``split_hkv`` (``launch_rows``)
+    sizes the cache split; the plain version does not split."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if on_cuda(q, k_q, k_s, v_q, v_s, pos_ids, qpos):
-        out = _launch(q, k_q, k_s, v_q, v_s, pos_ids, qpos, scale, window)
+        out = _launch(q, k_q, k_s, v_q, v_s, pos_ids, qpos, scale, window,
+                      split_hkv)
         if q.shape[1] > 1:
             LAUNCHES["int8_kv_decode_attention.rows"] += 1
         return out

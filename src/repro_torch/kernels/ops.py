@@ -320,20 +320,26 @@ def decode_attention_int8kv(q, k_q, k_s, v_q, v_s, pos_ids, qpos, scale=None,
 
 
 def decode_attention_int8kv_rows(q, k_q, k_s, v_q, v_s, pos_ids, qpos,
-                                 scale=None, window: int = 0):
+                                 scale=None, window: int = 0,
+                                 split_hkv: int | None = None):
     """The T rows of a packed t > 1 step (q (B, T, Hq, D), qpos (B, T))
     over the int8 ring cache, each row as a single-token step at its
-    position would compute it."""
+    position would compute it; ``split_hkv``: the kv heads the cache split
+    is sized for (a TP rank's full count)."""
     return int8_kv_decode_attention_rows(q, k_q, k_s, v_q, v_s, pos_ids, qpos,
-                                         scale=scale, window=window)
+                                         scale=scale, window=window,
+                                         split_hkv=split_hkv)
 
 
 def paged_attention_decode_rows(q, pk, pks, pv, pvs, ppos, pt, qpos,
-                                scale=None, window: int = 0):
+                                scale=None, window: int = 0,
+                                split_hkv: int | None = None):
     """The T rows of a packed t > 1 step over the PAGED KV arena, each row as
-    a single-token step at its position would compute it."""
+    a single-token step at its position would compute it; ``split_hkv`` as
+    in ``decode_attention_int8kv_rows``."""
     return paged_decode_attention_rows(q, pk, pks, pv, pvs, ppos, pt, qpos,
-                                       scale=scale, window=window)
+                                       scale=scale, window=window,
+                                       split_hkv=split_hkv)
 
 
 def paged_attention_decode(q, pk, pks, pv, pvs, ppos, pt, qpos, scale=None,

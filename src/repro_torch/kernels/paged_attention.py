@@ -54,7 +54,8 @@ def paged_decode_attention_ref(q, pk, pks, pv, pvs, ppos, pt, qpos,
     return torch.where(live[:, None, None], out, torch.zeros_like(out))
 
 
-def _launch(q, pk, pks, pv, pvs, ppos, pt, qpos, scale, window):
+def _launch(q, pk, pks, pv, pvs, ppos, pt, qpos, scale, window,
+            split_hkv=None):
     b, t, hq, d = q.shape
     n_pages, ps, hkv, d2 = pk.shape
     mp = pt.shape[1]
@@ -88,7 +89,7 @@ def _launch(q, pk, pks, pv, pvs, ppos, pt, qpos, scale, window):
                   chunk, t, rows, part.data_ptr(),
                   torch.cuda.current_stream(q.device).cuda_stream)
     out, rc = launch_rows(entry, q, qpos, b, hkv, mp * ps, (pk, pv),
-                          1 if int8 else 2)
+                          1 if int8 else 2, split_hkv)
     build.check_rc(rc, "paged_decode_attention")
     LAUNCHES["paged_decode_attention"] += 1
     if window > 0:
@@ -123,14 +124,17 @@ def paged_decode_attention_rows_ref(q, pk, pks, pv, pvs, ppos, pt, qpos,
 
 
 def paged_decode_attention_rows(q, pk, pks, pv, pvs, ppos, pt, qpos,
-                                scale=None, window: int = 0):
+                                scale=None, window: int = 0,
+                                split_hkv: int | None = None):
     """The multi-row form: q (B, T, Hq, D) at positions qpos (B, T) against
     the page arena -> (B, T, Hq, D); each row equals a T = 1 launch at its
-    position on the card, and the plain version's row on the CPU."""
+    position on the card, and the plain version's row on the CPU.
+    ``split_hkv`` sizes the cache split (``launch_rows``)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if on_cuda(q, pk, pks, pv, pvs, ppos, pt, qpos):
-        out = _launch(q, pk, pks, pv, pvs, ppos, pt, qpos, scale, window)
+        out = _launch(q, pk, pks, pv, pvs, ppos, pt, qpos, scale, window,
+                      split_hkv)
         if q.shape[1] > 1:
             LAUNCHES["paged_decode_attention.rows"] += 1
         return out

@@ -27,22 +27,30 @@ samples on the reference's threefry streams from ``--seed``; ``--spec-k K`` turn
 ``run_stream`` with exponential arrival gaps of mean G ms drawn from
 ``--seed`` and prints the serving metrics.  ``--paged`` serves from the
 paged KV pool (prefix sharing, copy-on-write, preempt/swap under pressure)
-and prints its pool line.  Flags mirror ``repro.launch.serve``; only
-``--tp`` > 1 is not ported (it raises ``NotImplementedError``).
+and prints its pool line.  ``--tp N`` serves tensor-parallel: N ranks
+(spawned processes) each build their shard a block at a time and run the
+engine in one ``--tp-backend`` group (``launch/mesh.py``: ``gloo`` — every
+rank on ``--device``, the CPU or one shared card — or ``nccl``, rank r on
+``cuda:r``); rank 0 prints the ``tensor parallel:`` line and the stats, and
+its tokens are the ``--tp 1`` tokens.  The kernels are built once, before
+the ranks start.  Flags mirror ``repro.launch.serve``.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
 
 from ..configs import get_config
-from ..kernels import ops
+from ..dist.tp import validate_tp_serving
+from ..kernels import build, ops
 from ..models import init_params
 from ..models.frontend import vision_tokens_stub
 from ..serve import ServeConfig, ServingEngine
+from .mesh import make_tp_mesh, run_ranks
 
 
 def main(argv=None) -> None:
@@ -67,6 +75,9 @@ def main(argv=None) -> None:
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--tp-overlap", default="auto",
                     choices=("auto", "overlap", "barrier"))
+    ap.add_argument("--tp-backend", default="gloo", choices=("gloo", "nccl"),
+                    help="the TP group's transport: gloo (every rank on "
+                    "--device) or nccl (rank r on cuda:r)")
     ap.add_argument("--stream-gap-ms", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
@@ -75,16 +86,47 @@ def main(argv=None) -> None:
 
     if args.w8a8 and args.w4a8:
         raise SystemExit("--w8a8 and --w4a8 are exclusive")
+    if args.tp > 1:
+        if args.tp_backend == "nccl" and args.device != "cuda":
+            raise SystemExit("--tp-backend nccl puts rank r on cuda:r")
+        validate_tp_serving(_config(args), args.tp)
+        if args.device == "cuda":
+            build.build_all()         # once, before the ranks
+        run_ranks(_serve_rank, args.tp, args)
+        return
+    serve(args)
+
+
+def _config(args):
     precision = "w4a8" if args.w4a8 else "w8a8" if args.w8a8 else "bf16"
-    cfg = get_config(args.arch, precision=precision, reduced=args.reduced)
+    return get_config(args.arch, precision=precision, reduced=args.reduced)
+
+
+def _serve_rank(rank: int, port: int, args) -> None:
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.tp))
+    mesh = make_tp_mesh(args.tp, args.tp_backend, rank=rank, port=port,
+                        device=None if args.tp_backend == "nccl"
+                        else args.device)
+    serve(args, mesh)
+
+
+def serve(args, mesh=None) -> None:
+    """Build the model (a rank's shard under ``mesh``), serve the requests,
+    print the results (rank 0 only under TP)."""
+    cfg = _config(args)
+    precision = cfg.precision
+    device = args.device if mesh is None else mesh.device
     # quantized a block at a time: the float model never exists whole
-    params = init_params(cfg, seed=args.seed, device=args.device,
-                         precision=precision)
+    params = init_params(cfg, seed=args.seed, device=device,
+                         precision=precision,
+                         shard=(0, 1) if mesh is None
+                         else (mesh.rank, mesh.size))
     kv_source = None
     if cfg.family == "vlm":
-        gen = torch.Generator(device=args.device).manual_seed(args.seed)
+        gen = torch.Generator(device=device).manual_seed(args.seed)
         kv_source = vision_tokens_stub(gen, args.lanes, cfg.n_vision_tokens,
-                                       cfg.d_model, device=args.device)
+                                       cfg.d_model, device=device)
     engine = ServingEngine(
         params, cfg,
         ServeConfig(batch_lanes=args.lanes, max_seq=args.max_seq,
@@ -95,7 +137,11 @@ def main(argv=None) -> None:
                     pool_pages=args.pool_pages, queue_limit=args.queue_limit,
                     spec_k=args.spec_k, tp=args.tp,
                     tp_overlap=args.tp_overlap),
-        device=args.device, kv_source=kv_source)
+        device=device, kv_source=kv_source, mesh=mesh)
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
+    if mesh is not None:
+        say(f"tensor parallel: tp={args.tp} over {engine.tp_mesh.devices} "
+            f"({mesh.backend}, boundary={engine.tp_overlap_resolved})")
 
     rng = np.random.default_rng(args.seed)
     reqs = []
@@ -110,8 +156,8 @@ def main(argv=None) -> None:
         done, rejected = engine.run_stream(
             [(float(t), kw) for t, kw in zip(offs, reqs)])
         if rejected:
-            print(f"rejected at admission (queue_limit="
-                  f"{args.queue_limit}): {rejected}")
+            say(f"rejected at admission (queue_limit="
+                f"{args.queue_limit}): {rejected}")
     else:
         for kw in reqs:
             engine.submit(**kw)
@@ -122,25 +168,25 @@ def main(argv=None) -> None:
     total_tokens = sum(len(d["tokens"]) for d in done)
     where = (torch.cuda.get_device_name(engine.device)
              if engine.device.type == "cuda" else "cpu (plain versions)")
-    print(f"served {len(done)} requests, {total_tokens} tokens "
-          f"in {dt:.1f}s ({total_tokens / dt:.1f} tok/s on {where}, "
-          f"int8_kv={args.int8_kv}, precision={precision}, "
-          f"mode={engine.mode}, buckets={engine.chunk_buckets})")
-    print(engine.stats_summary())
+    say(f"served {len(done)} requests, {total_tokens} tokens "
+        f"in {dt:.1f}s ({total_tokens / dt:.1f} tok/s on {where}, "
+        f"int8_kv={args.int8_kv}, precision={precision}, "
+        f"mode={engine.mode}, buckets={engine.chunk_buckets})")
+    say(engine.stats_summary())
     if args.stream_gap_ms > 0:
         m = engine.serving_metrics()
-        print(f"ttft p50/p99 = {m['ttft_p50_ms']}/{m['ttft_p99_ms']} ms, "
-              f"tpot p50/p99 = {m['tpot_p50_ms']}/{m['tpot_p99_ms']} ms, "
-              f"queue_peak={m['queue_peak']} preempt={m['preemptions']} "
-              f"swap_pages={m['swap_out_pages']}/{m['swap_in_pages']} "
-              f"rejected={m['rejected']}")
+        say(f"ttft p50/p99 = {m['ttft_p50_ms']}/{m['ttft_p99_ms']} ms, "
+            f"tpot p50/p99 = {m['tpot_p50_ms']}/{m['tpot_p99_ms']} ms, "
+            f"queue_peak={m['queue_peak']} preempt={m['preemptions']} "
+            f"swap_pages={m['swap_out_pages']}/{m['swap_in_pages']} "
+            f"rejected={m['rejected']}")
     if engine.paged:
         m = engine.serving_metrics()
-        print(f"paged pool: {engine.pool.n} pages of {engine.pool.ps} slots, "
-              f"peak {engine.pool.stats['pages_peak']} in use, "
-              f"preemptions={m['preemptions']} resumes={m['resumes']} "
-              f"swap_pages={m['swap_out_pages']}/{m['swap_in_pages']}")
-    print(f"kernel launches: {ops.launch_counts()}")
+        say(f"paged pool: {engine.pool.n} pages of {engine.pool.ps} slots, "
+            f"peak {engine.pool.stats['pages_peak']} in use, "
+            f"preemptions={m['preemptions']} resumes={m['resumes']} "
+            f"swap_pages={m['swap_out_pages']}/{m['swap_in_pages']}")
+    say(f"kernel launches: {ops.launch_counts()}")
 
 
 if __name__ == "__main__":

@@ -41,6 +41,13 @@ version on the CPU); otherwise a CUDA tensor with no window and T % 8 == 0
 runs ``ops.attention`` (the flash_attention kernel), and everything else
 ``_sdpa``.
 
+Under serving tensor parallelism (``dist/tp.py``) a rank holds a slice of
+the heads: its q/k/v projections are column shards, so the head counts come
+from the projected widths, and its caches hold hkv / tp heads; the decode
+kernels size their cache split for the full ``cfg.n_kv_heads``, so a rank's
+heads are computed as in the unsharded launch.  The out-projection ``wo``
+runs behind ``tp_out_projection``, the one collective boundary.
+
 Cross-attention (``kv_source`` features, or their K/V precomputed once per
 request by ``cross_kv_proj`` and passed as ``cross_kv``) projects no K/V from
 x, applies no RoPE and attends without a mask (every key at position 0)
@@ -56,6 +63,7 @@ from typing import Any
 import torch
 from torch import nn
 
+from ..dist.tp import tp_out_projection
 from ..kernels import ops
 from ..kernels.common import f32, rcp32
 from ..kernels.int8_flash_attention import head_shift
@@ -456,7 +464,8 @@ def attention(params: Attention, x, cfg: ArchConfig, mode: ExecMode,
                     cache["ppos"], cache["pt"])
             out = ops.paged_attention_decode_rows(
                 q, *args, positions.to(torch.int32).contiguous(),
-                scale=scale, window=window).to(dtype)
+                scale=scale, window=window,
+                split_hkv=cfg.n_kv_heads).to(dtype)
         else:
             kc, vc, kpos = _read_paged(cache, dtype)
             out = _sdpa(q, kc, vc, positions, kpos, scale, dtype, causal=True,
@@ -470,7 +479,8 @@ def attention(params: Attention, x, cfg: ArchConfig, mode: ExecMode,
                     cache["pos_ids"])
             out = ops.decode_attention_int8kv_rows(
                 q, *args, positions.to(torch.int32).contiguous(),
-                scale=scale, window=window).to(dtype)
+                scale=scale, window=window,
+                split_hkv=cfg.n_kv_heads).to(dtype)
         else:
             kc, vc = _read_cache(cache, dtype)              # (B,S,Hkv,D)
             kpos = cache["pos_ids"]
@@ -488,6 +498,11 @@ def attention(params: Attention, x, cfg: ArchConfig, mode: ExecMode,
                     window=window)
     out = out.to(dtype).reshape(b, t, -1)
     # the residual add rides the out-projection (integer path: fused GEMM
-    # epilogue — the projection output never round-trips before the skip)
-    out = apply_linear(out, params.wo, mode, residual=residual)
+    # epilogue — the projection output never round-trips before the skip).
+    # Under serving TP this is the collective boundary: ``out`` is
+    # head-sharded, wo is replicated, and dist/tp.py rebuilds full rows
+    # (barrier all-gather, or the all-to-all token split) first
+    out = tp_out_projection(
+        out, residual,
+        lambda h, res: apply_linear(h, params.wo, mode, residual=res))
     return out, cache

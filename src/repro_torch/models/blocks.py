@@ -18,16 +18,24 @@ its out-projection.  Their state holds the cross K/V ``xk``/``xv`` (B, Sv,
 Hkv, D), filled once per request (``lm.precompute_cross_states``).  ``enc``
 (whisper's encoder) is the ``attn`` block with no state: the reference's
 encoder never hands ``causal=False`` on, so it attends causally (ROADMAP
-C16)."""
+C16).
+
+Under serving tensor parallelism with the overlap boundary (``dist/tp.py``)
+the residual stream of the attention kinds is row-sharded: each norm runs
+on the rank's rows, and ``tp_row_unshard`` gathers full rows in front of
+QKV and MLP-in — the norm's output with its quantized rows and scales, in
+one collective (quantization is per row, so the gathered rows are the ones
+a tp = 1 norm gives).  Elsewhere it is the identity."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..dist.tp import tp_row_unshard
 from .attention import (Attention, attention, init_attn_params, init_cache,
                         init_paged_cache)
 from .config import ArchConfig
-from .layers import ExecMode, Norm, apply_norm
+from .layers import ExecMode, Norm, QRows, apply_norm
 from .mlp import MLP, init_mlp_params, mlp
 from .moe import MoE, init_moe_params, moe
 from .ssm import (MLSTM, SLSTM, Mamba2, init_mamba2_params,
@@ -174,6 +182,16 @@ def init_block_state(kind: str, cfg: ArchConfig, batch: int, max_seq: int,
                              dtype=dtype, device=device)}
 
 
+def unshard_norm(h, hq: QRows | None, b: int, t: int):
+    """A norm's rows (and quantized rows) gathered from a row-sharded
+    stream into (b, t, ...) (``dist.tp.tp_row_unshard``; identity
+    elsewhere)."""
+    if hq is None:
+        return tp_row_unshard(h, b, t), None
+    h, q, s = tp_row_unshard((h, hq.q, hq.scale), b, t)
+    return h, QRows(q, s)
+
+
 def _gate(g, x):
     """tanh of an f32 gate (XLA's tanh), in x's dtype."""
     return xla_tanh(g).to(x.dtype)
@@ -214,13 +232,15 @@ def block_forward(kind: str, params: nn.Module, x, cfg: ArchConfig,
         x = x + a
         h, hq = apply_norm(x, params.norm3, cfg, mode)
         return x + mlp(params.mlp, h, cfg, mode, xq=hq), new_state
-    h, hq = apply_norm(x, params.norm1, cfg, mode)
+    h, hq = unshard_norm(*apply_norm(x, params.norm1, cfg, mode),
+                         *positions.shape)
     x, kv = attention(params.attn, h, cfg, mode, positions,
                       cache=None if state is None else state["kv"],
                       window=cfg.sliding_window if kind in SWA_KINDS else 0,
                       residual=x, writes=writes, card_order=card_order, xq=hq)
     new_state = state if state is None else dict(state, kv=kv)
-    h, hq = apply_norm(x, params.norm2, cfg, mode)
+    h, hq = unshard_norm(*apply_norm(x, params.norm2, cfg, mode),
+                         *positions.shape)
     if kind in MOE_KINDS:
         return x + moe(params.moe, h, cfg, mode, xq=hq), new_state
     x = x + mlp(params.mlp, h, cfg, mode, xq=hq)

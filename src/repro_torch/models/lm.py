@@ -21,10 +21,11 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.tp import tp_row_shard
 from ..kernels.common import resolve_device
 from .attention import cache_writes, cross_kv_proj
 from .blocks import (ATTN_KINDS, CROSS_KINDS, block_forward, init_block_params,
-                     init_block_state)
+                     init_block_state, unshard_norm)
 from .config import ArchConfig
 from .layers import (DEFAULT_DTYPE, ExecMode, Linear, Norm, apply_linear,
                      apply_norm, embed_init, embed_lookup, linear)
@@ -41,6 +42,9 @@ class LM(nn.Module):
     block appears at each of its positions), the final norm and the
     ``unembed`` head [d, padded_vocab], None with tied embeddings."""
 
+    # (rank, tp) of a serving tensor-parallel shard (dist.sharding)
+    tp_shard: tuple[int, int] = (0, 1)
+
     def __init__(self, embed: torch.Tensor, layers: list[nn.Module],
                  final_norm: Norm, unembed: Linear | None):
         super().__init__()
@@ -55,21 +59,30 @@ class LM(nn.Module):
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device=None,
-                precision: str | None = None) -> LM:
+                precision: str | None = None,
+                shard: tuple[int, int] = (0, 1)) -> LM:
     """Random weights from ``seed`` on ``device`` — the card unless the
     caller passes device='cpu'.  With ``precision`` each block is built in
     f32 and quantized for that precision (``quant.ptq.quantize_for``'s
     policy) before the next is built, so the float model never exists
     whole (mixtral-8x7b's is 187 GB in f32); the generator is consumed in
     the same order, so the result equals ``quantize_for`` of the float
-    model bit for bit."""
+    model bit for bit.  ``shard`` (rank, tp): each block is cut to that
+    serving tensor-parallel rank's shard before the next is built, the
+    result equal to ``dist.shard_params`` of the whole model."""
+    from ..dist.sharding import shard_module_
     from ..quant.ptq import quantize_for
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    rank, tp = shard
 
     def build(kind):
         block = init_block_params(gen, kind, cfg, dev)
-        return block if precision is None else quantize_for(block, precision)
+        if precision is not None:
+            block = quantize_for(block, precision)
+        if tp > 1:
+            shard_module_(block, rank, tp)
+        return block
     shared = None
     layers = []
     for kind in cfg.block_kinds:
@@ -83,7 +96,10 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
     unembed = (None if cfg.tie_embeddings else Linear(embed_init(
         gen, cfg.padded_vocab, cfg.d_model, dev).T.contiguous()))
     lm = LM(embed, layers, Norm(cfg.d_model, cfg.norm_type, dev), unembed)
-    return lm if precision is None else quantize_for(lm, precision)
+    lm = lm if precision is None else quantize_for(lm, precision)
+    if tp > 1:
+        lm.tp_shard = shard
+    return lm
 
 
 def init_states(cfg: ArchConfig, batch: int, max_seq: int, int8_kv: bool = False,
@@ -161,6 +177,9 @@ def forward(params: LM, cfg: ArchConfig, tokens, positions=None,
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32,
                                  device=x.device).expand(b, t)
+    # overlap serving TP: the residual stream runs sequence-parallel
+    # between boundaries (dist/tp.py); identity elsewhere
+    x = tp_row_shard(x)
     cache = None if states is None else _first_cache(cfg, states)
     writes = None if cache is None else cache_writes(positions, cache)
     new_states = [] if states is not None else None
@@ -177,7 +196,7 @@ def forward(params: LM, cfg: ArchConfig, tokens, positions=None,
                                   card_order=card_order, kv_source=kv_source)
         if new_states is not None:
             new_states.append(st)
-    x, xq = apply_norm(x, params.final_norm, cfg, mode)
+    x, xq = unshard_norm(*apply_norm(x, params.final_norm, cfg, mode), b, t)
     if not logits:
         return x, new_states
     if params.unembed is None:

@@ -7,6 +7,10 @@ over a shared A tile with the integer activation in its epilogue
 MLP's up-projection runs the integer GELU in the GEMM epilogue.  The float
 gated hidden is the float ``dual_gemm_gated``.
 
+Under serving tensor parallelism a rank holds a column slice of w_in and
+w_gate (its d_ff / tp hidden columns) and the whole w_out, which runs behind
+``dist.tp.tp_out_projection``.
+
 A MoE layer's experts (``expert_ffn``) are an ``MLP`` whose weights are
 stacked over E; where the reference runs ``jax.vmap`` of the gated hidden
 and the down projection over them, the port runs each as ONE launch of the
@@ -17,6 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..dist.tp import tp_out_projection
 from ..kernels import ops
 from .config import ArchConfig
 from .layers import (GELU_INT_SCALE, SILU_INT_SCALE, ExecMode, Linear, QRows,
@@ -83,7 +88,11 @@ def mlp(params: MLP, x, cfg: ArchConfig, mode: ExecMode,
     else:
         h = apply_linear(x, w_in, mode, xq=xq)
         h = activation(h, cfg.activation, mode)
-    return apply_linear(h, params.w_out, mode)
+    # serving-TP boundary (dist/tp.py): ``h`` is d_ff-sharded, w_out
+    # replicated — full rows are rebuilt (barrier gather or all-to-all
+    # token split) before the projection
+    return tp_out_projection(
+        h, None, lambda hh, _res: apply_linear(hh, params.w_out, mode))
 
 
 def expert_ffn(params: MLP, xe, cfg: ArchConfig, mode: ExecMode):

@@ -1,7 +1,6 @@
 """Serving engine: ONE packed token-budget forward + continuous batching.
 
-Port of ``repro.serve.engine`` (all of it but tensor parallel, ROADMAP.md
-§A10).  Every iteration builds one ``(B, T_bucket)`` batch in which each
+Port of ``repro.serve.engine``.  Every iteration builds one ``(B, T_bucket)`` batch in which each
 active lane contributes a contiguous span of tokens — generating lanes 1
 token, prefilling lanes their share of ``token_budget`` — right-padded with
 position -1 tokens whose cache writes are dropped.  Each lane's next token
@@ -75,6 +74,21 @@ a lane admitted anew has every recurrent leaf reset to its init value.
 The pool's clear, copy, swap-out and swap-in actions are in-place updates
 of the arena too.  Every forward runs under ``torch.no_grad``, so a model
 whose weights require grad (one that was trained) builds no graph here.
+
+TENSOR PARALLEL (``tp`` > 1, ``dist/tp.py``): SPMD over ``torch.distributed``
+— one process a rank, each running this engine on the same requests in the
+same order with ``mesh=launch.mesh.make_tp_mesh(tp, backend, rank=r, ...)``
+and its shard of the weights (``dist.shard_params`` or ``init_params(...,
+shard=(r, tp))``).  The caches hold the rank's hkv / tp heads; the forward
+runs unchanged inside ``tp_serving``, whose boundaries only gather and
+exchange rows, so the logits — and every rank's tokens — are the tp = 1
+ones.  The host bookkeeping (queue, plan, pool and page tables, drafts,
+rollback) is replicated: it reads only tokens, which all ranks share, and
+page copies, swap-outs and swap-ins act on each rank's own heads.
+``run_stream``'s clock-driven arrivals are rank 0's (``dist.tp.agree``).
+``tp_overlap`` picks the row-GEMM boundary ("auto": the reference's cost
+rule, ``kernels.autotune.tp_serving_overlap``); ``tp_overlap_resolved``
+holds the choice.
 """
 from __future__ import annotations
 
@@ -86,6 +100,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..dist.tp import TPConfigError, TPServing, agree, tp_serving
+from ..dist.tp import validate_tp_serving
+from ..kernels import autotune
 from ..kernels.common import f32, resolve_device
 from ..models import ArchConfig, forward, init_states, precompute_cross_states
 from ..models.attention import gather_pages, rollback_cache, scatter_pages
@@ -118,8 +135,12 @@ class ServeConfig:
     spec_k: int = 0              # self-speculative draft tokens per decode
     #                              step (0 = off; greedy engines only —
     #                              sampled engines silently serve vanilla)
-    tp: int = 1                  # serving tensor parallel (not ported)
-    tp_overlap: str = "auto"     # validated only, as the reference at tp=1
+    tp: int = 1                  # serving tensor parallel: ranks sharding
+    #                              the step and the KV payloads; 1 = off
+    tp_overlap: str = "auto"     # row-GEMM boundary: "barrier" (all-gather
+    #                              then the full GEMM), "overlap" (all-to-all
+    #                              token split, sequence-parallel stream) or
+    #                              "auto" (the reference's cost rule)
 
 
 @torch.no_grad()
@@ -188,13 +209,12 @@ class ServingEngine:
 
     ``params`` must live on ``device`` — the card unless the caller passes
     device='cpu'.  ``kv_source`` (lanes, Sv, d): the cross-attention
-    features of each lane (module note)."""
+    features of each lane (module note).  ``mesh``: this rank's TP group
+    (``launch.mesh.make_tp_mesh``), required at ``tp`` > 1, with ``params``
+    the rank's shard."""
 
     def __init__(self, params: LM, cfg: ArchConfig, serve_cfg: ServeConfig,
-                 device=None, kv_source=None):
-        if serve_cfg.tp > 1:
-            raise NotImplementedError("tensor-parallel serving (tp > 1) is "
-                                      "not ported yet (ROADMAP.md §A10)")
+                 device=None, kv_source=None, mesh=None):
         if serve_cfg.tp_overlap not in ("auto", "overlap", "barrier"):
             # validated even at tp=1, as the reference does
             raise ValueError(
@@ -219,6 +239,14 @@ class ServingEngine:
         # span write must not evict keys still inside the window of the
         # span's earliest query (a ring of W slots serves only C == 1)
         self._window_slack = self._buckets[-1] if self._buckets else 0
+        # serving TP: the rank's group and boundary; its caches hold the
+        # rank's hkv / tp heads
+        self.tp_mesh = None
+        self._tp: TPServing | None = None
+        if serve_cfg.tp > 1:
+            self._init_tp(params, mesh)
+        scfg_kv = (cfg if self._tp is None else dataclasses.replace(
+            cfg, n_kv_heads=cfg.n_kv_heads // serve_cfg.tp))
         self._paged = self._resolve_paged()
         self.pool: PagedKVPool | None = None
         if self._paged:
@@ -243,7 +271,7 @@ class ServingEngine:
                 "attn", "moe", "shared_attn", "attn_swa", "moe_swa"}
             self._cap_window = (cfg.sliding_window if kinds and
                                 kinds <= {"attn_swa", "moe_swa"} else 0)
-            self.states = init_states(cfg, b, serve_cfg.max_seq,
+            self.states = init_states(scfg_kv, b, serve_cfg.max_seq,
                                       int8_kv=serve_cfg.int8_kv,
                                       device=self.device, paged_pages=n_pages,
                                       page_size=ps,
@@ -252,7 +280,7 @@ class ServingEngine:
             # before each forward)
             self._pt = self.states[0]["kv"]["pt"]
         else:
-            self.states = init_states(cfg, b, serve_cfg.max_seq,
+            self.states = init_states(scfg_kv, b, serve_cfg.max_seq,
                                       int8_kv=serve_cfg.int8_kv,
                                       device=self.device,
                                       window_slack=self._window_slack)
@@ -295,6 +323,37 @@ class ServingEngine:
         self._clock = time.monotonic
         self.stats: dict[str, Any] = {}
         self.reset_stats()
+
+    def _init_tp(self, params: LM, mesh) -> None:
+        """Validate the arch, the group and the shard; resolve the
+        row-GEMM boundary (the reference's rule over the largest step:
+        lanes x the largest bucket) and hold the TP context every forward
+        runs in."""
+        tp = self.scfg.tp
+        validate_tp_serving(self.cfg, tp, kv_source=self.kv_source)
+        if mesh is None or mesh.size != tp:
+            raise TPConfigError(
+                f"tp={tp} serves across a TP group of {tp} ranks: each rank "
+                f"passes mesh=launch.mesh.make_tp_mesh({tp}, backend, "
+                f"rank=r, port=p) (got "
+                f"{'no mesh' if mesh is None else f'a group of {mesh.size}'})")
+        if params.tp_shard != (mesh.rank, tp):
+            raise TPConfigError(
+                f"rank {mesh.rank} of {tp} serves its own shard of the "
+                f"weights (dist.shard_params(lm, {mesh.rank}, {tp}) or "
+                f"init_params(..., shard=({mesh.rank}, {tp}))); these are "
+                f"shard {params.tp_shard}")
+        choice = self.scfg.tp_overlap
+        if choice == "auto":
+            rows = self.scfg.batch_lanes * (
+                self._buckets[-1] if self._buckets else 1)
+            choice = autotune.tp_serving_overlap(
+                rows, self.cfg.d_model, self.cfg.d_ff,
+                self.cfg.n_heads * self.cfg.head_dim, tp)
+        self.tp_overlap_resolved = choice
+        self.tp_mesh = mesh
+        self._tp = TPServing(group=mesh.group, size=tp, rank=mesh.rank,
+                             overlap=choice == "overlap")
 
     def _resolve_mode(self) -> str:
         """'packed' | 'chunked' | 'tokenwise' (recurrent archs: tokenwise —
@@ -746,10 +805,12 @@ class ServingEngine:
         lanes, or those in ``mask``) and returns each lane's logits at its
         last ``verify_rows`` valid rows (B, R, V), clipped at row 0."""
         dev = self.device
-        logits, new_states = forward(
-            self.params, self.cfg, torch.from_numpy(tok).to(dev, torch.long),
-            torch.from_numpy(pos).to(dev), self.states,
-            kv_source=self.kv_source)
+        with tp_serving(self._tp):
+            logits, new_states = forward(
+                self.params, self.cfg,
+                torch.from_numpy(tok).to(dev, torch.long),
+                torch.from_numpy(pos).to(dev), self.states,
+                kv_source=self.kv_source)
         self.states = (new_states if commit_all else _masked_commit(
             self.states, new_states, torch.from_numpy(mask).to(dev)))
         last = torch.from_numpy(last_idx).to(dev)
@@ -947,7 +1008,13 @@ class ServingEngine:
         it = 0
         while (pending or self.queue or self.preempted
                or self.lane_active.any()) and it < max_iters:
-            while pending and self._clock() - t0 >= pending[0][0]:
+            # arrivals by rank 0's clock under TP: every rank submits the
+            # same requests at the same iteration
+            due = 0
+            while (due < len(pending)
+                   and self._clock() - t0 >= pending[due][0]):
+                due += 1
+            for _ in range(agree(due, self._tp, self.device)):
                 _, kw = pending.popleft()
                 try:
                     self.submit(**kw)

@@ -27,6 +27,7 @@ from repro.serve import ServingEngine as JServingEngine
 
 from repro_torch.configs import get_config
 from repro_torch.convert import from_reference
+from repro_torch.dist import TPConfigError
 from repro_torch.serve import QueueFullError, ServeConfig, ServingEngine
 from repro_torch.serve.kv_pool import PoolExhaustedError
 
@@ -386,7 +387,8 @@ def test_serve_config_fields_and_validation(model):
     assert fields == jfields
     with pytest.raises(ValueError, match="tp_overlap"):
         port(model, tp_overlap="sideways")
-    with pytest.raises(NotImplementedError, match="§A10"):
+    # tp > 1 outside a TP group (no mesh) is refused with the port's error
+    with pytest.raises(TPConfigError, match="TP group of 2 ranks"):
         port(model, tp=2)
 
 

@@ -26,6 +26,7 @@ from repro.serve import ServingEngine as JServingEngine
 
 from repro_torch.configs import get_config
 from repro_torch.convert import from_reference
+from repro_torch.dist import TPConfigError
 from repro_torch.quant import DEFAULT_W4_POLICY, ptq_quantize_params
 from repro_torch.serve import (AdmissionQueue, QueueFullError, ServeConfig,
                                ServingEngine, percentile)
@@ -131,8 +132,9 @@ def test_stats_and_buckets(setup):
 
 @pytest.mark.parametrize("kw", [dict(tp=2)])
 def test_unported_features_raise(setup, kw):
+    # tensor parallelism is ported: tp > 1 without a TP group is refused
     _, _, cfg, tp, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TPConfigError, match="TP group of 2 ranks"):
         ServingEngine(tp, cfg, ServeConfig(**{**SCFG, **kw}), device="cpu")
 
 
