@@ -103,7 +103,17 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    32 heads and at one of starcoder's two KV heads (G = 12), their cache
    split sized for the full head count: every rank's launch ``torch.equal``
    to the matching slice of the unsharded launch and to (the decode
-   kernels: within RTOL/ATOL of) its plain version, rank 0's timed;
+   kernels: within RTOL/ATOL of) its plain version, rank 0's timed (the
+   GEMMs beside ``torch._int_mm`` of the shard's int8 or unpacked int4
+   weights), and the bf16 gated MLP's tp 2 column shards of phase 9's bf16
+   cell; and the kernel the port adds beyond the TPU's
+   (``check_bf16_gemm``): bf16_gemm at codeqwen1.5-7b's q, k, v, o and
+   down and starcoder2-3b's q+bias, kv+bias, o, up and down for M in {8,
+   64, 256, 4096}, the product within ``DUAL_BF16_RTOL``/``ATOL`` of its
+   plain version, the bias epilogue bit-equal to the product plus the
+   bias, the same bits in two runs, and every tp 2 and tp 4 column
+   shard and block of M / tp rows ``torch.equal`` to its slice of the
+   unsharded launch (C20's gate), timed beside ``torch.matmul``;
 4. reduced: starcoder2-3b-reduced at w8a8 and codeqwen1.5-7b-reduced at
    w4a8, w8a8 and bf16, each with an int8 KV cache, the same packed steps on
    the CPU (plain versions) and on the card (kernels): the logits agree
@@ -272,12 +282,24 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    new, the four settings (pressure: a 12-page pool at max_seq 128); and
    codeqwen1.5-7b bf16, all 32 layers, at tp 2, dense, on the W4A8
    cell's requests.  Every
-   rank's tokens and every forward's logits equal rank 0's and — W4A8 and
-   W8A8 — tp 1's, 0 differences (bf16's counts reported: ROADMAP C20); the
+   rank's tokens and every forward's logits equal rank 0's and tp 1's, 0
+   differences, bf16 too (its float linears on bf16_gemm: ROADMAP C20);
+   the
    pressure drains preempt, resume and swap; every kernel of the path
    launches in every rank.  Each drain logs its tok/s and TPOT p50 beside
    tp 1's (N ranks sharing one card: no speed meaning), peak GiB a rank,
-   and the boundary ``tp_overlap="auto"`` resolves to.
+   and the boundary ``tp_overlap="auto"`` resolves to;
+10. the NX-CGRA fabric model (``cgra_phase``, ``core/``): the six Table II
+   kernels of ``core.BUILDERS`` built, scheduled (``StaticScheduler``) and
+   simulated (``Simulator``) on the CPU (plain versions) and on the card,
+   whose payloads run int8_gemm's requant epilogue, int8_conv2d,
+   requantize_i32, int_gelu and int_layernorm (each launched, counted),
+   int_softmax once on the softmax kernel's inputs (equal to the softmax
+   payload's output): every payload output, cycle count, energy and
+   ``KernelMetrics`` field equal to the CPU's; Tables VI, V and II printed
+   (outputs of the simulated 22 nm, 200 MHz fabric, not card
+   measurements), the phase's wall on the card beside its name and power
+   limit.
 
 The last three lines of standard output are the kernels JSON (each kernel
 timed at the M = 8 shape the main path, codeqwen1.5-7b w4a8, gives it, or
@@ -285,7 +307,8 @@ the path that runs it — the paged drains for the paged kernel, the
 no-cache forwards for the three attention and softmax kernels and for
 int_silu and int_gelu (at 4096 rows), the integer library path for
 requantize_i32 and int8_conv2d (the patch embed), zamba2's no-cache
-forwards for ssd_scan; ``by_path``
+forwards for ssd_scan, codeqwen1.5-7b's bf16 ``lm_loss`` for bf16_gemm;
+``by_path``
 holds every path's shape, ``launches_by_path`` every path's count), the card's
 ``nvidia-smi`` name/power line and ``{"ok": true, "device": ...}``.  With
 ``--out PATH`` every case, the serving stats and the profiles are also
@@ -314,6 +337,9 @@ printing their summary and no ok line.
 
 ``--tp-only`` builds and then runs only phase 3's ``check_tp_shapes`` and
 phase 9 (``serve_tp``), printing their summary and no ok line.
+
+``--cgra-only`` builds the six kernels of the CGRA payloads and runs only
+phase 10, printing its tables and no ok line.
 
 ``--xlstm-only`` builds and then runs only xlstm-350m's tokenwise drains and
 its ``lm_loss`` at bf16, W8A8 and W4A8 without the profiler
@@ -521,6 +547,7 @@ def check_kernels(dev, gen, timer) -> list[dict]:
     check_gqa_xlstm(dev, gen, timer, record, randn)
     check_encdec_xattn(dev, gen, timer, record, randn)
     check_tp_shapes(dev, gen, timer, record, randn)
+    check_bf16_gemm(dev, gen, timer, record, randn)
     return cases
 
 
@@ -2417,6 +2444,9 @@ TP_GEMMS = (
 # rank, G = 12), T = 1 and a T = 64 rows launch, dense and paged
 TP_HEADS = (("codeqwen", 32, 32, (2, 4)), ("starcoder", 24, 2, (2,)))
 TP_DECODE_T = (1, 64)
+# the bf16 gated MLP's column shards of phase 9's bf16 cell: codeqwen's
+# [M, 4096] x 2 [4096, 13440 / tp]
+TP_BF16_GATED = (("codeqwen bf16 gate+up", 4096, 13440, (2,)),)
 
 
 def check_tp_shapes(dev, gen, timer, record, randn) -> None:
@@ -2429,8 +2459,9 @@ def check_tp_shapes(dev, gen, timer, record, randn) -> None:
     bits — would change; that count of differing values is logged).  Rank
     0's launch is timed beside its plain version."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.int8_gemm import (gated_mlp_w4a8_ref,
-                                               gemm_w4a8_ref, gemm_w8a8_ref)
+    from repro_torch.kernels.int8_gemm import (
+        DUAL_BF16_ATOL, DUAL_BF16_RTOL, gated_mlp_ref, gated_mlp_w4a8_ref,
+        gemm_w4a8_ref, gemm_w8a8_ref, unpack_int4_ref)
     from repro_torch.kernels.int8_kv_decode_attention import (
         ATOL, RTOL, int8_kv_decode_attention_rows_ref)
     from repro_torch.kernels.paged_attention import (
@@ -2520,15 +2551,65 @@ def check_tp_shapes(dev, gen, timer, record, randn) -> None:
                               + ma * kb * out.element_size())
                     n_ops = 2 * ma * kb * k * (2 if form == "dual_w4" else 1)
                     slow = ma > PLAIN_ROWS
+                    # torch._int_mm of the shard's int8 weights (the W4
+                    # streams unpacked): int32 out, no scales, epilogue or
+                    # activation, as on the unsharded shapes
+                    lib_w = ([args[2][0]] if form == "w8" else
+                             [unpack_int4_ref(args[2][i], k)
+                              for i in ((0, 3) if form == "dual_w4" else (0,))])
                     record(kernel, f"tp{tp} {label} {shape} {epi}"
                            + (" g64" if form != "w8" else ""), 0.0, True,
                            timer(lambda: gemm(form, *args)),
                            timer(lambda: plain(form, *args), iters=3,
                                  warmup=1) if slow
-                           else timer(lambda: plain(form, *args)), None,
+                           else timer(lambda: plain(form, *args)),
+                           int_mm_ms(timer, args[0], *lib_w),
                            bound(nbytes, n_ops, INT8_OPS),
-                           "equal to its slice of the unsharded launch", out)
+                           "equal to its slice of the unsharded launch; "
+                           "library: _int_mm" + ("" if form == "w8" else
+                                                 " on unpacked weights")
+                           + ", int32 out, not the same function", out)
             del whole
+        torch.cuda.empty_cache()
+
+    for label, k, n, tps in TP_BF16_GATED:
+        wu, wg = (randn(k, n, scale=k ** -0.5).to(torch.bfloat16)
+                  for _ in range(2))
+        for m in TP_ROWS:
+            x = randn(m, k).to(torch.bfloat16)
+            whole = ops.gated_mlp(x, wu, wg, "silu")
+            for tp in tps:
+                nl = n // tp
+                for rank in range(tp):
+                    cols = slice(rank * nl, (rank + 1) * nl)
+                    su, sg = wu[:, cols].contiguous(), wg[:, cols].contiguous()
+                    out = ops.gated_mlp(x, su, sg, "silu")
+                    shape = f"[{m},{k}]x2[{k},{nl}] silu"
+                    sliced(f"dual_gemm_gated tp{tp} rank {rank} {label} "
+                           f"{shape}", out, whole[:, cols])
+                    ref = by_rows(lambda r0, r1: gated_mlp_ref(
+                        x[r0:r1], su, sg, "silu"), m)
+                    err = (out.float() - ref.float()).abs()
+                    if not bool((err <= DUAL_BF16_ATOL + DUAL_BF16_RTOL
+                                 * ref.float().abs()).all()):
+                        raise AssertionError(
+                            f"dual_gemm_gated tp{tp} {label} {shape}: max "
+                            f"|d| {float(err.max())} beyond the tolerance")
+                    if rank:
+                        continue
+                    record("dual_gemm_gated", f"tp{tp} {label} {shape}",
+                           float(err.max()), False,
+                           timer(lambda: ops.gated_mlp(x, su, sg, "silu")),
+                           timer(lambda: by_rows(lambda r0, r1: gated_mlp_ref(
+                               x[r0:r1], su, sg, "silu"), m)),
+                           timer(lambda: (x @ su, x @ sg)),
+                           bound(2 * m * k + 4 * k * nl + 2 * m * nl,
+                                 4 * m * nl * k, BF16_OPS),
+                           "equal to its slice of the unsharded launch; "
+                           "library: two torch.matmul, no activation: not "
+                           "the same function", out)
+            del whole
+        del wu, wg
         torch.cuda.empty_cache()
 
     d = 128
@@ -2619,7 +2700,116 @@ def check_tp_shapes(dev, gen, timer, record, randn) -> None:
         torch.cuda.empty_cache()
 
 
+# bf16_gemm's cases: the float linears of the bf16 models at full width,
+# (model, label, K, N, bias, TP form): "cols" are column-sharded under
+# serving TP (q, k, v, up), "rows" run on M / tp rows in the overlap form
+# (o, down)
+BF16_GEMMS = (
+    ("codeqwen", "q", 4096, 4096, False, "cols"),
+    ("codeqwen", "k", 4096, 4096, False, "cols"),
+    ("codeqwen", "v", 4096, 4096, False, "cols"),
+    ("codeqwen", "o", 4096, 4096, False, "rows"),
+    ("codeqwen", "down", 13440, 4096, False, "rows"),
+    ("starcoder", "q+bias", 3072, 3072, True, "cols"),
+    ("starcoder", "kv+bias", 3072, 256, True, "cols"),
+    ("starcoder", "o", 3072, 3072, False, "rows"),
+    ("starcoder", "up", 3072, 12288, False, "cols"),
+    ("starcoder", "down", 12288, 3072, False, "rows"))
+BF16_TPS = (2, 4)
+
+
+def check_bf16_gemm(dev, gen, timer, record, randn) -> None:
+    """bf16_gemm (the port's float linear, ``ops.gemm_bf16``) at
+    ``BF16_GEMMS`` for M in ``GEMM_ROWS``: the product within
+    ``DUAL_BF16_RTOL``/``ATOL`` of its plain version (``bf16_gemm_ref``,
+    cuBLAS on the card), the bias epilogue bit-equal to that product plus
+    the bias in bf16 (a bias that cancels the product leaves the first
+    rounding's error on a small output: no relative bound holds there),
+    the same bits in two runs, and — C20's gate — every tp 2 and tp 4
+    column shard (N / tp columns of the weight) and every row block (M / tp
+    rows) ``torch.equal`` to its slice of the unsharded launch.  Timed
+    beside ``torch.matmul`` (the same function for the bias-free shapes;
+    without the bias add otherwise) and the bound: bytes / 3.35 TB/s or
+    2MNK / 989 TFLOP/s; rank 0's tp 2 shard launches timed too."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bf16_gemm import bf16_gemm_ref
+    from repro_torch.kernels.int8_gemm import DUAL_BF16_ATOL, DUAL_BF16_RTOL
+    bf = torch.bfloat16
+
+    def work(m, k, n, bias):
+        return bound(2 * (m * k + k * n + m * n + (n if bias else 0)),
+                     2 * m * n * k, BF16_OPS)
+
+    for model, label, k, n, has_bias, form in BF16_GEMMS:
+        w = randn(k, n, scale=k ** -0.5).to(bf)
+        b = randn(n, scale=0.1).to(bf) if has_bias else None
+        for m in GEMM_ROWS:
+            x = randn(m, k).to(bf)
+            shape = f"{model} {label} [{m},{k}]x[{k},{n}]"
+            prod, ref = ops.gemm_bf16(x, w), bf16_gemm_ref(x, w)
+            out, again = ops.gemm_bf16(x, w, b), ops.gemm_bf16(x, w, b)
+            torch.cuda.synchronize()
+            err = (prod.float() - ref.float()).abs()
+            if not (torch.isfinite(prod).all() and bool(
+                    (err <= DUAL_BF16_ATOL + DUAL_BF16_RTOL
+                     * ref.float().abs()).all())):
+                raise AssertionError(f"bf16_gemm {shape}: max |d| "
+                                     f"{float(err.max())} beyond atol="
+                                     f"{DUAL_BF16_ATOL} rtol={DUAL_BF16_RTOL}")
+            if b is not None and not torch.equal(out, prod + b):
+                raise AssertionError(f"bf16_gemm {shape}: the bias epilogue "
+                                     f"differs from the product + bias in "
+                                     f"bf16")
+            if not torch.equal(out, again):
+                raise AssertionError(f"bf16_gemm {shape}: two runs on the "
+                                     f"same inputs differ")
+            # bias-free, the plain version is one torch.matmul: the library
+            # call, timed once
+            plain_ms = timer(lambda: bf16_gemm_ref(x, w, b))
+            record("bf16_gemm", shape, float(err.max()), False,
+                   timer(lambda: ops.gemm_bf16(x, w, b)), plain_ms,
+                   plain_ms if b is None else timer(lambda: torch.matmul(x, w)),
+                   work(m, k, n, has_bias),
+                   lib_note=None if b is None else "torch.matmul without "
+                   "the bias add", out=out)
+            for tp in BF16_TPS:
+                for rank in range(tp):
+                    if form == "cols":
+                        nl = n // tp
+                        cols = slice(rank * nl, (rank + 1) * nl)
+                        wr = w[:, cols].contiguous()
+                        br = None if b is None else b[cols].contiguous()
+                        xr, want = x, out[:, cols]
+                        sh = f"[{m},{k}]x[{k},{nl}]"
+                    else:
+                        ml = max(m // tp, 1)
+                        rows = slice(rank * ml, (rank + 1) * ml)
+                        xr, wr, br, want = x[rows], w, b, out[rows]
+                        sh = f"[{ml},{k}]x[{k},{n}]"
+                    got = ops.gemm_bf16(xr, wr, br)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"bf16_gemm tp{tp} rank {rank} {model} {label} "
+                            f"{sh}: {int((got != want).sum())} of "
+                            f"{got.numel()} differ from the matching slice "
+                            f"of the unsharded launch")
+                    if rank or tp != BF16_TPS[0]:
+                        continue
+                    ma, kb = xr.shape[0], got.shape[1]
+                    plain_ms = timer(lambda: bf16_gemm_ref(xr, wr, br))
+                    record("bf16_gemm", f"tp{tp} {model} {label} {sh}", 0.0,
+                           True, timer(lambda: ops.gemm_bf16(xr, wr, br)),
+                           plain_ms, plain_ms if br is None
+                           else timer(lambda: torch.matmul(xr, wr)),
+                           work(ma, k, kb, has_bias),
+                           "equal to its slice of the unsharded launch", got)
+        del w
+        torch.cuda.empty_cache()
+
+
 KERNEL_CASES = {"quantize_rows": (check_quantize_rows, ("quantize",)),
+                "bf16_gemm": (check_bf16_gemm, ("bf16_gemm",)),
                 "int_layernorm": (check_int_layernorm,
                                   ("int_layernorm", "quantize")),
                 "flash_attention": (check_flash_attention,
@@ -2659,7 +2849,7 @@ KERNEL_CASES = {"quantize_rows": (check_quantize_rows, ("quantize",)),
                                   "int8_flash_attention",
                                   "flash_attention")),
                 "tp_shapes": (check_tp_shapes,
-                              ("int8_gemm", "int4_gemm",
+                              ("int8_gemm", "int4_gemm", "dual_gemm_gated",
                                "dual_int4_gemm_gated",
                                "int8_kv_decode_attention",
                                "paged_decode_attention"))}
@@ -4281,8 +4471,10 @@ def xlstm_loss(dev, seed, profiled: bool = True) -> dict:
             check_counts(f"xlstm {prec} lm_loss forward", res["launches"],
                          xlstm_counts(cfg))
         else:
+            # no kernel of the TPU's; the float linears through bf16_gemm
             check_counts("xlstm bf16 lm_loss forward", res["launches"],
-                         dict.fromkeys(ops.KERNELS, 0))
+                         {**dict.fromkeys(ops.KERNELS, 0),
+                          **train_counts(cfg, SCORE_T)})
         out[f"xlstm-350m {prec} lm_loss"] = res
         del model
         torch.cuda.empty_cache()
@@ -4760,7 +4952,7 @@ def serve_only(dev, seed) -> dict:
     out = {}
     for (label, arch, precision, n_req, max_new, _, must,
          _) in SERVE_PATHS[:2]:
-        log(f"[5/9] serve full-width {label} int8-KV: {n_req} requests x "
+        log(f"[5/10] serve full-width {label} int8-KV: {n_req} requests x "
             f"{max_new} new tokens")
         srv = out[label] = serve_full(dev, seed, arch, precision, n_req,
                                       max_new, True, must,
@@ -5291,6 +5483,13 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / a.norm().clamp(min=1e-30))
 
 
+# bf16_gemm launches a block of each kind runs outside its MLP: q, k, v and
+# o of each attention (a ``dec`` layer's self and cross), Mamba-2's in_proj
+# and out_proj, the mLSTM's w_gate, wq, wk, wv, w_if and wo (its w_up is
+# an f64-rounded matmul), the sLSTM's w_in and wo
+KIND_LINEARS = {"mamba2": 2, "mlstm": 6, "slstm": 2, "dec": 8}
+
+
 def train_counts(cfg, t: int, enc_t: int = 0) -> dict:
     """The launches of one bf16 no-cache forward of ``cfg`` over ``t``
     tokens (an encoder over ``enc_t`` frames): flash_attention once per
@@ -5298,19 +5497,28 @@ def train_counts(cfg, t: int, enc_t: int = 0) -> dict:
     of 8 (attention's rule; cross-attention and windows take ``_sdpa``),
     ssd_scan once per Mamba-2 layer, the bf16 dual_gemm_gated once per
     gated MLP (the SwiGLU lineage) and once per MoE layer's experts (the
-    expert-batched form, ``.experts`` too); nothing else."""
+    expert-batched form, ``.experts`` too); bf16_gemm once per float
+    linear (``KIND_LINEARS``, and an MLP's down projection, and its up
+    projection where it is not gated; a MoE layer's shared expert; the
+    experts' down projection is a batched matmul and the heads are f32);
+    nothing else."""
     gated = cfg.activation == "silu"
+    mlp_linears = 1 if gated else 2
     want = collections.Counter()
     for kind in cfg.block_kinds + ("enc",) * cfg.n_encoder_layers:
         rows = enc_t if kind == "enc" else t
         want["flash_attention"] += (kind in ("attn", "moe", "shared_attn",
                                              "dec", "enc") and rows % 8 == 0)
         want["ssd_scan"] += kind == "mamba2"
+        want["bf16_gemm"] += KIND_LINEARS.get(kind, 4)
         if kind in ("moe", "moe_swa"):
             want["dual_gemm_gated.experts"] += 1
-            want["dual_gemm_gated"] += 1 + (gated and cfg.n_shared_experts > 0)
+            shared = gated and cfg.n_shared_experts > 0
+            want["dual_gemm_gated"] += 1 + shared
+            want["bf16_gemm"] += mlp_linears * shared
         elif kind not in ("mamba2", "mlstm", "slstm"):
             want["dual_gemm_gated"] += gated
+            want["bf16_gemm"] += mlp_linears
     return {k: int(v) for k, v in want.items() if v}
 
 
@@ -5597,7 +5805,7 @@ class EncDecTrainer:
 
 def train_full(dev, seed, arch: str, n_layers, b: int = TRAIN_B,
                t: int = TRAIN_T, steps: int = TRAIN_STEPS,
-               falls: bool = True) -> dict:
+               falls: bool = True, profiled: bool = True) -> dict:
     """``Trainer.run`` of ``arch`` at full width (``n_layers`` cut where
     given; whisper: ``EncDecTrainer`` over ``encdec_loss``, its frames
     ``n_audio_frames``), remat on, on ``TokenPipeline`` batches of b x t,
@@ -5606,8 +5814,8 @@ def train_full(dev, seed, arch: str, n_layers, b: int = TRAIN_B,
     each): every loss and gradient norm finite, the last loss below the
     first (where ``falls``), every kernel of ``train_counts`` launched
     twice a step — the forward and the remat recompute; the backward
-    launches none — and nothing else; then one step under the profiler
-    (``profile_train_step``)."""
+    launches none — and nothing else; then (``profiled``) one step under
+    the profiler (``profile_train_step``)."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, TokenPipeline, batch_for_step
     from repro_torch.kernels import ops
@@ -5659,7 +5867,8 @@ def train_full(dev, seed, arch: str, n_layers, b: int = TRAIN_B,
                              f"{[s['grad_norm'] for s in hist]}")
     step_ms = float(np.median([s["dt"] for s in hist[2:]])) * 1e3
     profile = profile_train_step(
-        tr, host_batch(batch_for_step(dcfg, steps)), loss_fn)
+        tr, host_batch(batch_for_step(dcfg, steps)), loss_fn) if profiled \
+        else None
     res = {"n_layers": cfg.n_layers, "params": n_params, "init_s": init_s,
            "batch": [b, t], "losses": losses,
            "grad_norms": [s["grad_norm"] for s in hist],
@@ -5742,14 +5951,14 @@ def train_phase(dev, gen, timer, seed, cases: list) -> dict:
     """Phase 7: the kernels under autograd (their cases appended to
     ``cases``), the reduced card-vs-CPU backward, the full-width training
     runs and the checkpoint on the card."""
-    log("[7/9] B12 and the bf16 B4 under autograd at the training shapes")
+    log("[7/10] B12 and the bf16 B4 under autograd at the training shapes")
     kern = check_train_kernels(dev, gen, timer, case_recorder(cases),
                                randn_on(dev, gen))
     torch.cuda.empty_cache()
-    log("[7/9] reduced loss.backward: card (kernels) vs CPU (plain)")
+    log("[7/10] reduced loss.backward: card (kernels) vs CPU (plain)")
     reduced = check_train_reduced(dev, seed)
     paths = train_paths(dev, seed, TRAIN_PATHS, "7/8")
-    log("[7/9] checkpoint save + restore on the card (reduced codeqwen)")
+    log("[7/10] checkpoint save + restore on the card (reduced codeqwen)")
     ckpt = check_train_ckpt(dev, seed)
     log(f"  {ckpt['arrays']} arrays bit-equal after restore at step "
         f"{ckpt['step']}")
@@ -5838,19 +6047,19 @@ def train_archs_phase(dev, gen, timer, seed, cases: list) -> dict:
     (their cases appended to ``cases``), the other archs' reduced
     card-vs-CPU backward and their full-width training runs."""
     t0 = time.perf_counter()
-    log("[8/9] ssd_scan and the expert-batched bf16 B4 under autograd at "
+    log("[8/10] ssd_scan and the expert-batched bf16 B4 under autograd at "
         "the training shapes")
     kern = check_train_kernels_archs(dev, gen, timer, case_recorder(cases),
                                      randn_on(dev, gen))
     torch.cuda.empty_cache()
-    log(f"[8/9] reduced backward of zamba2, mixtral, qwen2-moe, xlstm, "
+    log(f"[8/10] reduced backward of zamba2, mixtral, qwen2-moe, xlstm, "
         f"vision (kv_source) and whisper (encdec_loss): card (kernels) vs "
         f"CPU (plain); {time.perf_counter() - t0:.1f}s so far")
     reduced = check_train_reduced(dev, seed, TRAIN_REDUCED_ARCHS)
     log(f"  {time.perf_counter() - t0:.1f}s so far")
     paths = train_paths(dev, seed, TRAIN_ARCH_PATHS, "8/8")
     seconds = time.perf_counter() - t0
-    log(f"[8/9] phase 8 in {seconds:.1f}s")
+    log(f"[8/10] phase 8 in {seconds:.1f}s")
     return {"kernels": kern, "reduced": reduced, "paths": paths,
             "seconds": seconds}
 
@@ -5898,11 +6107,12 @@ TP_STEP_T = 16
 # shapes, so 8 run every sharded launch the 32 do)
 TP_LAYERS = 8
 # the cells: the model (``layers``: a depth cut), the tp values, whether
-# tokens and logits must equal tp 1's (bf16's differences are reported:
-# ROADMAP C20), the requests ("deep", "long" or "short"), ServeConfig
-# overrides, the settings, the boundaries and whether a packed step's
-# logits are compared.  NCCL refuses two ranks on one card, so the ranks
-# share it over gloo (each collective staged through host buffers)
+# tokens and logits must equal tp 1's (every cell: bf16 too, its float
+# linears on bf16_gemm, whose sums keep one order at any M or N: ROADMAP
+# C20), the requests ("deep", "long" or "short"), ServeConfig overrides,
+# the settings, the boundaries and whether a packed step's logits are
+# compared.  NCCL refuses two ranks on one card, so the ranks share it over
+# gloo (each collective staged through host buffers)
 TP_CELLS = (
     dict(name=f"codeqwen1.5-7b-{TP_LAYERS}L w4a8", arch="codeqwen1.5-7b",
          precision="w4a8", layers=TP_LAYERS, tps=(2, 4), exact=True,
@@ -5916,7 +6126,7 @@ TP_CELLS = (
          tps=(2,), exact=True, requests="short",
          settings=tp_settings(TP_PRESSURE_SHORT)),
     dict(name="codeqwen1.5-7b bf16", arch="codeqwen1.5-7b", precision="bf16",
-         tps=(2,), exact=False, requests="deep",
+         tps=(2,), exact=True, requests="deep",
          settings=tp_settings(TP_PRESSURE)[:1]))
 TP_KEEP = ("generated_tokens", "steps", "wall_s", "generated_tok_per_s",
            "peak_mem_gib", "launches", "metrics", "forwards_by_bucket")
@@ -5948,11 +6158,14 @@ def tp_must(precision: str, paged: bool) -> tuple:
     must = {"w4a8": COMMON + ("int4_gemm", "dual_int4_gemm_gated"),
             "w8a8": COMMON,
             "bf16": ("quantize_rows", "int8_kv_decode_attention",
-                     "dual_gemm_gated")}[precision]
+                     "dual_gemm_gated", "bf16_gemm")}[precision]
     if paged:
         must = tuple(k for k in must if k != "int8_kv_decode_attention") + (
             "paged_decode_attention",)
-    return must
+    # (the kernels of the tree driven: an older tree, compared in turns by
+    # scripts/bf16_walls.py, predates bf16_gemm)
+    from repro_torch.kernels import ops
+    return tuple(k for k in must if k in ops.KERNELS)
 
 
 def forward_digests(engine) -> list:
@@ -6130,7 +6343,7 @@ def serve_tp(dev, seed) -> dict:
     (``launch.mesh.run_ranks``, gloo) serving every cell of that tp in turn:
     the cell's settings at its boundaries.  Every rank's tokens and
     forwards' logits must equal rank 0's and, where the cell says so, tp
-    1's (0 differences; bf16's counts are reported); the pressure drains
+    1's (0 differences); the pressure drains
     must preempt, resume and swap at tp 1 and at tp N; one packed step's
     logits must equal tp 1's in those cells.  Returns {"drains": every
     drain by cell, "step_logits": the logits differences}."""
@@ -6176,11 +6389,138 @@ def serve_tp(dev, seed) -> dict:
     return {"drains": out, "step_logits": logits}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the NX-CGRA fabric model (core/), its payloads on the card
+# ---------------------------------------------------------------------------
+
+# the kernels the six Table II payloads run (sftmx's phases are torch ops;
+# int_softmax computes its function on its inputs) and their sources
+CGRA_KERNELS = ("int8_gemm", "int8_conv2d", "requantize_i32", "int_gelu",
+                "int_layernorm", "int_softmax")
+CGRA_SOURCES = ("int8_gemm", "int8_conv2d", "requantize", "int_gelu",
+                "int_layernorm", "int_softmax")
+# the paper's Table VI metrics of ``KernelMetrics`` (benchmarks/cgra_tables.py)
+CGRA_FIELDS = ("mops", "gops_mm2", "tops_w", "tops_w_mm2")
+
+
+def cgra_run(device) -> dict:
+    """Each Table II kernel of ``core.BUILDERS`` built on ``device`` (its
+    payloads there: the CUDA kernels on the card, their plain versions on
+    the CPU), scheduled and simulated: name -> (KernelInstance, the inputs,
+    SimResult, KernelMetrics, functional pass's host seconds)."""
+    from repro_torch.core import (BUILDERS, Simulator, StaticScheduler,
+                                  metrics_from_sim)
+    out = {}
+    for name, builder in BUILDERS.items():
+        ki = builder(device=device)
+        env_in = dict(ki.env)
+        prog = StaticScheduler().schedule(ki.tasks, name=name,
+                                          context_phases=ki.context_phases)
+        t0 = time.perf_counter()
+        res = Simulator().run(prog, ki.env)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        out[name] = (ki, env_in, res, metrics_from_sim(name, res,
+                                                       ki.useful_ops),
+                     time.perf_counter() - t0)
+    return out
+
+
+def cgra_phase(dev, smi: str) -> dict:
+    """Phase 10: the six Table II kernels of the fabric model built on the
+    CPU (plain versions) and on the card (the payloads through int8_gemm's
+    requant epilogue, int8_conv2d, requantize_i32, int_gelu and
+    int_layernorm; counts zeroed just before, read just after, int_softmax
+    run once on the softmax kernel's inputs inside the same window), each
+    scheduled and simulated: every payload output ``torch.equal`` to the
+    CPU's, int_softmax's output equal to the softmax payload's, cycles,
+    segment cycles, op histogram, core busy, energy and every
+    ``KernelMetrics`` field equal (``==``).  Prints Tables VI, V and II
+    with ``benchmarks/cgra_tables.py``'s arithmetic (written out here):
+    outputs of the simulated 22 nm, 200 MHz fabric, not card measurements.
+    The wall is the card's."""
+    from repro_torch.configs.edge_models import EDGE_MODELS
+    from repro_torch.core import PAPER_TABLE_VI, area_table
+    from repro_torch.core.kernel_library import SFTMX_SCALE
+    from repro_torch.kernels import ops
+    t_all = time.perf_counter()
+    cpu = cgra_run("cpu")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = cgra_run(dev)
+    s_in = card["sftmx"][1]
+    b13 = ops.softmax_i8(s_in["scores"], SFTMX_SCALE, s_in["mask"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts(forms=True)
+    low = [k for k in CGRA_KERNELS if k != "int_softmax" and launches[k] <= 0]
+    if low or launches["int_softmax"] != 1:
+        raise AssertionError(f"cgra: launches {launches}: {low} never ran, "
+                             f"or int_softmax not once")
+    if not torch.equal(b13.to(torch.int32), card["sftmx"][2].env["out"]):
+        raise AssertionError("cgra sftmx: int_softmax's output differs from "
+                             "the softmax payload's")
+    rows = {}
+    for name in cpu:
+        ki_c, _, res_c, m_c, _ = cpu[name]
+        _, _, res_g, m_g, secs = card[name]
+        for key, v in res_c.env.items():
+            g = res_g.env[key]
+            same_v = (torch.equal(g.cpu(), v) if isinstance(v, torch.Tensor)
+                      else g == v)
+            if not same_v:
+                raise AssertionError(f"cgra {name}: env[{key!r}] on the card "
+                                     f"differs from the CPU's")
+        for f in ("cycles", "context_cycles", "segment_cycles", "energy_j",
+                  "op_hist", "core_busy"):
+            if getattr(res_g, f) != getattr(res_c, f):
+                raise AssertionError(f"cgra {name}: {f} differs from the "
+                                     f"CPU's")
+        if dataclasses.astuple(m_g) != dataclasses.astuple(m_c):
+            raise AssertionError(f"cgra {name}: metrics differ from the CPU's")
+        rows[name] = {"cycles": res_g.cycles, "exec_cycles": m_g.exec_cycles,
+                      "energy_j": res_g.energy_j,
+                      "power_mw": m_g.power_mw, "utilization": m_g.utilization,
+                      **{f: getattr(m_g, f) for f in CGRA_FIELDS},
+                      "paper": dict(zip(CGRA_FIELDS, PAPER_TABLE_VI[name])),
+                      "card_functional_s": secs,
+                      "out_shape": list(res_g.env[ki_c.out_key].shape)}
+    log(f"  {len(rows)} kernels: payload outputs, cycles, energy and metrics "
+        f"equal on the card and the CPU; launches "
+        f"{ {k: launches[k] for k in CGRA_KERNELS} }; card wall {wall:.3f}s "
+        f"on {smi}")
+    log("  Table VI (simulated 22 nm FD-SOI fabric at 200 MHz, the model's "
+        "outputs, not card measurements): ours vs the paper")
+    log(f"  {'kernel':7s} {'MOPS':>8s} {'paper':>7s} {'ratio':>6s} "
+        f"{'GOPS/mm2':>9s} {'paper':>7s} {'TOPS/W':>7s} {'paper':>6s} "
+        f"{'TW/mm2':>7s} {'paper':>6s}")
+    for name, r in rows.items():
+        p = PAPER_TABLE_VI[name]
+        log(f"  {name:7s} {r['mops']:8.0f} {p[0]:7.0f} {r['mops'] / p[0]:6.2f} "
+            f"{r['gops_mm2']:9.2f} {p[1]:7.2f} {r['tops_w']:7.3f} {p[2]:6.2f} "
+            f"{r['tops_w_mm2']:7.2f} {p[3]:6.2f}")
+    log("  Table V: area breakdown (um^2)")
+    for comp, um2, pct in area_table():
+        log(f"  {comp:18s} {um2:10,.0f}  {pct:5.2f}%")
+    eff = {}
+    for model, comp in EDGE_MODELS.items():
+        share = {k: v / 100.0 for k, v in comp.items() if v > 0}
+        denom = sum(s / rows[k]["mops"] for k, s in share.items())
+        eff[model] = sum(share.values()) / denom if denom else 0.0
+    log("  Table II: kernel composition x simulated kernel throughput, "
+        "effective MOPS: " + ", ".join(f"{k} {v:.0f}" for k, v in eff.items()))
+    return {"kernels": rows, "table_ii_eff_mops": eff,
+            "table_v": [list(r) for r in area_table()], "wall_s": wall,
+            "phase_s": time.perf_counter() - t_all,
+            "launches": launches, "card": smi}
+
+
 PROFILED_KERNELS = ("int4_gemm", "flash_attention", "dual_gemm_gated",
                     "dual_int4_gemm_gated", "int8_gemm",
                     "int8_kv_decode_attention", "paged_decode_attention",
                     "quantize_rows", "int_layernorm", "int8_flash_attention",
-                    "ssd_scan")
+                    "ssd_scan", "bf16_gemm")
 PROFILED_NAMES = {"int8_flash_attention": "int8_attention_",
                   "ssd_scan": "ssd_scan_"}
 # the host's CUDA runtime calls that wait for the card (a pageable copy is
@@ -6343,6 +6683,11 @@ def main() -> int:
                     "launches (check_tp_shapes) and phase 9 (serve_tp: "
                     "the TP drains, ranks spawned on this card); prints "
                     "their summary and no ok line")
+    ap.add_argument("--cgra-only", action="store_true",
+                    help="build only int8_gemm, int8_conv2d, requantize_i32, "
+                    "int_gelu, int_layernorm and int_softmax, then run only "
+                    "phase 10 (the NX-CGRA fabric model, cgra_phase); "
+                    "prints its tables and no ok line")
     ap.add_argument("--kernels", default=None,
                     help="comma-separated kernels among "
                     f"{', '.join(KERNEL_CASES)}: build only these from --src "
@@ -6368,20 +6713,38 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    log(f"[1/9] card: {smi} | torch {torch.__version__} cuda "
+    log(f"[1/10] card: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
     built = build.build_all(*([sorted({src for name in only
                                        for src in KERNEL_CASES[name][1]})]
                                if only else [train_kernels()] if args.train_only
+                               else [CGRA_SOURCES] if args.cgra_only
                                else []))
-    log(f"[2/9] built {len(built)} kernels in {time.perf_counter() - t0:.1f}s")
+    log(f"[2/10] built {len(built)} kernels in {time.perf_counter() - t0:.1f}s")
     for name, info in sorted(built.items()):
         regs = [ln.strip() for ln in info["ptxas"].splitlines()
                 if "registers" in ln or "Compiling entry" in ln
                 or "spill" in ln]
         log(f"  {name}: {info['seconds']:.1f}s; " + " | ".join(regs))
+
+    if args.cgra_only:
+        log("[10/10] the NX-CGRA fabric model: the six Table II kernels on the "
+            "card and the CPU")
+        res = cgra_phase(dev, smi)
+        if args.out is not None:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(json.dumps({"card": smi, "cgra": res},
+                                           indent=1))
+        print(json.dumps({"cgra_only": {
+            name: {f: r[f] for f in ("cycles", "energy_j") + CGRA_FIELDS}
+            for name, r in res["kernels"].items()},
+            "table_ii_eff_mops": res["table_ii_eff_mops"],
+            "launches": {k: res["launches"][k] for k in CGRA_KERNELS},
+            "wall_s": res["wall_s"]}))
+        print(smi)
+        return 0
 
     if args.train_only:
         cases, timer = [], Timer(dev)
@@ -6402,7 +6765,7 @@ def main() -> int:
         return 0
 
     if only:
-        log(f"[3/9] {', '.join(only)} vs plain versions on the card "
+        log(f"[3/10] {', '.join(only)} vs plain versions on the card "
             f"({args.src})")
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         cases, timer = [], Timer(dev)
@@ -6422,14 +6785,14 @@ def main() -> int:
         return 0
 
     if args.tp_only:
-        log("[3/9] tensor-parallel launches vs the unsharded launch and the "
+        log("[3/10] tensor-parallel launches vs the unsharded launch and the "
             "plain versions")
         cases, timer = [], Timer(dev)
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         check_tp_shapes(dev, gen, timer, case_recorder(cases),
                         randn_on(dev, gen))
         torch.cuda.empty_cache()
-        log("[9/9] tensor-parallel serving: ranks spawned on this card")
+        log("[9/10] tensor-parallel serving: ranks spawned on this card")
         res = serve_tp(dev, args.seed)
         if args.out is not None:
             args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -6511,62 +6874,67 @@ def main() -> int:
         print(smi)
         return 0
 
-    log("[3/9] kernels vs plain versions on the card")
+    log("[3/10] kernels vs plain versions on the card")
+    t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     cases = check_kernels(dev, gen, Timer(dev))
     torch.cuda.empty_cache()
+    log(f"[3/10] phase 3 in {time.perf_counter() - t_phase:.1f}s")
+    t_phase = time.perf_counter()
 
     worst = {}
     for arch, precision, must in REDUCED_PATHS:
-        log(f"[4/9] {arch}-reduced {precision} int8-KV: CPU plain (and in "
+        log(f"[4/10] {arch}-reduced {precision} int8-KV: CPU plain (and in "
             f"the card's order, seeds {args.seed}..{args.seed + SEEDS - 1}) "
             f"vs CUDA kernels")
         for k in range(SEEDS):
             worst[f"{arch} {precision} seed {args.seed + k}"] = check_reduced(
                 dev, args.seed + k, arch, precision, must, main=k == 0)
-    log("[4/9] zamba2-2.7b-reduced w8a8 int8-KV forward with states "
+    log("[4/10] zamba2-2.7b-reduced w8a8 int8-KV forward with states "
         "(prefill through ssd_scan and the multi-row decode form, then "
         "t = 1 steps): CPU plain vs CUDA kernels")
     for k in range(SEEDS):
         worst[f"zamba2-2.7b w8a8 states seed {args.seed + k}"] = (
             check_reduced_states(dev, args.seed + k, main=k == 0))
-    log("[4/9] xlstm-350m-reduced w8a8: no-cache forward, then forward with "
+    log("[4/10] xlstm-350m-reduced w8a8: no-cache forward, then forward with "
         "states (t = 1 steps): CPU plain vs CUDA kernels")
     for k in range(SEEDS):
         for key, v in check_xlstm_reduced(dev, args.seed + k).items():
             worst[f"xlstm-350m w8a8 {key} seed {args.seed + k}"] = v
-    log("[4/9] whisper-small-reduced w8a8: encode, cross states, decoder "
+    log("[4/10] whisper-small-reduced w8a8: encode, cross states, decoder "
         "steps and encdec_forward: CPU plain (card order) vs CUDA kernels")
     for k in range(SEEDS):
         for key, v in check_whisper_reduced(dev, args.seed + k).items():
             worst[f"whisper-small w8a8 {key} seed {args.seed + k}"] = v
     for precision in ("w4a8", "w8a8"):
-        log(f"[4/9] llama-3.2-vision-90b-reduced {precision} (gates "
+        log(f"[4/10] llama-3.2-vision-90b-reduced {precision} (gates "
             f"{XATTN_GATES}): cross states, steps and the no-cache forward "
             f"with kv_source: CPU plain (card order) vs CUDA kernels")
         for k in range(SEEDS):
             for key, v in check_vision_reduced(dev, args.seed + k,
                                                precision).items():
                 worst[f"{VISION} {precision} {key} seed {args.seed + k}"] = v
-    log("[4/9] codeqwen1.5-7b-reduced w4a8 paged int8 arena: CPU plain vs "
+    log("[4/10] codeqwen1.5-7b-reduced w4a8 paged int8 arena: CPU plain vs "
         "CUDA kernels, paged vs dense on the card")
     worst["codeqwen1.5-7b w4a8 paged"] = check_reduced_paged(dev, args.seed)
     for arch, precision in REDUCED_NO_CACHE:
-        log(f"[4/9] {arch}-reduced {precision} no-cache forward: CPU plain vs "
+        log(f"[4/10] {arch}-reduced {precision} no-cache forward: CPU plain vs "
             f"CUDA kernels")
         worst[f"{arch} {precision} no-cache"] = check_reduced_no_cache(
             dev, args.seed, arch, precision)
     for arch, act in REDUCED_MIXED:
-        log(f"[4/9] {arch}-reduced w8a8 over float weights (integer norms, "
+        log(f"[4/10] {arch}-reduced w8a8 over float weights (integer norms, "
             f"attention and {act}) no-cache forward: CPU plain vs CUDA "
             f"kernels")
         worst[f"{arch} w8a8-float no-cache"] = check_reduced_no_cache(
             dev, args.seed, arch, "w8a8", act)
 
+    log(f"[4/10] phase 4 in {time.perf_counter() - t_phase:.1f}s")
+    t_phase = time.perf_counter()
     served = {}
     for (label, arch, precision, n_req, max_new, profiled, must,
          paged) in SERVE_PATHS:
-        log(f"[5/9] serve full-width {label} int8-KV: {n_req} requests x "
+        log(f"[5/10] serve full-width {label} int8-KV: {n_req} requests x "
             f"{max_new} new tokens" + (", then three paged drains" if paged
                                        else ""))
         srv = served[label] = serve_full(dev, args.seed, arch, precision, n_req,
@@ -6625,7 +6993,7 @@ def main() -> int:
                 f"ms wall), key fold {sm['keys_host_ms']:.3f} ms host; "
                 f"{sm['draws_compared']} draws equal to the CPU's")
 
-    log(f"[5/9] serve full-width zamba2-2.7b w8a8 int8-KV tokenwise: "
+    log(f"[5/10] serve full-width zamba2-2.7b w8a8 int8-KV tokenwise: "
         f"{ZAMBA_REQ} requests x {ZAMBA_NEW} new tokens together, "
         f"{ZAMBA_ALONE} of them one at a time")
     for name, drain in serve_zamba2(dev, args.seed).items():
@@ -6636,7 +7004,7 @@ def main() -> int:
         log_profile(drain)
     gc.collect()
     torch.cuda.empty_cache()
-    log("[5/9] zamba2-2.7b-reduced w8a8 served tokenwise: card vs the CPU "
+    log("[5/10] zamba2-2.7b-reduced w8a8 served tokenwise: card vs the CPU "
         "in the card's order")
     zred = serve_zamba2_reduced(dev, args.seed)
     log(f"  {zred['steps_compared']} steps compared, worst "
@@ -6646,7 +7014,7 @@ def main() -> int:
 
     no_cache = {}
     for arch, precision in MOE_PATHS:
-        log(f"[5/9] serve full-width {arch} {precision} int8-KV (built and "
+        log(f"[5/10] serve full-width {arch} {precision} int8-KV (built and "
             f"quantized a block at a time): {MOE_REQ} requests x {MOE_NEW} "
             f"new tokens" + (", then paged, then one request of "
                              f"{LONG_PROMPT} tokens on the ring, unwrapped "
@@ -6676,14 +7044,14 @@ def main() -> int:
             f"{sum(dense['syncs_per_decode_step'].values())} synchronizing "
             f"calls")
         lm = no_cache[f"{arch} {precision} lm_loss"] = res["lm_loss"]
-        log(f"[6/9] full-width {arch} {precision} lm_loss on {MOE_SCORE_B} x "
+        log(f"[6/10] full-width {arch} {precision} lm_loss on {MOE_SCORE_B} x "
             f"{MOE_SCORE_T} tokens: {lm['loss']:.4f} in {lm['wall_s']:.2f}s "
             f"({lm['tok_per_s']:.0f} tok/s), peak {lm['peak_mem_gib']:.1f} "
             f"GiB, {lm['rows_per_expert']} rows per expert; launches "
             f"{lm['launches']}")
         log_profile(lm)
     for arch, precision, paged in GQA_PATHS:
-        log(f"[5/9] serve full-width {arch} {precision} int8-KV (built and "
+        log(f"[5/10] serve full-width {arch} {precision} int8-KV (built and "
             f"quantized a block at a time): {GQA_REQ} requests x {GQA_NEW} "
             f"new tokens" + (", then paged" if paged else ""))
         res = serve_gqa(dev, args.seed, arch, precision, paged)
@@ -6706,12 +7074,12 @@ def main() -> int:
                 f"synchronizing calls")
             log_profile(drain)
         lm = no_cache[f"{arch} {precision} lm_loss"] = res["lm_loss"]
-        log(f"[6/9] full-width {arch} {precision} lm_loss on {SCORE_B} x "
+        log(f"[6/10] full-width {arch} {precision} lm_loss on {SCORE_B} x "
             f"{SCORE_T} tokens: {lm['loss']:.4f} in {lm['wall_s']:.2f}s "
             f"({lm['tok_per_s']:.0f} tok/s), peak {lm['peak_mem_gib']:.1f} "
             f"GiB; launches {lm['launches']}")
         log_profile(lm)
-    log(f"[5/9] serve full-width xlstm-350m w8a8 tokenwise: {XLSTM_REQ} "
+    log(f"[5/10] serve full-width xlstm-350m w8a8 tokenwise: {XLSTM_REQ} "
         f"requests x {XLSTM_NEW} new tokens together, {XLSTM_ALONE} of them "
         f"one at a time in lane 0")
     for name, drain in serve_xlstm(dev, args.seed).items():
@@ -6720,7 +7088,7 @@ def main() -> int:
         log_drain(drain)
         log_extra(drain)
         log_profile(drain)
-    log(f"[6/9] full-width xlstm-350m lm_loss on {SCORE_B} x {SCORE_T} "
+    log(f"[6/10] full-width xlstm-350m lm_loss on {SCORE_B} x {SCORE_T} "
         f"tokens at bf16, w8a8 and w4a8")
     for label, lm in xlstm_loss(dev, args.seed).items():
         no_cache[label] = lm
@@ -6728,7 +7096,7 @@ def main() -> int:
             f"({lm['tok_per_s']:.0f} tok/s), peak {lm['peak_mem_gib']:.1f} "
             f"GiB; launches {lm['launches']}")
         log_profile(lm)
-    log(f"[5/9] serve full-width {WHISPER} w8a8 int8-KV: encode 8 clips, "
+    log(f"[5/10] serve full-width {WHISPER} w8a8 int8-KV: encode 8 clips, "
         f"then {XATTN_REQ} requests x {XATTN_NEW} new tokens with kv_source, "
         f"then again on the reused lanes")
     for name, drain in serve_whisper(dev, args.seed).items():
@@ -6744,14 +7112,14 @@ def main() -> int:
         log_profile(drain)
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"[6/9] full-width {WHISPER} encdec_loss on {SCORE_B} x (1500 frames, "
+    log(f"[6/10] full-width {WHISPER} encdec_loss on {SCORE_B} x (1500 frames, "
         f"{WH_SCORE_T} tokens) at bf16 and w8a8")
     for label, lm in whisper_loss(dev, args.seed).items():
         no_cache[label] = lm
         log(f"  {label}: {lm['loss']:.4f} in {lm['wall_s']:.2f}s, peak "
             f"{lm['peak_mem_gib']:.1f} GiB; launches {lm['launches']}")
         log_profile(lm)
-    log(f"[5/9] serve full-width {VISION} w4a8 int8-KV (built and quantized "
+    log(f"[5/10] serve full-width {VISION} w4a8 int8-KV (built and quantized "
         f"a block at a time): cross K/V of 8 lanes' vision tokens, "
         f"{XATTN_REQ} requests x {XATTN_NEW} new tokens")
     res = serve_vision(dev, args.seed)
@@ -6767,42 +7135,48 @@ def main() -> int:
         f"synchronizing calls")
     log_profile(drain)
     lm = no_cache[f"{VISION} w4a8 lm_loss"] = res["lm_loss"]
-    log(f"[6/9] full-width {VISION} w4a8 lm_loss with kv_source on {SCORE_B} "
+    log(f"[6/10] full-width {VISION} w4a8 lm_loss with kv_source on {SCORE_B} "
         f"x {SCORE_T} tokens: {lm['loss']:.4f} in {lm['wall_s']:.2f}s "
         f"({lm['tok_per_s']:.0f} tok/s), peak {lm['peak_mem_gib']:.1f} GiB; "
         f"launches {lm['launches']}")
     log_profile(lm)
     for arch, precisions, calibrated, long_w8a8 in NO_CACHE_PATHS:
-        log(f"[6/9] full-width {arch} no-cache forward: lm_loss on {NC_B} x "
+        log(f"[6/10] full-width {arch} no-cache forward: lm_loss on {NC_B} x "
             f"{NC_T} tokens at {', '.join(precisions)}"
             + (", after calibrate_ptq" if calibrated else ""))
         no_cache.update(no_cache_full(dev, args.seed, arch, precisions,
                                       calibrated, long_w8a8))
-    log("[6/9] the integer library's entry points (Table II shapes) and "
+    log("[6/10] the integer library's entry points (Table II shapes) and "
         "the ViT-B/16 patch embed")
     no_cache["integer library"] = int_library_entry(dev, args.seed)
     log(f"  launches {no_cache['integer library']['launches']}; patch embed "
         f"{no_cache['integer library']['patch_embed_shape']} equal to the "
         f"CPU's")
-    log("[6/9] ops.softmax_i8 on causal score rows")
+    log("[6/10] ops.softmax_i8 on causal score rows")
     no_cache["ops.softmax_i8"] = softmax_entry(dev, args.seed)
     log(f"  launches {no_cache['ops.softmax_i8']['launches']}, row sums "
         f"{no_cache['ops.softmax_i8']['row_sum_range']}")
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"[6/10] phases 5 and 6 in {time.perf_counter() - t_phase:.1f}s")
+    t_phase = time.perf_counter()
     train = train_phase(dev, gen, Timer(dev), args.seed, cases)
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"[7/10] phase 7 in {time.perf_counter() - t_phase:.1f}s")
     train8 = train_archs_phase(dev, gen, Timer(dev), args.seed, cases)
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"[9/9] tensor-parallel serving (codeqwen1.5-7b-{TP_LAYERS}L w4a8 at "
+    log(f"[9/10] tensor-parallel serving (codeqwen1.5-7b-{TP_LAYERS}L w4a8 at "
         f"tp 2 and 4, also on {TP_LONG_LANES} long lanes, starcoder2-3b w8a8 "
         f"at tp 2, codeqwen1.5-7b bf16 at tp 2): ranks spawned on this card, "
         f"gloo")
     t_tp = time.perf_counter()
     tp_served = serve_tp(dev, args.seed)
-    log(f"[9/9] phase 9 in {time.perf_counter() - t_tp:.1f}s")
+    log(f"[9/10] phase 9 in {time.perf_counter() - t_tp:.1f}s")
+    log("[10/10] the NX-CGRA fabric model: the six Table II kernels on the "
+        "card and the CPU")
+    cgra = cgra_phase(dev, smi)
 
     # the M = 8 (decode) case of each kernel at the shape each path gives it;
     # a kernel's headline is the slice's main path (codeqwen1.5-7b w4a8) where
@@ -6854,9 +7228,6 @@ def main() -> int:
         "starcoder2-3b w8a8 lm_loss": {"int8_flash_attention":
             "v_scale starcoder B=4 T=1024 H=24 Hkv=2 D=128",
             "int8_gemm": "mlp_up+gelu [4096,3072]x[3072,12288] scaled_gelu"},
-        "codeqwen1.5-7b bf16 lm_loss": {"flash_attention":
-            "bf16 codeqwen B=4 T=1024 H=32 Hkv=32 D=128",
-            "dual_gemm_gated": "bf16 [4096,4096]x2[4096,13440] silu"},
         "starcoder2-3b bf16 lm_loss": {"flash_attention":
             "bf16 starcoder B=4 T=1024 H=24 Hkv=2 D=128"},
         "ops.softmax_i8": {"int_softmax": "[4096,1024] int32 causal mask"},
@@ -6965,7 +7336,15 @@ def main() -> int:
         "integer library": {
             "int8_conv2d": "[32,14,14,768]x[1,1,768,768] int32",
             "int8_gemm": "[32,64]x[64,32] requant",
-            "requantize_i32": "[4096,4096] int32"}}
+            "requantize_i32": "[4096,4096] int32"},
+        # the bf16 float linears (bf16_gemm): the scoring forward's q
+        # projection, a decode step's
+        "codeqwen1.5-7b bf16 lm_loss": {
+            "flash_attention": "bf16 codeqwen B=4 T=1024 H=32 Hkv=32 D=128",
+            "dual_gemm_gated": "bf16 [4096,4096]x2[4096,13440] silu",
+            "bf16_gemm": "codeqwen q [4096,4096]x[4096,4096]"},
+        "codeqwen1.5-7b bf16 tp1 dense": {
+            "bf16_gemm": "codeqwen k [8,4096]x[4096,4096]"}}
     csrc, tpu = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     sources = {"quantize_rows": ("quantize.cu", "quantize.py:41"),
                "int8_gemm": ("int8_gemm.cu", "int8_gemm.py:127"),
@@ -6987,7 +7366,11 @@ def main() -> int:
                "int_silu": ("int_silu.cu", "int_silu.py:48"),
                "requantize_i32": ("requantize.cu", "quantize.py:111"),
                "int8_conv2d": ("int8_conv2d.cu", "conv2d.py:51"),
-               "ssd_scan": ("ssd_scan.cu", "ssd_scan.py:70")}
+               "ssd_scan": ("ssd_scan.cu", "ssd_scan.py:70"),
+               "bf16_gemm": ("bf16_gemm.cu", None)}
+    # the kernel the port adds beyond the TPU's replaces XLA's float dot
+    added = {"bf16_gemm": "none: XLA's dot of the reference's float linear "
+                          "(src/repro/models/layers.py linear)"}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_note")
 
@@ -6996,7 +7379,7 @@ def main() -> int:
                     and c["shape"] == shape)
     kernels = []
     paths = {**served, **no_cache, **train["paths"], **train8["paths"],
-             **tp_served["drains"]}
+             **tp_served["drains"], "cgra": cgra}
     for name in ops.KERNELS:
         by_path = {label: res["launches"][name]
                    for label, res in paths.items()}
@@ -7007,7 +7390,7 @@ def main() -> int:
         c = at_path[cq4] if cq4 in at_path else next(iter(at_path.values()))
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + sources[name][0],
-            "replaces": tpu + sources[name][1],
+            "replaces": added.get(name) or tpu + sources[name][1],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(x["max_abs_err"] for x in cases
                                if x["kernel"] == name),
@@ -7022,6 +7405,7 @@ def main() -> int:
             "cases": cases, "reduced_worst_rel": worst, "serve": served,
             "no_cache": no_cache, "zamba2_reduced_served": zred,
             "train": train, "train_archs": train8, "serve_tp": tp_served,
+            "cgra": cgra,
             "kernels": kernels, "total_s": time.perf_counter() - t_start},
             indent=1))
     log(f"done in {time.perf_counter() - t_start:.1f}s")

@@ -1,9 +1,20 @@
-"""The MoE dispatch cost model and the serving-TP boundary cost of
-``repro.core.costmodel`` (its ``moe_capacity`` and ``moe_dispatch_cost``,
-``costmodel.py:220-256``, and ``tp_boundary_cost``, ``:259``).
+"""The NX-CGRA cost model (Tables V and VI), the MoE dispatch cost model
+and the serving-TP boundary cost of ``repro.core.costmodel`` (its CGRA part,
+``costmodel.py:22-104``; ``moe_capacity`` and ``moe_dispatch_cost``,
+``:220-256``; ``tp_boundary_cost``, ``:259``).
 
-These are the reference's GShard group-size rule, its overlap-vs-barrier
-rule and the TPU machine constants they read, copied so that the port picks
+The CGRA part turns the fabric simulator's cycles and energy into the
+paper's metrics (MOPS, GOPS/mm^2, TOPS/W, TOPS/W/mm^2) with the published
+implementation constants (22 nm FD-SOI, 200 MHz, 0.8 V, 0.178 mm^2): a
+model of the paper's fabric, not a statement about the card.  Its
+arithmetic is the reference's, in the same order, so every metric equals
+the reference's with ``==``.  MOPS excludes the context pre-load (the
+paper pre-configures before application start, §III-D); the numerator is
+the kernel's documented useful-op count (``core/kernel_library.py``).
+
+The MoE and TP rules are the reference's GShard group-size rule, its
+overlap-vs-barrier rule and the TPU machine constants they read, copied so
+that the port picks
 the same tokens per dispatch group and the same expert capacity as the
 reference — and so the same tokens are dropped — and resolves
 ``tp_overlap="auto"`` to the same boundary.  They are not a statement about
@@ -13,6 +24,89 @@ cycle of HBM and of the inter-chip links), and only their relative cost
 across candidate group sizes decides anything.
 """
 from __future__ import annotations
+
+import dataclasses
+
+from .isa import FREQ_HZ
+from .simulator import SimResult
+
+# --- Table V: total cell area breakdown (um^2), 22nm FD-SOI ------------------
+AREA_UM2 = {
+    "memory_map": 206,
+    "memory_controller": 164,
+    "context_memory": 13_327,     # 2 x 2 KiB SRAM macros
+    "nx_array": 164_195,          # 16 PE + 8 MOB
+    "other": 107,
+}
+TOTAL_AREA_MM2 = sum(AREA_UM2.values()) / 1e6  # = 0.177999 mm^2
+
+# Active (non-gated) subsystem power beyond per-op energies: clock tree,
+# global execution controller, memory controller.  Calibrated so kernel
+# power lands in the paper's 1.5-1.6 mW band.
+ACTIVE_W = 1.05e-3
+
+# Paper Table VI reference values for the comparison report.
+PAPER_TABLE_VI = {
+    # kernel: (MOPS, GOPS/mm^2, TOPS/W, TOPS/W/mm^2)
+    "conv": (1902, 10.68, 1.28, 7.20),
+    "gemm": (3040, 17.08, 2.01, 11.29),
+    "gelu": (636, 3.57, 0.39, 2.21),
+    "norm": (70, 0.39, 0.04, 0.24),
+    "quant": (255, 1.43, 0.16, 0.89),
+    "sftmx": (1102, 6.19, 0.68, 3.83),
+}
+
+
+@dataclasses.dataclass
+class KernelMetrics:
+    name: str
+    cycles: int
+    exec_cycles: int            # excluding context pre-load
+    time_s: float
+    mops: float
+    gops_mm2: float
+    tops_w: float
+    tops_w_mm2: float
+    power_mw: float
+    utilization: float
+
+    def row(self) -> tuple:
+        return (self.name, self.mops, self.gops_mm2, self.tops_w, self.tops_w_mm2)
+
+
+def metrics_from_sim(name: str, sim: SimResult, useful_ops: int) -> KernelMetrics:
+    exec_cycles = sim.cycles - sim.context_cycles
+    t = exec_cycles / FREQ_HZ
+    power = sim.energy_j / max(sim.cycles / FREQ_HZ, 1e-12) + ACTIVE_W
+    ops_per_s = useful_ops / max(t, 1e-12)
+    mops = ops_per_s / 1e6
+    gops = ops_per_s / 1e9
+    tops_w = (ops_per_s / 1e12) / power
+    return KernelMetrics(
+        name=name,
+        cycles=sim.cycles,
+        exec_cycles=exec_cycles,
+        time_s=t,
+        mops=mops,
+        gops_mm2=gops / TOTAL_AREA_MM2,
+        tops_w=tops_w,
+        tops_w_mm2=tops_w / TOTAL_AREA_MM2,
+        power_mw=power * 1e3,
+        utilization=sim.utilization(),
+    )
+
+
+def area_table() -> list[tuple[str, float, float]]:
+    """Reproduces Table V: (component, area um^2, %)."""
+    total = sum(AREA_UM2.values())
+    return [(k, v, 100.0 * v / total) for k, v in AREA_UM2.items()] + [
+        ("NX-CGRA", total, 100.0)
+    ]
+
+
+# ---------------------------------------------------------------------------
+# the MoE dispatch and serving-TP boundary rules (the reference's TPU figures)
+# ---------------------------------------------------------------------------
 
 TPU_MACS_PER_CYCLE = 128 * 128         # the reference's MXU pass per cycle
 TPU_HBM_BYTES_PER_CYCLE = 870          # the reference's HBM bytes per cycle

@@ -28,7 +28,7 @@ SOURCES = ("quantize", "int8_gemm", "int_layernorm", "int8_kv_decode_attention",
            "int4_gemm", "dual_gemm_gated", "dual_int4_gemm_gated",
            "paged_decode_attention", "int_softmax", "int8_flash_attention",
            "flash_attention", "int_gelu", "int_silu", "requantize",
-           "int8_conv2d", "ssd_scan")
+           "int8_conv2d", "ssd_scan", "bf16_gemm")
 CSRC = Path(__file__).resolve().with_name("csrc")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

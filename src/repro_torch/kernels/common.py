@@ -7,8 +7,9 @@ kernel or raises.  Nothing falls back from the card to the plain version.
 A launch is outside autograd, so on the card a wrapper raises rather than
 launch on an input that requires grad while grad mode is on — except the
 wrappers whose kernels run inside a ``torch.autograd.Function``
-(``GRAD_KERNELS``: flash_attention, ssd_scan and the bf16 forms of
-dual_gemm_gated, unbatched and expert-batched), whose backward is autograd
+(``GRAD_KERNELS``: flash_attention, ssd_scan, the bf16 forms of
+dual_gemm_gated, unbatched and expert-batched, and bf16_gemm), whose
+backward is autograd
 of the plain version.  On the CPU autograd differentiates the plain
 versions directly.
 
@@ -65,7 +66,7 @@ def resolve_device(device=None) -> torch.device:
 
 # the wrappers whose kernels launch inside a torch.autograd.Function
 GRAD_KERNELS = ("flash_attention", "ssd_scan", "dual_gemm_gated",
-                "dual_gemm_gated_experts")
+                "dual_gemm_gated_experts", "bf16_gemm")
 
 
 def tensor_device(tensors) -> torch.device:

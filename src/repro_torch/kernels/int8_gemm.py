@@ -338,7 +338,9 @@ MMA_CONFIGS = {("w4", 1, 16): (128, 1), ("w4", 1, 64): (128, 2),
                ("w8", 1, 128): (128, 1),
                ("w8", 2, 16): (128, 1), ("w8", 2, 64): (128, 2),
                ("bf16", 2, 16): (64, 1), ("bf16", 2, 64): (128, 1),
-               ("bf16", 2, 128): (128, 1)}
+               ("bf16", 2, 128): (128, 1),
+               ("bf16", 1, 16): (64, 1), ("bf16", 1, 64): (128, 1),
+               ("bf16", 1, 128): (128, 1)}
 SMEM_PER_BLOCK, SMEM_PER_SM = 232448, 233472   # H100: a block's limit, an SM's
 
 
@@ -414,8 +416,8 @@ def w8_tiling(m: int, n: int, k: int, n_sm: int,
 
 
 def bf16_tiling(m: int, n: int, k: int) -> MmaTiling:
-    """dual_gemm_gated's bf16 form: never a split of K (f32 sums would
-    depend on the blocks' arrival order), so its decode blocks (up to
+    """dual_gemm_gated's bf16 form and bf16_gemm: never a split of K (f32
+    sums would depend on the blocks' arrival order), so its decode blocks (up to
     DUAL_DECODE_M) are 16 x 64 (210 at N = 13440 for 132 SMs); then 64 x 128
     up to M = 128 and 128 x 128 past it."""
     bm, bn = ((16, 64) if m <= DUAL_DECODE_M else (64, 128) if m <= 128

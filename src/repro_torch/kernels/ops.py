@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from .bf16_gemm import bf16_gemm
 from .common import LAUNCHES
 from .conv2d import int8_conv2d
 from .flash_attention import flash_attention
@@ -30,11 +31,16 @@ from .paged_attention import (paged_decode_attention,
 from .quantize import quantize_rows, requantize_i32
 from .ssd_scan import ssd_scan
 
-KERNELS = ("quantize_rows", "int8_gemm", "int_layernorm",
-           "int8_kv_decode_attention", "dual_gemm_gated", "int4_gemm",
-           "dual_int4_gemm_gated", "paged_decode_attention", "int_softmax",
-           "int8_flash_attention", "flash_attention", "int_gelu", "int_silu",
-           "requantize_i32", "int8_conv2d", "ssd_scan")
+# the ports of the reference's sixteen Pallas kernels, then the kernel the
+# port adds beyond them: the bf16 float linear, whose sums keep one order
+# at any row or column count (ROADMAP C20)
+TPU_KERNELS = ("quantize_rows", "int8_gemm", "int_layernorm",
+               "int8_kv_decode_attention", "dual_gemm_gated", "int4_gemm",
+               "dual_int4_gemm_gated", "paged_decode_attention",
+               "int_softmax", "int8_flash_attention", "flash_attention",
+               "int_gelu", "int_silu", "requantize_i32", "int8_conv2d",
+               "ssd_scan")
+KERNELS = TPU_KERNELS + ("bf16_gemm",)
 
 
 # launches counted a second time by form: the GEMMs' expert-batched
@@ -77,6 +83,18 @@ def norm_quant_rows(x, gamma_q, beta_q, gb_s, rms_only: bool = False):
     h, q, s = int_layernorm_rows(x.reshape(-1, d).contiguous(), gamma_q,
                                  beta_q, gb_s, rms_only=rms_only)
     return h.reshape(*lead, d), q.reshape(*lead, d), s.reshape(*lead, 1)
+
+
+def gemm_bf16(x, w, bias=None):
+    """The bf16 float linear of [..., K] x [K, N] (+ bias [N]):
+    ``layers.linear`` at bf16 (x, w and bias cast to bf16, f32 sums, one
+    rounding, the bias added in bf16), one kernel launch on the card whose
+    sums keep one order at any M or N.  Differentiable."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    bf = torch.bfloat16
+    out = bf16_gemm(x.to(bf).reshape(-1, k), w.to(bf),
+                    None if bias is None else bias.to(bf))
+    return out.reshape(*lead, w.shape[1])
 
 
 def gemm_i8(x, w, requant=None):

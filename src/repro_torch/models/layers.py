@@ -278,8 +278,9 @@ def apply_linear(x, p: Linear, mode: ExecMode, bias=None, residual=None,
                  xq: QRows | None = None):
     """Dispatch on the weight the module holds: packed int4 (W4A8 GEMM),
     int8 ``w_q`` (W8A8 GEMM; both with the residual add in the epilogue and
-    x's rows quantized once, or taken from ``xq``) or a float weight (plain
-    matmul of x, then the residual add).  A residual in another dtype than
+    x's rows quantized once, or taken from ``xq``) or a float weight (its
+    matmul with x, through ``ops.gemm_bf16`` at a bf16 compute dtype, then
+    the residual add).  A residual in another dtype than
     the compute dtype (whisper's f32 encoder stream) is added after the
     projection's rounding to the compute dtype, as the reference's
     epilogue promotes it."""
@@ -292,7 +293,13 @@ def apply_linear(x, p: Linear, mode: ExecMode, bias=None, residual=None,
     if p.quantized:
         return linear_w8a8(x, p.w_q, p.scale, bias, mode.compute_dtype,
                            residual=residual, xq=xq)
-    out = linear(x, p.weight.to(mode.compute_dtype), bias, mode.compute_dtype)
+    if mode.compute_dtype == torch.bfloat16:
+        # the bf16 GEMM kernel on the card (one order of K at any M or N, so
+        # TP shards equal tp 1's slices); f32 linears stay torch.matmul
+        out = ops.gemm_bf16(x, p.weight, bias)
+    else:
+        out = linear(x, p.weight.to(mode.compute_dtype), bias,
+                     mode.compute_dtype)
     if residual is not None:
         out = out + residual
     return out

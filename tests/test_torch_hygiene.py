@@ -66,7 +66,10 @@ def test_scan_sees_the_whole_port():
                  "configs/llama_3_2_vision_90b.py", "train/trainer.py",
                  "train/optimizer.py", "train/checkpoint.py",
                  "data/pipeline.py", "dist/compression.py",
-                 "launch/train.py"):
+                 "launch/train.py", "core/isa.py", "core/program.py",
+                 "core/scheduler.py", "core/simulator.py",
+                 "core/kernel_library.py", "configs/edge_models.py",
+                 "kernels/bf16_gemm.py"):
         assert need in files
 
 
@@ -78,7 +81,7 @@ def _exported(init: Path) -> set[str]:
             if isinstance(node, ast.ImportFrom) for a in node.names}
 
 
-@pytest.mark.parametrize("pkg", ["models", "serve", "train", "data"])
+@pytest.mark.parametrize("pkg", ["models", "serve", "train", "data", "core"])
 def test_packages_export_what_the_references_export(pkg):
     import importlib
     mod = importlib.import_module(f"repro_torch.{pkg}")
@@ -214,7 +217,9 @@ def test_kernel_sources_and_flags():
             "int8_conv2d", "ssd_scan"} <= set(build.SOURCES)
     # quantize.cu holds quantize_rows, requantize.cu requantize_i32
     assert set(build.SOURCES) <= set(ops.KERNELS) | {"quantize", "requantize"}
-    assert len(ops.KERNELS) == 16
+    # the sixteen Pallas kernels' ports, then the one the port adds
+    assert len(ops.TPU_KERNELS) == 16
+    assert ops.KERNELS == ops.TPU_KERNELS + ("bf16_gemm",)
     for name in build.SOURCES:
         src = build.CSRC / f"{name}.cu"
         assert src.exists()
@@ -630,6 +635,8 @@ def _grad_refusals():
             "int_layernorm_rows": lambda g: ops.norm_quant_rows(
                 g(bf[0]), torch.ones(8, dtype=torch.int32),
                 torch.zeros(8, dtype=torch.int32), torch.tensor(1.0)),
+            "bf16_gemm": lambda g: ops.gemm_bf16(
+                g(bf[0]), bf[1].transpose(0, 1).contiguous()),
             "requantize_i32": lambda g: ops.requant(
                 torch.zeros(4, 8, dtype=torch.int32),
                 RequantParams(s1=2, mult=9000, s2=14))}
