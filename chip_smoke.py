@@ -111,9 +111,13 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    down and starcoder2-3b's q+bias, kv+bias, o, up and down for M in {8,
    64, 256, 4096}, the product within ``DUAL_BF16_RTOL``/``ATOL`` of its
    plain version, the bias epilogue bit-equal to the product plus the
-   bias, the same bits in two runs, and every tp 2 and tp 4 column
+   bias, the same bits in two runs, every tiling its C entry takes
+   ``torch.equal`` to the rule's launch, and every tp 2 and tp 4 column
    shard and block of M / tp rows ``torch.equal`` to its slice of the
-   unsharded launch (C20's gate), timed beside ``torch.matmul``;
+   unsharded launch (C20's gate); a ragged K and N (whisper-small's
+   vocabulary) equal to their zero-padded launch; timed beside
+   ``torch.matmul``, with the host's microseconds a launch and each
+   tiling's registers, spills and shared memory;
 4. reduced: starcoder2-3b-reduced at w8a8 and codeqwen1.5-7b-reduced at
    w4a8, w8a8 and bf16, each with an int8 KV cache, the same packed steps on
    the CPU (plain versions) and on the card (kernels): the logits agree
@@ -2716,6 +2720,10 @@ BF16_GEMMS = (
     ("starcoder", "up", 3072, 12288, False, "cols"),
     ("starcoder", "down", 12288, 3072, False, "rows"))
 BF16_TPS = (2, 4)
+# shapes TMA cannot describe as they are: whisper-small's vocabulary (N) and
+# a K that is not a multiple of 8; (label, K, N)
+BF16_RAGGED = (("ragged N", 768, 51865), ("ragged K", 771, 768))
+BF16_HOST_CALLS, BF16_HOST_ROUNDS = 400, 5
 
 
 def check_bf16_gemm(dev, gen, timer, record, randn) -> None:
@@ -2725,20 +2733,46 @@ def check_bf16_gemm(dev, gen, timer, record, randn) -> None:
     cuBLAS on the card), the bias epilogue bit-equal to that product plus
     the bias in bf16 (a bias that cancels the product leaves the first
     rounding's error on a small output: no relative bound holds there),
-    the same bits in two runs, and — C20's gate — every tp 2 and tp 4
-    column shard (N / tp columns of the weight) and every row block (M / tp
-    rows) ``torch.equal`` to its slice of the unsharded launch.  Timed
-    beside ``torch.matmul`` (the same function for the bias-free shapes;
-    without the bias add otherwise) and the bound: bytes / 3.35 TB/s or
-    2MNK / 989 TFLOP/s; rank 0's tp 2 shard launches timed too."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.bf16_gemm import bf16_gemm_ref
+    the same bits in two runs, every tiling the C entry takes
+    (``bf16_gemm_tilings``) ``torch.equal`` to the rule's launch, and —
+    C20's gate — every tp 2 and tp 4 column shard (N / tp columns of the
+    weight) and every row block (M / tp rows) ``torch.equal`` to its slice
+    of the unsharded launch.  ``BF16_RAGGED``: a K or N that is not a
+    multiple of 8 ``torch.equal`` to its slice of the zero-padded launch.
+    Timed beside ``torch.matmul`` (the same function for the bias-free
+    shapes; without the bias add otherwise) and the bound: bytes / 3.35
+    TB/s or 2MNK / 989 TFLOP/s; rank 0's tp 2 shard launches timed too;
+    the host's microseconds a launch (the least of ``BF16_HOST_ROUNDS``
+    rounds of ``BF16_HOST_CALLS`` unsynchronized launches at codeqwen q,
+    8 rows); each tiling's registers,
+    spills and shared memory printed.  A tree whose wrapper takes no
+    tiling (before the ``wgmma`` kernel) skips the tilings' gate."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import bf16_gemm as bg
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels.int8_gemm import DUAL_BF16_ATOL, DUAL_BF16_RTOL
     bf = torch.bfloat16
+    tilings = getattr(bg, "bf16_gemm_tilings", None)
+    if tilings is None:
+        log("  bf16_gemm: this tree's wrapper takes no tiling: the tilings' "
+            "gate is skipped")
+    else:
+        bf16_gemm_resources(build)
 
     def work(m, k, n, bias):
         return bound(2 * (m * k + k * n + m * n + (n if bias else 0)),
                      2 * m * n * k, BF16_OPS)
+
+    def within_tol(got, ref, what):
+        err = (got.float() - ref.float()).abs()
+        if not (torch.isfinite(got).all() and bool(
+                (err <= DUAL_BF16_ATOL + DUAL_BF16_RTOL
+                 * ref.float().abs()).all())):
+            raise AssertionError(f"bf16_gemm {what}: max |d| "
+                                 f"{float(err.max())} beyond atol="
+                                 f"{DUAL_BF16_ATOL} rtol={DUAL_BF16_RTOL}")
+        return float(err.max())
 
     for model, label, k, n, has_bias, form in BF16_GEMMS:
         w = randn(k, n, scale=k ** -0.5).to(bf)
@@ -2746,16 +2780,10 @@ def check_bf16_gemm(dev, gen, timer, record, randn) -> None:
         for m in GEMM_ROWS:
             x = randn(m, k).to(bf)
             shape = f"{model} {label} [{m},{k}]x[{k},{n}]"
-            prod, ref = ops.gemm_bf16(x, w), bf16_gemm_ref(x, w)
+            prod, ref = ops.gemm_bf16(x, w), bg.bf16_gemm_ref(x, w)
             out, again = ops.gemm_bf16(x, w, b), ops.gemm_bf16(x, w, b)
             torch.cuda.synchronize()
-            err = (prod.float() - ref.float()).abs()
-            if not (torch.isfinite(prod).all() and bool(
-                    (err <= DUAL_BF16_ATOL + DUAL_BF16_RTOL
-                     * ref.float().abs()).all())):
-                raise AssertionError(f"bf16_gemm {shape}: max |d| "
-                                     f"{float(err.max())} beyond atol="
-                                     f"{DUAL_BF16_ATOL} rtol={DUAL_BF16_RTOL}")
+            err = within_tol(prod, ref, shape)
             if b is not None and not torch.equal(out, prod + b):
                 raise AssertionError(f"bf16_gemm {shape}: the bias epilogue "
                                      f"differs from the product + bias in "
@@ -2763,15 +2791,41 @@ def check_bf16_gemm(dev, gen, timer, record, randn) -> None:
             if not torch.equal(out, again):
                 raise AssertionError(f"bf16_gemm {shape}: two runs on the "
                                      f"same inputs differ")
+            for tl in tilings(m, n, k) if tilings else ():
+                got = bg._launch(x, w, b, tl)
+                torch.cuda.synchronize()
+                if not torch.equal(got, out):
+                    raise AssertionError(
+                        f"bf16_gemm {shape}: tiling {tl.bm}x{tl.bn}, "
+                        f"{tl.stages} stages: {int((got != out).sum())} of "
+                        f"{got.numel()} differ from the rule's tiling")
             # bias-free, the plain version is one torch.matmul: the library
             # call, timed once
-            plain_ms = timer(lambda: bf16_gemm_ref(x, w, b))
-            record("bf16_gemm", shape, float(err.max()), False,
-                   timer(lambda: ops.gemm_bf16(x, w, b)), plain_ms,
-                   plain_ms if b is None else timer(lambda: torch.matmul(x, w)),
-                   work(m, k, n, has_bias),
-                   lib_note=None if b is None else "torch.matmul without "
-                   "the bias add", out=out)
+            plain_ms = timer(lambda: bg.bf16_gemm_ref(x, w, b))
+            case = record("bf16_gemm", shape, err, False,
+                          timer(lambda: ops.gemm_bf16(x, w, b)), plain_ms,
+                          plain_ms if b is None
+                          else timer(lambda: torch.matmul(x, w)),
+                          work(m, k, n, has_bias),
+                          lib_note=None if b is None else "torch.matmul "
+                          "without the bias add", out=out)
+            if (model, label, m) == ("codeqwen", "q", GEMM_ROWS[0]):
+                rounds = []
+                for _ in range(BF16_HOST_ROUNDS):
+                    for _ in range(8):
+                        ops.gemm_bf16(x, w)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(BF16_HOST_CALLS):
+                        ops.gemm_bf16(x, w)
+                    rounds.append((time.perf_counter() - t0) * 1e6
+                                  / BF16_HOST_CALLS)
+                    torch.cuda.synchronize()
+                case["host_us"] = min(rounds)
+                log(f"  bf16_gemm {shape}: host {case['host_us']:.2f} us a "
+                    f"launch (the least of {BF16_HOST_ROUNDS} rounds of "
+                    f"{BF16_HOST_CALLS} unsynchronized launches: "
+                    + ", ".join(f"{r:.2f}" for r in rounds) + ")")
             for tp in BF16_TPS:
                 for rank in range(tp):
                     if form == "cols":
@@ -2797,7 +2851,7 @@ def check_bf16_gemm(dev, gen, timer, record, randn) -> None:
                     if rank or tp != BF16_TPS[0]:
                         continue
                     ma, kb = xr.shape[0], got.shape[1]
-                    plain_ms = timer(lambda: bf16_gemm_ref(xr, wr, br))
+                    plain_ms = timer(lambda: bg.bf16_gemm_ref(xr, wr, br))
                     record("bf16_gemm", f"tp{tp} {model} {label} {sh}", 0.0,
                            True, timer(lambda: ops.gemm_bf16(xr, wr, br)),
                            plain_ms, plain_ms if br is None
@@ -2806,6 +2860,60 @@ def check_bf16_gemm(dev, gen, timer, record, randn) -> None:
                            "equal to its slice of the unsharded launch", got)
         del w
         torch.cuda.empty_cache()
+    for label, k, n in BF16_RAGGED:
+        kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+        w = randn(k, n, scale=k ** -0.5).to(bf)
+        b = randn(n, scale=0.1).to(bf)
+        for m in (GEMM_ROWS[0], 256):
+            x = randn(m, k).to(bf)
+            shape = f"{label} [{m},{k}]x[{k},{n}]"
+            out = ops.gemm_bf16(x, w, b)
+            padded = ops.gemm_bf16(F.pad(x, (0, kp - k)),
+                                   F.pad(w, (0, np_ - n, 0, kp - k)),
+                                   F.pad(b, (0, np_ - n)))[:, :n]
+            torch.cuda.synchronize()
+            err = within_tol(ops.gemm_bf16(x, w), bg.bf16_gemm_ref(x, w),
+                             shape)
+            if not torch.equal(out, padded):
+                raise AssertionError(
+                    f"bf16_gemm {shape}: {int((out != padded).sum())} of "
+                    f"{out.numel()} differ from the zero-padded launch "
+                    f"[{m},{kp}]x[{kp},{np_}]")
+            plain_ms = timer(lambda: bg.bf16_gemm_ref(x, w, b))
+            record("bf16_gemm", shape, err, False,
+                   timer(lambda: ops.gemm_bf16(x, w, b)), plain_ms,
+                   timer(lambda: torch.matmul(x, w)), work(m, k, n, True),
+                   "torch.matmul without the bias add; equal to the "
+                   "zero-padded launch", out)
+        del w
+        torch.cuda.empty_cache()
+
+
+def bf16_gemm_resources(build) -> None:
+    """Print, for every tiling bf16_gemm's C entry takes, the registers
+    and spills ``-Xptxas -v`` reported for its instantiation (where this
+    process built the library) and the shared memory a block asks for."""
+    import ctypes
+
+    from repro_torch.kernels import bf16_gemm as bg
+    ptxas = build.BUILD_LOG.get("bf16_gemm", {}).get("ptxas", "")
+    lines = ptxas.splitlines()
+    fn = build.entry("bf16_gemm", "repro_bf16_gemm_attrs",
+                     [build.I] * 3 + [build.VP])
+    for bm, bn, stages, x_rows in bg.TILINGS:
+        attrs = (ctypes.c_int * 3)()
+        build.check_rc(fn(bm, bn, stages, ctypes.addressof(attrs)),
+                       "bf16_gemm attributes")
+        tag = f"TileILi{bm}ELi{bn}ELi{stages}E"
+        said = []
+        for i, ln in enumerate(lines):
+            if "Compiling entry" in ln and tag in ln:
+                said = [x.strip() for x in lines[i + 1:i + 3]]
+        log(f"  bf16_gemm tiling {bm}x{bn}, {stages} stages of {x_rows} x rows: "
+            f"{attrs[0]} registers, {attrs[1]} bytes local (spills), "
+            f"{attrs[2]} bytes dynamic shared memory"
+            + (f" | ptxas: {' | '.join(said)}" if said else
+               " | ptxas: built before this process"))
 
 
 KERNEL_CASES = {"quantize_rows": (check_quantize_rows, ("quantize",)),

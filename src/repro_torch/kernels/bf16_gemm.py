@@ -7,11 +7,24 @@ The reference computes its float linears outside Pallas (XLA's dot in
 order that changes with M and N.  Tensor-parallel serving shards those
 linears by columns (q/k/v) and by rows (the overlap form's ``wo`` and
 ``w_out`` at M / tp rows), so bf16 TP was not bit-identical to tp 1
-(ROADMAP C20).  ``csrc/bf16_gemm.cu`` (source note there) runs
-``gemm_mma.cuh``'s BF16 main loop with one weight stream and never splits
-K: each output's sum has one order whatever M, N or the tile
-(``int8_gemm.bf16_tiling``), so a shard's launch equals its slice of the
-unsharded launch bit for bit.  tp 1 runs the same kernel.
+(ROADMAP C20).  ``csrc/bf16_gemm.cu`` (source note there) is a Hopper
+kernel: TMA loads into an ``mbarrier`` ring, ``wgmma`` on the tiles, every
+output's f32 sum in one block's registers from k = 0 to K in k16 steps,
+never split.  So each output has one sum order whatever M, N or the tiling,
+and a shard's launch equals its slice of the unsharded launch bit for bit.
+tp 1 runs the same kernel.
+
+What bounds it: the weight bytes at decode rows (and there the chain of
+K / 16 dependent ``wgmma`` steps that the one order allows), the bf16
+tensor-core rate at scoring and training rows.  ``bf16_gemm_tiling`` picks
+the tile: 64-row blocks at decode rows, narrow enough (32 or 64 columns)
+that the blocks cover the SMs with no split of K, two an SM, each keeping
+at least ``INFLIGHT`` bytes of weight in flight (at M <= 8 a stage holds 8
+rows of x, so the ring is deeper); past 64 rows the tile of ``WIDE_RATES``
+whose waves cost least.  TMA needs 16-byte row strides and operands:
+``_pad`` zero-pads a K or N that is not a multiple of 8 (a zero product
+adds nothing to an f32 sum, and the real values keep their k16 groups), an
+unaligned operand is copied.
 
 ``bf16_gemm_ref`` is the plain version: ``layers.linear``'s arithmetic at
 bf16 (the f32 sums rounded once to bf16, then the bias added in bf16).  The
@@ -25,13 +38,72 @@ with XLA's autodiff (no backward kernel).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+import torch.nn.functional as F
 
 from . import build
-from .common import LAUNCHES, check, on_cuda, plain_grads
-from .int8_gemm import _aligned, _stream, bf16_tiling
+from .common import LAUNCHES, cdiv, check, on_cuda, plain_grads
+from .int8_gemm import _aligned, _n_sm, _stream
 
 BF16 = torch.bfloat16
+BK = 64            # K per ring stage
+DECODE_M = 64      # rows up to which one 64-row block covers M
+INFLIGHT = 32 << 10  # weight bytes a decode block keeps in flight
+
+
+class Bf16Tiling(NamedTuple):
+    """One launch: block rows (64 per consumer warpgroup) and columns (the
+    ``wgmma`` width), the ring's stages, the rows of x a stage holds (bm,
+    or 8 for M <= 8), each block's K range (all of K: never split) and the
+    blocks."""
+    bm: int
+    bn: int
+    stages: int
+    x_rows: int
+    k_len: int
+    blocks: int
+
+
+# (bm, bn, stages, x_rows) the C entry takes: M <= 8's two and decode's two
+# (two blocks an SM), then the wider ones (one block an SM)
+TILINGS = ((64, 32, 20, 8), (64, 64, 12, 8), (64, 32, 9, 64), (64, 64, 6, 64),
+           (64, 128, 6, 64), (128, 128, 6, 128), (128, 256, 4, 128))
+# the wide tilings' rates relative to 128 x 256's where the waves are whole
+# (``scripts/bf16_tilings.py`` on an H100 at [4096,4096]x[4096,4096] and
+# [4096,3072]x[3072,12288]: 128 x 128 0.79-0.80, 64 x 128 0.70)
+WIDE_RATES = ((TILINGS[6], 1.0), (TILINGS[5], 0.8), (TILINGS[4], 0.7))
+
+
+def _tiling(m: int, n: int, k: int, bm: int, bn: int, stages: int,
+            x_rows: int) -> Bf16Tiling:
+    return Bf16Tiling(bm, bn, stages, x_rows, k, cdiv(m, bm) * cdiv(n, bn))
+
+
+def bf16_gemm_tilings(m: int, n: int, k: int) -> list[Bf16Tiling]:
+    """Every tiling the entry takes at this shape (the 8-row ones only for
+    M <= 8): each gives the same bits (chip_smoke phase 3 holds them
+    equal)."""
+    return [_tiling(m, n, k, *t) for t in TILINGS if m <= t[3] or t[3] == t[0]]
+
+
+def bf16_gemm_tiling(m: int, n: int, k: int, n_sm: int) -> Bf16Tiling:
+    """The tiling of an [m, k] x [k, n] launch on ``n_sm`` SMs.  Decode
+    rows (m <= DECODE_M): 64 x 64 blocks where they fill the SMs, else
+    64 x 32 (two blocks an SM either way), over a ring of 1 KB of x and the
+    weight a stage for m <= 8.  Past that the wide tiling whose
+    waves (blocks / n_sm, rounded up) of tiles cost least at its rate
+    (``WIDE_RATES``): 128 x 256 where the waves come out whole, 128 x 128 or
+    64 x 128 where the wider tile would leave SMs idle."""
+    if m <= DECODE_M:
+        narrow, wide = TILINGS[:2] if m <= 8 else TILINGS[2:4]
+        return _tiling(m, n, k, *(wide if cdiv(n, 64) >= n_sm else narrow))
+
+    def cost(t_rate):
+        (bm, bn, _, _), rate = t_rate
+        return cdiv(cdiv(m, bm) * cdiv(n, bn), n_sm) * bm * bn / rate
+    return _tiling(m, n, k, *min(WIDE_RATES, key=cost)[0])
 
 
 def bf16_gemm_ref(x, w, bias=None):
@@ -43,12 +115,26 @@ def bf16_gemm_ref(x, w, bias=None):
     return out
 
 
-def _launch(x, w, bias):
+def _pad(x, w, bias):
+    """x [M, K], w [K, N], bias [N] or None with K and N zero-padded to
+    multiples of 8 (K to at least 8), as TMA's 16-byte row strides need;
+    the padded product's first N columns are the product."""
+    k, n = w.shape
+    if k and k % 8 == 0 and n % 8 == 0:
+        return x, w, bias
+    kp, np_ = max(8, cdiv(k, 8) * 8), cdiv(n, 8) * 8
+    return (F.pad(x, (0, kp - k)), F.pad(w, (0, np_ - n, 0, kp - k)),
+            None if bias is None else F.pad(bias, (0, np_ - n)))
+
+
+def _launch(x, w, bias, tiling: Bf16Tiling | None = None):
     """One launch over x [M, K] and w [K, N] (bias [N] or None), all bf16
-    and contiguous on one card; returns bf16 [M, N]."""
+    and contiguous on one card; returns bf16 [M, N].  ``tiling`` (one of
+    ``bf16_gemm_tilings``) replaces the rule's: chip_smoke's gate that every
+    tiling gives the same bits."""
     check(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[0],
           f"bf16_gemm operands: x {tuple(x.shape)}, w {tuple(w.shape)}")
-    m, k = x.shape
+    m = x.shape[0]
     n = w.shape[1]
     for t, what in ((x, "x"), (w, "w"), (bias, "bias")):
         if t is not None:
@@ -58,17 +144,22 @@ def _launch(x, w, bias):
     if bias is not None:
         check(tuple(bias.shape) == (n,),
               f"bf16_gemm: bias must be [{n}], got {tuple(bias.shape)}")
-    out = torch.empty((m, n), dtype=BF16, device=x.device)
-    ptrs = (x, w) if bias is None else (x, w, bias)
-    vec = int(k % 8 == 0 and n % 8 == 0 and _aligned(*ptrs, out))
     fn = build.entry("bf16_gemm", "repro_bf16_gemm",
-                     [build.VP] * 3 + [build.I] * 5 + [build.VP] * 2)
-    rc = fn(x.data_ptr(), w.data_ptr(), 0 if bias is None else bias.data_ptr(),
-            m, n, k, bf16_tiling(m, n, k).bm, vec, out.data_ptr(),
-            _stream(x.device))
+                     [build.VP] * 3 + [build.I] * 6 + [build.VP] * 2)
+    xp, wp, bp = _pad(x, w, bias)
+    # an operand TMA cannot address from its own pointer is copied
+    xp = xp if _aligned(xp) else xp.clone()
+    wp = wp if _aligned(wp) else wp.clone()
+    kp, np_ = wp.shape
+    dev = x.device
+    out = torch.empty((m, np_), dtype=BF16, device=dev)
+    tl = tiling or bf16_gemm_tiling(m, np_, kp, _n_sm(dev))
+    rc = fn(xp.data_ptr(), wp.data_ptr(), 0 if bp is None else bp.data_ptr(),
+            m, np_, kp, tl.bm, tl.bn, tl.stages, out.data_ptr(),
+            _stream(dev))
     build.check_rc(rc, "bf16_gemm")
     LAUNCHES["bf16_gemm"] += 1
-    return out
+    return out if np_ == n else out[:, :n].contiguous()
 
 
 class _Bf16Gemm(torch.autograd.Function):

@@ -80,7 +80,7 @@
 //   would read from device memory once per 16 rows), the dual GEMMs up to
 //   M = 32 (at N = 13440 a 64-row block over 105 column tiles ran 1.1-2.4x
 //   faster at M = 64 than four 16-row blocks, which read the weights four
-//   times); BF16's decode
+//   times); dual_gemm_gated's bf16 decode
 //   blocks are 16 x 64 (4 warps of 16 x 16: 210 blocks at N = 13440 without
 //   a split); prefill, BM = 64, BN = 128, 8 warps of 32 x 32 and two blocks
 //   an SM (<= 128 registers a thread; for int4_gemm 8 warps of 64 x 32, one
@@ -88,15 +88,18 @@
 //   M = 4096).  Two W4 streams hold part and acc for both, so
 //   dual_int4_gemm_gated's prefill warps are 16 x 32 (``DualPrefill``, 64 ints
 //   a thread, two blocks an SM: 4-14% faster than 32 x 32 warps at one block
-//   an SM); BF16 runs 64 x 128 blocks up to M = 128 (``MidPrefill``: BK = 64
-//   fills 176 KB, one block an SM) and 128 x 128 blocks of 8 warps of 64 x 32
+//   an SM); dual_gemm_gated's bf16 form runs 64 x 128 blocks up to M = 128
+//   (``MidPrefill``: BK = 64 fills 176 KB, one block an SM) and 128 x 128
+//   blocks of 8 warps of 64 x 32
 //   past it (``WidePrefill``, one block an SM: 23% faster at M = 4096 than
 //   64 x 128 blocks at BK = 32); int8_gemm runs ``WidePrefill`` for deep K
 //   (the down projections) at scoring rows (``int8_gemm.w8_tiling``).
-// ``wgmma`` with TMA is the next step: it would need the widened W4 tile
-// written back to shared memory K-major first, and flash_attention's first
-// ``wgmma`` form ran slower than its ``mma.sync`` one, so this loop stays on
-// ``mma.sync``.
+// ``wgmma`` with TMA is the next step for these kernels: it would need the
+// widened W4 tile written back to shared memory K-major first, and
+// flash_attention's first ``wgmma`` form ran slower than its ``mma.sync``
+// one, so this loop stays on ``mma.sync``.  The float linear, bf16_gemm,
+// has a ``wgmma`` loop of its own (``bf16_gemm.cu``): the BF16 kind here
+// serves dual_gemm_gated's bf16 form only.
 // Ragged M and N are masked; with ``vec`` = 0 (a row of A or W not a
 // multiple of 16 bytes, or an unaligned operand) the stages fill by byte
 // loads instead.

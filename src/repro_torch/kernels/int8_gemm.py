@@ -416,10 +416,11 @@ def w8_tiling(m: int, n: int, k: int, n_sm: int,
 
 
 def bf16_tiling(m: int, n: int, k: int) -> MmaTiling:
-    """dual_gemm_gated's bf16 form and bf16_gemm: never a split of K (f32
-    sums would depend on the blocks' arrival order), so its decode blocks (up to
+    """dual_gemm_gated's bf16 form: never a split of K (f32 sums would
+    depend on the blocks' arrival order), so its decode blocks (up to
     DUAL_DECODE_M) are 16 x 64 (210 at N = 13440 for 132 SMs); then 64 x 128
-    up to M = 128 and 128 x 128 past it."""
+    up to M = 128 and 128 x 128 past it.  (bf16_gemm has its own rule,
+    ``bf16_gemm.bf16_gemm_tiling``.)"""
     bm, bn = ((16, 64) if m <= DUAL_DECODE_M else (64, 128) if m <= 128
               else (128, 128))
     return MmaTiling(bm, bn, 1, k, cdiv(m, bm) * cdiv(n, bn), 0)

@@ -3,8 +3,12 @@ linear (``kernels/bf16_gemm.py``).  Its plain version equals the models'
 arithmetic (``layers.linear``) bit for bit; the models' bf16 linears
 reach it and the f32 ones do not; its Function launches once and
 differentiates as autograd of ``torch.matmul``; the wrapper refuses inputs
-on two devices and operands the kernel does not take.  The kernel itself
-runs only on the card (``chip_smoke.py`` phase 3)."""
+on two devices and operands the kernel does not take.  The tiling rule
+gives ``wgmma``-legal tiles over all of K (never a split) at the served
+shapes and their tensor-parallel shards, enough blocks at decode rows to
+cover the SMs, and the padding of a ragged K or N keeps the plain result
+bit for bit.  The kernel itself runs only on the card (``chip_smoke.py``
+phase 3, which also holds every tiling to the same bits)."""
 import numpy as np
 import pytest
 import torch
@@ -137,3 +141,100 @@ def test_launch_refuses_what_the_kernel_does_not_take(monkeypatch):
                      torch.zeros(5, dtype=BF16))
     with pytest.raises(RuntimeError, match="no nvcc here"):
         bg.bf16_gemm(x, torch.zeros(8, 4, dtype=BF16))
+
+
+# the bf16 models' float linears (chip_smoke's BF16_GEMMS): (K, N, TP form),
+# "cols" sharded by columns (N / tp), "rows" run on M / tp rows
+SERVED = ((4096, 4096, "cols"), (4096, 4096, "rows"), (13440, 4096, "rows"),
+          (3072, 3072, "cols"), (3072, 256, "cols"), (3072, 3072, "rows"),
+          (3072, 12288, "cols"), (12288, 3072, "rows"))
+ROWS = (2, 4, 8, 64, 256, 4096)
+H100_SMS = 132
+
+
+def _launches(k, n, form):
+    """(m, n) of the unsharded launch and of its tp 2 and tp 4 shards."""
+    for m in ROWS:
+        yield m, n
+        for tp in (2, 4):
+            yield (m, n // tp) if form == "cols" else (max(m // tp, 1), n)
+
+
+@pytest.mark.parametrize("k,n,form", SERVED,
+                         ids=lambda v: str(v))
+def test_tiling_is_wgmma_legal_and_never_splits_k(k, n, form):
+    """Every launch of the served shapes (and of their shards) gets a tile
+    the C entry takes: 64-row warpgroups, a ``wgmma`` width (a multiple of
+    8 up to 256), each block over all of K, the blocks covering M x N."""
+    for m, nn in _launches(k, n, form):
+        t = bg.bf16_gemm_tiling(m, nn, k, H100_SMS)
+        assert t[:4] in bg.TILINGS
+        assert t.bm % 64 == 0 and t.bn % 8 == 0 and 8 <= t.bn <= 256
+        assert t.k_len == k
+        assert t.blocks == common.cdiv(m, t.bm) * common.cdiv(nn, t.bn)
+        assert m <= t.x_rows or t.x_rows == t.bm
+        assert t in bg.bf16_gemm_tilings(m, nn, k)
+
+
+@pytest.mark.parametrize("k,n,form", SERVED, ids=lambda v: str(v))
+def test_decode_tiling_covers_the_sms(k, n, form):
+    """At decode rows the blocks alone fill the card without a split of K:
+    at least 96 of them where N >= 3072, each keeping INFLIGHT bytes of
+    weight in flight."""
+    for m, nn in _launches(k, n, form):
+        if m > bg.DECODE_M:
+            continue
+        t = bg.bf16_gemm_tiling(m, nn, k, H100_SMS)
+        if nn >= 3072:
+            assert t.blocks >= 96
+        assert (t.stages - 1) * bg.BK * t.bn * 2 >= bg.INFLIGHT
+
+
+def test_tilings_offered_by_rows():
+    """The 8-row stages take M <= 8 only; every other tiling takes any M."""
+    assert len(bg.bf16_gemm_tilings(8, 4096, 4096)) == len(bg.TILINGS)
+    wide = bg.bf16_gemm_tilings(9, 4096, 4096)
+    assert [t[:4] for t in wide] == [t for t in bg.TILINGS if t[3] == t[0]]
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 770, 96), (5, 13, 27), (37, 64, 51),
+                                   (64, 1003, 130), (3, 4, 8)],
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_padding_keeps_the_plain_result(m, k, n, with_bias):
+    """A K or N that is not a multiple of 8 (or both) zero-padded as the
+    wrapper pads it: the plain version's first N columns equal the unpadded
+    plain result bit for bit."""
+    rng = np.random.default_rng(m * 1000 + k + n + with_bias)
+    x, w = _rand(rng, m, k), _rand(rng, k, n)
+    b = _rand(rng, n) if with_bias else None
+    xp, wp, bp = bg._pad(x, w, b)
+    assert wp.shape[0] % 8 == 0 and wp.shape[1] % 8 == 0
+    assert xp.shape == (m, wp.shape[0])
+    got = bg.bf16_gemm_ref(xp, wp, bp)[:, :n]
+    assert torch.equal(got, bg.bf16_gemm_ref(x, w, b))
+
+
+def test_launch_hands_the_entry_padded_operands_and_the_rule(monkeypatch):
+    """The launch (its C entry replaced by a recorder) passes the padded K
+    and N, the rule's tiling or the one asked for, and returns [M, N]."""
+    calls = []
+
+    def entry(*a):
+        def fn(*args):
+            calls.append(args[3:9])
+            return 0
+        return fn
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "entry", entry)
+    monkeypatch.setattr(bg, "_stream", lambda dev: 0)
+    monkeypatch.setattr(bg, "_n_sm", lambda dev: H100_SMS)
+    rng = np.random.default_rng(5)
+    x, w, b = _rand(rng, 8, 12), _rand(rng, 12, 30), _rand(rng, 30)
+    out = bg._launch(x, w, b)
+    assert out.shape == (8, 30) and out.is_contiguous()
+    want = bg.bf16_gemm_tiling(8, 32, 16, H100_SMS)
+    assert calls[-1] == (8, 32, 16, want.bm, want.bn, want.stages)
+    asked = bg.bf16_gemm_tilings(8, 32, 16)[-1]
+    bg._launch(x, w, None, asked)
+    assert calls[-1] == (8, 32, 16, asked.bm, asked.bn, asked.stages)
