@@ -292,7 +292,12 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    pressure drains preempt, resume and swap; every kernel of the path
    launches in every rank.  Each drain logs its tok/s and TPOT p50 beside
    tp 1's (N ranks sharing one card: no speed meaning), peak GiB a rank,
-   and the boundary ``tp_overlap="auto"`` resolves to;
+   and the boundary ``tp_overlap="auto"`` resolves to.  Then
+   ``launch/dryrun.py``'s rank cells on this card (``dist_cells``, gloo):
+   GPipe (``dist.pipeline.pipeline_apply``) over 4 stages, every
+   rank's outputs ``torch.equal`` to the unpipelined stack on the card,
+   and the tp 2 serving cell at the overlap boundary with every summing
+   collective refused;
 10. the NX-CGRA fabric model (``cgra_phase``, ``core/``): the six Table II
    kernels of ``core.BUILDERS`` built, scheduled (``StaticScheduler``) and
    simulated (``Simulator``) on the CPU (plain versions) and on the card,
@@ -340,10 +345,18 @@ and runs only phases 7 and 8 (``train_phase``, ``train_archs_phase``),
 printing their summary and no ok line.
 
 ``--tp-only`` builds and then runs only phase 3's ``check_tp_shapes`` and
-phase 9 (``serve_tp``), printing their summary and no ok line.
+phase 9 (``serve_tp``, ``dist_cells``), printing their summary and no ok
+line.
 
 ``--cgra-only`` builds the six kernels of the CGRA payloads and runs only
 phase 10, printing its tables and no ok line.
+
+``--autotune-only`` builds the GEMMs and the decode kernels and runs only
+the autotune phase (``autotune_phase``: ``kernels/autotune.py``'s
+``measure`` into a temporary cache, every candidate held to its family's
+gate, a fresh lookup returning the measured entry, measured against table
+choices), printing them and no ok line; the whole run runs it after phase
+3.
 
 ``--xlstm-only`` builds and then runs only xlstm-350m's tokenwise drains and
 its ``lm_loss`` at bf16, W8A8 and W4A8 without the profiler
@@ -2160,9 +2173,10 @@ def check_window_decode(dev, gen, timer, record, randn) -> None:
     out = run()
     check("int8_kv_decode_attention", out, plain(), shape)
     record("int8_kv_decode_attention", shape, max_err(out, plain()), False,
-           timer(run), timer(plain), None,
+           timer(run), timer(plain),
+           window_sdpa_ms(timer, q, k_q * k_s, v_q * v_s, pos, qpos),
            bound(*decode_work(pos, qpos[:, None], hq, hkv, d, WINDOW),
-                 F32_OPS), out=out)
+                 F32_OPS), lib_note=WINDOW_SDPA_NOTE, out=out)
     # the multi-row form: 16 rows a lane at qpos - 15 .. qpos
     rows = qpos[:, None] - torch.arange(WIN_ROWS - 1, -1, -1, device=dev,
                                         dtype=torch.int32)
@@ -2214,12 +2228,39 @@ def check_window_decode(dev, gen, timer, record, randn) -> None:
     check("paged_decode_attention", out, run(), pshape + " vs the dense ring")
     slot_ids = pt.long()[:, :, None] * ps + torch.arange(ps, device=dev)
     kpos = ppos[pt.long()].reshape(b, mp * ps)
+    ptc = pt.long()
+
+    def gather(a, sc):
+        return (a[ptc].float() * sc[ptc]).reshape(b, mp * ps, hkv, d)
+    lib = window_sdpa_ms(timer, q, gather(pk, pks), gather(pv, pvs), kpos,
+                         qpos)
     record("paged_decode_attention", pshape, max_err(out, plain_p()), False,
-           timer(run_p), timer(plain_p), None,
+           timer(run_p), timer(plain_p), lib,
            bound(*decode_work(kpos, qpos[:, None], hq, hkv, d, WINDOW,
                               slot_ids=slot_ids.reshape(b, mp * ps),
                               pos_bytes=4 * ppos.numel() + 4 * pt.numel()),
-                 F32_OPS), out=out)
+                 F32_OPS), lib_note=WINDOW_SDPA_NOTE, out=out)
+
+
+WINDOW_SDPA_NOTE = ("SDPA over K/V dequantized to bf16 ahead of time (the "
+                    "paged arena gathered too), the window mask: not the "
+                    "same function (the dequant and gather are out)")
+
+
+def window_sdpa_ms(timer, q, k, v, pos, qpos) -> float:
+    """``scaled_dot_product_attention`` of the decode rows q (B, Hq, D)
+    over f32 K and V (B, S, Hkv, D), cast to bf16 and their heads repeated
+    to Hq ahead of the timing, with the window's mask: slots of positions
+    in (qpos - WINDOW, qpos]."""
+    b, hq, d = q.shape
+    g = hq // k.shape[2]
+    kd, vd = (x.to(torch.bfloat16).permute(0, 2, 1, 3).repeat_interleave(
+        g, 1).contiguous() for x in (k, v))
+    mask = ((pos >= 0) & (pos <= qpos[:, None])
+            & (pos > qpos[:, None] - WINDOW))[:, None, None, :]
+    q4 = q[:, :, None, :]
+    return timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, kd, vd, attn_mask=mask))
 
 
 # the kernels ``--kernels`` can time alone: each one's phase 3 cases and the
@@ -2734,7 +2775,7 @@ def check_bf16_gemm(dev, gen, timer, record, randn) -> None:
     the bias in bf16 (a bias that cancels the product leaves the first
     rounding's error on a small output: no relative bound holds there),
     the same bits in two runs, every tiling the C entry takes
-    (``bf16_gemm_tilings``) ``torch.equal`` to the rule's launch, and —
+    (``autotune.bf16_gemm_candidates``) ``torch.equal`` to the table's launch, and —
     C20's gate — every tp 2 and tp 4 column shard (N / tp columns of the
     weight) and every row block (M / tp rows) ``torch.equal`` to its slice
     of the unsharded launch.  ``BF16_RAGGED``: a K or N that is not a
@@ -2745,20 +2786,15 @@ def check_bf16_gemm(dev, gen, timer, record, randn) -> None:
     the host's microseconds a launch (the least of ``BF16_HOST_ROUNDS``
     rounds of ``BF16_HOST_CALLS`` unsynchronized launches at codeqwen q,
     8 rows); each tiling's registers,
-    spills and shared memory printed.  A tree whose wrapper takes no
-    tiling (before the ``wgmma`` kernel) skips the tilings' gate."""
+    spills and shared memory printed."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import bf16_gemm as bg
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.int8_gemm import DUAL_BF16_ATOL, DUAL_BF16_RTOL
     bf = torch.bfloat16
-    tilings = getattr(bg, "bf16_gemm_tilings", None)
-    if tilings is None:
-        log("  bf16_gemm: this tree's wrapper takes no tiling: the tilings' "
-            "gate is skipped")
-    else:
-        bf16_gemm_resources(build)
+    from repro_torch.kernels.autotune import bf16_gemm_candidates
+    bf16_gemm_resources(build)
 
     def work(m, k, n, bias):
         return bound(2 * (m * k + k * n + m * n + (n if bias else 0)),
@@ -2791,7 +2827,7 @@ def check_bf16_gemm(dev, gen, timer, record, randn) -> None:
             if not torch.equal(out, again):
                 raise AssertionError(f"bf16_gemm {shape}: two runs on the "
                                      f"same inputs differ")
-            for tl in tilings(m, n, k) if tilings else ():
+            for tl in bf16_gemm_candidates(m, k, n):
                 got = bg._launch(x, w, b, tl)
                 torch.cuda.synchronize()
                 if not torch.equal(got, out):
@@ -2895,12 +2931,12 @@ def bf16_gemm_resources(build) -> None:
     process built the library) and the shared memory a block asks for."""
     import ctypes
 
-    from repro_torch.kernels import bf16_gemm as bg
+    from repro_torch.kernels.autotune import BF16_GEMM_TILINGS
     ptxas = build.BUILD_LOG.get("bf16_gemm", {}).get("ptxas", "")
     lines = ptxas.splitlines()
     fn = build.entry("bf16_gemm", "repro_bf16_gemm_attrs",
                      [build.I] * 3 + [build.VP])
-    for bm, bn, stages, x_rows in bg.TILINGS:
+    for bm, bn, stages, x_rows in BF16_GEMM_TILINGS:
         attrs = (ctypes.c_int * 3)()
         build.check_rc(fn(bm, bn, stages, ctypes.addressof(attrs)),
                        "bf16_gemm attributes")
@@ -6497,6 +6533,42 @@ def serve_tp(dev, seed) -> dict:
     return {"drains": out, "step_logits": logits}
 
 
+# launch/dryrun.py's GPipe cell on this card: (stages, microbatches) of 8
+# tanh layers at d_model 512, microbatches of 4 (the reference's cell)
+PIPELINE_CELLS = ((4, 8),)
+
+
+def dist_cells(dev) -> dict:
+    """Phase 9's cells of ``launch/dryrun.py`` with every rank on this card
+    (gloo, each transfer staged through host buffers): ``pipeline_apply``
+    over ``PIPELINE_CELLS`` (every rank's outputs ``torch.equal`` to its own
+    unpipelined stack of the same layers on the card, a microbatch at a
+    time, and to rank 0's), then ``run_tp_serve_cell`` at the overlap
+    boundary (every summing collective refused in the ranks, all-to-alls
+    and all-gathers counted, the ranks' tokens equal)."""
+    from repro_torch.launch import dryrun
+    out = {}
+    for stages, micro in PIPELINE_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_pipeline_cell(stages, micro, device=str(dev))
+        if not rec["ranks_equal_unpipelined"] or set(rec["devices"]) != {
+                str(dev)}:
+            raise AssertionError(f"pipeline {stages} stages: {rec}")
+        rec["wall_s"] = time.perf_counter() - t0
+        out[f"pipeline {stages}x{micro}"] = rec
+        log(f"  GPipe {stages} stages x {micro} microbatches on "
+            f"{rec['devices']}: every rank torch.equal to the unpipelined "
+            f"stack, bubble {rec['bubble_fraction']:.4f}, "
+            f"{rec['wall_s']:.1f}s")
+    t0 = time.perf_counter()
+    rec = dryrun.run_tp_serve_cell("overlap", device=str(dev))
+    rec["wall_s"] = time.perf_counter() - t0
+    out["tp_serve overlap"] = rec
+    log(f"  dry-run tp-serve tp 2 overlap on {rec['devices']}: collectives "
+        f"{rec['collective_counts']}, {rec['wall_s']:.1f}s")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 10: the NX-CGRA fabric model (core/), its payloads on the card
 # ---------------------------------------------------------------------------
@@ -6622,6 +6694,277 @@ def cgra_phase(dev, smi: str) -> dict:
             "table_v": [list(r) for r in area_table()], "wall_s": wall,
             "phase_s": time.perf_counter() - t_all,
             "launches": launches, "card": smi}
+
+
+# ---------------------------------------------------------------------------
+# the autotune phase: kernels/autotune.py's measured cache on the card
+# ---------------------------------------------------------------------------
+
+# two served shapes a family — a decode step's 8 rows and the no-cache
+# forward's 4096 — as (family, label, K, N, W4 group): codeqwen1.5-7b's
+# down projection and gated MLP, its q projection for bf16_gemm
+AUTOTUNE_GEMMS = (("gemm_blocks", "codeqwen mlp_down", 13440, 4096, 0),
+                  ("gated_mlp_blocks int8", "codeqwen gate+up", 4096, 13440,
+                   0),
+                  ("gated_mlp_blocks bf16", "codeqwen gate+up", 4096, 13440,
+                   0),
+                  ("gemm_w4a8_blocks", "codeqwen mlp_down", 13440, 4096, 64),
+                  ("gatedmlp_w4a8_blocks", "codeqwen gate+up", 4096, 13440,
+                   64),
+                  ("bf16_gemm_blocks", "codeqwen q", 4096, 4096, 0))
+AUTOTUNE_ROWS = (8, 4096)
+# the decode split at codeqwen1.5-7b's heads (G = 1) and starcoder2-3b's
+# (G = 12): 8 lanes of 1024 slots, D = 128; rows launches of 64, tp 2
+AUTOTUNE_DECODE = (("codeqwen", 32, 32), ("starcoder", 24, 2))
+AUTOTUNE_ROWS_T, AUTOTUNE_TP = 64, 2
+AUTOTUNE_SOURCES = ("int8_gemm", "int4_gemm", "dual_gemm_gated",
+                    "dual_int4_gemm_gated", "bf16_gemm",
+                    "int8_kv_decode_attention", "paged_decode_attention",
+                    "quantize")
+
+
+class forcing:
+    """Within the block, ``autotune.<name>`` returns ``value`` whatever it is
+    asked: a launch takes that tiling (the gate and the timer of each
+    candidate)."""
+
+    def __init__(self, at, name: str, value):
+        self.at, self.name, self.value = at, name, value
+
+    def __enter__(self):
+        self.saved = getattr(self.at, self.name)
+        setattr(self.at, self.name, lambda *a, **k: self.value)
+
+    def __exit__(self, *exc):
+        setattr(self.at, self.name, self.saved)
+
+
+def _autotune_gemm(at, family, k, n, g, m, randn, n_sm):
+    """(chooser, key, candidates, run(tiling) -> out) of one GEMM family at
+    [m, k] x [k, n]."""
+    from repro_torch.kernels import bf16_gemm as bg
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.quantize import quantize_rows_ref
+    from repro_torch.models.layers import (SILU_INT_SCALE, quantize_weight,
+                                           quantize_weight_w4)
+    bf = torch.bfloat16
+    x_q, x_s = quantize_rows_ref(randn(m, k))
+    name = family.split()[0]                 # the chooser a launch asks
+    if family == "bf16_gemm_blocks":
+        x, w = randn(m, k).to(bf), randn(k, n, scale=k ** -0.5).to(bf)
+        return (lambda: at.bf16_gemm_blocks(m, k, n, n_sm),
+                at.bf16_gemm_key(m, k, n, n_sm),
+                at.bf16_gemm_candidates(m, k, n),
+                lambda t: bg._launch(x, w, None, t))
+    if family == "gemm_blocks":
+        wd = quantize_weight(randn(k, n, scale=k ** -0.5))
+        kind, streams, key = "w8", 1, at.mma_key("gemm", m, k, n, "int8",
+                                                 n_sm)
+        choose = lambda: at.gemm_blocks(m, k, n, n_sm)
+        fn = lambda: ops.gemm_w8a8(x_q, x_s, wd["w_q"], wd["scale"])
+    elif family == "gemm_w4a8_blocks":
+        wd = quantize_weight_w4(randn(k, n, scale=k ** -0.5), group=g)
+        kind, streams = "w4", 1
+        key = at.mma_key("gemm_w4a8", m, k, n, f"g{g}", n_sm)
+        choose = lambda: at.gemm_w4a8_blocks(m, k, n, g, n_sm)
+        fn = lambda: ops.gemm_w4a8(x_q, x_s, wd["w4"], wd["qmul"],
+                                   wd["scale"])
+    elif family == "gatedmlp_w4a8_blocks":
+        up, gate = (quantize_weight_w4(randn(k, n, scale=k ** -0.5), group=g)
+                    for _ in range(2))
+        kind, streams = "w4", 2
+        key = at.mma_key("gatedmlp_w4a8", m, k, n, f"g{g}", n_sm)
+        choose = lambda: at.gatedmlp_w4a8_blocks(m, k, n, g, n_sm)
+        fn = lambda: ops.gated_mlp_w4a8(
+            x_q, x_s, up["w4"], up["qmul"], up["scale"], gate["w4"],
+            gate["qmul"], gate["scale"], act="silu",
+            act_scale=SILU_INT_SCALE)
+    elif family == "gated_mlp_blocks int8":
+        up, gate = (quantize_weight(randn(k, n, scale=k ** -0.5))
+                    for _ in range(2))
+        kind, streams = "w8", 2
+        key = at.mma_key("gatedmlp", m, k, n, "int8", n_sm)
+        choose = lambda: at.gated_mlp_blocks(m, k, n, "int8", n_sm)
+        fn = lambda: ops.gated_mlp_w8a8(
+            x_q, x_s, up["w_q"], up["scale"], gate["w_q"], gate["scale"],
+            act="silu", act_scale=SILU_INT_SCALE)
+    else:
+        x = randn(m, k).to(bf)
+        wu, wg = (randn(k, n, scale=k ** -0.5).to(bf) for _ in range(2))
+        kind, streams = "bf16", 2
+        key = at.mma_key("gatedmlp", m, k, n, "bf16", n_sm)
+        choose = lambda: at.gated_mlp_blocks(m, k, n, "bf16", n_sm)
+        fn = lambda: ops.gated_mlp(x, wu, wg)
+
+    def run(t):
+        with forcing(at, name, t):
+            return fn()
+    return (choose, key, at.mma_candidates(kind, streams, m, k, n, n_sm, g),
+            run)
+
+
+def _decode_gate(at, ops, cand, q, qr, qp_rows, dense, paged, hq, hkv,
+                 what):
+    """Under ``cand`` (None: the chooser's), the decode forms agree: every
+    row of a T = 64 launch equals a T = 1 launch at its position, the paged
+    kernel over the same keys equals the dense one, and each tp rank's
+    head shard (its split sized for the full Hkv) equals its slice of the
+    unsharded launch.  Returns the T = 1 output."""
+    def go():
+        one = ops.decode_attention_int8kv(q, *dense)
+        rows = ops.decode_attention_int8kv_rows(qr, *dense[:-1], qp_rows)
+        for i in range(qr.shape[1]):
+            same("int8_kv_decode_attention", f"{what} row {i}", rows[:, i],
+                 ops.decode_attention_int8kv(qr[:, i].contiguous(),
+                                             *dense[:-1],
+                                             qp_rows[:, i].contiguous()))
+        same("paged_decode_attention", f"{what} paged vs dense",
+             ops.paged_attention_decode(q, *paged), one)
+        gq, gk = hq // AUTOTUNE_TP, hkv // AUTOTUNE_TP
+        k_q, k_s, v_q, v_s, pos, qpos = dense
+        for r in range(AUTOTUNE_TP):
+            hs, ks = slice(r * gq, (r + 1) * gq), slice(r * gk, (r + 1) * gk)
+            part = ops.decode_attention_int8kv_rows(
+                q[:, None, hs].contiguous(), k_q[:, :, ks].contiguous(),
+                k_s[:, :, ks].contiguous(), v_q[:, :, ks].contiguous(),
+                v_s[:, :, ks].contiguous(), pos, qpos[:, None].contiguous(),
+                split_hkv=hkv)[:, 0]
+            same("int8_kv_decode_attention", f"{what} tp rank {r}", part,
+                 one[:, hs])
+        return one
+    if cand is None:
+        return go()
+    with forcing(at, "decode_blocks", cand):
+        return go()
+
+
+def autotune_phase(dev, gen, timer, randn) -> dict:
+    """``autotune.measure`` on the card into a temporary cache (never the
+    repo's ``.autotune/``): for each family at ``AUTOTUNE_GEMMS`` x
+    ``AUTOTUNE_ROWS`` (the decode split at ``AUTOTUNE_DECODE``), every
+    candidate held to the gates — the integer forms ``torch.equal`` to the
+    table's launch, the bf16 forms too and with K never split, and under
+    each decode split the rows, paged and tp forms equal to the T = 1
+    dense launch — then timed (CUDA events, cold L2), the fastest recorded,
+    a fresh lookup (the cache re-read from its file) returning it, and each
+    family's measured choice and time printed beside the table's.  The
+    cache is dropped and the environment restored after."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import _quant_kv
+    t0 = time.perf_counter()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    saved = os.environ.get("REPRO_AUTOTUNE_CACHE")
+    tmp = tempfile.mkdtemp(prefix="autotune-")
+    os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(tmp, "measured.json")
+    at.reset_measured_cache()
+    out = {}
+
+    def report(label, table, best, table_us, best_us, n_cands):
+        out[label] = {"table": list(table), "table_us": table_us,
+                      "measured": list(best), "measured_us": best_us,
+                      "candidates": n_cands}
+        log(f"  autotune {label}: table {tuple(table)} {table_us:.1f} us, "
+            f"measured {tuple(best)} {best_us:.1f} us ({n_cands} "
+            f"candidates)")
+    try:
+        for family, label, k, n, g in AUTOTUNE_GEMMS:
+            for m in AUTOTUNE_ROWS:
+                choose, key, cands, run = _autotune_gemm(
+                    at, family, k, n, g, m, randn, n_sm)
+                table = choose()
+                want = run(table)
+                width = 4
+                for c in cands:
+                    if "bf16" in family and c.k_len != k:
+                        raise AssertionError(f"{family}: a candidate splits "
+                                             f"K ({c})")
+                    same(family, f"{label} [{m},{k}]x[{k},{n}] {tuple(c)}",
+                         run(c), want)
+                by = {tuple(c)[:width]: c for c in cands}
+                us = {}
+
+                def time_us(blocks):
+                    us[blocks] = timer(lambda: run(by[blocks]), iters=5) * 1e3
+                    return us[blocks]
+                best = at.measure(key, list(by), time_us)
+                at.reset_measured_cache()
+                if tuple(choose())[:width] != best:
+                    raise AssertionError(f"{family} [{m},{k}]x[{k},{n}]: a "
+                                         f"fresh lookup does not return the "
+                                         f"measured {best}")
+                report(f"{family} {label} [{m},{k}]x[{k},{n}]"
+                       + (f" g{g}" if g else ""), tuple(table)[:width], best,
+                       us[tuple(table)[:width]], us[best], len(cands))
+                del want
+                torch.cuda.empty_cache()
+        b, s, d, ps = 8, 1024, 128, PAGED_PS
+        for label, hq, hkv in AUTOTUNE_DECODE:
+            k_q, k_s = _quant_kv(randn(b, s, hkv, d))
+            v_q, v_s = _quant_kv(randn(b, s, hkv, d))
+            fill = torch.randint(AUTOTUNE_ROWS_T, s + 1, (b,), generator=gen,
+                                 device=dev)
+            slot = torch.arange(s, device=dev)
+            pos = torch.where(slot[None] < fill[:, None], slot[None],
+                              -1).to(torch.int32)
+            qpos = (fill - 1).to(torch.int32)
+            dense = (k_q, k_s, v_q, v_s, pos, qpos)
+            # the same keys in pages: lane l's page j is page l * mp + j + 1
+            mp = s // ps
+            pt = (torch.arange(b * mp, device=dev, dtype=torch.int32)
+                  .reshape(b, mp) + 1)
+
+            def pages(a):
+                return torch.cat([torch.zeros_like(a[:1, :ps]),
+                                  a.reshape(b * mp, ps, *a.shape[2:])])
+            ppos = torch.cat([torch.full((1, ps), -1, dtype=torch.int32,
+                                         device=dev), pos.reshape(b * mp, ps)])
+            paged = tuple(x.contiguous() for x in (
+                pages(k_q), pages(k_s), pages(v_q), pages(v_s), ppos, pt,
+                qpos))
+            q = randn(b, hq, d).to(torch.bfloat16)
+            qp_rows = (qpos[:, None] - torch.arange(
+                AUTOTUNE_ROWS_T - 1, -1, -1, device=dev,
+                dtype=torch.int32)[None]).contiguous()
+            qr = randn(b, AUTOTUNE_ROWS_T, hq, d).to(torch.bfloat16)
+            what = f"decode {label} B={b} S={s} Hq={hq} Hkv={hkv}"
+            g_ = hq // hkv
+            key = at.decode_key(b * hkv, s, d, g_, n_sm)
+            cands = at.decode_candidates(b * hkv, s, n_sm)
+            table = at.decode_blocks(b * hkv, s, d, g_, n_sm)
+            for c in cands:
+                _decode_gate(at, ops, c, q, qr, qp_rows, dense, paged, hq,
+                             hkv, f"{what} split {c}")
+            us = {}
+
+            def time_us(c):
+                with forcing(at, "decode_blocks", c):
+                    us[c] = timer(lambda: ops.decode_attention_int8kv(
+                        q, *dense), iters=5) * 1e3
+                return us[c]
+            best = at.measure(key, cands, time_us)
+            at.reset_measured_cache()
+            if at.decode_blocks(b * hkv, s, d, g_, n_sm) != best:
+                raise AssertionError(f"{what}: a fresh lookup does not "
+                                     f"return the measured {best}")
+            # the measured entry, read by every form through the chooser
+            _decode_gate(at, ops, None, q, qr, qp_rows, dense, paged, hq, hkv,
+                         f"{what} measured split {best}")
+            report(what, table, best, us[table], us[best], len(cands))
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["REPRO_AUTOTUNE_CACHE"] = saved
+        at.reset_measured_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"  autotune phase: {wall:.1f} s")
+    return {"families": out, "wall_s": wall}
 
 
 PROFILED_KERNELS = ("int4_gemm", "flash_attention", "dual_gemm_gated",
@@ -6796,6 +7139,11 @@ def main() -> int:
                     "int_gelu, int_layernorm and int_softmax, then run only "
                     "phase 10 (the NX-CGRA fabric model, cgra_phase); "
                     "prints its tables and no ok line")
+    ap.add_argument("--autotune-only", action="store_true",
+                    help="build only the GEMMs and the decode kernels, then "
+                    "run only the autotune phase (autotune_phase: the "
+                    "measured cache on the card, in a temporary file); "
+                    "prints each family's choices and no ok line")
     ap.add_argument("--kernels", default=None,
                     help="comma-separated kernels among "
                     f"{', '.join(KERNEL_CASES)}: build only these from --src "
@@ -6829,6 +7177,7 @@ def main() -> int:
                                        for src in KERNEL_CASES[name][1]})]
                                if only else [train_kernels()] if args.train_only
                                else [CGRA_SOURCES] if args.cgra_only
+                               else [AUTOTUNE_SOURCES] if args.autotune_only
                                else []))
     log(f"[2/10] built {len(built)} kernels in {time.perf_counter() - t0:.1f}s")
     for name, info in sorted(built.items()):
@@ -6850,6 +7199,22 @@ def main() -> int:
             for name, r in res["kernels"].items()},
             "table_ii_eff_mops": res["table_ii_eff_mops"],
             "launches": {k: res["launches"][k] for k in CGRA_KERNELS},
+            "wall_s": res["wall_s"]}))
+        print(smi)
+        return 0
+
+    if args.autotune_only:
+        log("[3/10] autotune: the measured cache on the card")
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        res = autotune_phase(dev, gen, Timer(dev), randn_on(dev, gen))
+        if args.out is not None:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(json.dumps({"card": smi, "autotune": res},
+                                           indent=1))
+        print(json.dumps({"autotune_only": {
+            label: {k: r[k] for k in ("table", "table_us", "measured",
+                                      "measured_us")}
+            for label, r in res["families"].items()},
             "wall_s": res["wall_s"]}))
         print(smi)
         return 0
@@ -6902,6 +7267,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         log("[9/10] tensor-parallel serving: ranks spawned on this card")
         res = serve_tp(dev, args.seed)
+        res["dist_cells"] = dist_cells(dev)
         if args.out is not None:
             args.out.parent.mkdir(parents=True, exist_ok=True)
             args.out.write_text(json.dumps({"card": smi, "cases": cases,
@@ -6912,6 +7278,9 @@ def main() -> int:
                                       "peak_gib_a_rank")}
             for label, r in res["drains"].items() if "ranks_differ" in r},
             "step_logits": res["step_logits"],
+            "pipeline": {k: r["ranks_equal_unpipelined"]
+                         for k, r in res["dist_cells"].items()
+                         if k.startswith("pipeline")},
             "cases": {f"{c['kernel']} {c['shape']}": c["ms"]
                       for c in cases}}))
         print(smi)
@@ -6988,6 +7357,8 @@ def main() -> int:
     cases = check_kernels(dev, gen, Timer(dev))
     torch.cuda.empty_cache()
     log(f"[3/10] phase 3 in {time.perf_counter() - t_phase:.1f}s")
+    log("[3/10] autotune: the measured cache on the card (a temporary file)")
+    tuned = autotune_phase(dev, gen, Timer(dev), randn_on(dev, gen))
     t_phase = time.perf_counter()
 
     worst = {}
@@ -7281,6 +7652,8 @@ def main() -> int:
         f"gloo")
     t_tp = time.perf_counter()
     tp_served = serve_tp(dev, args.seed)
+    log("[9/10] launch/dryrun.py's GPipe and tp-serve cells on this card")
+    tp_served["dist_cells"] = dist_cells(dev)
     log(f"[9/10] phase 9 in {time.perf_counter() - t_tp:.1f}s")
     log("[10/10] the NX-CGRA fabric model: the six Table II kernels on the "
         "card and the CPU")
@@ -7513,7 +7886,7 @@ def main() -> int:
             "cases": cases, "reduced_worst_rel": worst, "serve": served,
             "no_cache": no_cache, "zamba2_reduced_served": zred,
             "train": train, "train_archs": train8, "serve_tp": tp_served,
-            "cgra": cgra,
+            "cgra": cgra, "autotune": tuned,
             "kernels": kernels, "total_s": time.perf_counter() - t_start},
             indent=1))
     log(f"done in {time.perf_counter() - t_start:.1f}s")

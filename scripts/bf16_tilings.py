@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time every tiling of the port's bf16_gemm (``bf16_gemm.TILINGS``) at a
-few shapes on one NVIDIA card, beside the tiling ``bf16_gemm_tiling`` picks:
-the data behind ``bf16_gemm.WIDE_RATES``.  Each launch's output is held
+"""Time every tiling of the port's bf16_gemm (``autotune.BF16_GEMM_TILINGS``)
+at a few shapes on one NVIDIA card, beside the tiling
+``autotune.bf16_gemm_blocks`` picks: the data behind
+``autotune.BF16_WIDE_RATES``.  Each launch's output is held
 ``torch.equal`` to the rule's (the one K order), and the times are CUDA
 events around one launch with a cold L2 (chip_smoke's ``Timer``).
 
@@ -31,6 +32,7 @@ def main() -> int:
         print("bf16_tilings: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke as cs
+    from repro_torch.kernels import autotune as at
     from repro_torch.kernels import bf16_gemm as bg
     from repro_torch.kernels.int8_gemm import _n_sm
     dev = torch.device("cuda", 0)
@@ -44,10 +46,10 @@ def main() -> int:
         x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
         w = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
              ).bfloat16()
-        rule = bg.bf16_gemm_tiling(m, n, k, _n_sm(dev))
+        rule = at.bf16_gemm_blocks(m, k, n, _n_sm(dev))
         want = bg._launch(x, w, None, rule)
         times = {}
-        for tl in bg.bf16_gemm_tilings(m, n, k):
+        for tl in at.bf16_gemm_candidates(m, k, n):
             if not torch.equal(bg._launch(x, w, None, tl), want):
                 raise AssertionError(f"{shape}: tiling {tl[:4]} differs")
             times[tl[:4]] = timer(lambda: bg._launch(x, w, None, tl))

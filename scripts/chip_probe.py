@@ -13,7 +13,7 @@ up-projection) at starcoder2-3b's and codeqwen1.5-7b's W8A8 projections and
 codeqwen1.5-7b's f32 head, with the tiling forced: 16-row decode blocks
 against one 64-row block for M = 16 to 128, 64 x 128 against 128 x 128
 blocks at M = 256 and 4096.  Every tiling's output must equal the first
-one's.  ``int8_gemm.w8_tiling`` keeps what it decided.
+one's.  ``autotune``'s int8_gemm table keeps what it decided.
 
 ``decode`` rebuilds ``csrc/decode_tile.cuh`` with other constants (threads a
 block, tiles a round, tiles in the copy ring, the blocks an SM its launch
@@ -69,16 +69,16 @@ sys.path.insert(0, str(ROOT))
 def tiles() -> None:
     import chip_smoke as cs
     from repro_torch.kernels import ops
-    from repro_torch.kernels import int8_gemm as tg
+    from repro_torch.kernels import autotune as at
     from repro_torch.kernels.quantize import quantize_rows_ref
     from repro_torch.models.layers import GELU_INT_SCALE, quantize_weight
     forced = {}
 
-    def w8_tiling(m, n, k, n_sm, streams=1):
+    def gemm_blocks(m, k, n, n_sm):
         bm = forced["bm"]
-        return tg.mma_tiling(m, n, k, tg.W8_BK, n_sm, 1,
+        return at._mma_table(m, n, k, at.W8_BK, n_sm, 1,
                              m if bm == 16 else 0, bm)
-    tg.w8_tiling = w8_tiling
+    at.gemm_blocks = gemm_blocks
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     randn, timer = cs.randn_on(dev, gen), cs.Timer(dev)
@@ -107,7 +107,7 @@ def tiles() -> None:
                     ref = out
                 elif not torch.equal(out, ref):
                     raise AssertionError(f"{name} M={m}: bm={bm} differs")
-                split = w8_tiling(m, n, k, 132).split
+                split = gemm_blocks(m, k, n, 132).split
                 line.append(f"bm={bm} (split {split}) {timer(run):.5f} ms")
             print(f"{name:22s} M={m:5d}: " + " | ".join(line), flush=True)
         del wd

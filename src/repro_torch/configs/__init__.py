@@ -40,3 +40,26 @@ def get_config(arch_id: str, precision: str = "bf16",
     if precision != cfg.precision:
         cfg = dataclasses.replace(cfg, precision=precision)
     return cfg
+
+
+# ---------------------------------------------------------------------------
+# Input shapes of the dry-run cells (``launch/dryrun.py``), the reference's
+# (seq_len x global batch); decode_* and long_* are one token against a
+# seq_len cache.
+# ---------------------------------------------------------------------------
+
+SHAPES = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq_len=524288, global_batch=1),
+}
+
+
+def cells(arch_id: str) -> list[str]:
+    """Shape cells that apply to an arch (long_500k needs sub-quadratic)."""
+    cfg = get_config(arch_id)
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.supports_long_context:
+        out.append("long_500k")
+    return out

@@ -25,7 +25,8 @@ is ``{"encoder": {"pos_embed", "layers" (the ``enc`` blocks stacked over
 ``n_encoder_layers``), "final_norm"}, "decoder": <the decoder LM's tree>}``
 and converts to an ``EncDec``.
 ``to_reference`` is its inverse (the same numpy tree layout), so a round
-trip reproduces the tree exactly.  ``tree_to_reference`` carries any
+trip reproduces the tree exactly; ``reference_shapes`` gives that layout's
+shapes and dtypes without reading data (a ``meta`` tree too).  ``tree_to_reference`` carries any
 per-parameter tensors (gradients, AdamW moments), keyed by
 ``named_parameters`` names, into the same layout.
 
@@ -35,6 +36,7 @@ arrays.
 from __future__ import annotations
 
 import copy
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -188,107 +190,127 @@ def from_reference(tree: dict, cfg: ArchConfig, device=None) -> LM | EncDec:
               _linear(tree["unembed"], None, dev) if "unembed" in tree else None)
 
 
-def _leaf(lin: Linear):
+class LeafShape(NamedTuple):
+    """A leaf of ``reference_shapes``' tree: its shape and dtype."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+class _Leaves(NamedTuple):
+    """How ``_reference_tree`` turns tensors into leaves (``arr``) and
+    stacks a list of leaves over layers (``stack``)."""
+    arr: Callable
+    stack: Callable
+
+
+_NUMPY = _Leaves(lambda t: t.detach().cpu().numpy(), np.stack)
+_SHAPES = _Leaves(lambda t: LeafShape(tuple(t.shape), t.dtype),
+                  lambda xs: LeafShape((len(xs),) + xs[0].shape, xs[0].dtype))
+
+
+def _leaf(lin: Linear, io: _Leaves):
     if lin.int4:
-        return {k: getattr(lin, k).cpu().numpy()
-                for k in ("w4", "qmul", "scale")}
+        return {k: io.arr(getattr(lin, k)) for k in ("w4", "qmul", "scale")}
     if lin.quantized:
-        return {"w_q": lin.w_q.cpu().numpy(), "scale": lin.scale.cpu().numpy()}
-    return lin.weight.detach().cpu().numpy()
+        return {"w_q": io.arr(lin.w_q), "scale": io.arr(lin.scale)}
+    return io.arr(lin.weight)
 
 
-def _stack(leaves: list):
-    if isinstance(leaves[0], dict):
-        return {k: np.stack([x[k] for x in leaves]) for k in leaves[0]}
-    return np.stack(leaves)
+def _stacker(io: _Leaves):
+    def stack(leaves: list):
+        if isinstance(leaves[0], dict):
+            return {k: io.stack([x[k] for x in leaves]) for k in leaves[0]}
+        return io.stack(leaves)
+    return stack
 
 
-def _norm_leaf(n: Norm) -> dict:
-    out = {"scale": n.scale.detach().cpu().numpy()}
+def _norm_leaf(n: Norm, io: _Leaves) -> dict:
+    out = {"scale": io.arr(n.scale)}
     if n.bias is not None:
-        out["bias"] = n.bias.detach().cpu().numpy()
+        out["bias"] = io.arr(n.bias)
     return out
 
 
-def _mlp_tree(mlps: list[MLP], stack) -> dict:
-    return {k: stack([_leaf(getattr(m, k)) for m in mlps])
+def _mlp_tree(mlps: list[MLP], stack, io: _Leaves) -> dict:
+    return {k: stack([_leaf(getattr(m, k), io) for m in mlps])
             for k in ("w_in", "w_out", "w_gate")
             if getattr(mlps[0], k) is not None}
 
 
-def _attn_leaves(attns: list[Attention], stack) -> dict:
-    attn = {k: stack([_leaf(getattr(a, k)) for a in attns])
+def _attn_leaves(attns: list[Attention], stack, io: _Leaves) -> dict:
+    attn = {k: stack([_leaf(getattr(a, k), io) for a in attns])
             for k in ("wq", "wk", "wv", "wo")}
     for k in ("bq", "bk", "bv"):
         if getattr(attns[0], k) is not None:
-            attn[k] = stack([getattr(a, k).detach().cpu().numpy()
-                             for a in attns])
+            attn[k] = stack([io.arr(getattr(a, k)) for a in attns])
     return attn
 
 
-def _cross_tree(blocks: list[XAttnBlock | DecBlock]) -> dict:
-    tree = {k: _stack([_norm_leaf(getattr(b, k)) for b in blocks])
+def _cross_tree(blocks: list[XAttnBlock | DecBlock], io: _Leaves) -> dict:
+    stack = _stacker(io)
+    tree = {k: stack([_norm_leaf(getattr(b, k), io) for b in blocks])
             for k in ("norm1", "norm2", "norm3") if hasattr(blocks[0], k)}
-    tree["xattn"] = _attn_leaves([b.xattn for b in blocks], _stack)
-    tree["mlp"] = _mlp_tree([b.mlp for b in blocks], _stack)
+    tree["xattn"] = _attn_leaves([b.xattn for b in blocks], stack, io)
+    tree["mlp"] = _mlp_tree([b.mlp for b in blocks], stack, io)
     if isinstance(blocks[0], DecBlock):
-        tree["attn"] = _attn_leaves([b.attn for b in blocks], _stack)
+        tree["attn"] = _attn_leaves([b.attn for b in blocks], stack, io)
     else:
         for k in ("gate_attn", "gate_mlp"):
-            tree[k] = np.stack([getattr(b, k).detach().cpu().numpy()
-                                for b in blocks])
+            tree[k] = io.stack([io.arr(getattr(b, k)) for b in blocks])
     return tree
 
 
-def _attn_tree(blocks: list[Block | MoEBlock], stack) -> dict:
-    attn = _attn_leaves([b.attn for b in blocks], stack)
-    norms = {k: stack([_norm_leaf(getattr(b, k)) for b in blocks])
+def _attn_tree(blocks: list[Block | MoEBlock], stack, io: _Leaves) -> dict:
+    attn = _attn_leaves([b.attn for b in blocks], stack, io)
+    norms = {k: stack([_norm_leaf(getattr(b, k), io) for b in blocks])
              for k in ("norm1", "norm2")}
     tree = {"norm1": norms["norm1"], "attn": attn, "norm2": norms["norm2"]}
     if not isinstance(blocks[0], MoEBlock):
-        tree["mlp"] = _mlp_tree([b.mlp for b in blocks], stack)
+        tree["mlp"] = _mlp_tree([b.mlp for b in blocks], stack, io)
         return tree
     moes = [b.moe for b in blocks]
-    tree["moe"] = {"router": {"w": stack([_leaf(m.router) for m in moes])},
-                   "experts": _mlp_tree([m.experts for m in moes], stack)}
+    tree["moe"] = {"router": {"w": stack([_leaf(m.router, io)
+                                          for m in moes])},
+                   "experts": _mlp_tree([m.experts for m in moes], stack, io)}
     if moes[0].shared is not None:
-        tree["moe"]["shared"] = _mlp_tree([m.shared for m in moes], stack)
-        tree["moe"]["shared_gate"] = stack([_leaf(m.shared_gate)
+        tree["moe"]["shared"] = _mlp_tree([m.shared for m in moes], stack,
+                                          io)
+        tree["moe"]["shared_gate"] = stack([_leaf(m.shared_gate, io)
                                             for m in moes])
     return tree
 
 
-def _mamba_tree(blocks: list[MambaBlock]) -> dict:
-    mamba = {k: _stack([_leaf(getattr(b.mamba, k)) for b in blocks])
+def _mamba_tree(blocks: list[MambaBlock], io: _Leaves) -> dict:
+    stack = _stacker(io)
+    mamba = {k: stack([_leaf(getattr(b.mamba, k), io) for b in blocks])
              for k in ("in_proj", "out_proj")}
     for k in _MAMBA_VECTORS:
-        mamba[k] = np.stack([getattr(b.mamba, k).detach().cpu().numpy()
-                             for b in blocks])
-    return {"norm1": _stack([_norm_leaf(b.norm1) for b in blocks]),
+        mamba[k] = io.stack([io.arr(getattr(b.mamba, k)) for b in blocks])
+    return {"norm1": stack([_norm_leaf(b.norm1, io) for b in blocks]),
             "mamba": mamba}
 
 
-def _xlstm_tree(kind: str, blocks: list) -> dict:
+def _xlstm_tree(kind: str, blocks: list, io: _Leaves) -> dict:
     _, _, leaves, floats = _XLSTM[kind]
+    stack = _stacker(io)
     layers = [getattr(b, kind) for b in blocks]
-    return {"norm1": _stack([_norm_leaf(b.norm1) for b in blocks]),
-            kind: {k: (np.stack([getattr(x, k).detach().cpu().numpy()
-                                 for x in layers]) if k in floats
-                       else _stack([_leaf(getattr(x, k)) for x in layers]))
+    return {"norm1": stack([_norm_leaf(b.norm1, io) for b in blocks]),
+            kind: {k: (io.stack([io.arr(getattr(x, k)) for x in layers])
+                       if k in floats
+                       else stack([_leaf(getattr(x, k), io) for x in layers]))
                    for k in leaves}}
 
 
-def to_reference(params: LM | EncDec, cfg: ArchConfig | None = None) -> dict:
-    """``LM`` or ``EncDec`` -> the reference's numpy tree layout (inverse
-    of ``from_reference``); ``cfg`` gives the block pattern (default: the
-    dense ``attn`` pattern)."""
+def _reference_tree(params: LM | EncDec, cfg: ArchConfig | None,
+                    io: _Leaves) -> dict:
+    stack = _stacker(io)
     if isinstance(params, EncDec):
         enc = params.encoder
         return {"encoder": {
-                    "pos_embed": enc.pos_embed.detach().cpu().numpy(),
-                    "layers": _attn_tree(list(enc.layers), _stack),
-                    "final_norm": _norm_leaf(enc.final_norm)},
-                "decoder": to_reference(params.decoder, cfg)}
+                    "pos_embed": io.arr(enc.pos_embed),
+                    "layers": _attn_tree(list(enc.layers), stack, io),
+                    "final_norm": _norm_leaf(enc.final_norm, io)},
+                "decoder": _reference_tree(params.decoder, cfg, io)}
     pattern = ("attn",) if cfg is None else cfg.block_pattern
     per_pos = [list(params.layers)[pos::len(pattern)]
                for pos in range(len(pattern))]
@@ -296,20 +318,35 @@ def to_reference(params: LM | EncDec, cfg: ArchConfig | None = None) -> dict:
     for kind, blocks in zip(pattern, per_pos):
         if kind == "shared_attn":
             periods.append(None)
-            tree["shared"] = _attn_tree(blocks[:1], lambda xs: xs[0])
+            tree["shared"] = _attn_tree(blocks[:1], lambda xs: xs[0], io)
         elif kind == "mamba2":
-            periods.append(_mamba_tree(blocks))
+            periods.append(_mamba_tree(blocks, io))
         elif kind in _XLSTM:
-            periods.append(_xlstm_tree(kind, blocks))
+            periods.append(_xlstm_tree(kind, blocks, io))
         elif kind in ("xattn", "dec"):
-            periods.append(_cross_tree(blocks))
+            periods.append(_cross_tree(blocks, io))
         else:
-            periods.append(_attn_tree(blocks, _stack))
-    tree.update(embed=params.embed.detach().cpu().numpy(),
-                final_norm=_norm_leaf(params.final_norm), periods=periods)
+            periods.append(_attn_tree(blocks, stack, io))
+    tree.update(embed=io.arr(params.embed),
+                final_norm=_norm_leaf(params.final_norm, io), periods=periods)
     if params.unembed is not None:
-        tree["unembed"] = _leaf(params.unembed)
+        tree["unembed"] = _leaf(params.unembed, io)
     return tree
+
+
+def to_reference(params: LM | EncDec, cfg: ArchConfig | None = None) -> dict:
+    """``LM`` or ``EncDec`` -> the reference's numpy tree layout (inverse
+    of ``from_reference``); ``cfg`` gives the block pattern (default: the
+    dense ``attn`` pattern)."""
+    return _reference_tree(params, cfg, _NUMPY)
+
+
+def reference_shapes(params: LM | EncDec,
+                     cfg: ArchConfig | None = None) -> dict:
+    """``to_reference``'s tree with a ``LeafShape`` for each leaf: the
+    reference's layout of a tree on any device, ``meta`` included (no
+    data is read), as ``jax.eval_shape`` gives the reference's."""
+    return _reference_tree(params, cfg, _SHAPES)
 
 
 def tree_to_reference(params: LM | EncDec, named: dict,

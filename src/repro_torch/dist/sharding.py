@@ -16,12 +16,28 @@ rank).  An indivisible dim raises ``TPConfigError``.
 A leaf is named as ``named_parameters``/``named_buffers`` name it
 (``layers.3.attn.wq.w4``); the rule reads the leaf's name, or its parent
 projection's for a weight or payload leaf, as the reference reads its
-tree's path.  The training rules (``AxisEnv``, ``shard_hint``,
-``param_specs``) are not ported (ROADMAP.md §A10b).
+tree's path.
+
+The training rules (port of ``repro.dist.sharding:35-216``): ``AxisEnv``
+binds the logical axes dp (batch), fsdp (parameter storage, contraction
+dims), tp (Megatron column/row split), ep (experts) and sp (the residual
+stream's sequence) to physical mesh axes and their sizes;
+``param_specs`` gives each leaf of the reference's tree layout
+(``convert.reference_shapes``: the layers stacked over periods) a spec, a
+tuple of one entry a dimension (a mesh axis name, a tuple of them, or
+None), by the reference's path rules with its divisibility demotion (a
+dimension keeps the longest prefix of its axes whose product divides it),
+so the specs equal the reference's ``PartitionSpec``s leaf by leaf.
+``shard_hint`` is the identity: no path of the port binds a training
+mesh, as none of the reference's does (its trainer,
+``src/repro/launch/train.py:46``, installs no mesh, so there every hint is
+a no-op too); ``launch/specs.py`` and ``launch/dryrun.py`` read the specs
+to size a rank's bytes.
 """
 from __future__ import annotations
 
 import copy
+import dataclasses
 import itertools
 
 import torch
@@ -116,3 +132,141 @@ def shard_states(states: list, rank: int, tp: int) -> list:
               for k, v in st["kv"].items()}
         out.append(dict(st, kv=kv))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the training rules: logical axes, their binding, parameter specs
+# ---------------------------------------------------------------------------
+
+LOGICAL_AXES = ("dp", "fsdp", "tp", "ep", "sp")
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisEnv:
+    """Binding of logical model axes to physical mesh axes."""
+
+    dp: tuple[str, ...] = ()
+    fsdp: tuple[str, ...] = ()
+    tp: tuple[str, ...] = ()
+    ep: tuple[str, ...] = ()
+    sp: tuple[str, ...] = ()
+    active: bool = False
+    # (mesh_axis_name, size) pairs for every axis of the bound mesh
+    sizes: tuple[tuple[str, int], ...] = ()
+
+    def axis_size(self, name: str) -> int:
+        return dict(self.sizes).get(name, 1)
+
+    def axes_size(self, axes: tuple[str, ...]) -> int:
+        n = 1
+        for a in axes:
+            n *= self.axis_size(a)
+        return n
+
+    def logical(self, name: str) -> tuple[str, ...]:
+        assert name in LOGICAL_AXES, name
+        return getattr(self, name)
+
+
+_ENV: list[AxisEnv] = [AxisEnv()]
+
+
+def set_axis_env(env: AxisEnv) -> None:
+    _ENV[0] = env
+
+
+def axis_env() -> AxisEnv:
+    return _ENV[0]
+
+
+def _resolve_dim(env: AxisEnv, logical: str | None, dim: int,
+                 used: set[str]) -> str | tuple[str, ...] | None:
+    """Logical name -> physical mesh axes for one tensor dim: the longest
+    PREFIX of the bound axes whose cumulative product divides ``dim``,
+    skipping axes already used by an earlier dim of the same spec and axes
+    absent from the bound mesh."""
+    if logical is None:
+        return None
+    kept: list[str] = []
+    prod = 1
+    for ax in env.logical(logical):
+        size = env.axis_size(ax)
+        if size <= 1 or ax in used:
+            continue
+        if dim % (prod * size) != 0:
+            break
+        kept.append(ax)
+        prod *= size
+    if not kept:
+        return None
+    used.update(kept)
+    return kept[0] if len(kept) == 1 else tuple(kept)
+
+
+def _resolve_spec(env: AxisEnv, logical: tuple, shape: tuple) -> list:
+    used: set[str] = set()
+    return [_resolve_dim(env, l, d, used) for l, d in zip(logical, shape)]
+
+
+def shard_hint(x: torch.Tensor, *logical) -> torch.Tensor:
+    """The reference's sharding constraint on an intermediate: the identity
+    here, since no port path binds a training mesh (module note)."""
+    return x
+
+
+# row-parallel projections: the CONTRACTION dim carries "tp", the output dim
+# fsdp storage
+_ROW_PARALLEL = {"wo", "w_out"}
+# leaves replicated whatever their divisibility (norm and gate vectors; the
+# sLSTM's per-head recurrent weights, read inside the per-step loop)
+_REPLICATED = {"scale", "bias", "gate_attn", "gate_mlp", "shared_gate",
+               "r_w"}
+
+
+def _spec_for_path(path: str, shape: tuple) -> tuple:
+    """The spec of one leaf of the reference's layout, by its path
+    (``periods/0/attn/wq``) and shape: 0/1-D leaves and the replicated
+    names none; ``embed`` vocab on tp, d on fsdp; an expert stack's E on
+    ep; the row-parallel names tp on dim -2, fsdp on dim -1; every other
+    matrix fsdp on dim -2, tp on dim -1 — ep, then tp, then the rest
+    resolved first, emitted in dim order."""
+    env = _ENV[0]
+    name = path.rsplit("/", 1)[-1]
+    ndim = len(shape)
+    logical: list = [None] * ndim
+    if ndim >= 2 and name not in _REPLICATED:
+        if name == "embed":
+            logical[0], logical[1] = "tp", "fsdp"
+        elif name in _ROW_PARALLEL:
+            logical[-2], logical[-1] = "tp", "fsdp"
+        else:
+            logical[-2], logical[-1] = "fsdp", "tp"
+        if ("experts/" in path or path.endswith("/experts")) and ndim >= 3:
+            logical[ndim - 3] = "ep"
+    used: set[str] = set()
+    order = sorted(range(ndim),
+                   key=lambda i: {"ep": 0, "tp": 1}.get(logical[i], 2))
+    out = {i: _resolve_dim(env, logical[i], shape[i], used) for i in order}
+    return tuple(out[i] for i in range(ndim))
+
+
+def map_with_path(tree, fn, path: str = ""):
+    """``fn(path, leaf)`` over a tree of dicts and lists (a tuple is a
+    leaf: a spec, a ``LeafShape``), paths as the reference's
+    (``periods/0/attn/wq``); None stays None."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(v, fn, f"{path}/{k}" if path else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_with_path(v, fn, f"{path}/{i}" if path else str(i))
+                for i, v in enumerate(tree)]
+    return None if tree is None else fn(path, tree)
+
+
+def param_specs(params, cfg=None):
+    """The spec tree of a model's parameters in the reference's layout
+    (``convert.reference_shapes(params, cfg)``, any device: a ``meta``
+    tree reads no data), one spec a leaf under the bound ``AxisEnv``."""
+    from ..convert import reference_shapes
+    return map_with_path(reference_shapes(params, cfg),
+                          lambda path, leaf: _spec_for_path(path, leaf.shape))

@@ -16,12 +16,12 @@ tp 1 runs the same kernel.
 
 What bounds it: the weight bytes at decode rows (and there the chain of
 K / 16 dependent ``wgmma`` steps that the one order allows), the bf16
-tensor-core rate at scoring and training rows.  ``bf16_gemm_tiling`` picks
-the tile: 64-row blocks at decode rows, narrow enough (32 or 64 columns)
-that the blocks cover the SMs with no split of K, two an SM, each keeping
-at least ``INFLIGHT`` bytes of weight in flight (at M <= 8 a stage holds 8
-rows of x, so the ring is deeper); past 64 rows the tile of ``WIDE_RATES``
-whose waves cost least.  TMA needs 16-byte row strides and operands:
+tensor-core rate at scoring and training rows.  ``autotune.bf16_gemm_blocks``
+picks the tile (its table: 64-row blocks at decode rows, narrow enough (32
+or 64 columns) that the blocks cover the SMs with no split of K, two an
+SM, each keeping at least ``BF16_INFLIGHT`` bytes of weight in flight (at
+M <= 8 a stage holds 8 rows of x, so the ring is deeper); past 64 rows the
+wide tile whose waves cost least).  TMA needs 16-byte row strides and operands:
 ``_pad`` zero-pads a K or N that is not a multiple of 8 (a zero product
 adds nothing to an f32 sum, and the real values keep their k16 groups), an
 unaligned operand is copied.
@@ -38,72 +38,15 @@ with XLA's autodiff (no backward kernel).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import autotune, build
+from .autotune import Bf16Tiling
 from .common import LAUNCHES, cdiv, check, on_cuda, plain_grads
 from .int8_gemm import _aligned, _n_sm, _stream
 
 BF16 = torch.bfloat16
-BK = 64            # K per ring stage
-DECODE_M = 64      # rows up to which one 64-row block covers M
-INFLIGHT = 32 << 10  # weight bytes a decode block keeps in flight
-
-
-class Bf16Tiling(NamedTuple):
-    """One launch: block rows (64 per consumer warpgroup) and columns (the
-    ``wgmma`` width), the ring's stages, the rows of x a stage holds (bm,
-    or 8 for M <= 8), each block's K range (all of K: never split) and the
-    blocks."""
-    bm: int
-    bn: int
-    stages: int
-    x_rows: int
-    k_len: int
-    blocks: int
-
-
-# (bm, bn, stages, x_rows) the C entry takes: M <= 8's two and decode's two
-# (two blocks an SM), then the wider ones (one block an SM)
-TILINGS = ((64, 32, 20, 8), (64, 64, 12, 8), (64, 32, 9, 64), (64, 64, 6, 64),
-           (64, 128, 6, 64), (128, 128, 6, 128), (128, 256, 4, 128))
-# the wide tilings' rates relative to 128 x 256's where the waves are whole
-# (``scripts/bf16_tilings.py`` on an H100 at [4096,4096]x[4096,4096] and
-# [4096,3072]x[3072,12288]: 128 x 128 0.79-0.80, 64 x 128 0.70)
-WIDE_RATES = ((TILINGS[6], 1.0), (TILINGS[5], 0.8), (TILINGS[4], 0.7))
-
-
-def _tiling(m: int, n: int, k: int, bm: int, bn: int, stages: int,
-            x_rows: int) -> Bf16Tiling:
-    return Bf16Tiling(bm, bn, stages, x_rows, k, cdiv(m, bm) * cdiv(n, bn))
-
-
-def bf16_gemm_tilings(m: int, n: int, k: int) -> list[Bf16Tiling]:
-    """Every tiling the entry takes at this shape (the 8-row ones only for
-    M <= 8): each gives the same bits (chip_smoke phase 3 holds them
-    equal)."""
-    return [_tiling(m, n, k, *t) for t in TILINGS if m <= t[3] or t[3] == t[0]]
-
-
-def bf16_gemm_tiling(m: int, n: int, k: int, n_sm: int) -> Bf16Tiling:
-    """The tiling of an [m, k] x [k, n] launch on ``n_sm`` SMs.  Decode
-    rows (m <= DECODE_M): 64 x 64 blocks where they fill the SMs, else
-    64 x 32 (two blocks an SM either way), over a ring of 1 KB of x and the
-    weight a stage for m <= 8.  Past that the wide tiling whose
-    waves (blocks / n_sm, rounded up) of tiles cost least at its rate
-    (``WIDE_RATES``): 128 x 256 where the waves come out whole, 128 x 128 or
-    64 x 128 where the wider tile would leave SMs idle."""
-    if m <= DECODE_M:
-        narrow, wide = TILINGS[:2] if m <= 8 else TILINGS[2:4]
-        return _tiling(m, n, k, *(wide if cdiv(n, 64) >= n_sm else narrow))
-
-    def cost(t_rate):
-        (bm, bn, _, _), rate = t_rate
-        return cdiv(cdiv(m, bm) * cdiv(n, bn), n_sm) * bm * bn / rate
-    return _tiling(m, n, k, *min(WIDE_RATES, key=cost)[0])
 
 
 def bf16_gemm_ref(x, w, bias=None):
@@ -130,8 +73,8 @@ def _pad(x, w, bias):
 def _launch(x, w, bias, tiling: Bf16Tiling | None = None):
     """One launch over x [M, K] and w [K, N] (bias [N] or None), all bf16
     and contiguous on one card; returns bf16 [M, N].  ``tiling`` (one of
-    ``bf16_gemm_tilings``) replaces the rule's: chip_smoke's gate that every
-    tiling gives the same bits."""
+    ``autotune.bf16_gemm_candidates``) replaces the chooser's: chip_smoke's
+    gate that every tiling gives the same bits."""
     check(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[0],
           f"bf16_gemm operands: x {tuple(x.shape)}, w {tuple(w.shape)}")
     m = x.shape[0]
@@ -153,7 +96,7 @@ def _launch(x, w, bias, tiling: Bf16Tiling | None = None):
     kp, np_ = wp.shape
     dev = x.device
     out = torch.empty((m, np_), dtype=BF16, device=dev)
-    tl = tiling or bf16_gemm_tiling(m, np_, kp, _n_sm(dev))
+    tl = tiling or autotune.bf16_gemm_blocks(m, kp, np_, _n_sm(dev))
     rc = fn(xp.data_ptr(), wp.data_ptr(), 0 if bp is None else bp.data_ptr(),
             m, np_, kp, tl.bm, tl.bn, tl.stages, out.data_ptr(),
             _stream(dev))

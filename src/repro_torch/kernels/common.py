@@ -45,8 +45,9 @@ def cdiv(a: int, b: int) -> int:
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the card unless the caller asks
-    for the CPU.  With no device given and no card present this raises —
-    entry points never fall back to the CPU on their own."""
+    for the CPU (or for ``meta``: shapes without data).  With no device
+    given and no card present this raises — entry points never fall back to
+    the CPU on their own."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -59,9 +60,16 @@ def resolve_device(device=None) -> torch.device:
                            f"available")
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device!r} (cpu or cuda)")
+    if dev.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"unsupported device {device!r} (cpu, cuda or "
+                         f"meta: shapes only, for launch/dryrun.py)")
     return dev
+
+
+def generator_device(dev: torch.device) -> torch.device:
+    """The device of an init's generator: ``dev``'s own, the CPU's for a
+    meta tree (its draws are shapes only)."""
+    return torch.device("cpu") if dev.type == "meta" else dev
 
 
 # the wrappers whose kernels launch inside a torch.autograd.Function

@@ -7,7 +7,8 @@ the tensor-core loop of ``csrc/gemm_mma.cuh`` (``mma.sync`` on int8 or bf16,
 the raw weight tiles streamed by ``cp.async`` in the reference's layout and
 turned into fragments at the ``ldmatrix`` load), templated on the weight's
 kind — packed int4 with the group fold (W4), int8 (W8) or bf16 — with tiles
-chosen by ``w4_tiling``, ``w8_tiling`` and ``bf16_tiling``.  The integer
+chosen by ``autotune``'s ``gemm_blocks``, ``gemm_w4a8_blocks``,
+``gated_mlp_blocks`` and ``gatedmlp_w4a8_blocks``.  The integer
 GEMMs split K with an exact int32 combine when the tiles alone cannot fill
 the card; the bf16 form never splits K:
 
@@ -73,12 +74,11 @@ operands of the dual GEMMs' integer form carry no gradient.
 """
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from ..core import inumerics as inum
-from . import build
+from . import autotune, build
+from .autotune import BF16_BK, W4_BK, W4_STAGES, W8_BK
 from .common import (LAUNCHES, cdiv, check, check_requant, f32, fma_f32,
                      on_cuda, plain_grads, rcp32)
 from .int_gelu import gelu_consts, gelu_out_scale, int_gelu_ref
@@ -286,61 +286,10 @@ class _Workspace:
 _WORKSPACE = _Workspace()
 
 
-# the tensor-core loop (``csrc/gemm_mma.cuh``): K per stage of each weight
-# kind (W4 packed int4, W8 int8, BF16), stages in the ring, rows at or below
-# which the decode shapes run (int4_gemm and int8_gemm: one block over all
-# rows of a bucket-64 step ran slower than four 16-row blocks; the dual GEMMs:
-# 64-row blocks won at M = 64), and the weight bytes each SM should have in
-# flight there; an integer kind's stage holds 64 rows of 128 bytes of each
-# weight stream (W4: BK/2 packed rows; W8: BK)
-W4_BK, W8_BK, BF16_BK = 128, 64, 64
-W4_STAGES, W4_DECODE_M, W4_INFLIGHT = 4, 64, 32 << 10
-DUAL_DECODE_M = 32
-MMA_STAGE_ROWS = 64
-# int8_gemm's tiles, from both tilings timed at starcoder2-3b's and
-# codeqwen1.5-7b's projections on an H100 (``scripts/chip_probe.py tiles``):
-# 16-row decode blocks up to M = 64 while the weight fits W8_DECODE_BYTES
-# (they read it once per 16 rows: at M = 64, 0.029 against 0.049 ms for
-# starcoder's q_proj, 0.072 against 0.079 for codeqwen's 55 MB mlp_down),
-# else 64-row blocks from the first row (codeqwen's 378 MB head: 0.204
-# against 0.569 ms at M = 64); 128 x 128 blocks (one an SM) where K >=
-# W8_WIDE_K at M >= W8_WIDE_M (the down projections at M = 4096: 0.617
-# against 0.770 ms, 0.877 against 1.142; 64 x 128 won for K <= 4096 and at
-# M = 256)
-W8_DECODE_M, W8_DECODE_BYTES = 64, 64 << 20
-W8_WIDE_K, W8_WIDE_M = 8192, 1024
-
-
-def split_k(m: int, n: int, k: int, n_sm: int, align: int = W8_BK, *,
-            bm: int = 64, bn: int = 128,
-            want: int | None = None) -> tuple[int, int]:
-    """(split, k_len): split K across blocks of ``bm`` x ``bn`` output (by
-    default the prefill tile of the tensor-core loop) until about ``want``
-    blocks are in flight (default: two per SM); k_len is a multiple of
-    ``align`` (a stage's K, or the W4 group when larger) and every split is
-    non-empty."""
-    tiles = cdiv(m, bm) * cdiv(n, bn)
-    steps = cdiv(k, align)
-    split = max(1, min(steps, cdiv(2 * n_sm if want is None else want, tiles)))
-    k_len = cdiv(steps, split) * align
-    return cdiv(k, k_len), k_len
-
-
 # (k per stage, bytes of an activation, shared rows of a weight stage,
 # bytes of a weight column in a row) of each kind (``gemm_mma.cuh``)
 MMA_KINDS = {"w4": (W4_BK, 1, W4_BK // 2, 1), "w8": (W8_BK, 1, W8_BK, 1),
              "bf16": (BF16_BK, 2, BF16_BK, 2)}
-# every launched instantiation: (kind, streams, bm) -> (bn, blocks an SM
-# that ``__launch_bounds__`` asks for)
-MMA_CONFIGS = {("w4", 1, 16): (128, 1), ("w4", 1, 64): (128, 2),
-               ("w4", 2, 16): (128, 1), ("w4", 2, 32): (128, 2),
-               ("w8", 1, 16): (128, 1), ("w8", 1, 64): (128, 2),
-               ("w8", 1, 128): (128, 1),
-               ("w8", 2, 16): (128, 1), ("w8", 2, 64): (128, 2),
-               ("bf16", 2, 16): (64, 1), ("bf16", 2, 64): (128, 1),
-               ("bf16", 2, 128): (128, 1),
-               ("bf16", 1, 16): (64, 1), ("bf16", 1, 64): (128, 1),
-               ("bf16", 1, 128): (128, 1)}
 SMEM_PER_BLOCK, SMEM_PER_SM = 232448, 233472   # H100: a block's limit, an SM's
 
 
@@ -352,78 +301,6 @@ def mma_smem_bytes(kind: str, bm: int, bn: int, streams: int) -> int:
     q = bk // 32 * bn if kind == "w4" else 0
     return W4_STAGES * (bm * (bk * a_elem + 16)
                         + streams * (w_rows * (bn * w_elem + 16) + q))
-
-
-@dataclasses.dataclass(frozen=True)
-class MmaTiling:
-    """One launch of ``gemm_mma.cuh``: block rows (16: the decode shape; 32,
-    64 or 128: the prefill shapes) and columns, the split of K and each block's K range,
-    the output tiles (split-K counters) and the int32 workspace the split
-    needs ([streams][M][N])."""
-    bm: int
-    bn: int
-    split: int
-    k_len: int
-    tiles: int
-    workspace: int
-
-
-def mma_tiling(m: int, n: int, k: int, align: int, n_sm: int,
-               streams: int = 1, decode_m: int = W4_DECODE_M,
-               prefill_bm: int = 64) -> MmaTiling:
-    """The tile shape and split of an integer GEMM [m, k] x ``streams``
-    weights [k, n] on the tensor-core loop.  Decode (m <= ``decode_m``):
-    blocks of 16 rows (rows computed up to the next multiple of 16 >= m) x
-    128 columns, K split until each SM has about ``W4_INFLIGHT`` bytes of
-    weight in flight ((W4_STAGES - 1) stages of a block's [MMA_STAGE_ROWS,
-    128] tile of every stream); prefill: ``prefill_bm`` x 128, K split only
-    until each SM has two blocks.  K ranges are multiples of ``align`` (a
-    stage, or the W4 group when larger), and no split is empty."""
-    decode = m <= decode_m
-    bm, bn = (16 if decode else prefill_bm), 128
-    in_flight = (W4_STAGES - 1) * MMA_STAGE_ROWS * bn * streams
-    want = cdiv(W4_INFLIGHT, in_flight) * n_sm if decode else 2 * n_sm
-    split, k_len = split_k(m, n, k, n_sm, align, bm=bm, bn=bn, want=want)
-    return MmaTiling(bm, bn, split, k_len, cdiv(m, bm) * cdiv(n, bn),
-                     streams * m * n if split > 1 else 0)
-
-
-def w4_tiling(m: int, n: int, k: int, g: int, n_sm: int,
-              streams: int = 1) -> MmaTiling:
-    """int4_gemm (one stream: decode up to M = 64, prefill blocks of 64
-    rows) and dual_int4_gemm_gated (two: decode up to DUAL_DECODE_M,
-    prefill blocks of 32 rows): K ranges on multiples of max(W4_BK, g), so
-    they start and end on group boundaries."""
-    if streams == 1:
-        return mma_tiling(m, n, k, max(W4_BK, g), n_sm)
-    return mma_tiling(m, n, k, max(W4_BK, g), n_sm, streams, DUAL_DECODE_M,
-                      32)
-
-
-def w8_tiling(m: int, n: int, k: int, n_sm: int,
-              streams: int = 1) -> MmaTiling:
-    """The int8 weight kind, K ranges on multiples of W8_BK: int8_gemm (one
-    stream: decode up to W8_DECODE_M where the weight fits
-    W8_DECODE_BYTES, prefill blocks of 64 rows, or 128 at deep K and
-    scoring rows) and dual_gemm_gated's int8 form (two: decode up to
-    DUAL_DECODE_M)."""
-    if streams == 2:
-        return mma_tiling(m, n, k, W8_BK, n_sm, 2, DUAL_DECODE_M)
-    wide = k >= W8_WIDE_K and m >= W8_WIDE_M
-    return mma_tiling(m, n, k, W8_BK, n_sm, 1,
-                      W8_DECODE_M if k * n <= W8_DECODE_BYTES else 0,
-                      128 if wide else 64)
-
-
-def bf16_tiling(m: int, n: int, k: int) -> MmaTiling:
-    """dual_gemm_gated's bf16 form: never a split of K (f32 sums would
-    depend on the blocks' arrival order), so its decode blocks (up to
-    DUAL_DECODE_M) are 16 x 64 (210 at N = 13440 for 132 SMs); then 64 x 128
-    up to M = 128 and 128 x 128 past it.  (bf16_gemm has its own rule,
-    ``bf16_gemm.bf16_gemm_tiling``.)"""
-    bm, bn = ((16, 64) if m <= DUAL_DECODE_M else (64, 128) if m <= 128
-              else (128, 128))
-    return MmaTiling(bm, bn, 1, k, cdiv(m, bm) * cdiv(n, bn), 0)
 
 
 def _n_sm(dev, experts: int = 1) -> int:
@@ -534,7 +411,7 @@ def _launch(x, w, epilogue, x_scale, w_scale, bias, residual, gelu_scale,
                               residual, gelu_scale, out_dtype, x.device,
                               requant, experts=e)
     dev = x.device
-    tl = w8_tiling(m, n, k, _n_sm(dev, e))
+    tl = autotune.gemm_blocks(m, k, n, _n_sm(dev, e))
     part, cnt = _WORKSPACE.get(dev, e * tl.workspace, e * tl.tiles)
     vec = int(k % 16 == 0 and n % 16 == 0 and _aligned(x, w))
     fn = build.entry("int8_gemm", "repro_int8_gemm",
@@ -586,7 +463,7 @@ def _launch_int4(x, w4, qmul, w_scale, x_scale, epilogue, gelu_scale, bias,
                               residual, gelu_scale, out_dtype, x.device,
                               experts=e)
     dev = x.device
-    tl = w4_tiling(m, n, k, g, _n_sm(dev, e))
+    tl = autotune.gemm_w4a8_blocks(m, k, n, g, _n_sm(dev, e))
     part, cnt = _WORKSPACE.get(dev, e * tl.workspace, e * tl.tiles)
     vec = int(k % 16 == 0 and n % 16 == 0 and _aligned(x, w4, qmul))
     fn = build.entry("int4_gemm", "repro_int4_gemm",
@@ -656,7 +533,7 @@ def _launch_dual(x, w_up, w_gate, x_scale, up_scale, gate_scale, act,
         _check_f32(x_scale, e * m, "x_scale [M, 1]")
         _check_f32(up_scale, e * n, "up_scale [N]")
         _check_f32(gate_scale, e * n, "gate_scale [N]")
-        tl = w8_tiling(m, n, k, _n_sm(x.device, e), streams=2)
+        tl = autotune.gated_mlp_blocks(m, k, n, "int8", _n_sm(x.device, e))
         part, cnt = _WORKSPACE.get(x.device, e * tl.workspace, e * tl.tiles)
         vec = int(k % 16 == 0 and n % 16 == 0 and _aligned(x, w_up, w_gate))
         fn = build.entry("dual_gemm_gated", "repro_dual_gemm_gated_i8",
@@ -679,7 +556,9 @@ def _launch_dual(x, w_up, w_gate, x_scale, up_scale, gate_scale, act,
                          [build.I] + [build.VP] * 3 + [build.I] * 6
                          + [build.VP] * 2)
         rc = fn(e, x.data_ptr(), w_up.data_ptr(), w_gate.data_ptr(), m, n, k,
-                GATED_ACTS.index(act), bf16_tiling(m, n, k).bm, vec,
+                GATED_ACTS.index(act),
+                autotune.gated_mlp_blocks(m, k, n, "bf16",
+                                          _n_sm(x.device, e)).bm, vec,
                 out.data_ptr(), _stream(x.device))
     build.check_rc(rc, "dual_gemm_gated")
     _count("dual_gemm_gated", e)
@@ -755,7 +634,7 @@ def _launch_dual_int4(x, up4, up_mul, up_scale, gate4, gate_mul, gate_scale,
     _check_f32(gate_scale, e * n, "gate_scale [N]")
     out = torch.empty((e, m, n), dtype=torch.bfloat16, device=x.device)
     dev = x.device
-    tl = w4_tiling(m, n, k, g, _n_sm(dev, e), streams=2)
+    tl = autotune.gatedmlp_w4a8_blocks(m, k, n, g, _n_sm(dev, e))
     part, cnt = _WORKSPACE.get(dev, e * tl.workspace, e * tl.tiles)
     vec = int(k % 16 == 0 and n % 16 == 0
               and _aligned(x, up4, gate4, up_mul, gate_mul))

@@ -29,11 +29,11 @@ import math
 
 import torch
 
-from . import build
-from .common import LAUNCHES, cdiv, check, on_cuda
+from . import autotune, build
+from .autotune import DECODE_BS as BS
+from .common import LAUNCHES, check, on_cuda
 
 NEG = -1e30
-BS = 32  # keys per tile of the CUDA kernel
 # Tolerance of the kernel against its plain version: the f32 results differ
 # by summation order and expf (~1e-6 relative), which can flip the final bf16
 # rounding by one ulp (2^-7 relative at most); ATOL covers outputs near 0.
@@ -59,17 +59,6 @@ def int8_kv_decode_attention_ref(q, k_q, k_s, v_q, v_s, pos_ids, qpos,
     p = torch.softmax(s_, dim=-1)
     o = torch.einsum("bhgs,bshd->bhgd", p, v)
     return o.reshape(b, hq, d).to(q.dtype)
-
-
-def kv_split(blocks: int, s: int, n_sm: int) -> tuple[int, int]:
-    """(n_split, chunk): split the cache into chunks of whole BS-key tiles
-    until about two blocks per SM are in flight; every chunk is non-empty.
-    ``blocks`` is B * Hkv (lanes times kv heads), never a row count, so the
-    multi-row form splits a lane's cache as its T = 1 launch does."""
-    tiles = cdiv(s, BS)
-    n_split = max(1, min(tiles, cdiv(2 * n_sm, blocks)))
-    chunk = cdiv(tiles, n_split) * BS
-    return cdiv(s, chunk), chunk
 
 
 ROWS_SMEM = 160 * 1024  # shared memory a multi-row block may take
@@ -128,8 +117,9 @@ def launch_rows(entry, q, qpos, b, hkv, s, kv, kv_bytes=1, split_hkv=None):
     q, qpos = q.contiguous(), qpos.contiguous()
     out = torch.empty_like(q)
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    n_split, chunk = kv_split(b * (split_hkv or hkv), s, n_sm)
     g = hq // hkv
+    n_split, chunk = autotune.decode_blocks(b * (split_hkv or hkv), s, d, g,
+                                            n_sm)
     rows = rows_per_block(t, g, d, kv_bytes)
     check(block_smem(g, d, rows, kv_bytes) <= 232448, f"G={g} D={d}: a "
           f"decode block does not fit the shared memory")

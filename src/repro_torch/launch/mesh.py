@@ -1,10 +1,21 @@
-"""The serving tensor-parallel group (``make_tp_mesh``) and its typed error.
+"""Device meshes: the production and elastic mesh shapes, the serving
+tensor-parallel group (``make_tp_mesh``) and the typed error.
 
-Port of ``repro.launch.mesh.make_tp_mesh`` and ``MeshDeviceError``.  The
-reference builds a one-axis ("tp",) ``jax.sharding.Mesh`` over the first tp
-devices; the port runs one process per rank, and each calls
-``make_tp_mesh`` with its rank to join a ``torch.distributed`` group of tp
-ranks.  The caller names the backend; none is chosen for it, and nothing
+Port of ``repro.launch.mesh``.  ``make_production_mesh`` (16 x 16 = 256
+cards a pod; 2 pods = 512) and ``make_elastic_mesh`` give a ``MeshShape``:
+the named axis sizes of a ``torch.distributed`` device mesh (what
+``torch.distributed.device_mesh.init_device_mesh("cuda", sizes,
+mesh_dim_names=axes)`` takes in a process group of that many ranks, one
+card a rank).  Like the reference's ``_validate_axes`` they raise
+``MeshDeviceError`` where the cards fall short — on one H100 always — unless
+the caller names the device count (``launch/dryrun.py``'s 512
+placeholders, as the reference's dry run forces 512 host devices).
+``mesh_axis_size`` reads an axis, 1 where the mesh has none.
+
+The reference's ``make_tp_mesh`` builds a one-axis ("tp",)
+``jax.sharding.Mesh`` over the first tp devices; the port runs one process
+per rank, and each calls ``make_tp_mesh`` with its rank to join a
+``torch.distributed`` group of tp ranks.  The caller names the backend; none is chosen for it, and nothing
 switches between them:
 
 * ``"nccl"``: rank r on ``cuda:r`` (one card a rank, collectives on the
@@ -22,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import socket
 from typing import Any
 
@@ -37,6 +49,61 @@ _TIMEOUT = datetime.timedelta(seconds=600)
 
 class MeshDeviceError(ValueError):
     """Requested mesh axis sizes exceed (or do not tile) the device count."""
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A device mesh's named axes and their sizes, outermost first."""
+
+    axes: tuple[str, ...]
+    sizes: tuple[int, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axes, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+def _cards() -> int:
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def _make_mesh(sizes, axes, n_devices: int | None) -> MeshShape:
+    need = math.prod(sizes)
+    have = _cards() if n_devices is None else n_devices
+    if need > have:
+        raise MeshDeviceError(
+            f"mesh {dict(zip(axes, sizes))} needs {need} cards but only "
+            f"{have} are available; a plan without cards names the count "
+            f"(n_devices={need}, as launch/dryrun.py does)")
+    return MeshShape(tuple(axes), tuple(sizes))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         n_devices: int | None = None) -> MeshShape:
+    """16x16 = 256 cards a pod; 2 pods = 512 with multi_pod=True, over the
+    cards present (or ``n_devices`` placeholders)."""
+    sizes = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _make_mesh(sizes, axes, n_devices)
+
+
+def make_elastic_mesh(n_devices: int, model_parallel: int = 16) -> MeshShape:
+    """Re-mesh after node loss: whatever devices remain, same model axis
+    (the elastic restore of a 512-card checkpoint onto 256)."""
+    if n_devices % model_parallel:
+        raise MeshDeviceError(
+            f"elastic mesh: n_devices={n_devices} is not a multiple of "
+            f"model_parallel={model_parallel}")
+    return _make_mesh((n_devices // model_parallel, model_parallel),
+                      ("data", "model"), None)
+
+
+def mesh_axis_size(mesh, name: str) -> int:
+    return mesh.shape[name] if name in mesh.shape else 1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -51,8 +51,8 @@ MOE_KINDS = ("moe", "moe_swa")
 
 def _check_kind(kind: str) -> None:
     if kind not in KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet "
-                                  f"(ROADMAP.md §A)")
+        raise NotImplementedError(f"block kind {kind!r} is not one of the "
+                                  f"reference's ({', '.join(KINDS)})")
 
 
 class Block(nn.Module):

@@ -25,7 +25,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels.common import resolve_device
+from ..kernels.common import generator_device, resolve_device
 from .blocks import block_forward, init_block_params
 from .config import ArchConfig
 from .layers import Norm, apply_norm, embed_init
@@ -67,7 +67,7 @@ def init_encdec_params(cfg: ArchConfig, seed: int = 0, device=None,
     if not cfg.is_encoder_decoder:
         raise ValueError(f"{cfg.name} is not an encoder-decoder")
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator(device=generator_device(dev)).manual_seed(seed)
     layers = []
     for _ in range(cfg.n_encoder_layers):
         block = init_block_params(gen, "enc", cfg, dev)

@@ -22,7 +22,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..dist.tp import tp_row_shard
-from ..kernels.common import resolve_device
+from ..kernels.common import generator_device, resolve_device
 from .attention import cache_writes, cross_kv_proj
 from .blocks import (ATTN_KINDS, CROSS_KINDS, block_forward, init_block_params,
                      init_block_state, unshard_norm)
@@ -73,7 +73,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
     from ..dist.sharding import shard_module_
     from ..quant.ptq import quantize_for
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator(device=generator_device(dev)).manual_seed(seed)
     rank, tp = shard
 
     def build(kind):

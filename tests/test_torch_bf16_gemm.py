@@ -13,10 +13,20 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import autotune as at
 from repro_torch.kernels import bf16_gemm as bg
 from repro_torch.kernels import common, ops
 from repro_torch.models import layers
 from repro_torch.models.layers import ExecMode, Linear
+
+
+@pytest.fixture(autouse=True)
+def _table_only(monkeypatch, tmp_path):
+    """The tilings are the table's: no measured cache of this machine."""
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "none.json"))
+    at.reset_measured_cache()
+    yield
+    at.reset_measured_cache()
 
 BF16 = torch.bfloat16
 
@@ -167,13 +177,13 @@ def test_tiling_is_wgmma_legal_and_never_splits_k(k, n, form):
     the C entry takes: 64-row warpgroups, a ``wgmma`` width (a multiple of
     8 up to 256), each block over all of K, the blocks covering M x N."""
     for m, nn in _launches(k, n, form):
-        t = bg.bf16_gemm_tiling(m, nn, k, H100_SMS)
-        assert t[:4] in bg.TILINGS
+        t = at.bf16_gemm_blocks(m, k, nn, H100_SMS)
+        assert t[:4] in at.BF16_GEMM_TILINGS
         assert t.bm % 64 == 0 and t.bn % 8 == 0 and 8 <= t.bn <= 256
         assert t.k_len == k
         assert t.blocks == common.cdiv(m, t.bm) * common.cdiv(nn, t.bn)
         assert m <= t.x_rows or t.x_rows == t.bm
-        assert t in bg.bf16_gemm_tilings(m, nn, k)
+        assert t in at.bf16_gemm_candidates(m, k, nn)
 
 
 @pytest.mark.parametrize("k,n,form", SERVED, ids=lambda v: str(v))
@@ -182,19 +192,21 @@ def test_decode_tiling_covers_the_sms(k, n, form):
     at least 96 of them where N >= 3072, each keeping INFLIGHT bytes of
     weight in flight."""
     for m, nn in _launches(k, n, form):
-        if m > bg.DECODE_M:
+        if m > at.BF16_DECODE_M:
             continue
-        t = bg.bf16_gemm_tiling(m, nn, k, H100_SMS)
+        t = at.bf16_gemm_blocks(m, k, nn, H100_SMS)
         if nn >= 3072:
             assert t.blocks >= 96
-        assert (t.stages - 1) * bg.BK * t.bn * 2 >= bg.INFLIGHT
+        assert (t.stages - 1) * at.BF16_BK * t.bn * 2 >= at.BF16_INFLIGHT
 
 
 def test_tilings_offered_by_rows():
     """The 8-row stages take M <= 8 only; every other tiling takes any M."""
-    assert len(bg.bf16_gemm_tilings(8, 4096, 4096)) == len(bg.TILINGS)
-    wide = bg.bf16_gemm_tilings(9, 4096, 4096)
-    assert [t[:4] for t in wide] == [t for t in bg.TILINGS if t[3] == t[0]]
+    assert (len(at.bf16_gemm_candidates(8, 4096, 4096))
+            == len(at.BF16_GEMM_TILINGS))
+    wide = at.bf16_gemm_candidates(9, 4096, 4096)
+    assert [t[:4] for t in wide] == [t for t in at.BF16_GEMM_TILINGS
+                                     if t[3] == t[0]]
 
 
 @pytest.mark.parametrize("m,k,n", [(8, 770, 96), (5, 13, 27), (37, 64, 51),
@@ -233,8 +245,8 @@ def test_launch_hands_the_entry_padded_operands_and_the_rule(monkeypatch):
     x, w, b = _rand(rng, 8, 12), _rand(rng, 12, 30), _rand(rng, 30)
     out = bg._launch(x, w, b)
     assert out.shape == (8, 30) and out.is_contiguous()
-    want = bg.bf16_gemm_tiling(8, 32, 16, H100_SMS)
+    want = at.bf16_gemm_blocks(8, 16, 32, H100_SMS)
     assert calls[-1] == (8, 32, 16, want.bm, want.bn, want.stages)
-    asked = bg.bf16_gemm_tilings(8, 32, 16)[-1]
+    asked = at.bf16_gemm_candidates(8, 16, 32)[-1]
     bg._launch(x, w, None, asked)
     assert calls[-1] == (8, 32, 16, asked.bm, asked.bn, asked.stages)

@@ -33,11 +33,13 @@ from repro.kernels.quantize import quantize_rows as pallas_quant
 from repro_torch.kernels import ops
 from repro_torch.kernels.common import fma_f32, rcp32
 from repro_torch.kernels import int8_gemm as tg
-from repro_torch.kernels.int8_gemm import gemm_w8a8_ref, int8_matmul_ref, split_k
+from repro_torch.kernels import autotune as at
+from repro_torch.kernels.autotune import split_k
+from repro_torch.kernels.int8_gemm import gemm_w8a8_ref, int8_matmul_ref
 from repro_torch.kernels.quantize import pack_int4
 from repro_torch.kernels.int8_kv_decode_attention import (
     ATOL, ROWS_SMEM, RTOL, block_smem, int8_kv_decode_attention_ref,
-    int8_kv_decode_attention_rows_ref, kv_split, rows_per_block)
+    int8_kv_decode_attention_rows_ref, rows_per_block)
 from repro_torch.kernels.int_layernorm import int_layernorm_ref
 from repro_torch.kernels.quantize import quantize_rows_ref
 
@@ -52,6 +54,16 @@ BF16_TOL = dict(rtol=2.0 ** -5, atol=2.0 ** -7)
 @pytest.fixture(autouse=True)
 def _interpret():
     set_interpret(True)
+
+
+@pytest.fixture(autouse=True)
+def _table_only(monkeypatch, tmp_path):
+    """The port's tilings are autotune's tables: no measured cache of this
+    machine."""
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "none.json"))
+    at.reset_measured_cache()
+    yield
+    at.reset_measured_cache()
 
 
 def T(a):
@@ -216,7 +228,7 @@ class TestInt8Gemm:
         split, k_len = split_k(m, n, k, n_sm=132)
         assert k_len % 64 == 0 and split >= 1
         assert (split - 1) * k_len < k <= split * k_len
-        t = tg.w8_tiling(m, n, k, 132)
+        t = at.gemm_blocks(m, k, n, 132)
         assert t.k_len % tg.W8_BK == 0 and t.split >= 1
         assert (t.split - 1) * t.k_len < k <= t.split * t.k_len
         assert t.workspace == (m * n if t.split > 1 else 0)
@@ -237,19 +249,19 @@ class TestInt8Gemm:
         per split can cost) unless K cannot split further; past it, only a
         grid under two blocks an SM is split."""
         n_sm = 132
-        t = tg.w8_tiling(m, n, k, n_sm)
-        decode = m <= tg.W8_DECODE_M and k * n <= tg.W8_DECODE_BYTES
+        t = at.gemm_blocks(m, k, n, n_sm)
+        decode = m <= at.W8_DECODE_M and k * n <= at.W8_DECODE_BYTES
         assert decode == (m <= 64 and n != 92416)
         wide = k >= 8192 and m >= 1024
         assert (t.bm, t.bn) == ((16, 128) if decode else (128, 128) if wide
                                 else (64, 128))
-        assert tg.MMA_CONFIGS[("w8", 1, t.bm)][0] == t.bn
+        assert at.MMA_CONFIGS[("w8", 1, t.bm)][0] == t.bn
         assert t.tiles == -(-m // t.bm) * -(-n // t.bn)
         if decode:
             assert t.bm * -(-m // t.bm) - m < 16
-            in_flight = (tg.W4_STAGES - 1) * tg.MMA_STAGE_ROWS * t.bn
+            in_flight = (tg.W4_STAGES - 1) * at.MMA_STAGE_ROWS * t.bn
             if t.k_len > tg.W8_BK:
-                assert 2 * t.tiles * t.split * in_flight >= tg.W4_INFLIGHT * n_sm
+                assert 2 * t.tiles * t.split * in_flight >= at.W4_INFLIGHT * n_sm
         elif t.split > 1:
             assert t.tiles < 2 * n_sm
 
@@ -357,7 +369,7 @@ class TestW4A8Gemm:
         workspace only where K is split, and at decode enough blocks for
         ~32 KB of nibbles in flight per SM unless K cannot split further."""
         n_sm = 132
-        t = tg.w4_tiling(m, n, k, g, n_sm)
+        t = at.gemm_w4a8_blocks(m, k, n, g, n_sm)
         decode = m <= 64
         assert (t.bm, t.bn) == ((16, 128) if decode else (64, 128))
         if decode:
@@ -369,7 +381,7 @@ class TestW4A8Gemm:
         assert t.workspace == (m * n if t.split > 1 else 0)
         if decode and t.k_len > max(tg.W4_BK, g):
             in_flight = (tg.W4_STAGES - 1) * tg.W4_BK // 2 * t.bn
-            assert t.tiles * t.split * in_flight >= tg.W4_INFLIGHT * n_sm
+            assert t.tiles * t.split * in_flight >= at.W4_INFLIGHT * n_sm
 
     @pytest.mark.parametrize("g", [32, 64, 128])
     @pytest.mark.parametrize("m,n,k", [
@@ -384,18 +396,18 @@ class TestW4A8Gemm:
         ~32 KB of both streams' nibbles in flight per SM — no more than one
         stream would ask for."""
         n_sm = 132
-        t = tg.w4_tiling(m, n, k, g, n_sm, streams=2)
-        one = tg.w4_tiling(m, n, k, g, n_sm)
-        decode = m <= tg.DUAL_DECODE_M
+        t = at.gatedmlp_w4a8_blocks(m, k, n, g, n_sm)
+        one = at.gemm_w4a8_blocks(m, k, n, g, n_sm)
+        decode = m <= at.DUAL_DECODE_M
         assert (t.bm, t.bn) == ((16, 128) if decode else (32, 128))
         assert t.k_len % max(tg.W4_BK, g) == 0 and t.k_len % g == 0
         assert (t.split - 1) * t.k_len < k <= t.split * t.k_len
         assert t.tiles == -(-m // t.bm) * -(-n // t.bn)
         assert t.workspace == (2 * m * n if t.split > 1 else 0)
         if decode:
-            in_flight = (tg.W4_STAGES - 1) * tg.MMA_STAGE_ROWS * t.bn * 2
+            in_flight = (tg.W4_STAGES - 1) * at.MMA_STAGE_ROWS * t.bn * 2
             if t.k_len > max(tg.W4_BK, g):
-                assert t.tiles * t.split * in_flight >= tg.W4_INFLIGHT * n_sm
+                assert t.tiles * t.split * in_flight >= at.W4_INFLIGHT * n_sm
             assert t.split <= one.split
 
     @pytest.mark.parametrize("m,n,k", [
@@ -405,8 +417,8 @@ class TestW4A8Gemm:
     def test_w8_tiling(self, m, n, k):
         """dual_gemm_gated's int8 tiling: K ranges on multiples of W8_BK, no
         empty split, a [2][M][N] workspace exactly when K is split."""
-        t = tg.w8_tiling(m, n, k, 132, streams=2)
-        assert (t.bm, t.bn) == ((16, 128) if m <= tg.DUAL_DECODE_M
+        t = at.gated_mlp_blocks(m, k, n, "int8", 132)
+        assert (t.bm, t.bn) == ((16, 128) if m <= at.DUAL_DECODE_M
                                 else (64, 128))
         assert t.k_len % tg.W8_BK == 0
         assert (t.split - 1) * t.k_len < k <= t.split * t.k_len
@@ -420,13 +432,13 @@ class TestW4A8Gemm:
         """The bf16 form never splits K (its f32 sums would depend on the
         arrival order), so its decode tile is narrow enough that M = 8 at
         codeqwen1.5-7b's N = 13440 fills 132 SMs."""
-        t = tg.bf16_tiling(m, 13440, 4096)
+        t = at.gated_mlp_blocks(m, 4096, 13440, "bf16", 132)
         assert (t.bm, t.bn) == want and t.split == 1 and t.workspace == 0
         assert t.k_len == 4096
-        if m <= tg.DUAL_DECODE_M:
+        if m <= at.DUAL_DECODE_M:
             assert t.tiles >= 132
 
-    @pytest.mark.parametrize("cfg", sorted(tg.MMA_CONFIGS),
+    @pytest.mark.parametrize("cfg", sorted(at.MMA_CONFIGS),
                              ids=lambda c: f"{c[0]}-s{c[1]}-bm{c[2]}")
     def test_mma_shared_memory_fits(self, cfg):
         """Every instantiation of the tensor-core loop fits a block's shared
@@ -436,7 +448,7 @@ class TestW4A8Gemm:
         import re
         from pathlib import Path
         kind, streams, bm = cfg
-        bn, blocks = tg.MMA_CONFIGS[cfg]
+        bn, blocks = at.MMA_CONFIGS[cfg]
         smem = tg.mma_smem_bytes(kind, bm, bn, streams)
         assert smem <= tg.SMEM_PER_BLOCK
         assert blocks * (smem + 1024) <= tg.SMEM_PER_SM
@@ -643,7 +655,7 @@ class TestDecodeAttention:
     @pytest.mark.parametrize("blocks,s", [(16, 1024), (16, 64), (4, 16),
                                           (1, 100)])
     def test_kv_split_chunks_cover_cache(self, blocks, s):
-        n_split, chunk = kv_split(blocks, s, n_sm=132)
+        n_split, chunk = at.decode_blocks(blocks, s, 128, 1, 132)
         assert chunk % 32 == 0 and (n_split - 1) * chunk < s <= n_split * chunk
 
     @pytest.mark.parametrize("blocks,s,want", [(256, 1024, (2, 512)),
@@ -654,7 +666,7 @@ class TestDecodeAttention:
         """The split of the serving paths' caches (codeqwen1.5-7b's 8 x 32
         (lane, kv head) blocks, starcoder2-3b's 8 x 2, 16 lanes of codeqwen)
         is the one every row's sum order follows: a change here moves bits."""
-        assert kv_split(blocks, s, n_sm=132) == want
+        assert at.decode_blocks(blocks, s, 128, 1, 132) == want
 
 
 class TestDecodeAttentionRows:
